@@ -40,3 +40,10 @@ if not _TPU_MODE:
 from trafficbots_tpu.utils.compile_cache import enable_compile_cache
 
 enable_compile_cache("cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's CUDA kernels); skipped without one",
+    )
