@@ -13,6 +13,14 @@ plain versions against the JAX kernels on the CPU.
 Tolerances: K1 atol = rtol = 1e-5 and K2 1e-4 (fp32 on both sides, the sums
 in another order: a few ulp of outputs of order 1-10, more for the 3-layer
 node stack); rollouts: the first 30 steps within 1e-3 m (see chip_smoke.py).
+The training kernels run with dropout live on the same seeds as their plain
+versions (K5's masks are bit-equal, checked here): K3's output within 1e-5
+and its gradients within a relative norm error of 1e-5; K4's pooled output
+within 1e-4 and its dx and 18 weight gradients within a relative norm error
+of 1e-3 (K3's sums run over up to 1216 query rows in another order; the
+node stack's fp32 gradients are themselves ~1e-4 from fp64: max-pool
+near-ties move a column's whole cotangent, see chip_smoke.py).
+The backward kernels are bitwise the same run to run.
 """
 import dataclasses
 
@@ -23,8 +31,11 @@ import torch
 from trafficbots_tpu_torch import orchestration as TO
 from trafficbots_tpu_torch.config import ExperimentConfig
 from trafficbots_tpu_torch.data.synthetic import synthetic_episode_batch
+from trafficbots_tpu_torch.ops import attention_train as tat
+from trafficbots_tpu_torch.ops import dropout as tdo
 from trafficbots_tpu_torch.ops import fused_attention as tfa
 from trafficbots_tpu_torch.ops import node_encoder as tne
+from trafficbots_tpu_torch.ops import node_encoder_train as tnt
 from trafficbots_tpu_torch.weights import init_params
 
 
@@ -115,3 +126,97 @@ def test_eval_rollout_on_the_card_launches_both_kernels(cuda):
     assert torch.isfinite(p).all()
     np.testing.assert_allclose(p[:, :, :30].numpy(), ref.preds[:, :, :30].numpy(), atol=1e-3, rtol=0)
     assert torch.equal(out.valid[:, :, :30].cpu(), ref.valid[:, :, :30])
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 37, 130), (2, 4, 64, 1024)])
+def test_k5_masks_equal_the_plain_bits(cuda, shape):
+    seed = 2**61 + 12345  # a key with both words live
+    before = tdo.LAUNCHES
+    out = tdo.dropout(torch.ones(shape, device=cuda), 0.1, seed, 7)
+    torch.cuda.synchronize()
+    assert tdo.LAUNCHES == before + 1
+    assert torch.equal(out, tdo.dropout_mask_plain(shape, seed, 7, 0.1, device=cuda))
+
+
+def k3_case(cuda, B, S, T, full_mask, seed=11):
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, 128, seed=seed))
+    if not full_mask:
+        invalid = invalid[:, 0][:, None, :].expand(B, S, T)
+    g = torch.randn(B, S, 128, generator=torch.Generator().manual_seed(seed)).to(cuda)
+    return q, k, v, invalid, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,full_mask", [(4, 64, 1024, False), (2, 1216, 1024, False), (2, 48, 300, True)])
+def test_k3_kernels_match_plain_with_dropout(cuda, B, S, T, full_mask):
+    q, k, v, invalid, g = k3_case(cuda, B, S, T, full_mask)
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv, invalid, 4, 0.1, 987654321, 3)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    f0, b0 = tat.LAUNCHES_FWD, tat.LAUNCHES_BWD
+    got = run(tat.attention_train)
+    assert (tat.LAUNCHES_FWD, tat.LAUNCHES_BWD) == (f0 + 1, b0 + 1)
+    ref = run(tat.attention_train_plain)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert rel_err(a, b) < 1e-5, name
+    again = run(tat.attention_train)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if full_mask:
+        assert (got[0][0, 2] == 0).all() and (got[0][1] == 0).all() and (got[1][1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_k4_kernels_match_plain(cuda, p):
+    x, valid = node_inputs(BP=1024, N=20, D=128, seed=8)
+    x[2, 5] = x[2, 4]  # two equal nodes: with p = 0 they tie in every column of the max
+    valid[2, 4:6] = True
+    x, valid = torch.from_numpy(x).to(cuda), torch.from_numpy(valid).to(cuda)
+    enc = tne.FusedNodeEncoder(128, 4, 3, 128)
+    init_params(enc, 0)
+    with torch.no_grad():
+        for name in tne.W_NAMES:
+            if getattr(enc, name).ndim == 2:
+                getattr(enc, name).add_(0.1 * torch.randn(getattr(enc, name).shape, generator=torch.Generator().manual_seed(1)))
+    enc = enc.to(cuda)
+    g = torch.randn(1024, 128, generator=torch.Generator().manual_seed(2)).to(cuda)
+    pl = valid.any(-1)
+
+    def run(fn):
+        enc.zero_grad()
+        xx = x.clone().requires_grad_()
+        out = fn(enc, xx, valid, p, 2**40 + 5)
+        torch.where(pl[:, None], out, torch.zeros_like(out)).backward(g)
+        torch.cuda.synchronize()
+        return [out.detach(), xx.grad] + [getattr(enc, n).grad.clone() for n in tne.W_NAMES]
+
+    got = run(tnt.node_encoder_train)
+    ref = run(tnt.node_encoder_train_plain)
+    torch.testing.assert_close(got[0][pl], ref[0][pl], atol=1e-4, rtol=1e-4)
+    assert (got[0][~pl] == tne.NEG).all()
+    # bk has an exact gradient of 0 (a per-row constant does not move the
+    # softmax): both sides give rounding noise, so each gradient's error is
+    # held to 1e-3 of its own norm or of 1e-3 of the largest gradient's
+    scale = max(b.norm().item() for b in ref[1:])
+    errs = {name: ((a - b).norm().item(), b.norm().item())
+            for name, a, b in zip(["dx"] + list(tne.W_NAMES), got[1:], ref[1:])}
+    print("K4 gradient errors (abs, ref norm):", errs)
+    assert all(e <= 1e-3 * max(nb, 1e-3 * scale) for e, nb in errs.values()), errs
+    assert (got[1][~pl] == 0).all()
+    if p == 0:
+        assert torch.equal(got[1][2, 4], got[1][2, 5])  # the tied nodes share the cotangent
+    again = run(tnt.node_encoder_train)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

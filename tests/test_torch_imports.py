@@ -67,7 +67,10 @@ def test_port_has_the_slice_modules():
         "models/modules.py", "models/map_encoder.py", "models/latent_encoder.py",
         "models/goal_manager.py", "models/traffic_bots.py",
         "ops/fused_attention.py", "ops/node_encoder.py", "ops/cuda_build.py",
+        "ops/dropout.py", "ops/attention_train.py", "ops/node_encoder_train.py",
         "sim/dynamics.py", "sim/teacher_forcing.py", "sim/rules.py", "sim/rewards.py", "sim/rollout.py",
+        "training/loss.py", "training/train.py",
         "csrc/fused_attention.cu", "csrc/node_encoder.cu",
+        "csrc/philox.cuh", "csrc/dropout.cu", "csrc/attention_train.cu", "csrc/node_encoder_train.cu",
     ):
         assert (PORT / rel).is_file(), rel

@@ -1,12 +1,14 @@
 """Distributions as small immutable dataclasses over tensors.
 
 Counterpart of `trafficbots_tpu/distributions.py` for what the eval rollout
-uses: `DiagGaussian` (the latent posterior/prior with `diag_gaus`, and the
-per-step action distribution) and `DummyLatent` (SimNet ablations). Sampling
-takes an explicit `torch.Generator`; `deterministic` may be a bool or a
-per-row mask, as in the JAX package (the K=0 joint future is deterministic,
-the others stochastic). The generator's numbers differ from jax.random's, so
-stochastic paths are compared by distribution, never sample by sample.
+and the training step use: `DiagGaussian` (the latent posterior/prior with
+`diag_gaus`, and the per-step action distribution), `kl_diag_gaussian`,
+`DummyLatent` (SimNet ablations) and `DestCategorical` (the destination
+head). Sampling takes an explicit `torch.Generator`, drawn on the
+generator's device and moved to the distribution's; `deterministic` may be
+a bool or a per-row mask, as in the JAX package. The generator's numbers
+differ from jax.random's, so stochastic paths are compared by distribution
+or with injected noise, never sample by sample.
 """
 from __future__ import annotations
 
@@ -46,9 +48,9 @@ class DiagGaussian:
     def sample(self, generator: Optional[torch.Generator] = None, deterministic: DetType = True) -> Tensor:
         if deterministic is True:
             return self.mean
-        eps = torch.randn(
-            self.mean.shape, dtype=self.mean.dtype, device=self.mean.device, generator=generator
-        )
+        device = self.mean.device if generator is None else generator.device
+        eps = torch.randn(self.mean.shape, dtype=self.mean.dtype, device=device, generator=generator)
+        eps = eps.to(self.mean.device)
         return _mix_det(self.mean, self.mean + self.stddev * eps, deterministic)
 
     def log_prob(self, x: Tensor) -> Tensor:
@@ -64,6 +66,30 @@ class DiagGaussian:
             log_std=torch.repeat_interleave(log_std, n, dim=axis),
             valid=None if self.valid is None else torch.repeat_interleave(self.valid, n, dim=axis),
         )
+
+
+def kl_diag_gaussian(p: DiagGaussian, q: DiagGaussian) -> Tensor:
+    """KL(p || q) summed over the event dim."""
+    p_std, q_std = p.stddev, q.stddev
+    var_ratio = (p_std / q_std) ** 2
+    t1 = ((p.mean - q.mean) / q_std) ** 2
+    return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DestCategorical:
+    """Categorical over map polyline indices; `logits` are normalized
+    log-probabilities [..., n_pl]."""
+
+    logits: Tensor
+    valid: Optional[Tensor] = None
+
+    @classmethod
+    def from_logits(cls, logits: Tensor, valid: Optional[Tensor] = None) -> "DestCategorical":
+        return cls(logits=torch.log_softmax(logits, dim=-1), valid=valid)
+
+    def log_prob(self, idx: Tensor) -> Tensor:
+        return torch.gather(self.logits, -1, idx[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..config import AgentInteractionConfig, AgentTemporalConfig, DistEncoderConfig, LatentEncoderConfig, TransformerConfig
 from ..distributions import DiagGaussian, DummyLatent
+from ..ops.dropout import DropoutSeeds
 from .modules import MLP, MultiAgentTF, StackedGRU, TransformerBlock, temporal_aggregate
 
 Tensor = torch.Tensor
@@ -82,12 +83,13 @@ class LatentEncoder(nn.Module):
         if not self.post_dist.skip_forward:
             ai = agent_interaction
             tf_kwargs = dict(
-                d_feedforward=tf_cfg.d_feedforward, n_head=tf_cfg.n_head,
+                d_feedforward=tf_cfg.d_feedforward, n_head=tf_cfg.n_head, dropout_p=tf_cfg.dropout_p,
                 activation=tf_cfg.activation, norm_first=tf_cfg.norm_first, bias=tf_cfg.bias,
             )
 
             def temporal():
-                return StackedGRU(hidden, agent_temporal.num_layers, kind=agent_temporal.kind)
+                return StackedGRU(hidden, agent_temporal.num_layers, kind=agent_temporal.kind,
+                                  dropout_p=agent_temporal.dropout)
 
             def interaction():
                 return MultiAgentTF(
@@ -115,6 +117,7 @@ class LatentEncoder(nn.Module):
         tl_feature: Optional[Tensor] = None,  # [n_scene, n_step, n_tl, d]
         tl_feature_valid: Optional[Tensor] = None,
         posterior: bool = False,
+        rng: Optional[DropoutSeeds] = None,
     ) -> LatentDist:
         dist_enc = self.post_dist if posterior else self.prior_dist
         if dist_enc.skip_forward:
@@ -134,23 +137,23 @@ class LatentEncoder(nn.Module):
         x = as2pl(
             agent_feature.reshape(n_scene, n_step * n_agent, d),
             src_padding_mask=~agent_feature_valid.reshape(n_scene, n_step * n_agent),
-            tgt=map_feature, tgt_padding_mask=~map_feature_valid,
+            tgt=map_feature, tgt_padding_mask=~map_feature_valid, rng=rng,
         )
         # cross-attention to each step's traffic lights
         x = as2tl(
             x.reshape(n_scene * n_step, n_agent, d),
             src_padding_mask=~agent_feature_valid.reshape(n_scene * n_step, n_agent),
             tgt=tl_feature.reshape(n_scene * n_step, -1, d),
-            tgt_padding_mask=~tl_feature_valid.reshape(n_scene * n_step, -1),
+            tgt_padding_mask=~tl_feature_valid.reshape(n_scene * n_step, -1), rng=rng,
         ).reshape(n_scene, n_step, n_agent, d)
 
         temporal = self.temporal_post if posterior else self.temporal_prior
         interaction = self.interaction_post if posterior else self.interaction_prior
         if self.interaction_first:
-            x = interaction(x, agent_feature, agent_feature_valid, allow_fused=False)
-            x, _ = temporal(x, agent_feature_valid)
+            x = interaction(x, agent_feature, agent_feature_valid, allow_fused=False, rng=rng)
+            x, _ = temporal(x, agent_feature_valid, rng=rng)
         else:
-            x, _ = temporal(x, agent_feature_valid)
-            x = interaction(x, agent_feature, agent_feature_valid, allow_fused=False)
+            x, _ = temporal(x, agent_feature_valid, rng=rng)
+            x = interaction(x, agent_feature, agent_feature_valid, allow_fused=False, rng=rng)
         x, latent_valid = temporal_aggregate(x, agent_feature_valid, self.temporal_aggregate_mode)
         return dist_enc(x, latent_valid)

@@ -8,8 +8,11 @@ both trees by name; a flax `Dense` becomes an `nn.Linear` and a flax
 raw arrays (the fused GRU cell, the stacked action-head branches) keep the
 JAX layout and are used as `x @ w`.
 
-Dropout is only live in training, which belongs to a later slice of the
-port: these modules compute the eval forward pass.
+Dropout is live when a forward gets `rng` (an `ops.dropout.DropoutSeeds`):
+that is training. Each module call draws one seed from it and numbers its
+dropout sites, so every mask comes from the port's Philox (`ops.dropout`),
+at the sites where the JAX modules apply flax `nn.Dropout`. `rng=None` is
+the eval forward pass (deterministic).
 """
 from __future__ import annotations
 
@@ -20,9 +23,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import kernels_enabled
+from ..ops.attention_train import attention_train, attention_train_plain
+from ..ops.dropout import DropoutSeeds, dropout, dropout_plain
 from ..ops.fused_attention import attention_core_plain, fused_attention_core
 
 Tensor = torch.Tensor
+
+
+def draw_seed(rng: Optional[DropoutSeeds], p: float) -> Optional[int]:
+    """One seed for a module call's dropout sites, None when none is live."""
+    return rng.next() if rng is not None and p > 0 else None
+
+
+def maybe_dropout(x: Tensor, p: float, seed: Optional[int], site: int) -> Tensor:
+    """Dropout at a module's site: the K5 wrapper, or inside
+    `ops.plain_versions()` its plain version."""
+    if seed is None:
+        return x
+    return (dropout if kernels_enabled() else dropout_plain)(x, p, seed, site)
 
 
 def activation(name: str):
@@ -42,7 +60,13 @@ def layer_norm(d: int) -> nn.LayerNorm:
 class MLP(nn.Module):
     """Linear stack; the valid mask is applied to the last layer's
     pre-activation output, then the end activation runs on the masked
-    tensor, so invalid rows hold act(fill_invalid), not 0."""
+    tensor, so invalid rows hold act(fill_invalid), not 0. Dropout (site i)
+    follows layer i's LayerNorm wherever the JAX MLP has one.
+
+    `x` may be a pair (src, tgt) of broadcast-compatible tensors standing
+    for concat([broadcast(src), broadcast(tgt)], -1): the first layer then
+    runs factored, src @ W_src + tgt @ W_tgt + b, as the JAX `_PairDense`
+    does, and the concat never materializes."""
 
     def __init__(
         self,
@@ -51,12 +75,14 @@ class MLP(nn.Module):
         use_layernorm: bool = False,
         act: str = "relu",
         end_layer_activation: bool = True,
+        dropout_p: float = 0.0,
     ):
         super().__init__()
         self.n = len(fc_dims)
         self.use_layernorm = use_layernorm
         self.act = activation(act)
         self.end_layer_activation = end_layer_activation
+        self.dropout_p = dropout_p
         d = in_dim
         for i, dim in enumerate(fc_dims):
             self.add_module(f"fc{i}", nn.Linear(d, dim))
@@ -64,12 +90,24 @@ class MLP(nn.Module):
                 self.add_module(f"ln{i}", layer_norm(dim))
             d = dim
 
-    def forward(self, x: Tensor, valid: Optional[Tensor] = None, fill_invalid: float = 0.0) -> Tensor:
+    def forward(
+        self, x, valid: Optional[Tensor] = None, fill_invalid: float = 0.0,
+        rng: Optional[DropoutSeeds] = None,
+    ) -> Tensor:
+        seed = draw_seed(rng, self.dropout_p)
         for i in range(self.n):
-            x = getattr(self, f"fc{i}")(x)
+            fc = getattr(self, f"fc{i}")
+            if i == 0 and isinstance(x, tuple):
+                src, tgt = x
+                d_src = src.shape[-1]
+                x = F.linear(src, fc.weight[:, :d_src]) + F.linear(tgt, fc.weight[:, d_src:]) + fc.bias
+            else:
+                x = fc(x)
             is_last = i == self.n - 1
-            if self.use_layernorm and (not is_last or self.end_layer_activation):
-                x = getattr(self, f"ln{i}")(x)
+            if not is_last or self.end_layer_activation:
+                if self.use_layernorm:
+                    x = getattr(self, f"ln{i}")(x)
+                x = maybe_dropout(x, self.dropout_p, seed, i)
             if not is_last:
                 x = self.act(x)
         if valid is not None:
@@ -99,19 +137,23 @@ class Attention(nn.Module):
     """Multi-head attention with padded-target masking and the all-masked
     row guard: such rows run with the mask lifted and come out 0.
 
-    The core `softmax(q kᵀ/√d_h) v` goes to the hand-written kernel
-    (`ops.fused_attention.fused_attention_core`) at exactly the call sites
-    where the JAX package routes to its Pallas kernel on a TPU: `allow_fused`,
-    no weights requested, eval, S >= 32 and T >= 64 (and not inside
-    `ops.plain_versions()`). On a CPU tensor that wrapper computes the plain
-    version, so the two routes agree there.
+    The core `softmax(q kᵀ/√d_h) v` goes to a hand-written kernel at exactly
+    the call sites where the JAX package routes to a Pallas kernel on a TPU
+    (and not inside `ops.plain_versions()`): in eval (`rng` None) to
+    `ops.fused_attention.fused_attention_core` when `allow_fused`, S >= 32
+    and T >= 64; in training to `ops.attention_train.attention_train`, with
+    the weights' dropout, when `allow_fused`, S >= 32 and T >= 256. On CPU
+    tensors those wrappers compute their plain versions, so the routes
+    agree there. Training attention elsewhere is the plain version, its
+    weights' dropout drawn by the K5 entry (`ops.dropout.dropout`).
     """
 
-    def __init__(self, d_model: int, n_head: int, bias: bool = True):
+    def __init__(self, d_model: int, n_head: int, bias: bool = True, dropout_p: float = 0.0):
         super().__init__()
         assert d_model % n_head == 0
         self.d_model = d_model
         self.n_head = n_head
+        self.dropout_p = dropout_p
         self.q_proj = nn.Linear(d_model, d_model, bias=bias)
         self.k_proj = nn.Linear(d_model, d_model, bias=bias)
         self.v_proj = nn.Linear(d_model, d_model, bias=bias)
@@ -126,6 +168,7 @@ class Attention(nn.Module):
         tgt_kv: Optional[Tuple[Tensor, Tensor]] = None,
         return_kv: bool = False,
         allow_fused: bool = True,
+        rng: Optional[DropoutSeeds] = None,
     ):
         if return_kv:
             kv_in = src if tgt is None else tgt
@@ -144,20 +187,36 @@ class Attention(nn.Module):
         invalid = attention_invalid(B, S, T, tgt_padding_mask, attn_mask)
         if invalid is None:
             invalid = torch.zeros((1, 1, T), dtype=torch.bool, device=q.device).expand(B, S, T)
-        use_kernel = allow_fused and S >= 32 and T >= 64 and kernels_enabled()
-        core = fused_attention_core if use_kernel else attention_core_plain
-        out = self.out_proj(core(q, k, v, invalid, self.n_head))
+        if rng is None:
+            use_kernel = allow_fused and S >= 32 and T >= 64 and kernels_enabled()
+            core = fused_attention_core if use_kernel else attention_core_plain
+            out = self.out_proj(core(q, k, v, invalid, self.n_head))
+        else:
+            seed = draw_seed(rng, self.dropout_p)
+            p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)
+            if allow_fused and S >= 32 and T >= 256 and kernels_enabled():
+                core = attention_train(q, k, v, invalid, self.n_head, p, seed, 0, saved=rng.saved_cores)
+            else:
+                drop = dropout if kernels_enabled() else dropout_plain
+                core = attention_train_plain(q, k, v, invalid, self.n_head, p, seed, 0, dropout=drop)
+            out = self.out_proj(core)
         no_valid_tgt = invalid.all(dim=-1)
         return torch.where(no_valid_tgt[..., None], torch.zeros_like(out), out)
 
 
 class TransformerCrossAttention(nn.Module):
-    """One pre-norm cross-attention layer with a ReLU feed-forward."""
+    """One pre-norm cross-attention layer with a ReLU feed-forward; dropout
+    on the attention weights (inside `attn`), after the attention block
+    (site 0), after the feed-forward activation (1) and after its output (2)."""
 
-    def __init__(self, d_model: int, n_head: int, d_feedforward: int, act: str = "relu", bias: bool = True):
+    def __init__(
+        self, d_model: int, n_head: int, d_feedforward: int, act: str = "relu", bias: bool = True,
+        dropout_p: float = 0.0,
+    ):
         super().__init__()
         self.act = activation(act)
-        self.attn = Attention(d_model, n_head, bias=bias)
+        self.dropout_p = dropout_p
+        self.attn = Attention(d_model, n_head, bias=bias, dropout_p=dropout_p)
         self.norm1 = layer_norm(d_model)
         self.norm_tgt = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
@@ -174,6 +233,7 @@ class TransformerCrossAttention(nn.Module):
         tgt_kv: Optional[Tuple[Tensor, Tensor]] = None,
         return_tgt_kv: bool = False,
         allow_fused: bool = True,
+        rng: Optional[DropoutSeeds] = None,
     ):
         if return_tgt_kv:
             return self.attn(self.norm_tgt(tgt), return_kv=True)
@@ -183,11 +243,12 @@ class TransformerCrossAttention(nn.Module):
         tgt_n = self.norm_tgt(tgt) if tgt is not None else None
         src2 = self.attn(
             src2, tgt=tgt_n, tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
-            tgt_kv=tgt_kv, allow_fused=allow_fused,
+            tgt_kv=tgt_kv, allow_fused=allow_fused, rng=rng,
         )
-        src = src + src2
-        src2 = self.linear2(self.act(self.linear1(self.norm2(src))))
-        src = src + src2
+        seed = draw_seed(rng, self.dropout_p)
+        src = src + maybe_dropout(src2, self.dropout_p, seed, 0)
+        src2 = maybe_dropout(self.act(self.linear1(self.norm2(src))), self.dropout_p, seed, 1)
+        src = src + maybe_dropout(self.linear2(src2), self.dropout_p, seed, 2)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], torch.zeros_like(src), src)
         return src
@@ -216,7 +277,7 @@ class TransformerBlock(nn.Module):
         for i in range(n_layer):
             self.add_module(
                 f"layer{i}",
-                TransformerCrossAttention(d_model, n_head, d_feedforward, activation, bias),
+                TransformerCrossAttention(d_model, n_head, d_feedforward, activation, bias, dropout_p),
             )
         self.out_ln = layer_norm(d_model) if out_layernorm else None
 
@@ -233,6 +294,7 @@ class TransformerBlock(nn.Module):
         tgt_kv=None,
         return_tgt_kv: bool = False,
         allow_fused: bool = True,
+        rng: Optional[DropoutSeeds] = None,
     ):
         if return_tgt_kv:
             return tuple(l(None, tgt=tgt, return_tgt_kv=True) for l in self.layers())
@@ -240,7 +302,7 @@ class TransformerBlock(nn.Module):
             src = layer(
                 src, src_padding_mask=src_padding_mask, tgt=tgt,
                 tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
-                tgt_kv=None if tgt_kv is None else tgt_kv[i], allow_fused=allow_fused,
+                tgt_kv=None if tgt_kv is None else tgt_kv[i], allow_fused=allow_fused, rng=rng,
             )
         if self.out_ln is not None:
             src = self.out_ln(src)
@@ -251,7 +313,7 @@ def tf_block_kwargs(tf_cfg) -> dict:
     return dict(
         d_model=tf_cfg.d_model, n_head=tf_cfg.n_head, d_feedforward=tf_cfg.d_feedforward,
         activation=tf_cfg.activation, norm_first=tf_cfg.norm_first, bias=tf_cfg.bias,
-        out_layernorm=tf_cfg.out_layernorm,
+        out_layernorm=tf_cfg.out_layernorm, dropout_p=tf_cfg.dropout_p,
     )
 
 
@@ -260,7 +322,7 @@ class InputPeEncoder(nn.Module):
 
     def __init__(
         self, attr_dim: int, hidden_dim: int, pe_dim: int, n_layer: int = 2,
-        mlp_use_layernorm: bool = False, pe_mode: str = "cat",
+        mlp_use_layernorm: bool = False, pe_mode: str = "cat", mlp_dropout_p: float = 0.0,
     ):
         super().__init__()
         self.pe_mode = pe_mode
@@ -275,16 +337,17 @@ class InputPeEncoder(nn.Module):
         else:
             raise NotImplementedError(pe_mode)
         self.mlp = MLP(
-            in_dim, [out_dim] * n_layer, use_layernorm=mlp_use_layernorm, end_layer_activation=False
+            in_dim, [out_dim] * n_layer, use_layernorm=mlp_use_layernorm, end_layer_activation=False,
+            dropout_p=mlp_dropout_p,
         )
 
-    def forward(self, valid: Tensor, attr: Tensor, pe: Tensor) -> Tensor:
+    def forward(self, valid: Tensor, attr: Tensor, pe: Tensor, rng: Optional[DropoutSeeds] = None) -> Tensor:
         if self.pe_mode == "input":
-            x = self.mlp(torch.cat([attr, pe], dim=-1))
+            x = self.mlp(torch.cat([attr, pe], dim=-1), rng=rng)
         elif self.pe_mode == "cat":
-            x = torch.cat([self.mlp(attr), pe], dim=-1)
+            x = torch.cat([self.mlp(attr, rng=rng), pe], dim=-1)
         else:
-            x = self.mlp(attr) + pe
+            x = self.mlp(attr, rng=rng) + pe
         return torch.where(valid[..., None], x, torch.zeros_like(x))
 
 
@@ -338,13 +401,18 @@ class StackedGRU(nn.Module):
     """`num_layers` GRU cells over (batch, agent) rows; the hidden state and
     the output are zeroed for invalid agents after every step ("gru_loop").
     Single-step: x [B, A, D], valid [B, A], h [L, B, A, H]. Sequence: x
-    [B, T, A, D], valid [B, T, A], looped over T."""
+    [B, T, A, D], valid [B, T, A], looped over T. Dropout between layers
+    (site i after layer i), a seed per step."""
 
-    def __init__(self, hidden_dim: int, num_layers: int = 3, kind: str = "gru_loop", in_dim: Optional[int] = None):
+    def __init__(
+        self, hidden_dim: int, num_layers: int = 3, kind: str = "gru_loop", in_dim: Optional[int] = None,
+        dropout_p: float = 0.0,
+    ):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.kind = kind
+        self.dropout_p = dropout_p
         if kind == "dummy":
             return
         for i in range(num_layers):
@@ -354,14 +422,16 @@ class StackedGRU(nn.Module):
     def init_hidden(self, batch_shape, device=None) -> Tensor:
         return torch.zeros((self.num_layers, *batch_shape, self.hidden_dim), device=device)
 
-    def step(self, x: Tensor, valid: Tensor, h: Tensor) -> Tuple[Tensor, Tensor]:
+    def step(self, x: Tensor, valid: Tensor, h: Tensor, rng: Optional[DropoutSeeds] = None) -> Tuple[Tensor, Tensor]:
         if self.kind == "dummy":
             return torch.where(valid[..., None], x, torch.zeros_like(x)), h
+        seed = draw_seed(rng, self.dropout_p)
         hs = []
         inp = x
         for i in range(self.num_layers):
-            inp = getattr(self, f"gru{i}")(h[i], inp)
-            hs.append(inp)
+            h_i = getattr(self, f"gru{i}")(h[i], inp)
+            hs.append(h_i)
+            inp = h_i if i + 1 == self.num_layers else maybe_dropout(h_i, self.dropout_p, seed, i)
         h_new = torch.stack(hs, dim=0)
         if self.kind == "gru_unmasked":
             return inp, h_new
@@ -370,17 +440,17 @@ class StackedGRU(nn.Module):
         y = torch.where(invalid, torch.zeros_like(inp), inp)
         return y, h_new
 
-    def forward(self, x: Tensor, valid: Tensor, h: Optional[Tensor] = None):
+    def forward(self, x: Tensor, valid: Tensor, h: Optional[Tensor] = None, rng: Optional[DropoutSeeds] = None):
         if valid.ndim == 2:
             if h is None:
                 h = self.init_hidden(valid.shape, x.device)
-            return self.step(x, valid, h)
+            return self.step(x, valid, h, rng)
         B, T, A = valid.shape
         if h is None:
             h = self.init_hidden((B, A), x.device)
         ys = []
         for t in range(T):
-            y, h = self.step(x[:, t], valid[:, t], h)
+            y, h = self.step(x[:, t], valid[:, t], h, rng)
             ys.append(y)
         return torch.stack(ys, dim=1), None
 
@@ -399,7 +469,10 @@ class MultiAgentTF(nn.Module):
         self.attn_to_map_aware_feature = attn_to_map_aware_feature
         self.tf = TransformerBlock(d_model=hidden_dim, n_layer=n_layer, **(tf_kwargs or {}))
 
-    def forward(self, feature_map_aware: Tensor, feature: Tensor, valid: Tensor, allow_fused: bool = True):
+    def forward(
+        self, feature_map_aware: Tensor, feature: Tensor, valid: Tensor, allow_fused: bool = True,
+        rng: Optional[DropoutSeeds] = None,
+    ):
         seq = valid.ndim == 3
         if seq:
             B, T, A = valid.shape
@@ -414,7 +487,7 @@ class MultiAgentTF(nn.Module):
         attn_mask = torch.eye(A, dtype=torch.bool, device=x.device)[None] if self.mask_self_agent else None
         out = self.tf(
             x, src_padding_mask=~v, tgt=tgt, tgt_padding_mask=~v, attn_mask=attn_mask,
-            allow_fused=allow_fused,
+            allow_fused=allow_fused, rng=rng,
         )
         if self.mask_self_agent:
             single = v.sum(dim=-1) == 1
@@ -431,7 +504,7 @@ class AddLatentGoal(nn.Module):
         self, hidden_dim: int, in_dim: int, dummy: bool = False, mode: str = "cat",
         res_cat: bool = False, res_add: bool = True, n_layer_mlp_in: int = 2,
         n_layer_mlp_out: int = 2, mlp_in_use_layernorm: bool = False,
-        mlp_out_use_layernorm: bool = False,
+        mlp_out_use_layernorm: bool = False, mlp_dropout_p: float = 0.0,
     ):
         super().__init__()
         self.dummy = dummy
@@ -440,32 +513,34 @@ class AddLatentGoal(nn.Module):
         self.res_add = res_add
         if dummy:
             return
-        self.mlp_in = MLP(in_dim, [hidden_dim] * n_layer_mlp_in, use_layernorm=mlp_in_use_layernorm)
+        kw = dict(dropout_p=mlp_dropout_p)
+        self.mlp_in = MLP(in_dim, [hidden_dim] * n_layer_mlp_in, use_layernorm=mlp_in_use_layernorm, **kw)
         out_in = 2 * hidden_dim if mode == "cat" else hidden_dim
-        self.mlp_out = MLP(out_in, [hidden_dim] * n_layer_mlp_out, use_layernorm=mlp_out_use_layernorm)
+        self.mlp_out = MLP(out_in, [hidden_dim] * n_layer_mlp_out, use_layernorm=mlp_out_use_layernorm, **kw)
         if res_cat:
             self.mlp_res_cat = MLP(
-                3 * hidden_dim, [hidden_dim] * n_layer_mlp_out, use_layernorm=mlp_out_use_layernorm
+                3 * hidden_dim, [hidden_dim] * n_layer_mlp_out, use_layernorm=mlp_out_use_layernorm, **kw
             )
 
-    def precompute_z(self, z: Tensor, z_valid: Tensor) -> Tensor:
+    def precompute_z(self, z: Tensor, z_valid: Tensor, rng: Optional[DropoutSeeds] = None) -> Tensor:
         """The z-side input MLP; z is constant over a rollout, so the eval
-        rollout runs it once per episode."""
-        return self.mlp_in(z, z_valid)
+        rollout runs it once per episode (training runs it every step, for
+        its dropout)."""
+        return self.mlp_in(z, z_valid, rng=rng)
 
-    def forward(self, x, x_valid, z, z_valid, z_pre: Optional[Tensor] = None) -> Tensor:
+    def forward(self, x, x_valid, z, z_valid, z_pre: Optional[Tensor] = None, rng: Optional[DropoutSeeds] = None) -> Tensor:
         if self.dummy:
             return torch.where(x_valid[..., None], x, torch.zeros_like(x))
-        z = z_pre if z_pre is not None else self.precompute_z(z, z_valid)
+        z = z_pre if z_pre is not None else self.precompute_z(z, z_valid, rng)
         if self.mode == "add":
             h = x + z
         elif self.mode == "mul":
             h = x * z
         else:
             h = torch.cat([x, z], dim=-1)
-        h = self.mlp_out(h)
+        h = self.mlp_out(h, rng=rng)
         if self.res_cat:
-            h = self.mlp_res_cat(torch.cat([x, h, z], dim=-1))
+            h = self.mlp_res_cat(torch.cat([x, h, z], dim=-1), rng=rng)
         zv = z_valid[..., None]
         h = torch.where(zv, h, torch.zeros_like(h))
         if self.res_add:

@@ -3,7 +3,9 @@
 Counterpart of `trafficbots_tpu/models/traffic_bots.py`. Every per-rollout
 quantity (GRU hidden state, latent sample, goal feature, map K/V cache) is
 explicit data passed in and returned; the module only holds parameters,
-under the same submodule names as the flax tree.
+under the same submodule names as the flax tree. Every method takes an
+optional `rng` (`ops.dropout.DropoutSeeds`): given, the pass is a training
+pass with dropout live; None, the eval pass.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from torch import nn
 
 from ..config import ActionHeadConfig, DataConfig, ModelConfig
 from ..geometry import pose_pe_out_dim
-from .goal_manager import goal_out_dim
+from ..ops.dropout import DropoutSeeds
+from .goal_manager import GoalManager, goal_out_dim
 from .latent_encoder import LatentEncoder
 from .map_encoder import MapEncoder
 from .modules import ActionHead, AddLatentGoal, InputPeEncoder, MultiAgentTF, StackedGRU, TransformerBlock, tf_block_kwargs
@@ -35,7 +38,7 @@ class TrafficBots(nn.Module):
         def input_pe(attr_dim: int, pose_mode: str) -> InputPeEncoder:
             return InputPeEncoder(
                 attr_dim, hidden, pose_pe_out_dim(pose_mode, cfg.pe_dim), n_layer=ipe.n_layer,
-                mlp_use_layernorm=ipe.mlp_use_layernorm, pe_mode=ipe.pe_mode,
+                mlp_use_layernorm=ipe.mlp_use_layernorm, pe_mode=ipe.pe_mode, mlp_dropout_p=ipe.mlp_dropout_p,
             )
 
         self.map_encoder = MapEncoder(
@@ -51,13 +54,15 @@ class TrafficBots(nn.Module):
             cfg.temporal_aggregate_mode, cfg.interaction_first,
             self.transformer_as2pl, self.transformer_as2tl,
         )
-        self.agent_temporal = StackedGRU(hidden, cfg.agent_temporal.num_layers, kind=cfg.agent_temporal.kind)
+        self.agent_temporal = StackedGRU(
+            hidden, cfg.agent_temporal.num_layers, kind=cfg.agent_temporal.kind, dropout_p=cfg.agent_temporal.dropout
+        )
         ai = cfg.agent_interaction
         self.agent_interaction_tf = MultiAgentTF(
             hidden, n_layer=ai.n_layer, mask_self_agent=ai.mask_self_agent, detach_tgt=ai.detach_tgt,
             attn_to_map_aware_feature=ai.attn_to_map_aware_feature,
             tf_kwargs=dict(
-                d_feedforward=cfg.tf_cfg.d_feedforward, n_head=cfg.tf_cfg.n_head,
+                d_feedforward=cfg.tf_cfg.d_feedforward, n_head=cfg.tf_cfg.n_head, dropout_p=cfg.tf_cfg.dropout_p,
                 activation=cfg.tf_cfg.activation, norm_first=cfg.tf_cfg.norm_first, bias=cfg.tf_cfg.bias,
             ),
         )
@@ -68,6 +73,7 @@ class TrafficBots(nn.Module):
                 hidden, in_dim, dummy=dummy, mode=c.mode, res_cat=c.res_cat, res_add=c.res_add,
                 n_layer_mlp_in=c.n_layer_mlp_in, n_layer_mlp_out=c.n_layer_mlp_out,
                 mlp_in_use_layernorm=c.mlp_in_use_layernorm, mlp_out_use_layernorm=c.mlp_out_use_layernorm,
+                mlp_dropout_p=c.dropout_p,
             )
 
         self.add_goal = add_latent_goal(
@@ -80,6 +86,9 @@ class TrafficBots(nn.Module):
             hidden, action_dim=2, use_layernorm=action_head_cfg.use_layernorm,
             log_std_init=action_head_cfg.log_std, branch_type=action_head_cfg.branch_type,
         )
+        # registered last, so the seeded init of the modules above does not
+        # depend on it
+        self.goal_manager = GoalManager(cfg.goal_manager, cfg.tf_cfg)
 
     def encode_input_features(
         self,
@@ -89,35 +98,43 @@ class TrafficBots(nn.Module):
         agent_pos: Optional[Tensor] = None, map_pos: Optional[Tensor] = None,
         tl_pos: Optional[Tensor] = None,
         map_feature: Optional[Tensor] = None, map_feature_valid: Optional[Tensor] = None,
+        rng: Optional[DropoutSeeds] = None,
     ) -> Dict[str, Tensor]:
         """One episode view's features. A precomputed `map_feature` skips the
         map encoder (the views share one map)."""
         if map_feature is None:
-            map_feature, map_feature_valid = self.map_encoder(map_valid, map_attr, map_pe)
+            map_feature, map_feature_valid = self.map_encoder(map_valid, map_attr, map_pe, rng=rng)
         return {
-            "agent_feature": self.agent_encoder(agent_valid, agent_attr, agent_pe),
+            "agent_feature": self.agent_encoder(agent_valid, agent_attr, agent_pe, rng=rng),
             "agent_feature_valid": agent_valid,
             "map_feature": map_feature,
             "map_feature_valid": map_feature_valid,
-            "tl_feature": self.tl_encoder(tl_valid, tl_attr, tl_pe),
+            "tl_feature": self.tl_encoder(tl_valid, tl_attr, tl_pe, rng=rng),
             "tl_feature_valid": tl_valid,
         }
 
-    def encode_agent(self, valid: Tensor, attr: Tensor, pe: Tensor) -> Tensor:
-        return self.agent_encoder(valid, attr, pe)
+    def encode_agent(self, valid: Tensor, attr: Tensor, pe: Tensor, rng: Optional[DropoutSeeds] = None) -> Tensor:
+        return self.agent_encoder(valid, attr, pe, rng=rng)
 
-    def map_only(self, map_valid: Tensor, map_attr: Tensor, map_pe: Tensor) -> Tuple[Tensor, Tensor]:
-        return self.map_encoder(map_valid, map_attr, map_pe)
+    def map_only(
+        self, map_valid: Tensor, map_attr: Tensor, map_pe: Tensor, rng: Optional[DropoutSeeds] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        return self.map_encoder(map_valid, map_attr, map_pe, rng=rng)
 
-    def latent(self, posterior: bool = False, **features):
-        return self.latent_encoder(posterior=posterior, **features)
+    def latent(self, posterior: bool = False, rng: Optional[DropoutSeeds] = None, **features):
+        return self.latent_encoder(posterior=posterior, rng=rng, **features)
 
-    def precompute_map_kv(self, map_feature: Tensor):
+    def pred_goal(self, rng: Optional[DropoutSeeds] = None, **features):
+        """The destination distribution (None in "dummy" goal mode)."""
+        return self.goal_manager.pred_goal(rng=rng, **features)
+
+    def precompute_map_kv(self, map_feature: Tensor, training: bool = False):
         """Per-layer (k, v) of the step-invariant map tokens for the rollout's
-        as2pl, computed once per episode; stored in bf16 under
-        `map_kv_bf16` (and used in fp32 after the load)."""
+        as2pl, computed once per episode. An eval cache is stored in bf16
+        under `map_kv_bf16` (and used in fp32 after the load); a training
+        cache stays fp32, as the JAX rollout keeps it for the gradients."""
         kv = self.transformer_as2pl(None, tgt=map_feature, return_tgt_kv=True)
-        if self.cfg.map_kv_bf16:
+        if self.cfg.map_kv_bf16 and not training:
             kv = tuple((k.to(torch.bfloat16), v.to(torch.bfloat16)) for k, v in kv)
         return kv
 
@@ -147,31 +164,33 @@ class TrafficBots(nn.Module):
         map_kv=None,
         goal_z_pre: Optional[Tensor] = None,
         latent_z_pre: Optional[Tensor] = None,
+        rng: Optional[DropoutSeeds] = None,
     ):
         """One step -> (action_mean, action_log_std, new_hidden, policy_feature)."""
         cfg = self.cfg
         x = self.transformer_as2pl(
             agent_feature, src_padding_mask=~agent_valid,
             tgt=None if map_kv is not None else map_feature,
-            tgt_padding_mask=~map_valid, tgt_kv=map_kv,
+            tgt_padding_mask=~map_valid, tgt_kv=map_kv, rng=rng,
         )
         x = self.transformer_as2tl(
             x, src_padding_mask=~agent_valid, tgt=tl_feature, tgt_padding_mask=~tl_valid,
-            allow_fused=cfg.fused_attention_small_t,
+            allow_fused=cfg.fused_attention_small_t, rng=rng,
         )
 
         def add_goal_latent(x):
-            x = self.add_goal(x, agent_valid, goal_feature, goal_valid, z_pre=goal_z_pre)
-            return self.add_latent(x, agent_valid, latent_sample, agent_valid, z_pre=latent_z_pre)
+            x = self.add_goal(x, agent_valid, goal_feature, goal_valid, z_pre=goal_z_pre, rng=rng)
+            return self.add_latent(x, agent_valid, latent_sample, agent_valid, z_pre=latent_z_pre, rng=rng)
 
+        small_t = cfg.fused_attention_small_t
         if cfg.add_goal_latent_first:
             x = add_goal_latent(x)
         if cfg.interaction_first:
-            x = self.agent_interaction_tf(x, agent_feature, agent_valid, allow_fused=cfg.fused_attention_small_t)
-            x, hidden = self.agent_temporal(x, agent_valid, hidden)
+            x = self.agent_interaction_tf(x, agent_feature, agent_valid, allow_fused=small_t, rng=rng)
+            x, hidden = self.agent_temporal(x, agent_valid, hidden, rng=rng)
         else:
-            x, hidden = self.agent_temporal(x, agent_valid, hidden)
-            x = self.agent_interaction_tf(x, agent_feature, agent_valid, allow_fused=cfg.fused_attention_small_t)
+            x, hidden = self.agent_temporal(x, agent_valid, hidden, rng=rng)
+            x = self.agent_interaction_tf(x, agent_feature, agent_valid, allow_fused=small_t, rng=rng)
         if not cfg.add_goal_latent_first:
             x = add_goal_latent(x)
         action_mean, action_log_std = self.action_head(x, agent_valid, agent_type)

@@ -2,11 +2,11 @@
 
 Each wrapper decides by device alone: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes the plain version. Which of the two a model CALL
-SITE asks for is decided here: the call sites (`models.modules.Attention`,
-`models.map_encoder.MapEncoder`) call the wrapper while `kernels_enabled()`
-is True, and the plain version directly inside `plain_versions()`, so the
-same path can be run on the card with and without the kernels (chip_smoke.py
-compares the two end to end).
+SITE asks for is decided here: the call sites (`models.modules.Attention`
+and the dropout sites of `models.modules`, `models.map_encoder.MapEncoder`)
+call the wrapper while `kernels_enabled()` is True, and the plain version
+directly inside `plain_versions()`, so the same path can be run on the card
+with and without the kernels (chip_smoke.py compares the two end to end).
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `trafficbots_tpu_torch/build/lib<name>-<hash>.so`
 (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`),
-where <hash> covers the source text and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import time:
+where <hash> covers the source text, the shared `csrc/*.cuh` headers and
+the flags, so an edited source is rebuilt and an unchanged one is reused. Nothing here runs at import time:
 the wrappers call `load(name)` when a CUDA tensor reaches them, and a
 machine without nvcc never gets that far.
 
@@ -46,7 +46,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the shared headers too (philox.cuh), so editing one
+    # rebuilds every kernel that may include it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{h}.so"
 

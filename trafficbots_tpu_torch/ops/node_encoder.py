@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import cuda_build
+from .dropout import dropout_mask_plain
 
 Tensor = torch.Tensor
 
@@ -79,14 +80,21 @@ class FusedNodeEncoder(nn.Module):
             init = torch.ones if name.endswith("_s") else torch.zeros
             self.register_parameter(name, nn.Parameter(init(shapes[name])))
 
-    def forward(self, x: Tensor, valid: Tensor) -> Tensor:
-        """Plain path: [BP, N, D], [BP, N] -> per-node features [BP, N, D]."""
+    def forward(self, x: Tensor, valid: Tensor, p: float = 0.0, seed: int = 0) -> Tensor:
+        """Plain path: [BP, N, D], [BP, N] -> per-node features [BP, N, D].
+        With p > 0, inverted dropout at the training kernel's four sites a
+        layer (ops.dropout masks at (seed, 4 l + k), see
+        ops.node_encoder_train)."""
         BP, N, D = x.shape
         H = self.n_head
         dh = D // H
         pad = ~valid
         no_valid = pad.all(dim=-1)  # [BP]
         use_mask = pad[:, None, :] & ~no_valid[:, None, None]  # [BP, 1, N] over targets
+
+        def drop(t: Tensor, site: int) -> Tensor:
+            return t * dropout_mask_plain(tuple(t.shape), seed, site, p, device=t.device) if p > 0 else t
+
         x0 = x
         for l in range(self.n_layer):
             src2 = _ln(x, self.ln1_s[l], self.ln1_b[l])
@@ -96,14 +104,14 @@ class FusedNodeEncoder(nn.Module):
             v = (tgtn @ self.wv[l] + self.bv[l]).reshape(BP, N, H, dh)
             logits = torch.einsum("bshd,bthd->bhst", q, k)
             logits = logits.masked_fill(use_mask[:, None], float("-inf"))
-            attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
+            attn = drop(torch.softmax(logits / math.sqrt(dh), dim=-1), 4 * l)
             a = torch.einsum("bhst,bthd->bshd", attn, v).reshape(BP, N, D)
             a = a @ self.wo[l] + self.bo[l]
             a = torch.where(no_valid[:, None, None], torch.zeros_like(a), a)
-            x = x + a
+            x = x + drop(a, 4 * l + 1)
             src2 = _ln(x, self.ln2_s[l], self.ln2_b[l])
-            f = F.relu(src2 @ self.w1[l] + self.b1[l])
-            x = x + (f @ self.w2[l] + self.b2[l])
+            f = drop(F.relu(src2 @ self.w1[l] + self.b1[l]), 4 * l + 2)
+            x = x + drop(f @ self.w2[l] + self.b2[l], 4 * l + 3)
             x = torch.where(pad[..., None], torch.zeros_like(x), x)
         return x
 

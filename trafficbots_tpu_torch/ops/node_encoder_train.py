@@ -1,0 +1,171 @@
+"""Training node encoder with dropout (K4): CUDA kernels and their plain version.
+
+Replaces the Pallas kernel pair `trafficbots_tpu/ops/node_encoder_train.py`
+(`node_encoder_train_pooled` -> `_fwd_kernel`, and its custom VJP
+`_vjp_bwd` -> `_bwd_kernel` / `_bwd_block`): the DenseTNT node stack of
+`ops.node_encoder.FusedNodeEncoder` plus the masked max-pool, with inverted
+dropout at four sites a layer (ops.dropout masks at (seed, 4 l + k): the
+attention weights, the out-projection output, the FFN hidden after the ReLU,
+the FFN output).
+
+`node_encoder_train_plain` is `FusedNodeEncoder.forward` with those masks and
+`max_pool_ties`, a masked max-pool whose backward splits each column's
+cotangent evenly among the nodes tied at the max, as JAX's `reduce_max` VJP
+does (`torch.amax` and `torch.max(dim)` send it elsewhere). Autograd
+differentiates it. `node_encoder_train` sends a CUDA tensor to
+`csrc/node_encoder_train.cu` through an autograd Function whose backward is
+the hand-derived backward kernel, and a CPU tensor to the plain version.
+`LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward's and the backward's
+launches (the backward launches its kernel and the fixed-order sum of the
+weight-gradient partials).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import cuda_build
+from .dropout import keep_scale, threshold
+from .node_encoder import KERNEL_D, NEG, SMEM_LIMIT, W_NAMES, FusedNodeEncoder
+
+Tensor = torch.Tensor
+
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+_KERNEL = "node_encoder_train"
+KERNEL_MAX_NODES = 32  # MAXN in csrc/node_encoder_train.cu
+_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+class _MaxPoolTies(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, valid):
+        xm = torch.where(valid[..., None], x, torch.full_like(x, NEG))
+        out = xm.amax(dim=1)
+        ctx.save_for_backward(xm, out, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xm, out, valid = ctx.saved_tensors
+        top = xm == out[:, None]
+        cnt = top.sum(dim=1, keepdim=True).clamp(min=1).to(g.dtype)
+        gx = torch.where(top & valid[..., None], (g / cnt[:, 0])[:, None].expand_as(xm), torch.zeros_like(xm))
+        return gx, None
+
+
+def max_pool_ties(x: Tensor, valid: Tensor) -> Tensor:
+    """[BP, N, D], [BP, N] -> max over valid nodes [BP, D] (-1e30 for a
+    polyline without one); ties share the cotangent evenly."""
+    return _MaxPoolTies.apply(x, valid)
+
+
+def node_encoder_train_plain(enc: FusedNodeEncoder, x: Tensor, valid: Tensor, p: float, seed: int) -> Tensor:
+    """The plain version: [BP, N, D] fp32, [BP, N] bool -> pooled [BP, D]."""
+    return max_pool_ties(enc(x, valid, p, seed), valid)
+
+
+def smem_bytes(fwd: bool, n_node: int, n_layer: int, n_head: int) -> int:
+    """Shared memory of one block of the forward / backward kernel (mirrors
+    csrc/node_encoder_train.cu): [N, 132] fp32 buffers, 7 for the forward,
+    11 + L for the backward plus two [H, N, N] arrays."""
+    row = 4 * n_node * (KERNEL_D + 4)
+    return 7 * row if fwd else (11 + n_layer) * row + 8 * n_head * n_node * n_node
+
+
+def n_params(n_layer: int) -> int:
+    """Length of the flat gradient of the 18 stacked arrays."""
+    return n_layer * (len(_MATRICES) * KERNEL_D * KERNEL_D + (len(W_NAMES) - len(_MATRICES)) * KERNEL_D)
+
+
+def _weight_ptrs(weights):
+    return (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
+
+
+def _drop_args(p: float, seed: int):
+    return (seed, threshold(p), keep_scale(p), 1) if p > 0 else (0, 0, 1.0, 0)
+
+
+class _NodeEncoderTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, valid, p, seed, n_layer, n_head, *weights):
+        global LAUNCHES_FWD
+        BP, N, D = x.shape
+        out = torch.empty((BP, D), dtype=torch.float32, device=x.device)
+        fn = cuda_build.load(_KERNEL).tb_node_encoder_train_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ptrs = _weight_ptrs(weights)
+        rc = fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, n_layer, n_head,
+                ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_build.check(rc, "node_encoder_train forward")
+        LAUNCHES_FWD += 1
+        ctx.save_for_backward(x, valid, *weights)
+        ctx.args = (p, seed, n_layer, n_head)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global LAUNCHES_BWD
+        x, valid, *weights = ctx.saved_tensors
+        p, seed, n_layer, n_head = ctx.args
+        BP, N, D = x.shape
+        lib = cuda_build.load(_KERNEL)
+        nblocks = lib.tb_node_encoder_train_nblocks()
+        n = n_params(n_layer)
+        dx = torch.empty_like(x)
+        part = torch.zeros((nblocks, n), dtype=torch.float32, device=x.device)
+        dw = torch.empty((n,), dtype=torch.float32, device=x.device)
+        fn = lib.tb_node_encoder_train_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ptrs = _weight_ptrs(weights)
+        rc = fn(x.data_ptr(), valid.data_ptr(), g.contiguous().data_ptr(), dx.data_ptr(), part.data_ptr(),
+                dw.data_ptr(), BP, N, n_layer, n_head, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_build.check(rc, "node_encoder_train backward")
+        LAUNCHES_BWD += 1
+        grads, off = [], 0
+        for w in weights:
+            grads.append(dw[off:off + w.numel()].view_as(w))
+            off += w.numel()
+        return (dx, None, None, None, None, None, *grads)
+
+
+def _check_inputs(enc: FusedNodeEncoder, x: Tensor, valid: Tensor) -> None:
+    if not (x.is_cuda and valid.device == x.device):
+        raise ValueError("node_encoder_train: x and valid must lie on one CUDA device")
+    if x.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"x must be float32 and valid bool, got {x.dtype}/{valid.dtype}")
+    if x.ndim != 3 or tuple(valid.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} valid {tuple(valid.shape)}")
+    if not (x.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("x and valid must be contiguous")
+    N, D = x.shape[1], x.shape[2]
+    if D != KERNEL_D or enc.d_model != KERNEL_D or enc.d_feedforward != KERNEL_D:
+        raise ValueError(f"the kernel takes d_model = d_feedforward = {KERNEL_D}")
+    if not 1 <= N <= KERNEL_MAX_NODES or D % enc.n_head:
+        raise ValueError(f"the kernel takes 1..{KERNEL_MAX_NODES} nodes and d_model % n_head == 0")
+    if smem_bytes(False, N, enc.n_layer, enc.n_head) > SMEM_LIMIT:
+        raise ValueError(f"N={N}, L={enc.n_layer}, H={enc.n_head}: the backward's buffers exceed one block's shared memory")
+    for name in W_NAMES:
+        w = getattr(enc, name)
+        if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():
+            raise ValueError(f"parameter {name} must be contiguous float32 on {x.device}")
+
+
+def node_encoder_train(enc: FusedNodeEncoder, x: Tensor, valid: Tensor, p: float, seed: int) -> Tensor:
+    """[BP, N, D] fp32, [BP, N] bool -> pooled [BP, D] with dropout p at
+    `seed`: the kernels on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return node_encoder_train_plain(enc, x, valid, p, seed)
+    _check_inputs(enc, x, valid)
+    if x.shape[0] == 0:
+        return x.new_zeros((0, x.shape[2]))
+    weights: Tuple[Tensor, ...] = tuple(getattr(enc, n) for n in W_NAMES)
+    return _NodeEncoderTrain.apply(x, valid, p, seed, enc.n_layer, enc.n_head, *weights)

@@ -1,13 +1,17 @@
 """Episode-level orchestration: model construction, episode encoding, reactive replay.
 
-Counterpart of `trafficbots_tpu/orchestration.py` up to `reactive_replay`,
-plus `eval_rollout`, the port's main path: the counterpart of the program
-`bench.py` times,
+Counterpart of `trafficbots_tpu/orchestration.py` up to `reactive_replay`
+and `training_step`, plus `eval_rollout`, the eval main path: the
+counterpart of the program `bench.py` times,
 
     pre_processing -> encode_episode_features -> posterior latent
     -> get_gt_goal -> teacher_forcing_mask -> reactive_replay (91 steps)
 
-in eval mode with a deterministic latent and action.
+in eval mode with a deterministic latent and action. `training_step` is the
+training forward pass (training views, one shared map encode, goal head,
+posterior and prior latents, the prior coin, teacher forcing, the 90-step
+training rollout, `training.loss.training_loss`); `training.train` wraps it
+with the backward and the optimizer.
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, as the tests do); without CUDA they raise instead of
@@ -25,10 +29,12 @@ from .data.preprocessing import Batch, extract, map_attr, pre_processing, to_tor
 from .geometry import pose_pe
 from .models import goal_manager as GM
 from .models.traffic_bots import TrafficBots
+from .ops.dropout import SEED_BITS, DropoutSeeds
 from .sim import rules as RU
 from .sim.dynamics import make_dynamics_params
 from .sim.rollout import RolloutOutput, rollout, rule_config
 from .sim.teacher_forcing import TeacherForcingConfig, teacher_forcing_mask
+from .training.loss import training_loss
 
 Tensor = torch.Tensor
 
@@ -78,10 +84,13 @@ def tf_cfg_to_sim(tf) -> TeacherForcingConfig:
     )
 
 
-def encode_map_chunked(model: TrafficBots, batch: Batch, chunk: int) -> Tuple[Tensor, Tensor]:
+def encode_map_chunked(
+    model: TrafficBots, batch: Batch, chunk: int, rng: Optional[DropoutSeeds] = None,
+) -> Tuple[Tensor, Tensor]:
     """The episode map encode over scene chunks of `chunk`, each with its own
     PE and attributes, so the [chunk, P, N, *] featurization temporaries are
-    the largest that exist. Per-scene results do not depend on the chunk."""
+    the largest that exist. Per-scene results do not depend on the chunk
+    (in eval; a training encode is one chunk, its dropout drawn from `rng`)."""
     mcfg = model.cfg
     feats, valids = [], []
     n_scene, _, n_node = batch["sc/map_valid"].shape
@@ -90,28 +99,32 @@ def encode_map_chunked(model: TrafficBots, batch: Batch, chunk: int) -> Tuple[Te
         pos = batch["sc/map_pos"][sl]
         pe = pose_pe(pos, batch["sc/map_dir"][sl], mcfg.pose_pe_map, mcfg.pe_dim)
         attr = map_attr(batch["sc/map_type"][sl], n_node, pos.dtype)
-        f, v = model.map_only(batch["input/map_valid"][sl], attr, pe)
+        f, v = model.map_only(batch["input/map_valid"][sl], attr, pe, rng=rng)
         feats.append(f)
         valids.append(v)
     return torch.cat(feats), torch.cat(valids)
 
 
 def encode_episode_features(
-    model: TrafficBots, batch: Batch, views: Iterable[str] = VIEWS,
+    model: TrafficBots, batch: Batch, views: Iterable[str] = VIEWS, rng: Optional[DropoutSeeds] = None,
 ) -> Dict[str, Dict[str, Tensor]]:
-    """Encode the episode views; the map is encoded once (in chunks of
-    `map_encode_chunk` scenes when that is > 0) and shared by every view,
-    as the JAX package does in eval when the views see one map."""
+    """Encode the episode views; the map is encoded once and shared by every
+    view, as the JAX package does whenever the views see one map (training
+    included: docs/divergences.md). In eval the map encode runs in chunks of
+    `map_encode_chunk` scenes when that is > 0; a training encode (`rng`
+    given) is one chunk, as in the JAX package."""
     chunk = model.cfg.map_encode_chunk
     n_scene = batch["sc/map_valid"].shape[0]
-    shared_map = encode_map_chunked(model, batch, chunk if chunk > 0 else n_scene)
+    if rng is not None or chunk <= 0:
+        chunk = n_scene
+    shared_map = encode_map_chunked(model, batch, chunk, rng)
     out = {}
     for prefix in views:
         if f"{prefix}/agent_valid" not in batch:
             continue
         view = extract(batch, prefix)
         view["map_feature"], view["map_feature_valid"] = shared_map
-        out[prefix] = model.encode_input_features(**view)
+        out[prefix] = model.encode_input_features(**view, rng=rng)
     return out
 
 
@@ -157,6 +170,7 @@ def reactive_replay(
     generator: Optional[torch.Generator] = None,
     deterministic_latent=True,
     deterministic_action: bool = True,
+    training: bool = False,
 ) -> RolloutOutput:
     """Scene-reconstruction rollout over steps time_step_sim_start..time_step_end."""
     device = batch["agent/valid"].device
@@ -167,7 +181,7 @@ def reactive_replay(
         goal=goal, goal_valid=goal_valid, mask_teacher_forcing=mask_teacher_forcing,
         generator=generator, deterministic_latent=deterministic_latent,
         deterministic_action=deterministic_action,
-        step_start=cfg.time_step_sim_start, step_end=cfg.time_step_end,
+        step_start=cfg.time_step_sim_start, step_end=cfg.time_step_end, training=training,
     )
 
 
@@ -192,4 +206,45 @@ def eval_rollout(
     return reactive_replay(
         cfg, model, pbatch, feats["input"], latent_post, goal_gt, goal_valid, mask_tf,
         deterministic_latent=True, deterministic_action=True,
+    )
+
+
+def draw_seeds(generator: torch.Generator) -> DropoutSeeds:
+    """A DropoutSeeds for one forward phase, seeded from `generator`."""
+    return DropoutSeeds(int(torch.randint(0, 2**SEED_BITS, (1,), generator=generator).item()))
+
+
+def training_step(
+    cfg: ExperimentConfig, model: TrafficBots, batch: Batch, generator: torch.Generator, current_epoch: int = 0,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One training forward pass on a raw tensor batch (the data.synthetic
+    contract, on the model's device) -> (loss, metrics). `generator` is a
+    CPU generator: every random draw of the step comes from it, in a fixed
+    order (dropout seeds of the encode, the goal head, the posterior and
+    the prior; the prior coin; the teacher-forcing draws; the latent sample
+    and the rollout's per-step seeds; the irrelevant-agent draws)."""
+    pbatch = pre_processing(batch, cfg.model, n_step_hist=cfg.time_step_current + 1, training=True)
+    feats = encode_episode_features(model, pbatch, rng=draw_seeds(generator))
+    goal_gt = goal_valid = goal_pred = None
+    if cfg.model.goal_manager.goal_attr_mode != "dummy":
+        goal_gt, goal_valid = get_gt_goal(cfg, pbatch["input/agent_valid"], pbatch["gt/goal"], pbatch["gt/dest"])
+        goal_pred = model.pred_goal(
+            rng=draw_seeds(generator), agent_type=pbatch["ref/agent_type"], map_type=pbatch["ref/map_type"],
+            agent_state=pbatch["ref/agent_state"], **feats["input"],
+        )
+    latent_post = model.latent(posterior=True, rng=draw_seeds(generator), **feats["latent_post"])
+    latent_prior = model.latent(posterior=False, rng=draw_seeds(generator), **feats["latent_prior"])
+    use_prior = torch.rand((), generator=generator).item() < cfg.p_training_rollout_prior
+    mask_tf = teacher_forcing_mask(tf_cfg_to_sim(cfg.tf_training), pbatch["gt/valid"], current_epoch, generator)
+    buf = reactive_replay(
+        cfg, model, pbatch, feats["input"], latent_prior if use_prior else latent_post, goal_gt, goal_valid,
+        mask_tf, generator=generator, deterministic_latent=False,
+        deterministic_action=cfg.training_deterministic_action, training=True,
+    )
+    return training_loss(
+        cfg.training_metrics, pred_valid=buf.valid, diffbar_rewards_valid=buf.diffbar_rewards_valid,
+        diffbar_rewards=buf.diffbar_rewards, override_masks=buf.override_masks,
+        agent_role=pbatch["ref/agent_role"], goal_valid=goal_valid, goal_pred=goal_pred, goal_gt=goal_gt,
+        latent_post=latent_post, latent_prior=latent_prior, step_start=cfg.time_step_sim_start,
+        generator=generator,
     )

@@ -15,7 +15,21 @@ steps `step_start..step_end` and stacks the per-step outputs batch-major,
 
 The deterministic path (deterministic latent and action, as in the eval
 replay) draws no random numbers; a `torch.Generator` is needed only when a
-sample is stochastic. Training belongs to a later slice of the port.
+sample is stochastic.
+
+Training (`training=True`, the BPTT body of the JAX rollout): the map K/V
+cache stays fp32; the goal/latent input MLPs run every step (their dropout
+is per step); the policy's state inputs are detached under
+`detach_state_policy`; the latent sample is detached for its log-prob;
+`step_detach_hidden` and `p_drop_hidden` act on the hidden state. Every
+step's dropout seeds come from a `DropoutSeeds` seeded by a number drawn
+from the rollout's CPU generator OUTSIDE the step body, so that with
+`remat_rollout_step` the recompute of a step under `torch.utils.checkpoint`
+draws the same masks (checkpoint's `preserve_rng_state` restores only the
+default generators, not a user generator read inside the body). Under
+`remat_policy="save_attn"` each step's training attention cores keep their
+outputs (`ops.dropout.SavedCores`), so the recompute replays them instead of
+launching the forward kernel again; "none" recomputes everything.
 """
 from __future__ import annotations
 
@@ -24,11 +38,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ExperimentConfig
 from ..data.preprocessing import agent_attr_and_pe
 from ..distributions import DetType, DiagGaussian
 from ..models.goal_manager import goal_feature as gather_goal_feature
+from ..ops.dropout import SEED_BITS, DropoutSeeds, SavedCores
 from .dynamics import AgentState, DynamicsParams, dynamics_update, init_agent_state, kill, override_states
 from .rewards import RewardConfig, differentiable_reward
 from .rules import RuleConfig, RuleConstants, RuleState, check_rules, init_rule_state
@@ -108,8 +124,10 @@ def build_sim(
     deterministic_latent: DetType = True,
     deterministic_action: bool = True,
     step_end: int = 90,
+    training: bool = False,
 ):
-    """-> (carry0, body), body(carry, step) -> (carry, StepOutput).
+    """-> (carry0, body), body(carry, step, rng) -> (carry, StepOutput);
+    `rng` (a DropoutSeeds) is given in training and None in eval.
 
     features (batch-major): map_valid [B,P], map_feature [B,P,d], tl_valid
     [B,T_tl,n_tl], tl_feature [B,T_tl,n_tl,d], agent_type [B,A,3],
@@ -140,7 +158,7 @@ def build_sim(
     latent_sample = latent_logp = None
     if latent_dist is not None:
         latent_sample = latent_dist.sample(generator, deterministic_latent)
-        latent_logp = latent_dist.log_prob(latent_sample)
+        latent_logp = latent_dist.log_prob(latent_sample.detach())
 
     goal_is_none = goal is None or gcfg.goal_attr_mode == "dummy"
     update_goal = gcfg.goal_attr_mode == "goal_xy" and gcfg.goal_in_local
@@ -151,10 +169,10 @@ def build_sim(
         return gather_goal_feature(gcfg, goal, agent_state, features["map_feature"])
 
     goal_feature_static = None if update_goal else get_goal_feature(agent0.state)
-    map_kv = model.precompute_map_kv(features["map_feature"])
+    map_kv = model.precompute_map_kv(features["map_feature"], training=training)
 
     goal_z_pre = latent_z_pre = None
-    if not update_goal and not mcfg.resample_latent:
+    if not training and not update_goal and not mcfg.resample_latent:
         ever_valid = features["agent_valid"].any(dim=1) | agent0.valid
         goal_z_pre, latent_z_pre = model.precompute_add_feats(
             goal_feature_static, goal_valid, latent_sample, ever_valid
@@ -178,7 +196,7 @@ def build_sim(
         )
     T_tls = tl_stop[0].shape[1]
 
-    def body(carry: RolloutCarry, step: int) -> Tuple[RolloutCarry, StepOutput]:
+    def body(carry: RolloutCarry, step: int, rng: Optional[DropoutSeeds]) -> Tuple[RolloutCarry, StepOutput]:
         agent = carry.agent
         mask_override = mask_teacher_forcing[:, step]
         gt_valid = features["agent_valid"][:, step]
@@ -191,8 +209,9 @@ def build_sim(
 
         latent_sample, latent_logp = carry.latent_sample, carry.latent_logp
         if mcfg.resample_latent and latent_dist is not None:
-            latent_sample = latent_dist.sample(generator, deterministic_latent)
-            latent_logp = latent_dist.log_prob(latent_sample)
+            gen = generator if rng is None else rng.generator(dev)
+            latent_sample = latent_dist.sample(gen, deterministic_latent)
+            latent_logp = latent_dist.log_prob(latent_sample.detach())
         goal_feature = get_goal_feature(agent.state) if update_goal else goal_feature_static
 
         attr, pe = agent_attr_and_pe(
@@ -200,19 +219,24 @@ def build_sim(
             agent_vel=agent.vel, agent_spd=agent.state[..., 3:4], agent_yaw_rate=agent.yaw_rate,
             agent_acc=agent.acc, agent_size=features["agent_size"], agent_type=features["agent_type"],
         )
-        agent_feature = model.encode_agent(agent.valid, attr, pe)
+        if rng is not None and cfg.detach_state_policy:
+            attr, pe = attr.detach(), pe.detach()
+        agent_feature = model.encode_agent(agent.valid, attr, pe, rng=rng)
         action_mean, action_log_std, hidden, _ = model.policy_step(
             agent_valid=agent.valid, agent_feature=agent_feature,
             map_valid=features["map_valid"], map_feature=features["map_feature"], map_kv=map_kv,
             tl_valid=features["tl_valid"][:, tl_idx], tl_feature=features["tl_feature"][:, tl_idx],
             goal_valid=carry.goal_valid, goal_feature=goal_feature, latent_sample=latent_sample,
             hidden=carry.hidden, agent_type=features["agent_type"],
-            goal_z_pre=goal_z_pre, latent_z_pre=latent_z_pre,
+            goal_z_pre=goal_z_pre, latent_z_pre=latent_z_pre, rng=rng,
         )
+        action_gen = generator
+        if rng is not None and deterministic_action is not True:
+            action_gen = rng.generator(dev)
         new_agent, _, action_logp = dynamics_update(
             dyn_params, agent, features["agent_type"],
             DiagGaussian(mean=action_mean, log_std=action_log_std),
-            generator, deterministic=deterministic_action,
+            action_gen, deterministic=deterministic_action,
         )
         pred_valid, pred_state = new_agent.valid, new_agent.state
         new_agent = override_states(new_agent, state_override, mask_override)
@@ -236,6 +260,10 @@ def build_sim(
         reward, reward_valid = differentiable_reward(
             rew_cfg, pred_valid, pred_state, gt_valid, gt_state, features["agent_size"]
         )
+        if rng is not None and 0 <= step <= cfg.step_detach_hidden:
+            hidden = hidden.detach()
+        if rng is not None and cfg.p_drop_hidden > 0 and rng.next() < cfg.p_drop_hidden * 2**SEED_BITS:
+            hidden = torch.zeros_like(hidden)
         out = StepOutput(
             valid=pred_valid, pred=pred_state, override_mask=mask_override, violations=violations,
             diffbar_reward=reward, diffbar_reward_valid=reward_valid,
@@ -266,16 +294,35 @@ def rollout(
     deterministic_action: bool = True,
     step_start: int = 1,
     step_end: int = 90,
+    training: bool = False,
 ) -> RolloutOutput:
-    """Run the closed loop for steps step_start..step_end."""
+    """Run the closed loop for steps step_start..step_end. Training needs
+    `generator`, a CPU generator: the latent sample and every step's seed
+    come from it."""
+    if training and cfg.remat_rollout_step and cfg.remat_policy not in ("none", "save_attn"):
+        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r}: the port has 'none' and 'save_attn'")
     carry, body = build_sim(
         cfg, model, dyn_params, rule_consts, features, latent_dist, goal, goal_valid,
         mask_teacher_forcing, generator, deterministic_latent=deterministic_latent,
-        deterministic_action=deterministic_action, step_end=step_end,
+        deterministic_action=deterministic_action, step_end=step_end, training=training,
     )
+
+    def checkpointed(carry, step, seed, saved):
+        return body(carry, step, DropoutSeeds(seed, saved))
+
     outs = []
     for step in range(step_start, step_end + 1):
-        carry, out = body(carry, step)
+        if not training:
+            carry, out = body(carry, step, None)
+        else:
+            seed = int(torch.randint(0, 2**SEED_BITS, (1,), generator=generator).item())
+            if cfg.remat_rollout_step:
+                saved = SavedCores() if cfg.remat_policy == "save_attn" else None
+                # the body reads no default generator: nothing to preserve
+                carry, out = checkpoint(checkpointed, carry, step, seed, saved,
+                                        use_reentrant=False, preserve_rng_state=False)
+            else:
+                carry, out = body(carry, step, DropoutSeeds(seed))
         outs.append(out)
 
     def stack(get):

@@ -51,7 +51,7 @@ def teacher_forcing_mask(
         if generator is None:
             raise ValueError("prob_forcing_agent > 0 needs a generator")
         prob = min(max(cfg.prob_forcing_agent - cfg.prob_forcing_agent_decrease_per_epoch * current_epoch, 0.0), 1.0)
-        u = torch.rand(as_valid[:, 0].shape, generator=generator, device=as_valid.device)
+        u = torch.rand(as_valid[:, 0].shape, generator=generator, device=generator.device).to(as_valid.device)
         mask = mask | ((u < prob)[:, None, :] & as_valid)
     if cfg.gt_sdc:
         mask[:, :, 0] = mask[:, :, 0] | as_valid[:, :, 0]

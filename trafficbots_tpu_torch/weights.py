@@ -3,7 +3,7 @@
 `load_jax_params(model, params_np)` takes the flax param tree as nested
 dicts of numpy arrays (`jax.tree_util.tree_map(np.asarray, params)`, made on
 the caller's side: this module never imports JAX). The port's module tree
-mirrors the flax tree by name, so the walk is mechanical:
+mirrors the flax tree by name, so the walk is mechanical (`flax_paths`):
 
   - an `nn.Linear` at path p reads p/kernel [in, out] transposed into
     `weight` [out, in] and p/bias;
@@ -13,21 +13,17 @@ mirrors the flax tree by name, so the walk is mechanical:
     is copied as it is from the leaf of the same name.
 
 It is strict: a port parameter without its flax array raises, and so does a
-flax array nothing consumed, unless it lies under one of the subtrees named
-in `SKIPPED_SUBTREES` (parts of the model outside the ported slice).
+flax array nothing consumed. `flax_paths` is also the reverse map the tests
+use to compare gradients leaf by leaf.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-
-# flax subtrees with no counterpart in the port yet: the destination / goal
-# predictor heads (DestPredictor, GoalPredictor) come with the validation slice
-SKIPPED_SUBTREES = ("goal_manager",)
 
 
 def _flat(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -41,41 +37,43 @@ def _flat(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _assign(param: torch.Tensor, value: np.ndarray, name: str) -> None:
-    t = torch.tensor(np.array(value), dtype=param.dtype)
-    if tuple(t.shape) != tuple(param.shape):
-        raise ValueError(f"{name}: flax shape {tuple(t.shape)} != port shape {tuple(param.shape)}")
-    with torch.no_grad():
-        param.copy_(t.to(param.device))
-
-
-def load_jax_params(model: nn.Module, params_np: Dict, skip: Iterable[str] = SKIPPED_SUBTREES) -> None:
-    """Fill every parameter of `model` from the flax tree `params_np`."""
-    flat = _flat(params_np)
-    used = set()
-
-    def take(path: str) -> np.ndarray:
-        if path not in flat:
-            raise KeyError(f"no flax array for port parameter at {path}")
-        used.add(path)
-        return flat[path]
-
+def flax_paths(model: nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """Port parameter name -> (flax leaf path, whether the flax array is
+    the transpose of the port's: the `nn.Linear` kernels)."""
+    out = {}
     for mod_name, mod in model.named_modules():
         base = mod_name.replace(".", "/")
         pre = f"{base}/" if base else ""
+        dot = f"{mod_name}." if mod_name else ""
         if isinstance(mod, nn.Linear):
-            _assign(mod.weight, take(pre + "kernel").T, pre + "kernel")
+            out[dot + "weight"] = (pre + "kernel", True)
             if mod.bias is not None:
-                _assign(mod.bias, take(pre + "bias"), pre + "bias")
+                out[dot + "bias"] = (pre + "bias", False)
         elif isinstance(mod, nn.LayerNorm):
-            _assign(mod.weight, take(pre + "scale"), pre + "scale")
-            _assign(mod.bias, take(pre + "bias"), pre + "bias")
+            out[dot + "weight"] = (pre + "scale", False)
+            out[dot + "bias"] = (pre + "bias", False)
         else:
-            for pname, p in mod.named_parameters(recurse=False):
-                _assign(p, take(pre + pname), pre + pname)
+            for pname, _ in mod.named_parameters(recurse=False):
+                out[dot + pname] = (pre + pname, False)
+    return out
 
-    skipped = tuple(s.rstrip("/") + "/" for s in skip)
-    left = sorted(k for k in flat if k not in used and not k.startswith(skipped))
+
+def load_jax_params(model: nn.Module, params_np: Dict) -> None:
+    """Fill every parameter of `model` from the flax tree `params_np`."""
+    flat = _flat(params_np)
+    params = dict(model.named_parameters())
+    paths = flax_paths(model)
+    for name, (path, transposed) in paths.items():
+        if path not in flat:
+            raise KeyError(f"no flax array for port parameter at {path}")
+        value = flat[path].T if transposed else flat[path]
+        param = params[name]
+        t = torch.tensor(np.array(value), dtype=param.dtype)
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"{path}: flax shape {tuple(t.shape)} != port shape {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(t.to(param.device))
+    left = sorted(set(flat) - {path for path, _ in paths.values()})
     if left:
         raise ValueError(f"flax arrays not consumed by the port: {left}")
 
