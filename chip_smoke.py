@@ -34,7 +34,19 @@ its own lines:
      gradients with the kernels against the plain versions (same seeds),
      held over the first HELD_STEPS steps, the whole horizon as a reading
      beside a one-ulp map nudge;
-  6. the kernels line, the card line, and as the last line
+  6. the validation main path on the same scenes and config with
+     map_encoder.node_encoder_impl = "hybrid" (the node stack's matmuls
+     around the attention core K6): `evaluation_loop.Validator`, one
+     warm-up step, then N_ITER timed `step` calls, each with the launch
+     counts set to 0 just before and read just after, then `epoch_end`;
+     validation agent-steps/s (the reactive replay and the K joint futures),
+     peak memory, the busy share of one profiled step, finite val/loss,
+     mAP and position error; then one validation step with the kernels
+     against the plain versions (same generator seed), the reactive replay's
+     and the deterministic joint future's preds held over the first
+     HELD_STEPS steps, the rest (and the sampled futures) readings beside a
+     one-ulp map nudge;
+  7. the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero before the last line. Without CUDA the
@@ -50,16 +62,19 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from trafficbots_tpu_torch import evaluation_loop as EL
 from trafficbots_tpu_torch import ops
 from trafficbots_tpu_torch import orchestration as O
 from trafficbots_tpu_torch.config import ExperimentConfig
 from trafficbots_tpu_torch.data.preprocessing import to_torch
 from trafficbots_tpu_torch.data.synthetic import synthetic_episode_batch
 from trafficbots_tpu_torch.ops import attention_train as AT
+from trafficbots_tpu_torch.ops import block_attn as BA
 from trafficbots_tpu_torch.ops import cuda_build
 from trafficbots_tpu_torch.ops import dropout as DO
 from trafficbots_tpu_torch.ops import fused_attention as FA
@@ -76,6 +91,8 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 # (shared-memory loops vs cuBLAS), a few ulp of outputs of order 1-10
 K1_TOL = dict(atol=1e-5, rtol=1e-5)
 K2_TOL = dict(atol=1e-4, rtol=1e-4)  # 3 layers of 128-long sums, outputs up to ~10
+K6_TOL = dict(atol=1e-5, rtol=1e-5)  # one 32-long and one 20-long sum a head
+HYBRID_TOL = dict(atol=1e-4, rtol=1e-4)  # hybrid (K6) vs fused (K2) pooled features: as K2
 # rollouts: two implementations that sum in another order differ at the ulp
 # level, and the closed loop amplifies that step by step (with random
 # weights the full-width policy is chaotic). preds are held to ROLLOUT_ATOL
@@ -91,7 +108,7 @@ READING_THRESHOLDS = (1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0)  # metres
 N_SCENE = 8  # scenes of the main path's batch
 N_ITER = 3  # timed rollouts
 N_TRAIN_ITER = 3  # timed training steps
-KERNEL_SOURCES = ("fused_attention", "node_encoder", "dropout", "attention_train", "node_encoder_train")
+KERNEL_SOURCES = ("fused_attention", "node_encoder", "dropout", "attention_train", "node_encoder_train", "block_attn")
 P_DROP = 0.1  # ExperimentConfig's dropout rates, live in every training check
 # training kernels vs plain versions on the same inputs and seeds (K5's
 # masks are bit-equal): forwards as K1/K2; gradients by relative norm error,
@@ -262,20 +279,7 @@ def check_k2(gen, n_scene, dev, batch):
     """K2 on [n_scene * 1024, 20, 128] with the batch's node validity (768
     valid polylines a scene of 5-20 nodes, the rest all padding), plus an
     all-invalid and a partly valid polyline among the valid ones."""
-    enc = NE.FusedNodeEncoder(128, 4, 3, 128)
-    init_params(enc, 0)
-    with torch.no_grad():  # non-trivial LayerNorm scales and biases
-        for name in NE.W_NAMES:
-            p = getattr(enc, name)
-            if p.ndim == 2:
-                p.add_(0.1 * torch.randn(p.shape, generator=gen))
-    enc = enc.to(dev)
-    valid = torch.from_numpy(batch["map/valid"]).reshape(-1, batch["map/valid"].shape[-1]).clone()
-    valid[3] = False
-    valid[4] = False
-    valid[4, :2] = True
-    x = torch.randn(*valid.shape, 128, generator=gen) * valid[..., None]
-    x, valid = x.to(dev), valid.to(dev)
+    enc, x, valid = node_encoder_case(gen, dev, batch)
     with torch.no_grad():
         out = enc.encode_pooled(x, valid)
         torch.cuda.synchronize()
@@ -293,6 +297,82 @@ def check_k2(gen, n_scene, dev, batch):
         f"max_abs_err={err} ms={ms} plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
                 shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {n_scene} scenes at 768/1024 fill")
+
+
+# ------------------------------------------------------------------ K6 (hybrid node encoder)
+
+
+def node_encoder_case(gen, dev, batch):
+    """A full-width node encoder with non-trivial LayerNorm scales and
+    biases, and [n_scene * 1024, 20, 128] inputs with the batch's node
+    validity (768 valid polylines a scene of 5-20 nodes, the rest all
+    padding) plus an all-invalid and a partly valid polyline among the
+    valid ones."""
+    enc = NE.FusedNodeEncoder(128, 4, 3, 128)
+    init_params(enc, 0)
+    with torch.no_grad():
+        for name in NE.W_NAMES:
+            p = getattr(enc, name)
+            if p.ndim == 2:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    valid = torch.from_numpy(batch["map/valid"]).reshape(-1, batch["map/valid"].shape[-1]).clone()
+    valid[3] = False
+    valid[4] = False
+    valid[4, :2] = True
+    x = torch.randn(*valid.shape, 128, generator=gen) * valid[..., None]
+    return enc.to(dev), x.to(dev), valid.to(dev)
+
+
+def k6_sdpa_call(q, k, v, valid, H):
+    """scaled_dot_product_attention per polyline on [BP, H, N, dh] with the
+    same mask (lifted for a polyline without a valid node); a yardstick only."""
+    BP, N, D = q.shape
+    qh, kh, vh = (t.view(BP, N, H, D // H).transpose(1, 2) for t in (q, k, v))
+    allowed = (valid | ~valid.any(dim=-1, keepdim=True))[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed)
+
+
+def check_k6(gen, n_scene, dev, batch):
+    """K6 on [n_scene * 1024, 20, 128] q, k, v with the batch's node validity:
+    kernel vs plain on the rows of polylines with a valid node, the other
+    rows finite; then the whole hybrid node encoder (K6) against the fused
+    one (K2) on the same inputs."""
+    H = 4
+    enc, x, valid = node_encoder_case(gen, dev, batch)
+    BP, N, D = x.shape
+    q, k, v = (torch.randn(BP, N, D, generator=gen).to(dev) for _ in range(3))
+    live = valid.any(dim=-1)
+    require(not bool(live.all()), "K6 check: the inputs need a polyline without a valid node")
+    out = BA.block_attn_core(q, k, v, valid, H)
+    torch.cuda.synchronize()
+    ref = BA.block_attn_core_plain(q, k, v, valid, H)
+    require(bool(torch.isfinite(out).all()), "K6: non-finite output (rows of dead polylines included)")
+    err = max_err_checked(out[live], ref[live], K6_TOL, "K6")
+    ms = time_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
+    plain_ms = time_ms(lambda: BA.block_attn_core_plain(q, k, v, valid, H), n=5)
+    lib_ms = time_ms(k6_sdpa_call(q, k, v, valid, H))
+    # q, k, v read and the output written once, the node flags read once;
+    # 4 D operations (q.k and the weighted sum over d_h, every head) for each
+    # allowed (query, target) pair of this data
+    n_valid = valid.sum(dim=-1)
+    pairs = int((N * torch.where(n_valid > 0, n_valid, torch.full_like(n_valid, N))).sum().item())
+    b_ms, b_by = bound_ms(4 * q.numel() * 4 + valid.numel(), 4 * D * pairs)
+    log(f"K6 block attention core: BP={BP} N={N} D={D} H={H} live polylines={int(live.sum())} max_abs_err={err} "
+        f"ms={ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by}) [{card_line()}]")
+    with torch.no_grad():
+        hyb = enc.encode_pooled_hybrid(x, valid)
+        fused = enc.encode_pooled(x, valid)
+        torch.cuda.synchronize()
+        hyb_err = max_err_checked(hyb[live], fused[live], HYBRID_TOL, "hybrid (K6) vs fused (K2) node encoder")
+        require(bool((hyb[~live] == NE.NEG).all()) and bool((fused[~live] == NE.NEG).all()),
+                "a polyline without a valid node must pool to -1e30")
+        hyb_ms = time_ms(lambda: enc.encode_pooled_hybrid(x, valid), n=10)
+        fused_ms = time_ms(lambda: enc.encode_pooled(x, valid), n=10)
+    log(f"hybrid node encoder (matmuls + K6) vs fused (K2): pooled max_abs_err={hyb_err}, "
+        f"hybrid ms={hyb_ms}, fused ms={fused_ms}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
+                shape=f"BP={BP} N={N} D=128 H=4, {n_scene} scenes at 768/1024 fill"), \
+        dict(hybrid_vs_fused_max_abs_err=hyb_err, hybrid_ms=hyb_ms, fused_ms=fused_ms)
 
 
 # ------------------------------------------------------------------ K5, K3, K4 (training)
@@ -429,20 +509,7 @@ def check_k4(gen, n_scene, dev, batch):
     """K4 forward and backward on [n_scene * 1024, 20, 128] with the batch's
     node validity (768 valid polylines a scene) plus an all-invalid and a
     partly valid polyline, dropout live; the backward twice, bitwise equal."""
-    enc = NE.FusedNodeEncoder(128, 4, 3, 128)
-    init_params(enc, 0)
-    with torch.no_grad():  # non-trivial LayerNorm scales and biases
-        for name in NE.W_NAMES:
-            p = getattr(enc, name)
-            if p.ndim == 2:
-                p.add_(0.1 * torch.randn(p.shape, generator=gen))
-    enc = enc.to(dev)
-    valid = torch.from_numpy(batch["map/valid"]).reshape(-1, batch["map/valid"].shape[-1]).clone()
-    valid[3] = False
-    valid[4] = False
-    valid[4, :2] = True
-    x = (torch.randn(*valid.shape, 128, generator=gen) * valid[..., None]).to(dev)
-    valid = valid.to(dev)
+    enc, x, valid = node_encoder_case(gen, dev, batch)
     pl = valid.any(-1)
     g = torch.where(pl[:, None], torch.randn(x.shape[0], 128, generator=gen).to(dev), torch.zeros((), device=dev))
     seed = 2**50 + 9
@@ -511,10 +578,10 @@ def first_step_over(diff: torch.Tensor) -> dict:
     return {str(t): next((s for s, e in enumerate(per_step) if e > t), None) for t in READING_THRESHOLDS}
 
 
-def compare_rollouts(out, ref, ref_nudged, what) -> dict:
+def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True) -> dict:
     """Holds preds over the first HELD_STEPS to ROLLOUT_ATOL and validity
-    equal there; returns the whole horizon's readings beside the one-ulp
-    map nudge's."""
+    equal there (with `hold`; else they are readings too); returns the
+    whole horizon's readings beside the one-ulp map nudge's."""
     for o in (out, ref):
         require(bool(torch.isfinite(o.preds).all()), f"{what}: non-finite preds")
     r = ref.preds.float().cpu()
@@ -533,8 +600,9 @@ def compare_rollouts(out, ref, ref_nudged, what) -> dict:
         f"first step over each threshold (m) {reading['first_step_over']}, valid flips {reading['valid_flips_all']}; "
         f"a one-ulp map nudge moves the reference {reading['nudge_err_all']} m, first step over each threshold "
         f"{reading['nudge_first_step_over']}")
-    require(held <= ROLLOUT_ATOL, f"{what}: preds differ by {held} m > {ROLLOUT_ATOL} m in the first {HELD_STEPS} steps")
-    require(held_flips == 0, f"{what}: validity differs in the first {HELD_STEPS} steps")
+    if hold:
+        require(held <= ROLLOUT_ATOL, f"{what}: preds differ by {held} m > {ROLLOUT_ATOL} m in the first {HELD_STEPS} steps")
+        require(held_flips == 0, f"{what}: validity differs in the first {HELD_STEPS} steps")
     return reading
 
 
@@ -734,6 +802,105 @@ def train_vs_plain(cfg, batch, dev):
     return reading
 
 
+# ------------------------------------------------------------------ validation main path
+
+
+def hybrid_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl="hybrid")
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, map_encoder=me))
+
+
+VAL_COUNTERS = {"K1": (FA, "LAUNCHES"), "K2": (NE, "LAUNCHES"), "K6": (BA, "LAUNCHES")}
+
+
+def validation_path(cfg, batch, n_iter, dev):
+    """Validator.step at full width under the hybrid node encoder: one
+    warm-up, then n_iter timed steps with the launch counts set to 0 just
+    before each and read just after, then epoch_end over the timed steps."""
+    n_scene = batch["map/valid"].shape[0]
+    model = O.make_model(cfg, device=dev, seed=0)
+    val = EL.Validator(cfg, model, device=dev)
+    val.step(batch, torch.Generator().manual_seed(300))
+    torch.cuda.synchronize()
+    val.reset()
+    torch.cuda.reset_peak_memory_stats()
+    secs, per_step = [], []
+    for i in range(n_iter):
+        for mod, attr in VAL_COUNTERS.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        val.step(batch, torch.Generator().manual_seed(301 + i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append({k: getattr(mod, attr) for k, (mod, attr) in VAL_COUNTERS.items()})
+        log(f"validation step {i}: {secs[-1]} s, launches {per_step[-1]}")
+        require(per_step[-1]["K1"] > 0 and per_step[-1]["K6"] > 0, "the validation step did not launch K1 and K6")
+        require(per_step[-1]["K2"] == 0, "the hybrid node encoder launched the fused kernel K2")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    metrics = val.epoch_end()
+    for k in ("val/loss", "joint_future_pred/mean_average_precision", "reactive_replay/err/pos_meter",
+              "joint_future_pred/err/pos_meter", "reactive_replay/min_ade", "joint_future_pred/min_ade"):
+        require(k in metrics and math.isfinite(metrics[k]), f"validation metric {k} missing or not finite")
+    median = statistics.median(secs)
+    n_steps = cfg.time_step_end - cfg.time_step_sim_start + 1
+    asps = n_scene * cfg.data.n_agent * n_steps * (1 + cfg.n_joint_future) / median
+    log(f"validation path: {n_scene} scenes, Validator.step seconds {secs}, median {median} s, {asps} validation "
+        f"agent-steps/s (reactive replay + {cfg.n_joint_future} joint futures), peak device memory {peak_gib} GiB "
+        f"[{card_line()}]")
+    log(f"validation metrics over {n_iter} steps (random weights: readings): val/loss {metrics['val/loss']}, mAP "
+        f"{metrics['joint_future_pred/mean_average_precision']}, reactive_replay/err/pos_meter "
+        f"{metrics['reactive_replay/err/pos_meter']}, joint_future_pred/err/pos_meter "
+        f"{metrics['joint_future_pred/err/pos_meter']}")
+    prof = profile_run(lambda: val.step(batch, torch.Generator().manual_seed(400)), median, "a validation step")
+    keep = ("val/loss", "joint_future_pred/mean_average_precision", "reactive_replay/mean_average_precision",
+            "reactive_replay/err/pos_meter", "joint_future_pred/err/pos_meter", "reactive_replay/min_ade",
+            "joint_future_pred/min_ade", "reactive_replay/vae_kl", "reactive_replay/goal_loss")
+    return per_step[0], dict(n_scene=n_scene, seconds=secs, step_s=median, agent_steps_per_s=asps,
+                             launches_per_step=per_step, peak_gib=peak_gib, profile=prof,
+                             metrics={k: metrics[k] for k in keep})
+
+
+def _futures(out, ks):
+    """The joint futures ks of a validation step's output, agents and
+    futures flattened ([B, A * len(ks), S, ...]), for compare_rollouts."""
+    p, v = out["buf_jf_preds"][:, :, ks], out["buf_jf_valid"][:, :, ks]
+    return SimpleNamespace(preds=p.reshape(p.shape[0], -1, *p.shape[3:]), valid=v.reshape(v.shape[0], -1, v.shape[-1]))
+
+
+def validation_vs_plain(cfg, batch, dev):
+    """One validation step with the kernels against the plain versions, the
+    same generator seed: the reactive replay's and the deterministic joint
+    future's preds held over HELD_STEPS, the whole horizon and the sampled
+    futures (whose goals are argmaxes over logits that may move by an ulp)
+    readings beside a one-ulp map nudge of the plain run."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    secs = {}
+
+    def run(b, plain):
+        t0 = time.perf_counter()
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            out = EL.validation_device_step(cfg, model, to_torch(b, dev), torch.Generator().manual_seed(500))
+        torch.cuda.synchronize()
+        secs["plain" if plain else "kernels"] = time.perf_counter() - t0
+        return out
+
+    out, ref, ref_n = run(batch, False), run(batch, True), run(nudged(batch), True)
+    log(f"validation_device_step alone (no WOMD packing; the first call of a fresh model): {secs['kernels']} s "
+        f"with the kernels, {secs['plain']} s with the plain versions")
+    rr = [SimpleNamespace(preds=o["buf_rr_preds"], valid=o["buf_rr_valid"]) for o in (out, ref, ref_n)]
+    k0 = [_futures(o, slice(0, 1)) for o in (out, ref, ref_n)]
+    kn = [_futures(o, slice(1, None)) for o in (out, ref, ref_n)]
+    goal_flips = int((out["goal_sample"] != ref["goal_sample"]).sum().item())
+    log(f"validation step, kernels vs plain: sampled goals differing {goal_flips} of {out['goal_sample'].numel()}")
+    return dict(
+        reactive_replay=compare_rollouts(*rr, "validation reactive replay, kernels vs plain versions"),
+        joint_future_k0=compare_rollouts(*k0, "validation joint future K=0, kernels vs plain versions"),
+        joint_futures_sampled=compare_rollouts(*kn, "validation joint futures K>0 (readings), kernels vs plain",
+                                               hold=False),
+        goal_sample_flips=goal_flips, device_step_s=secs,
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs one NVIDIA GPU")
@@ -757,6 +924,7 @@ def main():
     k5 = check_k5(dev)
     k3f, k3b = check_k3(gen, N_SCENE, dev)
     k4f, k4b = check_k4(gen, N_SCENE, dev, batch)
+    k6, hybrid = check_k6(gen, N_SCENE, dev, batch)
 
     phase("eval main path")
     launches, path = main_path(cfg, batch, N_ITER, dev)
@@ -765,6 +933,12 @@ def main():
     train_launches, train = train_path(cfg, batch, N_TRAIN_ITER, dev)
     phase("training kernels vs plain")
     train["vs_plain"] = train_vs_plain(cfg, batch, dev)
+    phase("validation main path")
+    val_cfg = hybrid_config(cfg)
+    val_launches, val = validation_path(val_cfg, batch, N_ITER, dev)
+    val["hybrid_node_encoder"] = hybrid
+    phase("validation kernels vs plain")
+    val["vs_plain"] = validation_vs_plain(val_cfg, batch, dev)
     phase("done")
 
     kernels = [
@@ -789,12 +963,16 @@ def main():
         dict(name="K5 dropout (counter-based Philox4x32-10)", route="cuda",
              source="trafficbots_tpu_torch/csrc/dropout.cu",
              replaces="trafficbots_tpu/ops/kernel_common.py:50", launches=train_launches["K5"], **k5),
+        dict(name="K6 block_attn_core (hybrid node encoder's per-polyline attention core)", route="cuda",
+             source="trafficbots_tpu_torch/csrc/block_attn.cu",
+             replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=val_launches["K6"], **k6),
     ]
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"main_path": path}))
     log(json.dumps({"training_path": train}))
+    log(json.dumps({"validation_path": val}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -20,7 +20,11 @@ within 1e-4 and its dx and 18 weight gradients within a relative norm error
 of 1e-3 (K3's sums run over up to 1216 query rows in another order; the
 node stack's fp32 gradients are themselves ~1e-4 from fp64: max-pool
 near-ties move a column's whole cotangent, see chip_smoke.py).
-The backward kernels are bitwise the same run to run.
+The backward kernels are bitwise the same run to run. K6 (the hybrid node
+encoder's attention core) within 1e-5 of its plain version on the rows of
+polylines with a valid node, every row finite; the hybrid node encoder
+(K6) against the fused one (K2) within 1e-4, as K2 against its plain
+version.
 """
 import dataclasses
 
@@ -32,6 +36,7 @@ from trafficbots_tpu_torch import orchestration as TO
 from trafficbots_tpu_torch.config import ExperimentConfig
 from trafficbots_tpu_torch.data.synthetic import synthetic_episode_batch
 from trafficbots_tpu_torch.ops import attention_train as tat
+from trafficbots_tpu_torch.ops import block_attn as tba
 from trafficbots_tpu_torch.ops import dropout as tdo
 from trafficbots_tpu_torch.ops import fused_attention as tfa
 from trafficbots_tpu_torch.ops import node_encoder as tne
@@ -220,3 +225,59 @@ def test_k4_kernels_match_plain(cuda, p):
     again = run(tnt.node_encoder_train)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def perturbed_encoder(seed=1):
+    enc = tne.FusedNodeEncoder(128, 4, 3, 128)
+    init_params(enc, 0)
+    with torch.no_grad():
+        for name in tne.W_NAMES:
+            p = getattr(enc, name)
+            if p.ndim == 2:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(seed)))
+    return enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(20, 4), (tba.KERNEL_MAX_NODES, 4), (20, 1), (7, 8)])
+def test_k6_kernel_matches_plain(cuda, N, H):
+    _, valid = node_inputs(BP=1024, N=N, D=128, seed=9)
+    rs = np.random.RandomState(10)
+    q, k, v = (torch.from_numpy(rs.normal(size=(1024, N, 128)).astype(np.float32)).to(cuda) for _ in range(3))
+    valid = torch.from_numpy(valid).to(cuda)
+    before = tba.LAUNCHES
+    out = tba.block_attn_core(q, k, v, valid, H)
+    torch.cuda.synchronize()
+    assert tba.LAUNCHES == before + 1
+    ref = tba.block_attn_core_plain(q, k, v, valid, H)
+    live = valid.any(-1)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out[live], ref[live], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(8, tba.KERNEL_MAX_NODES + 1, 128, device=cuda)
+    valid = torch.ones(q.shape[:2], dtype=torch.bool, device=cuda)
+    before = tba.LAUNCHES
+    with pytest.raises(ValueError, match="nodes"):
+        tba.block_attn_core(q, q, q, valid, 4)
+    with pytest.raises(TypeError):
+        tba.block_attn_core(q[:, :20].double(), q[:, :20].double(), q[:, :20].double(), valid[:, :20], 4)
+    assert tba.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_hybrid_node_encoder_matches_fused(cuda):
+    """The same pooled features through K6 (hybrid) and K2 (fused)."""
+    x, valid = (torch.from_numpy(a).to(cuda) for a in node_inputs(BP=1024, N=20, D=128, seed=11))
+    enc = perturbed_encoder().to(cuda)
+    k2, k6 = tne.LAUNCHES, tba.LAUNCHES
+    with torch.no_grad():
+        hyb = enc.encode_pooled_hybrid(x, valid)
+        fused = enc.encode_pooled(x, valid)
+        torch.cuda.synchronize()
+    assert (tne.LAUNCHES, tba.LAUNCHES) == (k2 + 1, k6 + 3)
+    live = valid.any(-1)
+    torch.testing.assert_close(hyb[live], fused[live], atol=1e-4, rtol=1e-4)
+    assert (hyb[~live] == tne.NEG).all() and (fused[~live] == tne.NEG).all()

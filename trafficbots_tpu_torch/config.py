@@ -8,8 +8,12 @@ copy instead of importing the JAX package.
 The field comments are carried over unchanged. Where they quote timings or
 memory figures (ms, GB, agent-steps/s), those were measured for the JAX
 package on a TPU v5e and say nothing about this port on the GPU; the port's
-own numbers are in PERF.md. Switches that only steer TPU kernels (block
-sizes, row blocking, the hybrid node encoder) are read but ignored here.
+own numbers are in PERF.md. Switches that only steer how a TPU kernel is
+blocked (block sizes, pipelined sub-blocks, row blocking, padding skips)
+have no counterpart here and are read but ignored. `node_encoder_impl`
+selects the eval node stack as in the JAX package ("fused": K2; "hybrid":
+matmuls around the attention core K6); `kernel_matmul_bf16` is refused by
+the eval map encoder, whose kernels are fp32.
 
 Mirrors the capability surface of the upstream Hydra tree
 (configs/model/traffic_bots.yaml and configs/**): every switch used by the

@@ -4,10 +4,15 @@ Counterpart of `trafficbots_tpu/models/map_encoder.py`: the input PE encoder
 over every node, the per-polyline node stack and masked max-pool, invalid
 polylines zeroed, then one self-attention layer over the polylines. In eval
 the pool is kernel K2 (`ops.node_encoder.FusedNodeEncoder.encode_pooled`)
-and the self-attention core K1; in training (`rng` given, dropout live) the
-pool is kernel K4 (`ops.node_encoder_train.node_encoder_train`, the JAX
-`fused_train_ok` branch) and the self-attention core K3 (S = T = n_pl >=
-256). Off the card, or inside `ops.plain_versions()`, their plain versions.
+under `node_encoder_impl="fused"` (the default) or the hybrid layout with
+the attention core K6 (`encode_pooled_hybrid`) under "hybrid", and the
+self-attention core K1; in training (`rng` given, dropout live) the pool is
+kernel K4 (`ops.node_encoder_train.node_encoder_train`, the JAX
+`fused_train_ok` branch) whatever `node_encoder_impl` says, as in the JAX
+package, and the self-attention core K3 (S = T = n_pl >= 256). Off the
+card, or inside `ops.plain_versions()`, their plain versions. The eval
+kernels are fp32: `kernel_matmul_bf16` raises there rather than being
+ignored.
 """
 from __future__ import annotations
 
@@ -46,6 +51,10 @@ class MapEncoder(nn.Module):
             mlp_use_layernorm=pe_cfg.mlp_use_layernorm, pe_mode=pe_cfg.pe_mode,
             mlp_dropout_p=pe_cfg.mlp_dropout_p,
         )
+        if cfg.node_encoder_impl not in ("fused", "hybrid"):
+            raise ValueError(f"node_encoder_impl={cfg.node_encoder_impl!r}: 'fused' or 'hybrid'")
+        self.node_encoder_impl = cfg.node_encoder_impl
+        self.kernel_matmul_bf16 = cfg.kernel_matmul_bf16
         self.dropout_p = tf_cfg.dropout_p
         self.densetnt = FusedNodeEncoder(
             d_model=hidden_dim, n_head=tf_cfg.n_head, n_layer=cfg.n_layer,
@@ -62,8 +71,13 @@ class MapEncoder(nn.Module):
         flat = pl_feature.reshape(n_scene * n_pl, n_node, self.hidden_dim).contiguous()
         flat_valid = map_valid.reshape(n_scene * n_pl, n_node).contiguous()
         if rng is None:
-            pool = self.densetnt.encode_pooled if kernels_enabled() else self.densetnt.pooled_plain
-            pooled = pool(flat, flat_valid)
+            if self.kernel_matmul_bf16:
+                raise NotImplementedError("kernel_matmul_bf16: the port's eval node-stack kernels (K2, K6) are fp32")
+            if self.node_encoder_impl == "hybrid":
+                pooled = self.densetnt.encode_pooled_hybrid(flat, flat_valid, plain=not kernels_enabled())
+            else:
+                pool = self.densetnt.encode_pooled if kernels_enabled() else self.densetnt.pooled_plain
+                pooled = pool(flat, flat_valid)
         else:
             seed = draw_seed(rng, self.dropout_p)
             p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)

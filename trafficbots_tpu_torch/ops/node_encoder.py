@@ -12,6 +12,11 @@ Per polyline of N nodes, `n_layer` pre-norm self-attention layers:
 then a masked max over the valid nodes. A polyline without a valid node
 pools to -1e30, which the map encoder zeroes.
 
+`encode_pooled_hybrid` is the same function in the JAX package's "hybrid"
+layout (`map_encoder.node_encoder_impl="hybrid"`): the LayerNorms, the
+q/k/v/out projections and the FFN as matmuls over all polylines, and only
+the per-polyline attention core in a kernel (K6, `ops.block_attn`).
+
 The module owns the stacked [L, ...] parameters under the JAX names
 (`ln1_s` ... `b2`, matrices in the JAX [in, out] layout, used as x @ w), so
 the flax arrays load as they are. `forward` is the plain per-node path;
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import cuda_build
+from .block_attn import block_attn_core, block_attn_core_plain
 from .dropout import dropout_mask_plain
 
 Tensor = torch.Tensor
@@ -119,6 +125,29 @@ class FusedNodeEncoder(nn.Module):
         """The plain version of the kernel: `forward` + masked max -> [BP, D]."""
         nodes = self.forward(x, valid)
         return torch.where(valid[..., None], nodes, torch.full_like(nodes, NEG)).amax(dim=1)
+
+    def encode_pooled_hybrid(self, x: Tensor, valid: Tensor, plain: bool = False) -> Tensor:
+        """[BP, N, D] fp32, [BP, N] bool -> pooled [BP, D] fp32: the layers'
+        matmuls over all polylines, the attention core through K6
+        (`block_attn_core`; its plain version with `plain`). Zeroing order as
+        in the JAX package: no-valid polylines after the out-projection,
+        padded nodes after each layer, then the -1e30 pool identity."""
+        core = block_attn_core_plain if plain else block_attn_core
+        pad = ~valid
+        no_valid = pad.all(dim=-1)  # [BP]
+        x0 = x
+        for l in range(self.n_layer):
+            src2 = _ln(x, self.ln1_s[l], self.ln1_b[l])
+            tgtn = _ln(x0, self.lnt_s[l], self.lnt_b[l])
+            q = src2 @ self.wq[l] + self.bq[l]
+            k = tgtn @ self.wk[l] + self.bk[l]
+            v = tgtn @ self.wv[l] + self.bv[l]
+            a = core(q, k, v, valid, self.n_head) @ self.wo[l] + self.bo[l]
+            x = x + torch.where(no_valid[:, None, None], torch.zeros_like(a), a)
+            src2 = _ln(x, self.ln2_s[l], self.ln2_b[l])
+            x = x + (F.relu(src2 @ self.w1[l] + self.b1[l]) @ self.w2[l] + self.b2[l])
+            x = torch.where(pad[..., None], torch.zeros_like(x), x)
+        return torch.where(pad[..., None], torch.full_like(x, NEG), x).amax(dim=1)
 
     def encode_pooled(self, x: Tensor, valid: Tensor) -> Tensor:
         """[BP, N, D] fp32, [BP, N] bool -> pooled [BP, D] fp32."""

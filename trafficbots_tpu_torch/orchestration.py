@@ -1,8 +1,8 @@
 """Episode-level orchestration: model construction, episode encoding, reactive replay.
 
-Counterpart of `trafficbots_tpu/orchestration.py` up to `reactive_replay`
-and `training_step`, plus `eval_rollout`, the eval main path: the
-counterpart of the program `bench.py` times,
+Counterpart of `trafficbots_tpu/orchestration.py` up to `reactive_replay`,
+`joint_future_pred` and `training_step`, plus `eval_rollout`, the eval main
+path: the counterpart of the program `bench.py` times,
 
     pre_processing -> encode_episode_features -> posterior latent
     -> get_gt_goal -> teacher_forcing_mask -> reactive_replay (91 steps)
@@ -11,7 +11,8 @@ in eval mode with a deterministic latent and action. `training_step` is the
 training forward pass (training views, one shared map encode, goal head,
 posterior and prior latents, the prior coin, teacher forcing, the 90-step
 training rollout, `training.loss.training_loss`); `training.train` wraps it
-with the backward and the optimizer.
+with the backward and the optimizer. `joint_future_pred` is validation's
+K-future rollout (`evaluation_loop`).
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, as the tests do); without CUDA they raise instead of
@@ -187,6 +188,95 @@ def reactive_replay(
 
 def get_gt_goal(cfg: ExperimentConfig, agent_valid, gt_goal, gt_dest):
     return GM.get_gt_goal(cfg.model.goal_manager, agent_valid, gt_goal, gt_dest)
+
+
+def _repeat_batch_keys(batch: Batch, keys: Iterable[str], k: int) -> Batch:
+    out = dict(batch)
+    for key in keys:
+        if key in batch:
+            out[key] = torch.repeat_interleave(batch[key], k, dim=0)
+    return out
+
+
+JOINT_FUTURE_KEYS = (
+    "map/boundary", "map/valid", "map/type", "map/pos", "map/dir",
+    "tl_stop/valid", "tl_stop/pos", "tl_stop/state",
+    "sc/agent_type", "sc/agent_size",
+    "agent/valid", "agent/vel", "agent/acc", "agent/yaw_rate",
+    "agent/pos", "agent/yaw_bbox", "agent/spd",
+    "history/agent/type", "history/agent/size",
+    "history/tl_stop/valid", "history/tl_stop/pos", "history/tl_stop/state",
+)
+
+
+def joint_future_pred(
+    cfg: ExperimentConfig,
+    model: TrafficBots,
+    batch: Batch,
+    input_features: Dict[str, Tensor],
+    latent_dist,
+    goal_dist,
+    goal_valid: Optional[Tensor],
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[RolloutOutput, Optional[Tensor], Tensor]:
+    """K = n_joint_future futures folded into the batch axis (scene-major:
+    row b * K + k): future 0 deterministic, futures 1.. sampled from the
+    prior latent and the goal distribution, every action deterministic.
+    `generator` draws the goal samples, then the latent samples.
+
+    Returns (the rollout unfolded to [B, A, K, S, ...], goal_sample [B, A,
+    K(, 2)] or None, goal_log_probs [B, A, K])."""
+    k_futures = cfg.n_joint_future
+    mode = cfg.model.goal_manager.goal_attr_mode
+    hist_valid = batch["history/agent/valid"] if "history/agent/valid" in batch else batch["agent/valid"][:, :1]
+    n_batch, _, n_agent = hist_valid.shape
+    dev = hist_valid.device
+    det = torch.zeros((n_batch * k_futures, n_agent), dtype=torch.bool, device=dev)
+    det[::k_futures] = True
+
+    latent_k = latent_dist.repeat(k_futures, axis=0) if latent_dist is not None else None
+    goal_sample = goal_valid_k = rc_goal = rc_dest = None
+    goal_log_probs = torch.zeros((n_batch, n_agent, k_futures), device=dev)
+    if goal_dist is not None:
+        goal_k = goal_dist.repeat(k_futures, axis=0)
+        goal_sample = goal_k.sample(generator, det)
+        glp = goal_k.log_prob(goal_sample)
+        goal_valid_k = torch.repeat_interleave(goal_valid, k_futures, dim=0)
+        if mode == "dest":
+            rc_dest = goal_sample
+        elif mode == "goal_xy":
+            rc_goal = goal_sample
+        goal_log_probs = glp.reshape(n_batch, k_futures, n_agent).transpose(1, 2)
+
+    if rc_dest is None and "agent/dest" in batch:
+        rc_dest = torch.repeat_interleave(batch["agent/dest"], k_futures, dim=0)
+    if rc_goal is None and "agent/goal" in batch:
+        rc_goal = torch.repeat_interleave(batch["agent/goal"], k_futures, dim=0)
+    if rc_goal is not None and rc_goal.shape[-1] == 2:
+        # a sampled goal_xy has no yaw or speed; the goal-reached check reads 4 dims
+        rc_goal = torch.cat([rc_goal, torch.zeros_like(rc_goal)], dim=-1)
+
+    batch_k = _repeat_batch_keys(batch, JOINT_FUTURE_KEYS, k_futures)
+    # the rule checker reads the history's traffic lights when there is one
+    if "history/tl_stop/valid" in batch:
+        for k in ("valid", "pos", "state"):
+            batch_k[f"tl_stop/{k}"] = batch_k[f"history/tl_stop/{k}"]
+    batch_k["agent/type"] = batch_k.get("history/agent/type", batch_k.get("sc/agent_type"))
+    batch_k["agent/size"] = batch_k.get("history/agent/size", batch_k.get("sc/agent_size"))
+    feats_k = {k: torch.repeat_interleave(v, k_futures, dim=0) for k, v in input_features.items()}
+    mask_tf = teacher_forcing_mask(tf_cfg_to_sim(cfg.tf_joint_future_pred), batch_k["agent/valid"])
+    buf = rollout(
+        cfg=cfg, model=model, dyn_params=make_dyn_params(cfg, dev),
+        rule_consts=make_rule_constants(cfg, batch_k, rc_goal, rc_dest),
+        features=build_rollout_features(batch_k, feats_k), latent_dist=latent_k,
+        goal=goal_sample, goal_valid=goal_valid_k, mask_teacher_forcing=mask_tf, generator=generator,
+        deterministic_latent=det, deterministic_action=True,
+        step_start=cfg.time_step_sim_start, step_end=cfg.time_step_end,
+    ).flatten_repeat(k_futures)
+
+    if goal_sample is not None:
+        goal_sample = goal_sample.reshape(n_batch, k_futures, n_agent, *goal_sample.shape[2:]).transpose(1, 2)
+    return buf, goal_sample, goal_log_probs
 
 
 @torch.no_grad()

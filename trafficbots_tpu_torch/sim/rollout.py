@@ -86,6 +86,22 @@ class RolloutOutput:
     action_log_probs: Tensor  # [B, A, S]
     step_future_start: int = 10
 
+    def flatten_repeat(self, n_repeat: int) -> "RolloutOutput":
+        """[B * K, A, S, ...] -> [B, A, K, S, ...] (the K joint futures
+        folded into the batch, batch-major, unfolded)."""
+
+        def fr(x: Tensor) -> Tensor:
+            B, A, S = x.shape[:3]
+            return x.reshape(B // n_repeat, n_repeat, A, S, *x.shape[3:]).transpose(1, 2)
+
+        return RolloutOutput(
+            valid=fr(self.valid), preds=fr(self.preds), override_masks=fr(self.override_masks),
+            violations={k: fr(v) for k, v in self.violations.items()},
+            diffbar_rewards=fr(self.diffbar_rewards), diffbar_rewards_valid=fr(self.diffbar_rewards_valid),
+            latent_log_probs=fr(self.latent_log_probs), action_log_probs=fr(self.action_log_probs),
+            step_future_start=self.step_future_start,
+        )
+
 
 def pad_gt_features(features: Dict[str, Tensor], step_end: int) -> Dict[str, Tensor]:
     """Pad the GT arrays along the step axis to step_end + 1 with invalid zeros."""
