@@ -11,10 +11,15 @@ its own lines:
   2. the build: every CUDA kernel from trafficbots_tpu_torch/csrc, one nvcc
      per source, all started together;
   3. each kernel against its plain PyTorch version at the shapes the main
-     path gives it at full width, with its time, the plain version's time,
-     one PyTorch library call's time where one computes the same function,
-     and the bound (the least time the card could take: bytes over 3.35 TB/s
-     or fp32 operations over 67 TFLOP/s, whichever is larger);
+     path gives it at full width, with its time as a caller sees it (`ms`:
+     back-to-back calls, the host's issue rate included), its device time
+     (`device_ms`: the bare launches captured in a CUDA graph and replayed),
+     the plain version's time, one PyTorch library call's time where one
+     computes the same function, and the bound (the least time the card
+     could take: bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
+     whichever is larger); K5's fused entries (dropout_add, relu_dropout)
+     against their plain compositions, and K3's backward at every site
+     against SDPA's backward on the device;
   4. the eval main path at full width (ExperimentConfig defaults: 64
      agents, 1024 x 20 polylines, hidden 128, 91 steps) on seed-0 synthetic
      scenes at WOMD-like fill (768 polylines, 40 agents valid), N_SCENE
@@ -163,7 +168,8 @@ def card_line() -> str:
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Device ms per call: CUDA events around n calls after a warm-up."""
+    """Ms per call as the caller sees it: CUDA events around n back-to-back
+    calls after a warm-up (for a small kernel, the host's issue rate)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -174,6 +180,59 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def interleaved_ms(fns: dict, n: int = 50, rounds: int = 7) -> dict:
+    """time_ms of each callable, taken in turns over several rounds, the
+    median of each: host-bound calls compared on the same host moment."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, n=n))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Device ms per call: n calls captured in one CUDA graph, its replays
+    timed with CUDA events (no host cost between the launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / (n * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def profiled_ms(fn, n: int = 5):
+    """Device ms per call from torch.profiler: the device operations of n
+    calls summed (for a library call whose autograd backward cannot be
+    captured raw); None if the profiler sees no device operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops_ = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in ops_) / 1e3 / n if ops_ else None
 
 
 def bound_ms(n_bytes: float, n_flop: float):
@@ -260,13 +319,14 @@ def check_k1(gen, n_scene, dev):
             require(bool((out[0, 1] == 0).all()), "K1: an all-masked row must come out 0")
         max_err = max(max_err, err)
         ms = time_ms(lambda: FA.fused_attention_core(*args))
+        dev_ms = graph_ms(lambda: FA.fused_attention_core(*args))
         plain_ms = time_ms(lambda: FA.attention_core_plain(*args))
         lib_ms = time_ms(sdpa_call(args))
         b_ms, b_by = k1_bound(args, mask_bytes)
         log(f"K1 {name}: B={B} S={S} T={T} kv={'bf16' if bf16 else 'fp32'} max_abs_err={err} "
-            f"ms={ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by})")
+            f"ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by})")
         if entry is None:
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          shape=f"B={B} S={S} T={T} D=128 H=4 bf16 K/V, {name}")
     entry["max_abs_err"] = max_err
     return entry
@@ -286,6 +346,7 @@ def check_k2(gen, n_scene, dev, batch):
         ref = enc.pooled_plain(x, valid)
         err = max_err_checked(out, ref, K2_TOL, "K2")
         ms = time_ms(lambda: enc.encode_pooled(x, valid), n=10)
+        dev_ms = graph_ms(lambda: enc.encode_pooled(x, valid), n=5)
         plain_ms = time_ms(lambda: enc.pooled_plain(x, valid), n=5)
     n_valid = valid.sum(dim=1).double()
     L, D = enc.n_layer, enc.d_model
@@ -294,9 +355,9 @@ def check_k2(gen, n_scene, dev, batch):
     n_bytes = x.numel() * 4 + valid.numel() + n_weight_bytes + x.shape[0] * D * 4
     b_ms, b_by = bound_ms(n_bytes, n_flop)
     log(f"K2 node encoder + pool: BP={x.shape[0]} N={x.shape[1]} valid polylines={(n_valid > 0).sum().item()} "
-        f"max_abs_err={err} ms={ms} plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
-                shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {n_scene} scenes at 768/1024 fill")
+        f"max_abs_err={err} ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err, shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {n_scene} scenes at 768/1024 fill")
 
 
 # ------------------------------------------------------------------ K6 (hybrid node encoder)
@@ -349,6 +410,7 @@ def check_k6(gen, n_scene, dev, batch):
     require(bool(torch.isfinite(out).all()), "K6: non-finite output (rows of dead polylines included)")
     err = max_err_checked(out[live], ref[live], K6_TOL, "K6")
     ms = time_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
+    dev_ms = graph_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
     plain_ms = time_ms(lambda: BA.block_attn_core_plain(q, k, v, valid, H), n=5)
     lib_ms = time_ms(k6_sdpa_call(q, k, v, valid, H))
     # q, k, v read and the output written once, the node flags read once;
@@ -358,7 +420,7 @@ def check_k6(gen, n_scene, dev, batch):
     pairs = int((N * torch.where(n_valid > 0, n_valid, torch.full_like(n_valid, N))).sum().item())
     b_ms, b_by = bound_ms(4 * q.numel() * 4 + valid.numel(), 4 * D * pairs)
     log(f"K6 block attention core: BP={BP} N={N} D={D} H={H} live polylines={int(live.sum())} max_abs_err={err} "
-        f"ms={ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by}) [{card_line()}]")
+        f"ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by}) [{card_line()}]")
     with torch.no_grad():
         hyb = enc.encode_pooled_hybrid(x, valid)
         fused = enc.encode_pooled(x, valid)
@@ -370,8 +432,8 @@ def check_k6(gen, n_scene, dev, batch):
         fused_ms = time_ms(lambda: enc.encode_pooled(x, valid), n=10)
     log(f"hybrid node encoder (matmuls + K6) vs fused (K2): pooled max_abs_err={hyb_err}, "
         f"hybrid ms={hyb_ms}, fused ms={fused_ms}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
-                shape=f"BP={BP} N={N} D=128 H=4, {n_scene} scenes at 768/1024 fill"), \
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                max_abs_err=err, shape=f"BP={BP} N={N} D=128 H=4, {n_scene} scenes at 768/1024 fill"), \
         dict(hybrid_vs_fused_max_abs_err=hyb_err, hybrid_ms=hyb_ms, fused_ms=fused_ms)
 
 
@@ -393,10 +455,30 @@ def grads_checked(got, ref, names, rtol, what) -> float:
     return max(e / max(n, 1e-3 * scale) for e, n in errs.values())
 
 
+def k5_entries(seed, site):
+    """Each K5 entry beside its plain composition: (name, inputs it takes
+    of (x, res), kernel entry, plain composition, bare launch)."""
+    return (
+        ("dropout", 1, lambda x: DO.dropout(x, P_DROP, seed, site),
+         lambda x: DO.dropout_plain(x, P_DROP, seed, site), lambda x: DO._launch(x, P_DROP, seed, site)),
+        ("dropout_add", 2, lambda x, r: DO.dropout_add(r, x, P_DROP, seed, site),
+         lambda x, r: r + DO.dropout_plain(x, P_DROP, seed, site), lambda x, r: DO._launch_add(r, x, P_DROP, seed, site)),
+        ("relu_dropout", 1, lambda x: DO.relu_dropout(x, P_DROP, seed, site),
+         lambda x: torch.relu(DO.dropout_plain(x, P_DROP, seed, site)),
+         lambda x: DO._launch_relu(x, P_DROP, seed, site)),
+    )
+
+
 def check_k5(dev):
-    """K5 at the main path's shapes: masks equal bit for bit; timed at the
+    """K5 at the main path's shapes: the mask equal to the plain bits, and
+    every entry (dropout, the fused dropout_add and relu_dropout) equal to
+    its plain composition bit for bit, forward and backward. Timed at the
     rollout step's [8, 64, 128] (the most launches) and at the map input
-    MLP's hidden [8 x 1024 x 20, 32] (the largest)."""
+    MLP's hidden [8 x 1024 x 20, 32] (the largest): each entry's per-call
+    time as a caller sees it without grad (the bare launch) and with
+    requires_grad (the autograd Function), beside F.dropout's, and its bare
+    launch's device time from a CUDA graph. The host times are medians of
+    interleaved rounds (the entry, then F.dropout, in turns)."""
     entry = None
     for name, shape in (("rollout step hidden", (N_SCENE, 64, 128)), ("map input MLP hidden", (N_SCENE * 1024 * 20, 32))):
         seed, site = 2**61 + 17, 3
@@ -404,15 +486,37 @@ def check_k5(dev):
         torch.cuda.synchronize()
         require(torch.equal(out, DO.dropout_mask_plain(shape, seed, site, P_DROP, device=dev)),
                 f"K5 {name}: the kernel's mask differs from the plain bits")
-        x = torch.randn(shape, device=dev)
-        ms = time_ms(lambda: DO.dropout(x, P_DROP, seed, site))
-        plain_ms = time_ms(lambda: DO.dropout_plain(x, P_DROP, seed, site), n=5)
-        lib_ms = time_ms(lambda: torch.nn.functional.dropout(x, P_DROP))
+        x, res, g = (torch.randn(shape, device=dev) for _ in range(3))
+        times = {}
+        for ename, n_in, fn, plain, bare in k5_entries(seed, site):
+            inputs = (x, res)[:n_in]
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            got = fn(*leaves)
+            got_g = torch.autograd.grad(got, leaves, g)
+            ref_leaves = [t.clone().requires_grad_() for t in inputs]
+            ref = plain(*ref_leaves)
+            ref_g = torch.autograd.grad(ref, ref_leaves, g)
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref) and all(torch.equal(a, b) for a, b in zip(got_g, ref_g)),
+                    f"K5 {ename} {name}: differs from its plain composition")
+            with torch.no_grad():
+                require(torch.equal(fn(*inputs), ref), f"K5 {ename} {name}: the bare launch differs")
+            host = interleaved_ms({"ms": lambda: fn(*inputs), "ms_grad": lambda: fn(*leaves),
+                                   "library_ms": lambda: torch.nn.functional.dropout(x, P_DROP),
+                                   "library_ms_grad": lambda: torch.nn.functional.dropout(leaves[0], P_DROP)})
+            times[ename] = dict(host, device_ms=graph_ms(lambda: bare(*inputs)),
+                                plain_ms=time_ms(lambda: plain(*inputs), n=5))
+        lib_ms, lib_ms_grad = times["dropout"]["library_ms"], times["dropout"]["library_ms_grad"]
         b_ms, b_by = bound_ms(8 * x.numel(), 0)  # read x, write out; the Philox integer work is not counted
-        log(f"K5 dropout {name} {tuple(shape)}: masks bit-equal, max_abs_err=0.0 ms={ms} plain_ms={plain_ms} "
-            f"library_ms={lib_ms} bound_ms={b_ms} ({b_by})")
+        d = times["dropout"]
+        log(f"K5 {name} {tuple(shape)}: every entry bit-equal to its plain composition, forward and backward; "
+            f"dropout ms={d['ms']} (requires_grad {d['ms_grad']}) device_ms={d['device_ms']} plain_ms={d['plain_ms']} "
+            f"library_ms={lib_ms} (F.dropout; requires_grad {lib_ms_grad}) bound_ms={b_ms} ({b_by}); "
+            f"fused: dropout_add {times['dropout_add']}, relu_dropout {times['relu_dropout']} [{card_line()}]")
         if entry is None:
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0,
+            entry = dict(ms=d["ms"], ms_grad=d["ms_grad"], device_ms=d["device_ms"], plain_ms=d["plain_ms"],
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library_ms_grad=lib_ms_grad,
+                         max_abs_err=0.0, fused={k: v for k, v in times.items() if k != "dropout"},
                          shape=f"{tuple(shape)} fp32 p=0.1, {name}")
     return entry
 
@@ -447,7 +551,10 @@ def sdpa_train(q, k, v, invalid, H):
 def check_k3(gen, n_scene, dev):
     """K3 forward and backward at every main-path training site, dropout
     live on the same seeds as the plain version; the backward twice,
-    bitwise equal. Timed at the rollout's as2pl (270 launches a step)."""
+    bitwise equal. Each site's times: through autograd as the step calls it
+    (`ms`), the bare launches' device time from a CUDA graph (`device_ms`),
+    and SDPA's, its backward's device time from the profiler. The entries
+    are the rollout's as2pl (277 launches a step); `sites` holds them all."""
     H = 4
     sites = [
         ("rollout as2pl", n_scene, 64, 1024, 0.25, False),
@@ -457,6 +564,7 @@ def check_k3(gen, n_scene, dev):
     ]
     fwd_entry = bwd_entry = None
     err_f = err_b = 0.0
+    per_site = []
     for name, B, S, T, pad, full in sites:
         q, k, v, invalid, g, mask_bytes = k3_inputs(gen, B, S, T, pad, full, dev)
         seed = 2**40 + S
@@ -482,26 +590,36 @@ def check_k3(gen, n_scene, dev):
             plain_f = time_ms(lambda: AT.attention_train_plain(q, k, v, invalid, H, P_DROP, seed, 0), n=5)
         ms_b = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
         plain_b = time_ms(lambda: torch.autograd.grad(ref, ref_leaves, g, retain_graph=True), n=5)
+        o, rmax, rsum = AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0)
+        dev_f = graph_ms(lambda: AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0))
+        dev_b = graph_ms(lambda: AT._launch_bwd(q, k, v, invalid, o, rmax, rsum, g, H, P_DROP, seed, 0))
         lib_fwd, lib_leaves = sdpa_train(q, k, v, invalid, H)
         with torch.no_grad():
             lib_f = time_ms(lib_fwd)
         lib_out = lib_fwd()
         gh = g.view(B, S, H, -1).transpose(1, 2)
-        lib_b = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True))
+        lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True)  # noqa: E731
+        lib_b = time_ms(lib_bwd)
+        lib_b_dev = profiled_ms(lib_bwd)
         allowed = int((~invalid).sum().item())
         io = (2 * q.numel() + 2 * k.numel()) * 4 + mask_bytes + 2 * B * H * S * 4  # q, k, v, out, mask, row stats
         bf, bf_by = bound_ms(io, 4 * 128 * allowed)
         # backward: also reads g and writes dq, dk, dv; dv, dA, dq, dk are 2 D operations each per allowed pair
         bb, bb_by = bound_ms(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * 128 * allowed)
-        log(f"K3 {name}: B={B} S={S} T={T} fwd max_abs_err={ef} ms={ms_f} plain_ms={plain_f} library_ms={lib_f} "
-            f"bound_ms={bf} ({bf_by}); bwd grad rel err={eb} ms={ms_b} plain_ms={plain_b} library_ms={lib_b} "
-            f"bound_ms={bb} ({bb_by}); bwd bitwise reproducible")
+        log(f"K3 {name}: B={B} S={S} T={T} fwd max_abs_err={ef} ms={ms_f} device_ms={dev_f} plain_ms={plain_f} "
+            f"library_ms={lib_f} bound_ms={bf} ({bf_by}); bwd grad rel err={eb} ms={ms_b} device_ms={dev_b} "
+            f"plain_ms={plain_b} library_ms={lib_b} library_device_ms={lib_b_dev} bound_ms={bb} ({bb_by}); "
+            f"bwd bitwise reproducible [{card_line()}]")
+        shape = f"B={B} S={S} T={T} D=128 H=4 fp32 K/V p=0.1, {name}"
+        fwd = dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=lib_f, shape=shape)
+        bwd = dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=lib_b,
+                   library_device_ms=lib_b_dev, shape=shape)
+        per_site.append(dict(site=name, fwd=fwd, bwd=bwd))
         if fwd_entry is None:
-            shape = f"B={B} S={S} T={T} D=128 H=4 fp32 K/V p=0.1, {name}"
-            fwd_entry = dict(ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=lib_f, shape=shape)
-            bwd_entry = dict(ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=lib_b, shape=shape)
+            fwd_entry, bwd_entry = dict(fwd), dict(bwd)
     fwd_entry["max_abs_err"] = err_f
     bwd_entry["max_abs_err"] = err_b  # the largest relative norm error of dq, dk, dv
+    bwd_entry["sites"] = per_site
     return fwd_entry, bwd_entry
 
 
@@ -543,10 +661,13 @@ def check_k4(gen, n_scene, dev, batch):
     with torch.no_grad():
         ms_f = time_ms(lambda: NT.node_encoder_train(enc, x, valid, P_DROP, seed), n=10)
         plain_f = time_ms(lambda: NT.node_encoder_train_plain(enc, x, valid, P_DROP, seed), n=3)
+    L, H = enc.n_layer, enc.n_head
+    dev_f = graph_ms(lambda: NT._launch_fwd(x, valid, P_DROP, seed, L, H, weights), n=3)
+    dev_b = graph_ms(lambda: NT._launch_bwd(x, valid, g, P_DROP, seed, L, H, weights), n=3)
     ms_b = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), n=5)
     plain_b = time_ms(lambda: torch.autograd.grad(ref, ref_leaves, g, retain_graph=True), n=3)
     n_valid = valid.sum(dim=1).double()
-    L, D = enc.n_layer, enc.d_model
+    D = enc.d_model
     fwd_flop = L * (12 * D * D * n_valid.sum() + 4 * D * (n_valid * n_valid).sum()).item()
     w_bytes = sum(w.numel() * 4 for w in weights)
     io = x.numel() * 4 + valid.numel() + w_bytes + x.shape[0] * D * 4
@@ -555,12 +676,14 @@ def check_k4(gen, n_scene, dev, batch):
     # dense product and attention product of the forward costs two
     bb, bb_by = bound_ms(io + x.numel() * 4 + w_bytes, 2 * fwd_flop)
     log(f"K4 node encoder train: BP={x.shape[0]} N={x.shape[1]} valid polylines={int(pl.sum())} fwd max_abs_err={ef} "
-        f"ms={ms_f} plain_ms={plain_f} library_ms=None bound_ms={bf} ({bf_by}); bwd grad rel err={eb} (against "
-        f"fp64: plain {fp64_gap}, kernel {kernel_fp64_gap}) ms={ms_b} "
+        f"ms={ms_f} device_ms={dev_f} plain_ms={plain_f} library_ms=None bound_ms={bf} ({bf_by}); bwd grad rel err="
+        f"{eb} (against fp64: plain {fp64_gap}, kernel {kernel_fp64_gap}) ms={ms_b} device_ms={dev_b} "
         f"plain_ms={plain_b} library_ms=None bound_ms={bb} ({bb_by}); bwd bitwise reproducible")
     shape = f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3 p=0.1, {n_scene} scenes at 768/1024 fill"
-    return (dict(ms=ms_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=None, max_abs_err=ef, shape=shape),
-            dict(ms=ms_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=None, max_abs_err=eb, shape=shape))
+    return (dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=None,
+                 max_abs_err=ef, shape=shape),
+            dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=None,
+                 max_abs_err=eb, shape=shape))
 
 
 # ------------------------------------------------------------------ main path
@@ -968,7 +1091,7 @@ def main():
              replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=val_launches["K6"], **k6),
     ]
     for k in kernels:
-        require(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
+        require(all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"main_path": path}))
     log(json.dumps({"training_path": train}))

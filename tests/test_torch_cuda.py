@@ -20,7 +20,8 @@ within 1e-4 and its dx and 18 weight gradients within a relative norm error
 of 1e-3 (K3's sums run over up to 1216 query rows in another order; the
 node stack's fp32 gradients are themselves ~1e-4 from fp64: max-pool
 near-ties move a column's whole cotangent, see chip_smoke.py).
-The backward kernels are bitwise the same run to run. K6 (the hybrid node
+The backward kernels are bitwise the same run to run; K5's fused entries
+(dropout_add, relu_dropout) equal their plain compositions bit for bit. K6 (the hybrid node
 encoder's attention core) within 1e-5 of its plain version on the rows of
 polylines with a valid node, every row finite; the hybrid node encoder
 (K6) against the fused one (K2) within 1e-4, as K2 against its plain
@@ -148,6 +149,39 @@ def test_k5_masks_equal_the_plain_bits(cuda, shape):
     assert torch.equal(out, tdo.dropout_mask_plain(shape, seed, 7, 0.1, device=cuda))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 128), (5, 37, 130), (3, 7)])
+def test_k5_fused_entries_equal_the_plain_compositions(cuda, shape):
+    """dropout_add and relu_dropout against res + dropout_plain(x) and
+    relu(dropout_plain(x)), forward and backward, bit for bit (C = 130 and 7:
+    rows not a multiple of four, the scalar path); one launch each way."""
+    rs = np.random.RandomState(4)
+    x, res, g = (torch.from_numpy(rs.normal(size=shape).astype(np.float32)).to(cuda) for _ in range(3))
+    seed, site, p = 2**61 + 99, 5, 0.1
+
+    def grads(fn, *inputs):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    before = tdo.LAUNCHES
+    got = grads(lambda r, a: tdo.dropout_add(r, a, p, seed, site), res, x)
+    assert tdo.LAUNCHES == before + 2
+    ref = grads(lambda r, a: r + tdo.dropout_plain(a, p, seed, site), res, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    before = tdo.LAUNCHES
+    got = grads(lambda a: tdo.relu_dropout(a, p, seed, site), x)
+    assert tdo.LAUNCHES == before + 2
+    ref = grads(lambda a: torch.relu(tdo.dropout_plain(a, p, seed, site)), x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with torch.no_grad():  # the bare launches, no autograd Function
+        assert torch.equal(tdo.dropout_add(res, x, p, seed, site), res + tdo.dropout_plain(x, p, seed, site))
+        assert torch.equal(tdo.relu_dropout(x, p, seed, site), tdo.dropout_plain(torch.relu(x), p, seed, site))
+        assert torch.equal(tdo.dropout(x, p, seed, site), tdo.dropout_plain(x, p, seed, site))
+
+
 def k3_case(cuda, B, S, T, full_mask, seed=11):
     q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, 128, seed=seed))
     if not full_mask:
@@ -157,7 +191,13 @@ def k3_case(cuda, B, S, T, full_mask, seed=11):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T,full_mask", [(4, 64, 1024, False), (2, 1216, 1024, False), (2, 48, 300, True)])
+@pytest.mark.parametrize("B,S,T,full_mask", [
+    (8, 64, 1024, False),  # the rollout's as2pl: 16-row dq blocks, four key groups
+    (2, 1216, 1024, False),  # the posterior latent's as2pl: 64-row dq blocks
+    (2, 1024, 1024, False),  # the map self-attention
+    (2, 48, 300, True),  # partial tiles, an all-masked row and scene
+    (3, 100, 260, True),
+])
 def test_k3_kernels_match_plain_with_dropout(cuda, B, S, T, full_mask):
     q, k, v, invalid, g = k3_case(cuda, B, S, T, full_mask)
 
@@ -180,6 +220,8 @@ def test_k3_kernels_match_plain_with_dropout(cuda, B, S, T, full_mask):
         assert torch.equal(a, b)
     if full_mask:
         assert (got[0][0, 2] == 0).all() and (got[0][1] == 0).all() and (got[1][1] == 0).all()
+        assert (got[1][0, 2] == 0).all()
+        assert (got[2][1] == 0).all() and (got[3][1] == 0).all()  # no row of scene 1 attends: dk, dv 0
 
 
 @pytest.mark.cuda

@@ -101,3 +101,92 @@ def test_dropout_seeds_replay_and_saved_cores():
     saved.put((torch.ones(1), torch.zeros(1), torch.zeros(1)))
     tdo.DropoutSeeds(5, saved)  # the recompute rewinds the residuals
     assert saved.take()[0].item() == 1.0 and saved.take() is None
+
+
+def test_keep_scale_is_the_float32_rounding_for_every_p():
+    """keep_scale rounds 1 / (1 - p) to float32 without a tensor; the bits
+    are those a float32 tensor holds (the kernels and the plain masks scale
+    by this number)."""
+    ps = [0.1, 0.2, 0.25, 0.3, 0.5, 1e-7, 0.999] + list(np.random.RandomState(0).uniform(0, 0.99, 200))
+    for p in ps:
+        want = float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+        assert tdo.keep_scale(float(p)) == want, p
+        assert np.float32(tdo.keep_scale(float(p))).tobytes() == np.float32(want).tobytes()
+
+
+def fused_case(shape, seed=3):
+    rs = np.random.RandomState(seed)
+    x, res, g = (torch.from_numpy(rs.normal(size=shape).astype(np.float32)) for _ in range(3))
+    return x, res, g
+
+
+@pytest.mark.parametrize("shape", [(4, 6, 10), (3, 7), (2, 5, 128)])
+def test_fused_entries_on_cpu_are_their_plain_compositions(shape):
+    """dropout_add = res + dropout(x), relu_dropout = relu(dropout(x)) (=
+    dropout(relu(x)) value for value), forward and gradients bit for bit."""
+    x, res, g = fused_case(shape)
+    seed, site, p = 2**40 + 1, 2, 0.3
+    before = tdo.LAUNCHES
+
+    xx, rr = x.clone().requires_grad_(), res.clone().requires_grad_()
+    out = tdo.dropout_add(rr, xx, p, seed, site)
+    out.backward(g)
+    xp, rp = x.clone().requires_grad_(), res.clone().requires_grad_()
+    ref = rp + tdo.dropout_plain(xp, p, seed, site)
+    ref.backward(g)
+    assert torch.equal(out, ref) and torch.equal(xx.grad, xp.grad) and torch.equal(rr.grad, rp.grad)
+
+    xx = x.clone().requires_grad_()
+    out = tdo.relu_dropout(xx, p, seed, site)
+    out.backward(g)
+    xp = x.clone().requires_grad_()
+    ref = torch.relu(tdo.dropout_plain(xp, p, seed, site))
+    ref.backward(g)
+    assert torch.equal(out, ref) and torch.equal(xx.grad, xp.grad)
+    assert torch.equal(out, tdo.dropout_plain(torch.relu(x), p, seed, site))
+    mask = tdo.dropout_mask_plain(shape, seed, site, p)
+    assert torch.equal(xx.grad, torch.where(out > 0, g * tdo.keep_scale(p), torch.zeros_like(g)))
+    assert 0 < (mask == 0).float().mean() < 0.6
+    assert tdo.LAUNCHES == before
+    assert torch.equal(tdo.dropout_add(res, x, 0.0, seed, site), res + x)
+    assert torch.equal(tdo.relu_dropout(x, 0.0, seed, site), torch.relu(x))
+
+
+def module_grads(mod, run):
+    mod.zero_grad()
+    out = run()
+    out.backward(torch.ones_like(out))
+    return [out.detach()] + [p.grad.clone() for p in mod.parameters() if p.grad is not None]
+
+
+@pytest.mark.parametrize("which", ["transformer", "mlp", "mlp_layernorm_end_act"])
+def test_modules_give_the_same_bits_with_kernels_and_plain_versions(which):
+    """The fused K5 call sites (the residual adds and ReLUs beside dropout)
+    against the plain compositions inside ops.plain_versions(), on the CPU:
+    outputs and every parameter's gradient equal."""
+    from trafficbots_tpu_torch import ops
+    from trafficbots_tpu_torch.models.modules import MLP, TransformerCrossAttention
+    from trafficbots_tpu_torch.weights import init_params
+
+    torch.manual_seed(0)
+    rs = np.random.RandomState(1)
+    if which == "transformer":
+        mod = TransformerCrossAttention(32, 4, 48, dropout_p=0.2)
+        src = torch.from_numpy(rs.normal(size=(2, 5, 32)).astype(np.float32))
+        tgt = torch.from_numpy(rs.normal(size=(2, 7, 32)).astype(np.float32))
+        pad = torch.from_numpy(rs.rand(2, 7) < 0.3)
+        spad = torch.from_numpy(rs.rand(2, 5) < 0.2)
+        run = lambda: mod(src, src_padding_mask=spad, tgt=tgt, tgt_padding_mask=pad, rng=tdo.DropoutSeeds(4))  # noqa: E731
+    else:
+        ln_end = which == "mlp_layernorm_end_act"
+        mod = MLP(12, [16, 16, 8], use_layernorm=ln_end, end_layer_activation=ln_end, dropout_p=0.25)
+        x = torch.from_numpy(rs.normal(size=(3, 6, 12)).astype(np.float32))
+        valid = torch.from_numpy(rs.rand(3, 6) < 0.7)
+        run = lambda: mod(x, valid, rng=tdo.DropoutSeeds(9))  # noqa: E731
+    init_params(mod, 0)
+    got = module_grads(mod, run)
+    with ops.plain_versions():
+        ref = module_grads(mod, run)
+    assert len(got) == len(ref) > 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

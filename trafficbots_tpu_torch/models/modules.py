@@ -24,7 +24,7 @@ from torch import nn
 
 from ..ops import kernels_enabled
 from ..ops.attention_train import attention_train, attention_train_plain
-from ..ops.dropout import DropoutSeeds, dropout, dropout_plain
+from ..ops.dropout import DropoutSeeds, dropout, dropout_add, dropout_plain, relu_dropout
 from ..ops.fused_attention import attention_core_plain, fused_attention_core
 
 Tensor = torch.Tensor
@@ -41,6 +41,26 @@ def maybe_dropout(x: Tensor, p: float, seed: Optional[int], site: int) -> Tensor
     if seed is None:
         return x
     return (dropout if kernels_enabled() else dropout_plain)(x, p, seed, site)
+
+
+def add_dropout(res: Tensor, x: Tensor, p: float, seed: Optional[int], site: int) -> Tensor:
+    """res + dropout(x) at a module's site: the fused K5 entry (one launch),
+    or inside `ops.plain_versions()` the plain composition."""
+    if seed is not None and kernels_enabled():
+        return dropout_add(res, x, p, seed, site)
+    return res + maybe_dropout(x, p, seed, site)
+
+
+def dropout_relu(x: Tensor, p: float, seed: Optional[int], site: int, relu_first: bool) -> Tensor:
+    """ReLU and dropout at a module's site, in the JAX module's order (the
+    two orders agree value for value: the scale is positive): the fused K5
+    entry (one launch), or inside `ops.plain_versions()` the plain
+    composition in that order."""
+    if seed is not None and kernels_enabled():
+        return relu_dropout(x, p, seed, site)
+    if relu_first:
+        return maybe_dropout(F.relu(x), p, seed, site)
+    return F.relu(maybe_dropout(x, p, seed, site))
 
 
 def activation(name: str):
@@ -61,7 +81,8 @@ class MLP(nn.Module):
     """Linear stack; the valid mask is applied to the last layer's
     pre-activation output, then the end activation runs on the masked
     tensor, so invalid rows hold act(fill_invalid), not 0. Dropout (site i)
-    follows layer i's LayerNorm wherever the JAX MLP has one.
+    follows layer i's LayerNorm wherever the JAX MLP has one; where a ReLU
+    follows it at once (every layer but the last) the two are one K5 launch.
 
     `x` may be a pair (src, tgt) of broadcast-compatible tensors standing
     for concat([broadcast(src), broadcast(tgt)], -1): the first layer then
@@ -81,6 +102,7 @@ class MLP(nn.Module):
         self.n = len(fc_dims)
         self.use_layernorm = use_layernorm
         self.act = activation(act)
+        self.relu = act == "relu"
         self.end_layer_activation = end_layer_activation
         self.dropout_p = dropout_p
         d = in_dim
@@ -104,12 +126,14 @@ class MLP(nn.Module):
             else:
                 x = fc(x)
             is_last = i == self.n - 1
-            if not is_last or self.end_layer_activation:
-                if self.use_layernorm:
-                    x = getattr(self, f"ln{i}")(x)
+            if self.use_layernorm and (not is_last or self.end_layer_activation):
+                x = getattr(self, f"ln{i}")(x)
+            if not is_last and self.relu:
+                x = dropout_relu(x, self.dropout_p, seed, i, relu_first=False)
+            elif not is_last:
+                x = self.act(maybe_dropout(x, self.dropout_p, seed, i))
+            elif self.end_layer_activation:
                 x = maybe_dropout(x, self.dropout_p, seed, i)
-            if not is_last:
-                x = self.act(x)
         if valid is not None:
             x = torch.where(valid[..., None], x, torch.full_like(x, fill_invalid))
         if self.end_layer_activation:
@@ -207,7 +231,9 @@ class Attention(nn.Module):
 class TransformerCrossAttention(nn.Module):
     """One pre-norm cross-attention layer with a ReLU feed-forward; dropout
     on the attention weights (inside `attn`), after the attention block
-    (site 0), after the feed-forward activation (1) and after its output (2)."""
+    (site 0), after the feed-forward activation (1) and after its output (2).
+    Each site is one K5 launch with its neighbour: the residual add (0, 2),
+    the ReLU (1)."""
 
     def __init__(
         self, d_model: int, n_head: int, d_feedforward: int, act: str = "relu", bias: bool = True,
@@ -215,6 +241,7 @@ class TransformerCrossAttention(nn.Module):
     ):
         super().__init__()
         self.act = activation(act)
+        self.relu = act == "relu"
         self.dropout_p = dropout_p
         self.attn = Attention(d_model, n_head, bias=bias, dropout_p=dropout_p)
         self.norm1 = layer_norm(d_model)
@@ -245,10 +272,14 @@ class TransformerCrossAttention(nn.Module):
             src2, tgt=tgt_n, tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
             tgt_kv=tgt_kv, allow_fused=allow_fused, rng=rng,
         )
-        seed = draw_seed(rng, self.dropout_p)
-        src = src + maybe_dropout(src2, self.dropout_p, seed, 0)
-        src2 = maybe_dropout(self.act(self.linear1(self.norm2(src))), self.dropout_p, seed, 1)
-        src = src + maybe_dropout(self.linear2(src2), self.dropout_p, seed, 2)
+        seed, p = draw_seed(rng, self.dropout_p), self.dropout_p
+        src = add_dropout(src, src2, p, seed, 0)
+        src2 = self.linear1(self.norm2(src))
+        if self.relu:
+            src2 = dropout_relu(src2, p, seed, 1, relu_first=True)
+        else:
+            src2 = maybe_dropout(self.act(src2), p, seed, 1)
+        src = add_dropout(src, self.linear2(src2), p, seed, 2)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], torch.zeros_like(src), src)
         return src

@@ -13,8 +13,9 @@ targets are ALL disallowed comes out exactly 0 and gets no gradient.
 
 `attention_train_plain` is plain tensor code that autograd differentiates.
 `attention_train` sends a CUDA tensor to `csrc/attention_train.cu` through
-an autograd Function whose backward is the kernels' dq and dk/dv pair, and a
-CPU tensor to the plain version; it never falls back from one to the other.
+an autograd Function whose backward is the kernels' dq and dk/dv pair
+(streamed 64-wide tiles, FlashAttention-2 style; see the source), and a CPU
+tensor to the plain version; it never falls back from one to the other.
 `LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward kernel's launches and the
 backward's (one per backward call, which launches its two kernels).
 
@@ -39,9 +40,15 @@ LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
 _KERNEL = "attention_train"
-HEAD_DIMS = (16, 32)  # the dk/dv kernel's static shared memory takes these
-ROWS_PER_BLOCK = 16  # ROWS in csrc/attention_train.cu
+HEAD_DIMS = (16, 32)  # the head widths the kernels are instantiated for
+ROWS_PER_BLOCK = 16  # ROWS in csrc/attention_train.cu: query rows of a forward block
+BWD_TILE = 64  # BT: keys of a backward tile, query rows of a dk/dv step
+DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks)
+_PAD = 4  # PAD: floats after each transposed tile row
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
+_FWD_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2
+             + (ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_BWD_ARGS = (ctypes.c_void_p,) * 5 + _FWD_ARGS
 
 
 def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,
@@ -68,10 +75,17 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
 
 
 def smem_bytes(T: int, d_head: int) -> int:
-    """Dynamic shared memory of the dq kernel's block, the larger of the two
-    that take it (mirrors the kernels' layout)."""
-    t_pad = (T + 3) // 4 * 4
-    return 4 * (2 * ROWS_PER_BLOCK * t_pad + ROWS_PER_BLOCK * d_head + 64 * (d_head + 1))
+    """The largest dynamic shared memory of a block among the kernels
+    (mirrors csrc/attention_train.cu): the forward's [16, T] logits, the dq
+    kernel's tiles at either query block, the dk/dv kernel's."""
+    fwd = ROWS_PER_BLOCK * ((T + 3) // 4 * 4) + ROWS_PER_BLOCK * d_head + 64 * (d_head + 1)
+    wide = BWD_TILE + _PAD
+
+    def dq(bq):
+        return 2 * d_head * (bq + _PAD) + 3 * bq + 256 // (4 * bq) * (2 * d_head + bq) * wide
+
+    dkdv = (4 * d_head + 2 * BWD_TILE) * wide + 3 * BWD_TILE
+    return 4 * max(fwd, dkdv, *(dq(bq) for bq in DQ_ROWS))
 
 
 def _check_inputs(q, k, v, invalid, n_head):
@@ -102,14 +116,6 @@ def _dropout_args(p: float, seed: int, site: int):
     return (seed, site, threshold(p), keep_scale(p), 1) if p > 0 else (0, site, 0, 1.0, 0)
 
 
-def _fn(name: str, n_ptr: int):
-    fn = getattr(cuda_build.load(_KERNEL), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_fwd(q, k, v, invalid, n_head, p, seed, site):
     global LAUNCHES_FWD
     B, S, D = q.shape
@@ -117,11 +123,10 @@ def _launch_fwd(q, k, v, invalid, n_head, p, seed, site):
     out = torch.empty_like(q)
     rmax = torch.empty((B, n_head, S), dtype=torch.float32, device=q.device)
     rsum = torch.empty_like(rmax)
-    drop = _dropout_args(p, seed, site)
-    rc = _fn("tb_attention_train_fwd", 7)(
+    rc = cuda_build.entry(_KERNEL, "tb_attention_train_fwd", _FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), rmax.data_ptr(),
-        rsum.data_ptr(), B, S, T, D, n_head, invalid.stride(0), invalid.stride(1), *drop,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        rsum.data_ptr(), B, S, T, D, n_head, invalid.stride(0), invalid.stride(1), *_dropout_args(p, seed, site),
+        cuda_build.stream(q),
     )
     cuda_build.check(rc, "attention_train forward")
     LAUNCHES_FWD += 1
@@ -133,11 +138,11 @@ def _launch_bwd(q, k, v, invalid, out, rmax, rsum, g, n_head, p, seed, site):
     B, S, D = q.shape
     T = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    drop = _dropout_args(p, seed, site)
-    rc = _fn("tb_attention_train_bwd", 11)(
+    dsum = torch.empty_like(rmax)  # D = g . out of each row, from the dq kernel to the dk/dv kernel
+    rc = cuda_build.entry(_KERNEL, "tb_attention_train_bwd", _BWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), rmax.data_ptr(),
-        rsum.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, D, n_head,
-        invalid.stride(0), invalid.stride(1), *drop, torch.cuda.current_stream(q.device).cuda_stream,
+        rsum.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, S, T, D,
+        n_head, invalid.stride(0), invalid.stride(1), *_dropout_args(p, seed, site), cuda_build.stream(q),
     )
     cuda_build.check(rc, "attention_train backward")
     LAUNCHES_BWD += 1

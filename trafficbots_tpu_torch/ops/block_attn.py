@@ -39,6 +39,7 @@ _KERNEL = "block_attn"
 KERNEL_MAX_NODES = 32  # MAXN in csrc/block_attn.cu
 KERNEL_MAX_D = 128  # MAXD in csrc/block_attn.cu
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
+_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_void_p)
 
 
 def smem_bytes(n_node: int, d_model: int, n_head: int) -> int:
@@ -91,12 +92,9 @@ def block_attn_core(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int)
     out = torch.empty_like(q)
     if BP == 0:
         return out
-    fn = cuda_build.load(_KERNEL).tb_block_attn
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
+    rc = cuda_build.entry(_KERNEL, "tb_block_attn", _ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, D, n_head,
-        1.0 / math.sqrt(D // n_head), torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(D // n_head), cuda_build.stream(q),
     )
     cuda_build.check(rc, "block_attn_core")
     LAUNCHES += 1

@@ -10,6 +10,8 @@ machine without nvcc never gets that far.
 
 `build_all(names)` starts one nvcc per source at once and waits for all,
 so a cold start pays for the slowest kernel rather than the sum.
+`entry(name, symbol, argtypes)` binds a C entry once; `stream(t)` is the
+raw handle of the stream a wrapper launches on.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -32,6 +36,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -94,6 +99,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C entry `symbol` of csrc/<name>.cu with its prototype set, bound
+    once and cached: setting a ctypes prototype on every call costs the host
+    more than a small kernel takes on the card."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on t's device (where a kernel
+    launches), without building a torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(rc: int, what: str) -> None:

@@ -15,9 +15,16 @@ kept elements scale by 1 / (1 - p), as `kernel_common.dropout_mask` does.
 32 -> 64-bit products of the Philox rounds overflow int64, so each is split
 into 16-bit limbs of the multiplier. `dropout(x, p, seed, site)` launches
 `csrc/dropout.cu` on a CUDA tensor (an autograd Function whose backward is
-the same kernel on the cotangent) and takes the plain version on a CPU
-tensor. `LAUNCHES` counts the entry's kernel launches; the attention and
-node-encoder kernels draw the same bits inside their own launches.
+the same kernel on the cotangent, or the bare launch where autograd does not
+record) and takes the plain version on a CPU tensor. Two fused entries fold
+a neighbour into the same launch: `dropout_add(res, x, ...)` = res +
+dropout(x) and `relu_dropout(x, ...)` = relu(dropout(x)), each one launch
+forward and one backward, bit for bit their plain compositions. The C
+entries are bound once (`cuda_build.entry`) and threshold / scale cached per
+p: at the training step's small shapes the host's cost of a call is what a
+call costs. `LAUNCHES` counts every K5 entry's kernel launches; the
+attention and node-encoder kernels draw the same bits inside their own
+launches.
 
 Seeds: `DropoutSeeds(seed)` hands out one seed per dropout call, in call
 order, from a CPU generator seeded by one integer. The training rollout
@@ -29,8 +36,10 @@ Seeds live on the host: drawing one costs no device sync.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -46,14 +55,17 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
 SEED_BITS = 62
 
 
+@functools.lru_cache(maxsize=None)
 def threshold(p: float) -> int:
     """The keep threshold on a 32-bit draw: bits >= threshold keep."""
     return min(int(p * 2**32), 2**32 - 1)
 
 
+@functools.lru_cache(maxsize=None)
 def keep_scale(p: float) -> float:
-    """The float32 factor of a kept element."""
-    return float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+    """The float32 factor of a kept element: 1 / (1 - p) rounded to float32
+    (to nearest, as a float32 tensor would hold it), cached per p."""
+    return float(np.float32(1.0 / (1.0 - p)))
 
 
 def _mulhilo(m: int, c: Tensor) -> Tuple[Tensor, Tensor]:
@@ -99,29 +111,79 @@ def dropout_mask_plain(shape, seed: int, site: int, p: float, device=None) -> Te
     return keep_factors(seed, site, p, rows, cols).reshape(shape)
 
 
-def _check(x: Tensor) -> None:
+_DROP_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
+              ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p)
+_ADD_ARGS = (ctypes.c_void_p,) + _DROP_ARGS
+_RELU_BWD_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p)
+
+
+def _check(x: Tensor, what: str = "dropout") -> None:
     if x.dtype != torch.float32:
-        raise TypeError(f"dropout: x must be float32, got {x.dtype}")
+        raise TypeError(f"{what}: x must be float32, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("dropout: x must be contiguous")
+        raise ValueError(f"{what}: x must be contiguous")
     if x.ndim == 0:
-        raise ValueError("dropout: x must have at least one dimension")
+        raise ValueError(f"{what}: x must have at least one dimension")
+
+
+def _check_seed(seed: int) -> None:
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"dropout: seed {seed} is not a 64-bit unsigned integer")
+
+
+def _rows(x: Tensor) -> Tuple[int, int]:
+    C = x.shape[-1]
+    return (x.numel() // C if C else 0), C
 
 
 def _launch(x: Tensor, p: float, seed: int, site: int) -> Tensor:
+    """out = x * mask: one launch of tb_dropout."""
     global LAUNCHES
     out = torch.empty_like(x)
-    C = x.shape[-1]
-    rows = x.numel() // C if C else 0
-    fn = cuda_build.load(_KERNEL).tb_dropout
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), out.data_ptr(), rows, C, seed, site, threshold(p), keep_scale(p),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = cuda_build.entry(_KERNEL, "tb_dropout", _DROP_ARGS)(
+        x.data_ptr(), out.data_ptr(), *_rows(x), seed, site, threshold(p), keep_scale(p), cuda_build.stream(x))
     cuda_build.check(rc, "dropout")
     LAUNCHES += 1
     return out
+
+
+def _launch_add(res: Tensor, x: Tensor, p: float, seed: int, site: int) -> Tensor:
+    """out = res + x * mask: one launch of tb_dropout_add."""
+    global LAUNCHES
+    out = torch.empty_like(x)
+    rc = cuda_build.entry(_KERNEL, "tb_dropout_add", _ADD_ARGS)(
+        res.data_ptr(), x.data_ptr(), out.data_ptr(), *_rows(x), seed, site, threshold(p), keep_scale(p),
+        cuda_build.stream(x))
+    cuda_build.check(rc, "dropout_add")
+    LAUNCHES += 1
+    return out
+
+
+def _launch_relu(x: Tensor, p: float, seed: int, site: int) -> Tensor:
+    """out = relu(x * mask): one launch of tb_relu_dropout."""
+    global LAUNCHES
+    out = torch.empty_like(x)
+    rc = cuda_build.entry(_KERNEL, "tb_relu_dropout", _DROP_ARGS)(
+        x.data_ptr(), out.data_ptr(), *_rows(x), seed, site, threshold(p), keep_scale(p), cuda_build.stream(x))
+    cuda_build.check(rc, "relu_dropout")
+    LAUNCHES += 1
+    return out
+
+
+def _launch_relu_bwd(g: Tensor, y: Tensor, p: float) -> Tensor:
+    """dx = g * scale where y > 0, else 0: one launch of tb_relu_dropout_bwd."""
+    global LAUNCHES
+    dx = torch.empty_like(y)
+    rc = cuda_build.entry(_KERNEL, "tb_relu_dropout_bwd", _RELU_BWD_ARGS)(
+        g.data_ptr(), y.data_ptr(), dx.data_ptr(), y.numel(), keep_scale(p), cuda_build.stream(y))
+    cuda_build.check(rc, "relu_dropout backward")
+    LAUNCHES += 1
+    return dx
+
+
+def _records(*xs: Tensor) -> bool:
+    """Whether autograd records a call on these inputs."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 class _Dropout(torch.autograd.Function):
@@ -132,8 +194,33 @@ class _Dropout(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous()
-        return _launch(g, *ctx.args), None, None, None
+        return _launch(g.contiguous(), *ctx.args), None, None, None
+
+
+class _DropoutAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, res, x, p, seed, site):
+        ctx.args = (p, seed, site)
+        return _launch_add(res, x, p, seed, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _launch(g.contiguous(), *ctx.args) if ctx.needs_input_grad[1] else None
+        return g, dx, None, None, None
+
+
+class _ReluDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, p, seed, site):
+        y = _launch_relu(x, p, seed, site)
+        ctx.save_for_backward(y)
+        ctx.p = p
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return _launch_relu_bwd(g.contiguous(), y, ctx.p), None, None, None
 
 
 def dropout_plain(x: Tensor, p: float, seed: int, site: int) -> Tensor:
@@ -142,16 +229,51 @@ def dropout_plain(x: Tensor, p: float, seed: int, site: int) -> Tensor:
 
 
 def dropout(x: Tensor, p: float, seed: int, site: int) -> Tensor:
-    """Inverted dropout of x at (seed, site): the kernel on a CUDA tensor,
-    the plain version on a CPU tensor. p == 0 returns x."""
+    """Inverted dropout of x at (seed, site): the kernel on a CUDA tensor
+    (through an autograd Function only where autograd records), the plain
+    version on a CPU tensor. p == 0 returns x."""
     if p <= 0:
         return x
-    if not 0 <= seed < 2**64:
-        raise ValueError(f"dropout: seed {seed} is not a 64-bit unsigned integer")
+    _check_seed(seed)
     if x.device.type == "cpu":
         return dropout_plain(x, p, seed, site)
     _check(x)
-    return _Dropout.apply(x, p, seed, site)
+    return _Dropout.apply(x, p, seed, site) if _records(x) else _launch(x, p, seed, site)
+
+
+def dropout_add(res: Tensor, x: Tensor, p: float, seed: int, site: int) -> Tensor:
+    """res + dropout(x) in one launch on CUDA tensors (backward: res gets
+    the cotangent, x its dropout, one launch); on CPU tensors the plain
+    composition. Bit for bit the plain composition on the card too."""
+    if p <= 0:
+        return res + x
+    _check_seed(seed)
+    if x.device.type == "cpu":
+        return res + dropout_plain(x, p, seed, site)
+    _check(x, "dropout_add")
+    _check(res, "dropout_add")
+    if res.shape != x.shape or res.device != x.device:
+        raise ValueError(f"dropout_add: res {tuple(res.shape)} and x {tuple(x.shape)} must match")
+    return _DropoutAdd.apply(res, x, p, seed, site) if _records(res, x) else _launch_add(res, x, p, seed, site)
+
+
+def relu_dropout_plain(x: Tensor, p: float, seed: int, site: int) -> Tensor:
+    """The plain version of relu_dropout: relu(dropout(x)), which equals
+    dropout(relu(x)) value for value (the scale is positive)."""
+    return torch.relu(dropout_plain(x, p, seed, site))
+
+
+def relu_dropout(x: Tensor, p: float, seed: int, site: int) -> Tensor:
+    """relu and dropout of x in one launch on a CUDA tensor; the backward,
+    one launch, needs only the output (g * scale where it is > 0). The plain
+    version on a CPU tensor."""
+    if p <= 0:
+        return torch.relu(x)
+    _check_seed(seed)
+    if x.device.type == "cpu":
+        return relu_dropout_plain(x, p, seed, site)
+    _check(x, "relu_dropout")
+    return _ReluDropout.apply(x, p, seed, site) if _records(x) else _launch_relu(x, p, seed, site)
 
 
 class SavedCores:

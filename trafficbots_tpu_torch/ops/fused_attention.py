@@ -34,6 +34,7 @@ _KERNEL = "fused_attention"
 _HEAD_DIMS = (16, 32, 64)
 ROWS_PER_BLOCK = 16  # must match ROWS in csrc/fused_attention.cu
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
+_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 
 
 def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int) -> Tensor:
@@ -98,15 +99,10 @@ def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
     out = torch.empty_like(q)
     if B * S == 0:
         return out
-    lib = cuda_build.load(_KERNEL)
-    fn = lib.tb_fused_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
+    rc = cuda_build.entry(_KERNEL, "tb_fused_attention", _ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(),
         B, S, T, D, n_head, int(k.dtype == torch.bfloat16),
-        invalid.stride(0), invalid.stride(1),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        invalid.stride(0), invalid.stride(1), cuda_build.stream(q),
     )
     cuda_build.check(rc, "fused_attention_core")
     LAUNCHES += 1

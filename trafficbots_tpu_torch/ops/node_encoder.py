@@ -47,6 +47,7 @@ _KERNEL = "node_encoder"
 KERNEL_D = 128  # the kernel's d_model == d_feedforward
 KERNEL_MAX_NODES = 31  # MAXN in csrc/node_encoder.cu: the most nodes whose smem_bytes fit
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p, ctypes.c_void_p)
 W_NAMES = (
     "ln1_s", "ln1_b", "lnt_s", "lnt_b", "ln2_s", "ln2_b",
     "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "w1", "b1", "w2", "b2",
@@ -161,12 +162,9 @@ class FusedNodeEncoder(nn.Module):
             return out
         weights = [getattr(self, n) for n in W_NAMES]
         ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-        fn = cuda_build.load(_KERNEL).tb_node_encoder
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(
+        rc = cuda_build.entry(_KERNEL, "tb_node_encoder", _ARGS)(
             x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, self.n_layer, self.n_head,
-            ctypes.cast(ptrs, ctypes.c_void_p), torch.cuda.current_stream(x.device).cuda_stream,
+            ctypes.cast(ptrs, ctypes.c_void_p), cuda_build.stream(x),
         )
         cuda_build.check(rc, "FusedNodeEncoder.encode_pooled")
         LAUNCHES += 1

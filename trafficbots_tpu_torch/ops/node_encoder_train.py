@@ -89,47 +89,54 @@ def _drop_args(p: float, seed: int):
     return (seed, threshold(p), keep_scale(p), 1) if p > 0 else (0, 0, 1.0, 0)
 
 
+_FWD_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+             + (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_BWD_ARGS = (ctypes.c_void_p,) * 3 + _FWD_ARGS
+
+
+def _launch_fwd(x, valid, p, seed, n_layer, n_head, weights):
+    global LAUNCHES_FWD
+    BP, N, D = x.shape
+    out = torch.empty((BP, D), dtype=torch.float32, device=x.device)
+    ptrs = _weight_ptrs(weights)
+    rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_fwd", _FWD_ARGS)(
+        x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, n_layer, n_head,
+        ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), cuda_build.stream(x))
+    cuda_build.check(rc, "node_encoder_train forward")
+    LAUNCHES_FWD += 1
+    return out
+
+
+def _launch_bwd(x, valid, g, p, seed, n_layer, n_head, weights):
+    """dx and the flat weight gradient [n_params] (one kernel, then the
+    fixed-order sum of its partial slices)."""
+    global LAUNCHES_BWD
+    BP, N, D = x.shape
+    nblocks = cuda_build.entry(_KERNEL, "tb_node_encoder_train_nblocks", ())()
+    n = n_params(n_layer)
+    dx = torch.empty_like(x)
+    part = torch.zeros((nblocks, n), dtype=torch.float32, device=x.device)
+    dw = torch.empty((n,), dtype=torch.float32, device=x.device)
+    ptrs = _weight_ptrs(weights)
+    rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_bwd", _BWD_ARGS)(
+        x.data_ptr(), valid.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), BP, N,
+        n_layer, n_head, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), cuda_build.stream(x))
+    cuda_build.check(rc, "node_encoder_train backward")
+    LAUNCHES_BWD += 1
+    return dx, dw
+
+
 class _NodeEncoderTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, valid, p, seed, n_layer, n_head, *weights):
-        global LAUNCHES_FWD
-        BP, N, D = x.shape
-        out = torch.empty((BP, D), dtype=torch.float32, device=x.device)
-        fn = cuda_build.load(_KERNEL).tb_node_encoder_train_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        ptrs = _weight_ptrs(weights)
-        rc = fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, n_layer, n_head,
-                ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), torch.cuda.current_stream(x.device).cuda_stream)
-        cuda_build.check(rc, "node_encoder_train forward")
-        LAUNCHES_FWD += 1
         ctx.save_for_backward(x, valid, *weights)
         ctx.args = (p, seed, n_layer, n_head)
-        return out
+        return _launch_fwd(x, valid, p, seed, n_layer, n_head, weights)
 
     @staticmethod
     def backward(ctx, g):
-        global LAUNCHES_BWD
         x, valid, *weights = ctx.saved_tensors
-        p, seed, n_layer, n_head = ctx.args
-        BP, N, D = x.shape
-        lib = cuda_build.load(_KERNEL)
-        nblocks = lib.tb_node_encoder_train_nblocks()
-        n = n_params(n_layer)
-        dx = torch.empty_like(x)
-        part = torch.zeros((nblocks, n), dtype=torch.float32, device=x.device)
-        dw = torch.empty((n,), dtype=torch.float32, device=x.device)
-        fn = lib.tb_node_encoder_train_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        ptrs = _weight_ptrs(weights)
-        rc = fn(x.data_ptr(), valid.data_ptr(), g.contiguous().data_ptr(), dx.data_ptr(), part.data_ptr(),
-                dw.data_ptr(), BP, N, n_layer, n_head, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed),
-                torch.cuda.current_stream(x.device).cuda_stream)
-        cuda_build.check(rc, "node_encoder_train backward")
-        LAUNCHES_BWD += 1
+        dx, dw = _launch_bwd(x, valid, g.contiguous(), *ctx.args, weights)
         grads, off = [], 0
         for w in weights:
             grads.append(dw[off:off + w.numel()].view_as(w))
