@@ -18,8 +18,11 @@ its own lines:
      computes the same function, and the bound (the least time the card
      could take: bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
      whichever is larger); K5's fused entries (dropout_add, relu_dropout)
-     against their plain compositions, and K3's backward at every site
-     against SDPA's backward on the device;
+     against their plain compositions; K1 at every site (the validation
+     joint futures' batch 48 included) and K3 at every training site
+     beside SDPA's forward and backward on the device
+     (`library_device_ms`), K1's output and K3f's output and row
+     statistics bitwise equal over two calls;
   4. the eval main path at full width (ExperimentConfig defaults: 64
      agents, 1024 x 20 polylines, hidden 128, 91 steps) on seed-0 synthetic
      scenes at WOMD-like fill (768 polylines, 40 agents valid), N_SCENE
@@ -56,6 +59,13 @@ its own lines:
 
 Any failure raises and exits non-zero before the last line. Without CUDA the
 script exits non-zero at once. It imports nothing of JAX.
+
+    python3 chip_smoke.py --attention
+
+builds K1 and K3 alone and runs only their checks and timings (phase 3's
+K1 and K3 lines and one JSON line, no last line): a quick check after an
+edit of their sources, or, copied into an unpacked older commit and run
+there, that commit's numbers beside this one's in the same call.
 """
 from __future__ import annotations
 
@@ -297,10 +307,14 @@ def sdpa_call(args):
 
 
 def check_k1(gen, n_scene, dev):
-    """K1 at every main-path call site; returns the kernels-line entry (timed
-    at the rollout's as2pl, the site with 270 launches a rollout)."""
+    """K1 at every main-path call site: against its plain version, two calls
+    bitwise equal, its times beside SDPA's (host and device). Returns the
+    kernels-line entry (timed at the rollout's as2pl, the site with 270
+    launches a rollout) with every site's numbers under `sites`."""
     sites = [
         ("rollout as2pl", n_scene, 64, 1024, True, 0.25, False),
+        # validation's K = 6 joint futures folded into the batch: 270 launches a step
+        ("joint futures rollout as2pl", n_scene * 6, 64, 1024, True, 0.25, False),
         ("map polyline self-attention", n_scene, 1024, 1024, False, 0.25, False),
         ("latent as2pl", n_scene, 19 * 64, 1024, False, 0.25, False),
         # the latent as2tl runs on 40 traffic lights, under the T >= 64 gate, so
@@ -308,11 +322,16 @@ def check_k1(gen, n_scene, dev):
         ("as2tl-like, off the main path", n_scene * 19, 64, 100, False, 0.5, False),
         ("rollout as2pl, full mask, all-masked row", n_scene, 64, 1024, True, 0.3, True),
     ]
-    entry, max_err = None, 0.0
+    entry, max_err, per_site = None, 0.0, []
     for name, B, S, T, bf16, pad, full in sites:
-        args, mask_bytes = k1_case(gen, B, S, T, bf16, pad, full, dev)
+        # the joint futures' site draws from a generator of its own, so that
+        # the later checks' inputs stay what the shared one gave them before
+        site_gen = torch.Generator().manual_seed(48) if name == "joint futures rollout as2pl" else gen
+        args, mask_bytes = k1_case(site_gen, B, S, T, bf16, pad, full, dev)
         out = FA.fused_attention_core(*args)
+        again = FA.fused_attention_core(*args)
         torch.cuda.synchronize()
+        require(torch.equal(out, again), f"K1 {name}: not bitwise reproducible")
         ref = FA.attention_core_plain(*args)
         err = max_err_checked(out, ref, K1_TOL, f"K1 {name}")
         if full:
@@ -321,14 +340,20 @@ def check_k1(gen, n_scene, dev):
         ms = time_ms(lambda: FA.fused_attention_core(*args))
         dev_ms = graph_ms(lambda: FA.fused_attention_core(*args))
         plain_ms = time_ms(lambda: FA.attention_core_plain(*args))
-        lib_ms = time_ms(sdpa_call(args))
+        lib = sdpa_call(args)
+        lib_ms, lib_dev = time_ms(lib), graph_ms(lib)
         b_ms, b_by = k1_bound(args, mask_bytes)
-        log(f"K1 {name}: B={B} S={S} T={T} kv={'bf16' if bf16 else 'fp32'} max_abs_err={err} "
-            f"ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by})")
+        log(f"K1 {name}: B={B} S={S} T={T} kv={'bf16' if bf16 else 'fp32'} max_abs_err={err} ms={ms} "
+            f"device_ms={dev_ms} plain_ms={plain_ms} library_ms={lib_ms} library_device_ms={lib_dev} "
+            f"bound_ms={b_ms} ({b_by}); two calls bitwise equal [{card_line()}]")
+        site = dict(site=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        per_site.append(site)
         if entry is None:
             entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         shape=f"B={B} S={S} T={T} D=128 H=4 bf16 K/V, {name}")
+                         library_device_ms=lib_dev, shape=f"B={B} S={S} T={T} D=128 H=4 bf16 K/V, {name}")
     entry["max_abs_err"] = max_err
+    entry["sites"] = per_site
     return entry
 
 
@@ -591,11 +616,16 @@ def check_k3(gen, n_scene, dev):
         ms_b = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
         plain_b = time_ms(lambda: torch.autograd.grad(ref, ref_leaves, g, retain_graph=True), n=5)
         o, rmax, rsum = AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0)
+        o2, rmax2, rsum2 = AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0)
+        torch.cuda.synchronize()
+        require(torch.equal(o, o2) and torch.equal(rmax, rmax2) and torch.equal(rsum, rsum2),
+                f"K3f {name}: out, rmax or rsum not bitwise reproducible")
         dev_f = graph_ms(lambda: AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0))
         dev_b = graph_ms(lambda: AT._launch_bwd(q, k, v, invalid, o, rmax, rsum, g, H, P_DROP, seed, 0))
         lib_fwd, lib_leaves = sdpa_train(q, k, v, invalid, H)
         with torch.no_grad():
             lib_f = time_ms(lib_fwd)
+            lib_f_dev = graph_ms(lib_fwd)
         lib_out = lib_fwd()
         gh = g.view(B, S, H, -1).transpose(1, 2)
         lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True)  # noqa: E731
@@ -607,11 +637,12 @@ def check_k3(gen, n_scene, dev):
         # backward: also reads g and writes dq, dk, dv; dv, dA, dq, dk are 2 D operations each per allowed pair
         bb, bb_by = bound_ms(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * 128 * allowed)
         log(f"K3 {name}: B={B} S={S} T={T} fwd max_abs_err={ef} ms={ms_f} device_ms={dev_f} plain_ms={plain_f} "
-            f"library_ms={lib_f} bound_ms={bf} ({bf_by}); bwd grad rel err={eb} ms={ms_b} device_ms={dev_b} "
-            f"plain_ms={plain_b} library_ms={lib_b} library_device_ms={lib_b_dev} bound_ms={bb} ({bb_by}); "
-            f"bwd bitwise reproducible [{card_line()}]")
+            f"library_ms={lib_f} library_device_ms={lib_f_dev} bound_ms={bf} ({bf_by}); bwd grad rel err={eb} "
+            f"ms={ms_b} device_ms={dev_b} plain_ms={plain_b} library_ms={lib_b} library_device_ms={lib_b_dev} "
+            f"bound_ms={bb} ({bb_by}); fwd (out, rmax, rsum) and bwd bitwise reproducible [{card_line()}]")
         shape = f"B={B} S={S} T={T} D=128 H=4 fp32 K/V p=0.1, {name}"
-        fwd = dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=lib_f, shape=shape)
+        fwd = dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=lib_f,
+                   library_device_ms=lib_f_dev, shape=shape)
         bwd = dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=lib_b,
                    library_device_ms=lib_b_dev, shape=shape)
         per_site.append(dict(site=name, fwd=fwd, bwd=bwd))
@@ -619,6 +650,7 @@ def check_k3(gen, n_scene, dev):
             fwd_entry, bwd_entry = dict(fwd), dict(bwd)
     fwd_entry["max_abs_err"] = err_f
     bwd_entry["max_abs_err"] = err_b  # the largest relative norm error of dq, dk, dv
+    fwd_entry["sites"] = [dict(site=x["site"], **x["fwd"]) for x in per_site]
     bwd_entry["sites"] = per_site
     return fwd_entry, bwd_entry
 
@@ -1034,12 +1066,22 @@ def main():
         f"count {torch.cuda.device_count()} tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
+    attention_only = sys.argv[1:] == ["--attention"]
+    if sys.argv[1:] and not attention_only:
+        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, or --attention)")
     t0 = time.perf_counter()
-    build_s = cuda_build.build_all(KERNEL_SOURCES)
+    build_s = cuda_build.build_all(("fused_attention", "attention_train") if attention_only else KERNEL_SOURCES)
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
 
-    cfg = ExperimentConfig()
     gen = torch.Generator().manual_seed(0)
+    if attention_only:  # K1 and K3 at their sites alone: a quick check, or code against code in one call
+        phase("attention kernel checks")
+        k1 = check_k1(gen, N_SCENE, dev)
+        k3f, k3b = check_k3(gen, N_SCENE, dev)
+        log(json.dumps({"attention": {"K1": k1, "K3f": k3f, "K3b": k3b}}))
+        phase("done")
+        return
+    cfg = ExperimentConfig()
     batch = synthetic_episode_batch(cfg.data, n_scene=N_SCENE, seed=0, n_valid_pl=768, n_valid_agent=40)
     phase("kernel checks")
     k1 = check_k1(gen, N_SCENE, dev)

@@ -1,10 +1,17 @@
 // A CPU stand-in for the part of the CUDA runtime that the port's kernels
 // use, so that their sources compile with g++ and run on the host
 // (tests/test_torch_cuda_emu.py). Every thread of a block is a std::thread,
-// the blocks of a launch run one after another, __syncthreads is a
-// std::barrier, and the dynamic shared memory is filled with NaN before
-// each block, so a read of a word the block did not write shows. Warp
-// shuffles are not emulated (a kernel that uses them aborts).
+// __syncthreads is a std::barrier, and the dynamic shared memory is filled
+// with NaN before each block, so a read of a word the block did not write
+// shows. The blocks of a launch run one after another, except that the
+// blocks of one thread-block cluster run at once (cudaLaunchKernelEx with a
+// cluster dimension): cluster_sync is a barrier over all of their threads
+// and cluster_map points into another block's shared memory. Warp shuffles
+// exchange through a per-warp slot array between two warp barriers;
+// shared-memory integer atomics are std::atomic_ref; the cp.async copies
+// are synchronous (their commits and waits do nothing).
+// TB_CUDA_EMU tells a source that these plain bodies stand in for its
+// Hopper primitives.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -14,12 +21,14 @@
 #include <cstring>
 #include <functional>
 #include <math.h>
+#include <memory>
 #include <stdint.h>
 #include <thread>
 #include <vector>
 using std::max;
 using std::min;
 
+#define TB_CUDA_EMU 1
 #define __global__
 #define __device__
 #define __host__
@@ -38,6 +47,9 @@ inline thread_local dim3 gridDim, blockDim;
 
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return uint4{a, b, c, d}; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -49,43 +61,117 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
-inline float __shfl_xor_sync(unsigned, float v, int) { std::abort(); return v; }
-
-constexpr size_t EMU_SMEM = 232448 / 4;
-alignas(16) inline float emu_smem[EMU_SMEM];
-inline std::barrier<>* emu_bar;
-inline std::atomic<int> emu_or[3];
-inline thread_local unsigned emu_or_n;
-
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
-inline int __syncthreads_or(int p) {
-    const unsigned n = emu_or_n++;
-    if (threadIdx.x == 0) emu_or[(n + 1) % 3].store(0);
-    if (p) emu_or[n % 3].fetch_or(1);
-    emu_bar->arrive_and_wait();
-    return emu_or[n % 3].load();
+inline float __uint_as_float(unsigned u) {
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
 }
 
-inline void emu_launch(dim3 grid, int nthr, const std::function<void()>& body) {
-    std::barrier<> bar(nthr);
-    emu_bar = &bar;
-    for (auto& o : emu_or) o.store(0);
+constexpr size_t EMU_SMEM = 232448 / 4;  // floats of one block's shared memory
+constexpr int EMU_MAX_CLUSTER = 8;
+constexpr int EMU_MAX_THREADS = 1024;
+
+// One block's state: its barrier, its warps' barriers and shuffle slots,
+// its __syncthreads_or words, its shared memory.
+struct EmuBlock {
+    std::unique_ptr<std::barrier<>> bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+    float shfl[EMU_MAX_THREADS];
+    std::atomic<int> vote[3];
+    std::vector<float> smem = std::vector<float>(EMU_SMEM + 4);
+    float* base() { return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem.data()) + 15) & ~uintptr_t(15)); }
+};
+inline EmuBlock* emu_blocks;              // the cluster's blocks, by rank
+inline std::barrier<>* emu_cluster_bar;   // all threads of the cluster
+inline thread_local EmuBlock* emu_blk;
+inline thread_local unsigned emu_rank, emu_vote_n;
+inline thread_local float* emu_smem;      // this block's dynamic shared memory
+
+inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
+inline int __syncthreads_or(int p) {
+    const unsigned n = emu_vote_n++;
+    if (threadIdx.x == 0) emu_blk->vote[(n + 1) % 3].store(0);
+    if (p) emu_blk->vote[n % 3].fetch_or(1);
+    emu_blk->bar->arrive_and_wait();
+    return emu_blk->vote[n % 3].load();
+}
+inline int atomicOr(int* p, int v) { return std::atomic_ref<int>(*p).fetch_or(v); }
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+    EmuBlock& b = *emu_blk;
+    const unsigned t = threadIdx.x;
+    b.shfl[t] = v;
+    b.warp_bar[t / 32]->arrive_and_wait();
+    const float r = b.shfl[t ^ (unsigned)o];
+    b.warp_bar[t / 32]->arrive_and_wait();
+    return r;
+}
+
+// The Hopper primitives of csrc/attn_fwd.cuh.
+inline void cp_async16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+inline unsigned cluster_rank() { return emu_rank; }
+inline void cluster_sync() { emu_cluster_bar->arrive_and_wait(); }
+template <class T> T* cluster_map(T* p, unsigned rank) {
+    const std::ptrdiff_t off = reinterpret_cast<char*>(p) - reinterpret_cast<char*>(emu_smem);
+    return reinterpret_cast<T*>(reinterpret_cast<char*>(emu_blocks[rank].base()) + off);
+}
+
+// Runs body for every block of grid, `cluster` consecutive blocks along x
+// at once (one std::thread per CUDA thread of each).
+inline void emu_launch(dim3 grid, int nthr, const std::function<void()>& body, unsigned cluster = 1) {
+    if (cluster < 1 || cluster > EMU_MAX_CLUSTER || grid.x % cluster || nthr > EMU_MAX_THREADS) std::abort();
+    std::vector<EmuBlock> blocks(cluster);
+    for (auto& b : blocks) {
+        b.bar = std::make_unique<std::barrier<>>(nthr);
+        for (int w = 0; w * 32 < nthr; ++w) b.warp_bar.push_back(std::make_unique<std::barrier<>>(min(32, nthr - 32 * w)));
+        for (auto& v : b.vote) v.store(0);
+    }
+    std::barrier<> cbar(nthr * (int)cluster);
+    emu_blocks = blocks.data();
+    emu_cluster_bar = &cbar;
     std::vector<std::thread> ts;
-    for (int t = 0; t < nthr; ++t)
-        ts.emplace_back([&, t] {
-            threadIdx = {(unsigned)t, 0, 0};
-            blockDim = dim3(nthr);
-            gridDim = grid;
-            emu_or_n = 0;
-            for (unsigned z = 0; z < grid.z; ++z)
-                for (unsigned y = 0; y < grid.y; ++y)
-                    for (unsigned x = 0; x < grid.x; ++x) {
-                        blockIdx = {x, y, z};
-                        if (t == 0) { std::fill(emu_smem, emu_smem + EMU_SMEM, NAN); }
-                        bar.arrive_and_wait();
-                        body();
-                        bar.arrive_and_wait();
-                    }
-        });
+    for (unsigned c = 0; c < cluster; ++c)
+        for (int t = 0; t < nthr; ++t)
+            ts.emplace_back([&, c, t] {
+                threadIdx = {(unsigned)t, 0, 0};
+                blockDim = dim3(nthr);
+                gridDim = grid;
+                emu_rank = c;
+                emu_blk = &blocks[c];
+                emu_smem = blocks[c].base();
+                emu_vote_n = 0;
+                for (unsigned z = 0; z < grid.z; ++z)
+                    for (unsigned y = 0; y < grid.y; ++y)
+                        for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
+                            blockIdx = {x0 + c, y, z};
+                            if (t == 0) std::fill(emu_smem, emu_smem + EMU_SMEM, NAN);
+                            cbar.arrive_and_wait();
+                            body();
+                            cbar.arrive_and_wait();
+                        }
+            });
     for (auto& th : ts) th.join();
+}
+
+// cudaLaunchKernelEx with a cluster dimension along x (the only attribute read).
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension };
+struct cudaLaunchAttribute {
+    cudaLaunchAttributeID id;
+    struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+    dim3 gridDim, blockDim;
+    size_t dynamicSmemBytes;
+    cudaStream_t stream;
+    cudaLaunchAttribute* attrs;
+    unsigned numAttrs;
+};
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...), Act&&... args) {
+    unsigned cluster = 1;
+    for (unsigned i = 0; i < cfg->numAttrs; ++i)
+        if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) cluster = cfg->attrs[i].val.clusterDim.x;
+    emu_launch(cfg->gridDim, (int)cfg->blockDim.x, [&] { kernel(args...); }, cluster);
+    return cudaSuccess;
 }

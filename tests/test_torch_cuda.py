@@ -90,6 +90,31 @@ def test_k1_kernel_matches_plain(cuda, B, S, T, bf16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,bf16", [
+    (48, 64, 1024, 4, True),  # the joint futures' rollout as2pl: path S, eight ranks
+    (2, 37, 1000, 4, False),  # S and T off the tiles, path S
+    (2, 37, 1000, 8, True),  # d_head 16, path S
+    (2, 100, 300, 2, False),  # d_head 64, path L
+    (2, 1024, 1024, 8, True),  # d_head 16, path L
+    (2, 70, 1024, 2, True),  # d_head 64, path L
+])
+def test_k1_kernel_matches_plain_on_both_paths(cuda, B, S, T, H, bf16):
+    """K1's two paths (the cluster over T, the 32-row blocks) at every head
+    width, with a padding mask (stride 0) and a full mask: within 1e-5 of
+    the plain version, two calls bitwise equal."""
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, 128, seed=7))
+    if bf16:
+        k, v = k.bfloat16(), v.bfloat16()
+    pad = invalid[:, 0]
+    for inv in (pad[:, None, :].expand(B, S, T), invalid):
+        out = tfa.fused_attention_core(q, k, v, inv, H)
+        again = tfa.fused_attention_core(q, k, v, inv, H)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out, tfa.attention_core_plain(q, k, v, inv, H), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [20, tne.KERNEL_MAX_NODES])
 def test_k2_kernel_matches_plain(cuda, N):
     x, valid = (torch.from_numpy(a).to(cuda) for a in node_inputs(BP=1024, N=N, D=128, seed=6))
@@ -197,6 +222,8 @@ def k3_case(cuda, B, S, T, full_mask, seed=11):
     (2, 1024, 1024, False),  # the map self-attention
     (2, 48, 300, True),  # partial tiles, an all-masked row and scene
     (3, 100, 260, True),
+    (48, 64, 1024, False),  # 48 scenes at the rollout's as2pl: path S
+    (2, 37, 1000, True),  # S and T off the tiles, path S
 ])
 def test_k3_kernels_match_plain_with_dropout(cuda, B, S, T, full_mask):
     q, k, v, invalid, g = k3_case(cuda, B, S, T, full_mask)

@@ -1,24 +1,29 @@
-"""K3's backward and K5's entries, as CUDA source, run on the CPU against
-their plain versions.
+"""K1's and K3's kernels and K5's entries, as CUDA source, run on the CPU
+against their plain versions.
 
 The card's compiler is not here, so these tests compile
-`trafficbots_tpu_torch/csrc/attention_train.cu` and `dropout.cu` with the
+`trafficbots_tpu_torch/csrc/fused_attention.cu`, `attention_train.cu` and
+`dropout.cu` (with the shared forward `attn_fwd.cuh` inlined) with the
 host's g++ against `tests/cuda_emu/cuda_runtime.h`, an emulator of the part
-of the CUDA runtime they use (a std::thread per CUDA thread, blocks one
-after another, `__syncthreads` a barrier, shared memory NaN-filled at each
-block). The `kernel<<<grid, threads, smem, stream>>>(args)` launches are
-rewritten into calls of the emulator's launcher. This holds the kernels'
-indexing, tiling, masking, block-size choice, synchronisation and
-arithmetic at small shapes; it says nothing of their speed, and the
-forward kernels (warp shuffles) are not run here. The card runs the same
-checks at full width (tests/test_torch_cuda.py, chip_smoke.py).
+of the CUDA runtime they use (a std::thread per CUDA thread, `__syncthreads`
+a barrier, shared memory NaN-filled at each block, warp shuffles through a
+per-warp slot array, `cp.async` as a synchronous copy, the blocks of a
+thread-block cluster run at once with a cluster barrier and a map into each
+other's shared memory; other blocks one after another). The
+`kernel<<<grid, threads, smem, stream>>>(args)` launches are rewritten into
+calls of the emulator's launcher. This holds the kernels' indexing, tiling,
+masking, path and block-size choice, synchronisation and arithmetic at
+small shapes; it says nothing of their speed. The card runs the same checks
+at full width (tests/test_torch_cuda.py, chip_smoke.py).
 
-Tolerances: dq, dk, dv within a relative norm error of 1e-5 of autograd
-through the plain version (fp32, the sums in another order, as on the
-card); K5's entries bit for bit.
+Tolerances: the forwards (K1, K3f) within atol = rtol = 1e-5 of the plain
+versions and K3f's row statistics within 1e-6 (fp32, the sums in another
+order, as on the card); dq, dk, dv within a relative norm error of 1e-5 of
+autograd through the plain version; K5's entries bit for bit.
 """
 import ctypes
 import math
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,6 +35,7 @@ import torch
 from trafficbots_tpu_torch.ops import attention_train as tat
 from trafficbots_tpu_torch.ops import cuda_build
 from trafficbots_tpu_torch.ops import dropout as tdo
+from trafficbots_tpu_torch.ops import fused_attention as tfa
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 
@@ -38,7 +44,9 @@ def emulated_source(cu: str) -> str:
     """The .cu text with each launch `k<<<grid, threads, smem, st>>>(args)`
     made `emu_launch(grid, threads, [&] { k(args); })` and the dynamic
     shared memory the emulator's buffer."""
-    src = cu.replace("extern __shared__ float smem[];", "float* smem = emu_smem;")
+    header = (cuda_build.CSRC / "attn_fwd.cuh").read_text().replace("#pragma once", "")
+    src = cu.replace('#include "attn_fwd.cuh"', header)
+    src = src.replace("extern __shared__ float smem[];", "float* smem = emu_smem;")
     out, i = [], 0
     while (j := src.find("<<<", i)) >= 0:
         k, depth = j, 0  # back over the kernel's name and template arguments
@@ -70,7 +78,7 @@ def emulated(tmp_path_factory):
         pytest.skip("needs g++ to build the kernels for the CPU emulator")
     out_dir = tmp_path_factory.mktemp("cuda_emu")
     libs = {}
-    for name in ("attention_train", "dropout"):
+    for name in ("fused_attention", "attention_train", "dropout"):
         cpp = out_dir / f"{name}.cpp"
         cpp.write_text(emulated_source((cuda_build.CSRC / f"{name}.cu").read_text()))
         lib = out_dir / f"lib{name}.so"
@@ -91,6 +99,129 @@ def row_stats(q, k, invalid, n_head):
     live = torch.isfinite(m)
     e = torch.exp(logits - torch.where(live, m, torch.zeros_like(m))[..., None])
     return m.contiguous(), torch.where(live, e.sum(-1), torch.zeros_like(m)).contiguous()
+
+
+def emulated_backward(emulated, q, k, v, invalid, out, rmax, rsum, g, H, p, seed, site):
+    """dq, dk, dv and D = g . out from the emulated K3b on the given
+    forward output and row statistics."""
+    (B, S, D), T = q.shape, k.shape[1]
+    dq, dk, dv = (torch.full_like(t, float("nan")) for t in (q, k, v))
+    dsum = torch.full((B, H, S), float("nan"))
+    fn = emulated["attention_train"].tb_attention_train_bwd
+    fn.argtypes, fn.restype = list(tat._BWD_ARGS), ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), rmax.data_ptr(),
+            rsum.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, S, T, D,
+            H, invalid.stride(0), invalid.stride(1), *tat._dropout_args(p, seed, site), None)
+    assert rc == 0
+    return dq, dk, dv, dsum
+
+
+def fwd_constants() -> dict:
+    """The integer constants of csrc/attn_fwd.cuh (products evaluated)."""
+    src = (cuda_build.CSRC / "attn_fwd.cuh").read_text()
+    return {m[0]: math.prod(int(x) for x in m[1].split("*"))
+            for m in re.findall(r"constexpr int (\w+) = ([\d *]+);", src)}
+
+
+def takes_cluster(B, S, T, H) -> bool:
+    """The forward's path choice (tb_attn::takes_cluster): path S, the
+    cluster over T, or path L, the 32-row blocks."""
+    c = fwd_constants()
+    row_blocks = -(-S // c["ROWS_L"]) * H * B
+    return S <= c["ROWS_S"] and -(-T // c["TK"]) <= c["MAX_CLUSTER"] and row_blocks < c["LARGE_GRID"]
+
+
+def fwd_inputs(B, S, T, D, seed, kv_dtype=torch.float32, offset=0):
+    """q, k, v (k/v at a storage offset of `offset` elements: 1 is not
+    16-byte aligned, the kernel's plain-copy path), a full mask with an
+    all-masked row and, where B > 1, a scene with every target masked, and
+    a padding mask (stride 0 over S) with the last 40% of the keys masked
+    (dead key tiles and cluster ranks) and, where B > 1, scene 1's keys all
+    masked."""
+    rs = np.random.RandomState(seed)
+    q = torch.from_numpy(rs.normal(size=(B, S, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rs.normal(size=B * T * D + offset).astype(np.float32)).to(kv_dtype)[offset:].view(B, T, D)
+            for _ in range(2))
+    full = torch.from_numpy(rs.rand(B, S, T) < 0.3)
+    full[0, 1] = True
+    pad = torch.zeros(B, T, dtype=torch.bool)
+    pad[:, int(T * 0.6):] = True
+    if B > 1:
+        full[1] = True
+        pad[1] = True
+    return q, k, v, full, pad[:, None, :].expand(B, S, T)
+
+
+def dead_rows(invalid):
+    return invalid.all(-1)  # [B, S]
+
+
+@pytest.mark.parametrize("B,S,T,D,H,bf16,offset,path", [
+    (2, 37, 300, 128, 4, True, 0, "S"),  # d_head 32: three ranks, S and T off the tiles
+    (1, 64, 1000, 64, 4, False, 0, "S"),  # d_head 16: eight ranks, the last partial; dead ranks
+    (2, 20, 200, 128, 2, True, 1, "S"),  # d_head 64, unaligned K/V
+    (1, 70, 260, 128, 4, False, 0, "L"),  # d_head 32: three row blocks, the last of 6 rows
+    (2, 100, 130, 64, 4, True, 0, "L"),  # d_head 16
+    (1, 80, 300, 128, 2, False, 1, "L"),  # d_head 64, unaligned K/V
+])
+def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset, path):
+    """K1 (csrc/fused_attention.cu -> attn_fwd.cuh) on both paths, both K/V
+    types, every head width, with a full and a stride-0 padding mask:
+    within 1e-5 of the plain version, all-masked rows exactly 0, two calls
+    bitwise equal."""
+    assert takes_cluster(B, S, T, H) == (path == "S")
+    fn = emulated["fused_attention"].tb_fused_attention
+    fn.argtypes, fn.restype = list(tfa._ARGS), ctypes.c_int
+    q, k, v, full, pad = fwd_inputs(B, S, T, D, S + T, torch.bfloat16 if bf16 else torch.float32, offset)
+    for invalid in (full, pad):
+        outs = []
+        for _ in range(2):
+            out = torch.full_like(q, float("nan"))
+            assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), B, S, T, D, H,
+                      int(bf16), invalid.stride(0), invalid.stride(1), None) == 0
+            outs.append(out)
+        ref = tfa.attention_core_plain(q, k, v, invalid, H)
+        torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
+        assert (outs[0][dead_rows(invalid)] == 0).all()
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,S,T,D,H,full_mask,p,path", [
+    (2, 48, 300, 128, 4, True, 0.1, "S"),
+    (2, 64, 1000, 64, 4, False, 0.0, "S"),
+    (2, 70, 260, 64, 4, False, 0.1, "L"),
+    (1, 100, 200, 128, 4, True, 0.0, "L"),
+])
+def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, path):
+    """K3f (csrc/attention_train.cu -> attn_fwd.cuh) with dropout live or
+    off: the output within 1e-5 of the plain version, the row statistics
+    within 1e-6 of the plain ones (-inf and 0 on all-masked rows), and fed
+    through the emulated K3b, dq, dk, dv within a relative norm error of
+    1e-5 of autograd through the plain version."""
+    assert takes_cluster(B, S, T, H) == (path == "S")
+    q, k, v, full, pad = fwd_inputs(B, S, T, D, 7 * S + T)
+    invalid = full if full_mask else pad
+    g = torch.from_numpy(np.random.RandomState(S).normal(size=(B, S, D)).astype(np.float32))
+    seed, site = 2**45 + 7, 4
+    out = torch.full_like(q, float("nan"))
+    rmax, rsum = (torch.full((B, H, S), float("nan")) for _ in range(2))
+    fn = emulated["attention_train"].tb_attention_train_fwd
+    fn.argtypes, fn.restype = list(tat._FWD_ARGS), ctypes.c_int
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), rmax.data_ptr(),
+              rsum.data_ptr(), B, S, T, D, H, invalid.stride(0), invalid.stride(1), *tat._dropout_args(p, seed, site),
+              None) == 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tat.attention_train_plain(*leaves, invalid, H, p, seed, site)
+    ref.backward(g)
+    torch.testing.assert_close(out, ref.detach(), atol=1e-5, rtol=1e-5)
+    assert (out[dead_rows(invalid)] == 0).all()
+    m, l = row_stats(q, k, invalid, H)
+    torch.testing.assert_close(rmax, m, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(rsum, l, atol=1e-6, rtol=1e-6)
+    dq, dk, dv, _ = emulated_backward(emulated, q, k, v, invalid, out, rmax, rsum, g, H, p, seed, site)
+    for name, got, leaf in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves):
+        assert torch.isfinite(got).all(), name
+        assert ((got - leaf.grad).norm() / leaf.grad.norm()).item() < 1e-5, name
 
 
 @pytest.mark.parametrize("B,S,T,D,H,full_mask,p", [
@@ -116,15 +247,8 @@ def test_k3_backward_emulated_matches_plain(emulated, B, S, T, D, H, full_mask, 
     out = tat.attention_train_plain(*leaves, invalid, H, p, seed, site)
     out.backward(g)
     rmax, rsum = row_stats(q, k, invalid, H)
-    dq, dk, dv = (torch.full_like(t, float("nan")) for t in (q, k, v))
-    dsum = torch.full((B, H, S), float("nan"))
-    fn = emulated["attention_train"].tb_attention_train_bwd
-    fn.argtypes, fn.restype = list(tat._BWD_ARGS), ctypes.c_int
     o = out.detach().contiguous()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), o.data_ptr(), rmax.data_ptr(),
-            rsum.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, S, T, D,
-            H, invalid.stride(0), invalid.stride(1), *tat._dropout_args(p, seed, site), None)
-    assert rc == 0
+    dq, dk, dv, dsum = emulated_backward(emulated, q, k, v, invalid, o, rmax, rsum, g, H, p, seed, site)
     for name, got, leaf in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves):
         assert torch.isfinite(got).all(), name
         assert ((got - leaf.grad).norm() / leaf.grad.norm()).item() < 1e-5, name
@@ -162,16 +286,61 @@ def test_k5_entries_emulated_equal_the_plain_compositions(emulated, shape, offse
     assert torch.equal(dx, xx.grad)
 
 
-def test_k3_wrapper_mirrors_the_kernels_layout():
-    """The wrapper's shared-memory check mirrors csrc/attention_train.cu:
-    its tile constants, and at T = 1024 the largest block is the 16-row dq
-    kernel's (four key groups' tiles), well inside a block's limit."""
-    import re
+def test_div_rn_is_the_ieee_quotient(tmp_path):
+    """attn_fwd.cuh's div_rn (a product by the reciprocal and one FMA
+    correction, in place of a division) gives x / d bit for bit: the
+    logits' x / sqrt(dh) at each head width and the weights' e / sum, over
+    random floats of many exponents."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    (tmp_path / "check.cpp").write_text(emulated_source(r"""
+#include <cuda_runtime.h>
+#include "attn_fwd.cuh"
+#include <cstdio>
+#include <random>
+int main() {
+    std::mt19937 g(5);
+    long bad = 0;
+    const float ds[] = {sqrtf(16.f), sqrtf(32.f), sqrtf(64.f)};
+    for (float d : ds)
+        for (int i = 0; i < 1000000; ++i) {
+            uint32_t u = (g() & 0x807fffffu) | ((uint32_t)(87 + g() % 80) << 23);  // 2^-40 .. 2^39
+            float x;
+            std::memcpy(&x, &u, 4);
+            const float q = tb_attn::div_rn(x, d, 1.f / d), ref = x / d;
+            bad += std::memcmp(&q, &ref, 4) != 0;
+        }
+    std::uniform_real_distribution<float> sums(1.f, 1300.f), es(0.f, 1.f);
+    for (int i = 0; i < 3000000; ++i) {
+        const float s = sums(g), e = es(g), q = tb_attn::div_rn(e, s, 1.f / s), ref = e / s;
+        bad += std::memcmp(&q, &ref, 4) != 0;
+    }
+    std::printf("%ld\\n", bad);
+    return bad != 0;
+}
+"""))
+    exe = tmp_path / "check"
+    subprocess.run([gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread", f"-I{EMU}", f"-I{cuda_build.CSRC}",
+                    "-o", str(exe), str(tmp_path / "check.cpp")], check=True)
+    res = subprocess.run([str(exe)], capture_output=True, text=True)
+    assert res.returncode == 0, f"div_rn differs from x / d in {res.stdout.strip()} cases"
 
+
+def test_k3_wrapper_mirrors_the_kernels_layout():
+    """The wrappers' shared-memory checks mirror csrc/attn_fwd.cuh and
+    csrc/attention_train.cu: their tile constants, and at T = 1024 the
+    largest block is the forward's path-L block (the [32, T] logits, q, two
+    128-key K/V tiles, the mask bits, eight warp columns' and the final row
+    max and sum, the live tiles and their flags), within a block's limit; the
+    forward's logits bound T."""
     src = (cuda_build.CSRC / "attention_train.cu").read_text()
     const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    assert (const["ROWS"], const["BT"], const["PAD"]) == (tat.ROWS_PER_BLOCK, tat.BWD_TILE, tat._PAD)
+    fwd = fwd_constants()
+    assert (fwd["ROWS_L"], fwd["TK"], const["BT"], const["PAD"]) == (tat.ROWS_PER_BLOCK, tfa.KEY_TILE, tat.BWD_TILE,
+                                                                     tat._PAD)
     assert const["MIN_BLOCKS"] == 128 and tat.DQ_ROWS == (16, 64)
-    dq16 = 4 * (2 * 32 * (16 + 4) + 3 * 16 + 4 * (2 * 32 + 16) * (64 + 4))
-    assert tat.smem_bytes(1024, 32) == dq16 == 92352 <= tat.SMEM_LIMIT
-    assert tat.smem_bytes(4096, 32) > tat.SMEM_LIMIT  # the forward's [16, T] logits bound T
+    rows_l = 4 * (32 * (1024 + 8) + 32 * (32 + 4) + 2 * 128 * (32 + 4) + 32 * 32 + (8 + 2) * 32 + 2 * 8)
+    assert tat.smem_bytes(1024, 32) == tfa.smem_bytes(1024, 32) == rows_l == 179008 <= tat.SMEM_LIMIT
+    assert tfa.smem_bytes(1024, 32, 2) < rows_l  # bf16 K/V tiles take half
+    assert tat.smem_bytes(4096, 32) > tat.SMEM_LIMIT

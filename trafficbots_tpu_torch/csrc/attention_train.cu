@@ -27,8 +27,17 @@
 // in both of its kernels (12 D FLOP a pair), on fp32 CUDA cores (the
 // gradients are held to 1e-5 of the plain version: no TF32).
 //
-// Forward grid: (16 query rows, head, scene) blocks, the [16, T] logits in
-// shared memory (the K1 design). The backward is FlashAttention-2-like and
+// The forward (K3f) is the shared forward of csrc/attn_fwd.cuh with
+// dropout and the row statistics: a thread-block cluster over T at the
+// rollout's as2pl (S = 64), 32-row blocks with register micro-tiles at the
+// map self-attention and the posterior latent as2pl; that header says what
+// bounds it and what each path does about it. On an H100 80GB HBM3 at
+// 700 W (chip_smoke.py, PERF.md section 6), on the device: 0.256 and 0.318
+// ms at the map self-attention and the posterior latent as2pl (the first
+// design 0.509 and 0.597 in the same run, above SDPA's forward's 0.432 and
+// 0.486), 0.0400 ms at the rollout as2pl (0.0637).
+//
+// The backward is FlashAttention-2-like and
 // streams the other axis in 64-wide tiles, holding no row of length T:
 //   dq kernel, (BQ query rows, head, scene) blocks: per 64-key tile,
 //     S = q kᵀ, P, dP = g vᵀ, dS = P ⊙ (dP ⊙ M - D) into shared memory,
@@ -56,188 +65,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_fwd.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int ROWS = 16;      // query rows per block (forward)
-constexpr int TK = 64;        // keys per staged K/V tile
-constexpr int THREADS = 256;  // = TK x (ROWS / 4)
+constexpr int THREADS = 256;  // threads of a backward block
 
 using tb_philox::Dropout;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
 
 struct Shape {
     int B, S, T, D, H;
     long long inv_sb, inv_ss;
 };
-
-__device__ __forceinline__ bool masked(const uint8_t* inv, const Shape& sh, int b, int s, int t) {
-    return inv[b * sh.inv_sb + (long long)s * sh.inv_ss + t] != 0;
-}
-
-// Stage rows t0 .. t0 + TK - 1 of one head's columns of src ([B, T, D]) into
-// tile[TK][DH + 1] (zeros past T).
-template <int DH>
-__device__ void stage(float* tile, const float* __restrict__ src, long long base, int t0, int T, int D) {
-    for (int i = threadIdx.x; i < TK * DH; i += THREADS) {
-        const int tt = i / DH, d = i % DH;
-        const int t = t0 + tt;
-        tile[tt * (DH + 1) + d] = t < T ? src[base + (long long)t * D + d] : 0.f;
-    }
-}
-
-// lr[r][t] = rows' (r < rows) dots a_r . k_t over the whole target row,
-// one key and four rows a thread (the K1 mapping). LOGITS: divided by
-// sqrt(dh), masked entries -inf; else the raw dots (inv unused).
-template <int DH, bool LOGITS>
-__device__ void scores(float* lr, int t_pad, const float* qs, float* kv, const float* __restrict__ k,
-                       long long kv_base, const uint8_t* inv, const Shape& sh, int b, int s0, int rows) {
-    const float sqrt_dh = sqrtf((float)DH);
-    const int kt = threadIdx.x % TK;
-    const int rg = threadIdx.x / TK;
-    for (int t0 = 0; t0 < sh.T; t0 += TK) {
-        __syncthreads();
-        stage<DH>(kv, k, kv_base, t0, sh.T, sh.D);
-        __syncthreads();
-        const int t = t0 + kt;
-        if (t < sh.T) {
-            float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-            for (int d = 0; d < DH; ++d) {
-                const float kd = kv[kt * (DH + 1) + d];
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[j] = fmaf(qs[(rg * 4 + j) * DH + d], kd, acc[j]);
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int r = rg * 4 + j;
-                if (r < rows) {
-                    if (LOGITS)
-                        lr[r * t_pad + t] = masked(inv, sh, b, s0 + r, t) ? -INFINITY : acc[j] / sqrt_dh;
-                    else
-                        lr[r * t_pad + t] = acc[j];
-                }
-            }
-        }
-    }
-    __syncthreads();
-}
-
-// out[r][d] = sum_t w[r][t] src[t][d] over the row block (the K1 AV phase);
-// returns the thread's NR accumulators for rows r0 + j * RSTEP, column d.
-template <int DH>
-__device__ void weighted_sum(float (&acc)[ROWS / (THREADS / DH)], const float* w, int t_pad, float* kv,
-                             const float* __restrict__ src, long long kv_base, int T, int D) {
-    constexpr int RSTEP = THREADS / DH;
-    constexpr int NR = ROWS / RSTEP;
-    const int d = threadIdx.x % DH;
-    const int r0 = threadIdx.x / DH;
-#pragma unroll
-    for (int j = 0; j < NR; ++j) acc[j] = 0.f;
-    for (int t0 = 0; t0 < T; t0 += TK) {
-        __syncthreads();
-        stage<DH>(kv, src, kv_base, t0, T, D);
-        __syncthreads();
-        const int tn = min(TK, T - t0);
-        for (int tt = 0; tt < tn; ++tt) {
-            const float vd = kv[tt * (DH + 1) + d];
-#pragma unroll
-            for (int j = 0; j < NR; ++j) acc[j] = fmaf(w[(r0 + j * RSTEP) * t_pad + t0 + tt], vd, acc[j]);
-        }
-    }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const uint8_t* __restrict__ inv, float* __restrict__ out, float* __restrict__ rmax,
-           float* __restrict__ rsum, Shape sh, Dropout drop, uint32_t site) {
-    extern __shared__ float smem[];
-    __shared__ int row_dead[ROWS];
-    const int t_pad = (sh.T + 3) & ~3;
-    float* lr = smem;                  // [ROWS][t_pad]: logits, then weights
-    float* qs = lr + ROWS * t_pad;     // [ROWS][DH]
-    float* kv = qs + ROWS * DH;        // [TK][DH + 1]
-    const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * ROWS;
-    const int rows = min(ROWS, sh.S - s0);
-    const long long kv_base = (long long)b * sh.T * sh.D + h * DH;
-    const long long stat0 = ((long long)b * sh.H + h) * sh.S + s0;
-
-    for (int i = threadIdx.x; i < ROWS * DH; i += THREADS) {
-        const int r = i / DH, d = i % DH;
-        qs[i] = r < rows ? q[((long long)b * sh.S + s0 + r) * sh.D + h * DH + d] : 0.f;
-    }
-    scores<DH, true>(lr, t_pad, qs, kv, k, kv_base, inv, sh, b, s0, rows);
-
-    // softmax: one warp a row, exact max over the whole row, exp and sum,
-    // then the division (same order as torch.softmax and K1)
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < ROWS; r += THREADS / 32) {
-        if (r >= rows) {
-            if (lane == 0) row_dead[r] = 1;
-            continue;
-        }
-        float* row = lr + r * t_pad;
-        float m = -INFINITY;
-        for (int t = lane; t < sh.T; t += 32) m = fmaxf(m, row[t]);
-        m = warp_max(m);
-        if (m == -INFINITY) {  // every target masked: the row's output is 0
-            if (lane == 0) {
-                row_dead[r] = 1;
-                rmax[stat0 + r] = -INFINITY;
-                rsum[stat0 + r] = 0.f;
-            }
-            continue;
-        }
-        float sum = 0.f;
-        for (int t = lane; t < sh.T; t += 32) {
-            const float e = expf(row[t] - m);
-            row[t] = e;
-            sum += e;
-        }
-        sum = warp_sum(sum);
-        for (int t = lane; t < sh.T; t += 32) row[t] = row[t] / sum;
-        if (lane == 0) {
-            row_dead[r] = 0;
-            rmax[stat0 + r] = m;
-            rsum[stat0 + r] = sum;
-        }
-    }
-    __syncthreads();
-    if (drop.on) {  // weights *= M, four weights a Philox call
-        const int c4n = t_pad / 4;
-        for (int i = threadIdx.x; i < rows * c4n; i += THREADS) {
-            const int r = i / c4n, c4 = i % c4n;
-            float f[4];
-            tb_philox::factors4(drop, site, (unsigned long long)(stat0 + r), (uint32_t)c4, f);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) lr[r * t_pad + 4 * c4 + j] *= f[j];
-        }
-    }
-
-    constexpr int RSTEP = THREADS / DH;
-    constexpr int NR = ROWS / RSTEP;
-    float acc[NR];
-    weighted_sum<DH>(acc, lr, t_pad, kv, v, kv_base, sh.T, sh.D);
-    const int d = threadIdx.x % DH, r0 = threadIdx.x / DH;
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-        const int r = r0 + j * RSTEP;
-        if (r < rows) out[((long long)b * sh.S + s0 + r) * sh.D + h * DH + d] = row_dead[r] ? 0.f : acc[j];
-    }
-}
 
 // ------------------------------------------------------------------ backward
 
@@ -600,22 +440,6 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
     }
 }
 
-size_t fwd_smem(int T, int dh) { return sizeof(float) * ((size_t)ROWS * ((T + 3) & ~3) + ROWS * dh + TK * (dh + 1)); }
-
-template <int DH>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* inv, void* out, void* rmax,
-                       void* rsum, Shape sh, Dropout drop, uint32_t site, cudaStream_t st) {
-    const size_t smem = fwd_smem(sh.T, DH);
-    cudaError_t err = cudaFuncSetAttribute(fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((sh.S + ROWS - 1) / ROWS, sh.H, sh.B);
-    fwd_kernel<DH><<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const uint8_t*>(inv), static_cast<float*>(out), static_cast<float*>(rmax),
-        static_cast<float*>(rsum), sh, drop, site);
-    return cudaGetLastError();
-}
-
 template <int DH, int BQ>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const uint8_t* inv, const float* out,
                       const float* rmax, const float* rsum, const float* g, float* dq, float* dsum, Shape sh,
@@ -664,12 +488,13 @@ extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* 
                                       long long inv_sb, long long inv_ss, unsigned long long seed,
                                       unsigned int site, unsigned int threshold, float scale, int on,
                                       void* stream) {
-    Shape sh{B, S, T, D, n_head, inv_sb, inv_ss};
-    Dropout drop{seed, threshold, scale, on};
+    tb_attn::Args a{static_cast<const float*>(q), k, v, static_cast<const uint8_t*>(invalid), static_cast<float*>(out),
+                    static_cast<float*>(rmax), static_cast<float*>(rsum), B, S, T, D, n_head, inv_sb, inv_ss,
+                    Dropout{seed, threshold, scale, on}, site, tb_attn::aligned16(q, k, v)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D / n_head) {
-        case 16: return (int)launch_fwd<16>(q, k, v, invalid, out, rmax, rsum, sh, drop, site, st);
-        case 32: return (int)launch_fwd<32>(q, k, v, invalid, out, rmax, rsum, sh, drop, site, st);
+        case 16: return (int)tb_attn::launch<16, float, true, true>(a, st);
+        case 32: return (int)tb_attn::launch<32, float, true, true>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

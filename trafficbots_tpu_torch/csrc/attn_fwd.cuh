@@ -1,0 +1,782 @@
+// The masked multi-head attention forward for Hopper (sm_90a), one source
+// for two kernels: K1 (csrc/fused_attention.cu, eval) and K3f
+// (csrc/attention_train.cu, training, with attention-weight dropout and the
+// row statistics that K3b reads).
+//
+// Replaces: trafficbots_tpu/ops/fused_attention.py `_attn_kernel` (K1) and
+// trafficbots_tpu/ops/attention_train.py `_fwd_kernel` / `_fwd_kernel_qb`
+// (K3f). Per head h of q [B, S, D], k/v [B, T, D]:
+//   A = softmax(q_h k_hᵀ / sqrt(dh), masked);  out_h = (A ⊙ M) v_h
+// with invalid[b, s, t] != 0 a disallowed target and M the inverted-dropout
+// factors of philox.cuh at (row (b H + h) S + s, column t) (K3f; K1 has
+// none). A row whose targets are all disallowed comes out exactly 0; K3f
+// writes rmax = -inf and rsum = 0 for it.
+//
+// The numerical contract (both paths): the logits are fp32 FMA sums over d
+// in order, divided by sqrt(dh); the row max is taken exactly over the whole
+// allowed row before any exp (no running softmax: one drifted 15.4 m over
+// the 91-step closed loop); each weight is expf(z - max) / sum, times its
+// dropout factor; the weighted sum is fp32 FMA. bf16 K/V are widened at the
+// load from shared memory. No tensor cores (TF32 rounds the operands), no
+// float atomics: every output is summed in a fixed order, so the kernels
+// are bitwise the same run to run. Only the order of the sums differs from
+// the plain version's.
+//
+// What bounds it on the card, and the two paths the C entry picks between.
+// Both are fp32 CUDA-core work, 4 D FLOP per allowed (query, key) pair
+// against a few MB of bytes: the operations bound them (67 TFLOP/s).
+//
+// Path S, the small grid (S <= 64, T <= 8 x 128, fewer than LARGE_GRID row
+// blocks; the rollout's as2pl: S = 64 agents, T = 1024 map tokens, bf16 K/V,
+// B = 8 or 48). The first design gave it one 256-thread block per (16 rows,
+// head, scene), 128 blocks at B = 8, each walking T in 32 serial
+// load -> barrier -> compute rounds: latency-bound at 19x its bound. Here a
+// thread-block cluster takes one (scene, head), each of its ranks a 128-key
+// slice of T with every query row of the head in one 256-thread block, three
+// blocks an SM. A rank issues q and its whole K and V slice at once with
+// cp.async (V stays in flight through the logits and the softmax), the
+// ranks exchange each row's max and then its sum through distributed
+// shared memory (the max stays exact, the sum is added in rank order), and
+// the partial weighted sums are added in rank order through distributed
+// shared memory as well. What is left is a chain of eight phases, three of
+// them cluster barriers, each a few thousand cycles (expf and the division
+// of every weight, the two products at 32 FMA a thread a key row).
+//
+// Path L, the large sites (the map self-attention S = T = 1024, the latent
+// as2pl S = 1216): one 512-thread block per (32 query rows, head, scene)
+// holds the [32, T] logits in shared memory (the exact max needs the whole
+// row; the other choice, a max pass that recomputes the logits, costs 6 D
+// FLOP a pair where this costs 4 D), one block an SM. The first design issued
+// 5 shared-memory loads per 4 FMA in the logits and 3 per 2 in the weighted
+// sum, read the mask byte by byte for every (row, key) and took a second
+// pass for the row max: 10.5x its bound. Here the products run on register
+// micro-tiles from float4 loads (4 x 2 in the logits, 5.3 FMA a load; 4 x 4
+// in the weighted sum, 8), K and V tiles of 128 keys are double-buffered
+// with cp.async, the row max is kept in registers as the logits are made,
+// the mask is read once into a bit array (once per key for a stride-0
+// padding mask), from which key tiles that no row may use are skipped (no
+// load, no product), and the two softmax passes run on every thread in
+// float4 chunks. The logits still make ~31 FMA a cycle of an SM's 128
+// (ops/attn_fwd_trace.py): shared-memory wavefronts, not the FMA pipe,
+// set the products' pace.
+//
+// Both paths divide with div_rn (a reciprocal and an FMA correction, the
+// IEEE quotient bit for bit) and skip the division of a zero weight.
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md section 6): path S
+// 0.0263 ms for K1 at B = 8 (8.8x its bound), 0.111 ms at B = 48; path L
+// 0.227 and 0.283 ms for K1 at the map self-attention and the latent
+// as2pl (4.7x and 5.0x), below SDPA's forward (0.369, 0.392).
+//
+// The Hopper primitives (cp.async, the cluster's rank, barrier and shared
+// memory map) sit behind the small functions below, so that
+// tests/cuda_emu/cuda_runtime.h can give each a plain C++ body.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#ifndef TB_CUDA_EMU
+#include <cooperative_groups.h>
+#endif
+
+#include "philox.cuh"
+
+#ifndef TB_CUDA_EMU
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ unsigned cluster_rank() { return cooperative_groups::this_cluster().block_rank(); }
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+    return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+#endif
+
+// The phase trace, in a build with -DTB_ATTN_TRACE only
+// (ops/attn_fwd_trace.py): thread 0 of each block adds the clock64 cycles
+// since its last mark to tb_attn_trace[path][phase]; slot 15 counts blocks.
+#ifdef TB_ATTN_TRACE
+__device__ unsigned long long tb_attn_trace[2][16];
+#define TB_TRACE_BEGIN(P)              \
+    unsigned long long tb_trace_t_ = clock64(); \
+    if (threadIdx.x == 0) atomicAdd(&tb_attn_trace[P][15], 1ull)
+#define TB_TRACE(P, K)                                                  \
+    if (threadIdx.x == 0) {                                             \
+        const unsigned long long now_ = clock64();                      \
+        atomicAdd(&tb_attn_trace[P][K], now_ - tb_trace_t_);            \
+        tb_trace_t_ = now_;                                             \
+    }
+#else
+#define TB_TRACE_BEGIN(P)
+#define TB_TRACE(P, K)
+#endif
+
+namespace tb_attn {
+
+constexpr int TK = 128;               // keys of a path-L tile and of a path-S rank's slice
+constexpr int ROWS_L = 32;            // query rows of a path-L block
+constexpr int THREADS_L = 512;        // threads of a path-L block (one block an SM: 16 warps)
+constexpr int ROWS_S = 64;            // query rows of a path-S block: every row of the head
+constexpr int THREADS_S = 256;        // threads of a path-S block
+constexpr int MAX_CLUSTER = 8;        // ranks of a path-S cluster (the portable limit): T <= 1024
+constexpr int LARGE_GRID = 4 * 132;   // path-L blocks (four waves of 132 SMs) from which path S is not taken
+
+struct Args {
+    const float* q;
+    const void* k;
+    const void* v;
+    const uint8_t* inv;
+    float* out;
+    float* rmax;  // [B, H, S] (STATS)
+    float* rsum;
+    int B, S, T, D, H;
+    long long inv_sb, inv_ss;
+    tb_philox::Dropout drop;  // (DROP)
+    uint32_t site;
+    int aligned;  // q, k, v and every head's row slice 16-byte aligned: cp.async, else plain copies
+};
+
+// max and sum over the W consecutive lanes that share lane / W
+template <int W>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+template <int W>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+    for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// Four consecutive elements of a shared-memory row as fp32 (bf16 widened).
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Row stride (elements) of a staged K/V tile: 16 bytes of padding, so that
+// the float4 (or 4 x bf16) loads of 8 consecutive rows hit distinct banks.
+template <int DH, class KV>
+__host__ __device__ constexpr int kv_ld() { return DH + 16 / (int)sizeof(KV); }
+
+// x / d rounded to nearest, for d > 0 given r = 1 / d: the product by the
+// reciprocal and one FMA correction (Markstein), the IEEE quotient bit for
+// bit for normal x (tests/test_torch_cuda_emu.py checks it against x / d),
+// in 3 instructions where a division takes ~8 and a check.
+__device__ __forceinline__ float div_rn(float x, float d, float r) {
+    const float q = x * r;
+    return fmaf(fmaf(-q, d, x), r, q);
+}
+
+// Rows t0 .. t0 + n - 1 of one head's DH columns of src ([B, T, D] from
+// `base`) into tile[n][LD], with cp.async when aligned; zeros past T.
+template <int DH, class KV, int NT>
+__device__ __forceinline__ void stage_rows(KV* tile, const KV* __restrict__ src, long long base, int t0, int n, int T,
+                                           int D, int aligned) {
+    constexpr int LD = kv_ld<DH, KV>(), E = 16 / (int)sizeof(KV), CH = DH / E;
+    for (int i = threadIdx.x; i < n * CH; i += NT) {
+        const int r = i / CH, c = i % CH, t = t0 + r;
+        KV* dst = tile + r * LD + c * E;
+        if (t < T) {
+            const KV* s = src + base + (long long)t * D + c * E;
+            if (aligned) {
+                cp_async16(dst, s);
+            } else {
+                for (int e = 0; e < E; ++e) dst[e] = s[e];
+            }
+        } else {
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+}
+
+// Bit j: byte j of the 16 in u is 0 (an allowed key).
+__device__ __forceinline__ uint32_t zero_bytes(uint4 u) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) bits |= (uint32_t)(((w[i >> 2] >> (8 * (i & 3))) & 0xffu) == 0u) << i;
+    return bits;
+}
+
+// bits[r * nw + w], bit i: row s0 + r may use key key0 + 32 w + i (zero past
+// T and for rows past S). A stride-0 padding mask is read once per key into
+// row 0 alone (n_rows = 1; callers index it with a row stride of 0). A word
+// of 32 whole, aligned keys is read as two 16-byte loads.
+template <int NT>
+__device__ __forceinline__ void load_bits(uint32_t* bits, int n_rows, int nw, const Args& a, int b, int s0,
+                                          int key0) {
+    for (int i = threadIdx.x; i < n_rows * nw; i += NT) {
+        const int r = i / nw, w = i % nw, s = s0 + r;
+        uint32_t word = 0;
+        if (s < a.S) {
+            const int t0 = key0 + 32 * w;
+            const uint8_t* p = a.inv + b * a.inv_sb + (long long)s * a.inv_ss + t0;
+            if (t0 + 32 <= a.T && ((uintptr_t)p & 15u) == 0) {
+                word = zero_bytes(*reinterpret_cast<const uint4*>(p)) |
+                       zero_bytes(*reinterpret_cast<const uint4*>(p + 16)) << 16;
+            } else {
+#pragma unroll 8
+                for (int j = 0; j < 32; ++j)
+                    if (t0 + j < a.T && !p[j]) word |= 1u << j;
+            }
+        }
+        bits[i] = word;
+    }
+}
+
+// The warp-grid of a ROWS x NK logits block on NT threads: each thread owns
+// 4 rows (ty + NTY i) x MK keys (tx + NTX j); a warp holds 4 ty x 8 tx.
+template <int ROWS, int NK, int NT>
+struct Grid {
+    static constexpr int NTY = ROWS / 4, MK = ROWS * NK / (NT * 4), NTX = NK / MK, NWX = NTX / 8;
+    static_assert(NTY % 4 == 0 && NTX == 8 * (NT / 32) / (NTY / 4), "micro-tile layout");
+};
+
+// The logits of a ROWS x NK block: lg[r][l0 + j] = (q_r . k_j) / sqrt(dh)
+// for the tile's keys j (global key tg0 + j), -inf where the pair is not
+// allowed; nothing is written for keys at or past T. One float4 of q and of
+// each key per 4 d: 4 MK FMA per 4 + MK loads. The key loads of a warp
+// cover 8 consecutive tile rows (distinct banks through the padding), the
+// q loads 4 rows (broadcast within each 8 threads). The sum over d runs in
+// order, as the plain version and K3b's rebuild of the logits do. mx
+// keeps the running max of the thread's 4 rows over their allowed keys
+// (store_row_max hands it on once all tiles are done).
+template <int DH, class KV, int ROWS, int NK, int NT>
+__device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const float* qs, const KV* kt, int tg0,
+                                            const uint32_t* bits, int bstride, int bkey0, int T,
+                                            float (&mx)[4]) {
+    using G = Grid<ROWS, NK, NT>;
+    constexpr int NTY = G::NTY, MK = G::MK, NTX = G::NTX;
+    constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>();
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int ty = (w % (NTY / 4)) * 4 + (lane >> 3), tx = (w / (NTY / 4)) * 8 + (lane & 7);
+    float acc[4][MK];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < MK; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DH; d += 4) {
+        float4 a[4], k[MK];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = load4(qs + (ty + NTY * i) * LQ + d);
+#pragma unroll
+        for (int j = 0; j < MK; ++j) k[j] = load4(kt + (tx + NTX * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < MK; ++j) {
+                float s = acc[i][j];
+                s = fmaf(a[i].x, k[j].x, s);
+                s = fmaf(a[i].y, k[j].y, s);
+                s = fmaf(a[i].z, k[j].z, s);
+                s = fmaf(a[i].w, k[j].w, s);
+                acc[i][j] = s;
+            }
+    }
+    const float sqrt_dh = sqrtf((float)DH), rs = 1.f / sqrt_dh;
+    uint32_t kw[MK];  // a padding mask's words of the thread's keys (shared by every row)
+#pragma unroll
+    for (int j = 0; j < MK; ++j) {
+        const int t = tg0 + tx + NTX * j;
+        kw[j] = bstride == 0 && t < T ? bits[(t - bkey0) >> 5] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty + NTY * i;
+#pragma unroll
+        for (int j = 0; j < MK; ++j) {
+            const int tl = tx + NTX * j, t = tg0 + tl;
+            if (t < T) {
+                const int tb = t - bkey0;
+                const uint32_t word = bstride == 0 ? kw[j] : bits[r * bstride + (tb >> 5)];
+                const float z = (word >> (tb & 31)) & 1u ? div_rn(acc[i][j], sqrt_dh, rs) : -INFINITY;
+                lg[r * ldl + l0 + tl] = z;
+                mx[i] = fmaxf(mx[i], z);
+            }
+        }
+    }
+}
+
+// The thread's running row maxima mx (tile_logits') reduced over the 8
+// threads of a warp that share its rows, into rm[wx * ROWS + r] for its
+// warp column wx: every slot has one writer.
+template <int ROWS, int NK, int NT>
+__device__ __forceinline__ void store_row_max(float* rm, const float (&mx)[4]) {
+    constexpr int NTY = Grid<ROWS, NK, NT>::NTY;
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int ty = (w % (NTY / 4)) * 4 + (lane >> 3), wx = w / (NTY / 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float m = group_max<8>(mx[i]);
+        if ((lane & 7) == 0) rm[wx * ROWS + ty + NTY * i] = m;
+    }
+}
+
+// Threads of one group of the weighted sum: ROWS / 4 row groups x DH / 4
+// column groups; the block's groups take disjoint keys of a tile and their
+// partials are added in group order at the end.
+template <int DH, int ROWS>
+__host__ __device__ constexpr int av_group() { return ROWS / 4 * (DH / 4); }
+
+// acc[i][c] += sum over n keys (n % 4 == 0) of w[ry + RY i][l0 + t] v[v0 + t][4 cx + c],
+// t in order: 4 float4 weight loads (rows RY apart, distinct banks through
+// the logits' row stride of 8 mod 32) and 4 of V (one row, 4 consecutive
+// columns a thread) per 64 FMA.
+template <int DH, class KV, int ROWS>
+__device__ __forceinline__ void tile_av(float (&acc)[4][4], const float* lg, int ldl, int l0, const KV* vt, int v0,
+                                        int n, int lid) {
+    constexpr int RY = ROWS / 4, NCX = DH / 4, LD = kv_ld<DH, KV>();
+    const int ry = lid / NCX, cx = lid % NCX;
+    for (int t = 0; t < n; t += 4) {
+        float4 wv[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wv[i] = load4(lg + (ry + RY * i) * ldl + l0 + t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) vv[j] = load4(vt + (v0 + t + j) * LD + 4 * cx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float wt[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                acc[i][0] = fmaf(wt[j], vv[j].x, acc[i][0]);
+                acc[i][1] = fmaf(wt[j], vv[j].y, acc[i][1]);
+                acc[i][2] = fmaf(wt[j], vv[j].z, acc[i][2]);
+                acc[i][3] = fmaf(wt[j], vv[j].w, acc[i][3]);
+            }
+        }
+    }
+}
+
+// The group partials acc of rows (ry + RY i), columns 4 cx + c into
+// part[grp][ROWS][DH] (the caller synchronises before and after).
+template <int DH, int ROWS>
+__device__ __forceinline__ void store_partials(float* part, const float (&acc)[4][4], int grp, int lid) {
+    constexpr int RY = ROWS / 4, NCX = DH / 4;
+    const int ry = lid / NCX, cx = lid % NCX;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(part + (grp * ROWS + ry + RY * i) * DH + 4 * cx) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// The softmax's two passes over rows of lg in place, NT / ROWS threads a
+// row in float4 chunks of its first n columns (rows r < rows whose exact
+// max m[r] is finite; the others are left as they are):
+//   exp_rows: e = expf(z - m), the row's sum of e into sum[r] (0 for the
+//     other rows): each thread's sum in column order, then the row's
+//     threads' sums by a butterfly;
+//   weights_rows: w = e / sum (div_rn; a zero e gives 0 without it), times the dropout
+//     factor of (row stat0 + r, column col0 + t) when DROP is on, four a
+//     Philox call, skipped for four zero weights.
+template <int ROWS, int NT>
+__device__ __forceinline__ void exp_rows(float* lg, int ldl, int n, int rows, const float* m, float* sum) {
+    constexpr int TPR = NT / ROWS;
+    static_assert(TPR <= 32 && 32 % TPR == 0, "threads a row");
+    const int r = threadIdx.x / TPR, k = threadIdx.x % TPR;
+    const float mr = m[r];
+    const bool live = r < rows && mr != -INFINITY;
+    float s = 0.f;
+    if (live) {
+        float* row = lg + r * ldl;
+        for (int t = 4 * k; t < n; t += 4 * TPR) {
+            const float4 z = load4(row + t);
+            const float e0 = expf(z.x - mr);
+            const float e1 = t + 1 < n ? expf(z.y - mr) : 0.f;
+            const float e2 = t + 2 < n ? expf(z.z - mr) : 0.f;
+            const float e3 = t + 3 < n ? expf(z.w - mr) : 0.f;
+            s += e0;
+            s += e1;
+            s += e2;
+            s += e3;
+            *reinterpret_cast<float4*>(row + t) = make_float4(e0, e1, e2, e3);
+        }
+    }
+    s = group_sum<TPR>(s);
+    if (k == 0) sum[r] = live ? s : 0.f;
+}
+
+template <int ROWS, int NT, bool DROP>
+__device__ __forceinline__ void weights_rows(float* lg, int ldl, int n, int rows, const float* m, const float* sum,
+                                             const Args& a, long long stat0, int col0) {
+    constexpr int TPR = NT / ROWS;
+    const int r = threadIdx.x / TPR, k = threadIdx.x % TPR;
+    if (r >= rows || m[r] == -INFINITY) return;
+    const float sr = sum[r], ir = 1.f / sr;
+    float* row = lg + r * ldl;
+    for (int t = 4 * k; t < n; t += 4 * TPR) {
+        const float4 e = load4(row + t);
+        float w[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = w[j] == 0.f ? 0.f : div_rn(w[j], sr, ir);
+        if (DROP && a.drop.on && (w[0] != 0.f || w[1] != 0.f || w[2] != 0.f || w[3] != 0.f)) {
+            float f[4];
+            tb_philox::factors4(a.drop, a.site, (unsigned long long)(stat0 + r), (uint32_t)((col0 + t) >> 2), f);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) w[j] *= f[j];
+        }
+        *reinterpret_cast<float4*>(row + t) = make_float4(w[0], w[1], w[2], w[3]);
+    }
+}
+
+// ---- path L: one block per (ROWS_L query rows, head, scene)
+
+// Shared memory of a path-L block, in floats: the [ROWS_L][ldl] logits,
+// q [ROWS_L][DH + 4], two K/V tiles [TK][LD] (then the groups' partial sums),
+// the mask bits [ROWS_L][nt * 4], the warp columns' row maxima, the rows'
+// max and sum, the live tiles and each tile's flag. ops/fused_attention.py
+// mirrors it.
+__host__ __device__ inline int rows_ldl(int T) { return (T + TK - 1) / TK * TK + 8; }
+
+template <int DH, class KV>
+__host__ __device__ inline int rows_kv_floats() {
+    const int tiles = 2 * TK * kv_ld<DH, KV>() * (int)sizeof(KV) / 4;
+    return tiles > THREADS_L * 16 ? tiles : THREADS_L * 16;
+}
+
+template <int DH, class KV>
+size_t rows_smem(int T) {
+    const int nt = (T + TK - 1) / TK;
+    return sizeof(float) * ((size_t)ROWS_L * rows_ldl(T) + ROWS_L * (DH + 4) + rows_kv_floats<DH, KV>() +
+                            ROWS_L * nt * (TK / 32) + (Grid<ROWS_L, TK, THREADS_L>::NWX + 2) * ROWS_L + 2 * nt);
+}
+
+template <int DH, class KV, bool DROP, bool STATS>
+__global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
+    constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX;
+    constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = NT / GT, KG = TK / NG;
+    static_assert(NG * GT == NT && KG % 4 == 0, "weighted-sum groups");
+    extern __shared__ float smem[];
+    TB_TRACE_BEGIN(0);
+    const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32), ldl = rows_ldl(T);
+    float* lg = smem;                                        // [ROWS_L][ldl]: logits, then weights
+    float* qs = lg + ROWS_L * ldl;                           // [ROWS_L][LQ]
+    KV* kv = reinterpret_cast<KV*>(qs + ROWS_L * LQ);        // two [TK][LD] tiles; then the partial sums
+    float* part = reinterpret_cast<float*>(kv);
+    uint32_t* bits = reinterpret_cast<uint32_t*>(qs + ROWS_L * LQ + rows_kv_floats<DH, KV>());  // [ROWS_L][nw]
+    float* rm = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NWX][ROWS_L] the warp columns' row maxima
+    float* mrow = rm + NWX * ROWS_L;                         // [ROWS_L] the row max (-inf: no allowed key, past S)
+    float* srow = mrow + ROWS_L;                             // [ROWS_L] the row sum
+    int* live = reinterpret_cast<int*>(srow + ROWS_L);       // [nt] the live tiles
+    int* flag = live + nt;                                   // [nt] a tile has an allowed pair
+
+    const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * ROWS_L;
+    const int rows = min(ROWS_L, a.S - s0);
+    const long long kv_base = (long long)b * T * a.D + h * DH;
+    const long long stat0 = ((long long)b * a.H + h) * a.S + s0;
+    const KV* K = static_cast<const KV*>(a.k);
+    const KV* V = static_cast<const KV*>(a.v);
+    const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
+
+    stage_rows<DH, float, NT>(qs, a.q, ((long long)b * a.S + s0) * a.D + h * DH, 0, ROWS_L, rows, a.D, a.aligned);
+    cp_async_commit();
+    load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
+    for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
+    __syncthreads();
+    TB_TRACE(0, 1);  // q issued, the mask bits
+
+    // the live tiles: those where some (row, key) pair is allowed; the
+    // logits of the others are -inf and their K/V tiles never load
+    for (int i = threadIdx.x; i < (brs ? ROWS_L : 1) * nw; i += NT)
+        if (bits[i] != 0u) atomicOr(&flag[(i % nw) / (TK / 32)], 1);
+    __syncthreads();
+    int n_live = 0;
+    for (int i = 0; i < nt; ++i) {
+        if (!flag[i]) continue;
+        if (threadIdx.x == 0) live[n_live] = i;
+        ++n_live;
+    }
+    for (int i = 0; i < nt; ++i)  // the dead tiles' logits -inf
+        if (!flag[i])
+            for (int j = threadIdx.x; j < ROWS_L * TK; j += NT)
+                if (i * TK + j % TK < T) lg[(j / TK) * ldl + i * TK + j % TK] = -INFINITY;
+    for (int j = threadIdx.x; j < ROWS_L * (nt * TK - T); j += NT) {  // past T: weight 0 (V rows there are 0)
+        const int nc = nt * TK - T;
+        lg[(j / nc) * ldl + T + j % nc] = 0.f;
+    }
+    __syncthreads();  // live[] and the fills written
+    TB_TRACE(0, 2);  // the live tiles, the fills
+
+    // logits and the row maxima: K tiles double-buffered, the next one in
+    // flight during this one's products
+    if (n_live > 0) {
+        stage_rows<DH, KV, NT>(kv, K, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
+        cp_async_commit();
+    }
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    for (int i = 0; i < n_live; ++i) {
+        if (i + 1 < n_live)
+            stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, K, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+        cp_async_commit();  // empty on the last tile: one group a step
+        cp_async_wait<1>();
+        __syncthreads();
+        tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i & 1) * TK * LD, live[i] * TK, bits, brs,
+                                            0, T, mx);
+        __syncthreads();
+    }
+    store_row_max<ROWS_L, TK, NT>(rm, mx);
+    TB_TRACE(0, 3);  // the logits
+    if (n_live > 0) {  // V's first tile loads during the softmax
+        stage_rows<DH, KV, NT>(kv, V, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
+        cp_async_commit();
+    }
+
+    // softmax: the exact max over the whole row, then exp and sum, then
+    // the division (and the dropout factors)
+    __syncthreads();
+    if (threadIdx.x < ROWS_L) {
+        float m = -INFINITY;
+        for (int x = 0; x < NWX; ++x) m = fmaxf(m, rm[x * ROWS_L + threadIdx.x]);
+        mrow[threadIdx.x] = (int)threadIdx.x < rows ? m : -INFINITY;
+    }
+    __syncthreads();
+    exp_rows<ROWS_L, NT>(lg, ldl, T, rows, mrow, srow);
+    __syncthreads();
+    TB_TRACE(0, 4);  // the row max, exp and sum
+    if (STATS && (int)threadIdx.x < rows) {  // a row with every target masked: -inf and 0
+        a.rmax[stat0 + threadIdx.x] = mrow[threadIdx.x];
+        a.rsum[stat0 + threadIdx.x] = srow[threadIdx.x];
+    }
+    weights_rows<ROWS_L, NT, DROP>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
+    TB_TRACE(0, 5);  // the weights (this thread's share)
+
+    // weighted sum: V tiles double-buffered; group grp takes keys
+    // grp * KG .. of each tile, the partials added in group order
+    const int grp = threadIdx.x / GT, lid = threadIdx.x % GT;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+        if (i + 1 < n_live)
+            stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, V, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i & 1) * TK * LD, grp * KG, KG, lid);
+        __syncthreads();
+    }
+    __syncthreads();
+    TB_TRACE(0, 6);  // the weighted sum
+    store_partials<DH, ROWS_L>(part, acc, grp, lid);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * DH; i += NT) {
+        const int r = i / DH, c = i % DH;
+        float s = part[i];
+        for (int g = 1; g < NG; ++g) s += part[g * ROWS_L * DH + i];
+        a.out[((long long)b * a.S + s0 + r) * a.D + h * DH + c] = mrow[r] == -INFINITY ? 0.f : s;
+    }
+    TB_TRACE(0, 7);  // the groups' partials, the output
+}
+
+// ---- path S: a cluster of ranks per (head, scene), a TK-key slice of T each
+
+// Shared memory of a path-S block, in floats: the [ROWS_S][TK + 8] slice
+// logits (then the groups' partial sums), q [ROWS_S][DH + 4], the K and V
+// slices [TK][LD], the warp columns' row maxima, the rows' slice max, slice
+// sum, max and sum, the mask bits [ROWS_S][TK / 32].
+template <int DH, class KV>
+size_t cluster_smem() {
+    return sizeof(float) * ((size_t)ROWS_S * (TK + 8) + ROWS_S * (DH + 4) + 2 * TK * kv_ld<DH, KV>() * sizeof(KV) / 4 +
+                            (Grid<ROWS_S, TK / 2, THREADS_S>::NWX + 4) * ROWS_S + ROWS_S * (TK / 32));
+}
+
+// v[k] = rank k's arr[i] for the cluster's ranks, all loads in flight at once.
+__device__ __forceinline__ void gather(float (&v)[MAX_CLUSTER], float* arr, int i, int CL) {
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) v[k] = k < CL ? cluster_map(arr, (unsigned)k)[i] : 0.f;
+}
+
+// Three blocks an SM (registers and shared memory allow it), so that a
+// cluster of eight finds room beside the others: at B = 8, 32 clusters.
+template <int DH, class KV, bool DROP, bool STATS>
+__global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
+    constexpr int NT = THREADS_S, HK = TK / 2, NWX = Grid<ROWS_S, HK, NT>::NWX;
+    constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), LL = TK + 8, NW = TK / 32;
+    constexpr int GT = av_group<DH, ROWS_S>(), NG = NT / GT, KG = TK / NG;
+    static_assert(NG * GT == NT && KG % 4 == 0 && NT * 16 <= ROWS_S * LL, "weighted-sum groups");
+    extern __shared__ float smem[];
+    TB_TRACE_BEGIN(1);
+    float* lg = smem;                                   // [ROWS_S][LL]: the slice's logits, then weights
+    float* part = lg;                                   // then [NG][ROWS_S][DH]; group 0's slot: the rank's sums
+    float* qs = lg + ROWS_S * LL;                       // [ROWS_S][LQ]
+    KV* kt = reinterpret_cast<KV*>(qs + ROWS_S * LQ);   // [TK][LD] the slice's keys
+    KV* vt = kt + TK * LD;                              // [TK][LD] its values
+    float* rm = reinterpret_cast<float*>(vt + TK * LD);  // [NWX][ROWS_S] the warp columns' row maxima
+    float* pmax = rm + NWX * ROWS_S;                    // [ROWS_S] the slice's row max
+    float* psum = pmax + ROWS_S;                        // [ROWS_S] the slice's sum of exp
+    float* gmax = psum + ROWS_S;                        // [ROWS_S] the row max over T (-inf: no allowed key)
+    float* gsum = gmax + ROWS_S;                        // [ROWS_S] the row sum over T, in rank order
+    uint32_t* bits = reinterpret_cast<uint32_t*>(gsum + ROWS_S);  // [ROWS_S][NW]
+
+    const unsigned c = cluster_rank();
+    const int CL = gridDim.x;
+    const int b = blockIdx.z, h = blockIdx.y, S = a.S, T = a.T, t0 = (int)c * TK;
+    const int n = max(0, min(TK, T - t0));  // the slice's keys below T
+    const long long kv_base = (long long)b * T * a.D + h * DH;
+    const long long stat0 = ((long long)b * a.H + h) * S;
+    const int brs = a.inv_ss == 0 ? 0 : NW;
+
+    // q, the K and the V slice at once: V stays in flight through the
+    // logits and the softmax
+    stage_rows<DH, float, NT>(qs, a.q, (long long)b * S * a.D + h * DH, 0, ROWS_S, S, a.D, a.aligned);
+    stage_rows<DH, KV, NT>(kt, static_cast<const KV*>(a.k), kv_base, t0, TK, T, a.D, a.aligned);
+    cp_async_commit();
+    stage_rows<DH, KV, NT>(vt, static_cast<const KV*>(a.v), kv_base, t0, TK, T, a.D, a.aligned);
+    cp_async_commit();
+    load_bits<NT>(bits, brs ? ROWS_S : 1, NW, a, b, 0, t0);
+    for (int j = threadIdx.x; j < ROWS_S * (TK - n); j += NT)  // keys past T: weight 0 (V rows there are 0)
+        lg[(j / (TK - n)) * LL + n + j % (TK - n)] = 0.f;
+    cp_async_wait<1>();
+    __syncthreads();
+    TB_TRACE(1, 1);  // q and K arrived, the mask bits
+    const bool live = __syncthreads_or(threadIdx.x < (brs ? ROWS_S : 1) * NW &&
+                                       bits[(threadIdx.x / NW) * brs + threadIdx.x % NW] != 0u);
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    if (live) {  // two halves of 64 keys: 4 x 4 micro-tiles, few registers
+        tile_logits<DH, KV, ROWS_S, HK, NT>(lg, LL, 0, qs, kt, t0, bits, brs, t0, T, mx);
+        tile_logits<DH, KV, ROWS_S, HK, NT>(lg, LL, HK, qs, kt + HK * LD, t0 + HK, bits, brs, t0, T, mx);
+    } else {  // no pair of the slice is allowed: no product
+        for (int j = threadIdx.x; j < ROWS_S * n; j += NT) lg[(j / n) * LL + j % n] = -INFINITY;
+    }
+    __syncthreads();
+
+    TB_TRACE(1, 2);  // the logits
+    // the exact row max: each rank's over its slice, then the ranks' maxima
+    store_row_max<ROWS_S, HK, NT>(rm, mx);
+    __syncthreads();
+    if (threadIdx.x < ROWS_S) {
+        float m = -INFINITY;
+        for (int x = 0; x < NWX; ++x) m = fmaxf(m, rm[x * ROWS_S + threadIdx.x]);
+        pmax[threadIdx.x] = (int)threadIdx.x < S ? m : -INFINITY;
+    }
+    cluster_sync();
+    if (threadIdx.x < ROWS_S) {
+        float v[MAX_CLUSTER];
+        gather(v, pmax, threadIdx.x, CL);
+        float m = v[0];
+        for (int k = 1; k < CL; ++k) m = fmaxf(m, v[k]);
+        gmax[threadIdx.x] = m;
+    }
+    __syncthreads();
+    TB_TRACE(1, 3);  // the slice max, exchanged
+    exp_rows<ROWS_S, NT>(lg, LL, n, S, gmax, psum);
+    cluster_sync();
+    TB_TRACE(1, 4);  // exp and the slice sum
+    if (threadIdx.x < ROWS_S) {  // the slices' sums in rank order: the same float on every rank
+        float v[MAX_CLUSTER];
+        gather(v, psum, threadIdx.x, CL);
+        float s = v[0];
+        for (int k = 1; k < CL; ++k) s += v[k];
+        gsum[threadIdx.x] = s;
+    }
+    __syncthreads();
+    weights_rows<ROWS_S, NT, DROP>(lg, LL, n, S, gmax, gsum, a, stat0, t0);
+    TB_TRACE(1, 5);  // the sum, exchanged, and the weights (this thread's share)
+
+    // the slice's weighted sum: group grp takes keys grp * KG .., the
+    // groups' partials added in group order, then the ranks' in rank order
+    const int grp = threadIdx.x / GT, lid = threadIdx.x % GT;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (live) tile_av<DH, KV, ROWS_S>(acc, lg, LL, grp * KG, vt, grp * KG, KG, lid);
+    __syncthreads();  // the weights are read: their buffer takes the partials
+    TB_TRACE(1, 6);  // V arrived, the weighted sum
+    store_partials<DH, ROWS_S>(part, acc, grp, lid);
+    __syncthreads();
+    for (int i = threadIdx.x; i < ROWS_S * DH; i += NT) {
+        float s = part[i];
+        for (int g = 1; g < NG; ++g) s += part[g * ROWS_S * DH + i];
+        part[i] = s;
+    }
+    cluster_sync();
+    TB_TRACE(1, 7);  // the groups' partials
+    const int rp = (S + CL - 1) / CL, r0 = (int)c * rp, r1 = min(S, r0 + rp);  // rank c writes rows r0 .. r1 - 1
+    for (int i = r0 * DH + threadIdx.x; i < r1 * DH; i += NT) {
+        const int r = i / DH, d = i % DH;
+        float v[MAX_CLUSTER];
+        gather(v, part, i, CL);
+        float s = v[0];
+        for (int k = 1; k < CL; ++k) s += v[k];
+        a.out[((long long)b * S + r) * a.D + h * DH + d] = gmax[r] == -INFINITY ? 0.f : s;
+    }
+    if (STATS && (int)threadIdx.x >= r0 && (int)threadIdx.x < r1) {  // -inf and 0 for an all-masked row
+        a.rmax[stat0 + threadIdx.x] = gmax[threadIdx.x];
+        a.rsum[stat0 + threadIdx.x] = gmax[threadIdx.x] == -INFINITY ? 0.f : gsum[threadIdx.x];
+    }
+    cluster_sync();  // no rank leaves while another reads its shared memory
+    TB_TRACE(1, 8);  // the ranks' partials added, the output
+}
+
+// ---- the path choice and the launch
+
+// Path S where every row of a head fits one block (S <= ROWS_S), T fits a
+// cluster's slices, and path L's grid would be small (fewer than
+// LARGE_GRID blocks: the rollout's as2pl at B = 8 gives 64, at B = 48 384);
+// else path L.
+inline bool takes_cluster(const Args& a) {
+    const long long row_blocks = (long long)((a.S + ROWS_L - 1) / ROWS_L) * a.H * a.B;
+    return a.S <= ROWS_S && (a.T + TK - 1) / TK <= MAX_CLUSTER && row_blocks < LARGE_GRID;
+}
+
+template <int DH, class KV, bool DROP, bool STATS>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+    if (takes_cluster(a)) {
+        const size_t smem = cluster_smem<DH, KV>();
+        cudaError_t err = cudaFuncSetAttribute(fwd_cluster<DH, KV, DROP, STATS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        const int cl = (a.T + TK - 1) / TK;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(cl, a.H, a.B);
+        cfg.blockDim = dim3(THREADS_S);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = st;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = cl;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        err = cudaLaunchKernelEx(&cfg, fwd_cluster<DH, KV, DROP, STATS>, a);
+        return err != cudaSuccess ? err : cudaGetLastError();
+    }
+    const size_t smem = rows_smem<DH, KV>(a.T);
+    cudaError_t err = cudaFuncSetAttribute(fwd_rows<DH, KV, DROP, STATS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.S + ROWS_L - 1) / ROWS_L, a.H, a.B);
+    fwd_rows<DH, KV, DROP, STATS><<<grid, THREADS_L, smem, st>>>(a);
+    return cudaGetLastError();
+}
+
+// q, k and v 16-byte aligned (each head's row slice then is too: D and dh
+// are multiples of 16 elements): their tiles load with cp.async.
+inline int aligned16(const void* q, const void* k, const void* v) {
+    return ((uintptr_t)q % 16 == 0) && ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0);
+}
+
+}  // namespace tb_attn

@@ -12,10 +12,12 @@ tensor [B, H, S, T], row (b H + h) S + s, col t, at (seed, site)). A row whose
 targets are ALL disallowed comes out exactly 0 and gets no gradient.
 
 `attention_train_plain` is plain tensor code that autograd differentiates.
-`attention_train` sends a CUDA tensor to `csrc/attention_train.cu` through
-an autograd Function whose backward is the kernels' dq and dk/dv pair
-(streamed 64-wide tiles, FlashAttention-2 style; see the source), and a CPU
-tensor to the plain version; it never falls back from one to the other.
+`attention_train` sends a CUDA tensor to `csrc/attention_train.cu` (its
+forward is K1's, `csrc/attn_fwd.cuh`, with the dropout factors and the row
+statistics) through an autograd Function whose backward is the kernels' dq
+and dk/dv pair (streamed 64-wide tiles, FlashAttention-2 style; see the
+source), and a CPU tensor to the plain version; it never falls back from
+one to the other.
 `LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward kernel's launches and the
 backward's (one per backward call, which launches its two kernels).
 
@@ -31,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, fused_attention
 from .dropout import SavedCores, dropout_plain, keep_scale, threshold
 
 Tensor = torch.Tensor
@@ -41,7 +43,7 @@ LAUNCHES_BWD = 0
 
 _KERNEL = "attention_train"
 HEAD_DIMS = (16, 32)  # the head widths the kernels are instantiated for
-ROWS_PER_BLOCK = 16  # ROWS in csrc/attention_train.cu: query rows of a forward block
+ROWS_PER_BLOCK = fused_attention.ROWS_PER_BLOCK  # the forward is K1's (csrc/attn_fwd.cuh)
 BWD_TILE = 64  # BT: keys of a backward tile, query rows of a dk/dv step
 DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks)
 _PAD = 4  # PAD: floats after each transposed tile row
@@ -76,16 +78,16 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
 
 def smem_bytes(T: int, d_head: int) -> int:
     """The largest dynamic shared memory of a block among the kernels
-    (mirrors csrc/attention_train.cu): the forward's [16, T] logits, the dq
-    kernel's tiles at either query block, the dk/dv kernel's."""
-    fwd = ROWS_PER_BLOCK * ((T + 3) // 4 * 4) + ROWS_PER_BLOCK * d_head + 64 * (d_head + 1)
+    (mirrors csrc/attn_fwd.cuh and csrc/attention_train.cu): the forward's
+    (K1's blocks at fp32 K/V), the dq kernel's tiles at either query block,
+    the dk/dv kernel's."""
     wide = BWD_TILE + _PAD
 
     def dq(bq):
         return 2 * d_head * (bq + _PAD) + 3 * bq + 256 // (4 * bq) * (2 * d_head + bq) * wide
 
     dkdv = (4 * d_head + 2 * BWD_TILE) * wide + 3 * BWD_TILE
-    return 4 * max(fwd, dkdv, *(dq(bq) for bq in DQ_ROWS))
+    return max(fused_attention.smem_bytes(T, d_head, 4), 4 * max(dkdv, *(dq(bq) for bq in DQ_ROWS)))
 
 
 def _check_inputs(q, k, v, invalid, n_head):

@@ -14,7 +14,9 @@ This is the JAX package's XLA path (the one its CPU tests run), not its TPU
 kernel path, which also rounds q and the attention weights to bf16.
 
 `fused_attention_core` sends a CUDA tensor to the kernel
-(`csrc/fused_attention.cu`) and a CPU tensor to `attention_core_plain`; it
+(`csrc/fused_attention.cu`, the forward of `csrc/attn_fwd.cuh` shared with
+K3f: a thread-block cluster over T where S <= 64 and the grid is small,
+32-row blocks otherwise) and a CPU tensor to `attention_core_plain`; it
 never falls back from one to the other. `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
@@ -32,7 +34,8 @@ LAUNCHES = 0
 
 _KERNEL = "fused_attention"
 _HEAD_DIMS = (16, 32, 64)
-ROWS_PER_BLOCK = 16  # must match ROWS in csrc/fused_attention.cu
+ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (path L) block
+KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
 _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 
@@ -55,10 +58,19 @@ def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
     return torch.where(no_valid[..., None], torch.zeros_like(out), out)
 
 
-def smem_bytes(T: int, d_head: int) -> int:
-    """Dynamic shared memory of one block (mirrors the kernel's layout)."""
-    t_pad = (T + 3) // 4 * 4
-    return 4 * (ROWS_PER_BLOCK * t_pad + ROWS_PER_BLOCK * d_head + 64 * (d_head + 1))
+def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
+    """Dynamic shared memory of the larger of the kernel's two blocks
+    (mirrors rows_smem and cluster_smem in csrc/attn_fwd.cuh): path L's
+    [32, T] logits, q, two K/V tiles (or the groups' partial sums) and the
+    mask bits; path S's slice logits (then partial sums), q, K and V slices
+    and row statistics; the warp columns' row maxima. Path L's logits bound
+    T."""
+    nt = -(-T // KEY_TILE)
+    tiles = 2 * KEY_TILE * (d_head + 16 // kv_bytes) * kv_bytes // 4
+    rows = (ROWS_PER_BLOCK * (nt * KEY_TILE + 8) + ROWS_PER_BLOCK * (d_head + 4) + max(tiles, 512 * 16)
+            + ROWS_PER_BLOCK * nt * KEY_TILE // 32 + (8 + 2) * ROWS_PER_BLOCK + 2 * nt)
+    cluster = 64 * (KEY_TILE + 8) + 64 * (d_head + 4) + tiles + (2 + 4) * 64 + 64 * KEY_TILE // 32
+    return 4 * max(rows, cluster)
 
 
 def _check_inputs(q, k, v, invalid, n_head):
@@ -82,7 +94,7 @@ def _check_inputs(q, k, v, invalid, n_head):
         raise ValueError("q, k and v must be contiguous")
     if invalid.stride(2) != 1:
         raise ValueError("invalid must be contiguous along the target axis")
-    if smem_bytes(T, D // n_head) > _SMEM_LIMIT:
+    if smem_bytes(T, D // n_head, k.element_size()) > _SMEM_LIMIT:
         raise ValueError(f"T={T} does not fit one block's shared memory")
 
 
