@@ -22,7 +22,9 @@ its own lines:
      joint futures' batch 48 included) and K3 at every training site
      beside SDPA's forward and backward on the device
      (`library_device_ms`), K1's output and K3f's output and row
-     statistics bitwise equal over two calls;
+     statistics bitwise equal over two calls; K4 on two draws of inputs
+     (the usual one, and the B=48 draw: replayed_generator), each held
+     against an fp64 plain run, the max-pool's near-ties counted;
   4. the eval main path at full width (ExperimentConfig defaults: 64
      agents, 1024 x 20 polylines, hidden 128, 91 steps) on seed-0 synthetic
      scenes at WOMD-like fill (768 polylines, 40 agents valid), N_SCENE
@@ -61,9 +63,12 @@ Any failure raises and exits non-zero before the last line. Without CUDA the
 script exits non-zero at once. It imports nothing of JAX.
 
     python3 chip_smoke.py --attention
+    python3 chip_smoke.py --node
 
-builds K1 and K3 alone and runs only their checks and timings (phase 3's
-K1 and K3 lines and one JSON line, no last line): a quick check after an
+build K1 and K3 (--attention), or K2 and K4 (--node), alone and run only
+their checks and timings (phase 3's lines for them and one JSON line, no
+last line; --node replays the shared generator's earlier draws on the CPU,
+so K2 and K4 see the inputs a full run gives them): a quick check after an
 edit of their sources, or, copied into an unpacked older commit and run
 there, that commit's numbers beside this one's in the same call.
 """
@@ -306,15 +311,15 @@ def sdpa_call(args):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed)
 
 
-def check_k1(gen, n_scene, dev):
-    """K1 at every main-path call site: against its plain version, two calls
-    bitwise equal, its times beside SDPA's (host and device). Returns the
-    kernels-line entry (timed at the rollout's as2pl, the site with 270
-    launches a rollout) with every site's numbers under `sites`."""
-    sites = [
+K1_B48 = "joint futures rollout as2pl"
+
+
+def k1_sites(n_scene):
+    """K1's main-path call sites: (name, B, S, T, bf16 K/V, padding share, full mask)."""
+    return [
         ("rollout as2pl", n_scene, 64, 1024, True, 0.25, False),
         # validation's K = 6 joint futures folded into the batch: 270 launches a step
-        ("joint futures rollout as2pl", n_scene * 6, 64, 1024, True, 0.25, False),
+        (K1_B48, n_scene * 6, 64, 1024, True, 0.25, False),
         ("map polyline self-attention", n_scene, 1024, 1024, False, 0.25, False),
         ("latent as2pl", n_scene, 19 * 64, 1024, False, 0.25, False),
         # the latent as2tl runs on 40 traffic lights, under the T >= 64 gate, so
@@ -322,11 +327,18 @@ def check_k1(gen, n_scene, dev):
         ("as2tl-like, off the main path", n_scene * 19, 64, 100, False, 0.5, False),
         ("rollout as2pl, full mask, all-masked row", n_scene, 64, 1024, True, 0.3, True),
     ]
+
+
+def check_k1(gen, n_scene, dev):
+    """K1 at every main-path call site: against its plain version, two calls
+    bitwise equal, its times beside SDPA's (host and device). Returns the
+    kernels-line entry (timed at the rollout's as2pl, the site with 270
+    launches a rollout) with every site's numbers under `sites`."""
     entry, max_err, per_site = None, 0.0, []
-    for name, B, S, T, bf16, pad, full in sites:
+    for name, B, S, T, bf16, pad, full in k1_sites(n_scene):
         # the joint futures' site draws from a generator of its own, so that
         # the later checks' inputs stay what the shared one gave them before
-        site_gen = torch.Generator().manual_seed(48) if name == "joint futures rollout as2pl" else gen
+        site_gen = torch.Generator().manual_seed(48) if name == K1_B48 else gen
         args, mask_bytes = k1_case(site_gen, B, S, T, bf16, pad, full, dev)
         out = FA.fused_attention_core(*args)
         again = FA.fused_attention_core(*args)
@@ -573,6 +585,16 @@ def sdpa_train(q, k, v, invalid, H):
     return fwd, (qh, kh, vh)
 
 
+def k3_sites(n_scene):
+    """K3's main-path training sites: (name, B, S, T, padding share, full mask)."""
+    return [
+        ("rollout as2pl", n_scene, 64, 1024, 0.25, False),
+        ("map polyline self-attention", n_scene, 1024, 1024, 0.25, False),
+        ("posterior latent as2pl", n_scene, 19 * 64, 1024, 0.25, False),
+        ("rollout as2pl, full mask, all-masked row", n_scene, 64, 1024, 0.3, True),
+    ]
+
+
 def check_k3(gen, n_scene, dev):
     """K3 forward and backward at every main-path training site, dropout
     live on the same seeds as the plain version; the backward twice,
@@ -581,16 +603,10 @@ def check_k3(gen, n_scene, dev):
     and SDPA's, its backward's device time from the profiler. The entries
     are the rollout's as2pl (277 launches a step); `sites` holds them all."""
     H = 4
-    sites = [
-        ("rollout as2pl", n_scene, 64, 1024, 0.25, False),
-        ("map polyline self-attention", n_scene, 1024, 1024, 0.25, False),
-        ("posterior latent as2pl", n_scene, 19 * 64, 1024, 0.25, False),
-        ("rollout as2pl, full mask, all-masked row", n_scene, 64, 1024, 0.3, True),
-    ]
     fwd_entry = bwd_entry = None
     err_f = err_b = 0.0
     per_site = []
-    for name, B, S, T, pad, full in sites:
+    for name, B, S, T, pad, full in k3_sites(n_scene):
         q, k, v, invalid, g, mask_bytes = k3_inputs(gen, B, S, T, pad, full, dev)
         seed = 2**40 + S
 
@@ -655,15 +671,55 @@ def check_k3(gen, n_scene, dev):
     return fwd_entry, bwd_entry
 
 
-def check_k4(gen, n_scene, dev, batch):
-    """K4 forward and backward on [n_scene * 1024, 20, 128] with the batch's
-    node validity (768 valid polylines a scene) plus an all-invalid and a
-    partly valid polyline, dropout live; the backward twice, bitwise equal."""
+def replayed_generator(upto, n_scene, batch, b48=False):
+    """A seed-0 generator advanced by the draws that the checks before
+    `upto` ("K2" or "K4") make from the shared generator in a full run (K1's
+    sites but the B=48 one; then K2's and K3's inputs), made on the CPU and
+    thrown away. With b48 the B=48 K1 site draws from it too (the "B=48
+    draw", the K4 inputs on which K4b's 1e-3 hold against the plain version
+    once failed: a reading, not a hold, on that draw)."""
+    gen = torch.Generator().manual_seed(0)
+    for name, B, S, T, bf16, pad, full in k1_sites(n_scene):
+        if name != K1_B48 or b48:
+            k1_case(gen, B, S, T, bf16, pad, full, "cpu")
+    if upto == "K4":
+        node_encoder_case(gen, "cpu", batch)
+        for name, B, S, T, pad, full in k3_sites(n_scene):
+            k3_inputs(gen, B, S, T, pad, full, "cpu")
+    return gen
+
+
+def near_ties(nodes, valid, nodes64, ulps=4, rel=1e-5):
+    """Max-pool near-ties of the node stack's fp32 output [BP, N, D]: the
+    (polyline, column) pairs whose two largest valid-node values are equal
+    (`exact`), within `ulps` ulp of the largest (`near`, exact included) or
+    within `rel` of it (`near_rel`); and `flips`, the pairs whose largest
+    valid node differs from the fp64 output's (a flip moves the column's
+    whole cotangent to another node)."""
+    masked = torch.where(valid[..., None], nodes, torch.full_like(nodes, -math.inf))
+    top = masked.topk(2, dim=1).values
+    gap = top[:, 0] - top[:, 1]
+    ulp = torch.nextafter(top[:, 0].abs(), torch.full_like(top[:, 0], math.inf)) - top[:, 0].abs()
+    two = valid.sum(dim=1)[:, None] >= 2
+    arg64 = torch.where(valid[..., None], nodes64, torch.full_like(nodes64, -math.inf)).argmax(dim=1)
+    return dict(exact=int((two & (gap == 0)).sum().item()), near=int((two & (gap <= ulps * ulp)).sum().item()),
+                near_rel=int((two & (gap <= rel * top[:, 0].abs())).sum().item()),
+                flips=int((two & (masked.argmax(dim=1) != arg64)).sum().item()), ulps=ulps, rel=rel)
+
+
+def k4_case(gen, dev, batch, draw, hold_vs_plain):
+    """K4 forward and backward on one draw of inputs, dropout live: the
+    backward twice, bitwise equal; the forward against the plain version;
+    the gradients against the plain version's (held to K4_GRAD_RTOL with
+    hold_vs_plain, else a reading) and both against an fp64 plain run (the
+    kernel held to twice the plain version's gap); the max-pool near-ties of
+    the plain forward's node outputs counted."""
     enc, x, valid = node_encoder_case(gen, dev, batch)
     pl = valid.any(-1)
     g = torch.where(pl[:, None], torch.randn(x.shape[0], 128, generator=gen).to(dev), torch.zeros((), device=dev))
     seed = 2**50 + 9
     weights = [getattr(enc, n) for n in NE.W_NAMES]
+    names = ("dx",) + NE.W_NAMES
 
     def graph(fn):
         xx = x.clone().requires_grad_()
@@ -673,23 +729,53 @@ def check_k4(gen, n_scene, dev, batch):
     grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
     again = torch.autograd.grad(out, leaves, g, retain_graph=True)
     torch.cuda.synchronize()
-    require(all(torch.equal(a, b) for a, b in zip(grads, again)), "K4b: not bitwise reproducible")
+    require(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K4b ({draw}): not bitwise reproducible")
     ref, ref_leaves = graph(NT.node_encoder_train_plain)
     ref_grads = torch.autograd.grad(ref, ref_leaves, g, retain_graph=True)
-    ef = max_err_checked(out.detach()[pl], ref.detach()[pl], K4_TOL, "K4f")
+    ef = max_err_checked(out.detach()[pl], ref.detach()[pl], K4_TOL, f"K4f ({draw})")
     require(bool((out[~pl] == NE.NEG).all()), "K4f: a polyline without a valid node must pool to -1e30")
-    eb = grads_checked(grads, ref_grads, ("dx",) + NE.W_NAMES, K4_GRAD_RTOL, "K4b")
-    # the plain version's own rounding: fp32 against fp64 on the same inputs
+    if hold_vs_plain:
+        eb = grads_checked(grads, ref_grads, names, K4_GRAD_RTOL, f"K4b ({draw})")
+    else:
+        eb = grads_checked(grads, ref_grads, names, math.inf, f"K4b ({draw})")
+    per_leaf = {n: rel_err(a, b) for n, a, b in zip(names, grads, ref_grads)}
+    # both sides' rounding: fp32 against fp64 on the same inputs
     enc64 = NE.FusedNodeEncoder(128, 4, 3, 128).to(dev, torch.float64)
     enc64.load_state_dict({k: v.double() for k, v in enc.state_dict().items()})
+    with torch.no_grad():
+        ties = near_ties(enc(x, valid, P_DROP, seed), valid, enc64(x.double(), valid, P_DROP, seed))
     x64 = x.double().requires_grad_()
     out64 = NT.node_encoder_train_plain(enc64, x64, valid, P_DROP, seed)
     g64 = torch.autograd.grad(out64, [x64] + [getattr(enc64, n) for n in NE.W_NAMES], g.double())
-    fp64_gap = grads_checked([r.double() for r in ref_grads], g64, ("dx",) + NE.W_NAMES, 1.0, "K4 plain fp32 vs fp64")
-    kernel_fp64_gap = grads_checked([r.double() for r in grads], g64, ("dx",) + NE.W_NAMES, 1.0, "K4 kernel vs fp64")
+    fp64_gap = grads_checked([r.double() for r in ref_grads], g64, names, 1.0, "K4 plain fp32 vs fp64")
+    kernel_fp64_gap = grads_checked([r.double() for r in grads], g64, names, 1.0, "K4 kernel vs fp64")
+    plain64 = {n: rel_err(r.double(), b) for n, r, b in zip(names, ref_grads, g64)}
+    kernel64 = {n: rel_err(r.double(), b) for n, r, b in zip(names, grads, g64)}
     del enc64, x64, out64, g64
+    log(f"K4 ({draw}): fwd max_abs_err={ef}; bwd grad rel err vs plain {eb} "
+        f"({'held to ' + str(K4_GRAD_RTOL) if hold_vs_plain else 'a reading'}); against fp64: plain {fp64_gap}, "
+        f"kernel {kernel_fp64_gap} (held to twice the plain's); max-pool near-ties of the plain forward "
+        f"(exact / within {ties['ulps']} ulp / within {ties['rel']} relative): {ties['exact']} / {ties['near']} / "
+        f"{ties['near_rel']}, argmax flips against fp64 {ties['flips']}, of {int(pl.sum()) * 128} columns; "
+        f"per leaf, kernel vs plain {per_leaf}; plain vs fp64 {plain64}; kernel vs fp64 {kernel64}")
     require(kernel_fp64_gap <= 2 * fp64_gap + 1e-6,
-            f"K4b: further from fp64 ({kernel_fp64_gap}) than the plain version ({fp64_gap})")
+            f"K4b ({draw}): further from fp64 ({kernel_fp64_gap}) than twice the plain version ({fp64_gap})")
+    reading = dict(draw=draw, fwd_max_abs_err=ef, grad_rel_vs_plain=eb, held_vs_plain=hold_vs_plain,
+                   plain_vs_fp64=fp64_gap, kernel_vs_fp64=kernel_fp64_gap, near_ties=ties)
+    return enc, x, valid, g, seed, (out, leaves, ref, ref_leaves), reading
+
+
+def check_k4(gen, n_scene, dev, batch):
+    """K4 forward and backward on [n_scene * 1024, 20, 128] with the batch's
+    node validity (768 valid polylines a scene) plus an all-invalid and a
+    partly valid polyline, dropout live, on two draws of inputs: the usual
+    one (`gen` as the full run leaves it), held against the plain version
+    and fp64 and timed, and the B=48 draw (replayed_generator), held against
+    fp64, its kernel-vs-plain gap a reading beside its near-tie count."""
+    enc, x, valid, g, seed, (out, leaves, ref, ref_leaves), usual = k4_case(gen, dev, batch, "usual draw", True)
+    b48 = k4_case(replayed_generator("K4", n_scene, batch, b48=True), dev, batch, "B=48 draw", False)[-1]
+    pl = valid.any(-1)
+    weights = [getattr(enc, n) for n in NE.W_NAMES]
     with torch.no_grad():
         ms_f = time_ms(lambda: NT.node_encoder_train(enc, x, valid, P_DROP, seed), n=10)
         plain_f = time_ms(lambda: NT.node_encoder_train_plain(enc, x, valid, P_DROP, seed), n=3)
@@ -707,15 +793,16 @@ def check_k4(gen, n_scene, dev, batch):
     # backward: reads x, valid, weights, g; writes dx and the 18 dW; each
     # dense product and attention product of the forward costs two
     bb, bb_by = bound_ms(io + x.numel() * 4 + w_bytes, 2 * fwd_flop)
-    log(f"K4 node encoder train: BP={x.shape[0]} N={x.shape[1]} valid polylines={int(pl.sum())} fwd max_abs_err={ef} "
-        f"ms={ms_f} device_ms={dev_f} plain_ms={plain_f} library_ms=None bound_ms={bf} ({bf_by}); bwd grad rel err="
-        f"{eb} (against fp64: plain {fp64_gap}, kernel {kernel_fp64_gap}) ms={ms_b} device_ms={dev_b} "
-        f"plain_ms={plain_b} library_ms=None bound_ms={bb} ({bb_by}); bwd bitwise reproducible")
+    log(f"K4 node encoder train: BP={x.shape[0]} N={x.shape[1]} valid polylines={int(pl.sum())} fwd max_abs_err="
+        f"{usual['fwd_max_abs_err']} ms={ms_f} device_ms={dev_f} plain_ms={plain_f} library_ms=None bound_ms={bf} "
+        f"({bf_by}); bwd grad rel err={usual['grad_rel_vs_plain']} (against fp64: plain {usual['plain_vs_fp64']}, "
+        f"kernel {usual['kernel_vs_fp64']}) ms={ms_b} device_ms={dev_b} plain_ms={plain_b} library_ms=None "
+        f"bound_ms={bb} ({bb_by}); bwd bitwise reproducible [{card_line()}]")
     shape = f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3 p=0.1, {n_scene} scenes at 768/1024 fill"
     return (dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=None,
-                 max_abs_err=ef, shape=shape),
+                 max_abs_err=usual["fwd_max_abs_err"], shape=shape),
             dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=None,
-                 max_abs_err=eb, shape=shape))
+                 max_abs_err=usual["grad_rel_vs_plain"], shape=shape, draws=[usual, b48]))
 
 
 # ------------------------------------------------------------------ main path
@@ -828,6 +915,13 @@ def main_path(cfg, batch, n_iter, dev):
         ref = O.eval_rollout(cfg, model, batch, device=dev)
         ref_nudged = O.eval_rollout(cfg, model, nudged(batch), device=dev)
     vs_plain = compare_rollouts(out, ref, ref_nudged, "main path, kernels vs plain versions on the card")
+    key = str(ROLLOUT_ATOL)
+    first, first_nudge = vs_plain["first_step_over"][key], vs_plain["nudge_first_step_over"][key]
+    log(f"main path: the kernels-vs-plain gap first passes {ROLLOUT_ATOL} m at step {first}, a one-ulp map "
+        f"nudge's at step {first_nudge}")
+    require(first is None or (first_nudge is not None and first >= first_nudge),
+            f"main path: the kernels-vs-plain gap passes {ROLLOUT_ATOL} m at step {first}, before a one-ulp nudge's "
+            f"({first_nudge})")
     return launches, dict(n_scene=n_scene, seconds=secs, agent_steps_per_s=asps, vs_plain=vs_plain,
                           peak_gib=peak_gib, profile=prof)
 
@@ -1066,15 +1160,17 @@ def main():
         f"count {torch.cuda.device_count()} tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    attention_only = sys.argv[1:] == ["--attention"]
-    if sys.argv[1:] and not attention_only:
-        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, or --attention)")
+    modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
+             ("--node",): ("node_encoder", "node_encoder_train")}
+    mode = tuple(sys.argv[1:])
+    if mode not in modes:
+        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention or --node)")
     t0 = time.perf_counter()
-    build_s = cuda_build.build_all(("fused_attention", "attention_train") if attention_only else KERNEL_SOURCES)
+    build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
 
     gen = torch.Generator().manual_seed(0)
-    if attention_only:  # K1 and K3 at their sites alone: a quick check, or code against code in one call
+    if mode == ("--attention",):  # K1 and K3 at their sites alone: a quick check, or code against code in one call
         phase("attention kernel checks")
         k1 = check_k1(gen, N_SCENE, dev)
         k3f, k3b = check_k3(gen, N_SCENE, dev)
@@ -1083,11 +1179,22 @@ def main():
         return
     cfg = ExperimentConfig()
     batch = synthetic_episode_batch(cfg.data, n_scene=N_SCENE, seed=0, n_valid_pl=768, n_valid_agent=40)
+    if mode == ("--node",):  # K2 and K4 on the inputs a full run gives them
+        phase("node kernel checks")
+        k2 = check_k2(replayed_generator("K2", N_SCENE, batch), N_SCENE, dev, batch)
+        k4f, k4b = check_k4(replayed_generator("K4", N_SCENE, batch), N_SCENE, dev, batch)
+        log(json.dumps({"node": {"K2": k2, "K4f": k4f, "K4b": k4b}}))
+        phase("done")
+        return
     phase("kernel checks")
     k1 = check_k1(gen, N_SCENE, dev)
+    require(torch.equal(gen.get_state(), replayed_generator("K2", N_SCENE, batch).get_state()),
+            "replayed_generator does not replay K1's draws")
     k2 = check_k2(gen, N_SCENE, dev, batch)
     k5 = check_k5(dev)
     k3f, k3b = check_k3(gen, N_SCENE, dev)
+    require(torch.equal(gen.get_state(), replayed_generator("K4", N_SCENE, batch).get_state()),
+            "replayed_generator does not replay the draws before K4's")
     k4f, k4b = check_k4(gen, N_SCENE, dev, batch)
     k6, hybrid = check_k6(gen, N_SCENE, dev, batch)
 
@@ -1122,7 +1229,7 @@ def main():
         dict(name="K4f node_encoder_train forward (node stack + pool, dropout)", route="cuda",
              source="trafficbots_tpu_torch/csrc/node_encoder_train.cu",
              replaces="trafficbots_tpu/ops/node_encoder_train.py:468", launches=train_launches["K4f"], **k4f),
-        dict(name="K4b node_encoder_train backward (hand-derived, fixed-order dW partials)", route="cuda",
+        dict(name="K4b node_encoder_train backward (forward saved once, walk down, fixed-order split-K dW)", route="cuda",
              source="trafficbots_tpu_torch/csrc/node_encoder_train.cu",
              replaces="trafficbots_tpu/ops/node_encoder_train.py:521", launches=train_launches["K4b"], **k4b),
         dict(name="K5 dropout (counter-based Philox4x32-10)", route="cuda",

@@ -1,6 +1,9 @@
 // A CPU stand-in for the part of the CUDA runtime that the port's kernels
 // use, so that their sources compile with g++ and run on the host
-// (tests/test_torch_cuda_emu.py). Every thread of a block is a std::thread,
+// (tests/test_torch_cuda_emu.py, tests/test_torch_cuda_emu_node.py). Every
+// thread of a block is a std::thread, a kernel's static __shared__
+// variables are statics (which the blocks of a launch share one after
+// another; no kernel run in a cluster has any),
 // __syncthreads is a std::barrier, and the dynamic shared memory is filled
 // with NaN before each block, so a read of a word the block did not write
 // shows. The blocks of a launch run one after another, except that the
@@ -9,13 +12,15 @@
 // and cluster_map points into another block's shared memory. Warp shuffles
 // exchange through a per-warp slot array between two warp barriers;
 // shared-memory integer atomics are std::atomic_ref; the cp.async copies
-// are synchronous (their commits and waits do nothing).
+// are synchronous (their commits and waits do nothing); clock64 is the
+// host's steady clock.
 // TB_CUDA_EMU tells a source that these plain bodies stand in for its
 // Hopper primitives.
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -34,7 +39,7 @@ using std::min;
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
-#define __shared__
+#define __shared__ static  // one per block: the blocks of a launch run one after another
 #define __restrict__ __restrict
 
 struct dim3 {
@@ -58,6 +63,8 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) { return bytes > 232448 ? 1 : 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }  // the card's is within 2 ulp of this
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -104,6 +111,27 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
     const float r = b.shfl[t ^ (unsigned)o];
     b.warp_bar[t / 32]->arrive_and_wait();
     return r;
+}
+inline int __shfl_xor_sync(unsigned m, int v, int o) {
+    float f;
+    std::memcpy(&f, &v, 4);
+    f = __shfl_xor_sync(m, f, o);
+    std::memcpy(&v, &f, 4);
+    return v;
+}
+
+// The phase traces' clock and counters (csrc/node_trace.cuh).
+inline long long clock64() { return std::chrono::steady_clock::now().time_since_epoch().count(); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+    return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+template <class T> cudaError_t cudaMemcpyToSymbol(T& sym, const void* src, size_t n) {
+    std::memcpy(&sym, src, n);
+    return 0;
+}
+template <class T> cudaError_t cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) {
+    std::memcpy(dst, &sym, n);
+    return 0;
 }
 
 // The Hopper primitives of csrc/attn_fwd.cuh.

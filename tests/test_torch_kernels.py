@@ -84,12 +84,17 @@ def test_k2_plain_matches_jax_kernel_interpret(n_head):
 
 
 def test_k2_node_limit_is_the_shared_memory_edge():
-    """The wrapper's node limit is the kernel's MAXN, the most nodes whose
-    shared memory fits one sm_90 block."""
-    src = (Path(tne.__file__).parent.parent / "csrc" / "node_encoder.cu").read_text()
-    assert int(re.search(r"constexpr int MAXN = (\d+);", src).group(1)) == tne.KERNEL_MAX_NODES
-    assert int(re.search(r"constexpr int SMEM_OPTIN = (\d+);", src).group(1)) == tne.SMEM_LIMIT
-    assert tne.smem_bytes(tne.KERNEL_MAX_NODES) <= tne.SMEM_LIMIT < tne.smem_bytes(tne.KERNEL_MAX_NODES + 1)
+    """The wrapper's limits are the kernel's: MAXN nodes (a thread's
+    attention scores in registers, csrc/node_layer.cuh) and ROWS valid nodes
+    a block; the block's row buffers and weight ring fit one sm_90 block's
+    shared memory with room for its row map, and a block twice as tall
+    would not."""
+    csrc = Path(tne.__file__).parent.parent / "csrc"
+    layer, k2 = (csrc / "node_layer.cuh").read_text(), (csrc / "node_encoder.cu").read_text()
+    assert int(re.search(r"constexpr int MAXN = (\d+);", layer).group(1)) == tne.KERNEL_MAX_NODES
+    assert int(re.search(r"constexpr int SMEM_OPTIN = (\d+);", layer).group(1)) == tne.SMEM_LIMIT
+    assert int(re.search(r"constexpr int ROWS = (\d+);", k2).group(1)) == tne.KERNEL_ROWS
+    assert tne.smem_bytes() + 4096 <= tne.SMEM_LIMIT < 2 * tne.smem_bytes()
 
 
 def test_k2_wrapper_on_cpu_is_the_plain_version():

@@ -191,6 +191,66 @@ def test_validator_end_to_end_gives_jax_metric_keys(val):
         np.testing.assert_allclose(tm[k], jm[k], rtol=SUM_RTOL)
 
 
+def still_batch(batch):
+    """The batch with every agent standing still and valid at every step:
+    each step's state that of its first valid step, speed, velocity,
+    acceleration and yaw rate 0 (the history follows), the goal the
+    standing pose."""
+    b = {k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in batch.items()}
+    valid = b["agent/valid"]  # [B, T, A]
+    first = valid.argmax(axis=1)  # [B, A]
+    valid[:] = valid.any(axis=1, keepdims=True)
+    for k in ("pos", "yaw_bbox"):
+        a = b[f"agent/{k}"]
+        a[:] = np.take_along_axis(a, first[:, None, :, None], axis=1)
+    for k in ("vel", "spd", "acc", "yaw_rate"):
+        b[f"agent/{k}"][:] = 0
+    H = b["history/agent/pos"].shape[1]
+    for k in ("valid", "pos", "vel", "spd", "acc", "yaw_bbox", "yaw_rate"):
+        b[f"history/agent/{k}"] = b[f"agent/{k}"][:, :H]
+    b["agent/goal"] = np.concatenate(
+        [b["agent/pos"][:, 0], b["agent/yaw_bbox"][:, 0], np.zeros_like(b["agent/spd"][:, 0])], axis=-1)
+    return b
+
+
+def test_validator_metric_values_match_jax_at_a_nonzero_map(val):
+    """Both Validators on agents that stand still, under weights whose
+    action head outputs 0 (its output Dense zeroed in the JAX tree and
+    loaded into the port): every prediction sits on the GT, so the WOMD
+    metrics are not all 0 (joint_future_pred mAP 0.6667 on both sides; 32
+    of the 142 `waymo_metrics/*` and `joint_future_pred/*` values non-zero).
+    Every one of those values is compared, within rtol 1e-5 (the two
+    packages' predictions are exact here, so the metrics agree to the bit
+    on the CPU; the tolerance leaves room for the float sums' order)."""
+    params = jax.tree_util.tree_map(lambda v: v, val["params"])
+    head = dict(params["action_head"])
+    head["mlp_mean_w1"] = jnp.zeros_like(head["mlp_mean_w1"])
+    head["mlp_mean_b1"] = jnp.zeros_like(head["mlp_mean_b1"])
+    params = dict(params, action_head=head)
+    batch = still_batch(val["batch"])
+    jv = JE.Validator(val["jcfg"], val["jmodel"], use_native_metrics=False)
+    jv._jitted = val["jfn"]  # the compiled validation step of the fixture (same shapes)
+    jv.step(params, batch, jax.random.PRNGKey(KEY))
+    jm = jv.epoch_end()
+    tmodel = TO.make_model(val["cfg"], device="cpu")
+    load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    mp = pytest.MonkeyPatch()
+    inject(mp, *val["draws"])
+    try:
+        tv = TE.Validator(val["cfg"], tmodel, device="cpu")
+        tv.step(batch, torch.Generator().manual_seed(0))
+        tm = tv.epoch_end()
+    finally:
+        mp.undo()
+    assert tm.keys() == jm.keys()
+    for side in (tm, jm):
+        assert side["joint_future_pred/mean_average_precision"] > 0.5
+    keys = [k for k in tm if k.startswith(("waymo_metrics/", "joint_future_pred/"))]
+    assert len(keys) > 100 and sum(jm[k] != 0 for k in keys) > 20
+    for k in keys:
+        np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=1e-7, err_msg=k)
+
+
 def test_submissions_from_the_validator_and_the_test_step(val, tmp_path):
     """The port's Validator packs submissions, and its test step (no GT, the
     history standing in) runs the joint futures and packs them too."""

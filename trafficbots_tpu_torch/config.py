@@ -114,15 +114,20 @@ class MapEncoderConfig:
     # HALF the block-diagonal score redundancy (2x[160,160] score matrices
     # instead of [320,320]) — eval kernel 122.3 vs 137.8 ms at batch 128,
     # train step neutral (668.8 vs 672.2 ms); bit-identical outputs
+    # (port: a TPU tiling, bit-identical at any value; the CUDA kernels K2/K4
+    # choose their own blocking and do not read it)
     fused_block_pl: int = 8
     # block_pl-sized sub-blocks per grid step whose LN/projection/FFN
     # matmuls run as ONE wide matmul over the concatenated rows while the
     # score phase stays per-sub so block-diagonal redundancy doesn't grow;
     # bit-identical at any value (the eval kernel only; the train kernel
     # pair keys off block_pl alone)
+    # (port: a TPU tiling, bit-identical at any value; not read)
     fused_pipeline_blocks: int = 2
     # training path: custom-VJP fused kernels with in-kernel dropout
     # (ops/node_encoder_train.py) instead of the XLA stack + autodiff
+    # (port: K4 on the card when True; False runs the node stack's plain
+    # version under autograd, models/map_encoder.py)
     fused_train_kernel: bool = True
     # bf16 matmul operands inside the node kernel (fp32 accumulation);
     # ~8% kernel-local, off by default to keep exact fp32 parity
@@ -131,6 +136,8 @@ class MapEncoderConfig:
     # all padding (scalar-prefetched any-valid flag): the 1024-polyline map
     # capacity is a fixed-shape ceiling, real scenes fill a variable prefix.
     # Bit-exact (all-invalid blocks pool to exactly _NEG either way).
+    # (port: a TPU tiling, bit-identical at any value; K2/K4 always skip
+    # all-padding polylines, and do not read it)
     fused_skip_invalid_blocks: bool = True
     # "fused": the whole 3-layer stack + pool in one VMEM-resident kernel
     # (fastest measured: 155 ms vs 290 hybrid vs 354 XLA at batch 128 —
@@ -374,6 +381,8 @@ class ModelConfig:
     # whose live rows repeat with period n_agent, so it honors an explicit
     # value only when it divides step*agent and is <= n_agent (otherwise it
     # coerces to 16 so the dead-row skip can still fire; latent_encoder.py).
+    # (port: K1's dead-row skip is not ported yet, ROADMAP Queue 2; a value
+    # >= 0 raises NotImplementedError in models/traffic_bots.py)
     attn_row_block: int = -1
     # EVAL episode map encode: process the scene batch in chunks of this many
     # scenes (lax.map), recomputing the map PE per chunk from sc/map_pos so

@@ -3,7 +3,7 @@
 //
 // Replaces: trafficbots_tpu/ops/node_encoder.py,
 // FusedNodeEncoder.encode_pooled -> _node_kernel / _node_kernel_body (the
-// Pallas TPU kernel). Same function, per polyline of N <= 31 nodes and
+// Pallas TPU kernel). Same function, per polyline of N <= 32 nodes and
 // n_layer pre-norm layers with d_model = d_ff = 128:
 //   q = LN1(x) Wq + bq;  k, v = LN_tgt(x0) Wk|Wv + b   (x0 = layer-0 input)
 //   a = softmax(q_h k_hᵀ / sqrt(dh), padded nodes masked) v_h per head;
@@ -12,303 +12,166 @@
 // then the max over valid nodes (-1e30 for a polyline without one). All
 // arithmetic is fp32; LayerNorm uses eps 1e-5 and the two-pass variance.
 //
-// What bounds it on the card: the fp32 operations, about 6 dense 128 x 128
-// products a node a layer (2 x 6 x 128 x 128 = 197 kFLOP) plus the small
-// per-polyline attention; it reads 10 KB of node features a polyline and
-// writes 512 B. At 8 scenes x 1024 polylines x 20 nodes x 3 layers that is
-// ~100 GFLOP against ~85 MB, far on the operations side of the fp32 CUDA
-// cores' 20 FLOP/B.
+// What bounds it on the card: the fp32 operations, 6 dense 128 x 128
+// products a valid node a layer (2 x 6 x 128 x 128 = 197 kFLOP) plus the
+// small per-polyline attention: ~47 GFLOP at 8 scenes x 1024 polylines x 20
+// nodes (6,143 valid polylines, ~80k valid nodes) x 3 layers, against
+// ~85 MB read, far on the operations side of the CUDA cores' 20 FLOP/B.
 //
-// This first design keeps everything between the layers out of device
-// memory: a block holds two polylines (40 rows) in shared memory through
-// all layers: x, x0 and five [40, 132] work buffers (LN output, q, k, v,
-// attention/FFN hidden), 148 KB at N = 20. The dense products stream the
-// 128 x 128 fp32 weights (64 KB a matrix, 1.2 MB in all, shared by every
-// block) from L2, each matrix read once a block, into register tiles of
-// 5 rows x 4 columns a thread (see matmul). A block whose polylines are all
-// padding writes -1e30 and returns, like the TPU kernel's skip flag. Only
-// the pooled [128] row of each polyline is written. No tensor cores yet:
-// the products stay fp32 on the CUDA cores, as the model's fp32 parity needs.
+// Design (csrc/node_layer.cuh; the phase trace of the first design, 2
+// polylines a block with every product's weights read from L2 by
+// latency-bound loads, gave the dense products 71% of a block's cycles and
+// the attention 25%): a block takes a group of ROWS / N polylines (3 at
+// N = 20) and holds only their valid nodes, so padding costs nothing and an
+// all-padding polyline only its -1e30; the weights stream through shared
+// memory by cp.async, 32-row k-tiles three in flight, into the register
+// tiles of 512 threads (4 rows x 4 columns each); the attention holds a
+// row's q and output in registers and reads K and V rows by float4. Five
+// [64, 132] buffers (x, LN output, q / attention output / FFN hidden, k,
+// v) and the weight ring take 213 KB: one 16-warp block an SM. x0 is read
+// from device memory (L2) at each layer's LN_tgt. Only the pooled [128]
+// row of each polyline is written. Every sum runs in the first design's
+// order, so the output is the first design's to the bit. No tensor cores:
+// fp32 products on the CUDA cores, as the closed loop's ulp sensitivity
+// needs. On an H100 at 700 W: 3.21-3.22 ms at the main path's 8 scenes
+// (the first design 8.43-8.44 in the same run), 4.6x its bound (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "node_layer.cuh"
+
 namespace {
 
-constexpr int D = 128;        // d_model == d_feedforward
-constexpr int PPB = 2;        // polylines per block
-constexpr int THREADS = PPB * D;
-constexpr int MAXN = 31;      // max nodes per polyline: the most that fit shared memory
-constexpr int LDS = D + 4;    // padded row stride of the shared buffers (16-byte rows)
-constexpr int MAXRT = (PPB * MAXN + 7) / 8;  // rows of a thread's register tile in matmul
-constexpr int NBUF = 7;       // x, x0, t, q, k, v, a
-constexpr int SMEM_OPTIN = 232448;  // shared memory a block may opt in to on sm_90
-constexpr int STATIC_SMEM = sizeof(float) * PPB * MAXN + sizeof(int) * (PPB + 1);  // vf, no_valid, any_valid
-static_assert(THREADS / 32 * 16 == D, "matmul: eight warps of 16 columns");
-static_assert(sizeof(float) * NBUF * PPB * MAXN * LDS + STATIC_SMEM <= SMEM_OPTIN,
-              "MAXN nodes must fit one block's shared memory");
-constexpr float NEG = -1e30f;
-constexpr float LN_EPS = 1e-5f;
+using namespace tb_node;
+
+constexpr int ROWS = 64;      // rows (valid nodes) a block holds
+constexpr int NBUF = 5;       // x, t, q/a, k, v
+constexpr size_t SMEM = sizeof(float) * ((size_t)NBUF * ROWS * LDS + ring_floats<3>());
+static_assert(ROWS <= RCAP && SMEM + sizeof(Block) <= SMEM_OPTIN, "the buffers must fit one block's shared memory");
 
 struct NodeWeights {
     const float *ln1_s, *ln1_b, *lnt_s, *lnt_b, *ln2_s, *ln2_b;
     const float *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo, *w1, *b1, *w2, *b2;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-// out = LN(in) * s + b over the R rows; one warp per row
-__device__ void layer_norm(const float* in, float* out, const float* s, const float* b, int R) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < R; r += THREADS / 32) {
-        const float* row = in + r * LDS;
-        float v[D / 32];
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            v[j] = row[lane + 32 * j];
-            sum += v[j];
-        }
-        const float mu = warp_sum(sum) / D;
-        float sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            v[j] -= mu;
-            sq += v[j] * v[j];
-        }
-        const float rs = rsqrtf(warp_sum(sq) / D + LN_EPS);
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            const int c = lane + 32 * j;
-            out[r * LDS + c] = v[j] * rs * s[c] + b[c];
-        }
-    }
-}
-
-enum Epilogue { STORE, RELU, ATTN_RESIDUAL, FFN_RESIDUAL };
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& w) {
-    acc[0] = fmaf(a, w.x, acc[0]);
-    acc[1] = fmaf(a, w.y, acc[1]);
-    acc[2] = fmaf(a, w.z, acc[2]);
-    acc[3] = fmaf(a, w.w, acc[3]);
-}
-
-// out = in @ W (+ bias, epilogue E) over the block's R = PPB * N rows; W a
-// [128, 128] row-major matrix in global memory (x @ W layout). Warp w owns
-// columns 16w..16w+15, so the block reads W from L2 once; lane (rg, cg)
-// holds a register tile of MAXRT rows (rg * rt ...) x 4 columns
-// (16w + 4cg ...). Per 4-deep slice of k a thread loads four float4 of W
-// (prefetched one slice ahead) and one float4 of each of its rows (at
-// N = 20 the eight row groups of a warp hit distinct banks), then does 16
-// FMAs a row.
-template <Epilogue E>
-__device__ void matmul(const float* in, const float* __restrict__ W, const float* __restrict__ bias,
-                       float* out, int R, int N, const float* vf, const int* no_valid) {
-    const int lane = threadIdx.x % 32;
-    const int c0 = (threadIdx.x / 32) * 16 + (lane % 4) * 4;
-    const int rt = (R + 7) / 8;
-    const int r0 = (lane / 4) * rt;
-    float acc[MAXRT][4];
-#pragma unroll
-    for (int i = 0; i < MAXRT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float4 w[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = __ldg(reinterpret_cast<const float4*>(W + u * D + c0));
-    for (int k0 = 0; k0 < D; k0 += 4) {
-        float4 wn[4];
-        if (k0 + 4 < D) {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) wn[u] = __ldg(reinterpret_cast<const float4*>(W + (k0 + 4 + u) * D + c0));
-        }
-#pragma unroll
-        for (int i = 0; i < MAXRT; ++i) {
-            if (i < rt && r0 + i < R) {
-                const float4 a = *reinterpret_cast<const float4*>(in + (r0 + i) * LDS + k0);
-                fma4(acc[i], a.x, w[0]);
-                fma4(acc[i], a.y, w[1]);
-                fma4(acc[i], a.z, w[2]);
-                fma4(acc[i], a.w, w[3]);
-            }
-        }
-        if (k0 + 4 < D) {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) w[u] = wn[u];
-        }
-    }
-    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
-    const float bc[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < MAXRT; ++i) {
-        const int r = r0 + i;
-        if (i >= rt || r >= R) break;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float* o = out + r * LDS + c0 + j;
-            const float y = acc[i][j] + bc[j];
-            if (E == STORE) *o = y;
-            if (E == RELU) *o = fmaxf(y, 0.f);
-            if (E == ATTN_RESIDUAL) *o = *o + (no_valid[r / N] ? 0.f : y);
-            if (E == FFN_RESIDUAL) *o = vf[r] != 0.f ? *o + y : 0.f;
-        }
-    }
-}
-
-// a[row, head] = softmax(q_h k_hᵀ / sqrt(dh)) v_h within each polyline; one
-// thread per (polyline, head, query node)
-__device__ void node_attention(const float* q, const float* k, const float* v, float* a, int N,
-                               int n_head, const float* vf, const int* no_valid) {
-    const int dh = D / n_head;
-    const float sqrt_dh = sqrtf((float)dh);
-    const int n_work = PPB * n_head * N;
-    for (int w = threadIdx.x; w < n_work; w += THREADS) {
-        const int i = w % N;
-        const int h = (w / N) % n_head;
-        const int p = w / (N * n_head);
-        const float* qi = q + (p * N + i) * LDS + h * dh;
-        float sc[MAXN];
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            const float* kj = k + (p * N + j) * LDS + h * dh;
-            float s = 0.f;
-            for (int d = 0; d < dh; ++d) s = fmaf(qi[d], kj[d], s);
-            s = s / sqrt_dh;
-            if (!no_valid[p] && vf[p * N + j] == 0.f) s = -INFINITY;
-            sc[j] = s;
-            m = fmaxf(m, s);
-        }
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            sc[j] = expf(sc[j] - m);
-            sum += sc[j];
-        }
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            sc[j] = sc[j] / sum;
-        }
-        float* ai = a + (p * N + i) * LDS + h * dh;
-        for (int d = 0; d < dh; ++d) {
-            float o = 0.f;
-#pragma unroll
-            for (int j = 0; j < MAXN; ++j) {
-                if (j >= N) break;
-                o = fmaf(sc[j], v[(p * N + j) * LDS + h * dh + d], o);
-            }
-            ai[d] = o;
-        }
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(NT, 1)
 node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, float* __restrict__ out,
-            int BP, int N, int n_layer, int n_head, NodeWeights w) {
+            long long BP, int N, int n_layer, int n_head, NodeWeights w) {
     extern __shared__ float4 smem4[];  // 16-byte aligned for the float4 row loads
-    float* smem = reinterpret_cast<float*>(smem4);
-    __shared__ float vf[PPB * MAXN];
-    __shared__ int no_valid[PPB];
-    __shared__ int any_valid;
+    float* x = reinterpret_cast<float*>(smem4);
+    float* t = x + ROWS * LDS;
+    float* q = t + ROWS * LDS;  // q, then the attention output, then the FFN hidden
+    float* k = q + ROWS * LDS;
+    float* v = k + ROWS * LDS;
+    float* wsm = v + ROWS * LDS;
+    __shared__ Block blk;
 
-    const int R = PPB * N;
-    float* x = smem;
-    float* x0 = x + R * LDS;
-    float* t = x0 + R * LDS;
-    float* q = t + R * LDS;
-    float* k = q + R * LDS;
-    float* v = k + R * LDS;
-    float* a = v + R * LDS;
-
-    const int poly0 = blockIdx.x * PPB;
-    const int c = threadIdx.x % D;
-    const int p = threadIdx.x / D;
-    const int poly = poly0 + p;
-
-    if (threadIdx.x == 0) any_valid = 0;
-    if (threadIdx.x < PPB) no_valid[threadIdx.x] = 1;
-    __syncthreads();
-    for (int i = threadIdx.x; i < R; i += THREADS) {
-        const int pp = i / N, nn = i % N;
-        const bool ok = poly0 + pp < BP && valid[(long long)(poly0 + pp) * N + nn] != 0;
-        vf[i] = ok ? 1.f : 0.f;
-        if (ok) {
-            no_valid[pp] = 0;
-            any_valid = 1;
-        }
-    }
-    __syncthreads();
-    if (!any_valid) {  // all padding: the pool identity, as the TPU kernel's skip writes
-        if (poly < BP) out[(long long)poly * D + c] = NEG;
+    const int P = ROWS / N;
+    const long long poly0 = (long long)blockIdx.x * P;
+    load_block(valid, BP, N, poly0, P, blk);
+    const int R = blk.R;
+    if (R == 0) {  // all padding: the pool identity, as the TPU kernel's skip writes
+        for (int e = threadIdx.x; e < P * D; e += NT)
+            if (poly0 + e / D < BP) out[(poly0 + e / D) * D + e % D] = NEG;
         return;
     }
-    for (int r = 0; r < N; ++r) {
-        const float val = poly < BP ? x_in[((long long)poly * N + r) * D + c] : 0.f;
-        x[(p * N + r) * LDS + c] = val;
-        x0[(p * N + r) * LDS + c] = val;
-    }
+    TB_NODE_BEGIN(0);
+    load_rows(x_in, blk, x);
     __syncthreads();
+    TB_NODE_MARK(0, 1);
 
+    const Dropout none{0, 0, 1.f, 0};
     for (int l = 0; l < n_layer; ++l) {
         const int lv = l * D, lm = l * D * D;
-        layer_norm(x0, t, w.lnt_s + lv, w.lnt_b + lv, R);
+        layer_norm_x0(x_in, blk, t, w.lnt_s + lv, w.lnt_b + lv);
+        TB_NODE_MARK(0, 2);
+        const float* bk = w.bk + lv;
+        dense<3>(t, w.wk + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bk, c0);
+            store4(k + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
+        const float* bv = w.bv + lv;
+        dense<3>(t, w.wv + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bv, c0);
+            store4(v + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
         __syncthreads();
-        matmul<STORE>(t, w.wk + lm, w.bk + lv, k, R, N, vf, no_valid);
-        matmul<STORE>(t, w.wv + lm, w.bv + lv, v, R, N, vf, no_valid);
-        __syncthreads();
+        TB_NODE_MARK(0, 3);
         layer_norm(x, t, w.ln1_s + lv, w.ln1_b + lv, R);
+        TB_NODE_MARK(0, 2);
+        const float* bq = w.bq + lv;
+        dense<3>(t, w.wq + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bq, c0);
+            store4(q + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
         __syncthreads();
-        matmul<STORE>(t, w.wq + lm, w.bq + lv, q, R, N, vf, no_valid);
+        TB_NODE_MARK(0, 3);
+        attention<false>(q, k, v, q, blk, n_head, none, 0);
         __syncthreads();
-        node_attention(q, k, v, a, N, n_head, vf, no_valid);
+        TB_NODE_MARK(0, 4);
+        const float* bo = w.bo + lv;
+        dense<3>(q, w.wo + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bo, c0);
+            float* o = x + r * LDS + c0;
+            store4(o, o[0] + (y[0] + b.x), o[1] + (y[1] + b.y), o[2] + (y[2] + b.z), o[3] + (y[3] + b.w));
+        });
         __syncthreads();
-        matmul<ATTN_RESIDUAL>(a, w.wo + lm, w.bo + lv, x, R, N, vf, no_valid);
-        __syncthreads();
+        TB_NODE_MARK(0, 3);
         layer_norm(x, t, w.ln2_s + lv, w.ln2_b + lv, R);
+        TB_NODE_MARK(0, 2);
+        const float* b1 = w.b1 + lv;
+        dense<3>(t, w.w1 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(b1, c0);
+            store4(q + r * LDS + c0, fmaxf(y[0] + b.x, 0.f), fmaxf(y[1] + b.y, 0.f), fmaxf(y[2] + b.z, 0.f),
+                   fmaxf(y[3] + b.w, 0.f));
+        });
+        const float* b2 = w.b2 + lv;
+        dense<3>(q, w.w2 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(b2, c0);
+            float* o = x + r * LDS + c0;
+            store4(o, o[0] + (y[0] + b.x), o[1] + (y[1] + b.y), o[2] + (y[2] + b.z), o[3] + (y[3] + b.w));
+        });
         __syncthreads();
-        matmul<RELU>(t, w.w1 + lm, w.b1 + lv, a, R, N, vf, no_valid);
-        __syncthreads();
-        matmul<FFN_RESIDUAL>(a, w.w2 + lm, w.b2 + lv, x, R, N, vf, no_valid);
-        __syncthreads();
+        TB_NODE_MARK(0, 3);
     }
 
-    if (poly < BP) {
+    // the max over each polyline's valid nodes (-1e30 for one without)
+    for (int e = threadIdx.x; e < P * D; e += NT) {
+        const int p = e / D, c = e % D;
+        if (poly0 + p >= BP) break;
         float m = NEG;
-        for (int r = 0; r < N; ++r)
-            m = fmaxf(m, vf[p * N + r] != 0.f ? x[(p * N + r) * LDS + c] : NEG);
-        out[(long long)poly * D + c] = m;
+        for (int n = 0; n < N; ++n) {
+            const int r = blk.nrow[p * N + n];
+            if (r >= 0) m = fmaxf(m, x[r * LDS + c]);
+        }
+        out[(poly0 + p) * D + c] = m;
     }
+    TB_NODE_MARK(0, 5);
 }
 
 }  // namespace
+
+TB_NODE_PHASES("0 node_kernel (a group of polylines): rows loaded|layer norms|dense products|attention|pool")
 
 // x [BP, N, 128] fp32, valid [BP, N] bool bytes, out [BP, 128] fp32; w is a
 // host array of the 18 device pointers in the order ln1_s, ln1_b, lnt_s,
 // lnt_b, ln2_s, ln2_b, wq, bq, wk, bk, wv, bv, wo, bo, w1, b1, w2, b2 (each
 // stacked over layers, matrices [L, 128, 128] in x @ W layout). Returns the
 // cudaError_t of the launch.
-extern "C" int tb_node_encoder(const void* x, const void* valid, void* out, int BP, int N,
-                               int n_layer, int n_head, const void* const* w, void* stream) {
-    if (N < 1 || N > MAXN || D % n_head != 0) return (int)cudaErrorInvalidValue;
+extern "C" int tb_node_encoder(const void* x, const void* valid, void* out, int BP, int N, int n_layer, int n_head,
+                               const void* const* w, void* stream) {
+    if (N < 1 || N > MAXN || !heads_ok(n_head)) return (int)cudaErrorInvalidValue;
     const float* const* f = reinterpret_cast<const float* const*>(w);
     NodeWeights nw{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
                    f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16], f[17]};
-    const size_t smem = sizeof(float) * (size_t)NBUF * PPB * N * LDS;
-    cudaError_t err = cudaFuncSetAttribute(node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
-    const int grid = (BP + PPB - 1) / PPB;
-    node_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out),
-        BP, N, n_layer, n_head, nw);
+    const int P = ROWS / N;
+    const int grid = (BP + P - 1) / P;
+    node_kernel<<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out), BP, N, n_layer,
+        n_head, nw);
     return (int)cudaGetLastError();
 }

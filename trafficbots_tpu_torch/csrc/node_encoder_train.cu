@@ -1,5 +1,6 @@
 // Training DenseTNT polyline-node encoder + masked max-pool with dropout,
-// forward and hand-derived backward, for Hopper (sm_90a), plain C interface.
+// forward (K4f) and hand-derived backward (K4b), for Hopper (sm_90a), plain
+// C interface.
 //
 // Replaces: trafficbots_tpu/ops/node_encoder_train.py,
 // node_encoder_train_pooled -> _fwd_kernel (_layer_fwd) and its custom VJP
@@ -15,52 +16,66 @@
 // max-pool VJP that splits each column's cotangent evenly among the nodes
 // tied at the max (JAX's reduce_max VJP).
 //
-// Design. One polyline a block (N <= 32 rows, d_model = d_ff = 128, 256
-// threads): rows in shared [N, 132] fp32 buffers, the 128 x 128 weights read
-// from L2 in K2's register-tiled products. The forward keeps x, x0 and five
-// work buffers (74 KB at N = 20); an all-padding polyline writes -1e30 and
-// returns. The backward keeps the per-layer inputs, recomputes one layer at
-// a time (its q, k, v, attention weights, out-projection input, residual and
-// FFN pre-activation) and walks down, as _bwd_block does: 11 + L buffers and
-// two [H, N, N] attention arrays, 161 KB at N = 20, L = 3, H = 4.
-// Weight gradients are sums over all polylines. The TPU revisits one output
-// block in a sequential grid; here the backward runs a FIXED grid of
-// NBLOCKS blocks, each walking polylines blockIdx.x, blockIdx.x + NBLOCKS,
-// ... and adding into its own slice of a [NBLOCKS, n_params] partial buffer
-// (each element owned by one thread, updated in polyline order), and a
-// second kernel sums the slices in block order. No float atomics: dx and
-// every dW are bitwise the same run to run. All-padding polylines contribute
-// exactly 0 (their pooled cotangent is 0) and are skipped.
+// K4f (namespace k4f, the first design): one polyline a block (N <= 32
+// rows, 256 threads), rows in shared [N, 132] fp32 buffers, the 128 x 128
+// weights read from L2 into register tiles; x, x0 and five work buffers
+// (74 KB at N = 20); an all-padding polyline writes -1e30 and returns.
+//
+// K4b (namespace k4b), redesigned. The first design walked one polyline at
+// a time through a forward to the layer inputs, a second forward per layer
+// and 18 weight-gradient updates read-modify-written into a block's own
+// 1.2 MB partial slice; its phase trace (ops/node_trace.py) gave the two
+// forwards 59% of a polyline's cycles, the cotangent products 18%, the
+// weight-gradient updates 13%, the attention backward 8%. This design:
+//   1. count / scan: each group of ROWS / N polylines' valid nodes, and the
+//      group's first row in a compacted row space (valid nodes only);
+//   2. transpose: the six weight matrices of each layer, for the
+//      cotangent products (dy @ Wᵀ as a plain product on Wᵀ);
+//   3. save (one 512-thread block a group): the group's valid nodes as
+//      rows, the forward ONCE with node_layer.cuh's products, saving each
+//      layer's tensors to device memory (compacted rows), and the max-pool
+//      backward (the rows' cotangent g saved);
+//   4. walk (a fixed grid of nblocks 256-thread blocks, group g on block
+//      g % nblocks): layer by layer down, the cotangents (the products on
+//      Wᵀ, the attention backward recomputing its weights from q, k and
+//      the row statistics), each weight product's output-cotangent rows
+//      saved once beside its saved input rows, the LayerNorm vector
+//      gradients added into the block's own slice in group order; dx;
+//   5. dw: the 18 weight products dW = Aᵀ B (and the bias gradients, the
+//      column sums of B) over all valid rows, as a fixed-order split-K
+//      fp32 product: block (product, split) sums its rows in order into
+//      its own partial;
+//   6. reduce: the partials and the slices summed in a fixed order.
+// No float atomics: dx and every gradient are bitwise the same run to run.
+// All-padding polylines contribute exactly 0 (their pooled cotangent is 0)
+// and are skipped; padding nodes get dx = 0.
+//
+// On an H100 at 700 W (PERF.md), at the main path's 8 scenes: 12.8-12.9
+// ms (the first design 65.3-65.5 in the same run, autograd through the
+// plain version 26.5): the save 4.2, the walk 7.2, the dw products 1.3.
 //
 // What bounds it on the card: the fp32 operations. A valid node costs
-// 12 D^2 = 197 kFLOP a layer forward (six 128 x 128 products); the backward
-// recomputes the forward (twice for the layer inputs) and does twelve more
-// products a node a layer (cotangents and weight gradients), ~4x the
-// forward. The partial-slice updates read and write 2 x 400 KB of each
-// block's slice per polyline (L2/HBM traffic of ~12 GB at 6k valid
-// polylines). No tensor cores yet: fp32 parity with the plain version.
+// 12 D^2 = 197 kFLOP a layer forward (six 128 x 128 products); the
+// backward's walk does the forward once and six cotangent products, the dW
+// products six more: ~3x the forward. The saved tensors are 11 a layer
+// (and the layer inputs), ~41 MB each at ~80k valid nodes, written once
+// and read once or twice. No tensor cores: fp32 parity with the plain
+// version (the gradients below a max-pool are ulp-sensitive).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "node_layer.cuh"
+#include "node_trace.cuh"
 #include "philox.cuh"
 
-namespace {
+// the parameter layout both passes share
+namespace k4 {
 
-constexpr int D = 128;       // d_model == d_feedforward
-constexpr int THREADS = 256;
-constexpr int MAXN = 32;     // nodes a polyline (rows of a block)
-constexpr int LDS = D + 4;   // padded row stride of the shared buffers
-constexpr int MAXRT = (MAXN + 7) / 8;
-constexpr int NBLOCKS = 132;  // the backward's fixed grid (one wave on an H100)
-constexpr float NEG = -1e30f;
-constexpr float LN_EPS = 1e-5f;
-static_assert(THREADS / 32 * 16 == D, "matmul: eight warps of 16 columns");
+constexpr int DM = 128;
 
-using tb_philox::Dropout;
-
-enum Name { LN1_S, LN1_B, LNT_S, LNT_B, LN2_S, LN2_B, WQ, BQ, WK, BK, WV, BV, WO, BO, W1, B1, W2, B2, N_NAMES };
+enum Name { LN1_S, LN1_B, LNT_S, LNT, LN2_S, LN2_B, WQ, BQ, WK, BK, WV, BV, WO, BO, W1, B1, W2, B2, N_NAMES };
 
 __host__ __device__ constexpr bool is_matrix(int n) { return n == WQ || n == WK || n == WV || n == WO || n == W1 || n == W2; }
 
@@ -68,16 +83,35 @@ __host__ __device__ constexpr bool is_matrix(int n) { return n == WQ || n == WK 
 // 18 stacked arrays in W_NAMES order, each [L, ...]).
 __host__ __device__ inline long long grad_off(int name, int l, int L) {
     long long o = 0;
-    for (int i = 0; i < name; ++i) o += (long long)L * (is_matrix(i) ? D * D : D);
-    return o + (long long)l * (is_matrix(name) ? D * D : D);
+    for (int i = 0; i < name; ++i) o += (long long)L * (is_matrix(i) ? DM * DM : DM);
+    return o + (long long)l * (is_matrix(name) ? DM * DM : DM);
 }
 
 __host__ __device__ inline long long n_params(int L) { return grad_off(N_NAMES, 0, L); }
 
 struct Weights {
     const float* p[N_NAMES];
-    __device__ const float* at(int name, int l) const { return p[name] + (long long)l * (is_matrix(name) ? D * D : D); }
+    __device__ const float* at(int name, int l) const { return p[name] + (long long)l * (is_matrix(name) ? DM * DM : DM); }
 };
+
+}  // namespace k4
+
+// ------------------------------------------------------------------ K4f
+
+namespace k4f {
+
+using namespace k4;
+
+constexpr int D = 128;       // d_model == d_feedforward
+constexpr int THREADS = 256;
+constexpr int MAXN = 32;     // nodes a polyline (rows of a block)
+constexpr int LDS = D + 4;   // padded row stride of the shared buffers
+constexpr int MAXRT = (MAXN + 7) / 8;
+constexpr float NEG = -1e30f;
+constexpr float LN_EPS = 1e-5f;
+static_assert(THREADS / 32 * 16 == D, "matmul: eight warps of 16 columns");
+
+using tb_philox::Dropout;
 
 struct Ctx {
     int N, H;
@@ -121,68 +155,15 @@ __device__ void layer_norm(const float* in, float* out, const float* __restrict_
     }
 }
 
-// dx = LN backward of dy at x (scale s): recomputes mean and rstd per row;
-// adds the scale and bias gradients to ds/db (partial slice, global).
-__device__ void layer_norm_bwd(const float* dy, const float* x, const float* __restrict__ s, float* dx,
-                               float* ds, float* db, int R, float* mu_s, float* rs_s) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < R; r += THREADS / 32) {
-        float xh[D / 32], g[D / 32];
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            xh[j] = x[r * LDS + lane + 32 * j];
-            sum += xh[j];
-        }
-        const float mu = warp_sum(sum) / D;
-        float sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            xh[j] -= mu;
-            sq += xh[j] * xh[j];
-        }
-        const float rs = rsqrtf(warp_sum(sq) / D + LN_EPS);
-        float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            const int c = lane + 32 * j;
-            xh[j] = xh[j] * rs;
-            g[j] = dy[r * LDS + c] * s[c];
-            m1 += g[j];
-            m2 += g[j] * xh[j];
-        }
-        m1 = warp_sum(m1) / D;
-        m2 = warp_sum(m2) / D;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) dx[r * LDS + lane + 32 * j] = (g[j] - m1 - xh[j] * m2) * rs;
-        if (lane == 0) {
-            mu_s[r] = mu;
-            rs_s[r] = rs;
-        }
-    }
-    __syncthreads();
-    if (threadIdx.x < D) {
-        const int c = threadIdx.x;
-        float a = 0.f, bb = 0.f;
-        for (int r = 0; r < R; ++r) {
-            const float d = dy[r * LDS + c];
-            a += d * ((x[r * LDS + c] - mu_s[r]) * rs_s[r]);
-            bb += d;
-        }
-        ds[c] += a;
-        db[c] += bb;
-    }
-}
+enum Epilogue { STORE, RELU_DROP, ATTN_RESIDUAL, FFN_RESIDUAL };
 
-enum Epilogue { STORE, RELU_DROP, ATTN_RESIDUAL, FFN_RESIDUAL, ACC };
-
-// out = in @ W (TRANS: in @ Wᵀ) over the N rows, W a [128, 128] row-major
-// matrix in global memory, then the epilogue E on y = product (+ bias):
+// out = in @ W over the N rows, W a [128, 128] row-major matrix in global
+// memory, then the epilogue E on y = product + bias:
 //   STORE y;  RELU_DROP relu(y) m2;  ATTN_RESIDUAL res + y m1;
-//   FFN_RESIDUAL valid ? res + y m3 : 0;  ACC out + y
+//   FFN_RESIDUAL valid ? res + y m3 : 0
 // Warp w owns columns 16 w .. 16 w + 15 (W read once a block, from L2);
 // lane (rg, cg) a register tile of rows rg * rt .. and 4 columns.
-template <Epilogue E, bool TRANS>
+template <Epilogue E>
 __device__ void matmul(const float* in, const float* __restrict__ W, const float* __restrict__ bias, float* out,
                        const float* res, const Ctx& cx, int site) {
     const int R = cx.N;
@@ -199,38 +180,24 @@ __device__ void matmul(const float* in, const float* __restrict__ W, const float
         float4 w[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-            w[u] = __ldg(reinterpret_cast<const float4*>(TRANS ? W + (c0 + u) * D + k0 : W + (k0 + u) * D + c0));
+            w[u] = __ldg(reinterpret_cast<const float4*>(W + (k0 + u) * D + c0));
 #pragma unroll
         for (int i = 0; i < MAXRT; ++i) {
             if (i < rt && r0 + i < R) {
                 const float4 a = *reinterpret_cast<const float4*>(in + (r0 + i) * LDS + k0);
-                if (TRANS) {
+                const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-                        float t = acc[i][u];
-                        t = fmaf(a.x, w[u].x, t);
-                        t = fmaf(a.y, w[u].y, t);
-                        t = fmaf(a.z, w[u].z, t);
-                        acc[i][u] = fmaf(a.w, w[u].w, t);
-                    }
-                } else {
-                    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-                    for (int kk = 0; kk < 4; ++kk) {
-                        acc[i][0] = fmaf(av[kk], w[kk].x, acc[i][0]);
-                        acc[i][1] = fmaf(av[kk], w[kk].y, acc[i][1]);
-                        acc[i][2] = fmaf(av[kk], w[kk].z, acc[i][2]);
-                        acc[i][3] = fmaf(av[kk], w[kk].w, acc[i][3]);
-                    }
+                for (int kk = 0; kk < 4; ++kk) {
+                    acc[i][0] = fmaf(av[kk], w[kk].x, acc[i][0]);
+                    acc[i][1] = fmaf(av[kk], w[kk].y, acc[i][1]);
+                    acc[i][2] = fmaf(av[kk], w[kk].z, acc[i][2]);
+                    acc[i][3] = fmaf(av[kk], w[kk].w, acc[i][3]);
                 }
             }
         }
     }
-    float bc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (bias != nullptr) {
-        const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
-        bc[0] = b4.x, bc[1] = b4.y, bc[2] = b4.z, bc[3] = b4.w;
-    }
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
+    const float bc[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
     for (int i = 0; i < MAXRT; ++i) {
         const int r = r0 + i;
@@ -246,16 +213,13 @@ __device__ void matmul(const float* in, const float* __restrict__ W, const float
             if (E == RELU_DROP) *o = fmaxf(y, 0.f) * f[j];
             if (E == ATTN_RESIDUAL) *o = res[r * LDS + c0 + j] + y * f[j];
             if (E == FFN_RESIDUAL) *o = cx.vf[r] != 0.f ? res[r * LDS + c0 + j] + y * f[j] : 0.f;
-            if (E == ACC) *o = *o + y;
         }
     }
 }
 
 // a[i, head h] = (softmax_j(q_h[i] . k_h[j] / sqrt(dh), padded j masked) ⊙ M0) v_h;
-// one thread a (head, query node). P (optional) receives the weights
-// before dropout, P[(h N + i) N + j].
-__device__ void attention_fwd(const float* q, const float* k, const float* v, float* a, float* P, const Ctx& cx,
-                              int site) {
+// one thread a (head, query node)
+__device__ void attention_fwd(const float* q, const float* k, const float* v, float* a, const Ctx& cx, int site) {
     const int N = cx.N, H = cx.H, dh = D / H;
     const float sqrt_dh = sqrtf((float)dh);
     for (int w = threadIdx.x; w < H * N; w += THREADS) {
@@ -284,7 +248,6 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, fl
         for (int j = 0; j < MAXN; ++j) {
             if (j >= N) break;
             sc[j] = sc[j] / sum;
-            if (P != nullptr) P[(h * N + i) * N + j] = sc[j];
         }
         if (cx.drop.on) {
             const unsigned long long row = (cx.poly * H + h) * N + i;
@@ -314,20 +277,20 @@ __device__ void attention_fwd(const float* q, const float* k, const float* v, fl
 // The attention half of layer l: k, v from LN_tgt(x0); q from LN1(xl);
 // x1 = xl + (attention out-projection) ⊙ M1 (x1 may be xl). `t` is scratch.
 __device__ void attn_half(int l, const float* xl, const float* x0, float* t, float* q, float* k, float* v,
-                          float* a, float* x1, float* P, const Weights& w, const Ctx& cx) {
+                          float* a, float* x1, const Weights& w, const Ctx& cx) {
     const int R = cx.N;
-    layer_norm(x0, t, w.at(LNT_S, l), w.at(LNT_B, l), R);
+    layer_norm(x0, t, w.at(LNT_S, l), w.at(LNT, l), R);
     __syncthreads();
-    matmul<STORE, false>(t, w.at(WK, l), w.at(BK, l), k, nullptr, cx, 0);
-    matmul<STORE, false>(t, w.at(WV, l), w.at(BV, l), v, nullptr, cx, 0);
+    matmul<STORE>(t, w.at(WK, l), w.at(BK, l), k, nullptr, cx, 0);
+    matmul<STORE>(t, w.at(WV, l), w.at(BV, l), v, nullptr, cx, 0);
     __syncthreads();
     layer_norm(xl, t, w.at(LN1_S, l), w.at(LN1_B, l), R);
     __syncthreads();
-    matmul<STORE, false>(t, w.at(WQ, l), w.at(BQ, l), q, nullptr, cx, 0);
+    matmul<STORE>(t, w.at(WQ, l), w.at(BQ, l), q, nullptr, cx, 0);
     __syncthreads();
-    attention_fwd(q, k, v, a, P, cx, 4 * l);
+    attention_fwd(q, k, v, a, cx, 4 * l);
     __syncthreads();
-    matmul<ATTN_RESIDUAL, false>(a, w.at(WO, l), w.at(BO, l), x1, xl, cx, 4 * l + 1);
+    matmul<ATTN_RESIDUAL>(a, w.at(WO, l), w.at(BO, l), x1, xl, cx, 4 * l + 1);
     __syncthreads();
 }
 
@@ -336,9 +299,9 @@ __device__ void attn_half(int l, const float* xl, const float* x0, float* t, flo
 __device__ void ffn_half(int l, const float* x1, float* t, float* hbuf, float* out, const Weights& w, const Ctx& cx) {
     layer_norm(x1, t, w.at(LN2_S, l), w.at(LN2_B, l), cx.N);
     __syncthreads();
-    matmul<RELU_DROP, false>(t, w.at(W1, l), w.at(B1, l), hbuf, nullptr, cx, 4 * l + 2);
+    matmul<RELU_DROP>(t, w.at(W1, l), w.at(B1, l), hbuf, nullptr, cx, 4 * l + 2);
     __syncthreads();
-    matmul<FFN_RESIDUAL, false>(hbuf, w.at(W2, l), w.at(B2, l), out, x1, cx, 4 * l + 3);
+    matmul<FFN_RESIDUAL>(hbuf, w.at(W2, l), w.at(B2, l), out, x1, cx, 4 * l + 3);
     __syncthreads();
 }
 
@@ -378,13 +341,17 @@ fwd_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, fl
         if (threadIdx.x < D) out[poly * D + threadIdx.x] = NEG;
         return;
     }
+    TB_NODE_BEGIN(1);
     const Ctx cx{N, H, (unsigned long long)poly * N, (unsigned long long)poly, vf, drop};
     load_rows(x_in, poly, N, x);
     load_rows(x_in, poly, N, x0);
     __syncthreads();
+    TB_NODE_MARK(1, 1);
     for (int l = 0; l < L; ++l) {
-        attn_half(l, x, x0, t, q, k, v, a, x, nullptr, w, cx);
+        attn_half(l, x, x0, t, q, k, v, a, x, w, cx);
+        TB_NODE_MARK(1, 2);
         ffn_half(l, x, t, a, x, w, cx);
+        TB_NODE_MARK(1, 3);
     }
     if (threadIdx.x < D) {
         const int c = threadIdx.x;
@@ -392,288 +359,720 @@ fwd_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, fl
         for (int r = 0; r < N; ++r) m = fmaxf(m, vf[r] != 0.f ? x[r * LDS + c] : NEG);
         out[poly * D + c] = m;
     }
+    TB_NODE_MARK(1, 4);
 }
 
-// dW += Aᵀ B over the N rows (A, B [N, 128] shared; dW a [128, 128] slice
-// in global memory): thread (ti, tj) owns the 8 x 8 tile at (8 ti, 8 tj).
-__device__ void wgrad(const float* A, const float* B, float* dW, int R) {
-    const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int r = 0; r < R; ++r) {
-        const float4 a0 = *reinterpret_cast<const float4*>(A + r * LDS + 8 * ti);
-        const float4 a1 = *reinterpret_cast<const float4*>(A + r * LDS + 8 * ti + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(B + r * LDS + 8 * tj);
-        const float4 b1 = *reinterpret_cast<const float4*>(B + r * LDS + 8 * tj + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        float4* row = reinterpret_cast<float4*>(dW + (8 * ti + i) * D + 8 * tj);
-        float4 u = row[0], v = row[1];
-        u.x += acc[i][0], u.y += acc[i][1], u.z += acc[i][2], u.w += acc[i][3];
-        v.x += acc[i][4], v.y += acc[i][5], v.z += acc[i][6], v.w += acc[i][7];
-        row[0] = u;
-        row[1] = v;
-    }
+size_t fwd_smem(int N) { return sizeof(float) * 7 * (size_t)N * LDS; }
+
+}  // namespace k4f
+
+// ------------------------------------------------------------------ K4b
+
+namespace k4b {
+
+using namespace k4;
+using namespace tb_node;
+
+constexpr int ROWS = 60;     // rows (valid nodes) a block holds: the walk's six buffers and weight ring fit 227 KB
+constexpr int NS_F = 3;      // weight k-tiles in flight: the forward's three (as K2), the walk's two (six buffers)
+constexpr int NS_B = 2;
+constexpr int NTS = 256;     // threads of the small kernels
+constexpr int NSPLIT = 14;   // splits of the rows in the dW products: 18 x 14 blocks, one wave of two an SM
+constexpr int RC = 32;       // rows a stage of the dW products
+constexpr int NKIND = 6;     // weight matrices a layer: q, k, v, o, 1, 2
+constexpr size_t FWD_SMEM = sizeof(float) * ((size_t)5 * ROWS * LDS + ring_floats<NS_F>());   // x, a1 .. a4
+constexpr size_t WALK_SMEM = sizeof(float) * ((size_t)6 * ROWS * LDS + ring_floats<NS_B>());  // g, dx0, a1 .. a4
+constexpr size_t DW_SMEM = sizeof(float) * 2 * 2 * RC * D;  // two stages of A and B rows
+// the walk's static shared memory: its Block, the attention's and the LayerNorms' row statistics
+static_assert(WALK_SMEM + sizeof(Block) + sizeof(float) * (3 * MAXH + 2) * ROWS <= SMEM_OPTIN,
+              "the walk's buffers must fit one block's shared memory");
+static_assert(ROWS <= RCAP && ROWS % 4 == 0, "a walk block's rows");
+
+// the saved per-layer tensors [cap, 128] (compacted rows); the walk down
+// overwrites q, k, v, x1 by dq, dk, dv, da
+enum Saved { TG, S2, CAT, S2B, FDO, KS, VS, QS, X1, DF, DZ1, N_SAVED };
+// each kind's product dW = Aᵀ B, its matrix and its bias
+__device__ const int A_OF[NKIND] = {S2, TG, TG, CAT, S2B, FDO};
+__device__ const int B_OF[NKIND] = {QS, KS, VS, X1, DZ1, DF};
+__host__ __device__ constexpr int matrix_of(int kind) { return WQ + 2 * kind; }
+
+// The backward's scratch (floats), carved from one buffer the wrapper
+// allocates (tb_node_encoder_train_scratch).
+struct Scratch {
+    float* rows;     // [L N_SAVED + L][cap][128]: the saved tensors, the layer inputs x_1 .. x_{L-1}, the output's cotangent
+    long long cap;   // rows of each tensor: BP N, every node valid at most
+    float* wt;       // [NKIND][L][128][128] the transposed matrices
+    float* part;     // [NSPLIT][NKIND L][128][128] the dW products' partials
+    float* bpart;    // [NSPLIT][NKIND L][128] the bias gradients' partials
+    float* vpart;    // [nblocks][L][6][128] the LayerNorm gradients' slices (LN1_S .. LN2_B)
+    int* off;        // [G + 1] each group's first compacted row; off[G] = rows in all
+    __host__ __device__ float* t(int l, int s) const { return rows + ((long long)l * N_SAVED + s) * cap * D; }
+    __host__ __device__ float* xl(int l, int L) const { return rows + ((long long)L * N_SAVED + l - 1) * cap * D; }
+    __host__ __device__ float* g_rows(int L) const { return rows + ((long long)L * N_SAVED + L - 1) * cap * D; }
+    __host__ __device__ float* wt_of(int kind, int l, int L) const { return wt + ((long long)kind * L + l) * D * D; }
+};
+
+struct Shape {
+    long long BP;
+    int N, L, H, P, G, nblocks;
+};
+
+__host__ __device__ inline Shape shape_of(long long BP, int N, int L, int H, int nblocks) {
+    const int P = ROWS / N;
+    return Shape{BP, N, L, H, P, (int)((BP + P - 1) / P), nblocks};
 }
 
-// db += column sums of A over the N rows
-__device__ void vgrad(const float* A, float* db, int R) {
-    if (threadIdx.x < D) {
-        float s = 0.f;
-        for (int r = 0; r < R; ++r) s += A[r * LDS + threadIdx.x];
-        db[threadIdx.x] += s;
-    }
+// floats of each part of the scratch, in order
+__host__ __device__ inline long long scratch_floats(const Shape& s, long long* parts) {
+    const long long cap = s.BP * s.N;
+    parts[0] = ((long long)s.L * N_SAVED + s.L) * cap * D;
+    parts[1] = (long long)NKIND * s.L * D * D;
+    parts[2] = (long long)NSPLIT * NKIND * s.L * D * D;
+    parts[3] = (long long)NSPLIT * NKIND * s.L * D;
+    parts[4] = (long long)s.nblocks * s.L * 6 * D;
+    parts[5] = s.G + 1;
+    long long n = 0;
+    for (int i = 0; i < 6; ++i) n += parts[i];
+    return n;
 }
 
-// Attention backward of one layer: dcat -> dq, dk, dv (dq, dk scaled by
-// 1/sqrt(dh) as the logits are). P holds the weights before dropout (it is
-// overwritten by dS); PM receives the dropped weights.
-__device__ void attention_bwd(const float* dcat, const float* q, const float* k, const float* v, float* P, float* PM,
-                              float* dq, float* dk, float* dv, const Ctx& cx, int site) {
-    const int N = cx.N, H = cx.H, dh = D / H;
-    const float sqrt_dh = sqrtf((float)dh);
-    for (int w = threadIdx.x; w < H * N; w += THREADS) {
-        const int i = w % N, h = w / N;
-        float* pr = P + (h * N + i) * N;
-        float* pmr = PM + (h * N + i) * N;
-        const float* gi = dcat + i * LDS + h * dh;
-        const unsigned long long row = (cx.poly * H + h) * N + i;
-        float dA[MAXN];
-        float rsum = 0.f;
-#pragma unroll
-        for (int j4 = 0; j4 < MAXN / 4; ++j4) {
-            if (4 * j4 >= N) break;
-            float f[4];
-            tb_philox::factors4(cx.drop, site, row, (uint32_t)j4, f);
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int j = 4 * j4 + u;
-                if (j < N) {
-                    const float* vj = v + j * LDS + h * dh;
-                    float s = 0.f;
-                    for (int d = 0; d < dh; ++d) s = fmaf(gi[d], vj[d], s);
-                    dA[j] = s * f[u];
-                    pmr[j] = pr[j] * f[u];
-                    rsum += dA[j] * pr[j];
-                }
-            }
+Scratch carve(float* base, const Shape& s) {
+    long long parts[6];
+    scratch_floats(s, parts);
+    Scratch sc;
+    sc.cap = s.BP * s.N;
+    sc.rows = base;
+    sc.wt = sc.rows + parts[0];
+    sc.part = sc.wt + parts[1];
+    sc.bpart = sc.part + parts[2];
+    sc.vpart = sc.bpart + parts[3];
+    sc.off = reinterpret_cast<int*>(sc.vpart + parts[4]);
+    return sc;
+}
+
+// off[g + 1] = the valid nodes of group g (one warp a group)
+__global__ void __launch_bounds__(NTS) count_kernel(const uint8_t* __restrict__ valid, Shape s, int* off) {
+    const int g = blockIdx.x * (NTS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (g >= s.G) return;
+    const long long first = (long long)g * s.P * s.N, end = min((long long)(g + 1) * s.P * s.N, s.BP * s.N);
+    int n = 0;
+    for (long long i = first + lane; i < end; i += 32) n += valid[i] != 0;
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+    if (lane == 0) off[g + 1] = n;
+}
+
+// off = the exclusive prefix sums of the counts, in place (one block)
+__global__ void __launch_bounds__(NTS) scan_kernel(int G, int* off) {
+    __shared__ int tot[NTS];
+    const int per = (G + NTS - 1) / NTS, g0 = threadIdx.x * per, g1 = min(g0 + per, G);
+    int sum = 0;
+    for (int g = g0; g < g1; ++g) sum += off[g + 1];
+    tot[threadIdx.x] = sum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int run = 0;
+        for (int t = 0; t < NTS; ++t) {
+            const int c = tot[t];
+            tot[t] = run;
+            run += c;
         }
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            pr[j] = pr[j] * (dA[j] - rsum);
-        }
+        off[0] = 0;
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < N * D; e += THREADS) {
-        const int r = e / D, c = e % D, h = c / dh;
-        const float* ds = P + h * N * N;
-        const float* pm = PM + h * N * N;
-        float aq = 0.f, ak = 0.f, av = 0.f;
-        for (int j = 0; j < N; ++j) {
-            aq = fmaf(ds[r * N + j], k[j * LDS + c], aq);
-            ak = fmaf(ds[j * N + r], q[j * LDS + c], ak);
-            av = fmaf(pm[j * N + r], dcat[j * LDS + c], av);
-        }
-        dq[r * LDS + c] = aq / sqrt_dh;
-        dk[r * LDS + c] = ak / sqrt_dh;
-        dv[r * LDS + c] = av;
+    int run = tot[threadIdx.x];
+    for (int g = g0; g < g1; ++g) {
+        run += off[g + 1];
+        off[g + 1] = run;
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
-bwd_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, const float* __restrict__ g_pool,
-           float* __restrict__ dx_out, float* __restrict__ part, int BP, int N, int L, int H, Weights w,
-           Dropout drop) {
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    __shared__ float vf[MAXN], mu_s[MAXN], rs_s[MAXN];
-    __shared__ int any;
-    const int NL = N * LDS;
-    float* X0 = smem;
-    float* XIN = X0 + NL;             // layer inputs 1 .. L-1
-    float* G = XIN + (L - 1) * NL;    // cotangent of the current layer's output
-    float* DX0 = G + NL;              // cotangent of x0 through the K/V side
-    float* Q = DX0 + NL;
-    float* K = Q + NL;
-    float* V = K + NL;
-    float* CAT = V + NL;
-    float* X1 = CAT + NL;
-    float* Z1 = X1 + NL;
-    float* S1 = Z1 + NL;
-    float* S2 = S1 + NL;
-    float* S3 = S2 + NL;
-    float* P = S3 + NL;               // [H, N, N]
-    float* PM = P + H * N * N;        // [H, N, N]
-    float* slice = part + (long long)blockIdx.x * n_params(L);
-    auto gp = [&](int name, int l) { return slice + grad_off(name, l, L); };
+// wt[kind][l] = the transpose of matrix `kind` of layer l
+__global__ void __launch_bounds__(NTS) transpose_kernel(Weights w, Scratch sc, int L) {
+    const int kind = blockIdx.x / L, l = blockIdx.x % L;
+    const float* src = w.at(matrix_of(kind), l);
+    float* dst = sc.wt_of(kind, l, L);
+    for (int e = threadIdx.x; e < D * D; e += NTS) dst[(e % D) * D + e / D] = src[e];
+}
 
-    for (long long poly = blockIdx.x; poly < BP; poly += gridDim.x) {
-        if (!load_valid(valid, poly, N, vf, &any)) {  // no valid node: zero cotangent, dx = 0
-            for (int i = threadIdx.x; i < N * D; i += THREADS) dx_out[poly * N * D + i] = 0.f;
-            continue;
+// out[r] += LN backward of dy[r] at the row x(r) (scale s), one warp a
+// row; keeps each row's mean and 1 / std for ln_partials
+template <class XRow>
+__device__ void ln_bwd(const float* dy, XRow x, const float* __restrict__ s, float* out, int R, float* mu_s,
+                       float* rs_s) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int r = warp; r < R; r += NT / 32) {
+        const float* xr = x(r);
+        float xh[D / 32], g[D / 32];
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) {
+            xh[j] = xr[lane + 32 * j];
+            sum += xh[j];
         }
-        const Ctx cx{N, H, (unsigned long long)poly * N, (unsigned long long)poly, vf, drop};
-        load_rows(x_in, poly, N, X0);
-        __syncthreads();
-        // forward to the layer inputs and the output (into G)
-        for (int l = 0; l < L; ++l) {
-            const float* xl = l == 0 ? X0 : XIN + (l - 1) * NL;
-            attn_half(l, xl, X0, S1, Q, K, V, CAT, X1, nullptr, w, cx);
-            ffn_half(l, X1, S1, S2, l + 1 < L ? XIN + l * NL : G, w, cx);
+        const float mu = warp_sum(sum) / D;
+        float sq = 0.f;
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) {
+            xh[j] -= mu;
+            sq += xh[j] * xh[j];
         }
-        // max-pool backward: each column's cotangent split among its tied maxima
-        if (threadIdx.x < D) {
-            const int c = threadIdx.x;
-            float m = NEG;
-            for (int r = 0; r < N; ++r) m = fmaxf(m, vf[r] != 0.f ? G[r * LDS + c] : NEG);
-            float cnt = 0.f;
-            for (int r = 0; r < N; ++r) cnt += (vf[r] != 0.f ? G[r * LDS + c] : NEG) == m ? 1.f : 0.f;
-            const float gc = g_pool[poly * D + c] / fmaxf(cnt, 1.f);
-            for (int r = 0; r < N; ++r) {
-                const bool top = (vf[r] != 0.f ? G[r * LDS + c] : NEG) == m;
-                G[r * LDS + c] = top ? gc : 0.f;
+        const float rs = rsqrtf(warp_sum(sq) / D + LN_EPS);
+        float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) {
+            const int c = lane + 32 * j;
+            xh[j] = xh[j] * rs;
+            g[j] = dy[r * LDS + c] * s[c];
+            m1 += g[j];
+            m2 += g[j] * xh[j];
+        }
+        m1 = warp_sum(m1) / D;
+        m2 = warp_sum(m2) / D;
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) out[r * LDS + lane + 32 * j] += (g[j] - m1 - xh[j] * m2) * rs;
+        if (lane == 0) {
+            mu_s[r] = mu;
+            rs_s[r] = rs;
+        }
+    }
+}
+
+// the LayerNorm's scale and bias gradients of the block's rows added to
+// its slice: ds[c] += sum_r dy[r, c] xhat[r, c], db[c] += sum_r dy[r, c]
+// (after ln_bwd and a barrier; one thread a column, rows in order)
+template <class XRow>
+__device__ void ln_partials(const float* dy, XRow x, const float* mu_s, const float* rs_s, int R, float* ds,
+                            float* db) {
+    if (threadIdx.x < D) {
+        const int c = threadIdx.x;
+        float a = 0.f, bb = 0.f;
+        for (int r = 0; r < R; ++r) {
+            const float d = dy[r * LDS + c];
+            a += d * ((x(r)[c] - mu_s[r]) * rs_s[r]);
+            bb += d;
+        }
+        ds[c] += a;
+        db[c] += bb;
+    }
+}
+
+// The attention backward of one layer: dcat (DC) -> dq (device memory, gq),
+// dk and dv (over K and V, and to gk, gv); the weights recomputed from q, k
+// and the forward's arithmetic. Pass 1, a thread a (head, row i), q_i and
+// dcat_i in registers: the weights P_i, dA_ij = (dcat_i . v_j) M0_ij,
+// rsum_i = sum_j dA_ij P_ij, dS_ij = P_ij (dA_ij - rsum_i), dq_i = sum_j
+// dS_ij k_j / sqrt(dh); the row's max, sum and rsum kept. Pass 2, a thread a
+// (head, key j), k_j and v_j in registers: the column's dS and P M0 from the
+// statistics, dk_j = sum_i dS_ij q_i / sqrt(dh), dv_j = sum_i P_ij M0_ij
+// dcat_i. d_head <= 32, a multiple of 4.
+__device__ void attention_bwd(const float* Q, float* K, float* V, const float* DC, const Block& b, int H,
+                              const Dropout& drop, int site, float* st_m, float* st_l, float* st_r, float* gq,
+                              float* gk, float* gv) {
+    const int dh = D / H, R = b.R;
+    const float sqrt_dh = sqrtf((float)dh);
+    for (int w = threadIdx.x; w < H * R; w += NT) {
+        const int r = w % R, h = w / R;
+        const int s = b.rseg[r], j0 = b.seg0[s], n = b.seg0[s + 1] - j0;
+        float qv[32];
+        load_head(Q + r * LDS + h * dh, qv, dh);
+        float sc[MAXN], da[MAXN];
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < MAXN; ++j) {
+            if (j >= n) break;
+            sc[j] = dot_head(qv, K + (j0 + j) * LDS + h * dh, dh) / sqrt_dh;
+            m = fmaxf(m, sc[j]);
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < MAXN; ++j) {
+            if (j >= n) break;
+            sc[j] = expf(sc[j] - m);
+            sum += sc[j];
+        }
+        const unsigned long long row = ((unsigned long long)b.spoly[s] * H + h) * b.N + b.rnode[r];
+        int c4 = -1;
+        float f[4] = {1.f, 1.f, 1.f, 1.f};
+        float rsum = 0.f;
+        float gv4[32];  // dcat_i, loaded once q_i is no longer needed
+        load_head(DC + r * LDS + h * dh, gv4, dh);
+#pragma unroll
+        for (int j = 0; j < MAXN; ++j) {
+            if (j >= n) break;
+            sc[j] = sc[j] / sum;
+            const int nj = b.rnode[j0 + j];
+            if (nj / 4 != c4) {
+                c4 = nj / 4;
+                tb_philox::factors4(drop, site, row, (uint32_t)c4, f);
             }
+            da[j] = dot_head(gv4, V + (j0 + j) * LDS + h * dh, dh) * pick4(f, nj % 4);
+            rsum += da[j] * sc[j];
         }
-        for (int i = threadIdx.x; i < N * D; i += THREADS) DX0[(i / D) * LDS + i % D] = 0.f;
+#pragma unroll
+        for (int d = 0; d < 32; ++d) qv[d] = 0.f;  // now dq
+#pragma unroll
+        for (int j = 0; j < MAXN; ++j) {
+            if (j >= n) break;
+            axpy_head(qv, sc[j] * (da[j] - rsum), K + (j0 + j) * LDS + h * dh, dh);
+        }
+#pragma unroll
+        for (int d = 0; d < 32; ++d) qv[d] = qv[d] / sqrt_dh;
+        store_head(gq + (long long)r * D + h * dh, qv, dh);
+        st_m[h * ROWS + r] = m;
+        st_l[h * ROWS + r] = sum;
+        st_r[h * ROWS + r] = rsum;
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < H * R; w += NT) {
+        const int j = w % R, h = w / R;
+        const int s = b.rseg[j], i0 = b.seg0[s], n = b.seg0[s + 1] - i0;
+        const int nj = b.rnode[j];
+        // (the arrays live one or two at a time, so that 512 threads' 128 registers hold them)
+        float hv[32], ds[MAXN], pm[MAXN];
+        load_head(K + j * LDS + h * dh, hv, dh);  // k_j: the weights P_ij into pm
+#pragma unroll
+        for (int i = 0; i < MAXN; ++i) {
+            if (i >= n) break;
+            const int ri = i0 + i;
+            const float t = dot_head(hv, Q + ri * LDS + h * dh, dh);
+            pm[i] = expf(t / sqrt_dh - st_m[h * ROWS + ri]) / st_l[h * ROWS + ri];
+        }
+        load_head(V + j * LDS + h * dh, hv, dh);  // v_j: dS_ij and P_ij M0_ij
+#pragma unroll
+        for (int i = 0; i < MAXN; ++i) {
+            if (i >= n) break;
+            const int ri = i0 + i;
+            const float u = dot_head(hv, DC + ri * LDS + h * dh, dh);
+            float f[4];
+            tb_philox::factors4(drop, site, ((unsigned long long)b.spoly[s] * H + h) * b.N + b.rnode[ri],
+                                (uint32_t)(nj / 4), f);
+            const float fj = pick4(f, nj % 4);
+            ds[i] = pm[i] * (u * fj - st_r[h * ROWS + ri]);
+            pm[i] = pm[i] * fj;
+        }
+        // k_j and v_j are this thread's alone (read into registers above): written in place
+#pragma unroll
+        for (int d = 0; d < 32; ++d) hv[d] = 0.f;  // dk_j
+#pragma unroll
+        for (int i = 0; i < MAXN; ++i) {
+            if (i >= n) break;
+            axpy_head(hv, ds[i], Q + (i0 + i) * LDS + h * dh, dh);
+        }
+#pragma unroll
+        for (int d = 0; d < 32; ++d) hv[d] = hv[d] / sqrt_dh;
+        store_head(K + j * LDS + h * dh, hv, dh);
+        store_head(gk + (long long)j * D + h * dh, hv, dh);
+#pragma unroll
+        for (int d = 0; d < 32; ++d) hv[d] = 0.f;  // dv_j
+#pragma unroll
+        for (int i = 0; i < MAXN; ++i) {
+            if (i >= n) break;
+            axpy_head(hv, pm[i], DC + (i0 + i) * LDS + h * dh, dh);
+        }
+        store_head(V + j * LDS + h * dh, hv, dh);
+        store_head(gv + (long long)j * D + h * dh, hv, dh);
+    }
+}
+
+// dst rows (shared) = src rows (device memory, row stride D)
+__device__ void load_saved(const float* __restrict__ src, float* dst, int R) {
+    for (int e = threadIdx.x; e < R * (D / 4); e += NT) {
+        const int r = e / (D / 4), c = 4 * (e % (D / 4));
+        *reinterpret_cast<float4*>(dst + r * LDS + c) = *reinterpret_cast<const float4*>(src + (long long)r * D + c);
+    }
+}
+
+// The forward, once, over one group of polylines a block: each layer's
+// tensors saved to device memory (compacted rows), then the max-pool
+// backward, the rows' cotangent g saved.
+__global__ void __launch_bounds__(NT, 1)
+save_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, const float* __restrict__ g_pool,
+            Shape sh, Weights w, Dropout drop, Scratch sc) {
+    extern __shared__ float4 smem4[];
+    float* X = reinterpret_cast<float*>(smem4);  // the layer's input
+    float* A1 = X + ROWS * LDS;
+    float* A2 = A1 + ROWS * LDS;
+    float* A3 = A2 + ROWS * LDS;
+    float* A4 = A3 + ROWS * LDS;
+    float* wsm = A4 + ROWS * LDS;
+    __shared__ Block blk;
+
+    const int N = sh.N, L = sh.L, H = sh.H, P = sh.P, g = blockIdx.x;
+    const long long poly0 = (long long)g * P;
+    load_block(valid, sh.BP, N, poly0, P, blk);
+    const int R = blk.R;
+    if (R == 0) return;
+    TB_NODE_BEGIN(3);
+    const long long row0 = sc.off[g];
+    auto saved = [&](int l, int s) { return sc.t(l, s) + row0 * D; };
+    load_rows(x_in, blk, X);
+    __syncthreads();
+
+    // the forward, once, saving each layer's tensors
+    for (int l = 0; l < L; ++l) {
+        if (l > 0) {
+            float* xs = sc.xl(l, L) + row0 * D;
+            for (int e = threadIdx.x; e < R * (D / 4); e += NT)
+                *reinterpret_cast<float4*>(xs + (long long)(e / (D / 4)) * D + 4 * (e % (D / 4))) =
+                    *reinterpret_cast<const float4*>(X + (e / (D / 4)) * LDS + 4 * (e % (D / 4)));
+        }
+        layer_norm_x0(x_in, blk, A1, w.at(LNT_S, l), w.at(LNT, l), saved(l, TG));
+        const float* bk = w.at(BK, l);
+        float* gk = saved(l, KS);
+        dense<NS_F>(A1, w.at(WK, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bk, c0);
+            store4(A3 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            store4(gk + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
+        const float* bv = w.at(BV, l);
+        float* gv = saved(l, VS);
+        dense<NS_F>(A1, w.at(WV, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bv, c0);
+            store4(A4 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            store4(gv + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
         __syncthreads();
+        layer_norm(X, A1, w.at(LN1_S, l), w.at(LN1_B, l), R, saved(l, S2));
+        const float* bq = w.at(BQ, l);
+        float* gq = saved(l, QS);
+        dense<NS_F>(A1, w.at(WQ, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bq, c0);
+            store4(A2 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            store4(gq + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
+        __syncthreads();
+        attention<true>(A2, A3, A4, A2, blk, H, drop, 4 * l, saved(l, CAT));
+        __syncthreads();
+        const float* bo = w.at(BO, l);
+        float* gx1 = saved(l, X1);
+        dense<NS_F>(A2, w.at(WO, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bo, c0);
+            float f[4];
+            tb_philox::factors4(drop, 4 * l + 1, blk.grow[r], (uint32_t)(c0 / 4), f);
+            float* o = X + r * LDS + c0;
+            const float4 v = make_float4(o[0] + (y[0] + b.x) * f[0], o[1] + (y[1] + b.y) * f[1],
+                                         o[2] + (y[2] + b.z) * f[2], o[3] + (y[3] + b.w) * f[3]);
+            *reinterpret_cast<float4*>(o) = v;
+            *reinterpret_cast<float4*>(gx1 + (long long)r * D + c0) = v;
+        });
+        __syncthreads();
+        layer_norm(X, A1, w.at(LN2_S, l), w.at(LN2_B, l), R, saved(l, S2B));
+        const float* b1 = w.at(B1, l);
+        float* gf = saved(l, FDO);
+        dense<NS_F>(A1, w.at(W1, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(b1, c0);
+            float f[4];
+            tb_philox::factors4(drop, 4 * l + 2, blk.grow[r], (uint32_t)(c0 / 4), f);
+            const float4 v = make_float4(fmaxf(y[0] + b.x, 0.f) * f[0], fmaxf(y[1] + b.y, 0.f) * f[1],
+                                         fmaxf(y[2] + b.z, 0.f) * f[2], fmaxf(y[3] + b.w, 0.f) * f[3]);
+            *reinterpret_cast<float4*>(A2 + r * LDS + c0) = v;
+            *reinterpret_cast<float4*>(gf + (long long)r * D + c0) = v;
+        });
+        const float* b2 = w.at(B2, l);
+        dense<NS_F>(A2, w.at(W2, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(b2, c0);
+            float f[4];
+            tb_philox::factors4(drop, 4 * l + 3, blk.grow[r], (uint32_t)(c0 / 4), f);
+            float* o = X + r * LDS + c0;
+            store4(o, o[0] + (y[0] + b.x) * f[0], o[1] + (y[1] + b.y) * f[1], o[2] + (y[2] + b.z) * f[2],
+                   o[3] + (y[3] + b.w) * f[3]);
+        });
+        __syncthreads();
+    }
+    TB_NODE_MARK(3, 1);
+
+    // max-pool backward: each column's cotangent split among its tied maxima
+    for (int e = threadIdx.x; e < P * D; e += NT) {
+        const int p = e / D, c = e % D;
+        if (poly0 + p >= sh.BP) break;
+        float m = NEG, cnt = 0.f;
+        for (int n = 0; n < N; ++n) {
+            const int r = blk.nrow[p * N + n];
+            if (r >= 0) m = fmaxf(m, X[r * LDS + c]);
+        }
+        for (int n = 0; n < N; ++n) {
+            const int r = blk.nrow[p * N + n];
+            if (r >= 0) cnt += X[r * LDS + c] == m ? 1.f : 0.f;
+        }
+        const float gc = g_pool[(poly0 + p) * D + c] / fmaxf(cnt, 1.f);
+        for (int n = 0; n < N; ++n) {
+            const int r = blk.nrow[p * N + n];
+            if (r >= 0) X[r * LDS + c] = X[r * LDS + c] == m ? gc : 0.f;
+        }
+    }
+    float* gs = sc.g_rows(L) + row0 * D;
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * (D / 4); e += NT)
+        *reinterpret_cast<float4*>(gs + (long long)(e / (D / 4)) * D + 4 * (e % (D / 4))) =
+            *reinterpret_cast<const float4*>(X + (e / (D / 4)) * LDS + 4 * (e % (D / 4)));
+    TB_NODE_MARK(3, 2);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+walk_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, float* __restrict__ dx_out, Shape sh,
+            Weights w, Dropout drop, Scratch sc) {
+    extern __shared__ float4 smem4[];
+    float* X = reinterpret_cast<float*>(smem4);  // the cotangent g of the layer's output
+    float* DX0 = X + ROWS * LDS;                  // the cotangent of x0 through the K/V side
+    float* A1 = DX0 + ROWS * LDS;
+    float* A2 = A1 + ROWS * LDS;
+    float* A3 = A2 + ROWS * LDS;
+    float* A4 = A3 + ROWS * LDS;
+    float* wsm = A4 + ROWS * LDS;
+    __shared__ Block blk;
+    __shared__ float st_m[MAXH * ROWS], st_l[MAXH * ROWS], st_r[MAXH * ROWS], mu_s[ROWS], rs_s[ROWS];
+
+    const int N = sh.N, L = sh.L, H = sh.H, P = sh.P;
+    float* vp = sc.vpart + (long long)blockIdx.x * L * 6 * D;  // this block's slice, column c owned by thread c
+    if (threadIdx.x < D)
+        for (int i = 0; i < L * 6; ++i) vp[i * D + threadIdx.x] = 0.f;
+
+    for (int g = blockIdx.x; g < sh.G; g += gridDim.x) {
+        __syncthreads();  // the previous group's reads of blk are done
+        const long long poly0 = (long long)g * P;
+        load_block(valid, sh.BP, N, poly0, P, blk);
+        const int R = blk.R;
+        for (int e = threadIdx.x; e < P * N * (D / 4); e += NT) {  // padding nodes: dx = 0
+            const int pn = e / (D / 4);
+            if (poly0 + pn / N < sh.BP && blk.nrow[pn] < 0)
+                store4(dx_out + (poly0 * N + pn) * D + 4 * (e % (D / 4)), 0.f, 0.f, 0.f, 0.f);
+        }
+        if (R == 0) continue;
+        TB_NODE_BEGIN(2);
+        const long long row0 = sc.off[g];
+        auto saved = [&](int l, int s) { return sc.t(l, s) + row0 * D; };
+        load_saved(sc.g_rows(L) + row0 * D, X, R);
+        for (int e = threadIdx.x; e < R * D; e += NT) DX0[(e / D) * LDS + e % D] = 0.f;
+        __syncthreads();
+        TB_NODE_MARK(2, 1);
 
         for (int l = L - 1; l >= 0; --l) {
-            const float* xl = l == 0 ? X0 : XIN + (l - 1) * NL;
-            // recompute the layer, keeping q, k, v, P, the attention output,
-            // x1 and the FFN pre-activation
-            attn_half(l, xl, X0, S1, Q, K, V, CAT, X1, P, w, cx);
-            layer_norm(X1, S1, w.at(LN2_S, l), w.at(LN2_B, l), N);
-            __syncthreads();
-            matmul<STORE, false>(S1, w.at(W1, l), w.at(B1, l), Z1, nullptr, cx, 0);
-            __syncthreads();
-            // g2 = g * valid;  df = g2 M3;  fdo = relu(z1) M2
-            for (int e = threadIdx.x; e < N * (D / 4); e += THREADS) {
+            float* lv = vp + l * 6 * D;
+            auto x1_row = [&](int r) -> const float* { return saved(l, X1) + (long long)r * D; };
+            auto xl_row = [&](int r) -> const float* {
+                return l == 0 ? x_in + blk.grow[r] * D : sc.xl(l, L) + (row0 + r) * D;
+            };
+            auto x0_row = [&](int r) -> const float* { return x_in + blk.grow[r] * D; };
+            // df = g M3 (saved)
+            float* gdf = saved(l, DF);
+            for (int e = threadIdx.x; e < R * (D / 4); e += NT) {
                 const int r = e / (D / 4), c0 = 4 * (e % (D / 4));
-                float f3[4], f2[4];
-                tb_philox::factors4(drop, 4 * l + 3, cx.row0 + r, (uint32_t)(c0 / 4), f3);
-                tb_philox::factors4(drop, 4 * l + 2, cx.row0 + r, (uint32_t)(c0 / 4), f2);
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    const int i = r * LDS + c0 + u;
-                    const float g2 = vf[r] != 0.f ? G[i] : 0.f;
-                    G[i] = g2;
-                    S2[i] = g2 * f3[u];
-                    S3[i] = fmaxf(Z1[i], 0.f) * f2[u];
-                }
+                float f[4];
+                tb_philox::factors4(drop, 4 * l + 3, blk.grow[r], (uint32_t)(c0 / 4), f);
+                const float* gr = X + r * LDS + c0;
+                const float4 v = make_float4(gr[0] * f[0], gr[1] * f[1], gr[2] * f[2], gr[3] * f[3]);
+                *reinterpret_cast<float4*>(A1 + r * LDS + c0) = v;
+                *reinterpret_cast<float4*>(gdf + (long long)r * D + c0) = v;
             }
+            // dz1 = (df W2ᵀ) M2 where the ReLU passed (fdo > 0: where M2 is 0, so is dz1) (saved)
+            const float* gf = saved(l, FDO);
+            float* gdz = saved(l, DZ1);
+            dense<NS_B>(A1, sc.wt_of(5, l, L), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+                float f[4];
+                tb_philox::factors4(drop, 4 * l + 2, blk.grow[r], (uint32_t)(c0 / 4), f);
+                const float4 fd = *reinterpret_cast<const float4*>(gf + (long long)r * D + c0);
+                const float4 v = make_float4(fd.x > 0.f ? y[0] * f[0] : 0.f, fd.y > 0.f ? y[1] * f[1] : 0.f,
+                                             fd.z > 0.f ? y[2] * f[2] : 0.f, fd.w > 0.f ? y[3] * f[3] : 0.f);
+                *reinterpret_cast<float4*>(A2 + r * LDS + c0) = v;
+                *reinterpret_cast<float4*>(gdz + (long long)r * D + c0) = v;
+            });
+            // dsrc2b = dz1 W1ᵀ
+            dense<NS_B>(A2, sc.wt_of(4, l, L), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+                store4(A3 + r * LDS + c0, y[0], y[1], y[2], y[3]);
+            });
             __syncthreads();
-            wgrad(S3, S2, gp(W2, l), N);
-            vgrad(S2, gp(B2, l), N);
+            TB_NODE_MARK(2, 2);
+            // g += LN2 backward at x1; its vector gradients
+            ln_bwd(A3, x1_row, w.at(LN2_S, l), X, R, mu_s, rs_s);
             __syncthreads();
-            matmul<STORE, true>(S2, w.at(W2, l), nullptr, S3, nullptr, cx, 0);  // dfdo
+            ln_partials(A3, x1_row, mu_s, rs_s, R, lv + LN2_S * D, lv + LN2_B * D);
             __syncthreads();
-            for (int e = threadIdx.x; e < N * (D / 4); e += THREADS) {  // dz1 = dfdo M2 (z1 > 0)
+            TB_NODE_MARK(2, 3);
+            // da = g M1 (saved over x1)
+            float* gda = saved(l, X1);
+            for (int e = threadIdx.x; e < R * (D / 4); e += NT) {
                 const int r = e / (D / 4), c0 = 4 * (e % (D / 4));
-                float f2[4];
-                tb_philox::factors4(drop, 4 * l + 2, cx.row0 + r, (uint32_t)(c0 / 4), f2);
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    const int i = r * LDS + c0 + u;
-                    S3[i] = Z1[i] > 0.f ? S3[i] * f2[u] : 0.f;
-                }
+                float f[4];
+                tb_philox::factors4(drop, 4 * l + 1, blk.grow[r], (uint32_t)(c0 / 4), f);
+                const float* gr = X + r * LDS + c0;
+                const float4 v = make_float4(gr[0] * f[0], gr[1] * f[1], gr[2] * f[2], gr[3] * f[3]);
+                *reinterpret_cast<float4*>(A1 + r * LDS + c0) = v;
+                *reinterpret_cast<float4*>(gda + (long long)r * D + c0) = v;
             }
-            layer_norm(X1, S1, w.at(LN2_S, l), w.at(LN2_B, l), N);  // src2b
+            // dcat = da Woᵀ
+            dense<NS_B>(A1, sc.wt_of(3, l, L), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+                store4(A2 + r * LDS + c0, y[0], y[1], y[2], y[3]);
+            });
             __syncthreads();
-            wgrad(S1, S3, gp(W1, l), N);
-            vgrad(S3, gp(B1, l), N);
+            TB_NODE_MARK(2, 2);
+            load_saved(saved(l, QS), A1, R);
+            load_saved(saved(l, KS), A3, R);
+            load_saved(saved(l, VS), A4, R);
             __syncthreads();
-            matmul<STORE, true>(S3, w.at(W1, l), nullptr, S2, nullptr, cx, 0);  // dsrc2b
+            attention_bwd(A1, A3, A4, A2, blk, H, drop, 4 * l, st_m, st_l, st_r, saved(l, QS), saved(l, KS),
+                          saved(l, VS));
             __syncthreads();
-            layer_norm_bwd(S2, X1, w.at(LN2_S, l), S1, gp(LN2_S, l), gp(LN2_B, l), N, mu_s, rs_s);
+            load_saved(saved(l, QS), A1, R);  // dq
+            TB_NODE_MARK(2, 4);
+            // dsrc2 = dq Wqᵀ;  dtgtn = dk Wkᵀ + dv Wvᵀ
+            dense<NS_B>(A1, sc.wt_of(0, l, L), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+                store4(A2 + r * LDS + c0, y[0], y[1], y[2], y[3]);
+            });
+            dense<NS_B>(A3, sc.wt_of(1, l, L), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+                store4(A1 + r * LDS + c0, y[0], y[1], y[2], y[3]);
+            });
+            dense<NS_B>(A4, sc.wt_of(2, l, L), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+                float* o = A1 + r * LDS + c0;
+                store4(o, o[0] + y[0], o[1] + y[1], o[2] + y[2], o[3] + y[3]);
+            });
             __syncthreads();
-            // dx1 = g2 + dx1_ln;  da = dx1 M1
-            for (int e = threadIdx.x; e < N * (D / 4); e += THREADS) {
-                const int r = e / (D / 4), c0 = 4 * (e % (D / 4));
-                float f1[4];
-                tb_philox::factors4(drop, 4 * l + 1, cx.row0 + r, (uint32_t)(c0 / 4), f1);
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    const int i = r * LDS + c0 + u;
-                    G[i] = G[i] + S1[i];
-                    S2[i] = G[i] * f1[u];
-                }
-            }
+            TB_NODE_MARK(2, 2);
+            // g += LN1 backward at x_l;  dx0 += LN_tgt backward at x0; their vector gradients
+            ln_bwd(A2, xl_row, w.at(LN1_S, l), X, R, mu_s, rs_s);
             __syncthreads();
-            wgrad(CAT, S2, gp(WO, l), N);
-            vgrad(S2, gp(BO, l), N);
+            ln_partials(A2, xl_row, mu_s, rs_s, R, lv + LN1_S * D, lv + LN1_B * D);
             __syncthreads();
-            matmul<STORE, true>(S2, w.at(WO, l), nullptr, S3, nullptr, cx, 0);  // dcat
+            ln_bwd(A1, x0_row, w.at(LNT_S, l), DX0, R, mu_s, rs_s);
             __syncthreads();
-            attention_bwd(S3, Q, K, V, P, PM, S1, S2, CAT, cx, 4 * l);  // dq, dk, dv
-            layer_norm(xl, X1, w.at(LN1_S, l), w.at(LN1_B, l), N);  // src2
-            layer_norm(X0, Z1, w.at(LNT_S, l), w.at(LNT_B, l), N);  // tgtn
+            ln_partials(A1, x0_row, mu_s, rs_s, R, lv + LNT_S * D, lv + LNT * D);
             __syncthreads();
-            wgrad(X1, S1, gp(WQ, l), N);
-            vgrad(S1, gp(BQ, l), N);
-            __syncthreads();
-            wgrad(Z1, S2, gp(WK, l), N);
-            vgrad(S2, gp(BK, l), N);
-            __syncthreads();
-            wgrad(Z1, CAT, gp(WV, l), N);
-            vgrad(CAT, gp(BV, l), N);
-            __syncthreads();
-            matmul<STORE, true>(S1, w.at(WQ, l), nullptr, S3, nullptr, cx, 0);  // dsrc2
-            matmul<STORE, true>(S2, w.at(WK, l), nullptr, X1, nullptr, cx, 0);  // dtgtn ...
-            __syncthreads();
-            matmul<ACC, true>(CAT, w.at(WV, l), nullptr, X1, nullptr, cx, 0);  // ... + dv Wvᵀ
-            __syncthreads();
-            layer_norm_bwd(S3, xl, w.at(LN1_S, l), Q, gp(LN1_S, l), gp(LN1_B, l), N, mu_s, rs_s);
-            __syncthreads();
-            layer_norm_bwd(X1, X0, w.at(LNT_S, l), K, gp(LNT_S, l), gp(LNT_B, l), N, mu_s, rs_s);
-            __syncthreads();
-            for (int e = threadIdx.x; e < N * D; e += THREADS) {  // g = dx1 + dx_ln;  dx0 += dx0_ln
-                const int i = (e / D) * LDS + e % D;
-                G[i] = G[i] + Q[i];
-                DX0[i] = DX0[i] + K[i];
-            }
-            __syncthreads();
+            TB_NODE_MARK(2, 3);
         }
-        for (int e = threadIdx.x; e < N * D; e += THREADS) {
-            const int i = (e / D) * LDS + e % D;
-            dx_out[poly * N * D + e] = G[i] + DX0[i];
+        for (int e = threadIdx.x; e < R * (D / 4); e += NT) {
+            const int r = e / (D / 4), c0 = 4 * (e % (D / 4));
+            const float* gr = X + r * LDS + c0;
+            const float* hr = DX0 + r * LDS + c0;
+            store4(dx_out + blk.grow[r] * D + c0, gr[0] + hr[0], gr[1] + hr[1], gr[2] + hr[2], gr[3] + hr[3]);
         }
-        __syncthreads();
+        TB_NODE_MARK(2, 5);
     }
 }
 
-// dw[i] = sum over blocks b (in order) of part[b, i]
-__global__ void reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, long long n, int nb) {
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x) {
+// part[split][m] = the sum over the split's rows, in order, of A_rᵀ B_r
+// for product m = l NKIND + kind; bpart[split][m] = the column sums of B
+// there. Thread (ti, tj) owns rows {4 ti .., 64 + 4 ti ..} x columns
+// {4 tj .., 64 + 4 tj ..}; the A and B rows stream through two stages.
+__global__ void __launch_bounds__(NTS) dw_kernel(Scratch sc, Shape sh) {
+    extern __shared__ float4 smem4[];
+    float* stg = reinterpret_cast<float*>(smem4);  // [2 stages][A, B][RC][D]
+    const int L = sh.L, m = blockIdx.x, split = blockIdx.y, l = m / NKIND, kind = m % NKIND;
+    const long long total = sc.off[sh.G];
+    const long long r0 = total * split / NSPLIT, r1 = total * (split + 1) / NSPLIT;
+    const float* A = sc.t(l, A_OF[kind]);
+    const float* B = sc.t(l, B_OF[kind]);
+    const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+    auto stage = [&](long long c, int st) {
+        const int n = (int)min((long long)RC, r1 - c);
+        float* sa = stg + st * 2 * RC * D;
+        float* sb = sa + RC * D;
+        for (int e = threadIdx.x; e < n * (D / 4); e += NTS) {
+            const int r = e / (D / 4), cc = 4 * (e % (D / 4));
+            cp_async16(sa + r * D + cc, A + (c + r) * D + cc);
+            cp_async16(sb + r * D + cc, B + (c + r) * D + cc);
+        }
+    };
+    float acc[8][8], bs[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        bs[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    if (r0 < r1) stage(r0, 0);
+    cp_async_commit();
+    int st = 0;
+    for (long long c = r0; c < r1; c += RC, st ^= 1) {
+        if (c + RC < r1) stage(c + RC, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // this stage landed for every thread
+        const float* sa = stg + st * 2 * RC * D;
+        const float* sb = sa + RC * D;
+        const int n = (int)min((long long)RC, r1 - c);
+        for (int r = 0; r < n; ++r) {
+            const float4 a0 = *reinterpret_cast<const float4*>(sa + r * D + 4 * ti);
+            const float4 a1 = *reinterpret_cast<const float4*>(sa + r * D + 64 + 4 * ti);
+            const float4 b0 = *reinterpret_cast<const float4*>(sb + r * D + 4 * tj);
+            const float4 b1 = *reinterpret_cast<const float4*>(sb + r * D + 64 + 4 * tj);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            if (ti == 0)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) bs[j] += bv[j];
+        }
+        __syncthreads();  // this stage is free for the load after next
+    }
+    float* out = sc.part + ((long long)split * NKIND * L + m) * D * D;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int row = i < 4 ? 4 * ti + i : 64 + 4 * ti + i - 4;
+        store4(out + row * D + 4 * tj, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        store4(out + row * D + 64 + 4 * tj, acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    if (ti == 0) {
+        float* bp = sc.bpart + ((long long)split * NKIND * L + m) * D;
+        store4(bp + 4 * tj, bs[0], bs[1], bs[2], bs[3]);
+        store4(bp + 64 + 4 * tj, bs[4], bs[5], bs[6], bs[7]);
+    }
+}
+
+// dw (the flat gradient of the 18 arrays, W_NAMES order) = the partials
+// (matrices, biases) and the walk blocks' slices (LayerNorms), each summed
+// in a fixed order
+__global__ void __launch_bounds__(NTS) reduce_kernel(Scratch sc, Shape sh, float* __restrict__ dw) {
+    const int L = sh.L;
+    const long long n = n_params(L);
+    for (long long i = blockIdx.x * (long long)NTS + threadIdx.x; i < n; i += (long long)gridDim.x * NTS) {
+        int name = 0;
+        while (name + 1 < N_NAMES && grad_off(name + 1, 0, L) <= i) ++name;
+        const long long size = is_matrix(name) ? (long long)D * D : D, in = i - grad_off(name, 0, L);
+        const int l = (int)(in / size);
+        const long long e = in % size;
         float s = 0.f;
-        for (int b = 0; b < nb; ++b) s += part[(long long)b * n + i];
+        if (name >= WQ) {
+            const int m = l * NKIND + (name - WQ) / 2;
+            for (int sp = 0; sp < NSPLIT; ++sp)
+                s += is_matrix(name) ? sc.part[((long long)sp * NKIND * L + m) * D * D + e]
+                                     : sc.bpart[((long long)sp * NKIND * L + m) * D + e];
+        } else {
+            for (int b = 0; b < sh.nblocks; ++b) s += sc.vpart[(((long long)b * L + l) * 6 + name) * D + e];
+        }
         dw[i] = s;
     }
 }
 
-Weights weights(const void* const* w) {
-    Weights ws;
-    for (int i = 0; i < N_NAMES; ++i) ws.p[i] = static_cast<const float*>(w[i]);
+}  // namespace k4b
+
+TB_NODE_PHASES("1 fwd_kernel (a polyline): rows loaded|attention halves|FFN halves|pool;"
+               "2 walk_kernel (a group of polylines): rows loaded|cotangent products|LayerNorm backward|"
+               "attention backward|dx written;"
+               "3 save_kernel (a group of polylines): forward, saving each layer|max-pool backward, g saved")
+
+namespace {
+
+k4::Weights weights(const void* const* w) {
+    k4::Weights ws;
+    for (int i = 0; i < k4::N_NAMES; ++i) ws.p[i] = static_cast<const float*>(w[i]);
     return ws;
 }
 
-size_t fwd_smem(int N) { return sizeof(float) * 7 * (size_t)N * LDS; }
-size_t bwd_smem(int N, int L, int H) { return sizeof(float) * ((size_t)(11 + L) * N * LDS + 2 * (size_t)H * N * N); }
+constexpr int NBLOCKS = 132;  // the walk's fixed grid (one block an SM on an H100)
 
 }  // namespace
 
-// The backward's fixed grid: the rows of the partial buffer it takes.
+// The walk's fixed grid: the slices of the LayerNorm gradients it sums.
 extern "C" int tb_node_encoder_train_nblocks() { return NBLOCKS; }
+
+// *n = the floats of the backward's scratch at this shape (nblocks walk blocks).
+extern "C" int tb_node_encoder_train_scratch(int BP, int N, int L, int nblocks, long long* n) {
+    long long parts[6];
+    *n = k4b::scratch_floats(k4b::shape_of(BP, N, L, 1, nblocks), parts);
+    return 0;
+}
 
 // x [BP, N, 128] fp32, valid [BP, N] bool bytes, out [BP, 128] fp32; w the
 // 18 device pointers in W_NAMES order (stacked over layers, matrices
@@ -681,36 +1080,53 @@ extern "C" int tb_node_encoder_train_nblocks() { return NBLOCKS; }
 extern "C" int tb_node_encoder_train_fwd(const void* x, const void* valid, void* out, int BP, int N, int L, int H,
                                          const void* const* w, unsigned long long seed, unsigned int threshold,
                                          float scale, int on, void* stream) {
-    if (N < 1 || N > MAXN || L < 1 || D % H != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = fwd_smem(N);
-    cudaError_t err = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (N < 1 || N > k4f::MAXN || L < 1 || k4f::D % H != 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = k4f::fwd_smem(N);
+    cudaError_t err = cudaFuncSetAttribute(k4f::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fwd_kernel<<<BP, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    k4f::fwd_kernel<<<BP, k4f::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out), N, L, H,
-        weights(w), Dropout{seed, threshold, scale, on});
+        weights(w), tb_philox::Dropout{seed, threshold, scale, on});
     return (int)cudaGetLastError();
 }
 
 // The backward: g [BP, 128] -> dx [BP, N, 128] and dw, the flat gradient of
-// the 18 arrays (n_params(L) floats, W_NAMES order). part is scratch of
-// NBLOCKS x n_params(L) floats, zeroed by the caller.
-extern "C" int tb_node_encoder_train_bwd(const void* x, const void* valid, const void* g, void* dx, void* part,
+// the 18 arrays (n_params(L) floats, W_NAMES order). scratch holds
+// tb_node_encoder_train_scratch(BP, N, L, nblocks) floats, uninitialised.
+// Seven launches: count, scan, transpose, save, walk, dw, reduce.
+extern "C" int tb_node_encoder_train_bwd(const void* x, const void* valid, const void* g, void* dx, void* scratch,
                                          void* dw, int BP, int N, int L, int H, const void* const* w,
                                          unsigned long long seed, unsigned int threshold, float scale, int on,
-                                         void* stream) {
-    if (N < 1 || N > MAXN || L < 1 || D % H != 0) return (int)cudaErrorInvalidValue;
+                                         int nblocks, void* stream) {
+    using namespace k4b;
+    if (N < 1 || N > MAXN || L < 1 || !heads_ok(H) || H > MAXH || nblocks < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const size_t smem = bwd_smem(N, L, H);
-    cudaError_t err = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const Shape sh = shape_of(BP, N, L, H, nblocks);
+    const Scratch sc = carve(static_cast<float*>(scratch), sh);
+    const k4::Weights ws = weights(w);
+    count_kernel<<<(sh.G + 7) / 8, NTS, 0, st>>>(static_cast<const uint8_t*>(valid), sh, sc.off);
+    scan_kernel<<<1, NTS, 0, st>>>(sh.G, sc.off);
+    transpose_kernel<<<NKIND * L, NTS, 0, st>>>(ws, sc, L);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    bwd_kernel<<<NBLOCKS, THREADS, smem, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(valid),
-                                               static_cast<const float*>(g), static_cast<float*>(dx),
-                                               static_cast<float*>(part), BP, N, L, H, weights(w),
-                                               Dropout{seed, threshold, scale, on});
+    err = cudaFuncSetAttribute(save_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    save_kernel<<<sh.G, NT, FWD_SMEM, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(valid),
+                                               static_cast<const float*>(g), sh, ws,
+                                               tb_philox::Dropout{seed, threshold, scale, on}, sc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const long long n = n_params(L);
-    reduce_kernel<<<(int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, st>>>(
-        static_cast<const float*>(part), static_cast<float*>(dw), n, NBLOCKS);
+    err = cudaFuncSetAttribute(walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WALK_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    walk_kernel<<<nblocks, NT, WALK_SMEM, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(valid),
+                                                static_cast<float*>(dx), sh, ws,
+                                                tb_philox::Dropout{seed, threshold, scale, on}, sc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_dw(NKIND * L, NSPLIT);
+    dw_kernel<<<grid_dw, NTS, DW_SMEM, st>>>(sc, sh);
+    reduce_kernel<<<(int)((n_params(L) + NTS - 1) / NTS), NTS, 0, st>>>(sc, sh, static_cast<float*>(dw));
     return (int)cudaGetLastError();
 }

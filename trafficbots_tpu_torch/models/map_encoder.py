@@ -9,10 +9,11 @@ the attention core K6 (`encode_pooled_hybrid`) under "hybrid", and the
 self-attention core K1; in training (`rng` given, dropout live) the pool is
 kernel K4 (`ops.node_encoder_train.node_encoder_train`, the JAX
 `fused_train_ok` branch) whatever `node_encoder_impl` says, as in the JAX
-package, and the self-attention core K3 (S = T = n_pl >= 256). Off the
-card, or inside `ops.plain_versions()`, their plain versions. The eval
-kernels are fp32: `kernel_matmul_bf16` raises there rather than being
-ignored.
+package, unless `fused_train_kernel` is off: then the node stack's plain
+version under autograd, as the JAX package then runs its XLA stack; and
+the self-attention core K3 (S = T = n_pl >= 256). Off the card, or inside
+`ops.plain_versions()`, their plain versions. The eval kernels are fp32:
+`kernel_matmul_bf16` raises there rather than being ignored.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ class MapEncoder(nn.Module):
             raise ValueError(f"node_encoder_impl={cfg.node_encoder_impl!r}: 'fused' or 'hybrid'")
         self.node_encoder_impl = cfg.node_encoder_impl
         self.kernel_matmul_bf16 = cfg.kernel_matmul_bf16
+        self.fused_train_kernel = cfg.fused_train_kernel
         self.dropout_p = tf_cfg.dropout_p
         self.densetnt = FusedNodeEncoder(
             d_model=hidden_dim, n_head=tf_cfg.n_head, n_layer=cfg.n_layer,
@@ -81,7 +83,8 @@ class MapEncoder(nn.Module):
         else:
             seed = draw_seed(rng, self.dropout_p)
             p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)
-            pool = node_encoder_train if kernels_enabled() else node_encoder_train_plain
+            fused = kernels_enabled() and self.fused_train_kernel
+            pool = node_encoder_train if fused else node_encoder_train_plain
             pooled = pool(self.densetnt, flat, flat_valid, p, seed)
         pooled = pooled.reshape(n_scene, n_pl, self.hidden_dim)
         pl_valid = map_valid.any(dim=-1)

@@ -30,6 +30,11 @@ class TrafficBots(nn.Module):
         super().__init__()
         if cfg.n_layer_final_mlp > 0:
             raise NotImplementedError("the final MLP is not part of the ported slice")
+        if cfg.attn_row_block >= 0:
+            raise NotImplementedError(
+                f"attn_row_block={cfg.attn_row_block}: K1's dead-query-row skip is not ported yet "
+                "(ROADMAP Queue 2); -1 runs whole-S blocks"
+            )
         self.cfg = cfg
         hidden = cfg.hidden_dim
         kw = tf_block_kwargs(cfg.tf_cfg)

@@ -20,8 +20,9 @@ the per-polyline attention core in a kernel (K6, `ops.block_attn`).
 The module owns the stacked [L, ...] parameters under the JAX names
 (`ln1_s` ... `b2`, matrices in the JAX [in, out] layout, used as x @ w), so
 the flax arrays load as they are. `forward` is the plain per-node path;
-`encode_pooled` sends a CUDA tensor to `csrc/node_encoder.cu` and a CPU
-tensor to `pooled_plain`, never one in place of the other. `LAUNCHES`
+`encode_pooled` sends a CUDA tensor to `csrc/node_encoder.cu` (its layer
+code in `csrc/node_layer.cuh`) and a CPU tensor to `pooled_plain`, never
+one in place of the other. `LAUNCHES`
 counts kernel launches.
 """
 from __future__ import annotations
@@ -45,7 +46,9 @@ NEG = -1e30
 LN_EPS = 1e-5
 _KERNEL = "node_encoder"
 KERNEL_D = 128  # the kernel's d_model == d_feedforward
-KERNEL_MAX_NODES = 31  # MAXN in csrc/node_encoder.cu: the most nodes whose smem_bytes fit
+KERNEL_MAX_NODES = 32  # MAXN in csrc/node_layer.cuh: a thread's attention scores in registers
+KERNEL_ROWS = 64  # ROWS in csrc/node_encoder.cu: the valid nodes a block holds
+KERNEL_HEADS = (4, 8, 16, 32)  # heads_ok in csrc/node_layer.cuh: d_head <= 32, a multiple of 4
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p, ctypes.c_void_p)
 W_NAMES = (
@@ -54,11 +57,11 @@ W_NAMES = (
 )
 
 
-def smem_bytes(n_node: int) -> int:
-    """Shared memory of one block of the kernel built for n_node nodes
-    (mirrors its layout): seven [2 polylines x n_node, 132] fp32 buffers,
-    the node flags and three ints."""
-    return 4 * (7 * 2 * n_node * (KERNEL_D + 4) + 2 * n_node + 3)
+def smem_bytes() -> int:
+    """Dynamic shared memory of one block of the kernel (mirrors
+    csrc/node_encoder.cu): five [KERNEL_ROWS, 132] fp32 row buffers and a
+    ring of three 32 x 128 weight k-tiles, whatever the node count."""
+    return 4 * (5 * KERNEL_ROWS * (KERNEL_D + 4) + 3 * 32 * KERNEL_D)
 
 
 def _ln(x: Tensor, scale: Tensor, bias: Tensor) -> Tensor:
@@ -182,9 +185,9 @@ class FusedNodeEncoder(nn.Module):
         N, D = x.shape[1], x.shape[2]
         if D != KERNEL_D or self.d_model != KERNEL_D or self.d_feedforward != KERNEL_D:
             raise ValueError(f"the kernel takes d_model = d_feedforward = {KERNEL_D}")
-        if not 1 <= N <= KERNEL_MAX_NODES or D % self.n_head:
-            raise ValueError(f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (its shared memory) "
-                             f"and d_model % n_head == 0")
+        if not 1 <= N <= KERNEL_MAX_NODES or self.n_head not in KERNEL_HEADS:
+            raise ValueError(f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (a thread's scores in registers) "
+                             f"and n_head in {KERNEL_HEADS}")
         for name in W_NAMES:
             w = getattr(self, name)
             if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():

@@ -14,10 +14,12 @@ cotangent evenly among the nodes tied at the max, as JAX's `reduce_max` VJP
 does (`torch.amax` and `torch.max(dim)` send it elsewhere). Autograd
 differentiates it. `node_encoder_train` sends a CUDA tensor to
 `csrc/node_encoder_train.cu` through an autograd Function whose backward is
-the hand-derived backward kernel, and a CPU tensor to the plain version.
+the hand-derived backward kernels, and a CPU tensor to the plain version.
 `LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward's and the backward's
-launches (the backward launches its kernel and the fixed-order sum of the
-weight-gradient partials).
+launches (one call of each C entry; the backward's entry launches seven
+kernels: the groups' row counts and offsets, the transposed weights, the
+forward saving each layer, the walk down the layers, the weight products
+and the fixed-order sums).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from . import cuda_build
 from .dropout import keep_scale, threshold
-from .node_encoder import KERNEL_D, NEG, SMEM_LIMIT, W_NAMES, FusedNodeEncoder
+from .node_encoder import KERNEL_D, NEG, W_NAMES, FusedNodeEncoder
 
 Tensor = torch.Tensor
 
@@ -36,7 +38,9 @@ LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
 _KERNEL = "node_encoder_train"
-KERNEL_MAX_NODES = 32  # MAXN in csrc/node_encoder_train.cu
+KERNEL_MAX_NODES = 32  # MAXN in csrc/node_encoder_train.cu and csrc/node_layer.cuh
+# K2's heads up to MAXH (csrc/node_layer.cuh): the backward keeps 3 row statistics a (head, node)
+TRAIN_HEADS = (4, 8)
 _MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
@@ -68,14 +72,6 @@ def node_encoder_train_plain(enc: FusedNodeEncoder, x: Tensor, valid: Tensor, p:
     return max_pool_ties(enc(x, valid, p, seed), valid)
 
 
-def smem_bytes(fwd: bool, n_node: int, n_layer: int, n_head: int) -> int:
-    """Shared memory of one block of the forward / backward kernel (mirrors
-    csrc/node_encoder_train.cu): [N, 132] fp32 buffers, 7 for the forward,
-    11 + L for the backward plus two [H, N, N] arrays."""
-    row = 4 * n_node * (KERNEL_D + 4)
-    return 7 * row if fwd else (11 + n_layer) * row + 8 * n_head * n_node * n_node
-
-
 def n_params(n_layer: int) -> int:
     """Length of the flat gradient of the 18 stacked arrays."""
     return n_layer * (len(_MATRICES) * KERNEL_D * KERNEL_D + (len(W_NAMES) - len(_MATRICES)) * KERNEL_D)
@@ -91,7 +87,8 @@ def _drop_args(p: float, seed: int):
 
 _FWD_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
              + (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-_BWD_ARGS = (ctypes.c_void_p,) * 3 + _FWD_ARGS
+_BWD_ARGS = (ctypes.c_void_p,) * 3 + _FWD_ARGS[:-1] + (ctypes.c_int, ctypes.c_void_p)
+_SCRATCH_ARGS = (ctypes.c_int,) * 4 + (ctypes.POINTER(ctypes.c_longlong),)
 
 
 def _launch_fwd(x, valid, p, seed, n_layer, n_head, weights):
@@ -108,19 +105,22 @@ def _launch_fwd(x, valid, p, seed, n_layer, n_head, weights):
 
 
 def _launch_bwd(x, valid, g, p, seed, n_layer, n_head, weights):
-    """dx and the flat weight gradient [n_params] (one kernel, then the
-    fixed-order sum of its partial slices)."""
+    """dx and the flat weight gradient [n_params]. The scratch holds the
+    saved rows of every node that could be valid (BP N), so its size needs
+    no read of `valid` on the host: 3.0 GB at BP = 8192, N = 20, L = 3."""
     global LAUNCHES_BWD
     BP, N, D = x.shape
     nblocks = cuda_build.entry(_KERNEL, "tb_node_encoder_train_nblocks", ())()
-    n = n_params(n_layer)
+    n_scratch = ctypes.c_longlong()
+    scratch_floats = cuda_build.entry(_KERNEL, "tb_node_encoder_train_scratch", _SCRATCH_ARGS)
+    scratch_floats(BP, N, n_layer, nblocks, ctypes.byref(n_scratch))
     dx = torch.empty_like(x)
-    part = torch.zeros((nblocks, n), dtype=torch.float32, device=x.device)
-    dw = torch.empty((n,), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((n_scratch.value,), dtype=torch.float32, device=x.device)
+    dw = torch.empty((n_params(n_layer),), dtype=torch.float32, device=x.device)
     ptrs = _weight_ptrs(weights)
     rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_bwd", _BWD_ARGS)(
-        x.data_ptr(), valid.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), BP, N,
-        n_layer, n_head, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), cuda_build.stream(x))
+        x.data_ptr(), valid.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), dw.data_ptr(), BP, N,
+        n_layer, n_head, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), nblocks, cuda_build.stream(x))
     cuda_build.check(rc, "node_encoder_train backward")
     LAUNCHES_BWD += 1
     return dx, dw
@@ -156,10 +156,8 @@ def _check_inputs(enc: FusedNodeEncoder, x: Tensor, valid: Tensor) -> None:
     N, D = x.shape[1], x.shape[2]
     if D != KERNEL_D or enc.d_model != KERNEL_D or enc.d_feedforward != KERNEL_D:
         raise ValueError(f"the kernel takes d_model = d_feedforward = {KERNEL_D}")
-    if not 1 <= N <= KERNEL_MAX_NODES or D % enc.n_head:
-        raise ValueError(f"the kernel takes 1..{KERNEL_MAX_NODES} nodes and d_model % n_head == 0")
-    if smem_bytes(False, N, enc.n_layer, enc.n_head) > SMEM_LIMIT:
-        raise ValueError(f"N={N}, L={enc.n_layer}, H={enc.n_head}: the backward's buffers exceed one block's shared memory")
+    if not 1 <= N <= KERNEL_MAX_NODES or enc.n_head not in TRAIN_HEADS:
+        raise ValueError(f"the kernels take 1..{KERNEL_MAX_NODES} nodes and n_head in {TRAIN_HEADS}")
     for name in W_NAMES:
         w = getattr(enc, name)
         if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():
