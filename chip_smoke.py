@@ -24,7 +24,11 @@ its own lines:
      (`library_device_ms`), K1's output and K3f's output and row
      statistics bitwise equal over two calls; K4 on two draws of inputs
      (the usual one, and the B=48 draw: replayed_generator), each held
-     against an fp64 plain run, the max-pool's near-ties counted;
+     against an fp64 plain run, the max-pool's near-ties counted, and K4f
+     at p = 0 bitwise equal to K2; K6 with three polylines past the main
+     path's (all padding, partly valid, fully valid) and one with a single
+     valid node; K2's, K4f's and K6's outputs' SHA-1 digests (two commits'
+     runs in one call that print the same digest gave the same bits);
   4. the eval main path at full width (ExperimentConfig defaults: 64
      agents, 1024 x 20 polylines, hidden 128, 91 steps) on seed-0 synthetic
      scenes at WOMD-like fill (768 polylines, 40 agents valid), N_SCENE
@@ -65,17 +69,18 @@ script exits non-zero at once. It imports nothing of JAX.
     python3 chip_smoke.py --attention
     python3 chip_smoke.py --node
 
-build K1 and K3 (--attention), or K2 and K4 (--node), alone and run only
-their checks and timings (phase 3's lines for them and one JSON line, no
-last line; --node replays the shared generator's earlier draws on the CPU,
-so K2 and K4 see the inputs a full run gives them): a quick check after an
-edit of their sources, or, copied into an unpacked older commit and run
-there, that commit's numbers beside this one's in the same call.
+build K1 and K3 (--attention), or K2, K4 and K6 (--node), alone and run
+only their checks and timings (phase 3's lines for them and one JSON line,
+no last line; --node replays the shared generator's earlier draws on the
+CPU, so K2, K4 and K6 see the inputs a full run gives them): a quick check
+after an edit of their sources, or, copied into an unpacked older commit
+and run there, that commit's numbers beside this one's in the same call.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import statistics
@@ -263,6 +268,12 @@ def max_err_checked(out: torch.Tensor, ref: torch.Tensor, tol: dict, what: str) 
     return err.max().item()
 
 
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the tensor's bytes' SHA-1: two runs (two
+    commits in one call) that print the same digest gave the same bits."""
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 # ------------------------------------------------------------------ K1
 
 
@@ -392,9 +403,10 @@ def check_k2(gen, n_scene, dev, batch):
     n_bytes = x.numel() * 4 + valid.numel() + n_weight_bytes + x.shape[0] * D * 4
     b_ms, b_by = bound_ms(n_bytes, n_flop)
     log(f"K2 node encoder + pool: BP={x.shape[0]} N={x.shape[1]} valid polylines={(n_valid > 0).sum().item()} "
-        f"max_abs_err={err} ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by})")
+        f"max_abs_err={err} ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by}) "
+        f"out sha1={digest(out)}")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=err, shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {n_scene} scenes at 768/1024 fill")
+                max_abs_err=err, out_sha1=digest(out), shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {n_scene} scenes at 768/1024 fill")
 
 
 # ------------------------------------------------------------------ K6 (hybrid node encoder)
@@ -431,21 +443,30 @@ def k6_sdpa_call(q, k, v, valid, H):
 
 
 def check_k6(gen, n_scene, dev, batch):
-    """K6 on [n_scene * 1024, 20, 128] q, k, v with the batch's node validity:
-    kernel vs plain on the rows of polylines with a valid node, the other
-    rows finite; then the whole hybrid node encoder (K6) against the fused
+    """K6 on [n_scene * 1024, 20, 128] q, k, v with the batch's node validity
+    (one more polyline with a single valid node), and three more polylines
+    (all padding, partly valid, fully valid; a count of polylines that the
+    persistent grid's passes do not divide): kernel vs plain on the rows of
+    polylines with a valid node, the other rows finite; timed at the main
+    path's shape; then the whole hybrid node encoder (K6) against the fused
     one (K2) on the same inputs."""
     H = 4
     enc, x, valid = node_encoder_case(gen, dev, batch)
     BP, N, D = x.shape
     q, k, v = (torch.randn(BP, N, D, generator=gen).to(dev) for _ in range(3))
-    live = valid.any(dim=-1)
+    tail = torch.tensor([[False] * N, [True] * (N // 2) + [False] * (N - N // 2), [True] * N])
+    valid6 = torch.cat([valid, tail.to(dev)])
+    valid6[5] = False
+    valid6[5, N // 3] = True
+    q6, k6, v6 = (torch.cat([t, torch.randn(3, N, D, generator=gen).to(dev)]) for t in (q, k, v))
+    live = valid6.any(dim=-1)
     require(not bool(live.all()), "K6 check: the inputs need a polyline without a valid node")
-    out = BA.block_attn_core(q, k, v, valid, H)
+    out = BA.block_attn_core(q6, k6, v6, valid6, H)
     torch.cuda.synchronize()
-    ref = BA.block_attn_core_plain(q, k, v, valid, H)
+    ref = BA.block_attn_core_plain(q6, k6, v6, valid6, H)
     require(bool(torch.isfinite(out).all()), "K6: non-finite output (rows of dead polylines included)")
     err = max_err_checked(out[live], ref[live], K6_TOL, "K6")
+    live = valid.any(dim=-1)
     ms = time_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
     dev_ms = graph_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
     plain_ms = time_ms(lambda: BA.block_attn_core_plain(q, k, v, valid, H), n=5)
@@ -456,8 +477,9 @@ def check_k6(gen, n_scene, dev, batch):
     n_valid = valid.sum(dim=-1)
     pairs = int((N * torch.where(n_valid > 0, n_valid, torch.full_like(n_valid, N))).sum().item())
     b_ms, b_by = bound_ms(4 * q.numel() * 4 + valid.numel(), 4 * D * pairs)
-    log(f"K6 block attention core: BP={BP} N={N} D={D} H={H} live polylines={int(live.sum())} max_abs_err={err} "
-        f"ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} ({b_by}) [{card_line()}]")
+    log(f"K6 block attention core: BP={BP} (+3 held) N={N} D={D} H={H} live polylines={int(live.sum())} "
+        f"max_abs_err={err} ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms={lib_ms} bound_ms={b_ms} "
+        f"({b_by}) out sha1={digest(out)} [{card_line()}]")
     with torch.no_grad():
         hyb = enc.encode_pooled_hybrid(x, valid)
         fused = enc.encode_pooled(x, valid)
@@ -470,7 +492,8 @@ def check_k6(gen, n_scene, dev, batch):
     log(f"hybrid node encoder (matmuls + K6) vs fused (K2): pooled max_abs_err={hyb_err}, "
         f"hybrid ms={hyb_ms}, fused ms={fused_ms}")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                max_abs_err=err, shape=f"BP={BP} N={N} D=128 H=4, {n_scene} scenes at 768/1024 fill"), \
+                max_abs_err=err, out_sha1=digest(out),
+                shape=f"BP={BP} N={N} D=128 H=4, {n_scene} scenes at 768/1024 fill"), \
         dict(hybrid_vs_fused_max_abs_err=hyb_err, hybrid_ms=hyb_ms, fused_ms=fused_ms)
 
 
@@ -673,19 +696,23 @@ def check_k3(gen, n_scene, dev):
 
 def replayed_generator(upto, n_scene, batch, b48=False):
     """A seed-0 generator advanced by the draws that the checks before
-    `upto` ("K2" or "K4") make from the shared generator in a full run (K1's
-    sites but the B=48 one; then K2's and K3's inputs), made on the CPU and
-    thrown away. With b48 the B=48 K1 site draws from it too (the "B=48
-    draw", the K4 inputs on which K4b's 1e-3 hold against the plain version
-    once failed: a reading, not a hold, on that draw)."""
+    `upto` ("K2", "K4" or "K6") make from the shared generator in a full run
+    (K1's sites but the B=48 one; then K2's and K3's inputs; then K4's usual
+    draw), made on the CPU and thrown away. With b48 the B=48 K1 site draws
+    from it too (the "B=48 draw", the K4 inputs on which K4b's 1e-3 hold
+    against the plain version once failed: a reading, not a hold, on that
+    draw)."""
     gen = torch.Generator().manual_seed(0)
     for name, B, S, T, bf16, pad, full in k1_sites(n_scene):
         if name != K1_B48 or b48:
             k1_case(gen, B, S, T, bf16, pad, full, "cpu")
-    if upto == "K4":
+    if upto in ("K4", "K6"):
         node_encoder_case(gen, "cpu", batch)
         for name, B, S, T, pad, full in k3_sites(n_scene):
             k3_inputs(gen, B, S, T, pad, full, "cpu")
+    if upto == "K6":
+        x = node_encoder_case(gen, "cpu", batch)[1]
+        torch.randn(x.shape[0], 128, generator=gen)
     return gen
 
 
@@ -780,6 +807,9 @@ def check_k4(gen, n_scene, dev, batch):
         ms_f = time_ms(lambda: NT.node_encoder_train(enc, x, valid, P_DROP, seed), n=10)
         plain_f = time_ms(lambda: NT.node_encoder_train_plain(enc, x, valid, P_DROP, seed), n=3)
     L, H = enc.n_layer, enc.n_head
+    with torch.no_grad():  # the same node_layer.cuh code, every dropout factor exactly 1.0
+        require(torch.equal(NT._launch_fwd(x, valid, 0.0, seed, L, H, weights), enc.encode_pooled(x, valid)),
+                "K4f at p = 0 must be K2 to the bit")
     dev_f = graph_ms(lambda: NT._launch_fwd(x, valid, P_DROP, seed, L, H, weights), n=3)
     dev_b = graph_ms(lambda: NT._launch_bwd(x, valid, g, P_DROP, seed, L, H, weights), n=3)
     ms_b = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), n=5)
@@ -797,10 +827,11 @@ def check_k4(gen, n_scene, dev, batch):
         f"{usual['fwd_max_abs_err']} ms={ms_f} device_ms={dev_f} plain_ms={plain_f} library_ms=None bound_ms={bf} "
         f"({bf_by}); bwd grad rel err={usual['grad_rel_vs_plain']} (against fp64: plain {usual['plain_vs_fp64']}, "
         f"kernel {usual['kernel_vs_fp64']}) ms={ms_b} device_ms={dev_b} plain_ms={plain_b} library_ms=None "
-        f"bound_ms={bb} ({bb_by}); bwd bitwise reproducible [{card_line()}]")
+        f"bound_ms={bb} ({bb_by}); bwd bitwise reproducible; fwd at p = 0 is K2 to the bit; fwd out sha1="
+        f"{digest(out)} [{card_line()}]")
     shape = f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3 p=0.1, {n_scene} scenes at 768/1024 fill"
     return (dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=None,
-                 max_abs_err=usual["fwd_max_abs_err"], shape=shape),
+                 max_abs_err=usual["fwd_max_abs_err"], out_sha1=digest(out), shape=shape),
             dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=None,
                  max_abs_err=usual["grad_rel_vs_plain"], shape=shape, draws=[usual, b48]))
 
@@ -1161,7 +1192,7 @@ def main():
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
-             ("--node",): ("node_encoder", "node_encoder_train")}
+             ("--node",): ("node_encoder", "node_encoder_train", "block_attn")}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention or --node)")
@@ -1179,11 +1210,12 @@ def main():
         return
     cfg = ExperimentConfig()
     batch = synthetic_episode_batch(cfg.data, n_scene=N_SCENE, seed=0, n_valid_pl=768, n_valid_agent=40)
-    if mode == ("--node",):  # K2 and K4 on the inputs a full run gives them
+    if mode == ("--node",):  # K2, K4 and K6 on the inputs a full run gives them
         phase("node kernel checks")
         k2 = check_k2(replayed_generator("K2", N_SCENE, batch), N_SCENE, dev, batch)
         k4f, k4b = check_k4(replayed_generator("K4", N_SCENE, batch), N_SCENE, dev, batch)
-        log(json.dumps({"node": {"K2": k2, "K4f": k4f, "K4b": k4b}}))
+        k6, hybrid = check_k6(replayed_generator("K6", N_SCENE, batch), N_SCENE, dev, batch)
+        log(json.dumps({"node": {"K2": k2, "K4f": k4f, "K4b": k4b, "K6": k6, "hybrid": hybrid}}))
         phase("done")
         return
     phase("kernel checks")
@@ -1196,6 +1228,8 @@ def main():
     require(torch.equal(gen.get_state(), replayed_generator("K4", N_SCENE, batch).get_state()),
             "replayed_generator does not replay the draws before K4's")
     k4f, k4b = check_k4(gen, N_SCENE, dev, batch)
+    require(torch.equal(gen.get_state(), replayed_generator("K6", N_SCENE, batch).get_state()),
+            "replayed_generator does not replay the draws before K6's")
     k6, hybrid = check_k6(gen, N_SCENE, dev, batch)
 
     phase("eval main path")
@@ -1226,7 +1260,8 @@ def main():
         dict(name="K3b attention_train backward (dq kernel + dk/dv kernel)", route="cuda",
              source="trafficbots_tpu_torch/csrc/attention_train.cu",
              replaces="trafficbots_tpu/ops/attention_train.py:397", launches=train_launches["K3b"], **k3b),
-        dict(name="K4f node_encoder_train forward (node stack + pool, dropout)", route="cuda",
+        dict(name="K4f node_encoder_train forward (node_layer.cuh group body shared with K4b's save, dropout, pool)",
+             route="cuda",
              source="trafficbots_tpu_torch/csrc/node_encoder_train.cu",
              replaces="trafficbots_tpu/ops/node_encoder_train.py:468", launches=train_launches["K4f"], **k4f),
         dict(name="K4b node_encoder_train backward (forward saved once, walk down, fixed-order split-K dW)", route="cuda",
@@ -1235,7 +1270,8 @@ def main():
         dict(name="K5 dropout (counter-based Philox4x32-10)", route="cuda",
              source="trafficbots_tpu_torch/csrc/dropout.cu",
              replaces="trafficbots_tpu/ops/kernel_common.py:50", launches=train_launches["K5"], **k5),
-        dict(name="K6 block_attn_core (hybrid node encoder's per-polyline attention core)", route="cuda",
+        dict(name="K6 block_attn_core (hybrid node encoder's per-polyline attention core, persistent, "
+                  "double-buffered cp.async)", route="cuda",
              source="trafficbots_tpu_torch/csrc/block_attn.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=val_launches["K6"], **k6),
     ]

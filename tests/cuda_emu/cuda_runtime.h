@@ -10,7 +10,8 @@
 // blocks of one thread-block cluster run at once (cudaLaunchKernelEx with a
 // cluster dimension): cluster_sync is a barrier over all of their threads
 // and cluster_map points into another block's shared memory. Warp shuffles
-// exchange through a per-warp slot array between two warp barriers;
+// (and ballots) exchange through a per-warp slot array between two warp
+// barriers;
 // shared-memory integer atomics are std::atomic_ref; the cp.async copies
 // are synchronous (their commits and waits do nothing); clock64 is the
 // host's steady clock.
@@ -61,6 +62,13 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) { return bytes > 232448 ? 1 : 0; }
+// a card of EMU_SMS SMs, one block an SM: a persistent grid walks its work
+// in several passes
+constexpr int EMU_SMS = 2;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = EMU_SMS; return 0; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -118,6 +126,17 @@ inline int __shfl_xor_sync(unsigned m, int v, int o) {
     f = __shfl_xor_sync(m, f, o);
     std::memcpy(&v, &f, 4);
     return v;
+}
+
+inline unsigned __ballot_sync(unsigned, int p) {
+    EmuBlock& b = *emu_blk;
+    const unsigned t = threadIdx.x, w0 = t / 32 * 32;
+    b.shfl[t] = p ? 1.f : 0.f;
+    b.warp_bar[t / 32]->arrive_and_wait();
+    unsigned bits = 0;
+    for (unsigned i = 0; i < 32 && w0 + i < blockDim.x; ++i) bits |= (b.shfl[w0 + i] != 0.f ? 1u : 0u) << i;
+    b.warp_bar[t / 32]->arrive_and_wait();
+    return bits;
 }
 
 // The phase traces' clock and counters (csrc/node_trace.cuh).

@@ -59,13 +59,15 @@ def node_source(name: str) -> str:
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """name -> the ctypes library of csrc/<name>.cu built for the emulator
-    ("node_encoder_trace": K2 built with -DTB_NODE_TRACE)."""
+    ("node_encoder_trace", "node_encoder_train_trace": K2, K4 built with
+    -DTB_NODE_TRACE)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU emulator")
     out_dir = tmp_path_factory.mktemp("cuda_emu_node")
     builds = {"node_encoder": ("node_encoder", []), "node_encoder_train": ("node_encoder_train", []),
-              "node_encoder_trace": ("node_encoder", ["-DTB_NODE_TRACE"])}
+              "node_encoder_trace": ("node_encoder", ["-DTB_NODE_TRACE"]),
+              "node_encoder_train_trace": ("node_encoder_train", ["-DTB_NODE_TRACE"])}
     procs = {}
     for key, (name, flags) in builds.items():
         cpp = out_dir / f"{key}.cpp"
@@ -120,6 +122,15 @@ def k2(lib, enc, x, valid):
     return out
 
 
+def k4_fwd(lib, enc, x, valid, p, seed):
+    out = torch.full((x.shape[0], D), float("nan"))
+    fn = lib.tb_node_encoder_train_fwd
+    fn.argtypes, fn.restype = list(tnt._FWD_ARGS), ctypes.c_int
+    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), x.shape[0], N, L, H, weight_ptrs(enc),
+              *tnt._drop_args(p, seed), None) == 0
+    return out
+
+
 def k4_bwd(lib, enc, x, valid, g, p, seed, nblocks):
     BP = x.shape[0]
     n = ctypes.c_longlong()
@@ -169,21 +180,34 @@ def test_k2_trace_build_counts_its_phases(emulated):
     assert counts[15] == 3 and all(counts[1 + i] > 0 for i in range(len(names)))
 
 
+def test_k4f_trace_build_counts_its_phases(emulated):
+    """K4's traced build names the phases of its three traced kernels, and
+    K4f counts one work item a group of polylines (3 at 30 polylines of 5
+    nodes) and time in each of its phases."""
+    lib = emulated["node_encoder_train_trace"]
+    kernels = node_trace.phases(lib)
+    assert [kernels[k][0].split(" ")[0] for k in (1, 2, 3)] == ["fwd_kernel", "walk_kernel", "save_kernel"]
+    names = kernels[1][1]
+    assert names[-1] == "pool" and kernels[3][1][:-1] == names[:-1]
+    x, valid, _ = inputs(30)
+    assert lib.tb_node_trace_zero() == 0
+    k4_fwd(lib, encoder(), x, valid, 0.1, 7)
+    counts = (ctypes.c_ulonglong * 64)()
+    assert lib.tb_node_trace_read(counts) == 0
+    assert counts[16 + 15] == 3 and all(counts[16 + 1 + i] > 0 for i in range(len(names)))
+
+
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_k4_emulated_matches_plain(emulated, p):
-    """K4f and K4b at 30 polylines (3 groups; 2 walk blocks, so one walks
-    two groups) with dropout off and live, against the plain version and
-    autograd; K4b twice, bitwise equal."""
+    """K4f (3 groups of 12 polylines) and K4b at 30 polylines (3 groups of
+    12; 2 walk blocks, so one walks two groups) with dropout off and live,
+    against the plain version and autograd; K4b twice, bitwise equal."""
     lib, seed = emulated["node_encoder_train"], 2**40 + 3
     enc = encoder()
     x, valid, g = inputs(30)
     live = valid.any(-1)
     g = g * live[:, None]
-    out = torch.full((x.shape[0], D), float("nan"))
-    fwd = lib.tb_node_encoder_train_fwd
-    fwd.argtypes, fwd.restype = list(tnt._FWD_ARGS), ctypes.c_int
-    assert fwd(x.data_ptr(), valid.data_ptr(), out.data_ptr(), x.shape[0], N, L, H, weight_ptrs(enc),
-               *tnt._drop_args(p, seed), None) == 0
+    out = k4_fwd(lib, enc, x, valid, p, seed)
     xx = x.clone().requires_grad_()
     ref = tnt.node_encoder_train_plain(enc, xx, valid, p, seed)
     torch.testing.assert_close(out[live], ref.detach()[live], atol=1e-4, rtol=1e-4)
@@ -198,3 +222,12 @@ def test_k4_emulated_matches_plain(emulated, p):
     assert (got[0][~valid] == 0).all()
     again = k4_bwd(lib, enc, x, valid, g, p, seed, nblocks=2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_k4f_without_dropout_is_k2_to_the_bit(emulated):
+    """K4f at p = 0 runs K2's layer code (csrc/node_layer.cuh) with every
+    dropout factor exactly 1.0: its output is K2's, bit for bit."""
+    enc = encoder()
+    x, valid, _ = inputs(30)
+    assert torch.equal(k4_fwd(emulated["node_encoder_train"], enc, x, valid, 0.0, 2**40 + 3),
+                       k2(emulated["node_encoder"], enc, x, valid))

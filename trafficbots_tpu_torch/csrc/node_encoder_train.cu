@@ -16,10 +16,25 @@
 // max-pool VJP that splits each column's cotangent evenly among the nodes
 // tied at the max (JAX's reduce_max VJP).
 //
-// K4f (namespace k4f, the first design): one polyline a block (N <= 32
-// rows, 256 threads), rows in shared [N, 132] fp32 buffers, the 128 x 128
-// weights read from L2 into register tiles; x, x0 and five work buffers
-// (74 KB at N = 20); an all-padding polyline writes -1e30 and returns.
+// K4f and K4b's save kernel run one forward body, group_forward (namespace
+// k4, on csrc/node_layer.cuh, as K2): a block holds the valid nodes of a
+// group of polylines as rows, the 128 x 128 weights stream through shared
+// memory by cp.async k-tiles into 512 threads' register tiles, and the
+// dropout factors multiply in the products' epilogues and the attention
+// weights; the save kernel also writes each layer's tensors. So the forward
+// that K4b differentiates is the one K4f ran, to the bit, and the max-pool
+// argmax K4b recomputes is the one K4f chose. K4f writes only each
+// polyline's pooled row (-1e30 for a polyline without a valid node). With
+// dropout off it is K2 (every factor exactly 1.0): its output is K2's to
+// the bit. The first K4f (one polyline a 256-thread block, every weight
+// read from L2 by __ldg for each of 6 products a layer and each polyline,
+// padding nodes computed) ran at 8.12 ms; its phase trace gave the
+// attention halves (four of the six products and the attention) 75% of a
+// polyline's cycles. This one: 3.52 ms at the main path's 8 scenes
+// (p = 0.1; the first design 8.12 in the same run, K2 3.21), 5.0x its
+// 0.701 ms bound, on an H100 80GB HBM3 at a 700.00 W power limit
+// (PERF.md); its output is the first design's to the bit (the same sums in
+// the same order; the padding the first design computed added exact zeros).
 //
 // K4b (namespace k4b), redesigned. The first design walked one polyline at
 // a time through a forward to the layer inputs, a second forward per layer
@@ -50,12 +65,15 @@
 // All-padding polylines contribute exactly 0 (their pooled cotangent is 0)
 // and are skipped; padding nodes get dx = 0.
 //
-// On an H100 at 700 W (PERF.md), at the main path's 8 scenes: 12.8-12.9
-// ms (the first design 65.3-65.5 in the same run, autograd through the
-// plain version 26.5): the save 4.2, the walk 7.2, the dw products 1.3.
+// On an H100 80GB HBM3 at 700.00 W (PERF.md), at the main path's 8 scenes:
+// 12.8-12.9 ms (the first design 65.3-65.5 in the same run, autograd
+// through the plain version 26.5): the save 4.2, the walk 7.2, the dw
+// products 1.3.
 //
 // What bounds it on the card: the fp32 operations. A valid node costs
-// 12 D^2 = 197 kFLOP a layer forward (six 128 x 128 products); the
+// 12 D^2 = 197 kFLOP a layer forward (six 128 x 128 products): K4f does
+// ~47 GFLOP at the main path's ~80k valid nodes x 3 layers (0.701 ms at
+// 67 TFLOP/s) against ~85 MB read; the
 // backward's walk does the forward once and six cotangent products, the dW
 // products six more: ~3x the forward. The saved tensors are 11 a layer
 // (and the layer inputs), ~41 MB each at ~80k valid nodes, written once
@@ -96,275 +114,162 @@ struct Weights {
 
 }  // namespace k4
 
-// ------------------------------------------------------------------ K4f
+// ------------------------------------------------------------------ the forward (K4f, K4b's save)
 
-namespace k4f {
+namespace k4 {
 
-using namespace k4;
+using namespace tb_node;
 
-constexpr int D = 128;       // d_model == d_feedforward
-constexpr int THREADS = 256;
-constexpr int MAXN = 32;     // nodes a polyline (rows of a block)
-constexpr int LDS = D + 4;   // padded row stride of the shared buffers
-constexpr int MAXRT = (MAXN + 7) / 8;
-constexpr float NEG = -1e30f;
-constexpr float LN_EPS = 1e-5f;
-static_assert(THREADS / 32 * 16 == D, "matmul: eight warps of 16 columns");
+// the per-layer tensors K4b's save kernel keeps [cap, 128] (compacted
+// rows); the walk down overwrites q, k, v, x1 by dq, dk, dv, da
+enum Saved { TG, S2, CAT, S2B, FDO, KS, VS, QS, X1, DF, DZ1, N_SAVED };
 
-using tb_philox::Dropout;
-
-struct Ctx {
-    int N, H;
-    unsigned long long row0;  // poly * N: the block's first node row in the logical [BP, N, *] tensors
-    unsigned long long poly;
-    const float* vf;          // [N] 1 = valid node
-    Dropout drop;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-// out = LN(in) * s + b over the N rows; one warp a row (two-pass variance)
-__device__ void layer_norm(const float* in, float* out, const float* __restrict__ s, const float* __restrict__ b,
-                           int R) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < R; r += THREADS / 32) {
-        float v[D / 32];
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            v[j] = in[r * LDS + lane + 32 * j];
-            sum += v[j];
+// The layers' forward over a block's rows: X holds the rows of x_in (the
+// layer-0 input) and ends as the last layer's output; A1 .. A4 and the
+// weight ring wsm are scratch. Dropout at site 4 l + k: k = 0 the attention
+// weights (node_layer.cuh), 1, 2, 3 in the epilogues of the out-projection,
+// the FFN hidden after the ReLU and the FFN output, each at the global node
+// row. With SAVE (K4b's save kernel) each layer's tensors also go to
+// saved(l, s) and its input to saved_x(l) (l > 0; device memory, row
+// stride D); K4f runs it without. Phases of kernel K: 2 the LayerNorms,
+// 3 the dense products, 4 the attention.
+template <int K, bool SAVE, class SavedAt, class SavedX>
+__device__ void group_forward(const float* __restrict__ x_in, const Block& blk, int L, int H, const Weights& w,
+                              const Dropout& drop, float* X, float* A1, float* A2, float* A3, float* A4, float* wsm,
+                              SavedAt saved, SavedX saved_x) {
+    TB_NODE_RESUME();
+    const int R = blk.R;
+    for (int l = 0; l < L; ++l) {
+        if (SAVE && l > 0) {
+            float* xs = saved_x(l);
+            for (int e = threadIdx.x; e < R * (D / 4); e += NT)
+                *reinterpret_cast<float4*>(xs + (long long)(e / (D / 4)) * D + 4 * (e % (D / 4))) =
+                    *reinterpret_cast<const float4*>(X + (e / (D / 4)) * LDS + 4 * (e % (D / 4)));
         }
-        const float mu = warp_sum(sum) / D;
-        float sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            v[j] -= mu;
-            sq += v[j] * v[j];
-        }
-        const float rs = rsqrtf(warp_sum(sq) / D + LN_EPS);
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) {
-            const int c = lane + 32 * j;
-            out[r * LDS + c] = v[j] * rs * s[c] + b[c];
-        }
+        layer_norm_x0(x_in, blk, A1, w.at(LNT_S, l), w.at(LNT, l), saved(l, TG));
+        TB_NODE_MARK(K, 2);
+        const float* bk = w.at(BK, l);
+        float* gk = saved(l, KS);
+        dense<3>(A1, w.at(WK, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bk, c0);
+            store4(A3 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            if (SAVE) store4(gk + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
+        const float* bv = w.at(BV, l);
+        float* gv = saved(l, VS);
+        dense<3>(A1, w.at(WV, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bv, c0);
+            store4(A4 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            if (SAVE) store4(gv + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
+        __syncthreads();
+        TB_NODE_MARK(K, 3);
+        layer_norm(X, A1, w.at(LN1_S, l), w.at(LN1_B, l), R, saved(l, S2));
+        TB_NODE_MARK(K, 2);
+        const float* bq = w.at(BQ, l);
+        float* gq = saved(l, QS);
+        dense<3>(A1, w.at(WQ, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bq, c0);
+            store4(A2 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            if (SAVE) store4(gq + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+        });
+        __syncthreads();
+        TB_NODE_MARK(K, 3);
+        attention<true>(A2, A3, A4, A2, blk, H, drop, 4 * l, saved(l, CAT));
+        __syncthreads();
+        TB_NODE_MARK(K, 4);
+        const float* bo = w.at(BO, l);
+        float* gx1 = saved(l, X1);
+        dense<3>(A2, w.at(WO, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(bo, c0);
+            float f[4];
+            tb_philox::factors4(drop, 4 * l + 1, blk.grow[r], (uint32_t)(c0 / 4), f);
+            float* o = X + r * LDS + c0;
+            const float4 v = make_float4(o[0] + (y[0] + b.x) * f[0], o[1] + (y[1] + b.y) * f[1],
+                                         o[2] + (y[2] + b.z) * f[2], o[3] + (y[3] + b.w) * f[3]);
+            *reinterpret_cast<float4*>(o) = v;
+            if (SAVE) *reinterpret_cast<float4*>(gx1 + (long long)r * D + c0) = v;
+        });
+        __syncthreads();
+        TB_NODE_MARK(K, 3);
+        layer_norm(X, A1, w.at(LN2_S, l), w.at(LN2_B, l), R, saved(l, S2B));
+        TB_NODE_MARK(K, 2);
+        const float* b1 = w.at(B1, l);
+        float* gf = saved(l, FDO);
+        dense<3>(A1, w.at(W1, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(b1, c0);
+            float f[4];
+            tb_philox::factors4(drop, 4 * l + 2, blk.grow[r], (uint32_t)(c0 / 4), f);
+            const float4 v = make_float4(fmaxf(y[0] + b.x, 0.f) * f[0], fmaxf(y[1] + b.y, 0.f) * f[1],
+                                         fmaxf(y[2] + b.z, 0.f) * f[2], fmaxf(y[3] + b.w, 0.f) * f[3]);
+            *reinterpret_cast<float4*>(A2 + r * LDS + c0) = v;
+            if (SAVE) *reinterpret_cast<float4*>(gf + (long long)r * D + c0) = v;
+        });
+        const float* b2 = w.at(B2, l);
+        dense<3>(A2, w.at(W2, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
+            const float4 b = bias4(b2, c0);
+            float f[4];
+            tb_philox::factors4(drop, 4 * l + 3, blk.grow[r], (uint32_t)(c0 / 4), f);
+            float* o = X + r * LDS + c0;
+            store4(o, o[0] + (y[0] + b.x) * f[0], o[1] + (y[1] + b.y) * f[1], o[2] + (y[2] + b.z) * f[2],
+                   o[3] + (y[3] + b.w) * f[3]);
+        });
+        __syncthreads();
+        TB_NODE_MARK(K, 3);
     }
 }
 
-enum Epilogue { STORE, RELU_DROP, ATTN_RESIDUAL, FFN_RESIDUAL };
+// K4f: K2's node_kernel (csrc/node_encoder.cu) with the dropout, a block
+// a group of ROWS_F / N polylines, each polyline's max-pool written
+// (-1e30 for one without a valid node). Five [64, 132] row buffers and
+// three weight k-tiles in flight take K2's 213 KB: the dropout epilogues
+// need no buffer of their own, so the group is K2's 64 rows, not the 60 of
+// K4b's save kernel (whose walk needs six buffers).
+constexpr int ROWS_F = 64;
+constexpr size_t FWD_SMEM = sizeof(float) * ((size_t)5 * ROWS_F * LDS + ring_floats<3>());
+static_assert(ROWS_F <= RCAP && FWD_SMEM + sizeof(Block) <= SMEM_OPTIN, "the buffers must fit one block's shared memory");
 
-// out = in @ W over the N rows, W a [128, 128] row-major matrix in global
-// memory, then the epilogue E on y = product + bias:
-//   STORE y;  RELU_DROP relu(y) m2;  ATTN_RESIDUAL res + y m1;
-//   FFN_RESIDUAL valid ? res + y m3 : 0
-// Warp w owns columns 16 w .. 16 w + 15 (W read once a block, from L2);
-// lane (rg, cg) a register tile of rows rg * rt .. and 4 columns.
-template <Epilogue E>
-__device__ void matmul(const float* in, const float* __restrict__ W, const float* __restrict__ bias, float* out,
-                       const float* res, const Ctx& cx, int site) {
-    const int R = cx.N;
-    const int lane = threadIdx.x % 32;
-    const int c0 = (threadIdx.x / 32) * 16 + (lane % 4) * 4;
-    const int rt = (R + 7) / 8;
-    const int r0 = (lane / 4) * rt;
-    float acc[MAXRT][4];
-#pragma unroll
-    for (int i = 0; i < MAXRT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += 4) {
-        float4 w[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-            w[u] = __ldg(reinterpret_cast<const float4*>(W + (k0 + u) * D + c0));
-#pragma unroll
-        for (int i = 0; i < MAXRT; ++i) {
-            if (i < rt && r0 + i < R) {
-                const float4 a = *reinterpret_cast<const float4*>(in + (r0 + i) * LDS + k0);
-                const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                    acc[i][0] = fmaf(av[kk], w[kk].x, acc[i][0]);
-                    acc[i][1] = fmaf(av[kk], w[kk].y, acc[i][1]);
-                    acc[i][2] = fmaf(av[kk], w[kk].z, acc[i][2]);
-                    acc[i][3] = fmaf(av[kk], w[kk].w, acc[i][3]);
-                }
-            }
-        }
-    }
-    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
-    const float bc[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < MAXRT; ++i) {
-        const int r = r0 + i;
-        if (i >= rt || r >= R) break;
-        float f[4] = {1.f, 1.f, 1.f, 1.f};
-        if (E == RELU_DROP || E == ATTN_RESIDUAL || E == FFN_RESIDUAL)
-            tb_philox::factors4(cx.drop, site, cx.row0 + r, (uint32_t)(c0 / 4), f);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            float* o = out + r * LDS + c0 + j;
-            const float y = acc[i][j] + bc[j];
-            if (E == STORE) *o = y;
-            if (E == RELU_DROP) *o = fmaxf(y, 0.f) * f[j];
-            if (E == ATTN_RESIDUAL) *o = res[r * LDS + c0 + j] + y * f[j];
-            if (E == FFN_RESIDUAL) *o = cx.vf[r] != 0.f ? res[r * LDS + c0 + j] + y * f[j] : 0.f;
-        }
-    }
-}
-
-// a[i, head h] = (softmax_j(q_h[i] . k_h[j] / sqrt(dh), padded j masked) ⊙ M0) v_h;
-// one thread a (head, query node)
-__device__ void attention_fwd(const float* q, const float* k, const float* v, float* a, const Ctx& cx, int site) {
-    const int N = cx.N, H = cx.H, dh = D / H;
-    const float sqrt_dh = sqrtf((float)dh);
-    for (int w = threadIdx.x; w < H * N; w += THREADS) {
-        const int i = w % N, h = w / N;
-        const float* qi = q + i * LDS + h * dh;
-        float sc[MAXN];
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            const float* kj = k + j * LDS + h * dh;
-            float s = 0.f;
-            for (int d = 0; d < dh; ++d) s = fmaf(qi[d], kj[d], s);
-            s = cx.vf[j] == 0.f ? -INFINITY : s / sqrt_dh;
-            sc[j] = s;
-            m = fmaxf(m, s);
-        }
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            sc[j] = expf(sc[j] - m);
-            sum += sc[j];
-        }
-#pragma unroll
-        for (int j = 0; j < MAXN; ++j) {
-            if (j >= N) break;
-            sc[j] = sc[j] / sum;
-        }
-        if (cx.drop.on) {
-            const unsigned long long row = (cx.poly * H + h) * N + i;
-#pragma unroll
-            for (int j4 = 0; j4 < MAXN / 4; ++j4) {
-                if (4 * j4 >= N) break;
-                float f[4];
-                tb_philox::factors4(cx.drop, site, row, (uint32_t)j4, f);
-#pragma unroll
-                for (int u = 0; u < 4; ++u)
-                    if (4 * j4 + u < N) sc[4 * j4 + u] *= f[u];
-            }
-        }
-        float* ai = a + i * LDS + h * dh;
-        for (int d = 0; d < dh; ++d) {
-            float o = 0.f;
-#pragma unroll
-            for (int j = 0; j < MAXN; ++j) {
-                if (j >= N) break;
-                o = fmaf(sc[j], v[j * LDS + h * dh + d], o);
-            }
-            ai[d] = o;
-        }
-    }
-}
-
-// The attention half of layer l: k, v from LN_tgt(x0); q from LN1(xl);
-// x1 = xl + (attention out-projection) ⊙ M1 (x1 may be xl). `t` is scratch.
-__device__ void attn_half(int l, const float* xl, const float* x0, float* t, float* q, float* k, float* v,
-                          float* a, float* x1, const Weights& w, const Ctx& cx) {
-    const int R = cx.N;
-    layer_norm(x0, t, w.at(LNT_S, l), w.at(LNT, l), R);
-    __syncthreads();
-    matmul<STORE>(t, w.at(WK, l), w.at(BK, l), k, nullptr, cx, 0);
-    matmul<STORE>(t, w.at(WV, l), w.at(BV, l), v, nullptr, cx, 0);
-    __syncthreads();
-    layer_norm(xl, t, w.at(LN1_S, l), w.at(LN1_B, l), R);
-    __syncthreads();
-    matmul<STORE>(t, w.at(WQ, l), w.at(BQ, l), q, nullptr, cx, 0);
-    __syncthreads();
-    attention_fwd(q, k, v, a, cx, 4 * l);
-    __syncthreads();
-    matmul<ATTN_RESIDUAL>(a, w.at(WO, l), w.at(BO, l), x1, xl, cx, 4 * l + 1);
-    __syncthreads();
-}
-
-// The FFN half of layer l: out = valid ? x1 + (relu(LN2(x1) W1 + b1) ⊙ M2) W2 ⊙ M3 : 0
-// (out may be x1). `t` and `hbuf` are scratch.
-__device__ void ffn_half(int l, const float* x1, float* t, float* hbuf, float* out, const Weights& w, const Ctx& cx) {
-    layer_norm(x1, t, w.at(LN2_S, l), w.at(LN2_B, l), cx.N);
-    __syncthreads();
-    matmul<RELU_DROP>(t, w.at(W1, l), w.at(B1, l), hbuf, nullptr, cx, 4 * l + 2);
-    __syncthreads();
-    matmul<FFN_RESIDUAL>(hbuf, w.at(W2, l), w.at(B2, l), out, x1, cx, 4 * l + 3);
-    __syncthreads();
-}
-
-// Loads the polyline's validity; returns whether it has a valid node.
-__device__ bool load_valid(const uint8_t* __restrict__ valid, long long poly, int N, float* vf, int* any) {
-    if (threadIdx.x == 0) *any = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < N; i += THREADS) {
-        const bool ok = valid[poly * N + i] != 0;
-        vf[i] = ok ? 1.f : 0.f;
-        if (ok) *any = 1;
-    }
-    __syncthreads();
-    return *any != 0;
-}
-
-__device__ void load_rows(const float* __restrict__ x, long long poly, int N, float* dst) {
-    for (int i = threadIdx.x; i < N * D; i += THREADS) dst[(i / D) * LDS + i % D] = x[poly * N * D + i];
-}
-
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, float* __restrict__ out, int N,
-           int L, int H, Weights w, Dropout drop) {
+__global__ void __launch_bounds__(NT, 1)
+fwd_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, float* __restrict__ out, long long BP,
+           int N, int L, int H, Weights w, Dropout drop) {
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    __shared__ float vf[MAXN];
-    __shared__ int any;
-    const long long poly = blockIdx.x;
-    float* x = smem;
-    float* x0 = x + N * LDS;
-    float* t = x0 + N * LDS;
-    float* q = t + N * LDS;
-    float* k = q + N * LDS;
-    float* v = k + N * LDS;
-    float* a = v + N * LDS;
-    if (!load_valid(valid, poly, N, vf, &any)) {  // all padding: the pool identity
-        if (threadIdx.x < D) out[poly * D + threadIdx.x] = NEG;
+    float* X = reinterpret_cast<float*>(smem4);
+    float* A1 = X + ROWS_F * LDS;
+    float* A2 = A1 + ROWS_F * LDS;
+    float* A3 = A2 + ROWS_F * LDS;
+    float* A4 = A3 + ROWS_F * LDS;
+    float* wsm = A4 + ROWS_F * LDS;
+    __shared__ Block blk;
+
+    const int P = ROWS_F / N;
+    const long long poly0 = (long long)blockIdx.x * P;
+    load_block(valid, BP, N, poly0, P, blk);
+    if (blk.R == 0) {  // all padding: the pool identity
+        for (int e = threadIdx.x; e < P * D; e += NT)
+            if (poly0 + e / D < BP) out[(poly0 + e / D) * D + e % D] = NEG;
         return;
     }
     TB_NODE_BEGIN(1);
-    const Ctx cx{N, H, (unsigned long long)poly * N, (unsigned long long)poly, vf, drop};
-    load_rows(x_in, poly, N, x);
-    load_rows(x_in, poly, N, x0);
+    load_rows(x_in, blk, X);
     __syncthreads();
     TB_NODE_MARK(1, 1);
-    for (int l = 0; l < L; ++l) {
-        attn_half(l, x, x0, t, q, k, v, a, x, w, cx);
-        TB_NODE_MARK(1, 2);
-        ffn_half(l, x, t, a, x, w, cx);
-        TB_NODE_MARK(1, 3);
-    }
-    if (threadIdx.x < D) {
-        const int c = threadIdx.x;
+    group_forward<1, false>(x_in, blk, L, H, w, drop, X, A1, A2, A3, A4, wsm,
+                            [](int, int) -> float* { return nullptr; }, [](int) -> float* { return nullptr; });
+    TB_NODE_RESTART();
+    for (int e = threadIdx.x; e < P * D; e += NT) {
+        const int p = e / D, c = e % D;
+        if (poly0 + p >= BP) break;
         float m = NEG;
-        for (int r = 0; r < N; ++r) m = fmaxf(m, vf[r] != 0.f ? x[r * LDS + c] : NEG);
-        out[poly * D + c] = m;
+        for (int n = 0; n < N; ++n) {
+            const int r = blk.nrow[p * N + n];
+            if (r >= 0) m = fmaxf(m, X[r * LDS + c]);
+        }
+        out[(poly0 + p) * D + c] = m;
     }
-    TB_NODE_MARK(1, 4);
+    TB_NODE_MARK(1, 5);
 }
 
-size_t fwd_smem(int N) { return sizeof(float) * 7 * (size_t)N * LDS; }
-
-}  // namespace k4f
+}  // namespace k4
 
 // ------------------------------------------------------------------ K4b
 
@@ -374,13 +279,12 @@ using namespace k4;
 using namespace tb_node;
 
 constexpr int ROWS = 60;     // rows (valid nodes) a block holds: the walk's six buffers and weight ring fit 227 KB
-constexpr int NS_F = 3;      // weight k-tiles in flight: the forward's three (as K2), the walk's two (six buffers)
-constexpr int NS_B = 2;
+constexpr int NS_B = 2;      // weight k-tiles in flight in the walk: two (six buffers; the forward's three)
 constexpr int NTS = 256;     // threads of the small kernels
 constexpr int NSPLIT = 14;   // splits of the rows in the dW products: 18 x 14 blocks, one wave of two an SM
 constexpr int RC = 32;       // rows a stage of the dW products
 constexpr int NKIND = 6;     // weight matrices a layer: q, k, v, o, 1, 2
-constexpr size_t FWD_SMEM = sizeof(float) * ((size_t)5 * ROWS * LDS + ring_floats<NS_F>());   // x, a1 .. a4
+constexpr size_t SAVE_SMEM = sizeof(float) * ((size_t)5 * ROWS * LDS + ring_floats<3>());      // x, a1 .. a4
 constexpr size_t WALK_SMEM = sizeof(float) * ((size_t)6 * ROWS * LDS + ring_floats<NS_B>());  // g, dx0, a1 .. a4
 constexpr size_t DW_SMEM = sizeof(float) * 2 * 2 * RC * D;  // two stages of A and B rows
 // the walk's static shared memory: its Block, the attention's and the LayerNorms' row statistics
@@ -388,9 +292,6 @@ static_assert(WALK_SMEM + sizeof(Block) + sizeof(float) * (3 * MAXH + 2) * ROWS 
               "the walk's buffers must fit one block's shared memory");
 static_assert(ROWS <= RCAP && ROWS % 4 == 0, "a walk block's rows");
 
-// the saved per-layer tensors [cap, 128] (compacted rows); the walk down
-// overwrites q, k, v, x1 by dq, dk, dv, da
-enum Saved { TG, S2, CAT, S2B, FDO, KS, VS, QS, X1, DF, DZ1, N_SAVED };
 // each kind's product dW = Aᵀ B, its matrix and its bias
 __device__ const int A_OF[NKIND] = {S2, TG, TG, CAT, S2B, FDO};
 __device__ const int B_OF[NKIND] = {QS, KS, VS, X1, DZ1, DF};
@@ -682,9 +583,9 @@ __device__ void load_saved(const float* __restrict__ src, float* dst, int R) {
     }
 }
 
-// The forward, once, over one group of polylines a block: each layer's
-// tensors saved to device memory (compacted rows), then the max-pool
-// backward, the rows' cotangent g saved.
+// The forward once over a group of polylines a block (K4f's body, group_forward
+// with SAVE), each layer's tensors saved to device memory (compacted rows),
+// then the max-pool backward, the rows' cotangent g saved.
 __global__ void __launch_bounds__(NT, 1)
 save_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, const float* __restrict__ g_pool,
             Shape sh, Weights w, Dropout drop, Scratch sc) {
@@ -697,89 +598,20 @@ save_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, c
     float* wsm = A4 + ROWS * LDS;
     __shared__ Block blk;
 
-    const int N = sh.N, L = sh.L, H = sh.H, P = sh.P, g = blockIdx.x;
+    const int N = sh.N, L = sh.L, P = sh.P, g = blockIdx.x;
     const long long poly0 = (long long)g * P;
     load_block(valid, sh.BP, N, poly0, P, blk);
     const int R = blk.R;
     if (R == 0) return;
     TB_NODE_BEGIN(3);
     const long long row0 = sc.off[g];
-    auto saved = [&](int l, int s) { return sc.t(l, s) + row0 * D; };
     load_rows(x_in, blk, X);
     __syncthreads();
-
-    // the forward, once, saving each layer's tensors
-    for (int l = 0; l < L; ++l) {
-        if (l > 0) {
-            float* xs = sc.xl(l, L) + row0 * D;
-            for (int e = threadIdx.x; e < R * (D / 4); e += NT)
-                *reinterpret_cast<float4*>(xs + (long long)(e / (D / 4)) * D + 4 * (e % (D / 4))) =
-                    *reinterpret_cast<const float4*>(X + (e / (D / 4)) * LDS + 4 * (e % (D / 4)));
-        }
-        layer_norm_x0(x_in, blk, A1, w.at(LNT_S, l), w.at(LNT, l), saved(l, TG));
-        const float* bk = w.at(BK, l);
-        float* gk = saved(l, KS);
-        dense<NS_F>(A1, w.at(WK, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
-            const float4 b = bias4(bk, c0);
-            store4(A3 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
-            store4(gk + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
-        });
-        const float* bv = w.at(BV, l);
-        float* gv = saved(l, VS);
-        dense<NS_F>(A1, w.at(WV, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
-            const float4 b = bias4(bv, c0);
-            store4(A4 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
-            store4(gv + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
-        });
-        __syncthreads();
-        layer_norm(X, A1, w.at(LN1_S, l), w.at(LN1_B, l), R, saved(l, S2));
-        const float* bq = w.at(BQ, l);
-        float* gq = saved(l, QS);
-        dense<NS_F>(A1, w.at(WQ, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
-            const float4 b = bias4(bq, c0);
-            store4(A2 + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
-            store4(gq + (long long)r * D + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
-        });
-        __syncthreads();
-        attention<true>(A2, A3, A4, A2, blk, H, drop, 4 * l, saved(l, CAT));
-        __syncthreads();
-        const float* bo = w.at(BO, l);
-        float* gx1 = saved(l, X1);
-        dense<NS_F>(A2, w.at(WO, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
-            const float4 b = bias4(bo, c0);
-            float f[4];
-            tb_philox::factors4(drop, 4 * l + 1, blk.grow[r], (uint32_t)(c0 / 4), f);
-            float* o = X + r * LDS + c0;
-            const float4 v = make_float4(o[0] + (y[0] + b.x) * f[0], o[1] + (y[1] + b.y) * f[1],
-                                         o[2] + (y[2] + b.z) * f[2], o[3] + (y[3] + b.w) * f[3]);
-            *reinterpret_cast<float4*>(o) = v;
-            *reinterpret_cast<float4*>(gx1 + (long long)r * D + c0) = v;
-        });
-        __syncthreads();
-        layer_norm(X, A1, w.at(LN2_S, l), w.at(LN2_B, l), R, saved(l, S2B));
-        const float* b1 = w.at(B1, l);
-        float* gf = saved(l, FDO);
-        dense<NS_F>(A1, w.at(W1, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
-            const float4 b = bias4(b1, c0);
-            float f[4];
-            tb_philox::factors4(drop, 4 * l + 2, blk.grow[r], (uint32_t)(c0 / 4), f);
-            const float4 v = make_float4(fmaxf(y[0] + b.x, 0.f) * f[0], fmaxf(y[1] + b.y, 0.f) * f[1],
-                                         fmaxf(y[2] + b.z, 0.f) * f[2], fmaxf(y[3] + b.w, 0.f) * f[3]);
-            *reinterpret_cast<float4*>(A2 + r * LDS + c0) = v;
-            *reinterpret_cast<float4*>(gf + (long long)r * D + c0) = v;
-        });
-        const float* b2 = w.at(B2, l);
-        dense<NS_F>(A2, w.at(W2, l), wsm, R, [&](int r, int c0, const float (&y)[4]) {
-            const float4 b = bias4(b2, c0);
-            float f[4];
-            tb_philox::factors4(drop, 4 * l + 3, blk.grow[r], (uint32_t)(c0 / 4), f);
-            float* o = X + r * LDS + c0;
-            store4(o, o[0] + (y[0] + b.x) * f[0], o[1] + (y[1] + b.y) * f[1], o[2] + (y[2] + b.z) * f[2],
-                   o[3] + (y[3] + b.w) * f[3]);
-        });
-        __syncthreads();
-    }
     TB_NODE_MARK(3, 1);
+    group_forward<3, true>(x_in, blk, L, sh.H, w, drop, X, A1, A2, A3, A4, wsm,
+                           [&](int l, int s) { return sc.t(l, s) + row0 * D; },
+                           [&](int l) { return sc.xl(l, L) + row0 * D; });
+    TB_NODE_RESTART();
 
     // max-pool backward: each column's cotangent split among its tied maxima
     for (int e = threadIdx.x; e < P * D; e += NT) {
@@ -805,7 +637,7 @@ save_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, c
     for (int e = threadIdx.x; e < R * (D / 4); e += NT)
         *reinterpret_cast<float4*>(gs + (long long)(e / (D / 4)) * D + 4 * (e % (D / 4))) =
             *reinterpret_cast<const float4*>(X + (e / (D / 4)) * LDS + 4 * (e % (D / 4)));
-    TB_NODE_MARK(3, 2);
+    TB_NODE_MARK(3, 5);
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -1047,10 +879,11 @@ __global__ void __launch_bounds__(NTS) reduce_kernel(Scratch sc, Shape sh, float
 
 }  // namespace k4b
 
-TB_NODE_PHASES("1 fwd_kernel (a polyline): rows loaded|attention halves|FFN halves|pool;"
+TB_NODE_PHASES("1 fwd_kernel (a group of polylines): rows loaded|layer norms|dense products|attention|pool;"
                "2 walk_kernel (a group of polylines): rows loaded|cotangent products|LayerNorm backward|"
                "attention backward|dx written;"
-               "3 save_kernel (a group of polylines): forward, saving each layer|max-pool backward, g saved")
+               "3 save_kernel (a group of polylines): rows loaded|layer norms|dense products|attention|"
+               "max-pool backward, g saved")
 
 namespace {
 
@@ -1080,12 +913,13 @@ extern "C" int tb_node_encoder_train_scratch(int BP, int N, int L, int nblocks, 
 extern "C" int tb_node_encoder_train_fwd(const void* x, const void* valid, void* out, int BP, int N, int L, int H,
                                          const void* const* w, unsigned long long seed, unsigned int threshold,
                                          float scale, int on, void* stream) {
-    if (N < 1 || N > k4f::MAXN || L < 1 || k4f::D % H != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = k4f::fwd_smem(N);
-    cudaError_t err = cudaFuncSetAttribute(k4f::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    using namespace k4;
+    if (N < 1 || N > MAXN || L < 1 || !heads_ok(H)) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
     if (err != cudaSuccess) return (int)err;
-    k4f::fwd_kernel<<<BP, k4f::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out), N, L, H,
+    const int P = ROWS_F / N;
+    fwd_kernel<<<(BP + P - 1) / P, NT, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out), BP, N, L, H,
         weights(w), tb_philox::Dropout{seed, threshold, scale, on});
     return (int)cudaGetLastError();
 }
@@ -1109,9 +943,9 @@ extern "C" int tb_node_encoder_train_bwd(const void* x, const void* valid, const
     transpose_kernel<<<NKIND * L, NTS, 0, st>>>(ws, sc, L);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(save_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+    err = cudaFuncSetAttribute(save_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SAVE_SMEM);
     if (err != cudaSuccess) return (int)err;
-    save_kernel<<<sh.G, NT, FWD_SMEM, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(valid),
+    save_kernel<<<sh.G, NT, SAVE_SMEM, st>>>(static_cast<const float*>(x), static_cast<const uint8_t*>(valid),
                                                static_cast<const float*>(g), sh, ws,
                                                tb_philox::Dropout{seed, threshold, scale, on}, sc);
     err = cudaGetLastError();

@@ -17,6 +17,10 @@ __device__ unsigned long long tb_node_trace[4][16];
         atomicAdd(&tb_node_trace[K][P], now_ - tb_nt_);           \
         tb_nt_ = now_;                                            \
     }
+// a device function that marks phases of its caller's kernel: its own clock
+// from here; the caller takes its clock anew after the call
+#define TB_NODE_RESUME() unsigned long long tb_nt_ = clock64()
+#define TB_NODE_RESTART() tb_nt_ = clock64()
 #define TB_NODE_PHASES(S) \
     extern "C" const char* tb_node_trace_phases() { return S; }
 extern "C" int tb_node_trace_read(unsigned long long* h) {
@@ -29,5 +33,7 @@ extern "C" int tb_node_trace_zero() {
 #else
 #define TB_NODE_BEGIN(K)
 #define TB_NODE_MARK(K, P)
+#define TB_NODE_RESUME()
+#define TB_NODE_RESTART()
 #define TB_NODE_PHASES(S)
 #endif

@@ -43,10 +43,13 @@ _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c
 
 
 def smem_bytes(n_node: int, d_model: int, n_head: int) -> int:
-    """Shared memory of one block (mirrors the kernel's layout): q, k, v rows
-    of d_model + 1 floats, the [n_head, N, N] weights, the static node mask
-    and flag."""
-    return 4 * (3 * n_node * (d_model + 1) + n_head * n_node * n_node + KERNEL_MAX_NODES + 1)
+    """Shared memory of one block (mirrors the kernel's layout): two stages
+    of q, k, v, each N rounded up to 4 rows of a head-padded row stride."""
+    d4 = (d_model // n_head + 3) // 4 * 4
+    head = d4 + 4 if d4 % 32 == 0 else d4
+    row = n_head * head
+    row += 0 if (row // 4) % 2 else 4
+    return 4 * 2 * 3 * ((n_node + 3) // 4 * 4) * row
 
 
 def block_attn_core_plain(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int) -> Tensor:
