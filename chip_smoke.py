@@ -60,7 +60,21 @@ its own lines:
      and the deterministic joint future's preds held over the first
      HELD_STEPS steps, the rest (and the sampled futures) readings beside a
      one-ulp map nudge;
-  7. the kernels line, the card line, and as the last line
+  7. the CLI runner, `trafficbots_tpu_torch.run.main` in-process at full
+     width (batch 8, synthetic data, 2 steps an epoch, 1 validation batch,
+     the default fused node encoder): run A fits 2 epochs with the launch
+     counts set to 0 just before and read just after (K3f, K3b, K4f, K4b,
+     K5, K1 and K2 each launched); run B fits 1 epoch, then resumes from
+     `last` to 2, and B's `last` checkpoint equals A's bitwise (every
+     parameter, Adam's state, the schedule, epoch, global step, the
+     generator); `validate` from `best` on the native WOMD engine (finite
+     val/loss, the metric keys of phase 6, the native metrics equal the
+     numpy engine's on the same accumulated inputs within rtol 1e-4 / atol
+     1e-5, both engines' epoch_end seconds printed); `test` from `best`
+     (one scenario prediction per scene in each of the K submission
+     files); one `cli_path` line with the launch counts, the Profiler's
+     step means, the checkpoint's save and restore ms and its size;
+  8. the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero before the last line. Without CUDA the
@@ -75,6 +89,11 @@ no last line; --node replays the shared generator's earlier draws on the
 CPU, so K2, K4 and K6 see the inputs a full run gives them): a quick check
 after an edit of their sources, or, copied into an unpacked older commit
 and run there, that commit's numbers beside this one's in the same call.
+
+    python3 chip_smoke.py --cli
+
+builds every kernel and runs only phase 7 (its metric keys not held
+against phase 6's), with its JSON line and no last line.
 """
 from __future__ import annotations
 
@@ -83,6 +102,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1137,7 +1157,8 @@ def validation_path(cfg, batch, n_iter, dev):
             "joint_future_pred/min_ade", "reactive_replay/vae_kl", "reactive_replay/goal_loss")
     return per_step[0], dict(n_scene=n_scene, seconds=secs, step_s=median, agent_steps_per_s=asps,
                              launches_per_step=per_step, peak_gib=peak_gib, profile=prof,
-                             metrics={k: metrics[k] for k in keep})
+                             metrics={k: metrics[k] for k in keep},
+                             metric_keys=sorted(k for k in metrics if k.startswith(WOMD_PREFIXES)))
 
 
 def _futures(out, ks):
@@ -1181,6 +1202,181 @@ def validation_vs_plain(cfg, batch, dev):
     )
 
 
+# ------------------------------------------------------------------ CLI runner
+
+# `python -m trafficbots_tpu_torch.run` in-process at full width
+# (ExperimentConfig defaults), synthetic data (the h5 path needs h5py)
+CLI_ARGS = ["device=cuda", "synthetic=true", "data.batch_size=8", "steps_per_epoch=2", "val_batches=1",
+            "n_video_batch=0"]
+CLI_KERNELS = ("K3f", "K3b", "K4f", "K4b", "K5", "K1", "K2")
+CLI_COUNTERS = dict(TRAIN_COUNTERS, K1=(FA, "LAUNCHES"), K2=(NE, "LAUNCHES"), K6=(BA, "LAUNCHES"))
+# the native WOMD engine against the numpy one on the same accumulated
+# inputs: tests/test_native_metrics.py's and tests/test_torch_eval.py's
+# tolerance (fp32 sums in C++ against numpy's)
+NATIVE_TOL = dict(rtol=1e-4, atol=1e-5)
+WOMD_PREFIXES = ("waymo_metrics/", "joint_future_pred/")
+
+
+def _varint(buf: bytes, pos: int):
+    out, shift = 0, 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        out |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return out, pos
+        shift += 7
+
+
+def wire_fields(buf: bytes):
+    """The protobuf wire format's top-level fields of a message: a list of
+    (field number, value), a varint's value an int, a 32-bit field's 4
+    bytes, a length-delimited field's bytes."""
+    out, pos = [], 0
+    while pos < len(buf):
+        tag, pos = _varint(buf, pos)
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:
+            v, pos = _varint(buf, pos)
+        elif wire == 5:
+            v, pos = buf[pos:pos + 4], pos + 4
+        elif wire == 2:
+            n, pos = _varint(buf, pos)
+            v, pos = buf[pos:pos + n], pos + n
+        else:
+            raise ValueError(f"wire type {wire}")
+        out.append((field, v))
+    return out
+
+
+def submission_scenarios(tar_path: str):
+    """The ScenarioPredictions (field 6) of a submission's .bin file."""
+    import tarfile
+
+    with tarfile.open(tar_path) as tar:
+        name = next(n for n in tar.getnames() if n.endswith(".bin"))
+        return [v for f, v in wire_fields(tar.extractfile(name).read()) if f == 6]
+
+
+def _state(run_dir: str, name: str = "last"):
+    from trafficbots_tpu_torch.training.checkpoint import STATE_FILE
+
+    path = os.path.join(run_dir, "ckpt", name, STATE_FILE)
+    return torch.load(path, map_location="cpu", weights_only=True), os.path.getsize(path)
+
+
+def _records(run_dir: str, phase_name: str):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["phase"] == phase_name]
+
+
+def params_gap(sa, sb):
+    """The parameters that differ between two checkpoints, and the largest
+    absolute difference."""
+    diff = [k for k in sa["params"] if not torch.equal(sa["params"][k], sb["params"][k])]
+    gap = max(((sa["params"][k] - sb["params"][k]).abs().max().item() for k in diff), default=0.0)
+    return diff, gap
+
+
+def cli_path(batch, dev, val_keys):
+    """run.py fit, resume, validate and test at full width through the
+    kernels; the resumed fit held bitwise against the uninterrupted one."""
+    import tempfile
+
+    from trafficbots_tpu_torch import run as RUN
+    from trafficbots_tpu_torch.eval.motion_metrics import MotionMetrics
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="tb_cli_")
+    a, b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
+    for mod, attr in CLI_COUNTERS.values():
+        setattr(mod, attr, 0)
+    RUN.main(["action=fit", f"run_dir={a}", "n_epochs=2"] + CLI_ARGS)
+    torch.cuda.synchronize()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in CLI_COUNTERS.items()}
+    log(f"cli: launches in run A's fit (2 epochs x 2 steps, 2 validations): {launches}")
+    for k in CLI_KERNELS:
+        require(launches[k] > 0, f"the CLI's fit did not launch {k}")
+    RUN.main(["action=fit", f"run_dir={b}", "n_epochs=1"] + CLI_ARGS)
+    RUN.main(["action=fit", f"run_dir={b}", "n_epochs=2", "resume=last"] + CLI_ARGS)
+
+    (sa, size), (sb, _) = _state(a), _state(b)
+    require(sa["epoch"] == sb["epoch"] == 2 and sa["global_step"] == sb["global_step"] == 4,
+            f"epoch / global_step: A {sa['epoch']} / {sa['global_step']}, B {sb['epoch']} / {sb['global_step']}")
+    require(torch.equal(sa["rng"], sb["rng"]), "the generator states of A and B differ")
+    steps = {r: [s["step"].item() for s in st["opt_state"]["adam"]["state"].values()] for r, st in (("A", sa), ("B", sb))}
+    require(steps["A"] == steps["B"] and set(steps["A"]) == {4.0}, f"Adam's step counts differ: {steps}")
+    require(sa["opt_state"]["schedule"] == sb["opt_state"]["schedule"], "the LR schedules' states differ")
+    adam_a, adam_b = sa["opt_state"]["adam"]["state"], sb["opt_state"]["adam"]["state"]
+    moments = [(i, k) for i, st in adam_a.items() for k, v in st.items() if not torch.equal(v, adam_b[i][k])]
+    require(not moments, f"Adam's state differs between A and B at {moments[:5]}")
+    diff, gap = params_gap(sa, sb)
+    resume = dict(bitwise=not diff, params=len(sa["params"]), params_differing=len(diff), max_abs_gap=gap)
+    log(f"cli: resumed fit (B) vs uninterrupted fit (A): {len(diff)} of {len(sa['params'])} parameters differ, "
+        f"largest gap {gap}")
+    # every kernel and every PyTorch operation of the step is deterministic
+    # on the card (no float atomics), so a resume leaves no gap at all
+    require(not diff, f"the resumed fit differs from the uninterrupted one in {len(diff)} parameters (largest "
+                      f"gap {gap}): {diff[:5]}")
+
+    prof_a, prof_b = _records(a, "profile")[-1], _records(b, "profile")[-1]
+    val_a = _records(a, "val")
+    require(len(val_a) == 2 and all(math.isfinite(v["val/loss"]) for v in val_a), "fit's validation val/loss")
+
+    out = RUN.main(["action=validate", f"run_dir={b}", "resume=best"] + CLI_ARGS)
+    metrics, validator = out["val_metrics"], out["validator"]
+    require(math.isfinite(metrics["val/loss"]), f"validate: val/loss {metrics['val/loss']}")
+    keys = sorted(k for k in metrics if k.startswith(WOMD_PREFIXES))
+    if val_keys is not None:
+        require(keys == val_keys, f"validate's metric keys differ from the validation phase's: "
+                                  f"{sorted(set(keys) ^ set(val_keys))[:10]}")
+    engines = {}
+    for w in (validator.womd_rr, validator.womd_jf):
+        native = w.engine
+        require(type(native).__name__ == "NativeMotionMetrics", f"validate's {w.prefix} engine: {type(native)}")
+        numpy_engine = MotionMetrics(native.config)
+        for kw in native._batches:
+            numpy_engine.update(**kw)
+        t1 = time.perf_counter()
+        ours = native.compute()
+        t2 = time.perf_counter()
+        ref = numpy_engine.compute()
+        t3 = time.perf_counter()
+        require(ours.keys() == ref.keys(), f"{w.prefix}: native and numpy metric keys differ")
+        for k, v in ref.items():
+            ok = (math.isnan(v) and math.isnan(ours[k])) or abs(ours[k] - v) <= NATIVE_TOL["atol"] + NATIVE_TOL["rtol"] * abs(v)
+            require(ok, f"{w.prefix} {k}: native {ours[k]} vs numpy {v}")
+        engines[w.prefix] = dict(native_s=t2 - t1, numpy_s=t3 - t2, scenes=sum(len(x["object_type"]) for x in native._batches),
+                                 max_abs_diff=max(abs(ours[k] - v) for k, v in ref.items() if not math.isnan(v)))
+        log(f"cli: {w.prefix} epoch_end compute: native {t2 - t1} s, numpy {t3 - t2} s, metrics agree within {NATIVE_TOL}")
+    prof_v = _records(b, "profile")[-1]
+
+    out = RUN.main(["action=test", f"run_dir={b}", "resume=best"] + CLI_ARGS)
+    n_scene = batch["map/valid"].shape[0]
+    cfg = ExperimentConfig()
+    require(len(out["submission"]) == cfg.n_joint_future, f"test wrote {out['submission']}")
+    for path in out["submission"]:
+        scenarios = submission_scenarios(path)
+        require(len(scenarios) == n_scene, f"{path}: {len(scenarios)} scenario predictions for {n_scene} scenes")
+        for sc in scenarios:
+            fields = wire_fields(sc)
+            require(fields[0][0] == 1 and len(fields[0][1]) > 0 and any(f == 2 for f, _ in fields),
+                    f"{path}: a scenario prediction without its id or predictions")
+    prof_t = _records(b, "profile")[-1]
+    wall = time.perf_counter() - t0
+    tmp.cleanup()
+    result = dict(
+        launches=launches, resume=resume,
+        train_step_mean_s=prof_a["time/train_step_mean_s"], val_step_mean_s=prof_a["time/val_step_mean_s"],
+        test_step_mean_s=prof_t["time/test_step_mean_s"],
+        ckpt_save_ms=1e3 * prof_a["time/ckpt_save_mean_s"], ckpt_restore_ms=1e3 * prof_b["time/ckpt_restore_mean_s"],
+        ckpt_restore_params_ms=1e3 * prof_v["time/ckpt_restore_mean_s"], ckpt_mb=size / 1e6,
+        womd_epoch_end=engines, val_loss=metrics["val/loss"],
+        map=metrics.get("joint_future_pred/mean_average_precision"), wall_s=wall, card=card_line(),
+    )
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs one NVIDIA GPU")
@@ -1192,10 +1388,10 @@ def main():
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
-             ("--node",): ("node_encoder", "node_encoder_train", "block_attn")}
+             ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
-        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention or --node)")
+        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node or --cli)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -1210,6 +1406,11 @@ def main():
         return
     cfg = ExperimentConfig()
     batch = synthetic_episode_batch(cfg.data, n_scene=N_SCENE, seed=0, n_valid_pl=768, n_valid_agent=40)
+    if mode == ("--cli",):  # the CLI runner alone (its metric keys not held against the validation phase's)
+        phase("CLI runner")
+        log(json.dumps({"cli_path": cli_path(batch, dev, None)}))
+        phase("done")
+        return
     if mode == ("--node",):  # K2, K4 and K6 on the inputs a full run gives them
         phase("node kernel checks")
         k2 = check_k2(replayed_generator("K2", N_SCENE, batch), N_SCENE, dev, batch)
@@ -1245,6 +1446,8 @@ def main():
     val["hybrid_node_encoder"] = hybrid
     phase("validation kernels vs plain")
     val["vs_plain"] = validation_vs_plain(val_cfg, batch, dev)
+    phase("CLI runner")
+    cli = cli_path(batch, dev, val.pop("metric_keys"))
     phase("done")
 
     kernels = [
@@ -1281,6 +1484,7 @@ def main():
     log(json.dumps({"main_path": path}))
     log(json.dumps({"training_path": train}))
     log(json.dumps({"validation_path": val}))
+    log(json.dumps({"cli_path": cli}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

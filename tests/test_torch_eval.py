@@ -8,6 +8,10 @@ package's.
 - The numpy copies: `eval.womd.WOMDMetrics` over `eval.motion_metrics` on
   the same packed inputs gives the same numbers as the JAX package's, to
   the bit (one numpy program), in both challenge layouts.
+- The native engine (`eval.native_metrics`, the port's default): the JAX
+  package's native engine's numbers to the bit, the numpy engine's within
+  tests/test_native_metrics.py's tolerance; an engine that cannot be built
+  raises instead of falling back to numpy.
 - `eval.submission.SubWOMD` (over the `eval.proto_wire` copy) writes the
   same bytes as the JAX writer where the rotation back to the global frame
   is exact (yaw 0); with random yaws the two frameworks' fp32 sin/cos differ
@@ -114,9 +118,52 @@ def test_womd_metrics_copy_gives_the_same_numbers(interactive):
     assert 0 < outs[1]["joint_future_pred/min_ade"] < 10
 
 
-def test_womd_metrics_refuses_the_native_engine():
-    with pytest.raises(NotImplementedError, match="numpy engine"):
-        TWOMD("reactive_replay", use_native=True)
+def test_womd_metrics_refuses_the_native_engine(monkeypatch):
+    """The port takes the native engine by default and refuses to fall back
+    to numpy quietly (the JAX class does): an engine that cannot be built
+    raises."""
+    import subprocess
+
+    from trafficbots_tpu_torch.eval import native_metrics as N
+
+    def failed_build():
+        raise subprocess.CalledProcessError(1, ["g++"])
+
+    monkeypatch.setattr(N, "library_path", lambda: N.BUILD / "libmotion_metrics-missing.so")
+    monkeypatch.setattr(N, "_build_library", failed_build)
+    with pytest.raises(subprocess.CalledProcessError):
+        TWOMD("reactive_replay")
+    from trafficbots_tpu_torch.eval.motion_metrics import MotionMetrics
+
+    assert isinstance(TWOMD("reactive_replay", use_native=False).engine, MotionMetrics)
+
+
+# the native engine against the numpy one: tests/test_native_metrics.py's tolerance
+NATIVE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("interactive", [False, True])
+def test_native_engine_gives_the_jax_native_and_the_numpy_numbers(interactive):
+    """The port's native engine (its own copy of the C++ source, built into
+    the port's build directory) gives the JAX package's native engine's
+    numbers to the bit, and the port's numpy engine's within NATIVE_TOL,
+    on the same packed inputs."""
+    from trafficbots_tpu.eval.native_metrics import NativeMotionMetrics as JNative
+    from trafficbots_tpu_torch.eval.motion_metrics import MotionMetrics
+    from trafficbots_tpu_torch.eval.native_metrics import NativeMotionMetrics
+
+    outs = []
+    for cls, native in ((TWOMD, True), (JWOMD, True), (TWOMD, False)):
+        w = cls("joint_future_pred", interactive_challenge=interactive, use_native=native)
+        assert isinstance(w.engine, (NativeMotionMetrics, JNative) if native else MotionMetrics)
+        for seed in (0, 1):
+            w.update(*packed_case(seed, 6, 2 if interactive else 3))
+        outs.append(w.compute())
+    assert outs[0].keys() == outs[1].keys() == outs[2].keys()
+    assert outs[0] == outs[1]
+    for k, v in outs[2].items():
+        np.testing.assert_allclose(outs[0][k], v, err_msg=k, **NATIVE_TOL)
+    assert 0 < outs[0]["joint_future_pred/min_ade"] < 10
 
 
 def _submission(cls, yaw, k_futures=3):

@@ -21,7 +21,9 @@ exactly; goal and latent log-probs and the post-processed scores within
 50, for the reactive replay and every joint future. Past that the closed
 loop amplifies ulp-level differences; the whole horizon's gap is a reading
 (junit property). The metric sums: counts exactly, error and reward sums
-(which run over all 80 future steps) within rtol 1e-3.
+(which run over all 80 future steps) within rtol 1e-3. `run.py
+action=validate` from a port checkpoint of the JAX params logs the JAX
+Validator's metric values (the native WOMD engine on both sides).
 """
 import dataclasses
 
@@ -213,6 +215,14 @@ def still_batch(batch):
     return b
 
 
+def zeroed_action_head(params):
+    """The JAX params with the action head's output Dense zeroed."""
+    head = dict(params["action_head"])
+    head["mlp_mean_w1"] = jnp.zeros_like(head["mlp_mean_w1"])
+    head["mlp_mean_b1"] = jnp.zeros_like(head["mlp_mean_b1"])
+    return dict(params, action_head=head)
+
+
 def test_validator_metric_values_match_jax_at_a_nonzero_map(val):
     """Both Validators on agents that stand still, under weights whose
     action head outputs 0 (its output Dense zeroed in the JAX tree and
@@ -222,11 +232,7 @@ def test_validator_metric_values_match_jax_at_a_nonzero_map(val):
     Every one of those values is compared, within rtol 1e-5 (the two
     packages' predictions are exact here, so the metrics agree to the bit
     on the CPU; the tolerance leaves room for the float sums' order)."""
-    params = jax.tree_util.tree_map(lambda v: v, val["params"])
-    head = dict(params["action_head"])
-    head["mlp_mean_w1"] = jnp.zeros_like(head["mlp_mean_w1"])
-    head["mlp_mean_b1"] = jnp.zeros_like(head["mlp_mean_b1"])
-    params = dict(params, action_head=head)
+    params = zeroed_action_head(val["params"])
     batch = still_batch(val["batch"])
     jv = JE.Validator(val["jcfg"], val["jmodel"], use_native_metrics=False)
     jv._jitted = val["jfn"]  # the compiled validation step of the fixture (same shapes)
@@ -249,6 +255,47 @@ def test_validator_metric_values_match_jax_at_a_nonzero_map(val):
     assert len(keys) > 100 and sum(jm[k] != 0 for k in keys) > 20
     for k in keys:
         np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def test_cli_validate_from_a_port_checkpoint_logs_the_jax_validator_metrics(val, tmp_path, monkeypatch):
+    """`run.py action=validate` on a port checkpoint made from the JAX
+    params (`load_jax_params`, the zeroed action head above, agents standing
+    still) logs the JAX Validator's metric values to metrics.jsonl, with the
+    native WOMD engine on both sides (the default of both Validators).
+    The checkpoint holds the params alone and its config.json sidecar; the
+    CLI's synthetic loader is replaced by the still batch."""
+    import json
+
+    from trafficbots_tpu_torch import run as TR
+    from trafficbots_tpu_torch.config import config_to_dict as t_config_to_dict
+    from trafficbots_tpu_torch.training.checkpoint import CheckpointManager
+
+    params = zeroed_action_head(val["params"])
+    batch = still_batch(val["batch"])
+    jv = JE.Validator(val["jcfg"], val["jmodel"])
+    jv._jitted = val["jfn"]  # the compiled validation step of the fixture (same shapes)
+    jv.step(params, batch, jax.random.PRNGKey(KEY))
+    jm = jv.epoch_end()
+    tmodel = TO.make_model(val["cfg"], device="cpu")
+    load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"), config=t_config_to_dict(val["cfg"]))
+    ckpt._save("best", {"params": tmodel.state_dict()})
+    monkeypatch.setattr(TR, "synthetic_loader", lambda cfg, n, seed=0: lambda epoch=0: iter([batch]))
+    inject(monkeypatch, *val["draws"])
+    run = tmp_path / "run"
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the tiny widths run fastest on one thread; the test workers share the cores
+    try:
+        TR.main(["action=validate", f"run_dir={run}", f"resume={tmp_path / 'ckpt' / 'best'}", "synthetic=true",
+                 "val_batches=1", "n_video_batch=0", "device=cpu"])
+    finally:
+        torch.set_num_threads(n_threads)
+    logged = next(r for r in map(json.loads, open(run / "metrics.jsonl")) if r["phase"] == "val")
+    keys = [k for k in jm if k.startswith(("waymo_metrics/", "joint_future_pred/", "reactive_replay/"))]
+    assert len(keys) > 100 and logged["joint_future_pred/mean_average_precision"] > 0.5
+    assert set(logged) - {"step", "phase", "time"} == set(jm)
+    for k in keys + ["val/loss"]:
+        np.testing.assert_allclose(logged[k], jm[k], rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_submissions_from_the_validator_and_the_test_step(val, tmp_path):

@@ -2,11 +2,11 @@
 
 A copy of `trafficbots_tpu/eval/womd.py` (host-side numpy), kept by the
 port instead of importing the JAX package; tests/test_torch_eval.py holds
-the two to the same numbers. Two differences: the port takes the numpy
-engine (`eval.motion_metrics`) only, and `use_native=True` raises
-`NotImplementedError` until the native engine is copied (the JAX class
-falls back to numpy quietly); `sync()` is a no-op, single-process, until
-the port's data-parallel slice brings the multi-process union.
+the two to the same numbers. Two differences: `use_native=True` (the
+default, as in the JAX package) takes the port's native engine
+(`eval.native_metrics`) and raises when it cannot be built, where the JAX
+class falls back to numpy quietly; `sync()` is a no-op, single-process,
+until the port's data-parallel slice brings the multi-process union.
 
 The predict-agents-first permutation of each scene is a stable argsort, the
 same layout as the upstream TrafficBots' per-scene boolean indexing.
@@ -29,7 +29,7 @@ class WOMDMetrics:
         step_gt: int = 90,
         step_current: int = 10,
         interactive_challenge: bool = False,
-        use_native: bool = False,
+        use_native: bool = True,
     ):
         self.prefix = prefix
         self.step_gt = step_gt
@@ -58,8 +58,11 @@ class WOMDMetrics:
             track_future_samples=self.track_future_samples,
         )
         if use_native:
-            raise NotImplementedError("the port's WOMD metrics use the numpy engine; pass use_native=False")
-        self.engine = MotionMetrics(config)
+            from .native_metrics import NativeMotionMetrics
+
+            self.engine = NativeMotionMetrics(config)
+        else:
+            self.engine = MotionMetrics(config)
 
     def reset(self):
         self.engine.reset()

@@ -10,8 +10,9 @@ the host, and `epoch_end` computes the metrics, with `val/loss` =
 -mAP(joint_future_pred). `test_step_device` and `pack_test_submission` are
 the test action's counterparts (no GT: the history stands in for it).
 
-Left for later slices: the sharded, multi-process validation (`mesh`
-raises) and the media rendering (`render_validation_media`).
+`Validator` takes the native WOMD metric engine by default, as the JAX
+package does. Left for later slices: the sharded, multi-process validation
+(`mesh` raises) and the media rendering (`render_validation_media`).
 """
 from __future__ import annotations
 
@@ -128,7 +129,7 @@ class Validator:
     batch and runs on `device` (the card unless the caller asks for the
     CPU; without CUDA it raises)."""
 
-    def __init__(self, cfg: ExperimentConfig, model: TrafficBots, use_native_metrics: bool = False,
+    def __init__(self, cfg: ExperimentConfig, model: TrafficBots, use_native_metrics: bool = True,
                  sub_rr: Optional[SubWOMD] = None, sub_jf: Optional[SubWOMD] = None, mesh=None,
                  device="cuda"):
         if mesh is not None:

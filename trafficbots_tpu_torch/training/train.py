@@ -12,7 +12,7 @@ the caller's sync.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -71,15 +71,32 @@ class Optimizer:
         self.schedule.step()
         return metrics
 
+    def state_dict(self) -> Dict[str, Dict]:
+        """Adam's state (moments and step counts) and the schedule's step
+        count: what a resumed run needs to continue where this one stopped."""
+        return {"adam": self.adam.state_dict(), "schedule": self.schedule.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Dict]) -> None:
+        self.adam.load_state_dict(state["adam"])
+        # Adam keeps its step counts on the CPU (they are read on the host);
+        # a checkpoint mapped onto the card would leave them there
+        for s in self.adam.state.values():
+            if isinstance(s.get("step"), Tensor):
+                s["step"] = s["step"].cpu()
+        self.schedule.load_state_dict(state["schedule"])
+
 
 def make_optimizer(cfg: ExperimentConfig, model: torch.nn.Module, steps_per_epoch: int = 1000) -> Optimizer:
     return Optimizer(cfg, model, steps_per_epoch)
 
 
-def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module, optimizer: Optimizer) -> Callable:
+def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module, optimizer: Optimizer,
+                    guard: Optional[Callable[[Dict], object]] = None) -> Callable:
     """-> step(batch, seed, epoch=0) -> metrics: one training step on a numpy
     episode batch (the data.synthetic contract) on the model's device. All
-    of the step's random draws come from a CPU generator seeded by `seed`."""
+    of the step's random draws come from a CPU generator seeded by `seed`.
+    `guard`, when given, sees {"metrics": ..., "grads": ...} after the
+    backward and before the update (the CLI's `debug_nans` check)."""
     device = next(model.parameters()).device
 
     def step(batch: Dict[str, np.ndarray], seed: int, epoch: int = 0) -> Dict[str, Tensor]:
@@ -88,6 +105,8 @@ def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module, optimizer: Op
         loss, metrics = O.training_step(cfg, model, to_torch(batch, device), generator, current_epoch=epoch)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if guard is not None:
+            guard({"metrics": metrics, "grads": {n: p.grad for n, p in model.named_parameters()}})
         metrics.update(optimizer.step())
         return metrics
 
