@@ -74,7 +74,26 @@ its own lines:
      (one scenario prediction per scene in each of the K submission
      files); one `cli_path` line with the launch counts, the Profiler's
      step means, the checkpoint's save and restore ms and its size;
-  8. the kernels line, the card line, and as the last line
+  8. the paper's ablation models and the interactive sim at full width
+     (`config.ablation` on the same config and scenes, each count set to 0
+     just before its run and read just after): the goal_xy GoalPredictor
+     alone (its as2pl launches K1 once in eval, K3f and K3b once in
+     training); ablation("trafficsim"), one warm-up and one timed
+     make_train_step (K3f/K3b/K4f/K4b/K5 launched, finite, every trained
+     parameter moved), then its loss and gradients with the kernels
+     against the plain versions over HELD_STEPS as phase 5 holds them;
+     ablation("latent_cat"), the eval rollout against the plain versions
+     (phase 4's hold) and one Validator.step + epoch_end (K1 launched,
+     finite val/loss); ablation("goal_xy"), one Validator.step (K1
+     launched at the GoalPredictor's as2pl too), then one validation step
+     against the plain versions (held over GOAL_XY_HELD_STEPS, the gap no
+     earlier past ROLLOUT_ATOL than a one-ulp nudge's); the DestPredictor
+     heads "transformer", "transformer_aggr" and "attn", each one pred_goal
+     against its plain run, its probabilities and exclusions, its peak
+     memory and one training step; `orchestration.interactive_replay` run
+     to the end against reactive_replay bitwise, a 20-step prefix, two
+     agents forced at one step, the host's ms a step; one `ablations` line;
+  9. the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero before the last line. Without CUDA the
@@ -94,6 +113,11 @@ and run there, that commit's numbers beside this one's in the same call.
 
 builds every kernel and runs only phase 7 (its metric keys not held
 against phase 6's), with its JSON line and no last line.
+
+    python3 chip_smoke.py --ablations
+
+builds every kernel and runs only phase 8, with its JSON line and no last
+line.
 """
 from __future__ import annotations
 
@@ -115,8 +139,8 @@ import torch
 from trafficbots_tpu_torch import evaluation_loop as EL
 from trafficbots_tpu_torch import ops
 from trafficbots_tpu_torch import orchestration as O
-from trafficbots_tpu_torch.config import ExperimentConfig
-from trafficbots_tpu_torch.data.preprocessing import to_torch
+from trafficbots_tpu_torch.config import ExperimentConfig, ablation
+from trafficbots_tpu_torch.data.preprocessing import pre_processing, to_torch
 from trafficbots_tpu_torch.data.synthetic import synthetic_episode_batch
 from trafficbots_tpu_torch.ops import attention_train as AT
 from trafficbots_tpu_torch.ops import block_attn as BA
@@ -125,6 +149,9 @@ from trafficbots_tpu_torch.ops import dropout as DO
 from trafficbots_tpu_torch.ops import fused_attention as FA
 from trafficbots_tpu_torch.ops import node_encoder as NE
 from trafficbots_tpu_torch.ops import node_encoder_train as NT
+from trafficbots_tpu_torch.models import goal_manager as GM
+from trafficbots_tpu_torch.ops.dropout import DropoutSeeds
+from trafficbots_tpu_torch.sim.teacher_forcing import teacher_forcing_mask
 from trafficbots_tpu_torch.training import train as TT
 from trafficbots_tpu_torch.weights import init_params
 
@@ -871,8 +898,8 @@ def first_step_over(diff: torch.Tensor) -> dict:
     return {str(t): next((s for s, e in enumerate(per_step) if e > t), None) for t in READING_THRESHOLDS}
 
 
-def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True) -> dict:
-    """Holds preds over the first HELD_STEPS to ROLLOUT_ATOL and validity
+def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True, held_steps: int = HELD_STEPS) -> dict:
+    """Holds preds over the first `held_steps` to ROLLOUT_ATOL and validity
     equal there (with `hold`; else they are readings too); returns the
     whole horizon's readings beside the one-ulp map nudge's."""
     for o in (out, ref):
@@ -880,22 +907,22 @@ def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True) -> dict:
     r = ref.preds.float().cpu()
     diff = (out.preds.float().cpu() - r).abs()
     diff_nudge = (ref_nudged.preds.float().cpu() - r).abs()
-    held = diff[:, :, :HELD_STEPS].max().item()
+    held = diff[:, :, :held_steps].max().item()
     flips = out.valid.cpu() != ref.valid.cpu()
-    held_flips = flips[:, :, :HELD_STEPS].sum().item()
+    held_flips = flips[:, :, :held_steps].sum().item()
     reading = dict(
-        preds_err_held=held, held_steps=HELD_STEPS, preds_err_all=diff.max().item(),
+        preds_err_held=held, held_steps=held_steps, preds_err_all=diff.max().item(),
         nudge_err_all=diff_nudge.max().item(), valid_flips_all=flips.sum().item(),
         first_step_over=first_step_over(diff), nudge_first_step_over=first_step_over(diff_nudge),
     )
-    log(f"{what}: preds max abs diff over the first {HELD_STEPS} steps {held} m (tolerance {ROLLOUT_ATOL} m), "
+    log(f"{what}: preds max abs diff over the first {held_steps} steps {held} m (tolerance {ROLLOUT_ATOL} m), "
         f"valid flips there {held_flips}; readings over all {r.shape[2]} steps: preds {reading['preds_err_all']} m, "
         f"first step over each threshold (m) {reading['first_step_over']}, valid flips {reading['valid_flips_all']}; "
         f"a one-ulp map nudge moves the reference {reading['nudge_err_all']} m, first step over each threshold "
         f"{reading['nudge_first_step_over']}")
     if hold:
-        require(held <= ROLLOUT_ATOL, f"{what}: preds differ by {held} m > {ROLLOUT_ATOL} m in the first {HELD_STEPS} steps")
-        require(held_flips == 0, f"{what}: validity differs in the first {HELD_STEPS} steps")
+        require(held <= ROLLOUT_ATOL, f"{what}: preds differ by {held} m > {ROLLOUT_ATOL} m in the first {held_steps} steps")
+        require(held_flips == 0, f"{what}: validity differs in the first {held_steps} steps")
     return reading
 
 
@@ -998,13 +1025,13 @@ TRAIN_COUNTERS = {
 }
 
 
-def zero_train_counters():
-    for mod, attr in TRAIN_COUNTERS.values():
+def zero_counts(counters):
+    for mod, attr in counters.values():
         setattr(mod, attr, 0)
 
 
-def read_train_counters():
-    return {k: getattr(mod, attr) for k, (mod, attr) in TRAIN_COUNTERS.items()}
+def read_counts(counters):
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
 
 def train_path(cfg, batch, n_iter, dev):
@@ -1020,12 +1047,12 @@ def train_path(cfg, batch, n_iter, dev):
     torch.cuda.reset_peak_memory_stats()
     secs, per_step, losses, norms = [], [], [], []
     for i in range(n_iter):
-        zero_train_counters()
+        zero_counts(TRAIN_COUNTERS)
         t0 = time.perf_counter()
         m = step(batch, seed=101 + i)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        per_step.append(read_train_counters())
+        per_step.append(read_counts(TRAIN_COUNTERS))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         log(f"train step {i}: {secs[-1]} s, loss {losses[-1]}, grad_norm {norms[-1]}, launches {per_step[-1]}")
@@ -1126,13 +1153,12 @@ def validation_path(cfg, batch, n_iter, dev):
     torch.cuda.reset_peak_memory_stats()
     secs, per_step = [], []
     for i in range(n_iter):
-        for mod, attr in VAL_COUNTERS.values():
-            setattr(mod, attr, 0)
+        zero_counts(VAL_COUNTERS)
         t0 = time.perf_counter()
         val.step(batch, torch.Generator().manual_seed(301 + i))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        per_step.append({k: getattr(mod, attr) for k, (mod, attr) in VAL_COUNTERS.items()})
+        per_step.append(read_counts(VAL_COUNTERS))
         log(f"validation step {i}: {secs[-1]} s, launches {per_step[-1]}")
         require(per_step[-1]["K1"] > 0 and per_step[-1]["K6"] > 0, "the validation step did not launch K1 and K6")
         require(per_step[-1]["K2"] == 0, "the hybrid node encoder launched the fused kernel K2")
@@ -1168,7 +1194,7 @@ def _futures(out, ks):
     return SimpleNamespace(preds=p.reshape(p.shape[0], -1, *p.shape[3:]), valid=v.reshape(v.shape[0], -1, v.shape[-1]))
 
 
-def validation_vs_plain(cfg, batch, dev):
+def validation_vs_plain(cfg, batch, dev, held_steps: int = HELD_STEPS):
     """One validation step with the kernels against the plain versions, the
     same generator seed: the reactive replay's and the deterministic joint
     future's preds held over HELD_STEPS, the whole horizon and the sampled
@@ -1194,8 +1220,10 @@ def validation_vs_plain(cfg, batch, dev):
     goal_flips = int((out["goal_sample"] != ref["goal_sample"]).sum().item())
     log(f"validation step, kernels vs plain: sampled goals differing {goal_flips} of {out['goal_sample'].numel()}")
     return dict(
-        reactive_replay=compare_rollouts(*rr, "validation reactive replay, kernels vs plain versions"),
-        joint_future_k0=compare_rollouts(*k0, "validation joint future K=0, kernels vs plain versions"),
+        reactive_replay=compare_rollouts(*rr, "validation reactive replay, kernels vs plain versions",
+                                         held_steps=held_steps),
+        joint_future_k0=compare_rollouts(*k0, "validation joint future K=0, kernels vs plain versions",
+                                         held_steps=held_steps),
         joint_futures_sampled=compare_rollouts(*kn, "validation joint futures K>0 (readings), kernels vs plain",
                                                hold=False),
         goal_sample_flips=goal_flips, device_step_s=secs,
@@ -1289,11 +1317,10 @@ def cli_path(batch, dev, val_keys):
     t0 = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="tb_cli_")
     a, b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
-    for mod, attr in CLI_COUNTERS.values():
-        setattr(mod, attr, 0)
+    zero_counts(CLI_COUNTERS)
     RUN.main(["action=fit", f"run_dir={a}", "n_epochs=2"] + CLI_ARGS)
     torch.cuda.synchronize()
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in CLI_COUNTERS.items()}
+    launches = read_counts(CLI_COUNTERS)
     log(f"cli: launches in run A's fit (2 epochs x 2 steps, 2 validations): {launches}")
     for k in CLI_KERNELS:
         require(launches[k] > 0, f"the CLI's fit did not launch {k}")
@@ -1377,6 +1404,279 @@ def cli_path(batch, dev, val_keys):
     return result
 
 
+# ------------------------------------------------------------------ ablations and interactive
+
+ABL_COUNTERS = dict(TRAIN_COUNTERS, K1=(FA, "LAUNCHES"), K2=(NE, "LAUNCHES"))
+HEAD_TOL = 1e-5  # a goal head's output, kernels vs plain versions, relative to its largest magnitude
+# goal_xy re-localises each agent's goal in its own frame every step, and
+# its closed loop leaves the ulp level sooner: on an H100 at full width a
+# one-ulp map nudge moves its validation replay past 1e-3 m at step 23
+# (the default model's at 25). Its kernels-vs-plain preds are held to
+# ROLLOUT_ATOL over the first GOAL_XY_HELD_STEPS steps, and the gap must
+# pass ROLLOUT_ATOL no earlier than the nudge's.
+GOAL_XY_HELD_STEPS = 20
+DEST_HEADS = ("transformer", "transformer_aggr", "attn")
+
+
+def head_inputs(cfg, model, batch, dev, training):
+    """The goal head's inputs from the episode encode (no gradient)."""
+    pb = pre_processing(to_torch(batch, dev), cfg.model, n_step_hist=cfg.time_step_current + 1, training=training)
+    with torch.no_grad():
+        feats = O.encode_episode_features(model, pb, views=("input",))["input"]
+    return dict(agent_type=pb["ref/agent_type"], map_type=pb["ref/map_type"], agent_state=pb["ref/agent_state"],
+                **feats)
+
+
+def goal_predictor_sites(cfg, batch, dev):
+    """The goal_xy GoalPredictor's as2pl (S = 64 agents, T = 1024
+    polylines) alone: one eval call launches K1 once, one training call
+    and its backward K3f and K3b once each."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    inp = head_inputs(cfg, model, batch, dev, training=False)
+    zero_counts(ABL_COUNTERS)
+    with torch.no_grad():
+        model.pred_goal(**inp)
+    torch.cuda.synchronize()
+    eval_counts = read_counts(ABL_COUNTERS)
+    inp = head_inputs(cfg, model, batch, dev, training=True)
+    zero_counts(ABL_COUNTERS)
+    d = model.pred_goal(rng=DropoutSeeds(1), **inp)
+    d.mean.sum().backward()
+    torch.cuda.synchronize()
+    train_counts = read_counts(ABL_COUNTERS)
+    log(f"ablations: the GoalPredictor alone launches {eval_counts} in eval and {train_counts} in training")
+    require(eval_counts["K1"] == 1, "the GoalPredictor's as2pl did not launch K1 in eval")
+    require(train_counts["K3f"] == 1 and train_counts["K3b"] == 1, "the GoalPredictor's as2pl did not launch K3")
+    return dict(eval=eval_counts, train=train_counts)
+
+
+def trafficsim_training(cfg, batch, dev):
+    """ablation("trafficsim") (goal_xy GoalPredictor, a latent resampled
+    every step, the unmasked GRU, state-integrator dynamics):
+    make_train_step, one warm-up, one timed step with the counts set to 0
+    just before and read just after; then the loss and gradients with the
+    kernels against the plain versions over HELD_STEPS, beside a one-ulp
+    map nudge of the plain run."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    step = TT.make_train_step(cfg, model, TT.make_optimizer(cfg, model))
+    step(batch, seed=100)
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ABL_COUNTERS)
+    t0 = time.perf_counter()
+    m = step(batch, seed=101)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(ABL_COUNTERS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, norm = m["loss"].item(), m["grad_norm"].item()
+    trained = [n for n, p in model.named_parameters() if p.grad is not None and bool(p.grad.ne(0).any())]
+    moved = sum(not torch.equal(before[n], dict(model.named_parameters())[n]) for n in trained)
+    log(f"ablations: trafficsim train step {secs} s ({1e3 * secs} ms), loss {loss}, grad_norm {norm}, launches "
+        f"{launches}, peak device memory {peak} GiB, {moved} of {len(trained)} parameters with a gradient moved "
+        f"[{card_line()}]")
+    require(math.isfinite(loss) and math.isfinite(norm) and norm > 0, "trafficsim: non-finite loss or grad norm")
+    for k in TRAIN_COUNTERS:
+        require(launches[k] > 0, f"the trafficsim training step did not launch {k}")
+    require(moved == len(trained) > 0, f"trafficsim: only {moved} of the {len(trained)} parameters with a gradient moved")
+    del model, step
+    held = dataclasses.replace(cfg, time_step_end=HELD_STEPS)
+    lk, gk = loss_and_grads(held, batch, dev, plain=False)
+    lp, gp = loss_and_grads(held, batch, dev, plain=True)
+    ln, gn = loss_and_grads(held, nudged(batch), dev, plain=True)
+    loss_gap = abs(lk - lp) / abs(lp)
+    gap, worst, median = grad_gap(gk, gp)
+    nudge_gap, nudge_worst, _ = grad_gap(gn, gp)
+    log(f"ablations: trafficsim training step, kernels vs plain versions, steps 1..{HELD_STEPS}: loss {lk} vs {lp} "
+        f"(rel {loss_gap}, tolerance {TRAIN_LOSS_RTOL}), largest gradient rel norm error {gap} at {worst}, median "
+        f"{median} (tolerance {TRAIN_GRAD_RTOL}); a one-ulp map nudge of the plain run: loss rel "
+        f"{abs(ln - lp) / abs(lp)}, largest gradient gap {nudge_gap} at {nudge_worst}")
+    require(gk.keys() == gp.keys(), "trafficsim: kernels and plain versions train different parameters")
+    require(loss_gap <= TRAIN_LOSS_RTOL, f"trafficsim training loss differs by rel {loss_gap}")
+    require(gap <= TRAIN_GRAD_RTOL, f"trafficsim training gradient {worst} differs by rel {gap}")
+    return dict(step_ms=1e3 * secs, loss=loss, grad_norm=norm, launches=launches, peak_gib=peak,
+                held_loss_rel=loss_gap, held_grad_rel=gap, held_grad_rel_median=median,
+                held_nudge_loss_rel=abs(ln - lp) / abs(lp), held_nudge_grad_rel=nudge_gap)
+
+
+def validator_step(cfg, batch, dev, what):
+    """One Validator.step (counts set to 0 just before, read just after) and
+    epoch_end: a finite val/loss."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    val = EL.Validator(cfg, model, device=dev)
+    zero_counts(ABL_COUNTERS)
+    t0 = time.perf_counter()
+    val.step(batch, torch.Generator().manual_seed(301))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(ABL_COUNTERS)
+    metrics = val.epoch_end()
+    log(f"ablations: {what} Validator.step {secs} s (the first call of a fresh model), launches {launches}, "
+        f"val/loss {metrics['val/loss']}, mAP {metrics.get('joint_future_pred/mean_average_precision')}")
+    require(launches["K1"] > 0 and launches["K2"] > 0, f"{what}: the validation step did not launch K1 and K2")
+    require(math.isfinite(metrics["val/loss"]), f"{what}: val/loss {metrics['val/loss']}")
+    return dict(step_s=secs, launches=launches, val_loss=metrics["val/loss"],
+                map=metrics.get("joint_future_pred/mean_average_precision"))
+
+
+def latent_cat_eval(cfg, batch, dev):
+    """ablation("latent_cat"): the eval reactive replay with the kernels
+    against the plain versions over HELD_STEPS (phase 4's hold)."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    zero_counts(ABL_COUNTERS)
+    out = O.eval_rollout(cfg, model, batch, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts(ABL_COUNTERS)
+    require(launches["K1"] > 0 and launches["K2"] > 0, "latent_cat: the eval rollout did not launch K1 and K2")
+    with ops.plain_versions():
+        ref = O.eval_rollout(cfg, model, batch, device=dev)
+        ref_nudged = O.eval_rollout(cfg, model, nudged(batch), device=dev)
+    return dict(launches=launches,
+                vs_plain=compare_rollouts(out, ref, ref_nudged, "latent_cat eval rollout, kernels vs plain versions"))
+
+
+def dest_head(cfg, batch, dev, mode):
+    """One DestPredictor head at full width: pred_goal with the kernels
+    against the plain versions on the same features, the probabilities of
+    every valid row summing to 1, no mass on excluded polyline types, the
+    head's peak memory; then one training step, finite."""
+    gm = cfg.model.goal_manager
+    hcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, goal_manager=dataclasses.replace(
+        gm, goal_predictor=dataclasses.replace(gm.goal_predictor, mode=mode))))
+    model = O.make_model(hcfg, device=dev, seed=0)
+    inp = head_inputs(hcfg, model, batch, dev, training=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d = model.pred_goal(**inp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.no_grad(), ops.plain_versions():
+        ref = model.pred_goal(**inp)
+    fin = torch.isfinite(ref.logits)
+    require(torch.equal(torch.isfinite(d.logits), fin), f"{mode}: kernels and plain versions mask other polylines")
+    rel = ((d.logits - ref.logits)[fin].abs().max() / ref.logits[fin].abs().max()).item()
+    map_type_mask, attn_mask = GM.dest_type_masks(inp["agent_type"], inp["map_type"], inp["map_feature_valid"])
+    excluded = map_type_mask[:, None] | attn_mask
+    rows = d.valid & ~excluded.all(-1)
+    probs = d.probs
+    sum_err = (probs.sum(-1)[rows] - 1).abs().max().item()
+    excluded_mass = probs[rows][excluded[rows]].abs().max().item()
+    zero_counts(ABL_COUNTERS)
+    tstep = TT.make_train_step(hcfg, model, TT.make_optimizer(hcfg, model))
+    torch.cuda.reset_peak_memory_stats()
+    m = tstep(batch, seed=102)
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"ablations: DestPredictor {mode!r}: pred_goal {1e3 * secs} ms, kernels vs plain rel {rel} (tolerance "
+        f"{HEAD_TOL}), {int(rows.sum())} valid rows' probabilities sum to 1 within {sum_err}, largest mass on an "
+        f"excluded polyline {excluded_mass}, the head's peak memory {peak} GiB; training step loss "
+        f"{m['loss'].item()}, grad_norm {m['grad_norm'].item()}, peak {train_peak} GiB [{card_line()}]")
+    require(rel <= HEAD_TOL, f"{mode}: pred_goal differs from its plain run by rel {rel}")
+    require(rows.any() and sum_err <= 1e-5, f"{mode}: probabilities sum to 1 within {sum_err}")
+    require(excluded_mass == 0.0, f"{mode}: mass {excluded_mass} on an excluded polyline")
+    require(math.isfinite(m["loss"].item()) and math.isfinite(m["grad_norm"].item()), f"{mode}: non-finite training step")
+    return dict(pred_goal_ms=1e3 * secs, vs_plain_rel=rel, prob_sum_err=sum_err, peak_gib=peak,
+                train_loss=m["loss"].item(), train_peak_gib=train_peak)
+
+
+ROLLOUT_FIELDS = ("valid", "preds", "override_masks", "diffbar_rewards", "diffbar_rewards_valid", "latent_log_probs",
+                  "action_log_probs")
+
+
+def same_rollout(a, b, n=None) -> bool:
+    cut = (lambda t: t[:, :, :n]) if n is not None else (lambda t: t)
+    return (all(torch.equal(getattr(a, f), cut(getattr(b, f))) for f in ROLLOUT_FIELDS)
+            and a.violations.keys() == b.violations.keys()
+            and all(torch.equal(a.violations[k], cut(v)) for k, v in b.violations.items()))
+
+
+def interactive(cfg, batch, dev):
+    """orchestration.interactive_replay run to the end against
+    reactive_replay on the same inputs, bitwise; a 20-step prefix against
+    the replay's first 20 steps; two agents forced at one step land exactly
+    on the given state; the host's ms a step."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    pb = pre_processing(to_torch(batch, dev), cfg.model, training=False)
+    with torch.no_grad():
+        feats = O.encode_episode_features(model, pb, views=("input", "latent_post"))
+        goal, goal_valid = O.get_gt_goal(cfg, pb["input/agent_valid"], pb["gt/goal"], pb["gt/dest"])
+        latent = model.latent(posterior=True, **feats["latent_post"])
+        mask_tf = teacher_forcing_mask(O.tf_cfg_to_sim(cfg.tf_reactive_replay), pb["gt/valid"])
+        args = (cfg, model, pb, feats["input"], latent, goal, goal_valid, mask_tf)
+        ref = O.reactive_replay(*args)
+    zero_counts(ABL_COUNTERS)
+    sim = O.interactive_replay(*args, device=dev)
+    step_ms = []
+    while not sim.done:
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    buf = sim.finish()
+    launches = read_counts(ABL_COUNTERS)
+    bitwise = same_rollout(buf, ref)
+    prefix = O.interactive_replay(*args, device=dev)
+    for _ in range(20):
+        prefix.step()
+    prefix_ok = same_rollout(prefix.finish(), ref, 20)
+    forced_sim = O.interactive_replay(*args, device=dev)
+    for _ in range(4):
+        forced_sim.step()
+    B, A = forced_sim.carry.agent.valid.shape
+    mask = torch.zeros((B, A), dtype=torch.bool, device=dev)
+    mask[:, :2] = True
+    state = torch.tensor([12.5, -3.25, 0.5, 4.0], device=dev).expand(B, A, 4).clone()
+    state[:, 1] = torch.tensor([-7.0, 20.0, -1.5, 2.0], device=dev)
+    over = dict(state=state, vel=torch.zeros(B, A, 2, device=dev), acc=torch.zeros(B, A, 1, device=dev),
+                yaw_rate=torch.zeros(B, A, 1, device=dev))
+    forced_sim.step(mask_override=mask, state_override=over)
+    forced_ok = bool(torch.equal(forced_sim.carry.agent.state[:, :2], state[:, :2])
+                     and forced_sim.carry.agent.valid[:, :2].all())
+    med = statistics.median(step_ms)
+    log(f"ablations: interactive_replay run to the end equals reactive_replay bitwise: {bitwise}; a 20-step prefix "
+        f"equals its first 20 steps: {prefix_ok}; two agents forced at step 5 land exactly: {forced_ok}; host ms a "
+        f"step (synced) median {med}, min {min(step_ms)}, max {max(step_ms)}; launches {launches} [{card_line()}]")
+    require(bitwise, "interactive_replay differs from reactive_replay")
+    require(prefix_ok, "the interactive prefix differs from the replay's first steps")
+    require(forced_ok, "the forced agents are not at the given state")
+    require(launches["K1"] > 0, "the interactive steps did not launch K1")
+    return dict(bitwise=bitwise, prefix_bitwise=prefix_ok, forced_exact=forced_ok, step_ms_median=med,
+                step_ms_min=min(step_ms), step_ms_max=max(step_ms), launches=launches)
+
+
+def ablation_path(cfg, batch, dev):
+    """The paper's ablation models and the interactive sim at full width."""
+    t0 = time.perf_counter()
+    out = {}
+    gx = ablation("goal_xy", cfg)
+    out["goal_predictor_sites"] = goal_predictor_sites(gx, batch, dev)
+    out["trafficsim_training"] = trafficsim_training(ablation("trafficsim", cfg), batch, dev)
+    lc = ablation("latent_cat", cfg)
+    out["latent_cat_eval"] = latent_cat_eval(lc, batch, dev)
+    out["latent_cat_validation"] = validator_step(lc, batch, dev, "latent_cat")
+    out["goal_xy_validation"] = validator_step(gx, batch, dev, "goal_xy")
+    vs_plain = validation_vs_plain(gx, batch, dev, held_steps=GOAL_XY_HELD_STEPS)
+    key = str(ROLLOUT_ATOL)
+    for name in ("reactive_replay", "joint_future_k0"):
+        first, first_nudge = vs_plain[name]["first_step_over"][key], vs_plain[name]["nudge_first_step_over"][key]
+        log(f"ablations: goal_xy {name}: the kernels-vs-plain gap first passes {ROLLOUT_ATOL} m at step {first}, a "
+            f"one-ulp map nudge's at step {first_nudge}")
+        require(first is None or (first_nudge is not None and first >= first_nudge),
+                f"goal_xy {name}: the kernels-vs-plain gap passes {ROLLOUT_ATOL} m at step {first}, before a one-ulp "
+                f"nudge's ({first_nudge})")
+    out["goal_xy_validation"]["vs_plain"] = vs_plain
+    out["dest_heads"] = {mode: dest_head(cfg, batch, dev, mode) for mode in DEST_HEADS}
+    out["interactive"] = interactive(cfg, batch, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["card"] = card_line()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs one NVIDIA GPU")
@@ -1388,10 +1688,11 @@ def main():
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
-             ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES}
+             ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
+             ("--ablations",): KERNEL_SOURCES}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
-        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node or --cli)")
+        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli or --ablations)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -1409,6 +1710,11 @@ def main():
     if mode == ("--cli",):  # the CLI runner alone (its metric keys not held against the validation phase's)
         phase("CLI runner")
         log(json.dumps({"cli_path": cli_path(batch, dev, None)}))
+        phase("done")
+        return
+    if mode == ("--ablations",):  # the ablation models and the interactive sim alone
+        phase("ablations and interactive")
+        log(json.dumps({"ablations": ablation_path(cfg, batch, dev)}))
         phase("done")
         return
     if mode == ("--node",):  # K2, K4 and K6 on the inputs a full run gives them
@@ -1448,6 +1754,8 @@ def main():
     val["vs_plain"] = validation_vs_plain(val_cfg, batch, dev)
     phase("CLI runner")
     cli = cli_path(batch, dev, val.pop("metric_keys"))
+    phase("ablations and interactive")
+    abl = ablation_path(cfg, batch, dev)
     phase("done")
 
     kernels = [
@@ -1485,6 +1793,7 @@ def main():
     log(json.dumps({"training_path": train}))
     log(json.dumps({"validation_path": val}))
     log(json.dumps({"cli_path": cli}))
+    log(json.dumps({"ablations": abl}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

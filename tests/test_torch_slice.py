@@ -78,7 +78,7 @@ def test_load_jax_params_is_strict(setup):
                                                                    "bias": p["tl_encoder"]["mlp"]["fc0"]["bias"]}}}
     with pytest.raises(ValueError, match="shape"):
         load_jax_params(m, bad)
-    load_jax_params(m, p)  # the goal_manager subtree is skipped by name, everything else consumed
+    load_jax_params(m, p)  # every array consumed, the goal_manager's predictor's too
 
 
 def test_map_encoder(setup):

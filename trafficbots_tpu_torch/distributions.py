@@ -3,8 +3,10 @@
 Counterpart of `trafficbots_tpu/distributions.py` for what the eval rollout,
 the training step and validation use: `DiagGaussian` (the latent
 posterior/prior with `diag_gaus`, and the per-step action distribution),
-`kl_diag_gaussian`, `DummyLatent` (SimNet ablations) and `DestCategorical`
-(the destination head; `repeat` folds the K joint futures into the batch).
+`kl_diag_gaussian`, `DummyLatent` (SimNet ablations), `MultiCategorical`
+and `kl_multi_categorical` (the categorical latent, `dist_type="cat"`) and
+`DestCategorical` (the destination head; `repeat` folds the K joint futures
+into the batch).
 Sampling takes an explicit `torch.Generator`, drawn on the
 generator's device and moved to the distribution's; `deterministic` may be
 a bool or a per-row mask, as in the JAX package. All noise comes from
@@ -93,6 +95,57 @@ def kl_diag_gaussian(p: DiagGaussian, q: DiagGaussian) -> Tensor:
     return 0.5 * torch.sum(var_ratio + t1 - 1.0 - torch.log(var_ratio), dim=-1)
 
 
+def _log_clamped(probs: Tensor) -> Tensor:
+    return torch.log(torch.clamp(probs, min=torch.finfo(probs.dtype).tiny))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiCategorical:
+    """n_cat independent categoricals over n_class classes. A sample is the
+    one-hots flattened to [..., n_cat * n_class]; a random one is
+    straight-through (probs + (one_hot - probs).detach()), the deterministic
+    one the argmax's plain one-hot, as in the JAX package."""
+
+    probs: Tensor  # [..., n_cat, n_class]
+    valid: Optional[Tensor] = None
+
+    @property
+    def n_cat(self) -> int:
+        return self.probs.shape[-2]
+
+    @property
+    def n_class(self) -> int:
+        return self.probs.shape[-1]
+
+    def _one_hot(self, idx: Tensor) -> Tensor:
+        return torch.nn.functional.one_hot(idx, self.n_class).to(self.probs.dtype)
+
+    def sample(self, generator: Optional[torch.Generator] = None, deterministic: DetType = True) -> Tensor:
+        det = self._one_hot(torch.argmax(self.probs, dim=-1))
+        if deterministic is True:
+            out = det
+        else:
+            g = standard_gumbel(self.probs.shape, self.probs.dtype, self.probs.device, generator)
+            one_hot = self._one_hot(torch.argmax(_log_clamped(self.probs) + g, dim=-1))
+            out = _mix_det(det, self.probs + (one_hot - self.probs).detach(), deterministic)
+        return out.reshape(*out.shape[:-2], self.n_cat * self.n_class)
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        one_hot = x.reshape(*x.shape[:-1], self.n_cat, self.n_class)
+        return torch.sum(one_hot * _log_clamped(self.probs), dim=(-2, -1))
+
+    def repeat(self, n: int, axis: int = 0) -> "MultiCategorical":
+        return MultiCategorical(
+            probs=torch.repeat_interleave(self.probs, n, dim=axis),
+            valid=None if self.valid is None else torch.repeat_interleave(self.valid, n, dim=axis),
+        )
+
+
+def kl_multi_categorical(p: MultiCategorical, q: MultiCategorical) -> Tensor:
+    """KL(p || q) summed over the n_cat categoricals."""
+    return torch.sum(p.probs * (_log_clamped(p.probs) - _log_clamped(q.probs)), dim=(-2, -1))
+
+
 @dataclasses.dataclass(frozen=True)
 class DestCategorical:
     """Categorical over map polyline indices; `logits` are normalized
@@ -107,8 +160,7 @@ class DestCategorical:
 
     @classmethod
     def from_probs(cls, probs: Tensor, valid: Optional[Tensor] = None) -> "DestCategorical":
-        tiny = torch.finfo(probs.dtype).tiny
-        return cls(logits=torch.log(torch.clamp(probs, min=tiny)), valid=valid)
+        return cls(logits=_log_clamped(probs), valid=valid)
 
     @property
     def probs(self) -> Tensor:

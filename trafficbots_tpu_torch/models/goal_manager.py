@@ -1,27 +1,35 @@
-"""Goal/destination conditioning: GT goals, goal features, the destination head.
+"""Goal/destination conditioning: GT goals, goal features, the goal heads.
 
 Counterpart of `trafficbots_tpu/models/goal_manager.py`: the GT goal
 (`get_gt_goal`), the per-agent goal feature (`goal_feature`: in "dest" mode
 the map feature of the destination polyline, gathered along the polyline
-axis), and `GoalManager` holding the learned `DestPredictor` ("dest" mode,
-head mode "mlp", the default) that the training loss's goal NLL reads. The
-"goal_xy" `GoalPredictor` and the other head modes belong to the validation
-slice of the port and raise `NotImplementedError`.
+axis; in "goal_xy" mode the goal in the agent's frame), and `GoalManager`
+holding the learned head the training loss's goal NLL reads and the joint
+futures sample: `DestPredictor` in "dest" mode (head modes "mlp", the
+default, "attn", "transformer" and "transformer_aggr") and `GoalPredictor`
+in "goal_xy" mode (a DiagGaussian over the goal's xy).
+
+Attention sites: the GoalPredictor's as2pl (S = agents, T = polylines) is a
+kernel site as the rollout's as2pl is (K1 in eval, K3 in training); the
+"transformer" heads' pl2as (queries = polylines, targets = at most 6
+history steps) and the "attn" head (which needs the weights) run the plain
+core, as the JAX package runs XLA there.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..config import GoalManagerConfig, TransformerConfig
-from ..distributions import DestCategorical
-from ..geometry import pos2local, rad2rot
+from ..distributions import DestCategorical, DiagGaussian
+from ..geometry import pos2global, pos2local, rad2rot
 from ..ops.dropout import DropoutSeeds
-from .modules import MLP, StackedGRU, temporal_aggregate
+from .modules import MLP, Attention, StackedGRU, TransformerBlock, temporal_aggregate, tf_block_kwargs
 
 Tensor = torch.Tensor
+DEST_MODES = ("mlp", "attn", "transformer", "transformer_aggr")
 
 
 def goal_out_dim(cfg: GoalManagerConfig, tf_cfg: TransformerConfig) -> int:
@@ -75,20 +83,49 @@ def dest_type_masks(agent_type: Tensor, map_type: Tensor, map_feature_valid: Ten
     return map_type_mask, m_veh | m_ped | m_cyc
 
 
-class DestPredictor(nn.Module):
-    """Destination (polyline index) head, mode "mlp": a StackedGRU over the
-    agent features (+ residual), the last valid step, then an MLP over every
-    (agent, polyline) pair, fed factored (map feature, agent feature)."""
+class _GruLastValid(nn.Module):
+    """The heads' agent summary: a StackedGRU `gru_as` over the history
+    (+ the residual), then the last valid step -> ([S, A, d], [S, A])."""
 
-    def __init__(
-        self, hidden: int, n_layer_gru: int = 3, use_layernorm: bool = True, res_add_gru: bool = True,
-        detach_features: bool = True, dropout_p: float = 0.0,
-    ):
+    def __init__(self, hidden: int, n_layer_gru: int, res_add_gru: bool, dropout_p: float):
         super().__init__()
         self.res_add_gru = res_add_gru
-        self.detach_features = detach_features
         self.gru_as = StackedGRU(hidden, n_layer_gru, dropout_p=dropout_p) if n_layer_gru > 0 else None
-        self.mlp = MLP(2 * hidden, [hidden, hidden, 1], use_layernorm=use_layernorm, end_layer_activation=False)
+
+    def summary(self, x: Tensor, valid: Tensor, rng: Optional[DropoutSeeds]) -> Tuple[Tensor, Tensor]:
+        y = x
+        if self.gru_as is not None:
+            y, _ = self.gru_as(x, valid, rng=rng)
+            if self.res_add_gru:
+                y = y + x
+        return temporal_aggregate(y, valid, "last_valid")
+
+
+class DestPredictor(_GruLastValid):
+    """Destination (polyline index) head over every (agent, polyline) pair.
+    "mlp": the agent summary and the map feature into an MLP, fed factored
+    (map feature, agent feature). "attn": the agent summary attends to the
+    map under the type masks; the logits are the log of the head-averaged
+    attention probabilities. "transformer" (every second history step) and
+    "transformer_aggr" (the agent summary, one token): each agent's copy of
+    the map [S*A, P, d] attends to that agent's tokens (`pl2as`), then an
+    MLP. Excluded polylines get -inf, rows with none left flat logits."""
+
+    def __init__(self, tf_cfg: TransformerConfig, mode: str = "mlp", n_layer_gru: int = 3,
+                 use_layernorm: bool = True, res_add_gru: bool = True, detach_features: bool = True):
+        if mode not in DEST_MODES:
+            raise NotImplementedError(mode)
+        hidden = tf_cfg.d_model
+        super().__init__(hidden, n_layer_gru if mode != "transformer" else 0, res_add_gru, tf_cfg.dropout_p)
+        self.mode = mode
+        self.detach_features = detach_features
+        if mode == "mlp":
+            self.mlp = MLP(2 * hidden, [hidden, hidden, 1], use_layernorm=use_layernorm, end_layer_activation=False)
+        elif mode == "attn":
+            self.attn = Attention(hidden, tf_cfg.n_head, bias=tf_cfg.bias, dropout_p=tf_cfg.dropout_p)
+        else:
+            self.pl2as = TransformerBlock(n_layer=1, **tf_block_kwargs(tf_cfg))
+            self.mlp = MLP(hidden, [hidden, 1], use_layernorm=use_layernorm, end_layer_activation=False)
 
     def forward(
         self,
@@ -107,14 +144,30 @@ class DestPredictor(nn.Module):
             agent_feature = agent_feature.detach()
             map_feature = map_feature.detach()
         map_type_mask, attn_mask = dest_type_masks(agent_type, map_type, map_feature_valid)
+        S, P, d = map_feature.shape
+        A = agent_feature_valid.shape[2]
         dist_valid = agent_feature_valid.any(dim=1)
-        y = agent_feature
-        if self.gru_as is not None:
-            y, _ = self.gru_as(agent_feature, agent_feature_valid, rng=rng)
-            if self.res_add_gru:
-                y = y + agent_feature
-        tgt, _ = temporal_aggregate(y, agent_feature_valid, "last_valid")  # [S, A, d]
-        logits = self.mlp((map_feature[:, None], tgt[:, :, None]))[..., 0]  # [S, A, P]
+        if self.mode == "mlp":
+            tgt, _ = self.summary(agent_feature, agent_feature_valid, rng)  # [S, A, d]
+            logits = self.mlp((map_feature[:, None], tgt[:, :, None]))[..., 0]  # [S, A, P]
+        elif self.mode == "attn":
+            src, _ = self.summary(agent_feature, agent_feature_valid, rng)
+            _, probs = self.attn(src, tgt=map_feature, tgt_padding_mask=map_type_mask, attn_mask=attn_mask,
+                                 rng=rng, need_weights=True)
+            logits = torch.log(torch.clamp(probs, min=torch.finfo(probs.dtype).tiny))
+        else:
+            if self.mode == "transformer_aggr":
+                tgt, tgt_valid = self.summary(agent_feature, agent_feature_valid, rng)
+                tgt, tgt_valid = tgt.reshape(S * A, 1, d), tgt_valid.reshape(S * A, 1)
+            else:
+                k_skip = 2
+                tgt = agent_feature.transpose(1, 2)[:, :, ::k_skip].reshape(S * A, -1, d)
+                tgt_valid = agent_feature_valid.transpose(1, 2)[:, :, ::k_skip].reshape(S * A, -1)
+            map_rep = map_feature[:, None].expand(S, A, P, d).reshape(S * A, P, d)
+            map_rep_valid = map_feature_valid[:, None].expand(S, A, P).reshape(S * A, P)
+            map_rep = self.pl2as(map_rep, src_padding_mask=~map_rep_valid, tgt=tgt,
+                                 tgt_padding_mask=~tgt_valid, rng=rng)
+            logits = self.mlp(map_rep.reshape(S, A, P, d))[..., 0]
         neg_inf = torch.full_like(logits, float("-inf"))
         logits = torch.where(map_type_mask[:, None, :], neg_inf, logits)
         logits = torch.where(attn_mask, neg_inf, logits)
@@ -124,24 +177,67 @@ class DestPredictor(nn.Module):
         return DestCategorical.from_logits(logits, valid=dist_valid)
 
 
+class GoalPredictor(_GruLastValid):
+    """The goal_xy head: the agent summary attends to the map (`as2pl`, one
+    layer), an MLP gives the goal's mean, moved from the agent's frame at
+    the last history step to the global one when `goal_in_local`, zeroed
+    for agents without history; a learned `log_std` [2] (initialised 2.0)."""
+
+    def __init__(self, tf_cfg: TransformerConfig, goal_in_local: bool = True, n_layer_gru: int = 3,
+                 use_layernorm: bool = True, res_add_gru: bool = True, detach_features: bool = True):
+        hidden = tf_cfg.d_model
+        super().__init__(hidden, n_layer_gru, res_add_gru, tf_cfg.dropout_p)
+        self.goal_in_local = goal_in_local
+        self.detach_features = detach_features
+        self.as2pl = TransformerBlock(n_layer=1, **tf_block_kwargs(tf_cfg))
+        self.mlp_mean = MLP(hidden, [hidden, 2], use_layernorm=use_layernorm, end_layer_activation=False)
+        self.log_std = nn.Parameter(torch.full((2,), 2.0))
+
+    def forward(
+        self,
+        agent_type: Tensor,
+        map_type: Tensor,
+        agent_state: Tensor,  # [S, T, A, 4]
+        agent_feature: Tensor,  # [S, T, A, d]
+        agent_feature_valid: Tensor,  # [S, T, A]
+        map_feature: Tensor,  # [S, P, d]
+        map_feature_valid: Tensor,  # [S, P]
+        tl_feature: Optional[Tensor] = None,
+        tl_feature_valid: Optional[Tensor] = None,
+        rng: Optional[DropoutSeeds] = None,
+    ) -> DiagGaussian:
+        if self.detach_features:
+            agent_feature = agent_feature.detach()
+            map_feature = map_feature.detach()
+        src, src_valid = self.summary(agent_feature, agent_feature_valid, rng)
+        goal_feature = self.as2pl(src, src_padding_mask=~src_valid, tgt=map_feature,
+                                  tgt_padding_mask=~map_feature_valid, rng=rng)
+        goal_mean = self.mlp_mean(goal_feature)
+        if self.goal_in_local:
+            ref_pos = agent_state[:, -1, :, :2][..., None, :]  # [S, A, 1, 2]
+            ref_rot = rad2rot(agent_state[:, -1, :, 2])  # [S, A, 2, 2]
+            goal_mean = pos2global(goal_mean[..., None, :], ref_pos, ref_rot)[..., 0, :]
+        goal_valid = agent_feature_valid.any(dim=1)
+        goal_mean = torch.where(goal_valid[..., None], goal_mean, torch.zeros_like(goal_mean))
+        return DiagGaussian(mean=goal_mean, log_std=self.log_std.expand(goal_mean.shape), valid=goal_valid)
+
+
 class GoalManager(nn.Module):
-    """Holds the goal predictor under the flax name `predictor`."""
+    """Holds the goal head under the flax name `predictor` (none in "dummy"
+    mode)."""
 
     def __init__(self, cfg: GoalManagerConfig, tf_cfg: TransformerConfig):
         super().__init__()
         self.mode = cfg.goal_attr_mode
         gp = cfg.goal_predictor
+        kw = dict(n_layer_gru=gp.n_layer_gru, use_layernorm=gp.use_layernorm, res_add_gru=gp.res_add_gru,
+                  detach_features=gp.detach_features)
         if self.mode == "dest":
-            if gp.mode != "mlp":
-                raise NotImplementedError(f"the ported DestPredictor is the 'mlp' head, not {gp.mode!r}")
-            self.predictor = DestPredictor(
-                tf_cfg.d_model, n_layer_gru=gp.n_layer_gru, use_layernorm=gp.use_layernorm,
-                res_add_gru=gp.res_add_gru, detach_features=gp.detach_features, dropout_p=tf_cfg.dropout_p,
-            )
+            self.predictor = DestPredictor(tf_cfg, mode=gp.mode, **kw)
+        elif self.mode == "goal_xy":
+            self.predictor = GoalPredictor(tf_cfg, goal_in_local=cfg.goal_in_local, **kw)
         else:
             self.predictor = None
 
-    def pred_goal(self, rng: Optional[DropoutSeeds] = None, **features) -> Optional[DestCategorical]:
-        if self.mode == "goal_xy":
-            raise NotImplementedError("the goal_xy GoalPredictor belongs to the validation slice of the port")
+    def pred_goal(self, rng: Optional[DropoutSeeds] = None, **features) -> Optional[Union[DestCategorical, DiagGaussian]]:
         return None if self.predictor is None else self.predictor(rng=rng, **features)

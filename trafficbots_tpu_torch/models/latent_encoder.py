@@ -1,11 +1,17 @@
 """CVAE personality latent encoder (posterior over the episode, prior over history).
 
-Counterpart of `trafficbots_tpu/models/latent_encoder.py`. The as2pl/as2tl
-cross-attention stacks are the policy's own (`shared_transformer_as`):
-they are handed in at construction and held outside this module's
-parameter tree, so each shared weight has exactly one name
-(`transformer_as2pl...`), as in the flax tree. Temporal downsampling by
-`temporal_down_sample_rate` keeps 19 of the posterior's 91 steps.
+Counterpart of `trafficbots_tpu/models/latent_encoder.py`. By default
+(`shared_transformer_as`) the as2pl/as2tl cross-attention stacks are the
+policy's own: they are handed in at construction and held outside this
+module's parameter tree, so each shared weight has exactly one name
+(`transformer_as2pl...`), as in the flax tree; otherwise the encoder holds
+its own `as2pl`/`as2tl` blocks (`n_layer_tf_as2pl`/`n_layer_tf_as2tl`
+layers). Under `shared_post_prior_net` the prior runs the posterior's
+`temporal_post`/`interaction_post`, which then appear once in the tree.
+Temporal downsampling by `temporal_down_sample_rate` keeps 19 of the
+posterior's 91 steps. The distribution heads (`DistEncoder`): "dummy",
+"std_gaus", "diag_gaus" with a constant or a learned (`mlp_log_std`)
+log_std, and "cat" (`mlp_logits`, a softmax over n_class per category).
 """
 from __future__ import annotations
 
@@ -15,33 +21,38 @@ import torch
 from torch import nn
 
 from ..config import AgentInteractionConfig, AgentTemporalConfig, DistEncoderConfig, LatentEncoderConfig, TransformerConfig
-from ..distributions import DiagGaussian, DummyLatent
+from ..distributions import DiagGaussian, DummyLatent, MultiCategorical
 from ..ops.dropout import DropoutSeeds
-from .modules import MLP, MultiAgentTF, StackedGRU, TransformerBlock, temporal_aggregate
+from .modules import MLP, MultiAgentTF, StackedGRU, TransformerBlock, temporal_aggregate, tf_block_kwargs
 
 Tensor = torch.Tensor
-LatentDist = Union[DiagGaussian, DummyLatent]
+LatentDist = Union[DiagGaussian, DummyLatent, MultiCategorical]
 
 
 class DistEncoder(nn.Module):
-    """Aggregated feature -> latent distribution ("dummy", "std_gaus", "diag_gaus")."""
+    """Aggregated feature -> latent distribution ("dummy", "std_gaus",
+    "diag_gaus", "cat")."""
 
     def __init__(self, cfg: DistEncoderConfig, hidden_dim: int, out_dim: int):
         super().__init__()
         self.cfg = cfg
         self.out_dim = out_dim
         dt = cfg.dist_type
-        if dt == "cat":
-            raise NotImplementedError("the categorical latent is not part of the ported slice")
-        if dt in ("std_gaus", "diag_gaus") and cfg.log_std is None:
-            raise NotImplementedError("a learned per-element log_std MLP is not part of the ported slice")
+        if dt not in ("dummy", "std_gaus", "diag_gaus", "cat"):
+            raise NotImplementedError(dt)
+
+        def mlp() -> MLP:
+            return MLP(hidden_dim, [hidden_dim, out_dim], use_layernorm=cfg.use_layernorm, end_layer_activation=False)
+
         if dt == "diag_gaus":
-            self.mlp_mean = MLP(
-                hidden_dim, [hidden_dim, out_dim], use_layernorm=cfg.use_layernorm,
-                end_layer_activation=False,
-            )
-        if dt in ("std_gaus", "diag_gaus"):
-            self.log_std = nn.Parameter(torch.full((out_dim,), float(cfg.log_std)))
+            self.mlp_mean = mlp()
+            if cfg.log_std is None:
+                self.mlp_log_std = mlp()
+        if dt == "cat":
+            assert out_dim % cfg.n_cat == 0
+            self.mlp_logits = mlp()
+        if dt == "std_gaus" or (dt == "diag_gaus" and cfg.log_std is not None):
+            self.log_std = nn.Parameter(torch.full((out_dim,), float(cfg.log_std or 0.0)))
 
     @property
     def skip_forward(self) -> bool:
@@ -49,12 +60,20 @@ class DistEncoder(nn.Module):
 
     def forward(self, x: Tensor, valid: Tensor) -> LatentDist:
         shape = (*valid.shape, self.out_dim)
-        if self.cfg.dist_type == "dummy":
+        dt = self.cfg.dist_type
+        if dt == "dummy":
             return DummyLatent(zeros=x.new_zeros(shape), valid=valid)
-        if self.cfg.dist_type == "std_gaus":
+        if dt == "std_gaus":
             return DiagGaussian(mean=x.new_zeros(shape), log_std=self.log_std.expand(shape), valid=valid)
+        if dt == "cat":
+            logits = self.mlp_logits(x, valid).reshape(*valid.shape, self.cfg.n_cat, -1)
+            return MultiCategorical(probs=torch.softmax(logits, dim=-1), valid=valid)
         mean = self.mlp_mean(x, valid)
-        return DiagGaussian(mean=mean, log_std=self.log_std.expand(mean.shape), valid=valid)
+        if self.cfg.log_std is None:
+            log_std = self.mlp_log_std(x, valid)
+        else:
+            log_std = self.log_std.expand(mean.shape)
+        return DiagGaussian(mean=mean, log_std=log_std, valid=valid)
 
 
 class LatentEncoder(nn.Module):
@@ -68,15 +87,21 @@ class LatentEncoder(nn.Module):
         interaction_first: bool,
         transformer_as2pl: TransformerBlock,
         transformer_as2tl: TransformerBlock,
+        n_layer_tf_as2pl: int = 3,
+        n_layer_tf_as2tl: int = 3,
     ):
         super().__init__()
-        if not cfg.shared_transformer_as or cfg.shared_post_prior_net:
-            raise NotImplementedError("the ported latent encoder shares as2pl/as2tl and has separate post/prior nets")
         self.cfg = cfg
         self.temporal_aggregate_mode = temporal_aggregate_mode
         self.interaction_first = interaction_first
-        # a tuple is not registered: the shared blocks' parameters belong to the policy
-        self._shared = (transformer_as2pl, transformer_as2tl)
+        if cfg.shared_transformer_as:
+            # a tuple is not registered: the shared blocks' parameters belong to the policy
+            self._shared = (transformer_as2pl, transformer_as2tl)
+        else:
+            kw = tf_block_kwargs(tf_cfg)
+            self.as2pl = TransformerBlock(n_layer=n_layer_tf_as2pl, **kw)
+            self.as2tl = TransformerBlock(n_layer=n_layer_tf_as2tl, **kw)
+            self._shared = (self.as2pl, self.as2tl)
         hidden = tf_cfg.d_model
         self.prior_dist = DistEncoder(cfg.latent_prior, hidden, cfg.latent_dim)
         self.post_dist = DistEncoder(cfg.latent_post, hidden, cfg.latent_dim)
@@ -100,7 +125,7 @@ class LatentEncoder(nn.Module):
 
             self.temporal_post = temporal()
             self.interaction_post = interaction()
-            if not self.prior_dist.skip_forward:
+            if not self.prior_dist.skip_forward and not cfg.shared_post_prior_net:
                 self.temporal_prior = temporal()
                 self.interaction_prior = interaction()
 
@@ -147,8 +172,9 @@ class LatentEncoder(nn.Module):
             tgt_padding_mask=~tl_feature_valid.reshape(n_scene * n_step, -1), rng=rng,
         ).reshape(n_scene, n_step, n_agent, d)
 
-        temporal = self.temporal_post if posterior else self.temporal_prior
-        interaction = self.interaction_post if posterior else self.interaction_prior
+        own = posterior or self.cfg.shared_post_prior_net
+        temporal = self.temporal_post if own else self.temporal_prior
+        interaction = self.interaction_post if own else self.interaction_prior
         if self.interaction_first:
             x = interaction(x, agent_feature, agent_feature_valid, allow_fused=False, rng=rng)
             x, _ = temporal(x, agent_feature_valid, rng=rng)

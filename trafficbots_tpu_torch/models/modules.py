@@ -170,6 +170,11 @@ class Attention(nn.Module):
     tensors those wrappers compute their plain versions, so the routes
     agree there. Training attention elsewhere is the plain version, its
     weights' dropout drawn by the K5 entry (`ops.dropout.dropout`).
+
+    `need_weights` returns (out, weights): the attention probabilities
+    averaged over the heads [B, S, T] (after their dropout in training),
+    zeroed on rows with no valid target. It takes the plain core, as the
+    JAX package leaves its kernels when the weights are asked for.
     """
 
     def __init__(self, d_model: int, n_head: int, bias: bool = True, dropout_p: float = 0.0):
@@ -193,6 +198,7 @@ class Attention(nn.Module):
         return_kv: bool = False,
         allow_fused: bool = True,
         rng: Optional[DropoutSeeds] = None,
+        need_weights: bool = False,
     ):
         if return_kv:
             kv_in = src if tgt is None else tgt
@@ -211,6 +217,16 @@ class Attention(nn.Module):
         invalid = attention_invalid(B, S, T, tgt_padding_mask, attn_mask)
         if invalid is None:
             invalid = torch.zeros((1, 1, T), dtype=torch.bool, device=q.device).expand(B, S, T)
+        no_valid_tgt = invalid.all(dim=-1)
+        if need_weights:
+            seed = draw_seed(rng, self.dropout_p)
+            p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)
+            drop = dropout if kernels_enabled() else dropout_plain
+            core, w = attention_train_plain(q, k.to(q.dtype), v.to(q.dtype), invalid, self.n_head, p, seed, 0,
+                                            dropout=drop, need_weights=True)
+            out = self.out_proj(core)
+            zero = no_valid_tgt[..., None]
+            return torch.where(zero, torch.zeros_like(out), out), torch.where(zero, 0.0, w.mean(dim=1))
         if rng is None:
             use_kernel = allow_fused and S >= 32 and T >= 64 and kernels_enabled()
             core = fused_attention_core if use_kernel else attention_core_plain
@@ -224,7 +240,6 @@ class Attention(nn.Module):
                 drop = dropout if kernels_enabled() else dropout_plain
                 core = attention_train_plain(q, k, v, invalid, self.n_head, p, seed, 0, dropout=drop)
             out = self.out_proj(core)
-        no_valid_tgt = invalid.all(dim=-1)
         return torch.where(no_valid_tgt[..., None], torch.zeros_like(out), out)
 
 
@@ -233,7 +248,8 @@ class TransformerCrossAttention(nn.Module):
     on the attention weights (inside `attn`), after the attention block
     (site 0), after the feed-forward activation (1) and after its output (2).
     Each site is one K5 launch with its neighbour: the residual add (0, 2),
-    the ReLU (1)."""
+    the ReLU (1). `need_weights` returns (src, the attention's head-averaged
+    weights, zeroed on padded source rows)."""
 
     def __init__(
         self, d_model: int, n_head: int, d_feedforward: int, act: str = "relu", bias: bool = True,
@@ -261,6 +277,7 @@ class TransformerCrossAttention(nn.Module):
         return_tgt_kv: bool = False,
         allow_fused: bool = True,
         rng: Optional[DropoutSeeds] = None,
+        need_weights: bool = False,
     ):
         if return_tgt_kv:
             return self.attn(self.norm_tgt(tgt), return_kv=True)
@@ -270,8 +287,10 @@ class TransformerCrossAttention(nn.Module):
         tgt_n = self.norm_tgt(tgt) if tgt is not None else None
         src2 = self.attn(
             src2, tgt=tgt_n, tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
-            tgt_kv=tgt_kv, allow_fused=allow_fused, rng=rng,
+            tgt_kv=tgt_kv, allow_fused=allow_fused, rng=rng, need_weights=need_weights,
         )
+        if need_weights:
+            src2, weights = src2
         seed, p = draw_seed(rng, self.dropout_p), self.dropout_p
         src = add_dropout(src, src2, p, seed, 0)
         src2 = self.linear1(self.norm2(src))
@@ -282,12 +301,17 @@ class TransformerCrossAttention(nn.Module):
         src = add_dropout(src, self.linear2(src2), p, seed, 2)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], torch.zeros_like(src), src)
-        return src
+        if not need_weights:
+            return src
+        if src_padding_mask is not None:
+            weights = torch.where(src_padding_mask[..., None], 0.0, weights)
+        return src, weights
 
 
 class TransformerBlock(nn.Module):
     """Stack of `TransformerCrossAttention` layers `layer0..`. Every layer
-    attends to the ORIGINAL `tgt` (k/v are not taken from the evolving src)."""
+    attends to the ORIGINAL `tgt` (k/v are not taken from the evolving src).
+    `need_weights` returns (src, the last layer's attention weights)."""
 
     def __init__(
         self,
@@ -326,18 +350,23 @@ class TransformerBlock(nn.Module):
         return_tgt_kv: bool = False,
         allow_fused: bool = True,
         rng: Optional[DropoutSeeds] = None,
+        need_weights: bool = False,
     ):
         if return_tgt_kv:
             return tuple(l(None, tgt=tgt, return_tgt_kv=True) for l in self.layers())
+        weights = None
         for i, layer in enumerate(self.layers()):
             src = layer(
                 src, src_padding_mask=src_padding_mask, tgt=tgt,
                 tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
                 tgt_kv=None if tgt_kv is None else tgt_kv[i], allow_fused=allow_fused, rng=rng,
+                need_weights=need_weights,
             )
+            if need_weights:
+                src, weights = src
         if self.out_ln is not None:
             src = self.out_ln(src)
-        return src
+        return (src, weights) if need_weights else src
 
 
 def tf_block_kwargs(tf_cfg) -> dict:

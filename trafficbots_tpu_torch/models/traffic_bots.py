@@ -58,6 +58,7 @@ class TrafficBots(nn.Module):
             cfg.latent_encoder, cfg.tf_cfg, cfg.agent_temporal, cfg.agent_interaction,
             cfg.temporal_aggregate_mode, cfg.interaction_first,
             self.transformer_as2pl, self.transformer_as2tl,
+            n_layer_tf_as2pl=cfg.n_layer_tf_as2pl, n_layer_tf_as2tl=cfg.n_layer_tf_as2tl,
         )
         self.agent_temporal = StackedGRU(
             hidden, cfg.agent_temporal.num_layers, kind=cfg.agent_temporal.kind, dropout_p=cfg.agent_temporal.dropout
@@ -130,7 +131,8 @@ class TrafficBots(nn.Module):
         return self.latent_encoder(posterior=posterior, rng=rng, **features)
 
     def pred_goal(self, rng: Optional[DropoutSeeds] = None, **features):
-        """The destination distribution (None in "dummy" goal mode)."""
+        """The goal distribution: a DestCategorical over the polylines
+        ("dest"), a DiagGaussian over xy ("goal_xy"), None ("dummy")."""
         return self.goal_manager.pred_goal(rng=rng, **features)
 
     def precompute_map_kv(self, map_feature: Tensor, training: bool = False):

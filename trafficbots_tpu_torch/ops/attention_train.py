@@ -54,11 +54,12 @@ _BWD_ARGS = (ctypes.c_void_p,) * 5 + _FWD_ARGS
 
 
 def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,
-                          p: float, seed: int, site: int, dropout=dropout_plain) -> Tensor:
+                          p: float, seed: int, site: int, dropout=dropout_plain, need_weights: bool = False):
     """The plain version: q [B,S,D], k/v [B,T,D] fp32, invalid [B,S,T] bool
     -> [B,S,D]; dropout of the weights at (seed, site) when p > 0, by
     `dropout` (the plain mask; the training attention below K3's gate
-    passes the K5 entry, which draws the same bits in one launch)."""
+    passes the K5 entry, which draws the same bits in one launch). With
+    `need_weights` -> (out, the weights [B,H,S,T] after their dropout)."""
     B, S, D = q.shape
     T = k.shape[1]
     dh = D // n_head
@@ -73,7 +74,8 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
     if p > 0:
         attn = dropout(attn, p, seed, site)
     out = torch.einsum("bhst,bthd->bshd", attn, vh).reshape(B, S, D)
-    return torch.where(no_valid[..., None], torch.zeros_like(out), out)
+    out = torch.where(no_valid[..., None], torch.zeros_like(out), out)
+    return (out, attn) if need_weights else out
 
 
 def smem_bytes(T: int, d_head: int) -> int:

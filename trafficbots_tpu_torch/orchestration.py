@@ -1,8 +1,9 @@
 """Episode-level orchestration: model construction, episode encoding, reactive replay.
 
-Counterpart of `trafficbots_tpu/orchestration.py` up to `reactive_replay`,
-`joint_future_pred` and `training_step`, plus `eval_rollout`, the eval main
-path: the counterpart of the program `bench.py` times,
+Counterpart of `trafficbots_tpu/orchestration.py`: `reactive_replay` and
+its step-at-a-time `interactive_replay`, `joint_future_pred` and
+`training_step`, plus `eval_rollout`, the eval main path: the counterpart of
+the program `bench.py` times,
 
     pre_processing -> encode_episode_features -> posterior latent
     -> get_gt_goal -> teacher_forcing_mask -> reactive_replay (91 steps)
@@ -174,15 +175,48 @@ def reactive_replay(
     training: bool = False,
 ) -> RolloutOutput:
     """Scene-reconstruction rollout over steps time_step_sim_start..time_step_end."""
-    device = batch["agent/valid"].device
     return rollout(
-        cfg=cfg, model=model, dyn_params=make_dyn_params(cfg, device),
-        rule_consts=make_rule_constants(cfg, batch, batch.get("agent/goal"), batch.get("agent/dest")),
-        features=build_rollout_features(batch, features), latent_dist=latent_dist,
-        goal=goal, goal_valid=goal_valid, mask_teacher_forcing=mask_teacher_forcing,
-        generator=generator, deterministic_latent=deterministic_latent,
-        deterministic_action=deterministic_action,
+        cfg, model, *_sim_inputs(cfg, batch, features), latent_dist, goal, goal_valid, mask_teacher_forcing,
+        generator, deterministic_latent=deterministic_latent, deterministic_action=deterministic_action,
         step_start=cfg.time_step_sim_start, step_end=cfg.time_step_end, training=training,
+    )
+
+
+def _sim_inputs(cfg: ExperimentConfig, batch: Batch, features: Dict[str, Tensor]):
+    """(dynamics params, rule constants, rollout features): the simulation
+    inputs `reactive_replay` and `interactive_replay` share, built in one
+    place so the two cannot drift apart."""
+    return (
+        make_dyn_params(cfg, batch["agent/valid"].device),
+        make_rule_constants(cfg, batch, batch.get("agent/goal"), batch.get("agent/dest")),
+        build_rollout_features(batch, features),
+    )
+
+
+def interactive_replay(
+    cfg: ExperimentConfig,
+    model: TrafficBots,
+    batch: Batch,
+    features: Dict[str, Tensor],
+    latent_dist,
+    goal,
+    goal_valid,
+    mask_teacher_forcing: Tensor,
+    generator: Optional[torch.Generator] = None,
+    deterministic_latent=True,
+    deterministic_action: bool = True,
+    device="cuda",
+):
+    """The step-at-a-time `reactive_replay`: the same inputs, on `device`
+    (the card unless the caller asks for the CPU), returning a
+    `sim.interactive.InteractiveSim` whose `step()` takes per-step
+    overrides; `.run_to_end().finish()` is `reactive_replay`'s output."""
+    from .sim.interactive import make_interactive_sim
+
+    return make_interactive_sim(
+        cfg, model, *_sim_inputs(cfg, batch, features), latent_dist, goal, goal_valid, mask_teacher_forcing,
+        generator, deterministic_latent=deterministic_latent, deterministic_action=deterministic_action,
+        step_start=cfg.time_step_sim_start, step_end=cfg.time_step_end, device=device,
     )
 
 

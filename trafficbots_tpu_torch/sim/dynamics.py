@@ -97,13 +97,16 @@ def _update_multipathpp(state, acc, yaw_rate, dt: float, disable_neg_spd):
 
 
 def _update_state_integrator(state, action, dt: float):
+    """The vx/vy integrator: gradients flow through the position and the
+    velocity only; heading, speed, acceleration and yaw rate are derived
+    and detached, as in the JAX package."""
     vx, vy = action[:, :, 0], action[:, :, 1]
-    theta = torch.atan2(vy, vx)
-    spd = torch.linalg.norm(action, dim=-1)
+    theta = torch.atan2(vy, vx).detach()
+    spd = torch.linalg.norm(action, dim=-1).detach()
     new_xy = state[..., :2] + action * dt
     new_state = torch.cat([new_xy, theta[..., None], spd[..., None]], dim=-1)
-    acc = (spd - state[:, :, 3]) / dt
-    yaw_rate = cast_rad(theta - state[:, :, 2]) / dt
+    acc = ((spd - state[:, :, 3]) / dt).detach()
+    yaw_rate = (cast_rad(theta - state[:, :, 2]) / dt).detach()
     return new_state, action, acc, yaw_rate
 
 
@@ -119,7 +122,7 @@ def dynamics_update(
     type_f = agent_type.float()
     invalid = ~agent.valid
     action_unbounded = action_dist.sample(generator, deterministic)
-    action_log_prob = action_dist.log_prob(action_unbounded)
+    action_log_prob = action_dist.log_prob(action_unbounded.detach())
     action_log_prob = torch.where(invalid, torch.zeros_like(action_log_prob), action_log_prob)
 
     scale = torch.einsum("nat,td->nad", type_f, params.action_scale)

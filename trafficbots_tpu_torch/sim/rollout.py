@@ -142,8 +142,16 @@ def build_sim(
     step_end: int = 90,
     training: bool = False,
 ):
-    """-> (carry0, body), body(carry, step, rng) -> (carry, StepOutput);
-    `rng` (a DropoutSeeds) is given in training and None in eval.
+    """-> (carry0, body), body(carry, step, rng, mask_override=None,
+    state_override=None) -> (carry, StepOutput); `rng` (a DropoutSeeds) is
+    given in training and None in eval.
+
+    A per-step override (the interactive sim's, `sim.interactive`) replaces
+    this step's teacher-forcing mask with `mask_override` [B, A]; the
+    channels `state_override` gives (state [B,A,4], vel [B,A,2], acc
+    [B,A,1], yaw_rate [B,A,1]) replace this step's GT for the masked agents
+    (the others keep theirs, which is also their reward's target), and the
+    masked agents count as GT-valid, so kill() spares them.
 
     features (batch-major): map_valid [B,P], map_feature [B,P,d], tl_valid
     [B,T_tl,n_tl], tl_feature [B,T_tl,n_tl,d], agent_type [B,A,3],
@@ -212,15 +220,25 @@ def build_sim(
         )
     T_tls = tl_stop[0].shape[1]
 
-    def body(carry: RolloutCarry, step: int, rng: Optional[DropoutSeeds]) -> Tuple[RolloutCarry, StepOutput]:
+    def body(
+        carry: RolloutCarry, step: int, rng: Optional[DropoutSeeds],
+        mask_override: Optional[Tensor] = None, state_override: Optional[Dict[str, Tensor]] = None,
+    ) -> Tuple[RolloutCarry, StepOutput]:
         agent = carry.agent
-        mask_override = mask_teacher_forcing[:, step]
         gt_valid = features["agent_valid"][:, step]
-        gt_state = features["agent_state"][:, step]
-        state_override = {
-            "state": gt_state, "vel": features["vel"][:, step],
+        gt = {
+            "state": features["agent_state"][:, step], "vel": features["vel"][:, step],
             "acc": features["acc"][:, step], "yaw_rate": features["yaw_rate"][:, step],
         }
+        if state_override is not None and mask_override is None:
+            raise ValueError("state_override requires mask_override: the injected states apply only to masked agents")
+        if mask_override is None:
+            mask_override = mask_teacher_forcing[:, step]
+        elif state_override is not None:
+            m = mask_override[..., None]
+            gt = {k: torch.where(m, state_override[k], v) if k in state_override else v for k, v in gt.items()}
+            gt_valid = gt_valid | mask_override
+        gt_state = gt["state"]
         tl_idx = min(max(step - 1, 0), T_tl - 1)
 
         latent_sample, latent_logp = carry.latent_sample, carry.latent_logp
@@ -255,7 +273,7 @@ def build_sim(
             action_gen, deterministic=deterministic_action,
         )
         pred_valid, pred_state = new_agent.valid, new_agent.state
-        new_agent = override_states(new_agent, state_override, mask_override)
+        new_agent = override_states(new_agent, gt, mask_override)
 
         tls_idx = min(max(step, 0), T_tls - 1)
         new_rules, violations = check_rules(
@@ -340,6 +358,11 @@ def rollout(
             else:
                 carry, out = body(carry, step, DropoutSeeds(seed))
         outs.append(out)
+    return stack_outputs(outs, cfg.time_step_current + 1 - step_start)
+
+
+def stack_outputs(outs, step_future_start: int) -> RolloutOutput:
+    """Per-step outputs -> the batch-major RolloutOutput [B, A, n_step, ...]."""
 
     def stack(get):
         return torch.stack([get(o) for o in outs], dim=2)
@@ -353,5 +376,5 @@ def rollout(
         diffbar_rewards_valid=stack(lambda o: o.diffbar_reward_valid),
         latent_log_probs=stack(lambda o: o.latent_log_prob),
         action_log_probs=stack(lambda o: o.action_log_prob),
-        step_future_start=cfg.time_step_current + 1 - step_start,
+        step_future_start=step_future_start,
     )

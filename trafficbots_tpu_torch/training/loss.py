@@ -13,20 +13,31 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import TrainingMetricsConfig
-from ..distributions import DiagGaussian, DummyLatent, kl_diag_gaussian
+from ..distributions import DiagGaussian, DummyLatent, MultiCategorical, kl_diag_gaussian, kl_multi_categorical
 
 Tensor = torch.Tensor
 
 
-def _kl_detached(post: DiagGaussian, prior: DiagGaussian, detach_post: bool) -> Tensor:
+def _kl(post, prior) -> Tensor:
+    if isinstance(post, MultiCategorical):
+        return kl_multi_categorical(post, prior)
+    return kl_diag_gaussian(post, prior)
+
+
+def _kl_detached(post, prior, detach_post: bool) -> Tensor:
+    if isinstance(post, MultiCategorical):
+        if detach_post:
+            return kl_multi_categorical(MultiCategorical(post.probs.detach()), prior)
+        return kl_multi_categorical(post, MultiCategorical(prior.probs.detach()))
     if detach_post:
         return kl_diag_gaussian(DiagGaussian(post.mean.detach(), post.log_std.detach()), prior)
     return kl_diag_gaussian(post, DiagGaussian(prior.mean.detach(), prior.log_std.detach()))
 
 
-def balanced_kl(post: DiagGaussian, prior: DiagGaussian, alpha: float, free_nats: float) -> Tensor:
-    """Dreamer-style two-sided KL with free nats: alpha > 0 trains the prior
-    with weight alpha and the posterior with 1 - alpha."""
+def balanced_kl(post, prior, alpha: float, free_nats: float) -> Tensor:
+    """Dreamer-style two-sided KL with free nats over two DiagGaussians or
+    two MultiCategoricals: alpha > 0 trains the prior with weight alpha and
+    the posterior with 1 - alpha."""
     if alpha > 0:
         e0 = _kl_detached(post, prior, detach_post=True)
         e1 = _kl_detached(post, prior, detach_post=False)
@@ -34,7 +45,7 @@ def balanced_kl(post: DiagGaussian, prior: DiagGaussian, alpha: float, free_nats
             e0 = torch.clamp(e0, min=free_nats)
             e1 = torch.clamp(e1, min=free_nats)
         return alpha * e0 + (1.0 - alpha) * e1
-    err = kl_diag_gaussian(post, prior)
+    err = _kl(post, prior)
     if free_nats > 0:
         err = torch.clamp(err, min=free_nats)
     return err
@@ -48,7 +59,7 @@ def training_loss(
     override_masks: Tensor,  # [B, A, S]
     agent_role: Tensor,  # [B, A, 3]
     goal_valid: Optional[Tensor],
-    goal_pred,  # DestCategorical | None
+    goal_pred,  # DestCategorical | DiagGaussian (goal_xy) | None
     goal_gt: Optional[Tensor],
     latent_post,
     latent_prior,
