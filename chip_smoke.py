@@ -93,7 +93,31 @@ its own lines:
      memory and one training step; `orchestration.interactive_replay` run
      to the end against reactive_replay bitwise, a 20-step prefix, two
      agents forced at one step, the host's ms a step; one `ablations` line;
-  9. the kernels line, the card line, and as the last line
+  9. data parallelism (`parallel/mesh.py`) at full width on the same 8
+     scenes, a global batch of 8, 4 scenes a rank: (a) an NCCL group of one
+     rank in this process (init, an all-reduce of a CUDA tensor, destroy)
+     and the backend each layout gets; two ranks sharing the card, started
+     as OS processes by `parallel.launch` and joining through
+     `parallel.mesh.init_from_env` (gloo, printed by each), each running
+     (b) one data-parallel `make_train_step` with K3f/K3b/K4f/K4b/K5
+     counted (set to 0 just before, read just after): both ranks' updated
+     parameters and Adam states equal to the bit, and equal to the bit to
+     this process taking each half alone with that rank's `rank_seed`,
+     summing the two gradients and halving them, then the clip and Adam;
+     (c) one `Validator.step` (K1 and K2 counted) and `epoch_end`: the
+     reactive replay and the K = 0 joint future held against this
+     process's step on the 8 scenes over HELD_STEPS (the one-ulp nudge
+     beside them), each rank's noise its rows of this process's draws to
+     the bit, the metrics readings; (d) `run.main` on both ranks: fit A (2
+     epochs), fit B (1 epoch, then a resume to 2) with B's `last` equal to
+     A's to the bit, `test` (one prediction per scene, each scene id once,
+     in each of the K files); only rank 0 wrote under the run directories
+     (every rank's writes are recorded) and printed the epoch lines; one
+     `data_parallel` line with the launch counts per rank, the backend,
+     each rank's step times and peak memory beside this process's (two
+     ranks on one card: readings, not a scaling figure) and the phase's
+     seconds;
+ 10. the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero before the last line. Without CUDA the
@@ -118,6 +142,11 @@ against phase 6's), with its JSON line and no last line.
 
 builds every kernel and runs only phase 8, with its JSON line and no last
 line.
+
+    python3 chip_smoke.py --dp
+
+builds the kernels of the training and validation paths (K1-K5) and runs
+only phase 9, with its JSON line and no last line.
 """
 from __future__ import annotations
 
@@ -1677,6 +1706,347 @@ def ablation_path(cfg, batch, dev):
     return out
 
 
+# ------------------------------------------------------------------ data parallelism
+
+# two ranks share the one card through gloo (`parallel.mesh.init_from_env`
+# picks it: 2 local ranks, 1 card), each with 4 of the 8 scenes; the phase
+# holds the data-parallel step to the bit against this process doing the
+# same work alone, and the 2-rank CLI's resume to the bit against its
+# uninterrupted fit
+DP_RANKS = 2
+DP_TRAIN_SEED = 700
+DP_VAL_SEED = 701
+DP_TIMEOUT_S = 420
+DP_KERNELS = ("fused_attention", "node_encoder", "dropout", "attention_train", "node_encoder_train")
+DP_COUNTERS = dict(TRAIN_COUNTERS, K1=(FA, "LAUNCHES"), K2=(NE, "LAUNCHES"))
+
+
+def nccl_world_size_1(dev):
+    """a: an NCCL group of one rank on the card, in this process: init, an
+    all-reduce of a CUDA tensor, destroy; and the backend each layout gets."""
+    import datetime
+
+    import torch.distributed as dist
+    from trafficbots_tpu_torch.parallel import launch as LA
+    from trafficbots_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{LA.free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        x = torch.arange(1024, dtype=torch.float32, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+        require(backend == "nccl" and torch.equal(x, torch.arange(1024, dtype=torch.float32, device=dev)),
+                f"NCCL at world size 1: backend {backend}, the all-reduce changed the tensor")
+    finally:
+        dist.destroy_process_group()
+    n_card = torch.cuda.device_count()
+    layouts = {f"{n} local ranks on {n_card} card(s)": mesh.choose_backend("cuda", n) for n in (n_card, n_card + 1)}
+    require(list(layouts.values()) == ["nccl", "gloo"], f"backend choice: {layouts}")
+    log(f"dp: NCCL at world size 1 initialised, all-reduced a CUDA tensor and was destroyed in "
+        f"{time.perf_counter() - t0} s; backends by layout {layouts}")
+    return dict(nccl_world_size_1=True, seconds=time.perf_counter() - t0, backends=layouts)
+
+
+def dp_batch(n_rank, r):
+    cfg = ExperimentConfig()
+    batch = synthetic_episode_batch(cfg.data, n_scene=N_SCENE, seed=0, n_valid_pl=768, n_valid_agent=40)
+    per = N_SCENE // n_rank
+    return cfg, {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def recorded_noise(seen):
+    """Record every noise tensor `distributions` hands out (the validation
+    step's goal Gumbels and latent normals)."""
+    from trafficbots_tpu_torch import distributions as DI
+
+    saved = DI.standard_gumbel, DI.standard_normal
+
+    def recorder(fn):
+        def draw(*a, **kw):
+            x = fn(*a, **kw)
+            seen.append(x.detach().cpu())
+            return x
+        return draw
+
+    DI.standard_gumbel, DI.standard_normal = recorder(saved[0]), recorder(saved[1])
+    try:
+        yield
+    finally:
+        DI.standard_gumbel, DI.standard_normal = saved
+
+
+def _state_cpu(model, opt):
+    """Copies of the parameters and Adam's state on the host."""
+    adam = opt.adam.state_dict()["state"]
+    return dict(params={n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()},
+                adam={i: {k: (v.to("cpu", copy=True) if isinstance(v, torch.Tensor) else v) for k, v in st.items()}
+                      for i, st in adam.items()})
+
+
+def dp_rank(cli_dir):
+    """One rank of phase 9 (started by `parallel.launch`, joining through
+    `parallel.mesh.init_from_env`): b, one data-parallel training step with
+    the launch counts set to 0 just before and read just after, then one
+    more timed; c, one Validator.step (counted) and epoch_end, then one more
+    timed; d, run.main fit A, fit B, B's resume and test on both ranks."""
+    from trafficbots_tpu_torch import run as RUN
+    from trafficbots_tpu_torch.parallel import launch as LA
+    from trafficbots_tpu_torch.parallel import mesh
+
+    created = mesh.init_from_env("cuda")
+    try:
+        dev = O.resolve_device("cuda")
+        n_rank, r = mesh.world_size(), mesh.rank()
+        cfg, local = dp_batch(n_rank, r)
+        out = dict(rank=r, world=n_rank, backend=torch.distributed.get_backend(), device=torch.cuda.current_device())
+
+        # b: the data-parallel training step
+        model = O.make_model(cfg, device=dev, seed=0)
+        opt = TT.make_optimizer(cfg, model)
+        step = TT.make_train_step(cfg, model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(TRAIN_COUNTERS)
+        t0 = time.perf_counter()
+        m = step(local, seed=DP_TRAIN_SEED)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        out["train_launches"] = read_counts(TRAIN_COUNTERS)
+        out["train_state"] = _state_cpu(model, opt)
+        out["train_metrics"] = {k: v.item() for k, v in m.items()}
+        t0 = time.perf_counter()
+        step(local, seed=DP_TRAIN_SEED + 1)
+        torch.cuda.synchronize()
+        out["train_step_ms"] = dict(first=1e3 * first_s, second=1e3 * (time.perf_counter() - t0))
+        out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+        # c: the sharded Validator
+        model = O.make_model(cfg, device=dev, seed=0)
+        val = EL.Validator(cfg, model, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        seen = []
+        zero_counts(DP_COUNTERS)
+        t0 = time.perf_counter()
+        with recorded_noise(seen):
+            res = val.step(local, torch.Generator().manual_seed(DP_VAL_SEED))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        out["val_launches"] = read_counts(DP_COUNTERS)
+        out["val_metrics"] = val.epoch_end()
+        out["val_out"] = {k: res[k].cpu() for k in ("buf_rr_preds", "buf_rr_valid", "buf_jf_preds", "buf_jf_valid",
+                                                     "goal_sample")}
+        out["val_noise"] = seen
+        t0 = time.perf_counter()
+        val.step(local, torch.Generator().manual_seed(DP_VAL_SEED + 1))
+        torch.cuda.synchronize()
+        out["val_step_s"] = dict(first=first_s, second=time.perf_counter() - t0)
+        out["val_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del model, val, res
+        torch.cuda.empty_cache()
+
+        # d: the CLI on both ranks
+        a, b = os.path.join(cli_dir, "a"), os.path.join(cli_dir, "b")
+        with LA.audit_writes(cli_dir) as written:
+            zero_counts(CLI_COUNTERS)
+            t0 = time.perf_counter()
+            RUN.main(["action=fit", f"run_dir={a}", "n_epochs=2"] + CLI_ARGS)
+            torch.cuda.synchronize()
+            out["cli_fit_s"] = time.perf_counter() - t0
+            out["cli_launches"] = read_counts(CLI_COUNTERS)
+            RUN.main(["action=fit", f"run_dir={b}", "n_epochs=1"] + CLI_ARGS)
+            RUN.main(["action=fit", f"run_dir={b}", "n_epochs=2", "resume=last"] + CLI_ARGS)
+            out["cli_test_paths"] = RUN.main(["action=test", f"run_dir={b}", "resume=best"] + CLI_ARGS)["submission"]
+        out["cli_written"] = written
+        out["cli_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+    finally:
+        if created:
+            mesh.destroy()
+
+
+def dp_emulation(dev):
+    """b's reference: this process alone takes each rank's half with that
+    rank's seed (`mesh.rank_seed`), sums the two gradients and halves them,
+    then clips and steps Adam, as the ranks do after their all-reduce."""
+    from trafficbots_tpu_torch.parallel import mesh
+
+    cfg, _ = dp_batch(1, 0)
+    model = O.make_model(cfg, device=dev, seed=0)
+    opt = TT.make_optimizer(cfg, model)
+    grads, secs, losses = [], [], []
+    for r in range(DP_RANKS):
+        _, local = dp_batch(DP_RANKS, r)
+        opt.adam.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        gen = torch.Generator().manual_seed(mesh.rank_seed(DP_TRAIN_SEED, r, DP_RANKS))
+        loss, _ = O.training_step(cfg, model, to_torch(local, dev), gen, current_epoch=0)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        grads.append({n: (p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in model.named_parameters()})
+    for n, p in model.named_parameters():
+        p.grad = (grads[0][n] + grads[1][n]) / 2
+    opt.step()
+    torch.cuda.synchronize()
+    return _state_cpu(model, opt), dict(half_step_s=secs, loss=sum(losses) / DP_RANKS)
+
+
+def state_diff(a, b):
+    """The parameters and Adam state entries that differ between two
+    states, and the largest absolute gap."""
+    diff = [("params", k) for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    gap = max(((a["params"][k] - b["params"][k]).abs().max().item() for _, k in diff), default=0.0)
+    require(a["adam"].keys() == b["adam"].keys(), "Adam's states hold other parameters")
+    for i, st in a["adam"].items():
+        for k, v in st.items():
+            w = b["adam"][i][k]
+            if not (torch.equal(v, w) if isinstance(v, torch.Tensor) else v == w):
+                diff.append(("adam", i, k))
+    return diff, gap
+
+
+def dp_validation_reference(dev):
+    """c's reference: one process's Validator.step on the 8 scenes, same
+    weights and generator seed, the noise recorded; and its device step on
+    the one-ulp map nudge (the readings' yardstick)."""
+    cfg, batch = dp_batch(1, 0)
+    model = O.make_model(cfg, device=dev, seed=0)
+    val = EL.Validator(cfg, model, device=dev)
+    seen = []
+    t0 = time.perf_counter()
+    with recorded_noise(seen):
+        out = val.step(batch, torch.Generator().manual_seed(DP_VAL_SEED))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    metrics = val.epoch_end()
+    out_nudged = EL.validation_device_step(cfg, model, to_torch(nudged(batch), dev),
+                                           torch.Generator().manual_seed(DP_VAL_SEED))
+    return out, out_nudged, seen, metrics, secs
+
+
+def dp_path(dev, one_process=None):
+    """Phase 9: a, b, c and d (see dp_rank), each rank held against the
+    others and against this process; `one_process` holds phase 5's and 6's
+    timings of this call for the readings."""
+    import tempfile
+
+    from trafficbots_tpu_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    result = dict(note="two ranks share one card through gloo: the times are readings, not a scaling figure")
+    result["nccl"] = nccl_world_size_1(dev)
+    tmp = tempfile.TemporaryDirectory(prefix="tb_dp_")
+    t0 = time.perf_counter()
+    outs, ranks = launch("chip_smoke:dp_rank", DP_RANKS, dict(cli_dir=tmp.name), timeout_s=DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        log(f"dp: rank {r}'s output (tail):\n" + "\n".join(out.strip().splitlines()[-8:]))
+    for r, res in enumerate(ranks):
+        require(res["rank"] == r and res["world"] == DP_RANKS and res["backend"] == "gloo",
+                f"rank {r}: rank {res['rank']} of {res['world']}, backend {res['backend']}")
+        require("backend gloo" in outs[r], f"rank {r} did not print its backend")
+
+    # b: bitwise against each other and against the emulation
+    emu_state, emu = dp_emulation(dev)
+    diffs = {}
+    for r in range(1, DP_RANKS):
+        diffs[f"rank {r} vs rank 0"] = state_diff(ranks[r]["train_state"], ranks[0]["train_state"])
+    diffs["rank 0 vs one process"] = state_diff(ranks[0]["train_state"], emu_state)
+    for what, (d, gap) in diffs.items():
+        log(f"dp: train step, {what}: {len(d)} entries differ (parameters and Adam), largest parameter gap {gap}")
+        require(not d, f"dp train step, {what}: {len(d)} entries differ, e.g. {d[:5]}, largest gap {gap}")
+    for r, res in enumerate(ranks):
+        for k, n in res["train_launches"].items():
+            require(n > 0, f"rank {r}'s training step did not launch {k}")
+    loss = ranks[0]["train_metrics"]["loss"]
+    require(all(res["train_metrics"]["loss"] == loss for res in ranks) and math.isfinite(loss),
+            f"the ranks' reduced losses {[res['train_metrics']['loss'] for res in ranks]}")
+    log(f"dp: reduced loss {loss}, the emulation's mean of the halves {emu['loss']}")
+
+    # c: the sharded Validator against one process's on the 8 scenes
+    ref, ref_nudged, ref_noise, ref_metrics, ref_s = dp_validation_reference(dev)
+    per = N_SCENE // DP_RANKS
+    for r, res in enumerate(ranks):
+        require(res["val_launches"]["K1"] > 0 and res["val_launches"]["K2"] > 0,
+                f"rank {r}'s validation step did not launch K1 and K2: {res['val_launches']}")
+        require(len(res["val_noise"]) == len(ref_noise) > 0, f"rank {r} drew {len(res['val_noise'])} noise tensors")
+        for i, (x, y) in enumerate(zip(res["val_noise"], ref_noise)):
+            k = y.shape[0] // DP_RANKS
+            require(torch.equal(x, y[r * k:(r + 1) * k]), f"rank {r}'s noise draw {i} is not its rows of one process's")
+    held = {}
+    for what, key_p, key_v, ks in (("reactive replay", "buf_rr_preds", "buf_rr_valid", None),
+                                   ("joint future K=0", "buf_jf_preds", "buf_jf_valid", slice(0, 1))):
+        got = [ranks[r]["val_out"] for r in range(DP_RANKS)]
+        p = torch.cat([g[key_p] for g in got]).to(dev)
+        v = torch.cat([g[key_v] for g in got]).to(dev)
+        sides = [(p, v), (ref[key_p], ref[key_v]), (ref_nudged[key_p], ref_nudged[key_v])]
+        if ks is not None:
+            sides = [(x[:, :, ks].reshape(x.shape[0], -1, *x.shape[3:]), y[:, :, ks].reshape(y.shape[0], -1, y.shape[-1]))
+                     for x, y in sides]
+        held[what] = compare_rollouts(*(SimpleNamespace(preds=x, valid=y) for x, y in sides),
+                                      f"dp validation {what}, 2 ranks vs one process")
+    keys = ("val/loss", "joint_future_pred/mean_average_precision", "reactive_replay/err/pos_meter")
+    for r, res in enumerate(ranks):
+        require(res["val_metrics"]["val/loss"] == ranks[0]["val_metrics"]["val/loss"], "the ranks' val/loss differ")
+        require(math.isfinite(res["val_metrics"]["val/loss"]), f"rank {r}: val/loss {res['val_metrics']['val/loss']}")
+    log(f"dp: validation metrics (readings), 2 ranks {[ranks[0]['val_metrics'][k] for k in keys]}, one process "
+        f"{[ref_metrics[k] for k in keys]}; goal samples differing "
+        f"{int((torch.cat([res['val_out']['goal_sample'] for res in ranks]) != ref['goal_sample'].cpu()).sum())}"
+        f" of {ref['goal_sample'].numel()}")
+
+    # d: the CLI on 2 ranks
+    a, b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
+    (sa, _), (sb, _) = _state(a), _state(b)
+    require(sa["epoch"] == sb["epoch"] == 2 and sa["global_step"] == sb["global_step"] == 4,
+            f"dp cli: epoch / global_step: A {sa['epoch']} / {sa['global_step']}, B {sb['epoch']} / {sb['global_step']}")
+    require(torch.equal(sa["rng"], sb["rng"]), "dp cli: the generator states of A and B differ")
+    require(sa["opt_state"]["schedule"] == sb["opt_state"]["schedule"], "dp cli: the LR schedules' states differ")
+    adam_a, adam_b = sa["opt_state"]["adam"]["state"], sb["opt_state"]["adam"]["state"]
+    moments = [(i, k) for i, st in adam_a.items() for k, v in st.items() if not torch.equal(v, adam_b[i][k])]
+    diff, gap = params_gap(sa, sb)
+    log(f"dp cli: resumed 2-rank fit (B) vs uninterrupted 2-rank fit (A): {len(diff)} of {len(sa['params'])} "
+        f"parameters and {len(moments)} Adam entries differ, largest gap {gap}")
+    require(not diff and not moments, f"dp cli: the resumed fit differs: {diff[:5]} {moments[:5]}")
+    require(ranks[1]["cli_written"] == [], f"rank 1 wrote {ranks[1]['cli_written'][:10]}")
+    w0 = set(ranks[0]["cli_written"])
+    for name in ("a/config.json", "a/metrics.jsonl", "a/ckpt/last/state.pt", "a/ckpt/best/state.pt",
+                 "a/ckpt/meta.json", "b/ckpt/last/state.pt"):
+        require(name in w0, f"rank 0 did not write {name}")
+    require(any(p.startswith("b/submission/") for p in w0), "rank 0 wrote no submission")
+    require("epoch 1 val/loss=" in outs[0] and "epoch 1 val/loss=" not in outs[1], "the epoch line's rank gating")
+    require([r["phase"] for r in _records(a, "val")] == ["val", "val"], "A's metrics.jsonl: not one process's records")
+    for k in CLI_KERNELS:
+        require(all(res["cli_launches"][k] > 0 for res in ranks), f"the 2-rank CLI fit did not launch {k}")
+    require(ranks[1]["cli_test_paths"] == [] and len(ranks[0]["cli_test_paths"]) == ExperimentConfig().n_joint_future,
+            f"test's submissions: {[res['cli_test_paths'] for res in ranks]}")
+    for path in ranks[0]["cli_test_paths"]:
+        scenarios = submission_scenarios(path)
+        ids = {wire_fields(sc)[0][1] for sc in scenarios}
+        require(len(scenarios) == len(ids) == N_SCENE, f"{path}: {len(scenarios)} predictions, {len(ids)} scenario "
+                                                       f"ids for {N_SCENE} scenes")
+    tmp.cleanup()
+
+    result.update(
+        backend="gloo", ranks=DP_RANKS, scenes_per_rank=per, launch_s=ranks_s,
+        train_launches=[res["train_launches"] for res in ranks], val_launches=[res["val_launches"] for res in ranks],
+        cli_launches=[res["cli_launches"] for res in ranks],
+        train_bitwise=dict(ranks_equal=True, equal_to_one_process=True, params=len(emu_state["params"])),
+        train_step_ms=[res["train_step_ms"] for res in ranks], val_step_s=[res["val_step_s"] for res in ranks],
+        cli_fit_s=[res["cli_fit_s"] for res in ranks],
+        one_process=dict(half_step_s=emu["half_step_s"], val_step_s_8_scenes_first_call=ref_s, **(one_process or {})),
+        peak_gib=[dict(train=res["train_peak_gib"], val=res["val_peak_gib"], cli=res["cli_peak_gib"]) for res in ranks],
+        validation_held=held, cli_resume_bitwise=True, phase_s=time.perf_counter() - t_phase, card=card_line(),
+    )
+    log(f"dp: phase 9 in {result['phase_s']} s (the ranks {ranks_s} s)")
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs one NVIDIA GPU")
@@ -1689,10 +2059,11 @@ def main():
 
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
-             ("--ablations",): KERNEL_SOURCES}
+             ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
-        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli or --ablations)")
+        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations "
+                 "or --dp)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -1710,6 +2081,11 @@ def main():
     if mode == ("--cli",):  # the CLI runner alone (its metric keys not held against the validation phase's)
         phase("CLI runner")
         log(json.dumps({"cli_path": cli_path(batch, dev, None)}))
+        phase("done")
+        return
+    if mode == ("--dp",):  # data parallelism alone
+        phase("data parallelism")
+        log(json.dumps({"data_parallel": dp_path(dev)}))
         phase("done")
         return
     if mode == ("--ablations",):  # the ablation models and the interactive sim alone
@@ -1756,6 +2132,8 @@ def main():
     cli = cli_path(batch, dev, val.pop("metric_keys"))
     phase("ablations and interactive")
     abl = ablation_path(cfg, batch, dev)
+    phase("data parallelism")
+    dp = dp_path(dev, dict(train_step_ms_8_scenes=train["train_step_ms"], val_step_s_8_scenes_hybrid=val["step_s"]))
     phase("done")
 
     kernels = [
@@ -1794,6 +2172,7 @@ def main():
     log(json.dumps({"validation_path": val}))
     log(json.dumps({"cli_path": cli}))
     log(json.dumps({"ablations": abl}))
+    log(json.dumps({"data_parallel": dp}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -75,6 +75,6 @@ def test_port_has_the_slice_modules():
         "csrc/philox.cuh", "csrc/dropout.cu", "csrc/attention_train.cu", "csrc/node_encoder_train.cu",
         "run.py", "training/checkpoint.py", "utils/logging.py", "eval/native_metrics.py", "native/motion_metrics.cc",
         "data/synthetic_scenario.py", "data/packing.py", "data/womd_adapter.py", "data/bucketing.py",
-        "data/h5_loader.py",
+        "data/h5_loader.py", "parallel/mesh.py", "parallel/launch.py", "parallel/dryrun.py",
     ):
         assert (PORT / rel).is_file(), rel

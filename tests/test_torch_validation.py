@@ -318,9 +318,7 @@ def test_submissions_from_the_validator_and_the_test_step(val, tmp_path):
     assert [len(p) for p in sub.scenario_payloads.values()] == [1, 1]
 
 
-def test_validator_refuses_a_mesh_and_missing_cuda(val):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        TE.Validator(val["cfg"], val["tmodel"], mesh=object(), device="cpu")
+def test_validator_refuses_missing_cuda(val):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -46,8 +46,11 @@ def scene_centric(batch: Batch, n_step_hist: int, training: bool) -> Batch:
         out[f"sc/agent_{k}"] = batch[f"{prefix}agent/{k}"]
 
     if "agent/valid" in batch:
+        # the test split has no future: no command, goal or destination
+        # (the JAX package's test step fails on an h5 test batch here)
         for k in ("cmd", "goal", "dest"):
-            out[f"gt/{k}"] = batch[f"agent/{k}"]
+            if f"agent/{k}" in batch:
+                out[f"gt/{k}"] = batch[f"agent/{k}"]
         for k in ("valid", "spd", "pos", "vel", "yaw_bbox"):
             out[f"gt/{k}"] = batch[f"agent/{k}"]
         out["gt/state"] = torch.cat([out["gt/pos"], out["gt/yaw_bbox"], out["gt/spd"]], dim=-1)

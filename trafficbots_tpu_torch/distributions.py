@@ -15,12 +15,19 @@ the logits plus Gumbel noise, as `jax.random.categorical` draws it). The
 generator's numbers differ from jax.random's, so stochastic paths are
 compared by distribution or with the JAX draws injected through those two
 functions, never sample by sample.
+
+Under data parallelism a validation or test step runs inside
+`global_batch_draws(rank, world)`: each rank draws the global batch's noise
+from the replicated generator and keeps its own rows, so rank r samples
+what one process would sample for rank r's scenes (JAX draws the global
+batch's noise from one key under GSPMD).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -29,11 +36,36 @@ DetType = Union[bool, Tensor]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
+_RANK_ROWS: Optional[Tuple[int, int]] = None  # (rank, world) inside global_batch_draws
+
+
+@contextlib.contextmanager
+def global_batch_draws(rank: int, world: int):
+    """Inside the block a draw of shape [n, ...] draws [n * world, ...] and
+    keeps rows [rank * n, (rank + 1) * n): the rank's scenes' rows of the
+    global batch (batch-major rows, and the joint futures fold K
+    scene-major, so a rank's rows are contiguous). With one rank, nothing
+    changes."""
+    global _RANK_ROWS
+    saved, _RANK_ROWS = _RANK_ROWS, ((rank, world) if world > 1 else None)
+    try:
+        yield
+    finally:
+        _RANK_ROWS = saved
+
 
 def _draw(fn, shape, dtype, device, generator: Optional[torch.Generator]) -> Tensor:
     """Noise drawn on the generator's device, moved to `device`."""
     gen_device = device if generator is None else generator.device
-    return fn(shape, dtype=dtype, device=gen_device, generator=generator).to(device)
+    if _RANK_ROWS is None:
+        return fn(shape, dtype=dtype, device=gen_device, generator=generator).to(device)
+    rank, world = _RANK_ROWS
+    shape = tuple(shape)
+    if not shape:
+        raise ValueError("a draw under global_batch_draws needs a leading batch axis")
+    n = shape[0]
+    rows = fn((n * world, *shape[1:]), dtype=dtype, device=gen_device, generator=generator)
+    return rows[rank * n:(rank + 1) * n].to(device)
 
 
 def standard_normal(shape, dtype, device, generator: Optional[torch.Generator] = None) -> Tensor:

@@ -3,8 +3,8 @@
 A copy of `trafficbots_tpu/eval/submission.py`, kept by the port instead of
 importing the JAX package. Differences: the rotation back to the global
 frame uses the port's `geometry` on CPU tensors (the JAX class calls the
-JAX geometry); `sync()` is a no-op, single-process, until the port's
-data-parallel slice brings the multi-process union; the official
+JAX geometry); `sync()` unions the ranks' payloads through the
+port's `parallel.mesh.allgather_pyobj`; the official
 waymo_open_dataset protos are not looked for (the JAX class imports them
 and then never uses them): the wire encoder writes the files.
 tests/test_torch_eval.py holds the bytes against the JAX writer.
@@ -87,6 +87,7 @@ class SubWOMD:
         self.scenario_payloads: Dict[int, List[bytes]] = {
             k: [] for k in range(1, self.k_futures + 1)
         }
+        self._synced = False
 
     def add_to_submissions(
         self,
@@ -147,8 +148,19 @@ class SubWOMD:
                 self.scenario_payloads[n_K].append(sp.serialize())
 
     def sync(self) -> None:
-        """Single-process: every payload is already here. The multi-process
-        union belongs to the data-parallel slice."""
+        """The union of every rank's payloads, in rank order, so rank 0's
+        `save_sub_files` writes the whole submission. Once: a second call
+        gathers nothing. With one process, a no-op."""
+        if not self.activate or self._synced:
+            return
+        from ..parallel.mesh import allgather_pyobj
+
+        self._synced = True
+        merged: Dict[int, List[bytes]] = {k: [] for k in self.scenario_payloads}
+        for payloads in allgather_pyobj(self.scenario_payloads):
+            for k, lst in payloads.items():
+                merged[k].extend(lst)
+        self.scenario_payloads = merged
 
     def save_sub_files(self, out_dir: str = ".") -> List[str]:
         if not self.activate:

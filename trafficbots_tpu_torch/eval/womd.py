@@ -2,11 +2,11 @@
 
 A copy of `trafficbots_tpu/eval/womd.py` (host-side numpy), kept by the
 port instead of importing the JAX package; tests/test_torch_eval.py holds
-the two to the same numbers. Two differences: `use_native=True` (the
+the two to the same numbers. One difference: `use_native=True` (the
 default, as in the JAX package) takes the port's native engine
 (`eval.native_metrics`) and raises when it cannot be built, where the JAX
-class falls back to numpy quietly; `sync()` is a no-op, single-process,
-until the port's data-parallel slice brings the multi-process union.
+class falls back to numpy quietly. `sync()` unions the ranks'
+accumulated inputs through the port's `parallel.mesh.allgather_pyobj`.
 
 The predict-agents-first permutation of each scene is a stable argsort, the
 same layout as the upstream TrafficBots' per-scene boolean indexing.
@@ -63,13 +63,24 @@ class WOMDMetrics:
             self.engine = NativeMotionMetrics(config)
         else:
             self.engine = MotionMetrics(config)
+        self._synced = False
 
     def reset(self):
         self.engine.reset()
+        self._synced = False
 
     def sync(self) -> None:
-        """Single-process: every scenario is already here. The multi-process
-        union of the accumulated inputs belongs to the data-parallel slice."""
+        """The union of every rank's accumulated metric inputs, in rank
+        order, on every rank (each rank packed its own rows, pad rows
+        dropped, so the lists are ragged), so the compute sees every
+        scenario. Once an epoch: a second call gathers nothing. With one
+        process, a no-op."""
+        if not self.enabled or self._synced:
+            return
+        from ..parallel.mesh import allgather_pyobj
+
+        self._synced = True
+        self.engine._batches = [b for batches in allgather_pyobj(self.engine._batches) for b in batches]
 
     def update(
         self, batch: Dict[str, np.ndarray], pred_traj: np.ndarray, pred_score: Optional[np.ndarray] = None

@@ -11,8 +11,14 @@ the host, and `epoch_end` computes the metrics, with `val/loss` =
 the test action's counterparts (no GT: the history stands in for it).
 
 `Validator` takes the native WOMD metric engine by default, as the JAX
-package does. Left for later slices: the sharded, multi-process validation
-(`mesh` raises) and the media rendering (`render_validation_media`).
+package does. Data parallel (a process group of more than one rank, JAX's
+sharded Validator): each rank steps on its slice of the global batch,
+drawing the global batch's noise and keeping its rows
+(`distributions.global_batch_draws`); `epoch_end` unions every rank's
+metric sums and adds them in rank order, the same way on every rank, and
+unions the WOMD inputs and the submission payloads before the compute, so
+every rank computes the same metrics. Left for a later slice: the media rendering
+(`render_validation_media`).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from . import distributions as D
 from . import orchestration as O
 from .config import ExperimentConfig
 from .data.preprocessing import Batch, pre_processing, to_torch
@@ -29,6 +36,7 @@ from .eval.postprocessing import waymo_post_processing
 from .eval.submission import SubWOMD
 from .eval.womd import WOMDMetrics
 from .models.traffic_bots import TrafficBots
+from .parallel import mesh
 from .sim.teacher_forcing import teacher_forcing_mask
 from .training.loss import training_loss
 
@@ -125,15 +133,13 @@ def _sums_to_host(out: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
 
 class Validator:
     """Host-side accumulation across validation batches and the epoch-end
-    compute, on one device: the model's. Entry point: `step` takes a numpy
+    compute, on the model's device. Entry point: `step` takes a numpy
     batch and runs on `device` (the card unless the caller asks for the
-    CPU; without CUDA it raises)."""
+    CPU; without CUDA it raises). In a process group of more than one rank,
+    `step`'s batch is the rank's slice of the global batch."""
 
     def __init__(self, cfg: ExperimentConfig, model: TrafficBots, use_native_metrics: bool = True,
-                 sub_rr: Optional[SubWOMD] = None, sub_jf: Optional[SubWOMD] = None, mesh=None,
-                 device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("sharded validation over a mesh belongs to the port's data-parallel slice")
+                 sub_rr: Optional[SubWOMD] = None, sub_jf: Optional[SubWOMD] = None, device="cuda"):
         self.cfg = cfg
         self.model = model
         self.device = O.resolve_device(device)
@@ -152,11 +158,13 @@ class Validator:
         self.sub_rr.reset()
         self.sub_jf.reset()
 
-    def step(self, batch_np: Dict[str, np.ndarray], generator: Optional[torch.Generator] = None) -> None:
+    def step(self, batch_np: Dict[str, np.ndarray], generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """One validation batch with the model's own weights; `generator`
-        (a CPU generator) draws the joint futures' samples."""
+        (a CPU generator, the same on every rank) draws the joint futures'
+        samples. -> `validation_device_step`'s output."""
         batch = to_torch({k: v for k, v in batch_np.items() if not isinstance(v, list)}, self.device)
-        out = validation_device_step(self.cfg, self.model, batch, generator)
+        with D.global_batch_draws(mesh.rank(), mesh.world_size()):
+            out = validation_device_step(self.cfg, self.model, batch, generator)
         for k, v in _sums_to_host(out).items():
             self.sums[k] = M.add_metric_sums(self.sums[k], v)
 
@@ -207,20 +215,27 @@ class Validator:
             )
             self.sub_rr.add_to_submissions(trajs_rr, scores_rr, **common)
             self.sub_jf.add_to_submissions(trajs_jf, scores_jf, **common)
+        return out
 
     def epoch_end(self) -> Dict[str, float]:
         """val/loss = -mAP(joint_future_pred), or the reactive replay's
         position error when the WOMD metrics are off (a horizon shorter than
         the challenge's 80 future steps)."""
+        # every rank's sums, added in rank order (with one rank, its own)
+        sums: Dict[str, Dict[str, np.ndarray]] = {k: {} for k in SUM_KEYS}
+        for rank_sums in mesh.allgather_pyobj(self.sums):
+            sums = {k: M.add_metric_sums(sums[k], rank_sums[k]) for k in SUM_KEYS}
         out: Dict[str, float] = {}
-        out.update(M.error_metrics_compute(self.sums["err_rr"], "reactive_replay/"))
-        out.update(M.rule_metrics_compute(self.sums["rule_rr"], "reactive_replay/"))
-        out.update(M.error_metrics_compute(self.sums["err_jf"], "joint_future_pred/"))
-        out.update(M.rule_metrics_compute(self.sums["rule_jf"], "joint_future_pred/"))
-        tm = self.sums["train_rr"]
+        out.update(M.error_metrics_compute(sums["err_rr"], "reactive_replay/"))
+        out.update(M.rule_metrics_compute(sums["rule_rr"], "reactive_replay/"))
+        out.update(M.error_metrics_compute(sums["err_jf"], "joint_future_pred/"))
+        out.update(M.rule_metrics_compute(sums["rule_jf"], "joint_future_pred/"))
+        tm = sums["train_rr"]
         for name in ("vae_kl", "diffbar_reward", "goal_loss"):
             if f"{name}_sum" in tm:
                 out[f"reactive_replay/{name}"] = float(tm[f"{name}_sum"]) / max(float(tm[f"{name}_count"]), 1.0)
+        # the WOMD inputs and the submission payloads of every rank, before
+        # the compute and rank 0's write
         for m in (self.womd_rr, self.womd_jf, self.sub_rr, self.sub_jf):
             m.sync()
         out.update(self.womd_rr.compute())

@@ -116,8 +116,14 @@ def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
 
 def stream(t: torch.Tensor) -> int:
     """The raw handle of the current stream on t's device (where a kernel
-    launches), without building a torch.cuda.Stream object."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+    launches), without building a torch.cuda.Stream object. The C entries
+    launch on the current device, so t must live there: a rank's tensors on
+    another card raise instead of launching into the wrong one."""
+    dev = t.get_device()
+    if dev != torch.cuda.current_device():
+        raise RuntimeError(f"a tensor on cuda:{dev} while the current device is cuda:{torch.cuda.current_device()}: "
+                           "call torch.cuda.set_device first")
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def check(rc: int, what: str) -> None:

@@ -1,9 +1,10 @@
 """CLI entry: fit / validate / test, with dotted-path config overrides.
 
-Counterpart of `trafficbots_tpu/run.py`, on one device:
+Counterpart of `trafficbots_tpu/run.py`:
 
     python -m trafficbots_tpu_torch.run action=fit data.data_dir=/data/h5_womd \\
         model.hidden_dim=128 ablation=simnet resume=runs/x/ckpt/last
+    torchrun --standalone --nproc_per_node 8 -m trafficbots_tpu_torch.run action=fit ...
 
 Overrides are `key=value` pairs navigating the frozen dataclass tree
 (dataclasses.replace under the hood); `ablation=<name>` applies a preset
@@ -20,8 +21,19 @@ training step's seed (`make_train_step`) and each validation and test
 step's generator are drawn from it, and a checkpoint carries its state, so
 a resumed fit continues the same stream.
 
+Data parallel: under `torchrun` (the layout comes from its environment,
+`parallel.mesh.init_from_env`: NCCL when each rank has a card of its own,
+gloo on the CPU or when ranks share a card) every process is one rank
+with its slice of every global batch (`data.batch_size` is the global
+batch; the world size must divide it). Every rank draws the run's seed
+stream identically, so the stream, the parameters and Adam's state stay
+replicated and a checkpoint holds them once: a resume on N ranks is exact.
+Rank 0 alone writes `config.json`, the metrics log, the checkpoints and the
+submissions, and prints the progress lines; `bucket_capacity` is off (each
+rank's maxima would give the ranks different shapes).
+
 Not here yet: the validation media (`n_video_batch > 0` raises;
-ROADMAP item 23) and multi-process runs (item 25).
+ROADMAP item 23).
 """
 from __future__ import annotations
 
@@ -197,14 +209,25 @@ def parse_args(argv: List[str]):
 
 
 def synthetic_loader(cfg, n_batches: int, seed: int = 0):
+    """Synthetic global batches; with several ranks, each rank's contiguous
+    slice of each (every rank makes the same global batch)."""
     from .data.synthetic import synthetic_episode_batch
+    from .parallel import mesh
+
+    n_rank, r = mesh.world_size(), mesh.rank()
+    if cfg.data.batch_size % n_rank:
+        raise ValueError(f"data.batch_size={cfg.data.batch_size} is not divisible by the {n_rank} ranks")
+    per = cfg.data.batch_size // n_rank
 
     def it(epoch: int = 0):
         for i in range(n_batches):
-            yield synthetic_episode_batch(
+            batch = synthetic_episode_batch(
                 cfg.data, n_scene=cfg.data.batch_size,
                 seed=seed + epoch * n_batches + i, with_history=True,
             )
+            if n_rank > 1:
+                batch = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+            yield batch
 
     return it
 
@@ -249,9 +272,12 @@ def _resolve_resume(ckpt, resume: str, default: str, required: bool = False):
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run one action; -> what it produced, for a caller in the same process:
-    fit: the last epoch's validation metrics and the global step; validate:
+    fit: the last epoch's validation metrics, the global step and the
+    trained model; validate:
     the metrics and the `Validator` (its WOMD engines hold the accumulated
-    inputs); test: the submission files."""
+    inputs); test: the submission files (rank 0's; none on the others).
+    Under `torchrun` it joins the process group first (unless the caller
+    already has) and leaves it on exit."""
     (action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val_batches, device,
      debug_nans) = parse_args(argv if argv is not None else sys.argv[1:])
     if action not in ("fit", "validate", "test"):
@@ -261,17 +287,31 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             f"n_video_batch={cfg.n_video_batch}: the port does not render validation media yet (ROADMAP "
             "Queue 1 item 23); pass n_video_batch=0"
         )
+    from .parallel import mesh
 
+    created = mesh.init_from_env(device)  # before anything touches the device
+    try:
+        return _run(action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val_batches, device,
+                    debug_nans)
+    finally:
+        if created:
+            mesh.destroy()
+
+
+def _run(action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val_batches, device, debug_nans):
+    from . import distributions as D
     from . import orchestration as O
     from .config import config_to_dict
     from .data.preprocessing import to_torch
     from .eval.submission import SubWOMD
     from .evaluation_loop import Validator, pack_test_submission, test_step_device
+    from .parallel import mesh
     from .training.checkpoint import CheckpointManager
     from .training.train import make_optimizer, make_train_step
     from .utils.logging import MetricsLogger, Profiler, nan_guard
 
     device = O.resolve_device(device)
+    n_rank, is_main = mesh.world_size(), mesh.is_main()
 
     def sync():
         if device.type == "cuda":
@@ -280,7 +320,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     # shape-bucketed batches (data/bucketing.py): slice the fixed map/agent
     # capacities to each batch's real maximum before the device sees them
     bucket = None
-    if cfg.data.bucket_capacity:
+    if cfg.data.bucket_capacity and n_rank > 1:
+        if is_main:
+            print("bucket_capacity disabled: multi-process run (per-process maxima would desynchronize shapes)")
+    elif cfg.data.bucket_capacity:
         from .data.bucketing import bucket_slice
 
         bucket = lambda b: bucket_slice(  # noqa: E731
@@ -311,6 +354,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         # length, not a CLI default
         train_loader, val_loader, test_loader = make_loaders(
             cfg.data, cfg.seed, limit_train_batches=cfg.limit_train_batches,
+            shard_index=mesh.rank(), shard_count=n_rank,
         )
         if steps_per_epoch is None:
             steps_per_epoch = len(train_loader)
@@ -324,7 +368,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     model = O.make_model(cfg, device=device, seed=draw())
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model initialized: {n_params/1e6:.2f}M params, run_dir={run_dir}")
+    if is_main:
+        print(f"model initialized: {n_params/1e6:.2f}M params, run_dir={run_dir}")
 
     def restore_params(target: str) -> None:
         with prof.phase("ckpt_restore"):
@@ -338,14 +383,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         return batch_np
 
     if action == "fit":
-        snapshot_config(cfg, run_dir)
+        if is_main:
+            snapshot_config(cfg, run_dir)
         optimizer = make_optimizer(cfg, model, steps_per_epoch)
         # full trainer state resume: weights, optimizer, epoch, global step
         # and the generator: teacher forcing's epoch schedule, the LR
         # schedule, the data order and the seed stream continue exactly
         start_epoch, global_step = 0, 0
         target = _resolve_resume(ckpt, resume, default="last") if resume else None
-        if resume and target is None:
+        if resume and target is None and is_main:
             print(f"resume={resume}: no checkpoint found, starting fresh")
         if target is not None:
             with prof.phase("ckpt_restore"):
@@ -361,7 +407,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 global_step = int(restored["global_step"])
                 gen.set_state(restored["rng"].cpu())
                 sync()
-            print(f"resumed from {target} at epoch {start_epoch}, step {global_step}")
+            if is_main:
+                print(f"resumed from {target} at epoch {start_epoch}, step {global_step}")
         guard = (lambda tree: nan_guard(tree, "the training step")) if debug_nans else None
         step_fn = make_train_step(cfg, model, optimizer, guard=guard)
         validator = Validator(cfg, model, device=device)
@@ -374,7 +421,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 with prof.phase("train_step"):
                     metrics = step_fn(batch_np, seed, epoch)
                     sync()
-                if global_step % 50 == 0:
+                if global_step % 50 == 0 and is_main:
                     m = _mean_metrics(metrics)
                     logger.log(m, global_step)
                     print(f"epoch {epoch} step {global_step} loss={m['loss']:.4f}")
@@ -396,9 +443,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             with prof.phase("ckpt_save"):
                 ckpt.save_last(state, global_step, val_metrics)
             ckpt.save_if_best(state, global_step, val_metrics)
-            print(f"epoch {epoch} val/loss={val_metrics['val/loss']:.4f}")
+            if is_main:
+                print(f"epoch {epoch} val/loss={val_metrics['val/loss']:.4f}")
         logger.log(prof.summary(), global_step, phase="profile")
-        return {"val_metrics": val_metrics, "global_step": global_step}
+        return {"val_metrics": val_metrics, "global_step": global_step, "model": model}
 
     elif action == "validate":
         target = _resolve_resume(ckpt, resume, default="best", required=True) if resume else None
@@ -423,9 +471,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         val_metrics = validator.epoch_end()
         logger.log(val_metrics, 0, phase="val")
         for k, v in sorted(val_metrics.items()):
-            if "/" in k and "waymo_metrics" not in k:
+            if "/" in k and "waymo_metrics" not in k and is_main:
                 print(f"{k}: {v:.4f}")
-        if write_subs:
+        if write_subs and is_main:
             for p in sub_rr.save_sub_files(os.path.join(run_dir, "submission")):
                 print(f"submission written: {p}")
             for p in sub_jf.save_sub_files(os.path.join(run_dir, "submission")):
@@ -455,12 +503,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             batch_np = host_batch(batch_np)
             batch = to_torch({k: v for k, v in batch_np.items() if not isinstance(v, list)}, device)
             g = torch.Generator().manual_seed(draw())
-            with prof.phase("test_step"):
+            with prof.phase("test_step"), D.global_batch_draws(mesh.rank(), n_rank):
                 pred = test_step_device(cfg, model, batch, g)
                 sync()
             pack_test_submission(sub, pred, batch_np)
+        # each rank packed its own scenes: the union before rank 0's write
         sub.sync()
-        paths = sub.save_sub_files(os.path.join(run_dir, "submission"))
+        paths = sub.save_sub_files(os.path.join(run_dir, "submission")) if is_main else []
         for p in paths:
             print(f"submission written: {p}")
         logger.log(prof.summary(), 0, phase="profile")

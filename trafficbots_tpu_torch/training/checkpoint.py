@@ -18,6 +18,12 @@ loads under `torch.load(..., weights_only=True)`. The CLI saves the
 model's `state_dict` as `params`, `Optimizer.state_dict()` as `opt_state`,
 `epoch`, `global_step`, and the run's CPU `torch.Generator` state as `rng`
 (the counterpart of the JAX package's PRNG key).
+
+Data parallel: the state is replicated, so rank 0 alone writes each
+checkpoint, its `config.json`, `meta.json` and calls the hook; every rank
+then waits at a barrier, so no rank reads a checkpoint before it is
+complete. The best-or-not decision reads the reduced `val/loss`, the same
+on every rank, and every rank keeps `best_score`; every rank restores.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel import mesh
 
 STATE_FILE = "state.pt"
 
@@ -120,9 +128,11 @@ class CheckpointManager:
             self.hook = None
 
     def save_last(self, state: Dict[str, Any], step: int, metrics: Dict[str, float]):
-        path = self._save("last", state)
-        self._write_meta(step=step, metrics=metrics)
-        self._fire_hook(path, step, metrics, is_best=False)
+        if mesh.is_main():
+            path = self._save("last", state)
+            self._write_meta(step=step, metrics=metrics)
+            self._fire_hook(path, step, metrics, is_best=False)
+        mesh.barrier()
 
     def save_if_best(self, state: Dict[str, Any], step: int, metrics: Dict[str, float]) -> bool:
         score = float(metrics[self.monitor])
@@ -133,9 +143,11 @@ class CheckpointManager:
         )
         if improved:
             self.best_score = score
-            path = self._save("best", state)
-            self._write_meta(step=step, metrics=metrics)
-            self._fire_hook(path, step, metrics, is_best=True)
+            if mesh.is_main():
+                path = self._save("best", state)
+                self._write_meta(step=step, metrics=metrics)
+                self._fire_hook(path, step, metrics, is_best=True)
+            mesh.barrier()
         return improved
 
     def _write_meta(self, step: int, metrics: Dict[str, float]):

@@ -9,6 +9,13 @@ norm > max (not `torch.nn.utils.clip_grad_norm_`, which divides by norm +
 1e-6). The step returns the training metrics with `grad_norm` (before the
 clip) and `grad_norm/<top-level module>`, as device tensors: reading them is
 the caller's sync.
+
+Data parallel (a process group of more than one rank, JAX's
+`make_jitted_dp_train_step`): each rank steps on its slice of the
+global batch with its own draws (`mesh.rank_seed`), then the gradients are
+averaged over the ranks in one all-reduce, the loss averaged and every
+other metric summed; the guard, the clip and Adam follow on the reduced
+gradients, so the parameters and Adam's state stay replicated.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from .. import orchestration as O
 from ..config import ExperimentConfig
 from ..data.preprocessing import to_torch
+from ..parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -94,17 +102,26 @@ def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module, optimizer: Op
                     guard: Optional[Callable[[Dict], object]] = None) -> Callable:
     """-> step(batch, seed, epoch=0) -> metrics: one training step on a numpy
     episode batch (the data.synthetic contract) on the model's device. All
-    of the step's random draws come from a CPU generator seeded by `seed`.
-    `guard`, when given, sees {"metrics": ..., "grads": ...} after the
-    backward and before the update (the CLI's `debug_nans` check)."""
+    of the step's random draws come from a CPU generator seeded by `seed`
+    (by `mesh.rank_seed(seed)` in a process group of more than one rank:
+    `batch` is then the rank's slice of the global batch). `guard`, when given, sees
+    {"metrics": ..., "grads": ...} after the backward (and the reduction
+    over the ranks) and before the update (the CLI's `debug_nans` check):
+    a non-finite value on one rank reaches every rank, so all raise."""
     device = next(model.parameters()).device
+    params = list(model.parameters())
 
     def step(batch: Dict[str, np.ndarray], seed: int, epoch: int = 0) -> Dict[str, Tensor]:
-        generator = torch.Generator().manual_seed(seed)
+        world = mesh.world_size()
+        generator = torch.Generator().manual_seed(mesh.rank_seed(seed))
         optimizer.adam.zero_grad(set_to_none=True)
         loss, metrics = O.training_step(cfg, model, to_torch(batch, device), generator, current_epoch=epoch)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if world > 1:
+            mesh.all_reduce_mean_(params)
+            metrics = mesh.all_reduce_sum(metrics)
+            metrics["loss"] = metrics["loss"] / world
         if guard is not None:
             guard({"metrics": metrics, "grads": {n: p.grad for n, p in model.named_parameters()}})
         metrics.update(optimizer.step())

@@ -7,7 +7,9 @@ times named phases on the wall clock (`summary()` gives
 `time/<phase>_mean_s`) and, given a `trace_dir`, records device traces with
 `torch.profiler` as Chrome traces; `nan_guard` fails fast on non-finite
 values in a nested structure of tensors and arrays (the CLI's
-`debug_nans=true`).
+`debug_nans=true`). Under data parallelism `MetricsLogger` writes (and
+calls its sink) on rank 0 only; the `Profiler` times each rank's own
+phases.
 """
 from __future__ import annotations
 
@@ -51,6 +53,10 @@ class MetricsLogger:
         self.sink = sink if sink is not None else _load_metrics_hook()
 
     def log(self, metrics: Dict[str, Any], step: int, phase: str = "train"):
+        from ..parallel.mesh import is_main
+
+        if not is_main():
+            return
         rec = {"step": step, "phase": phase, "time": time.time()}
         for k, v in metrics.items():
             try:
