@@ -60,9 +60,33 @@ its own lines:
      and the deterministic joint future's preds held over the first
      HELD_STEPS steps, the rest (and the sampled futures) readings beside a
      one-ulp map nudge;
+ 6a. the validation media's device side on the same scenes and config
+     (the default fused node encoder): the reactive replay with attention
+     collection (`orchestration.reactive_replay(collect_attention=True)`,
+     whose as2pl runs the plain core, as in JAX) against the
+     non-collecting kernel replay and against itself with the plain
+     versions, held over HELD_STEPS; K1 and K2 counted over the encode and
+     over the loop apart (0 K1 launches in the collecting loop); every
+     valid agent-step's `attn_pl` row summing to 1 over the valid targets
+     and 0 elsewhere; the collected `attn_pl`, `attn_tl` and `attn_agent`
+     held kernels against plain over HELD_STEPS (`attn_pl` beside a one-ulp
+     map nudge's gap); `evaluation_loop._vis_device_step` (the collecting
+     replay, the destination probabilities, the K joint futures and their
+     scores) timed once with its launch counts and peak memory; and
+     `run.main` `validate` rendering one scene over 31 steps: the JAX
+     package's file names under run_dir/videos when `cv2` is present, no
+     `videos` directory when it is absent;
+ 6b. the training-input augmentations: one training step's loss and
+     gradients over HELD_STEPS with history dropout (p = 0.2) and the
+     SE(2) latent-input perturbation, kernels against the plain versions
+     (phase 5's holds), K4f and K4b launched 3 times each (the map encoded
+     once a view), the step's seconds beside the default step's;
   7. the CLI runner, `trafficbots_tpu_torch.run.main` in-process at full
      width (batch 8, synthetic data, 2 steps an epoch, 1 validation batch,
-     the default fused node encoder): run A fits 2 epochs with the launch
+     the default fused node encoder; the default n_video_batch without cv2,
+     with it 0 but in run B's first fit, which renders one full-width batch
+     at n_video_batch=1 under videos/epoch0, its seconds printed): run A
+     fits 2 epochs with the launch
      counts set to 0 just before and read just after (K3f, K3b, K4f, K4b,
      K5, K1 and K2 each launched); run B fits 1 epoch, then resumes from
      `last` to 2, and B's `last` checkpoint equals A's bitwise (every
@@ -147,6 +171,12 @@ line.
 
 builds the kernels of the training and validation paths (K1-K5) and runs
 only phase 9, with its JSON line and no last line.
+
+    python3 chip_smoke.py --media
+    python3 chip_smoke.py --augment
+
+build K1 and K2 (--media), or K1-K5 (--augment), and run only phase 6a
+or 6b, with its JSON line and no last line.
 """
 from __future__ import annotations
 
@@ -182,6 +212,7 @@ from trafficbots_tpu_torch.models import goal_manager as GM
 from trafficbots_tpu_torch.ops.dropout import DropoutSeeds
 from trafficbots_tpu_torch.sim.teacher_forcing import teacher_forcing_mask
 from trafficbots_tpu_torch.training import train as TT
+from trafficbots_tpu_torch.utils import vis as VIS
 from trafficbots_tpu_torch.weights import init_params
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -930,19 +961,21 @@ def first_step_over(diff: torch.Tensor) -> dict:
 def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True, held_steps: int = HELD_STEPS) -> dict:
     """Holds preds over the first `held_steps` to ROLLOUT_ATOL and validity
     equal there (with `hold`; else they are readings too); returns the
-    whole horizon's readings beside the one-ulp map nudge's."""
+    whole horizon's readings beside the one-ulp map nudge's (None without
+    `ref_nudged`)."""
     for o in (out, ref):
         require(bool(torch.isfinite(o.preds).all()), f"{what}: non-finite preds")
     r = ref.preds.float().cpu()
     diff = (out.preds.float().cpu() - r).abs()
-    diff_nudge = (ref_nudged.preds.float().cpu() - r).abs()
+    diff_nudge = None if ref_nudged is None else (ref_nudged.preds.float().cpu() - r).abs()
     held = diff[:, :, :held_steps].max().item()
     flips = out.valid.cpu() != ref.valid.cpu()
     held_flips = flips[:, :, :held_steps].sum().item()
     reading = dict(
         preds_err_held=held, held_steps=held_steps, preds_err_all=diff.max().item(),
-        nudge_err_all=diff_nudge.max().item(), valid_flips_all=flips.sum().item(),
-        first_step_over=first_step_over(diff), nudge_first_step_over=first_step_over(diff_nudge),
+        nudge_err_all=None if diff_nudge is None else diff_nudge.max().item(), valid_flips_all=flips.sum().item(),
+        first_step_over=first_step_over(diff),
+        nudge_first_step_over=None if diff_nudge is None else first_step_over(diff_nudge),
     )
     log(f"{what}: preds max abs diff over the first {held_steps} steps {held} m (tolerance {ROLLOUT_ATOL} m), "
         f"valid flips there {held_flips}; readings over all {r.shape[2]} steps: preds {reading['preds_err_all']} m, "
@@ -1259,12 +1292,203 @@ def validation_vs_plain(cfg, batch, dev, held_steps: int = HELD_STEPS):
     )
 
 
+# ------------------------------------------------------------------ validation media
+
+MEDIA_COUNTERS = {"K1": (FA, "LAUNCHES"), "K2": (NE, "LAUNCHES")}
+ATTN_SUM_ATOL = 1e-5  # a valid agent-step's attn_pl row: its sum over the valid targets
+# the collected weights, kernels vs plain versions, over HELD_STEPS: on an
+# H100 at full width attn_tl's gap read 7.6e-5 and attn_agent's 2.7e-5 (the
+# closed loop's drift); attn_pl's 3.2e-6, beside a one-ulp map nudge's 6.5e-6
+ATTN_ATOL = {"attn_pl": 1e-5, "attn_tl": 1e-4, "attn_agent": 1e-4}
+MEDIA_NAMES = ("reactive_replay", *(f"joint_future_K{k}" for k in range(6)), "attn_pl")
+
+
+def collecting_replay(cfg, model, batch, dev, collect, plain=False):
+    """eval_rollout's path with or without attention collection (the media's
+    replay), K1 and K2 counted over the encode and over the loop apart.
+    -> (the rollout, {"encode": counts, "loop": counts}, map validity [B, P])."""
+    with ops.plain_versions() if plain else contextlib.nullcontext(), torch.no_grad():
+        zero_counts(MEDIA_COUNTERS)
+        pb = pre_processing(to_torch(batch, dev), cfg.model, training=False)
+        feats = O.encode_episode_features(model, pb, views=("input", "latent_post"))
+        goal, goal_valid = O.get_gt_goal(cfg, pb["input/agent_valid"], pb["gt/goal"], pb["gt/dest"])
+        latent = model.latent(posterior=True, **feats["latent_post"])
+        mask_tf = teacher_forcing_mask(O.tf_cfg_to_sim(cfg.tf_reactive_replay), pb["gt/valid"])
+        torch.cuda.synchronize()
+        counts = {"encode": read_counts(MEDIA_COUNTERS)}
+        zero_counts(MEDIA_COUNTERS)
+        out = O.reactive_replay(cfg, model, pb, feats["input"], latent, goal, goal_valid, mask_tf,
+                                collect_attention=collect)
+        torch.cuda.synchronize()
+        counts["loop"] = read_counts(MEDIA_COUNTERS)
+    return out, counts, feats["input"]["map_feature_valid"]
+
+
+def check_attention_rows(out, map_valid) -> dict:
+    """Every valid agent-step's attn_pl row sums to 1 over the valid map
+    targets and is 0 on the invalid ones; an invalid agent-step's row is 0."""
+    w = out.attn["attn_pl"]  # [B, A, S, P]
+    valid = out.valid  # the validity each step's policy saw
+    sums = w.sum(-1)
+    row_err = (sums - 1).abs()[valid].max().item()
+    on_invalid_targets = w.masked_select(~map_valid[:, None, None, :]).abs().max().item()
+    on_invalid_agents = w[~valid].abs().max().item() if bool((~valid).any()) else 0.0
+    log(f"media: attn_pl {tuple(w.shape)}: valid rows' sums within {row_err} of 1 (tolerance {ATTN_SUM_ATOL}), "
+        f"largest weight on an invalid target {on_invalid_targets}, on an invalid agent-step {on_invalid_agents}")
+    require(bool(torch.isfinite(w).all()), "media: non-finite attention weights")
+    require(row_err <= ATTN_SUM_ATOL, f"media: a valid attn_pl row sums to 1 +- {row_err}")
+    require(on_invalid_targets == 0.0 and on_invalid_agents == 0.0, "media: weight on an invalid target or agent")
+    return dict(shape=list(w.shape), mb=w.numel() * w.element_size() / 1e6, valid_rows=int(valid.sum().item()),
+                row_sum_err=row_err)
+
+
+def media_render() -> dict:
+    """run.py validate's media at full width for one scene over 31 steps
+    (CLI_MEDIA_ARGS; random weights from the run's seed): with cv2 the JAX
+    package's file names under run_dir/videos, each non-empty; without cv2
+    no `videos` directory."""
+    import tempfile
+
+    from trafficbots_tpu_torch import run as RUN
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tb_media_") as run_dir:
+        RUN.main(["action=validate", f"run_dir={run_dir}"] + CLI_ARGS + CLI_MEDIA_ARGS)
+        videos = os.path.join(run_dir, "videos")
+        files = sorted(os.listdir(videos)) if os.path.exists(videos) else []
+        sizes = [os.path.getsize(os.path.join(videos, f)) for f in files]
+    seconds = time.perf_counter() - t0
+    want = sorted(media_files(["0-0"])) if VIS._HAS_CV2 else []
+    require(files == want and all(sizes), f"media: validate wrote {files}, expected {want}")
+    log(f"media: run.py validate with cv2 {'present' if VIS._HAS_CV2 else 'absent'} wrote {len(files)} media files "
+        f"of one scene over 31 steps in {seconds} s")
+    return dict(cv2=VIS._HAS_CV2, files=files, seconds=seconds)
+
+
+def media_path(cfg, batch, dev):
+    """The validation media's device side at full width: the collecting
+    replay against the non-collecting kernel replay and against the plain
+    versions (held over HELD_STEPS), its attention rows, 0 K1 launches in
+    its loop; `evaluation_loop._vis_device_step` timed with its launch
+    counts and peak memory; run.py validate's render with (or without) cv2."""
+    t_phase = time.perf_counter()
+    model = O.make_model(cfg, device=dev, seed=0)
+    plain_out, counts_n, _ = collecting_replay(cfg, model, batch, dev, collect=False)
+    nudged_out, _, _ = collecting_replay(cfg, model, nudged(batch), dev, collect=False)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, counts_c, map_valid = collecting_replay(cfg, model, batch, dev, collect=True)
+    replay_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ref, _, _ = collecting_replay(cfg, model, batch, dev, collect=True, plain=True)
+    log(f"media: K1/K2 launches, encode then loop: collecting {counts_c}, non-collecting {counts_n}")
+    require(counts_c["loop"]["K1"] == 0, f"media: the collecting replay's loop launched K1 {counts_c['loop']['K1']} times")
+    require(counts_n["loop"]["K1"] > 0 and counts_c["encode"]["K1"] > 0 and counts_c["encode"]["K2"] == 1,
+            f"media: launches {counts_c} / {counts_n}")
+    vs_replay = compare_rollouts(out, plain_out, nudged_out, "media: collecting replay vs the non-collecting kernel replay")
+    vs_plain = compare_rollouts(out, ref, None, "media: collecting replay, kernels vs plain versions")
+    del plain_out, nudged_out
+    nudged_c, _, _ = collecting_replay(cfg, model, nudged(batch), dev, collect=True)
+    attn_gap = {k: (out.attn[k] - ref.attn[k])[:, :, :HELD_STEPS].abs().max().item() for k in out.attn}
+    nudge_gap = (out.attn["attn_pl"] - nudged_c.attn["attn_pl"])[:, :, :HELD_STEPS].abs().max().item()
+    log(f"media: collected weights, kernels vs plain versions, largest gap over the first {HELD_STEPS} steps "
+        f"{attn_gap} (tolerance {ATTN_ATOL}); attn_pl with a one-ulp map nudge {nudge_gap}")
+    for k, gap in attn_gap.items():
+        require(gap <= ATTN_ATOL[k], f"media: {k} kernels vs plain differ by {gap}")
+    attn = dict(check_attention_rows(out, map_valid), kernels_vs_plain=attn_gap, attn_pl_nudge=nudge_gap)
+    del out, ref, nudged_c
+
+    tb = to_torch(batch, dev)
+    zero_counts(MEDIA_COUNTERS)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    buf, dest_probs, buf_jf, jf_scores = EL._vis_device_step(cfg, model, tb, torch.Generator().manual_seed(600))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts = read_counts(MEDIA_COUNTERS)
+    step_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n_scene, n_agent = batch["agent/valid"].shape[0], cfg.data.n_agent
+    require(buf.attn["attn_pl"].shape[:3] == buf.valid.shape and buf_jf.preds.shape[:3] == (n_scene, n_agent, 6),
+            "media: the vis step's shapes")
+    require(dest_probs is not None and bool(torch.isfinite(dest_probs).all()), "media: destination probabilities")
+    require(bool(torch.isfinite(jf_scores).all()) and bool(torch.isfinite(buf_jf.preds).all()), "media: joint futures")
+    require(step_counts["K1"] > 0 and step_counts["K2"] == 1, f"media: the vis step's launches {step_counts}")
+    log(f"media: _vis_device_step {step_s} s, launches {step_counts}, peak device memory above the model "
+        f"{step_peak_gib} GiB (the collecting replay alone {replay_peak_gib} GiB) [{card_line()}]")
+    del buf, dest_probs, buf_jf, jf_scores, model
+    render = media_render()
+    result = dict(vs_replay=vs_replay, vs_plain=vs_plain, attn_pl=attn, launches_replay=counts_c,
+                  launches_plain_replay=counts_n, vis_step_s=step_s, vis_step_launches=step_counts,
+                  vis_step_peak_gib=step_peak_gib, replay_peak_gib=replay_peak_gib, render=render,
+                  phase_s=time.perf_counter() - t_phase, card=card_line())
+    log(f"media: phase in {result['phase_s']} s")
+    return result
+
+
+# ------------------------------------------------------------------ training-input augmentations
+
+AUG_DROPOUT_P = 0.2  # history dropout's rate in the augmented step (JAX's default is off, -1)
+
+
+def augment_path(cfg, batch, dev):
+    """One training step (loss and gradients, over time_step_end =
+    HELD_STEPS) with history dropout and the latent-input perturbation:
+    kernels against the plain versions (as train_vs_plain holds them), the
+    map encoded once a view (K4f = K4b = 3), its seconds beside the default
+    step's in this call."""
+    t_phase = time.perf_counter()
+    held = dataclasses.replace(cfg, time_step_end=HELD_STEPS)
+    aug = dataclasses.replace(held, model=dataclasses.replace(
+        held.model, dropout_p_history=AUG_DROPOUT_P, perturb_input_to_latent=True))
+
+    def timed(c, plain):
+        zero_counts(TRAIN_COUNTERS)
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(c, batch, dev, plain)
+        return loss, grads, time.perf_counter() - t0, read_counts(TRAIN_COUNTERS)
+
+    _, _, first_s, _ = timed(held, False)  # warm-up (the first training step of the process in --augment)
+    lk, gk, aug_s, counts = timed(aug, False)
+    ld, _, default_s, default_counts = timed(held, False)
+    lp, gp, plain_s, _ = timed(aug, True)
+    loss_gap = abs(lk - lp) / abs(lp)
+    gap, worst, median = grad_gap(gk, gp)
+    log(f"augment: launches in the augmented step {counts}, in the default step {default_counts}")
+    log(f"augment: training step over steps 1..{HELD_STEPS} (forward and backward, no update): augmented {aug_s} s, "
+        f"default {default_s} s (the first call {first_s} s), augmented with the plain versions {plain_s} s "
+        f"[{card_line()}]")
+    log(f"augment: kernels vs plain versions: loss {lk} vs {lp} (rel {loss_gap}, tolerance {TRAIN_LOSS_RTOL}; the "
+        f"default step's {ld}), largest gradient rel norm error {gap} at {worst}, median {median} (tolerance "
+        f"{TRAIN_GRAD_RTOL})")
+    require(counts["K4f"] == counts["K4b"] == 3, f"augment: K4f / K4b launched {counts['K4f']} / {counts['K4b']} times")
+    require(default_counts["K4f"] == default_counts["K4b"] == 1, f"augment: the default step's K4 {default_counts}")
+    require(all(counts[k] > 0 for k in ("K3f", "K3b", "K5")), f"augment: launches {counts}")
+    require(math.isfinite(lk) and lk != ld, f"augment: loss {lk} (default {ld})")
+    require(loss_gap <= TRAIN_LOSS_RTOL, f"augment: loss differs by rel {loss_gap}")
+    require(gap <= TRAIN_GRAD_RTOL, f"augment: gradient {worst} differs by rel {gap}")
+    result = dict(launches=counts, default_launches=default_counts, aug_step_s=aug_s, default_step_s=default_s,
+                  first_step_s=first_s, plain_step_s=plain_s, loss=lk, default_loss=ld, loss_rel=loss_gap,
+                  grad_rel=gap, grad_rel_median=median, held_steps=HELD_STEPS,
+                  phase_s=time.perf_counter() - t_phase, card=card_line())
+    log(f"augment: phase in {result['phase_s']} s")
+    return result
+
+
 # ------------------------------------------------------------------ CLI runner
 
 # `python -m trafficbots_tpu_torch.run` in-process at full width
-# (ExperimentConfig defaults), synthetic data (the h5 path needs h5py)
-CLI_ARGS = ["device=cuda", "synthetic=true", "data.batch_size=8", "steps_per_epoch=2", "val_batches=1",
-            "n_video_batch=0"]
+# (ExperimentConfig defaults), synthetic data (the h5 path needs h5py).
+# Without cv2 the default n_video_batch (3) stands: the runner says it
+# renders nothing. With cv2 a full-width render of one 8-scene batch
+# writes 64 videos of up to 91 frames and 8 images (seconds a video to
+# encode on the host), every epoch: the runs pass n_video_batch=0 (the
+# media seed is drawn all the same) but run B's first fit, which renders
+# one batch (CLI_FIT_MEDIA_ARGS), and phase 6a's validate renders one
+# scene over 31 steps (CLI_MEDIA_ARGS).
+CLI_ARGS = ["device=cuda", "synthetic=true", "data.batch_size=8", "steps_per_epoch=2", "val_batches=1"] + (
+    ["n_video_batch=0"] if VIS._HAS_CV2 else [])
+CLI_FIT_MEDIA_ARGS = ["n_video_batch=1"] if VIS._HAS_CV2 else []
+CLI_MEDIA_ARGS = ["n_video_batch=1", "data.batch_size=1", "data.n_step=31", "time_step_end=30", "time_step_gt=30"]
 CLI_KERNELS = ("K3f", "K3b", "K4f", "K4b", "K5", "K1", "K2")
 CLI_COUNTERS = dict(TRAIN_COUNTERS, K1=(FA, "LAUNCHES"), K2=(NE, "LAUNCHES"), K6=(BA, "LAUNCHES"))
 # the native WOMD engine against the numpy one on the same accumulated
@@ -1335,6 +1559,29 @@ def params_gap(sa, sb):
     return diff, gap
 
 
+def media_files(scene_tags, with_dest=True):
+    """The JAX package's media file names for the scenes `scene_tags`
+    ("<batch>-<scene>") of the first batch."""
+    return [f"{n}_{tag}.mp4" for tag in scene_tags for n in MEDIA_NAMES] + (
+        [f"dest_prob_{tag}.png" for tag in scene_tags] if with_dest else [])
+
+
+def cli_fit_media(run_dir, n_scene):
+    """Run B's first fit's media: with cv2 one full-width batch under
+    videos/epoch0 with the JAX package's file names (every K of the joint
+    futures: the first batch), its seconds from the fit's Profiler; without
+    cv2 no `videos` directory."""
+    videos = os.path.join(run_dir, "videos", "epoch0")
+    files = sorted(os.listdir(videos)) if os.path.exists(videos) else []
+    want = sorted(media_files([f"0-{i}" for i in range(n_scene)])) if VIS._HAS_CV2 else []
+    require(files == want and all(os.path.getsize(os.path.join(videos, f)) for f in files),
+            f"cli: the fit's media {files[:5]}..., expected {want[:5]}...")
+    seconds = _records(run_dir, "profile")[-1].get("time/media_mean_s")
+    log(f"cli: run B's first fit rendered {len(files)} media files of {n_scene} scenes at full width in {seconds} s "
+        f"(cv2 {'present' if VIS._HAS_CV2 else 'absent'})")
+    return dict(cv2=VIS._HAS_CV2, files=len(files), seconds=seconds)
+
+
 def cli_path(batch, dev, val_keys):
     """run.py fit, resume, validate and test at full width through the
     kernels; the resumed fit held bitwise against the uninterrupted one."""
@@ -1353,7 +1600,10 @@ def cli_path(batch, dev, val_keys):
     log(f"cli: launches in run A's fit (2 epochs x 2 steps, 2 validations): {launches}")
     for k in CLI_KERNELS:
         require(launches[k] > 0, f"the CLI's fit did not launch {k}")
-    RUN.main(["action=fit", f"run_dir={b}", "n_epochs=1"] + CLI_ARGS)
+    RUN.main(["action=fit", f"run_dir={b}", "n_epochs=1"] + CLI_ARGS + CLI_FIT_MEDIA_ARGS)
+    n_scene = batch["map/valid"].shape[0]
+    media = cli_fit_media(b, n_scene)
+    require(not os.path.exists(os.path.join(a, "videos")), "cli: run A wrote media at n_video_batch=0 or without cv2")
     RUN.main(["action=fit", f"run_dir={b}", "n_epochs=2", "resume=last"] + CLI_ARGS)
 
     (sa, size), (sb, _) = _state(a), _state(b)
@@ -1408,7 +1658,6 @@ def cli_path(batch, dev, val_keys):
     prof_v = _records(b, "profile")[-1]
 
     out = RUN.main(["action=test", f"run_dir={b}", "resume=best"] + CLI_ARGS)
-    n_scene = batch["map/valid"].shape[0]
     cfg = ExperimentConfig()
     require(len(out["submission"]) == cfg.n_joint_future, f"test wrote {out['submission']}")
     for path in out["submission"]:
@@ -1427,7 +1676,7 @@ def cli_path(batch, dev, val_keys):
         test_step_mean_s=prof_t["time/test_step_mean_s"],
         ckpt_save_ms=1e3 * prof_a["time/ckpt_save_mean_s"], ckpt_restore_ms=1e3 * prof_b["time/ckpt_restore_mean_s"],
         ckpt_restore_params_ms=1e3 * prof_v["time/ckpt_restore_mean_s"], ckpt_mb=size / 1e6,
-        womd_epoch_end=engines, val_loss=metrics["val/loss"],
+        womd_epoch_end=engines, val_loss=metrics["val/loss"], media=media,
         map=metrics.get("joint_future_pred/mean_average_precision"), wall_s=wall, card=card_line(),
     )
     return result
@@ -2059,11 +2308,12 @@ def main():
 
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
-             ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS}
+             ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS, ("--media",): ("fused_attention", "node_encoder"),
+             ("--augment",): DP_KERNELS}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
-        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations "
-                 "or --dp)")
+        sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
+                 "--dp, --media or --augment)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -2086,6 +2336,16 @@ def main():
     if mode == ("--dp",):  # data parallelism alone
         phase("data parallelism")
         log(json.dumps({"data_parallel": dp_path(dev)}))
+        phase("done")
+        return
+    if mode == ("--media",):  # the validation media's device side alone
+        phase("validation media")
+        log(json.dumps({"media": media_path(cfg, batch, dev)}))
+        phase("done")
+        return
+    if mode == ("--augment",):  # the training-input augmentations alone
+        phase("training-input augmentations")
+        log(json.dumps({"augment": augment_path(cfg, batch, dev)}))
         phase("done")
         return
     if mode == ("--ablations",):  # the ablation models and the interactive sim alone
@@ -2128,6 +2388,10 @@ def main():
     val["hybrid_node_encoder"] = hybrid
     phase("validation kernels vs plain")
     val["vs_plain"] = validation_vs_plain(val_cfg, batch, dev)
+    phase("validation media")
+    media = media_path(cfg, batch, dev)
+    phase("training-input augmentations")
+    augment = augment_path(cfg, batch, dev)
     phase("CLI runner")
     cli = cli_path(batch, dev, val.pop("metric_keys"))
     phase("ablations and interactive")
@@ -2170,6 +2434,8 @@ def main():
     log(json.dumps({"main_path": path}))
     log(json.dumps({"training_path": train}))
     log(json.dumps({"validation_path": val}))
+    log(json.dumps({"media": media}))
+    log(json.dumps({"augment": augment}))
     log(json.dumps({"cli_path": cli}))
     log(json.dumps({"ablations": abl}))
     log(json.dumps({"data_parallel": dp}))

@@ -13,7 +13,9 @@
   scenario prediction per scene.
 - One epoch of `fit` reads a packed h5 with `bucket_capacity=true`, the
   batches sliced; `debug_nans=true` stops a run whose step goes non-finite;
-  `n_video_batch > 0` and a missing CUDA device raise.
+  a 1-epoch fit at `n_video_batch=1` writes its validation media under
+  `run_dir/videos/epoch0`; an unknown action and a missing CUDA device
+  raise.
 """
 import json
 import os
@@ -245,8 +247,17 @@ def test_debug_nans_stops_a_non_finite_step(tmp_path):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 23"):
-        run(["action=fit", f"run_dir={tmp_path}"] + TINY + ["n_video_batch=1"])
+    # the validation media, once refused, render where cv2 is installed
+    from trafficbots_tpu_torch.utils.vis import _HAS_CV2
+
+    run(["action=fit", f"run_dir={tmp_path}", "n_epochs=1"] + TINY + ["n_video_batch=1"])
+    videos = tmp_path / "videos" / "epoch0"
+    if not _HAS_CV2:
+        assert not videos.exists()
+    else:
+        media = sorted(os.listdir(videos))
+        assert "reactive_replay_0-0.mp4" in media and "attn_pl_0-1.mp4" in media and "dest_prob_0-0.png" in media
+        assert all(os.path.getsize(videos / m) > 0 for m in media)
     with pytest.raises(SystemExit, match="unknown action"):
         run(["action=serve", f"run_dir={tmp_path}"] + TINY)
     if not torch.cuda.is_available():

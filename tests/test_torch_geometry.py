@@ -96,12 +96,22 @@ def test_agent_attr_and_pe():
 
 
 def test_training_branches_not_ported():
+    """The training-input augmentations, once refused here, are ported
+    (tests/test_torch_augment.py holds them against JAX): each draws from the
+    generator it is given, and without one it raises instead of drawing from
+    a default stream."""
     cfg = tiny_config()
     b = tp.to_torch(tiny_batch(cfg), "cpu")
     from dataclasses import replace
 
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tp.pre_processing(b, replace(cfg.model, dropout_p_history=0.1), training=True)
+    for opts in (dict(dropout_p_history=0.1), dict(perturb_input_to_latent=True)):
+        model_cfg = replace(cfg.model, **opts)
+        with pytest.raises(ValueError, match="generator"):
+            tp.pre_processing(b, model_cfg, training=True)
+        g = torch.Generator().manual_seed(0)
+        state = g.get_state()
+        tp.pre_processing(b, model_cfg, training=True, generator=g)
+        assert not torch.equal(g.get_state(), state)
 
 
 def test_diag_gaussian(rng):

@@ -6,7 +6,8 @@ global batch of 8 split 4 and 4; an h5 validate of 12 scenarios at global
 batch 8, where the second global batch is padded with 4 repeated scenes
 and rank 1's slice of it is all pads, writing both submissions; and an h5
 test. Only rank 0 may write under the run directory or print the epoch
-line; each scenario must be in each submission exactly once; val/loss is
+line, and no rank renders validation media (`n_video_batch=1`, as in the
+JAX package: media only in a one-process run); each scenario must be in each submission exactly once; val/loss is
 -mAP; the two ranks' trained parameters are equal to the bit. Then the
 multi-process dry run (`parallel.dryrun`) at the model's real widths.
 """
@@ -70,6 +71,8 @@ def test_only_rank_0_writes_the_host_artifacts_and_prints(run):
                  "ckpt/last/config.json"):
         assert any(p == name or p.startswith(name + ".") for p in w0), (name, w0)
     assert any(p.startswith("submission/") for p in w0)
+    # n_video_batch=1, but no rank renders media in a multi-process run
+    assert not any(p.startswith("videos") for p in w0)
     assert "epoch 0 val/loss=" in run["outs"][0] and "epoch 0 val/loss=" not in run["outs"][1]
     assert "backend gloo" in run["outs"][0] and "backend gloo" in run["outs"][1]
 

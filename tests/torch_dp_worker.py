@@ -145,7 +145,7 @@ TINY = [
     "model.tf_cfg.n_head=2", "model.tf_cfg.d_feedforward=64", "model.n_layer_tf_as2pl=1",
     "model.n_layer_tf_as2tl=1", "model.latent_encoder.latent_dim=8", "model.agent_temporal.num_layers=1",
     "model.agent_interaction.n_layer=1", "model.goal_manager.goal_predictor.n_layer_gru=1",
-    "n_video_batch=0", "device=cpu",
+    "n_video_batch=1", "device=cpu",
 ]
 
 

@@ -10,10 +10,13 @@ into the batch).
 Sampling takes an explicit `torch.Generator`, drawn on the
 generator's device and moved to the distribution's; `deterministic` may be
 a bool or a per-row mask, as in the JAX package. All noise comes from
-`standard_normal` and `standard_gumbel` (a categorical draw is the argmax of
-the logits plus Gumbel noise, as `jax.random.categorical` draws it). The
-generator's numbers differ from jax.random's, so stochastic paths are
-compared by distribution or with the JAX draws injected through those two
+`standard_normal`, `standard_gumbel` (a categorical draw is the argmax of
+the logits plus Gumbel noise, as `jax.random.categorical` draws it) and
+`standard_uniform` (the training-input augmentations of
+`data.preprocessing`: a Bernoulli draw is `uniform < p`, and a uniform on
+[lo, hi) is max(lo, u * (hi - lo) + lo), both as jax.random draws them).
+The generator's numbers differ from jax.random's, so stochastic paths are
+compared by distribution or with the JAX draws injected through those three
 functions, never sample by sample.
 
 Under data parallelism a validation or test step runs inside
@@ -70,6 +73,11 @@ def _draw(fn, shape, dtype, device, generator: Optional[torch.Generator]) -> Ten
 
 def standard_normal(shape, dtype, device, generator: Optional[torch.Generator] = None) -> Tensor:
     return _draw(torch.randn, shape, dtype, device, generator)
+
+
+def standard_uniform(shape, dtype, device, generator: Optional[torch.Generator] = None) -> Tensor:
+    """Uniform on [0, 1)."""
+    return _draw(torch.rand, shape, dtype, device, generator)
 
 
 def standard_gumbel(shape, dtype, device, generator: Optional[torch.Generator] = None) -> Tensor:

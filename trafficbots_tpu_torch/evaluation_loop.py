@@ -17,12 +17,21 @@ drawing the global batch's noise and keeping its rows
 (`distributions.global_batch_draws`); `epoch_end` unions every rank's
 metric sums and adds them in rank order, the same way on every rank, and
 unions the WOMD inputs and the submission payloads before the compute, so
-every rank computes the same metrics. Left for a later slice: the media rendering
-(`render_validation_media`).
+every rank computes the same metrics.
+
+`render_validation_media` writes the validation media of the first
+`n_video_batch` batches (the JAX package's file names under `out_dir`): the
+reactive replay's video, the joint futures' videos, the SDC's map-attention
+video and its destination-probability image. Its device side,
+`_vis_device_step`, replays with attention collection (the plain attention
+core, as in JAX), so the as2pl of that replay launches no kernel. Without
+`cv2` it writes nothing, does no device work and says so.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -57,6 +66,22 @@ def _encode(cfg: ExperimentConfig, model: TrafficBots, batch: Batch):
     return batch, feats, goal_pred, latent_prior
 
 
+def _reactive_replay(cfg: ExperimentConfig, model: TrafficBots, batch: Batch, feats, collect_attention: bool = False):
+    """Validation's reactive replay: the posterior latent, GT goals, a
+    deterministic latent and action. -> (the rollout, goal_gt, goal_valid,
+    latent_post)."""
+    goal_gt = goal_valid = None
+    if cfg.model.goal_manager.goal_attr_mode != "dummy":
+        goal_gt, goal_valid = O.get_gt_goal(cfg, batch["input/agent_valid"], batch["gt/goal"], batch["gt/dest"])
+    latent_post = model.latent(posterior=True, **feats["latent_post"])
+    mask_tf = teacher_forcing_mask(O.tf_cfg_to_sim(cfg.tf_reactive_replay), batch["gt/valid"])
+    buf = O.reactive_replay(
+        cfg, model, batch, feats["input"], latent_post, goal_gt, goal_valid, mask_tf,
+        deterministic_latent=True, deterministic_action=True, collect_attention=collect_attention,
+    )
+    return buf, goal_gt, goal_valid, latent_post
+
+
 def _post_process_futures(cfg: ExperimentConfig, buf, goal_logp, agent_type):
     return waymo_post_processing(
         cfg.post_processing, valid=buf.valid[:, :, 0].any(dim=-1),
@@ -75,17 +100,7 @@ def validation_device_step(
     draws the joint futures' goal and latent samples; the reactive replay
     is deterministic."""
     batch, feats, goal_pred, latent_prior = _encode(cfg, model, batch)
-    goal_gt = goal_valid = None
-    if cfg.model.goal_manager.goal_attr_mode != "dummy":
-        goal_gt, goal_valid = O.get_gt_goal(cfg, batch["input/agent_valid"], batch["gt/goal"], batch["gt/dest"])
-    latent_post = model.latent(posterior=True, **feats["latent_post"])
-
-    # reactive replay: posterior latent, GT goal, deterministic
-    mask_tf = teacher_forcing_mask(O.tf_cfg_to_sim(cfg.tf_reactive_replay), batch["gt/valid"])
-    buf_rr = O.reactive_replay(
-        cfg, model, batch, feats["input"], latent_post, goal_gt, goal_valid, mask_tf,
-        deterministic_latent=True, deterministic_action=True,
-    )
+    buf_rr, goal_gt, goal_valid, latent_post = _reactive_replay(cfg, model, batch, feats)
     ss = cfg.time_step_sim_start
     gt_valid_roll = batch["gt/valid"][:, ss:].transpose(1, 2)
     gt_state_roll = batch["gt/state"][:, ss:].transpose(1, 2)
@@ -118,6 +133,133 @@ def validation_device_step(
         "buf_rr_preds": buf_rr.preds, "buf_rr_valid": buf_rr.valid,
         "buf_jf_preds": buf_jf.preds, "buf_jf_valid": buf_jf.valid,
     }
+
+
+@torch.no_grad()
+def _vis_device_step(
+    cfg: ExperimentConfig, model: TrafficBots, batch: Batch, generator: Optional[torch.Generator] = None,
+):
+    """The media's device side: the reactive replay with attention collection
+    (posterior latent, GT goals, deterministic latent and action), the
+    destination probabilities of the goal head ("dest" goals), and the K
+    joint futures with the prior latent, `generator` drawing their samples
+    as in `validation_device_step`, with their scores.
+    -> (replay, dest_probs [B, A, P] or None, joint futures, scores [B, A, K])."""
+    batch, feats, goal_pred, latent_prior = _encode(cfg, model, batch)
+    buf, _, goal_valid, _ = _reactive_replay(cfg, model, batch, feats, collect_attention=True)
+    dest_probs = goal_pred.probs if cfg.model.goal_manager.goal_attr_mode == "dest" else None
+    buf_jf, _, goal_logp = O.joint_future_pred(
+        cfg, model, batch, feats["input"], latent_prior, goal_pred, goal_valid, generator
+    )
+    jf_scores = torch.exp(buf_jf.latent_log_probs[..., 0] + goal_logp)
+    return buf, dest_probs, buf_jf, jf_scores
+
+
+def render_validation_media(
+    cfg: ExperimentConfig, model: TrafficBots, val_iter_fn: Callable[[], Iterator[Dict[str, np.ndarray]]],
+    generator: torch.Generator, out_dir: str,
+) -> List[str]:
+    """Prediction videos, attention videos and destination-probability
+    images of the first `cfg.n_video_batch` validation batches, on the
+    model's device -> the written paths. Each batch's draws come from a
+    generator seeded by the next number of `generator` (a CPU generator), as
+    the JAX package splits its key per batch. A batch's scenes render on
+    threads of their own, one a scene (the host's drawing and encoding; the
+    files and their order as rendered one by one). Without `cv2` it returns
+    [] before any device work."""
+    from .utils.vis import _HAS_CV2, VisScene
+
+    if not _HAS_CV2:
+        print("validation media: cv2 is not installed, no media written")
+        return []
+    device = next(model.parameters()).device
+
+    def host(x):
+        return x.cpu().numpy()
+
+    paths: List[str] = []
+    for batch_idx, batch_np in enumerate(val_iter_fn()):
+        if batch_idx >= cfg.n_video_batch:
+            break
+        batch = to_torch({k: v for k, v in batch_np.items() if not isinstance(v, list)}, device)
+        g = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=generator)))
+        buf, dest_probs, buf_jf, jf_scores = _vis_device_step(cfg, model, batch, g)
+        valid, preds = host(buf.valid), host(buf.preds)
+        violations = [host(v).astype(bool) for v in buf.violations.values()]
+        attn_pl = host(buf.attn["attn_pl"]) if buf.attn and "attn_pl" in buf.attn else None
+        valid_jf, preds_jf = host(buf_jf.valid), host(buf_jf.preds)
+        violations_jf = [host(v).astype(bool) for v in buf_jf.violations.values()]
+        jf_scores = host(jf_scores)
+        dest_probs = None if dest_probs is None else host(dest_probs)
+        fs, fs_jf = buf.step_future_start, buf_jf.step_future_start
+
+        def scene_media(idx: int) -> List[str]:
+            out: List[str] = []
+            scene = VisScene(
+                batch_np["map/valid"][idx], batch_np["map/type"][idx],
+                batch_np["map/pos"][idx], batch_np["map/boundary"][idx],
+            )
+            episode = {k: batch_np[k][idx] for k in (
+                "agent/valid", "agent/pos", "agent/yaw_bbox", "agent/size", "agent/type", "agent/role")}
+            for k in ("tl_stop/valid", "tl_stop/pos", "tl_stop/state"):
+                if k in batch_np:
+                    episode[k] = batch_np[k][idx]
+            # rollout outputs are [A, S, ...]; the videos take step-major [S, A, ...]
+            viol = np.zeros_like(valid[idx], dtype=bool)
+            for v in violations:
+                viol |= v[idx]
+            prediction = {
+                "agent/valid": valid[idx].swapaxes(0, 1)[fs:],
+                "agent/pos": preds[idx, :, :, :2].swapaxes(0, 1)[fs:],
+                "agent/yaw_bbox": preds[idx, :, :, 2:3].swapaxes(0, 1)[fs:],
+                "violations": viol.swapaxes(0, 1)[fs:],
+            }
+            tag = f"{batch_idx}-{idx}"
+            out.append(scene.save_prediction_video(
+                os.path.join(out_dir, f"reactive_replay_{tag}.mp4"),
+                episode, prediction, step_current=cfg.time_step_current,
+            ))
+            # the joint futures ([B, A, K, S, ...]): every K for the first
+            # batch, K = 0 for the others
+            k_to_log = valid_jf.shape[2] if batch_idx == 0 else 1
+            for kf in range(k_to_log):
+                viol_jf = np.zeros_like(valid_jf[idx, :, kf], dtype=bool)
+                for v in violations_jf:
+                    viol_jf |= v[idx, :, kf]
+                pred_jf = {
+                    "agent/valid": valid_jf[idx, :, kf].swapaxes(0, 1)[fs_jf:],
+                    "agent/pos": preds_jf[idx, :, kf, :, :2].swapaxes(0, 1)[fs_jf:],
+                    "agent/yaw_bbox": preds_jf[idx, :, kf, :, 2:3].swapaxes(0, 1)[fs_jf:],
+                    "violations": viol_jf.swapaxes(0, 1)[fs_jf:],
+                }
+                score = float(np.max(jf_scores[idx, :, kf]))
+                out.append(scene.save_prediction_video(
+                    os.path.join(out_dir, f"joint_future_K{kf}_{tag}.mp4"),
+                    episode, pred_jf, step_current=cfg.time_step_current,
+                    title=f"joint_future K={kf} score={score:.3f}",
+                ))
+            sdc = int(np.argmax(batch_np["agent/role"][idx, :, 0]))
+            if attn_pl is not None:
+                out.append(scene.save_attention_video(
+                    os.path.join(out_dir, f"attn_pl_{tag}.mp4"),
+                    batch_np["map/valid"][idx], batch_np["map/pos"][idx],
+                    valid[idx].swapaxes(0, 1), preds[idx, :, :, :2].swapaxes(0, 1),
+                    preds[idx, :, :, 2].swapaxes(0, 1), batch_np["agent/size"][idx],
+                    attn_pl[idx], agent_idx=sdc,
+                ))
+            if dest_probs is not None:
+                out.append(scene.save_dest_prob_image(
+                    os.path.join(out_dir, f"dest_prob_{tag}.png"),
+                    batch_np["map/valid"][idx], batch_np["map/pos"][idx], dest_probs[idx], agent_idx=sdc,
+                ))
+            return out
+
+        # one thread a scene: the drawing and the mp4 encoding release the GIL
+        n_scene = batch_np["agent/valid"].shape[0]
+        with ThreadPoolExecutor(max_workers=min(n_scene, os.cpu_count() or 1)) as pool:
+            for scene_paths in pool.map(scene_media, range(n_scene)):
+                paths.extend(scene_paths)
+    return paths
 
 
 def _sums_to_host(out: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:

@@ -518,7 +518,8 @@ class StackedGRU(nn.Module):
 class MultiAgentTF(nn.Module):
     """Self-attention among agents at one step (or per step of a sequence).
     Rows with exactly one valid agent keep the raw input when the self-agent
-    mask is on."""
+    mask is on. `need_weights` returns (out, the last layer's attention
+    weights [..., A, A], 0 on those rows)."""
 
     def __init__(
         self, hidden_dim: int, n_layer: int = 3, mask_self_agent: bool = True,
@@ -531,7 +532,7 @@ class MultiAgentTF(nn.Module):
 
     def forward(
         self, feature_map_aware: Tensor, feature: Tensor, valid: Tensor, allow_fused: bool = True,
-        rng: Optional[DropoutSeeds] = None,
+        rng: Optional[DropoutSeeds] = None, need_weights: bool = False,
     ):
         seq = valid.ndim == 3
         if seq:
@@ -547,14 +548,20 @@ class MultiAgentTF(nn.Module):
         attn_mask = torch.eye(A, dtype=torch.bool, device=x.device)[None] if self.mask_self_agent else None
         out = self.tf(
             x, src_padding_mask=~v, tgt=tgt, tgt_padding_mask=~v, attn_mask=attn_mask,
-            allow_fused=allow_fused, rng=rng,
+            allow_fused=allow_fused, rng=rng, need_weights=need_weights,
         )
+        if need_weights:
+            out, w = out
         if self.mask_self_agent:
             single = v.sum(dim=-1) == 1
             out = torch.where(single[:, None, None], x, out)
+            if need_weights:
+                w = torch.where(single[:, None, None], 0.0, w)
         if seq:
             out = out.reshape(B, T, A, -1)
-        return out
+            if need_weights:
+                w = w.reshape(B, T, A, A)
+        return (out, w) if need_weights else out
 
 
 class AddLatentGoal(nn.Module):

@@ -172,18 +172,31 @@ class TrafficBots(nn.Module):
         goal_z_pre: Optional[Tensor] = None,
         latent_z_pre: Optional[Tensor] = None,
         rng: Optional[DropoutSeeds] = None,
+        need_weights: bool = False,
     ):
-        """One step -> (action_mean, action_log_std, new_hidden, policy_feature)."""
+        """One step -> (action_mean, action_log_std, new_hidden, policy_feature),
+        and with `need_weights` a fifth item, the head-averaged attention
+        weights of the last layers {"attn_pl": [B, A, P], "attn_tl": [B, A,
+        n_tl], "attn_agent": [B, A, A]}. The weights come from the plain
+        attention core (no kernel returns them), over the same K/V cache."""
         cfg = self.cfg
-        x = self.transformer_as2pl(
+        attn = {}
+
+        def weights(name, out):
+            if not need_weights:
+                return out
+            out, attn[name] = out
+            return out
+
+        x = weights("attn_pl", self.transformer_as2pl(
             agent_feature, src_padding_mask=~agent_valid,
             tgt=None if map_kv is not None else map_feature,
-            tgt_padding_mask=~map_valid, tgt_kv=map_kv, rng=rng,
-        )
-        x = self.transformer_as2tl(
+            tgt_padding_mask=~map_valid, tgt_kv=map_kv, rng=rng, need_weights=need_weights,
+        ))
+        x = weights("attn_tl", self.transformer_as2tl(
             x, src_padding_mask=~agent_valid, tgt=tl_feature, tgt_padding_mask=~tl_valid,
-            allow_fused=cfg.fused_attention_small_t, rng=rng,
-        )
+            allow_fused=cfg.fused_attention_small_t, rng=rng, need_weights=need_weights,
+        ))
 
         def add_goal_latent(x):
             x = self.add_goal(x, agent_valid, goal_feature, goal_valid, z_pre=goal_z_pre, rng=rng)
@@ -192,15 +205,21 @@ class TrafficBots(nn.Module):
         small_t = cfg.fused_attention_small_t
         if cfg.add_goal_latent_first:
             x = add_goal_latent(x)
+        def interaction(x):
+            return weights("attn_agent", self.agent_interaction_tf(
+                x, agent_feature, agent_valid, allow_fused=small_t, rng=rng, need_weights=need_weights))
+
         if cfg.interaction_first:
-            x = self.agent_interaction_tf(x, agent_feature, agent_valid, allow_fused=small_t, rng=rng)
+            x = interaction(x)
             x, hidden = self.agent_temporal(x, agent_valid, hidden, rng=rng)
         else:
             x, hidden = self.agent_temporal(x, agent_valid, hidden, rng=rng)
-            x = self.agent_interaction_tf(x, agent_feature, agent_valid, allow_fused=small_t, rng=rng)
+            x = interaction(x)
         if not cfg.add_goal_latent_first:
             x = add_goal_latent(x)
         action_mean, action_log_std = self.action_head(x, agent_valid, agent_type)
+        if need_weights:
+            return action_mean, action_log_std, hidden, x, attn
         return action_mean, action_log_std, hidden, x
 
     def init_hidden(self, n_batch: int, n_agent: int, device=None) -> Tensor:

@@ -9,7 +9,8 @@ the program `bench.py` times,
     -> get_gt_goal -> teacher_forcing_mask -> reactive_replay (91 steps)
 
 in eval mode with a deterministic latent and action. `training_step` is the
-training forward pass (training views, one shared map encode, goal head,
+training forward pass (training views, one shared map encode or one a view
+when the latent inputs are perturbed, goal head,
 posterior and prior latents, the prior coin, teacher forcing, the 90-step
 training rollout, `training.loss.training_loss`); `training.train` wraps it
 with the backward and the optimizer. `joint_future_pred` is validation's
@@ -110,22 +111,28 @@ def encode_map_chunked(
 def encode_episode_features(
     model: TrafficBots, batch: Batch, views: Iterable[str] = VIEWS, rng: Optional[DropoutSeeds] = None,
 ) -> Dict[str, Dict[str, Tensor]]:
-    """Encode the episode views; the map is encoded once and shared by every
+    """Encode the episode views. The map is encoded once and shared by every
     view, as the JAX package does whenever the views see one map (training
-    included: docs/divergences.md). In eval the map encode runs in chunks of
+    included: docs/divergences.md), that is unless the latent views are
+    SE(2)-perturbed (the `latent_perturbed` marker of pre-processing): then
+    each view encodes its own map view, with dropout seeds of its own from
+    `rng`'s stream. In eval a shared map encode runs in chunks of
     `map_encode_chunk` scenes when that is > 0; a training encode (`rng`
     given) is one chunk, as in the JAX package."""
-    chunk = model.cfg.map_encode_chunk
-    n_scene = batch["sc/map_valid"].shape[0]
-    if rng is not None or chunk <= 0:
-        chunk = n_scene
-    shared_map = encode_map_chunked(model, batch, chunk, rng)
+    shared_map = None
+    if "latent_perturbed" not in batch:
+        chunk = model.cfg.map_encode_chunk
+        n_scene = batch["sc/map_valid"].shape[0]
+        if rng is not None or chunk <= 0:
+            chunk = n_scene
+        shared_map = encode_map_chunked(model, batch, chunk, rng)
     out = {}
     for prefix in views:
         if f"{prefix}/agent_valid" not in batch:
             continue
         view = extract(batch, prefix)
-        view["map_feature"], view["map_feature_valid"] = shared_map
+        if shared_map is not None:
+            view["map_feature"], view["map_feature_valid"] = shared_map
         out[prefix] = model.encode_input_features(**view, rng=rng)
     return out
 
@@ -173,12 +180,16 @@ def reactive_replay(
     deterministic_latent=True,
     deterministic_action: bool = True,
     training: bool = False,
+    collect_attention: bool = False,
 ) -> RolloutOutput:
-    """Scene-reconstruction rollout over steps time_step_sim_start..time_step_end."""
+    """Scene-reconstruction rollout over steps time_step_sim_start..time_step_end;
+    `collect_attention` (eval) adds each step's attention weights (the
+    validation media's replay)."""
     return rollout(
         cfg, model, *_sim_inputs(cfg, batch, features), latent_dist, goal, goal_valid, mask_teacher_forcing,
         generator, deterministic_latent=deterministic_latent, deterministic_action=deterministic_action,
         step_start=cfg.time_step_sim_start, step_end=cfg.time_step_end, training=training,
+        collect_attention=collect_attention,
     )
 
 
@@ -344,10 +355,15 @@ def training_step(
     """One training forward pass on a raw tensor batch (the data.synthetic
     contract, on the model's device) -> (loss, metrics). `generator` is a
     CPU generator: every random draw of the step comes from it, in a fixed
-    order (dropout seeds of the encode, the goal head, the posterior and
-    the prior; the prior coin; the teacher-forcing draws; the latent sample
-    and the rollout's per-step seeds; the irrelevant-agent draws)."""
-    pbatch = pre_processing(batch, cfg.model, n_step_hist=cfg.time_step_current + 1, training=True)
+    order (the training-input augmentations' draws when one is on, as JAX's
+    pre-processing key is the first of its step's splits; dropout seeds of
+    the encode, the goal head, the posterior and the prior; the prior coin;
+    the teacher-forcing draws; the latent sample and the rollout's per-step
+    seeds; the irrelevant-agent draws). Under `perturb_input_to_latent` the
+    map is encoded once a view (three node-stack passes)."""
+    pbatch = pre_processing(
+        batch, cfg.model, n_step_hist=cfg.time_step_current + 1, training=True, generator=generator,
+    )
     feats = encode_episode_features(model, pbatch, rng=draw_seeds(generator))
     goal_gt = goal_valid = goal_pred = None
     if cfg.model.goal_manager.goal_attr_mode != "dummy":

@@ -17,9 +17,17 @@ without CUDA and without `device=cpu` the run raises).
 
 Random draws: one CPU `torch.Generator` seeded with `cfg.seed` stands in
 for the JAX package's PRNG key and its splits. The model's init seed, each
-training step's seed (`make_train_step`) and each validation and test
-step's generator are drawn from it, and a checkpoint carries its state, so
-a resumed fit continues the same stream.
+training step's seed (`make_train_step`), each validation and test step's
+generator and each epoch's validation-media seed are drawn from it, and a
+checkpoint carries its state, so a resumed fit continues the same stream.
+
+Validation media (`n_video_batch > 0`, 3 by default): after each epoch's
+validation in `fit` (under `run_dir/videos/epoch<n>`) and after `validate`
+(under `run_dir/videos`), `evaluation_loop.render_validation_media` writes
+the videos and images of the first `n_video_batch` validation batches, as
+the JAX package does: on rank 0 of a one-process run only, nothing without
+`cv2`. `fit` draws the media seed every epoch on every rank whether or not
+media render, as the JAX package splits its key, so a resume stays exact.
 
 Data parallel: under `torchrun` (the layout comes from its environment,
 `parallel.mesh.init_from_env`: NCCL when each rank has a card of its own,
@@ -30,10 +38,8 @@ stream identically, so the stream, the parameters and Adam's state stay
 replicated and a checkpoint holds them once: a resume on N ranks is exact.
 Rank 0 alone writes `config.json`, the metrics log, the checkpoints and the
 submissions, and prints the progress lines; `bucket_capacity` is off (each
-rank's maxima would give the ranks different shapes).
-
-Not here yet: the validation media (`n_video_batch > 0` raises;
-ROADMAP item 23).
+rank's maxima would give the ranks different shapes); no rank renders
+validation media.
 """
 from __future__ import annotations
 
@@ -282,11 +288,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
      debug_nans) = parse_args(argv if argv is not None else sys.argv[1:])
     if action not in ("fit", "validate", "test"):
         raise SystemExit(f"unknown action {action}")
-    if action in ("fit", "validate") and cfg.n_video_batch > 0:
-        raise NotImplementedError(
-            f"n_video_batch={cfg.n_video_batch}: the port does not render validation media yet (ROADMAP "
-            "Queue 1 item 23); pass n_video_batch=0"
-        )
     from .parallel import mesh
 
     created = mesh.init_from_env(device)  # before anything touches the device
@@ -304,7 +305,7 @@ def _run(action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val
     from .config import config_to_dict
     from .data.preprocessing import to_torch
     from .eval.submission import SubWOMD
-    from .evaluation_loop import Validator, pack_test_submission, test_step_device
+    from .evaluation_loop import Validator, pack_test_submission, render_validation_media, test_step_device
     from .parallel import mesh
     from .training.checkpoint import CheckpointManager
     from .training.train import make_optimizer, make_train_step
@@ -382,6 +383,16 @@ def _run(action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val
             batch_np = bucket(batch_np)
         return batch_np
 
+    def media(seed: int, out_dir: str):
+        """The validation media, where the JAX package renders them: on rank
+        0 of a one-process run."""
+        if not (is_main and n_rank == 1 and cfg.n_video_batch > 0):
+            return []
+        with prof.phase("media"):
+            paths = render_validation_media(cfg, model, val_iter_fn, torch.Generator().manual_seed(seed), out_dir)
+            sync()
+        return paths
+
     if action == "fit":
         if is_main:
             snapshot_config(cfg, run_dir)
@@ -437,6 +448,10 @@ def _run(action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val
                     validator.step(host_batch(batch_np), g)
                     sync()
             val_metrics = validator.epoch_end()
+            # every rank draws the media seed, whether or not it renders
+            written = media(draw(), os.path.join(run_dir, "videos", f"epoch{epoch}"))
+            if written:
+                print(f"validation media written: {len(written)} files")
             logger.log(val_metrics, global_step, phase="val")
             state = {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
                      "epoch": epoch + 1, "global_step": global_step, "rng": gen.get_state()}
@@ -473,6 +488,8 @@ def _run(action, cfg, run_dir, resume, synthetic, n_epochs, steps_per_epoch, val
         for k, v in sorted(val_metrics.items()):
             if "/" in k and "waymo_metrics" not in k and is_main:
                 print(f"{k}: {v:.4f}")
+        for p in media(draw(), os.path.join(run_dir, "videos")):
+            print(f"media written: {p}")
         if write_subs and is_main:
             for p in sub_rr.save_sub_files(os.path.join(run_dir, "submission")):
                 print(f"submission written: {p}")

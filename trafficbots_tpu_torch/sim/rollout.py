@@ -15,7 +15,10 @@ steps `step_start..step_end` and stacks the per-step outputs batch-major,
 
 The deterministic path (deterministic latent and action, as in the eval
 replay) draws no random numbers; a `torch.Generator` is needed only when a
-sample is stochastic.
+sample is stochastic. `collect_attention` (the validation media's replay,
+eval only) also stacks each step's attention weights into
+`RolloutOutput.attn`, each [B, A, S, n_tgt]; those come from the plain
+attention core, as in the JAX package.
 
 Training (`training=True`, the BPTT body of the JAX rollout): the map K/V
 cache stays fp32; the goal/latent input MLPs run every step (their dropout
@@ -72,6 +75,7 @@ class StepOutput:
     diffbar_reward_valid: Tensor  # [B, A]
     latent_log_prob: Tensor  # [B, A]
     action_log_prob: Tensor  # [B, A]
+    attn: Optional[Dict[str, Tensor]] = None  # collect_attention only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +88,7 @@ class RolloutOutput:
     diffbar_rewards_valid: Tensor  # [B, A, S]
     latent_log_probs: Tensor  # [B, A, S]
     action_log_probs: Tensor  # [B, A, S]
+    attn: Optional[Dict[str, Tensor]] = None  # each [B, A, S, n_tgt]
     step_future_start: int = 10
 
     def flatten_repeat(self, n_repeat: int) -> "RolloutOutput":
@@ -99,6 +104,7 @@ class RolloutOutput:
             violations={k: fr(v) for k, v in self.violations.items()},
             diffbar_rewards=fr(self.diffbar_rewards), diffbar_rewards_valid=fr(self.diffbar_rewards_valid),
             latent_log_probs=fr(self.latent_log_probs), action_log_probs=fr(self.action_log_probs),
+            attn=None if self.attn is None else {k: fr(v) for k, v in self.attn.items()},
             step_future_start=self.step_future_start,
         )
 
@@ -141,6 +147,7 @@ def build_sim(
     deterministic_action: bool = True,
     step_end: int = 90,
     training: bool = False,
+    collect_attention: bool = False,
 ):
     """-> (carry0, body), body(carry, step, rng, mask_override=None,
     state_override=None) -> (carry, StepOutput); `rng` (a DropoutSeeds) is
@@ -256,13 +263,13 @@ def build_sim(
         if rng is not None and cfg.detach_state_policy:
             attr, pe = attr.detach(), pe.detach()
         agent_feature = model.encode_agent(agent.valid, attr, pe, rng=rng)
-        action_mean, action_log_std, hidden, _ = model.policy_step(
+        action_mean, action_log_std, hidden, _, *attn = model.policy_step(
             agent_valid=agent.valid, agent_feature=agent_feature,
             map_valid=features["map_valid"], map_feature=features["map_feature"], map_kv=map_kv,
             tl_valid=features["tl_valid"][:, tl_idx], tl_feature=features["tl_feature"][:, tl_idx],
             goal_valid=carry.goal_valid, goal_feature=goal_feature, latent_sample=latent_sample,
             hidden=carry.hidden, agent_type=features["agent_type"],
-            goal_z_pre=goal_z_pre, latent_z_pre=latent_z_pre, rng=rng,
+            goal_z_pre=goal_z_pre, latent_z_pre=latent_z_pre, rng=rng, need_weights=collect_attention,
         )
         action_gen = generator
         if rng is not None and deterministic_action is not True:
@@ -302,7 +309,7 @@ def build_sim(
             valid=pred_valid, pred=pred_state, override_mask=mask_override, violations=violations,
             diffbar_reward=reward, diffbar_reward_valid=reward_valid,
             latent_log_prob=latent_logp if latent_logp is not None else torch.zeros_like(action_logp),
-            action_log_prob=action_logp,
+            action_log_prob=action_logp, attn=attn[0] if collect_attention else None,
         )
         new_carry = RolloutCarry(
             agent=new_agent, rules=new_rules, hidden=hidden, goal_valid=new_goal_valid,
@@ -329,16 +336,21 @@ def rollout(
     step_start: int = 1,
     step_end: int = 90,
     training: bool = False,
+    collect_attention: bool = False,
 ) -> RolloutOutput:
     """Run the closed loop for steps step_start..step_end. Training needs
     `generator`, a CPU generator: the latent sample and every step's seed
-    come from it."""
+    come from it. `collect_attention` (eval only) stacks each step's
+    attention weights into the output's `attn`."""
+    if training and collect_attention:
+        raise ValueError("collect_attention is for the eval replay; the training rollout never collects")
     if training and cfg.remat_rollout_step and cfg.remat_policy not in ("none", "save_attn"):
         raise NotImplementedError(f"remat_policy={cfg.remat_policy!r}: the port has 'none' and 'save_attn'")
     carry, body = build_sim(
         cfg, model, dyn_params, rule_consts, features, latent_dist, goal, goal_valid,
         mask_teacher_forcing, generator, deterministic_latent=deterministic_latent,
         deterministic_action=deterministic_action, step_end=step_end, training=training,
+        collect_attention=collect_attention,
     )
 
     def checkpointed(carry, step, seed, saved):
@@ -376,5 +388,6 @@ def stack_outputs(outs, step_future_start: int) -> RolloutOutput:
         diffbar_rewards_valid=stack(lambda o: o.diffbar_reward_valid),
         latent_log_probs=stack(lambda o: o.latent_log_prob),
         action_log_probs=stack(lambda o: o.action_log_prob),
+        attn=None if outs[0].attn is None else {k: stack(lambda o, k=k: o.attn[k]) for k in outs[0].attn},
         step_future_start=step_future_start,
     )
