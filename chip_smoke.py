@@ -81,6 +81,28 @@ its own lines:
      SE(2) latent-input perturbation, kernels against the plain versions
      (phase 5's holds), K4f and K4b launched 3 times each (the map encoded
      once a view), the step's seconds beside the default step's;
+  6c. the bf16 configurations (precision="bf16", map_encoder.
+     kernel_matmul_bf16): (a) K1's bf16 variant at the rollout as2pl, the
+     map self-attention and the latent as2pl, K2's and K6's on phase 3's
+     shapes, each against its plain version (held within the relative norm
+     gap a one-bf16-ulp nudge of the input makes in the plain version, in
+     this run; the largest gap over the largest magnitude and the count of
+     differing elements printed), its ms and device_ms beside its fp32
+     kernel's, SDPA on bf16 q/k/v where one call computes the function, its
+     bound (bytes at 3.35 TB/s or products at 989 TFLOP/s bf16); (b) the
+     eval rollout under precision="bf16" with and without
+     kernel_matmul_bf16, launch counts (every K1 site on the bf16 variant,
+     no fp32 K1; K2 or its bf16 variant once), against the plain versions
+     beside a one-ulp map nudge (validity equal before the nudge's first
+     flip; the gap passing 1e-2 m and 1e-1 m no more than
+     BF16_PASSAGE_SLACK steps before the nudge's), agent-steps/s and peak
+     memory beside the fp32 rollout's;
+     (c) one Validator.step under "hybrid" and kernel_matmul_bf16 (K6's and
+     K1's bf16 variants only) and one validation step kernels vs plain,
+     held as (b); (d) one training step over HELD_STEPS, kernels vs plain,
+     the loss and gradient gaps within BF16_TRAIN_NUDGE_FACTOR x a one-ulp
+     map nudge's (bf16's rounding puts phase 5's limits below that floor),
+     the training kernels' launch counts;
   7. the CLI runner, `trafficbots_tpu_torch.run.main` in-process at full
      width (batch 8, synthetic data, 2 steps an epoch, 1 validation batch,
      the default fused node encoder; the default n_video_batch without cv2,
@@ -177,6 +199,11 @@ only phase 9, with its JSON line and no last line.
 
 build K1 and K2 (--media), or K1-K5 (--augment), and run only phase 6a
 or 6b, with its JSON line and no last line.
+
+    python3 chip_smoke.py --bf16
+
+builds every kernel and runs only phase 6c, with its JSON line and no last
+line.
 """
 from __future__ import annotations
 
@@ -1474,6 +1501,358 @@ def augment_path(cfg, batch, dev):
     return result
 
 
+# ------------------------------------------------------------------ bf16 (precision="bf16", kernel_matmul_bf16)
+
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
+BF16_COUNTERS = {"K1": (FA, "LAUNCHES"), "K1-bf16": (FA, "LAUNCHES_BF16"), "K2": (NE, "LAUNCHES"),
+                 "K2-bf16": (NE, "LAUNCHES_BF16"), "K6": (BA, "LAUNCHES"), "K6-bf16": (BA, "LAUNCHES_BF16")}
+
+
+def bf16_config(cfg: ExperimentConfig, matmul_bf16: bool) -> ExperimentConfig:
+    me = dataclasses.replace(cfg.model.map_encoder, kernel_matmul_bf16=matmul_bf16)
+    return dataclasses.replace(cfg, precision="bf16", model=dataclasses.replace(cfg.model, map_encoder=me))
+
+
+def bound_ms_bf16(n_bytes: float, n_bf16_flop: float):
+    """The bound of a bf16 variant: its bytes at 3.35 TB/s or its products
+    (every one on bf16 operands) at 989 TFLOP/s, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_bf16_flop / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_up(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 and moved one bf16 ulp up in magnitude (the one-ulp
+    input nudge that sets the bf16 variants' limits), in t's dtype."""
+    return (t.to(torch.bfloat16).view(torch.int16) + 1).view(torch.bfloat16).to(t.dtype)
+
+
+def gap_stats(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The largest gap relative to the output's largest magnitude, the
+    relative norm gap, the count of elements that differ, the max abs gap."""
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    return dict(max_rel_to_max=(d.max() / r.abs().max()).item(), rel_norm=((o - r).norm() / r.norm()).item(),
+                n_differ=int((o != r).sum().item()), n=o.numel(), max_abs=d.max().item())
+
+
+def bf16_held(name: str, out, ref, ref_nudged) -> dict:
+    """A bf16 variant against its plain version: its relative norm gap held
+    within the gap that a one-bf16-ulp nudge of the input makes in the plain
+    version (measured on the same inputs, in this run)."""
+    gap, nudge = gap_stats(out, ref), gap_stats(ref_nudged, ref)
+    require(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+    require(gap["rel_norm"] <= nudge["rel_norm"], f"{name}: kernel vs plain rel norm {gap['rel_norm']} > the one-ulp "
+                                                  f"nudge's {nudge['rel_norm']}")
+    log(f"{name}: kernel vs plain: max gap / max |out| {gap['max_rel_to_max']}, rel norm {gap['rel_norm']}, "
+        f"{gap['n_differ']} of {gap['n']} elements differ (max abs {gap['max_abs']}); a one-bf16-ulp input nudge "
+        f"of the plain version: rel norm {nudge['rel_norm']} (the limit), {nudge['n_differ']} elements differ")
+    return dict(vs_plain=gap, nudge=nudge)
+
+
+def check_k1_bf16(dev):
+    """K1's bf16 variant at the main path's three sites under
+    precision="bf16" (bf16 q, k, v), against its plain version, two calls
+    bitwise equal; its times beside K1's (fp32 q, bf16 K/V) and SDPA's on
+    the bf16 q/k/v with the same mask. The kernels-line entry is the
+    rollout as2pl's (270 launches a rollout)."""
+    gen = torch.Generator().manual_seed(16)
+    entry, per_site = None, []
+    for name, B, S, T in (("rollout as2pl", N_SCENE, 64, 1024), ("map polyline self-attention", N_SCENE, 1024, 1024),
+                          ("latent as2pl", N_SCENE, 19 * 64, 1024)):
+        (q32, k, v, invalid, H), mask_bytes = k1_case(gen, B, S, T, True, 0.25, False, dev)
+        args = (q32.bfloat16(), k, v, invalid, H)
+        out = FA.fused_attention_core(*args)
+        again = FA.fused_attention_core(*args)
+        torch.cuda.synchronize()
+        require(out.dtype == torch.bfloat16 and torch.equal(out, again), f"K1-bf16 {name}: not bitwise reproducible")
+        held = bf16_held(f"K1-bf16 {name}", out, FA.attention_core_plain(*args),
+                         FA.attention_core_plain(bf16_up(args[0]), k, v, invalid, H))
+        ms = time_ms(lambda: FA.fused_attention_core(*args))
+        dev_ms = graph_ms(lambda: FA.fused_attention_core(*args))
+        fp32_ms = time_ms(lambda: FA.fused_attention_core(q32, k, v, invalid, H))
+        fp32_dev = graph_ms(lambda: FA.fused_attention_core(q32, k, v, invalid, H))
+        plain_ms = time_ms(lambda: FA.attention_core_plain(*args))
+        lib = sdpa_call((q32, k, v, invalid, H))  # fp32 SDPA (K/V widened) beside SDPA on the bf16 q/k/v
+        qh, kh, vh = (t.view(t.shape[0], t.shape[1], H, -1).transpose(1, 2) for t in args[:3])
+        lib16 = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=(~invalid)[:, None])
+        lib_ms, lib_dev = time_ms(lib16), graph_ms(lib16)
+        n_bytes = 2 * q32.numel() * 2 + 2 * k.numel() * 2 + mask_bytes
+        b_ms, b_by = bound_ms_bf16(n_bytes, 4 * q32.shape[-1] * int((~invalid).sum().item()))
+        log(f"K1-bf16 {name}: B={B} S={S} T={T} ms={ms} device_ms={dev_ms} (fp32 K1 on fp32 q: ms={fp32_ms} "
+            f"device_ms={fp32_dev}) plain_ms={plain_ms} library_ms={lib_ms} library_device_ms={lib_dev} (SDPA bf16; "
+            f"fp32 SDPA ms={time_ms(lib)}) bound_ms={b_ms} ({b_by}) [{card_line()}]")
+        site = dict(site=name, ms=ms, device_ms=dev_ms, fp32_ms=fp32_ms, fp32_device_ms=fp32_dev, plain_ms=plain_ms,
+                    library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by, **held)
+        per_site.append(site)
+        if entry is None:
+            entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_device_ms=lib_dev, shape=f"B={B} S={S} T={T} D=128 H=4 bf16 q/k/v, {name}")
+    entry["max_abs_err"] = max(s["vs_plain"]["max_abs"] for s in per_site)
+    entry["sites"] = per_site
+    return entry
+
+
+def check_k2_bf16(dev, batch):
+    """K2's bf16 variant on phase 3's K2 shapes (its own draw of inputs):
+    against its plain version over the live polylines, its times beside
+    K2's on the same inputs."""
+    enc, x, valid = node_encoder_case(torch.Generator().manual_seed(17), dev, batch)
+    live = valid.any(dim=-1)
+    with torch.no_grad():
+        out = enc.encode_pooled(x, valid, bf16=True)
+        torch.cuda.synchronize()
+        ref = enc.pooled_plain(x, valid, bf16=True)
+        ref_n = enc.pooled_plain(torch.where(valid[..., None], bf16_up(x), x), valid, bf16=True)
+        held = bf16_held("K2-bf16", out[live], ref[live], ref_n[live])
+        require(bool((out[~live] == NE.NEG).all()), "K2-bf16: a polyline without a valid node must pool to -1e30")
+        ms = time_ms(lambda: enc.encode_pooled(x, valid, bf16=True), n=10)
+        dev_ms = graph_ms(lambda: enc.encode_pooled(x, valid, bf16=True), n=5)
+        fp32_ms = time_ms(lambda: enc.encode_pooled(x, valid), n=10)
+        fp32_dev = graph_ms(lambda: enc.encode_pooled(x, valid), n=5)
+        plain_ms = time_ms(lambda: enc.pooled_plain(x, valid, bf16=True), n=5)
+    n_valid = valid.sum(dim=1).double()
+    L, D = enc.n_layer, enc.d_model
+    n_flop = L * (12 * D * D * n_valid.sum() + 4 * D * (n_valid * n_valid).sum()).item()
+    n_bytes = x.numel() * 4 + valid.numel() + sum(getattr(enc, n).numel() * 4 for n in NE.W_NAMES) + x.shape[0] * D * 4
+    b_ms, b_by = bound_ms_bf16(n_bytes, n_flop)
+    log(f"K2-bf16 node encoder + pool: BP={x.shape[0]} N={x.shape[1]} ms={ms} device_ms={dev_ms} (fp32 K2: ms={fp32_ms} "
+        f"device_ms={fp32_dev}) plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by}) [{card_line()}]")
+    return dict(ms=ms, device_ms=dev_ms, fp32_ms=fp32_ms, fp32_device_ms=fp32_dev, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, max_abs_err=held["vs_plain"]["max_abs"], **held,
+                shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {N_SCENE} scenes at 768/1024 fill")
+
+
+def check_k6_bf16(dev, batch):
+    """K6's bf16 variant on phase 3's K6 shapes (its own draw): against its
+    plain version over the live rows, its times beside K6's and SDPA's on
+    bf16 q/k/v with the same mask."""
+    H = 4
+    gen = torch.Generator().manual_seed(18)
+    _, x, valid = node_encoder_case(gen, dev, batch)
+    BP, N, D = x.shape
+    q, k, v = (torch.randn(BP, N, D, generator=gen).to(dev) for _ in range(3))
+    live = valid.any(dim=-1)
+    out = BA.block_attn_core(q, k, v, valid, H, bf16=True)
+    torch.cuda.synchronize()
+    held = bf16_held("K6-bf16", out[live], BA.block_attn_core_plain(q, k, v, valid, H, bf16=True)[live],
+                     BA.block_attn_core_plain(bf16_up(q), k, v, valid, H, bf16=True)[live])
+    ms = time_ms(lambda: BA.block_attn_core(q, k, v, valid, H, bf16=True))
+    dev_ms = graph_ms(lambda: BA.block_attn_core(q, k, v, valid, H, bf16=True))
+    fp32_ms = time_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
+    fp32_dev = graph_ms(lambda: BA.block_attn_core(q, k, v, valid, H))
+    plain_ms = time_ms(lambda: BA.block_attn_core_plain(q, k, v, valid, H, bf16=True), n=5)
+    lib = k6_sdpa_call(q.bfloat16(), k.bfloat16(), v.bfloat16(), valid, H)
+    lib_ms, lib_dev = time_ms(lib), graph_ms(lib)
+    n_valid = valid.sum(dim=-1)
+    pairs = int((N * torch.where(n_valid > 0, n_valid, torch.full_like(n_valid, N))).sum().item())
+    b_ms, b_by = bound_ms_bf16(4 * q.numel() * 4 + valid.numel(), 4 * D * pairs)
+    log(f"K6-bf16 block attention core: BP={BP} N={N} D={D} H={H} ms={ms} device_ms={dev_ms} (fp32 K6: ms={fp32_ms} "
+        f"device_ms={fp32_dev}) plain_ms={plain_ms} library_ms={lib_ms} library_device_ms={lib_dev} (SDPA bf16) "
+        f"bound_ms={b_ms} ({b_by}) [{card_line()}]")
+    return dict(ms=ms, device_ms=dev_ms, fp32_ms=fp32_ms, fp32_device_ms=fp32_dev, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev, max_abs_err=held["vs_plain"]["max_abs"],
+                **held, shape=f"BP={BP} N={N} D=128 H=4, {N_SCENE} scenes at 768/1024 fill")
+
+
+# bf16 rollouts, kernels vs plain: the passage slack in steps. Under bf16
+# the kernels-vs-plain gap and a one-ulp map nudge's are both a first bf16
+# rounding flip at step 0 (on the H100 at full width: 1.5e-3 m and ~1e-3 m
+# at steps 0-1), and from there they grow together (1e-2 m at steps 12-13
+# and 1e-1 m at 20-21 on both sides), so the hold compares when the two
+# gaps pass 1e-2 m and 1e-1 m.
+BF16_PASSAGE_SLACK = 2
+
+
+def held_beside_nudge(out, ref, ref_nudged, what) -> dict:
+    """Kernels vs plain under bf16, beside a one-ulp map nudge of the plain
+    run: validity equal over the steps before the nudge's validity first
+    differs, and the kernels-vs-plain gap passing 10 x and 100 x
+    ROLLOUT_ATOL no more than BF16_PASSAGE_SLACK steps before the nudge's
+    does; the preds over the steps before the nudge passes ROLLOUT_ATOL
+    (none or one step under bf16) are a reading."""
+    reading = compare_rollouts(out, ref, ref_nudged, what, hold=False)
+    r = ref.preds.float().cpu()
+    diff = (out.preds.float().cpu() - r).abs()
+    first_n = reading["nudge_first_step_over"][str(ROLLOUT_ATOL)]
+    steps = diff.shape[2] if first_n is None else first_n
+    flips_n = (ref_nudged.valid.cpu() != ref.valid.cpu()).flatten(0, 1).any(dim=0)
+    vsteps = int(flips_n.float().argmax().item()) if bool(flips_n.any()) else diff.shape[2]
+    flips = int((out.valid.cpu() != ref.valid.cpu())[:, :, :vsteps].sum().item())
+    passage = {}
+    for t in (10 * ROLLOUT_ATOL, 100 * ROLLOUT_ATOL):
+        k, n = reading["first_step_over"][str(t)], reading["nudge_first_step_over"][str(t)]
+        passage[str(t)] = (k, n)
+        require(k is None or (n is not None and k >= n - BF16_PASSAGE_SLACK),
+                f"{what}: the kernels-vs-plain gap passes {t} m at step {k}, more than {BF16_PASSAGE_SLACK} steps "
+                f"before the one-ulp nudge's ({n})")
+    require(flips == 0, f"{what}: validity differs in the first {vsteps} steps")
+    log(f"{what}: validity flips over the {vsteps} steps before the nudge's first: {flips}; first step over "
+        f"(kernels vs plain, nudge): {passage}; preds over the {steps} steps before the nudge passes "
+        f"{ROLLOUT_ATOL} m (a reading): {diff[:, :, :steps].max().item() if steps else None} m")
+    reading.update(nudge_steps_under_atol=steps, valid_held_steps=vsteps, passage=passage)
+    return reading
+
+
+def eval_bf16(cfg, batch, dev, matmul_bf16: bool, n_iter: int) -> dict:
+    """The eval rollout under precision="bf16" (and kernel_matmul_bf16 or
+    not): the launch counts of one rollout (every K1 site on the bf16
+    variant, the node pool on K2 or its bf16 variant), n_iter timed runs,
+    peak memory, and the rollout against the plain versions beside a
+    one-ulp map nudge (held_beside_nudge)."""
+    c16 = bf16_config(cfg, matmul_bf16)
+    n_scene = batch["map/valid"].shape[0]
+    model = O.make_model(c16, device=dev, seed=0)
+    O.eval_rollout(c16, model, batch, device=dev)
+    torch.cuda.synchronize()
+    zero_counts(BF16_COUNTERS)
+    torch.cuda.reset_peak_memory_stats()
+    out = O.eval_rollout(c16, model, batch, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts(BF16_COUNTERS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    what = f"bf16 eval rollout ({'with' if matmul_bf16 else 'without'} kernel_matmul_bf16)"
+    log(f"{what}: launches {launches}")
+    node = ("K2-bf16", "K2") if matmul_bf16 else ("K2", "K2-bf16")
+    require(launches["K1-bf16"] > 0 and launches["K1"] == 0 and launches[node[0]] == 1 and launches[node[1]] == 0,
+            f"{what}: launches {launches}")
+    secs = []
+    for _ in range(n_iter):
+        t0 = time.perf_counter()
+        O.eval_rollout(c16, model, batch, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n_steps = c16.time_step_end - c16.time_step_sim_start + 1
+    asps = n_scene * c16.data.n_agent * n_steps / statistics.median(secs) if secs else None
+    with ops.plain_versions():
+        ref = O.eval_rollout(c16, model, batch, device=dev)
+        ref_n = O.eval_rollout(c16, model, nudged(batch), device=dev)
+    held = held_beside_nudge(out, ref, ref_n, f"{what}, kernels vs plain versions")
+    log(f"{what}: seconds {secs}, {asps} agent-steps/s, peak device memory {peak_gib} GiB [{card_line()}]")
+    return dict(launches=launches, seconds=secs, agent_steps_per_s=asps, peak_gib=peak_gib, vs_plain=held)
+
+
+def fp32_eval_reading(cfg, batch, dev, n_iter: int) -> dict:
+    """The fp32 eval rollout's agent-steps/s and peak memory, beside bf16's."""
+    n_scene = batch["map/valid"].shape[0]
+    model = O.make_model(cfg, device=dev, seed=0)
+    O.eval_rollout(cfg, model, batch, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(n_iter):
+        t0 = time.perf_counter()
+        O.eval_rollout(cfg, model, batch, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n_steps = cfg.time_step_end - cfg.time_step_sim_start + 1
+    return dict(seconds=secs, agent_steps_per_s=n_scene * cfg.data.n_agent * n_steps / statistics.median(secs),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def validation_bf16(cfg, batch, dev) -> dict:
+    """One Validator.step under precision="bf16", "hybrid" and
+    kernel_matmul_bf16 (K6's and K1's bf16 variants, no fp32 K1/K2/K6),
+    epoch_end finite; then one validation step kernels vs plain, the
+    reactive replay and the K = 0 future held as the eval rollout."""
+    c16 = hybrid_config(bf16_config(cfg, True))
+    model = O.make_model(c16, device=dev, seed=0)
+    val = EL.Validator(c16, model, device=dev)
+    zero_counts(BF16_COUNTERS)
+    t0 = time.perf_counter()
+    val.step(batch, torch.Generator().manual_seed(301))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_counts(BF16_COUNTERS)
+    log(f"bf16 validation step ({step_s} s, the model's first): launches {launches}")
+    require(launches["K6-bf16"] > 0 and launches["K1-bf16"] > 0 and launches["K1"] == launches["K2"] == launches["K6"]
+            == launches["K2-bf16"] == 0, f"bf16 validation step: launches {launches}")
+    metrics = val.epoch_end()
+    require(math.isfinite(metrics["val/loss"]), f"bf16 validation: val/loss {metrics['val/loss']}")
+
+    def run(b, plain):
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            out = EL.validation_device_step(c16, model, to_torch(b, dev), torch.Generator().manual_seed(500))
+        torch.cuda.synchronize()
+        return out
+
+    out, ref, ref_n = run(batch, False), run(batch, True), run(nudged(batch), True)
+    rr = [SimpleNamespace(preds=o["buf_rr_preds"], valid=o["buf_rr_valid"]) for o in (out, ref, ref_n)]
+    k0 = [_futures(o, slice(0, 1)) for o in (out, ref, ref_n)]
+    return dict(launches=launches, step_s=step_s, val_loss=metrics["val/loss"],
+                reactive_replay=held_beside_nudge(*rr, "bf16 validation reactive replay, kernels vs plain"),
+                joint_future_k0=held_beside_nudge(*k0, "bf16 validation joint future K=0, kernels vs plain"))
+
+
+# bf16 training step, kernels vs plain: K3 and K4 run fp32 on widened
+# inputs, but the products after them round to bf16, so an ulp of theirs
+# that crosses a rounding boundary is a bf16 ulp downstream, and the step
+# turns it into what a one-ulp map nudge does to the plain run. On the H100
+# at full width (run B2) the kernels-vs-plain loss gap was 8.5e-5 (the
+# nudge's 4.3e-5) and the largest gradient gap 6.0e-2 (5.8e-2; medians
+# 2.2e-2 and 1.6e-2): phase 5's 1e-5 and 1e-2 are below that floor. The
+# gaps are held to BF16_TRAIN_NUDGE_FACTOR x the nudge's in the same run:
+# a draw of the bf16 rounding chaos varies, and a wrong kernel moves the
+# leaves above it by O(1), two orders of magnitude beyond.
+BF16_TRAIN_NUDGE_FACTOR = 4.0
+
+
+def train_bf16(cfg, batch, dev) -> dict:
+    """One training step under precision="bf16" over HELD_STEPS, kernels
+    (K3 and K4 on the widened inputs, fp32) vs plain versions, the loss and
+    the largest and median gradient gaps held within
+    BF16_TRAIN_NUDGE_FACTOR x a one-ulp map nudge's in this run; the
+    training kernels' launch counts."""
+    held = dataclasses.replace(bf16_config(cfg, False), time_step_end=HELD_STEPS)
+    zero_counts(TRAIN_COUNTERS)
+    lk, gk = loss_and_grads(held, batch, dev, plain=False)
+    counts = read_counts(TRAIN_COUNTERS)
+    lp, gp = loss_and_grads(held, batch, dev, plain=True)
+    ln, gn = loss_and_grads(held, nudged(batch), dev, plain=True)
+    loss_gap = abs(lk - lp) / abs(lp)
+    gap, worst, median = grad_gap(gk, gp)
+    nudge_gap, nudge_worst, nudge_median = grad_gap(gn, gp)
+    log(f"bf16 training step over steps 1..{HELD_STEPS}: launches {counts}; kernels vs plain loss {lk} vs {lp} (rel "
+        f"{loss_gap}), largest gradient rel norm error {gap} at {worst}, median {median}; a one-ulp map nudge of the "
+        f"plain run: loss rel {abs(ln - lp) / abs(lp)}, largest gradient gap {nudge_gap} at {nudge_worst}, median "
+        f"{nudge_median} (the limits: {BF16_TRAIN_NUDGE_FACTOR} x the nudge's)")
+    nudge_loss = abs(ln - lp) / abs(lp)
+    f = BF16_TRAIN_NUDGE_FACTOR
+    require(all(counts[k] > 0 for k in ("K3f", "K3b", "K4f", "K4b", "K5")), f"bf16 training step: launches {counts}")
+    require(math.isfinite(lk) and loss_gap <= f * nudge_loss,
+            f"bf16 training loss differs by rel {loss_gap} > {f} x the nudge's {nudge_loss}")
+    require(gap <= f * nudge_gap and median <= f * nudge_median,
+            f"bf16 training gradient {worst} differs by rel {gap} (median {median}) > {f} x the nudge's {nudge_gap} "
+            f"({nudge_median})")
+    return dict(launches=counts, loss=lk, loss_rel=loss_gap, nudge_loss_rel=nudge_loss, grad_rel=gap,
+                grad_rel_median=median, nudge_grad_rel=nudge_gap, nudge_grad_rel_median=nudge_median,
+                held_steps=HELD_STEPS)
+
+
+def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
+    """Phase 6c: the bf16 configurations. (a) the three bf16 variants against
+    their plain versions at full width with their readings; (b) the eval
+    rollout under precision="bf16" with and without kernel_matmul_bf16,
+    beside the fp32 rollout's agent-steps/s and peak memory (phase 4's in
+    the full run, `fp32_eval`; measured here in --bf16); (c) one
+    validation step under "hybrid" and kernel_matmul_bf16; (d) one
+    training step."""
+    t_phase = time.perf_counter()
+    result = dict(K1_bf16=check_k1_bf16(dev), K2_bf16=check_k2_bf16(dev, batch), K6_bf16=check_k6_bf16(dev, batch))
+    result["eval"] = eval_bf16(cfg, batch, dev, True, N_ITER)
+    result["eval_without_matmul_bf16"] = eval_bf16(cfg, batch, dev, False, 0)
+    result["eval_fp32"] = fp32_eval or fp32_eval_reading(cfg, batch, dev, N_ITER)
+    log(f"bf16 eval rollout: {result['eval']['agent_steps_per_s']} agent-steps/s, peak {result['eval']['peak_gib']} GiB; "
+        f"fp32: {result['eval_fp32']['agent_steps_per_s']} agent-steps/s, peak {result['eval_fp32']['peak_gib']} GiB "
+        f"(readings) [{card_line()}]")
+    result["validation"] = validation_bf16(cfg, batch, dev)
+    result["training"] = train_bf16(cfg, batch, dev)
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["card"] = card_line()
+    log(f"bf16: phase in {result['phase_s']} s")
+    return result
+
+
 # ------------------------------------------------------------------ CLI runner
 
 # `python -m trafficbots_tpu_torch.run` in-process at full width
@@ -2309,11 +2688,11 @@ def main():
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
              ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS, ("--media",): ("fused_attention", "node_encoder"),
-             ("--augment",): DP_KERNELS}
+             ("--augment",): DP_KERNELS, ("--bf16",): KERNEL_SOURCES}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
-                 "--dp, --media or --augment)")
+                 "--dp, --media, --augment or --bf16)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -2346,6 +2725,11 @@ def main():
     if mode == ("--augment",):  # the training-input augmentations alone
         phase("training-input augmentations")
         log(json.dumps({"augment": augment_path(cfg, batch, dev)}))
+        phase("done")
+        return
+    if mode == ("--bf16",):  # the bf16 configurations alone
+        phase("bf16 configurations")
+        log(json.dumps({"bf16": bf16_path(cfg, batch, dev)}))
         phase("done")
         return
     if mode == ("--ablations",):  # the ablation models and the interactive sim alone
@@ -2392,6 +2776,8 @@ def main():
     media = media_path(cfg, batch, dev)
     phase("training-input augmentations")
     augment = augment_path(cfg, batch, dev)
+    phase("bf16 configurations")
+    bf16 = bf16_path(cfg, batch, dev, {k: path[k] for k in ("seconds", "agent_steps_per_s", "peak_gib")})
     phase("CLI runner")
     cli = cli_path(batch, dev, val.pop("metric_keys"))
     phase("ablations and interactive")
@@ -2427,6 +2813,18 @@ def main():
                   "double-buffered cp.async)", route="cuda",
              source="trafficbots_tpu_torch/csrc/block_attn.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=val_launches["K6"], **k6),
+        dict(name="K1-bf16 fused_attention_core on bf16 q/k/v (precision=bf16: weights rounded to bf16, bf16 output)",
+             route="cuda", source="trafficbots_tpu_torch/csrc/fused_attention.cu",
+             replaces="trafficbots_tpu/ops/fused_attention.py:123", launches=bf16["eval"]["launches"]["K1-bf16"],
+             **bf16["K1_bf16"]),
+        dict(name="K2-bf16 FusedNodeEncoder.encode_pooled with bf16 matmul operands (kernel_matmul_bf16)",
+             route="cuda", source="trafficbots_tpu_torch/csrc/node_encoder.cu",
+             replaces="trafficbots_tpu/ops/node_encoder.py:245", launches=bf16["eval"]["launches"]["K2-bf16"],
+             **bf16["K2_bf16"]),
+        dict(name="K6-bf16 block_attn_core with bf16 operands (kernel_matmul_bf16, hybrid node encoder)",
+             route="cuda", source="trafficbots_tpu_torch/csrc/block_attn.cu",
+             replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=bf16["validation"]["launches"]["K6-bf16"],
+             **bf16["K6_bf16"]),
     ]
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
@@ -2436,6 +2834,7 @@ def main():
     log(json.dumps({"validation_path": val}))
     log(json.dumps({"media": media}))
     log(json.dumps({"augment": augment}))
+    log(json.dumps({"bf16": bf16}))
     log(json.dumps({"cli_path": cli}))
     log(json.dumps({"ablations": abl}))
     log(json.dumps({"data_parallel": dp}))

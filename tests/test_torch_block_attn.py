@@ -9,9 +9,12 @@ with one all-invalid polyline. The TPU kernel lifts the mask of a polyline
 without a valid node over its whole 8-polyline block, the port over the
 polyline's own nodes: those rows are discarded by the caller, so only the
 live rows are compared (the dead ones must be finite). Tolerance atol =
-rtol = 1e-5 (fp32, ulp-level summation-order differences). The map
-encoder's switches: "hybrid" and "fused" give the same map features,
-`kernel_matmul_bf16` raises.
+rtol = 1e-5 (fp32, ulp-level summation-order differences). K6's bf16
+variant and the hybrid layout under `kernel_matmul_bf16` against the same
+Pallas kernel with `bf16=True`: a relative norm error of 1e-4, each
+measured value recorded. The map encoder's switches: "hybrid" and "fused"
+give the same map features, `kernel_matmul_bf16` takes their bf16
+variants.
 """
 import dataclasses
 import functools
@@ -51,12 +54,12 @@ def inputs(seed=0):
     return np.where(valid[..., None], x, 0.0).astype(np.float32), valid
 
 
-def jax_block_attn(q, k, v, valid, n_head, blk=8):
+def jax_block_attn(q, k, v, valid, n_head, blk=8, bf16=False):
     """The Pallas kernel of the JAX package, called as encode_pooled_hybrid
     calls it, in interpret mode."""
     spec = pl.BlockSpec((blk, N, D), lambda b: (b, 0, 0))
     return pl.pallas_call(
-        functools.partial(jne._block_attn_kernel, n_head=n_head, n_node=N, blk=blk, bf16=False),
+        functools.partial(jne._block_attn_kernel, n_head=n_head, n_node=N, blk=blk, bf16=bf16),
         out_shape=jax.ShapeDtypeStruct((BP, N, D), jnp.float32), grid=(BP // blk,),
         in_specs=[spec, spec, spec, pl.BlockSpec((blk, N, 1), lambda b: (b, 0, 0))],
         out_specs=spec, interpret=True,
@@ -72,6 +75,31 @@ def test_k6_plain_matches_jax_kernel_interpret(n_head):
     t = tba.block_attn_core_plain(*map(torch.from_numpy, (q, k, v, valid)), n_head).numpy()
     live = valid.any(-1)
     np.testing.assert_allclose(t[live], j[live], **TOL)
+    assert np.isfinite(t).all()
+
+
+def rel_norm(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("n_head", [2, 4])
+def test_k6_bf16_plain_matches_jax_kernel_interpret(n_head, record_property):
+    """K6's bf16 variant: `block_attn_core_plain(bf16=True)` against
+    `_block_attn_kernel(..., bf16=True)` in interpret mode, within a
+    relative norm error of 1e-4 over the live rows (recorded; measured 0
+    and 4.4e-9)."""
+    _, valid = inputs(1)
+    rs = np.random.RandomState(2)
+    q, k, v = (rs.normal(size=(BP, N, D)).astype(np.float32) for _ in range(3))
+    j = np.asarray(jax_block_attn(*map(jnp.asarray, (q, k, v, valid)), n_head, bf16=True))
+    t = tba.block_attn_core_plain(*map(torch.from_numpy, (q, k, v, valid)), n_head, bf16=True).numpy()
+    t32 = tba.block_attn_core_plain(*map(torch.from_numpy, (q, k, v, valid)), n_head).numpy()
+    live = valid.any(-1)
+    err = rel_norm(t[live], j[live])
+    record_property(f"k6_bf16_rel_norm_err_h{n_head}", err)
+    assert err <= 1e-4, err
+    assert rel_norm(t32[live], t[live]) > 1e-3
     assert np.isfinite(t).all()
 
 
@@ -106,6 +134,24 @@ def test_hybrid_matches_jax_hybrid_interpret(encoders):
     assert (t[~live] == np.float32(tne.NEG)).all() and (j[~live] == np.float32(tne.NEG)).all()
 
 
+def test_hybrid_bf16_matches_jax_hybrid_interpret(encoders, record_property):
+    """The hybrid layout under `kernel_matmul_bf16`: the matmuls fp32, K6's
+    bf16 function, against JAX's `encode_pooled_hybrid` with
+    `matmul_bf16=True` (interpret mode), within a relative norm error of
+    1e-4 over the live polylines (recorded; measured 8.3e-8)."""
+    x, valid, _, tmod = encoders
+    jmod = jne.FusedNodeEncoder(d_model=D, n_head=H, n_layer=L, d_feedforward=D, dropout_p=0.0, matmul_bf16=True)
+    p = {name: getattr(tmod, name).detach().numpy() for name in tne.W_NAMES}
+    j = np.asarray(jmod.apply({"params": p}, jnp.asarray(x), jnp.asarray(valid), method="encode_pooled_hybrid"))
+    with torch.no_grad():
+        t = tmod.encode_pooled_hybrid(torch.from_numpy(x), torch.from_numpy(valid), bf16=True).numpy()
+    live = valid.any(-1)
+    err = rel_norm(t[live], j[live])
+    record_property("hybrid_bf16_rel_norm_err", err)
+    assert err <= 1e-4, err
+    assert (t[~live] == np.float32(tne.NEG)).all()
+
+
 def test_hybrid_equals_the_fused_plain_version(encoders):
     """The hybrid layout and the fused stack compute the same function."""
     x, valid, _, tmod = encoders
@@ -132,9 +178,12 @@ def map_cfg(**kw):
 
 def test_map_encoder_honours_node_encoder_impl():
     """Eval: "hybrid" and "fused" give the same map features; another value
-    raises; kernel_matmul_bf16 raises on both eval paths (the kernels are fp32)."""
+    raises; kernel_matmul_bf16 takes each path's bf16 variant: the map
+    features move from the fp32 ones by a bf16-sized amount (a relative
+    norm gap between 1e-5 and 1e-2), the two bf16 layouts differ (the
+    hybrid one keeps its matmuls fp32), and training ignores the switch."""
     batch = tiny_batch(tiny_config(), n_scene=2, seed=0)
-    feats = {}
+    feats, feats16 = {}, {}
     for impl in ("fused", "hybrid"):
         cfg = map_cfg(node_encoder_impl=impl)
         model = TO.make_model(cfg, device="cpu", seed=0)
@@ -142,8 +191,11 @@ def test_map_encoder_honours_node_encoder_impl():
         with torch.no_grad():
             feats[impl] = TO.encode_episode_features(model, pb, views=("input",))["input"]["map_feature"]
         bf16 = TO.make_model(map_cfg(node_encoder_impl=impl, kernel_matmul_bf16=True), device="cpu", seed=0)
-        with pytest.raises(NotImplementedError, match="kernel_matmul_bf16"), torch.no_grad():
-            TO.encode_episode_features(bf16, pb, views=("input",))
+        with torch.no_grad():
+            feats16[impl] = TO.encode_episode_features(bf16, pb, views=("input",))["input"]["map_feature"]
+        assert torch.isfinite(feats16[impl]).all()
+        assert 1e-5 < rel_norm(feats16[impl].numpy(), feats[impl].numpy()) < 1e-2, impl
     torch.testing.assert_close(feats["hybrid"], feats["fused"], **TOL)
+    assert not torch.equal(feats16["hybrid"], feats16["fused"])
     with pytest.raises(ValueError, match="node_encoder_impl"):
         TO.make_model(map_cfg(node_encoder_impl="xla"), device="cpu")

@@ -20,6 +20,12 @@ within 1e-4 and its dx and 18 weight gradients within a relative norm error
 of 1e-3 (K3's sums run over up to 1216 query rows in another order; the
 node stack's fp32 gradients are themselves ~1e-4 from fp64: max-pool
 near-ties move a column's whole cotangent, see chip_smoke.py).
+The bf16 variants (K1, K2, K6 under precision="bf16" / kernel_matmul_bf16)
+against their plain versions' bf16 functions within a relative norm error
+of 1e-3: the operands are rounded alike, but an intermediate on a bf16
+rounding boundary (an attention weight after the card's expf, a sum in
+another order) lands one bf16 ulp, 3.9e-3 relative, away (chip_smoke.py
+phase 6c counts them: 1,664 of 15.7M K6 outputs at full width).
 The backward kernels are bitwise the same run to run; K5's fused entries
 (dropout_add, relu_dropout) equal their plain compositions bit for bit. K6 (the hybrid node
 encoder's attention core) within 1e-5 of its plain version on the rows of
@@ -114,6 +120,53 @@ def test_k1_kernel_matches_plain_on_both_paths(cuda, B, S, T, H, bf16):
         torch.testing.assert_close(out, tfa.attention_core_plain(q, k, v, inv, H), atol=1e-5, rtol=1e-5)
 
 
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H", [
+    (8, 64, 1024, 4),  # the rollout as2pl: path S, eight ranks
+    (2, 37, 1000, 8),  # d_head 16, path S
+    (2, 1024, 1024, 4),  # the map self-attention: path L
+    (2, 1216, 1024, 4),  # the latent as2pl
+    (2, 70, 1024, 2),  # d_head 64, path L
+])
+def test_k1_bf16_kernel_matches_plain(cuda, B, S, T, H):
+    """K1's bf16 variant on both paths with a padding and a full mask: a
+    bf16 output within a relative norm error of 1e-3 of the plain
+    version's, all-masked rows 0, two calls bitwise equal, one launch each
+    counted in LAUNCHES_BF16 and none in LAUNCHES."""
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, 128, seed=8))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    pad = invalid[:, 0]
+    for inv in (pad[:, None, :].expand(B, S, T), invalid):
+        before, before32 = tfa.LAUNCHES_BF16, tfa.LAUNCHES
+        out = tfa.fused_attention_core(q, k, v, inv, H)
+        again = tfa.fused_attention_core(q, k, v, inv, H)
+        torch.cuda.synchronize()
+        assert (tfa.LAUNCHES_BF16, tfa.LAUNCHES) == (before + 2, before32)
+        assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+        ref = tfa.attention_core_plain(q, k, v, inv, H)
+        assert rel_norm(out, ref) < 1e-3
+        assert (out[inv.all(-1)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k2_bf16_kernel_matches_plain(cuda):
+    x, valid = (torch.from_numpy(a).to(cuda) for a in node_inputs(BP=1024, N=20, D=128, seed=6))
+    tmod = perturbed_encoder().to(cuda)
+    before = tne.LAUNCHES_BF16
+    with torch.no_grad():
+        out = tmod.encode_pooled(x, valid, bf16=True)
+        torch.cuda.synchronize()
+        ref = tmod.pooled_plain(x, valid, bf16=True)
+    assert tne.LAUNCHES_BF16 == before + 1
+    live = valid.any(-1)
+    assert rel_norm(out[live], ref[live]) < 1e-3
+    assert (out[~live] == tne.NEG).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [20, tne.KERNEL_MAX_NODES])
 def test_k2_kernel_matches_plain(cuda, N):
@@ -156,6 +209,26 @@ def test_eval_rollout_on_the_card_launches_both_kernels(cuda):
     p = out.preds.cpu()
     assert torch.isfinite(p).all()
     np.testing.assert_allclose(p[:, :, :30].numpy(), ref.preds[:, :, :30].numpy(), atol=1e-3, rtol=0)
+    assert torch.equal(out.valid[:, :, :30].cpu(), ref.valid[:, :, :30])
+
+
+@pytest.mark.cuda
+def test_bf16_eval_rollout_on_the_card_launches_the_bf16_variants(cuda):
+    """precision="bf16" with kernel_matmul_bf16 at the model's full width:
+    the card's run launches K1's and K2's bf16 variants and never the fp32
+    K1 or K2, its preds are finite, and its validity equals the CPU's plain
+    run's over the first 30 steps."""
+    cfg = ExperimentConfig(precision="bf16")
+    data = dataclasses.replace(cfg.data, n_agent=32, n_pl=128, n_tl=16, n_tl_stop=8)
+    me = dataclasses.replace(cfg.model.map_encoder, kernel_matmul_bf16=True)
+    cfg = dataclasses.replace(cfg, data=data, model=dataclasses.replace(cfg.model, map_encoder=me))
+    batch = synthetic_episode_batch(data, n_scene=2, seed=1, n_valid_pl=96, n_valid_agent=20)
+    tfa.LAUNCHES = tfa.LAUNCHES_BF16 = tne.LAUNCHES = tne.LAUNCHES_BF16 = 0
+    out = TO.eval_rollout(cfg, TO.make_model(cfg, device=cuda, seed=1), batch, device=cuda)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES_BF16 > 0 and tne.LAUNCHES_BF16 == 1 and tfa.LAUNCHES == tne.LAUNCHES == 0
+    ref = TO.eval_rollout(cfg, TO.make_model(cfg, device="cpu", seed=1), batch, device="cpu")
+    assert torch.isfinite(out.preds).all()
     assert torch.equal(out.valid[:, :, :30].cpu(), ref.valid[:, :, :30])
 
 
@@ -322,6 +395,23 @@ def test_k6_kernel_matches_plain(cuda, N, H):
     live = valid.any(-1)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[live], ref[live], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(20, 4), (7, 8)])
+def test_k6_bf16_kernel_matches_plain(cuda, N, H):
+    _, valid = node_inputs(BP=1024, N=N, D=128, seed=9)
+    rs = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rs.normal(size=(1024, N, 128)).astype(np.float32)).to(cuda) for _ in range(3))
+    valid = torch.from_numpy(valid).to(cuda)
+    before, before32 = tba.LAUNCHES_BF16, tba.LAUNCHES
+    out = tba.block_attn_core(q, k, v, valid, H, bf16=True)
+    torch.cuda.synchronize()
+    assert (tba.LAUNCHES_BF16, tba.LAUNCHES) == (before + 1, before32)
+    ref = tba.block_attn_core_plain(q, k, v, valid, H, bf16=True)
+    live = valid.any(-1)
+    assert torch.isfinite(out).all()
+    assert rel_norm(out[live], ref[live]) < 1e-3
 
 
 @pytest.mark.cuda

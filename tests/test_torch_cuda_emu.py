@@ -17,7 +17,8 @@ small shapes; it says nothing of their speed. The card runs the same checks
 at full width (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances: the forwards (K1, K3f) within atol = rtol = 1e-5 of the plain
-versions and K3f's row statistics within 1e-6 (fp32, the sums in another
+versions (K1's bf16 variant within a relative norm error of 1e-3: a bf16
+ulp is 3.9e-3 relative, and only values on a rounding boundary move) and K3f's row statistics within 1e-6 (fp32, the sums in another
 order, as on the card); dq, dk, dv within a relative norm error of 1e-5 of
 autograd through the plain version; K5's entries bit for bit.
 """
@@ -38,6 +39,7 @@ from trafficbots_tpu_torch.ops import dropout as tdo
 from trafficbots_tpu_torch.ops import fused_attention as tfa
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
+K1_BF16_RTOL = 1e-3
 
 
 def emulated_source(cu: str) -> str:
@@ -182,6 +184,41 @@ def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset
             outs.append(out)
         ref = tfa.attention_core_plain(q, k, v, invalid, H)
         torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
+        assert (outs[0][dead_rows(invalid)] == 0).all()
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,S,T,D,H,path", [
+    (2, 37, 300, 128, 4, "S"),  # d_head 32: three ranks, S and T off the tiles
+    (1, 64, 1000, 64, 4, "S"),  # d_head 16: eight ranks, the last partial; dead ranks
+    (1, 70, 260, 128, 4, "L"),  # d_head 32: three row blocks, the last of 6 rows
+    (1, 80, 300, 128, 2, "L"),  # d_head 64
+])
+def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H, path):
+    """K1's bf16 variant (tb_fused_attention_bf16: bf16 q/k/v, weights
+    rounded to bf16, a bf16 output) on both paths, with a full and a
+    stride-0 padding mask, against the plain version's bf16 function: the
+    output within a relative norm error of K1_BF16_RTOL (the sums run in
+    another order, and a weight or an output on a bf16 rounding boundary
+    then lands one bf16 ulp away), all-masked rows exactly 0, two calls
+    bitwise equal."""
+    assert takes_cluster(B, S, T, H) == (path == "S")
+    fn = emulated["fused_attention"].tb_fused_attention_bf16
+    fn.argtypes, fn.restype = list(tfa._ARGS_BF16), ctypes.c_int
+    q, k, v, full, pad = fwd_inputs(B, S, T, D, 3 * S + T, torch.bfloat16)
+    q = q.to(torch.bfloat16)
+    for invalid in (full, pad):
+        outs = []
+        for _ in range(2):
+            out = torch.full_like(q, float("nan"))
+            assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), B, S, T, D, H,
+                      invalid.stride(0), invalid.stride(1), None) == 0
+            outs.append(out)
+        ref = tfa.attention_core_plain(q, k, v, invalid, H)
+        assert ref.dtype == torch.bfloat16
+        err = ((outs[0].float() - ref.float()).norm() / ref.float().norm()).item()
+        record_property(f"rel_norm_err_{'full' if invalid is full else 'pad'}", err)
+        assert err < K1_BF16_RTOL, err
         assert (outs[0][dead_rows(invalid)] == 0).all()
         assert torch.equal(outs[0], outs[1])
 

@@ -39,7 +39,7 @@ BP = 7
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def emulated_lib(tmp_path_factory):
     """The ctypes library of csrc/block_attn.cu built for the emulator."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -49,9 +49,19 @@ def emulated(tmp_path_factory):
     cpp.write_text(node_source("block_attn"))
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread", f"-I{EMU}",
                     "-o", str(lib), str(cpp)], check=True)
-    fn = ctypes.CDLL(str(lib)).tb_block_attn
+    return ctypes.CDLL(str(lib))
+
+
+def entry(lib, name):
+    fn = getattr(lib, name)
     fn.argtypes, fn.restype = list(tba._ARGS), ctypes.c_int
     return fn
+
+
+@pytest.fixture(scope="module")
+def emulated(emulated_lib):
+    """K6's C entry in the emulated build."""
+    return entry(emulated_lib, "tb_block_attn")
 
 
 def inputs(N, D, seed=3):
@@ -85,3 +95,26 @@ def test_k6_emulated_matches_plain(emulated, N, D, H):
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[live], ref[live], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out[~live], ref[~live], atol=1e-5, rtol=1e-5)  # the lifted mask
+
+
+@pytest.mark.parametrize("N,D,H", [(5, 128, 4), (20, 128, 4), (7, 20, 4)])
+def test_k6_bf16_emulated_matches_plain(emulated_lib, record_property, N, D, H):
+    """K6's bf16 variant (tb_block_attn_bf16: q kᵀ and the weights times v
+    on bf16 operands, an fp32 output) against the plain version's bf16
+    function: every row within atol = rtol = 1e-5 (the operands are rounded
+    alike on both sides; only the fp32 sums' order differs, and a weight on
+    a bf16 rounding boundary would move its row by one bf16 ulp of that
+    weight: the count of rows past 1e-5 is held to 0 here), and away from
+    the fp32 kernel's output."""
+    q, k, v, valid = inputs(N, D)
+    out = torch.full_like(q, float("nan"))
+    rc = entry(emulated_lib, "tb_block_attn_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                                                    out.data_ptr(), BP, N, D, H, 1.0 / math.sqrt(D // H), None)
+    assert rc == 0
+    ref = tba.block_attn_core_plain(q, k, v, valid, H, bf16=True)
+    live = valid.any(-1)
+    assert torch.isfinite(out).all()
+    record_property("max_abs_err", (out[live] - ref[live]).abs().max().item())
+    torch.testing.assert_close(out[live], ref[live], atol=1e-5, rtol=1e-5)
+    ref32 = tba.block_attn_core_plain(q, k, v, valid, H)
+    assert (ref32[live] - ref[live]).abs().max() > 1e-3

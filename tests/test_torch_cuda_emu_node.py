@@ -166,6 +166,31 @@ def test_k2_emulated_matches_plain(emulated, BP):
     assert (out[~live] == tne.NEG).all()
 
 
+def test_k2_bf16_emulated_matches_plain(emulated, record_property):
+    """K2's bf16 variant (tb_node_encoder_bf16, every product's operands
+    rounded to bf16) against the plain version's bf16 function, within a
+    relative norm error of 1e-3 over the live polylines (the fp32 sums run
+    in another order, so an operand on a bf16 rounding boundary lands one
+    bf16 ulp, 3.9e-3 relative, away and moves what follows); dead polylines
+    at -1e30; and K2's fp32 output unchanged beside it."""
+    enc = encoder()
+    x, valid, _ = inputs(30)
+    lib = emulated["node_encoder"]
+    out = torch.full((x.shape[0], D), float("nan"))
+    fn = lib.tb_node_encoder_bf16
+    fn.argtypes, fn.restype = list(tne._ARGS), ctypes.c_int
+    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), x.shape[0], N, L, H, weight_ptrs(enc), None) == 0
+    with torch.no_grad():
+        ref = enc.pooled_plain(x, valid, bf16=True)
+        ref32 = enc.pooled_plain(x, valid)
+    live = valid.any(-1)
+    err = ((out[live] - ref[live]).norm() / ref[live].norm()).item()
+    record_property("rel_norm_err", err)
+    assert err < 1e-3, err
+    assert ((ref32[live] - ref[live]).norm() / ref[live].norm()).item() > 10 * err  # bf16 moves it
+    assert (out[~live] == tne.NEG).all()
+
+
 def test_k2_trace_build_counts_its_phases(emulated):
     """The -DTB_NODE_TRACE build names its phases and counts one work item
     a block with a valid node (ops/node_trace.py reads both)."""

@@ -12,8 +12,9 @@ own numbers are in PERF.md. Switches that only steer how a TPU kernel is
 blocked (block sizes, pipelined sub-blocks, row blocking, padding skips)
 have no counterpart here and are read but ignored. `node_encoder_impl`
 selects the eval node stack as in the JAX package ("fused": K2; "hybrid":
-matmuls around the attention core K6); `kernel_matmul_bf16` is refused by
-the eval map encoder, whose kernels are fp32.
+matmuls around the attention core K6); `kernel_matmul_bf16` takes their
+bf16-operand variants, and `precision="bf16"` the bf16 compute dtype of the
+encoders (models/modules.py).
 
 Mirrors the capability surface of the upstream Hydra tree
 (configs/model/traffic_bots.yaml and configs/**): every switch used by the

@@ -62,6 +62,17 @@
 //
 // Both paths divide with div_rn (a reciprocal and an FMA correction, the
 // IEEE quotient bit for bit) and skip the division of a zero weight.
+//
+// QB, K1's bf16 variant (the model under precision="bf16"): q, k and v are
+// bf16, and the kernel computes the Pallas `_attn_kernel`'s function on
+// them: q is widened as it is staged (a plain copy, not cp.async), the
+// logits are scaled by multiplying with the fp32 1 / sqrt(dh) as that
+// kernel does, the softmax stays fp32, each weight is rounded to bf16 after
+// its division (the kernel's `attn.astype(v.dtype)`), the weighted sum is
+// fp32 and the output is rounded to bf16 once, as it is written. The
+// products of bf16 values are exact in fp32, so this is the function of a
+// bf16 MMA with fp32 accumulation, on the CUDA cores (the tensor-core form
+// is later work). QB = false compiles to the fp32 kernels unchanged.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md section 6): path S
 // 0.0263 ms for K1 at B = 8 (8.8x its bound), 0.111 ms at B = 48; path L
 // 0.227 and 0.283 ms for K1 at the map self-attention and the latent
@@ -132,11 +143,11 @@ constexpr int MAX_CLUSTER = 8;        // ranks of a path-S cluster (the portable
 constexpr int LARGE_GRID = 4 * 132;   // path-L blocks (four waves of 132 SMs) from which path S is not taken
 
 struct Args {
-    const float* q;
+    const float* q;  // bf16 under QB
     const void* k;
     const void* v;
     const uint8_t* inv;
-    float* out;
+    float* out;  // bf16 under QB
     float* rmax;  // [B, H, S] (STATS)
     float* rsum;
     int B, S, T, D, H;
@@ -205,6 +216,34 @@ __device__ __forceinline__ void stage_rows(KV* tile, const KV* __restrict__ src,
     }
 }
 
+// x rounded to bf16 (to nearest even) and widened back.
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// q rows 0 .. n - 1 of one head (base: the first row's head slice) into
+// qs[n][DH + 4], zeros past `rows`: fp32 q by stage_rows (cp.async when
+// aligned), bf16 q (QB) widened by plain loads.
+template <int DH, int NT, bool QB>
+__device__ __forceinline__ void stage_q(float* qs, const Args& a, long long base, int n, int rows) {
+    if (!QB) {
+        stage_rows<DH, float, NT>(qs, a.q, base, 0, n, rows, a.D, a.aligned);
+        return;
+    }
+    const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(a.q);
+    for (int i = threadIdx.x; i < n * DH; i += NT) {
+        const int r = i / DH, c = i % DH;
+        qs[r * (DH + 4) + c] = r < rows ? __bfloat162float(q[base + (long long)r * a.D + c]) : 0.f;
+    }
+}
+
+// out[i] = x: fp32, or rounded to bf16 under QB.
+template <bool QB>
+__device__ __forceinline__ void store_out(const Args& a, long long i, float x) {
+    if (QB)
+        reinterpret_cast<__nv_bfloat16*>(a.out)[i] = __float2bfloat16_rn(x);
+    else
+        a.out[i] = x;
+}
+
 // Bit j: byte j of the 16 in u is 0 (an allowed key).
 __device__ __forceinline__ uint32_t zero_bytes(uint4 u) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -256,8 +295,10 @@ struct Grid {
 // q loads 4 rows (broadcast within each 8 threads). The sum over d runs in
 // order, as the plain version and K3b's rebuild of the logits do. mx
 // keeps the running max of the thread's 4 rows over their allowed keys
-// (store_row_max hands it on once all tiles are done).
-template <int DH, class KV, int ROWS, int NK, int NT>
+// (store_row_max hands it on once all tiles are done). Under QB the sum is
+// multiplied by the fp32 scale 1 / sqrt(dh) instead, as the TPU kernel
+// scales its logits.
+template <int DH, class KV, int ROWS, int NK, int NT, bool QB = false>
 __device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const float* qs, const KV* kt, int tg0,
                                             const uint32_t* bits, int bstride, int bkey0, int T,
                                             float (&mx)[4]) {
@@ -290,7 +331,7 @@ __device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const fl
                 acc[i][j] = s;
             }
     }
-    const float sqrt_dh = sqrtf((float)DH), rs = 1.f / sqrt_dh;
+    const float sqrt_dh = sqrtf((float)DH), rs = 1.f / sqrt_dh, scale = (float)(1.0 / sqrt((double)DH));
     uint32_t kw[MK];  // a padding mask's words of the thread's keys (shared by every row)
 #pragma unroll
     for (int j = 0; j < MK; ++j) {
@@ -306,7 +347,8 @@ __device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const fl
             if (t < T) {
                 const int tb = t - bkey0;
                 const uint32_t word = bstride == 0 ? kw[j] : bits[r * bstride + (tb >> 5)];
-                const float z = (word >> (tb & 31)) & 1u ? div_rn(acc[i][j], sqrt_dh, rs) : -INFINITY;
+                const float y = QB ? acc[i][j] * scale : div_rn(acc[i][j], sqrt_dh, rs);
+                const float z = (word >> (tb & 31)) & 1u ? y : -INFINITY;
                 lg[r * ldl + l0 + tl] = z;
                 mx[i] = fmaxf(mx[i], z);
             }
@@ -384,7 +426,7 @@ __device__ __forceinline__ void store_partials(float* part, const float (&acc)[4
 //     threads' sums by a butterfly;
 //   weights_rows: w = e / sum (div_rn; a zero e gives 0 without it), times the dropout
 //     factor of (row stat0 + r, column col0 + t) when DROP is on, four a
-//     Philox call, skipped for four zero weights.
+//     Philox call, skipped for four zero weights; rounded to bf16 under RW.
 template <int ROWS, int NT>
 __device__ __forceinline__ void exp_rows(float* lg, int ldl, int n, int rows, const float* m, float* sum) {
     constexpr int TPR = NT / ROWS;
@@ -412,7 +454,7 @@ __device__ __forceinline__ void exp_rows(float* lg, int ldl, int n, int rows, co
     if (k == 0) sum[r] = live ? s : 0.f;
 }
 
-template <int ROWS, int NT, bool DROP>
+template <int ROWS, int NT, bool DROP, bool RW = false>
 __device__ __forceinline__ void weights_rows(float* lg, int ldl, int n, int rows, const float* m, const float* sum,
                                              const Args& a, long long stat0, int col0) {
     constexpr int TPR = NT / ROWS;
@@ -425,6 +467,10 @@ __device__ __forceinline__ void weights_rows(float* lg, int ldl, int n, int rows
         float w[4] = {e.x, e.y, e.z, e.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) w[j] = w[j] == 0.f ? 0.f : div_rn(w[j], sr, ir);
+        if (RW) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) w[j] = round_bf16(w[j]);
+        }
         if (DROP && a.drop.on && (w[0] != 0.f || w[1] != 0.f || w[2] != 0.f || w[3] != 0.f)) {
             float f[4];
             tb_philox::factors4(a.drop, a.site, (unsigned long long)(stat0 + r), (uint32_t)((col0 + t) >> 2), f);
@@ -457,7 +503,7 @@ size_t rows_smem(int T) {
                             ROWS_L * nt * (TK / 32) + (Grid<ROWS_L, TK, THREADS_L>::NWX + 2) * ROWS_L + 2 * nt);
 }
 
-template <int DH, class KV, bool DROP, bool STATS>
+template <int DH, class KV, bool DROP, bool STATS, bool QB>
 __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX;
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = NT / GT, KG = TK / NG;
@@ -484,7 +530,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     const KV* V = static_cast<const KV*>(a.v);
     const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
 
-    stage_rows<DH, float, NT>(qs, a.q, ((long long)b * a.S + s0) * a.D + h * DH, 0, ROWS_L, rows, a.D, a.aligned);
+    stage_q<DH, NT, QB>(qs, a, ((long long)b * a.S + s0) * a.D + h * DH, ROWS_L, rows);
     cp_async_commit();
     load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
     for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
@@ -526,8 +572,8 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         cp_async_commit();  // empty on the last tile: one group a step
         cp_async_wait<1>();
         __syncthreads();
-        tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i & 1) * TK * LD, live[i] * TK, bits, brs,
-                                            0, T, mx);
+        tile_logits<DH, KV, ROWS_L, TK, NT, QB>(lg, ldl, live[i] * TK, qs, kv + (i & 1) * TK * LD, live[i] * TK, bits,
+                                                brs, 0, T, mx);
         __syncthreads();
     }
     store_row_max<ROWS_L, TK, NT>(rm, mx);
@@ -553,7 +599,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         a.rmax[stat0 + threadIdx.x] = mrow[threadIdx.x];
         a.rsum[stat0 + threadIdx.x] = srow[threadIdx.x];
     }
-    weights_rows<ROWS_L, NT, DROP>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
+    weights_rows<ROWS_L, NT, DROP, QB>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
     TB_TRACE(0, 5);  // the weights (this thread's share)
 
     // weighted sum: V tiles double-buffered; group grp takes keys
@@ -581,7 +627,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         const int r = i / DH, c = i % DH;
         float s = part[i];
         for (int g = 1; g < NG; ++g) s += part[g * ROWS_L * DH + i];
-        a.out[((long long)b * a.S + s0 + r) * a.D + h * DH + c] = mrow[r] == -INFINITY ? 0.f : s;
+        store_out<QB>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c, mrow[r] == -INFINITY ? 0.f : s);
     }
     TB_TRACE(0, 7);  // the groups' partials, the output
 }
@@ -606,7 +652,7 @@ __device__ __forceinline__ void gather(float (&v)[MAX_CLUSTER], float* arr, int 
 
 // Three blocks an SM (registers and shared memory allow it), so that a
 // cluster of eight finds room beside the others: at B = 8, 32 clusters.
-template <int DH, class KV, bool DROP, bool STATS>
+template <int DH, class KV, bool DROP, bool STATS, bool QB>
 __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     constexpr int NT = THREADS_S, HK = TK / 2, NWX = Grid<ROWS_S, HK, NT>::NWX;
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), LL = TK + 8, NW = TK / 32;
@@ -636,7 +682,7 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
 
     // q, the K and the V slice at once: V stays in flight through the
     // logits and the softmax
-    stage_rows<DH, float, NT>(qs, a.q, (long long)b * S * a.D + h * DH, 0, ROWS_S, S, a.D, a.aligned);
+    stage_q<DH, NT, QB>(qs, a, (long long)b * S * a.D + h * DH, ROWS_S, S);
     stage_rows<DH, KV, NT>(kt, static_cast<const KV*>(a.k), kv_base, t0, TK, T, a.D, a.aligned);
     cp_async_commit();
     stage_rows<DH, KV, NT>(vt, static_cast<const KV*>(a.v), kv_base, t0, TK, T, a.D, a.aligned);
@@ -651,8 +697,8 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
                                        bits[(threadIdx.x / NW) * brs + threadIdx.x % NW] != 0u);
     float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
     if (live) {  // two halves of 64 keys: 4 x 4 micro-tiles, few registers
-        tile_logits<DH, KV, ROWS_S, HK, NT>(lg, LL, 0, qs, kt, t0, bits, brs, t0, T, mx);
-        tile_logits<DH, KV, ROWS_S, HK, NT>(lg, LL, HK, qs, kt + HK * LD, t0 + HK, bits, brs, t0, T, mx);
+        tile_logits<DH, KV, ROWS_S, HK, NT, QB>(lg, LL, 0, qs, kt, t0, bits, brs, t0, T, mx);
+        tile_logits<DH, KV, ROWS_S, HK, NT, QB>(lg, LL, HK, qs, kt + HK * LD, t0 + HK, bits, brs, t0, T, mx);
     } else {  // no pair of the slice is allowed: no product
         for (int j = threadIdx.x; j < ROWS_S * n; j += NT) lg[(j / n) * LL + j % n] = -INFINITY;
     }
@@ -688,7 +734,7 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
         gsum[threadIdx.x] = s;
     }
     __syncthreads();
-    weights_rows<ROWS_S, NT, DROP>(lg, LL, n, S, gmax, gsum, a, stat0, t0);
+    weights_rows<ROWS_S, NT, DROP, QB>(lg, LL, n, S, gmax, gsum, a, stat0, t0);
     TB_TRACE(1, 5);  // the sum, exchanged, and the weights (this thread's share)
 
     // the slice's weighted sum: group grp takes keys grp * KG .., the
@@ -720,7 +766,7 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
         gather(v, part, i, CL);
         float s = v[0];
         for (int k = 1; k < CL; ++k) s += v[k];
-        a.out[((long long)b * S + r) * a.D + h * DH + d] = gmax[r] == -INFINITY ? 0.f : s;
+        store_out<QB>(a, ((long long)b * S + r) * a.D + h * DH + d, gmax[r] == -INFINITY ? 0.f : s);
     }
     if (STATS && (int)threadIdx.x >= r0 && (int)threadIdx.x < r1) {  // -inf and 0 for an all-masked row
         a.rmax[stat0 + threadIdx.x] = gmax[threadIdx.x];
@@ -741,11 +787,11 @@ inline bool takes_cluster(const Args& a) {
     return a.S <= ROWS_S && (a.T + TK - 1) / TK <= MAX_CLUSTER && row_blocks < LARGE_GRID;
 }
 
-template <int DH, class KV, bool DROP, bool STATS>
+template <int DH, class KV, bool DROP, bool STATS, bool QB = false>
 cudaError_t launch(const Args& a, cudaStream_t st) {
     if (takes_cluster(a)) {
         const size_t smem = cluster_smem<DH, KV>();
-        cudaError_t err = cudaFuncSetAttribute(fwd_cluster<DH, KV, DROP, STATS>,
+        cudaError_t err = cudaFuncSetAttribute(fwd_cluster<DH, KV, DROP, STATS, QB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
         const int cl = (a.T + TK - 1) / TK;
@@ -761,15 +807,15 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
         attr[0].val.clusterDim.z = 1;
         cfg.attrs = attr;
         cfg.numAttrs = 1;
-        err = cudaLaunchKernelEx(&cfg, fwd_cluster<DH, KV, DROP, STATS>, a);
+        err = cudaLaunchKernelEx(&cfg, fwd_cluster<DH, KV, DROP, STATS, QB>, a);
         return err != cudaSuccess ? err : cudaGetLastError();
     }
     const size_t smem = rows_smem<DH, KV>(a.T);
-    cudaError_t err = cudaFuncSetAttribute(fwd_rows<DH, KV, DROP, STATS>,
+    cudaError_t err = cudaFuncSetAttribute(fwd_rows<DH, KV, DROP, STATS, QB>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.S + ROWS_L - 1) / ROWS_L, a.H, a.B);
-    fwd_rows<DH, KV, DROP, STATS><<<grid, THREADS_L, smem, st>>>(a);
+    fwd_rows<DH, KV, DROP, STATS, QB><<<grid, THREADS_L, smem, st>>>(a);
     return cudaGetLastError();
 }
 

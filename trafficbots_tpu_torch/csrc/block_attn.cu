@@ -53,7 +53,16 @@
 // the main path's 8 scenes (BP = 8192): 0.159 ms on the device (the first
 // design 0.347-0.348 in the same run), 1.6x its bound, about 63% of the HBM
 // rate (PERF.md).
+//
+// BF, K6's bf16 variant (tb_block_attn_bf16, map_encoder.kernel_matmul_bf16;
+// the TPU kernel's bf16=True): a polyline's q, k and v are rounded to bf16
+// in shared memory once they land (one pass and a barrier), and each
+// weight after the softmax; the fp32 FMA sums then add exact products of
+// bf16 values, so this is the bf16 MMA with fp32 accumulation of the TPU
+// kernel; the output stays fp32. BF = false compiles to the fp32 kernel
+// unchanged.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -154,7 +163,12 @@ __device__ __forceinline__ void store_out(float* Q, const float (&acc)[16], int 
     }
 }
 
-template <int NB>
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+    return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)), __bfloat162float(__float2bfloat16_rn(v.y)),
+                       __bfloat162float(__float2bfloat16_rn(v.z)), __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+template <int NB, bool BF>
 __global__ void __launch_bounds__(NT)
 block_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   const uint8_t* __restrict__ valid, float* __restrict__ out, long long BP, int N, int D, int H,
@@ -202,6 +216,13 @@ block_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
             stage(pn, smem + ((it + 1) & 1) * stage_floats);
         }
         cp_async_commit();
+        if (BF) {  // q, k and v rounded to bf16 once, in place, as the polyline lands
+            for (int i = threadIdx.x; i < stage_floats / 4; i += NT) {
+                float4* e = reinterpret_cast<float4*>(cur) + i;
+                *e = round_bf16(*e);
+            }
+            __syncthreads();
+        }
 
         // two threads a (head, query) row, lanes 2 i and 2 i + 1: the scores of
         // the first and the second half of the nodes, exchanged; the same
@@ -237,6 +258,10 @@ block_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
                 sc[NH + t] = half ? own[t] : other;
             }
             softmax<NB>(sc, scale, N, bits, any);
+            if (BF) {
+#pragma unroll
+                for (int t = 0; t < NB; ++t) sc[t] = __bfloat162float(__float2bfloat16_rn(sc[t]));
+            }
             const int mid = (HS4 + 1) / 2, lo = half ? mid : 0, hi = half ? HS4 : mid;
             for (int c0 = lo; c0 < hi; c0 += 4) {
                 float acc[16];
@@ -271,11 +296,11 @@ block_attn_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
     }
 }
 
-template <int NB>
+template <int NB, bool BF>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int BP, int N, int D,
            int n_head, float scale, size_t smem, cudaStream_t stream) {
     void (*kernel)(const float*, const float*, const float*, const uint8_t*, float*, long long, int, int, int,
-                   float) = block_attn_kernel<NB>;
+                   float) = block_attn_kernel<NB, BF>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0, per_sm = 0;
@@ -290,6 +315,27 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
     return (int)cudaGetLastError();
 }
 
+template <bool BF>
+int launch_nb(const void* q, const void* k, const void* v, const void* valid, void* out, int BP, int N, int D,
+              int n_head, float scale, void* stream) {
+    if (BP <= 0 || N < 1 || N > MAXN || D < 1 || D > MAXD || n_head < 1 || D % n_head) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = smem_bytes(N, D, n_head);
+    if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch ((N + 3) / 4) {
+        case 1: return launch<4, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        case 2: return launch<8, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        case 3: return launch<12, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        case 4: return launch<16, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        case 5: return launch<20, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        case 6: return launch<24, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        case 7: return launch<28, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+        default: return launch<32, BF>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
+    }
+}
+
 }  // namespace
 
 // q, k, v, out [BP, N, D] fp32 contiguous, valid [BP, N] bool bytes, scale =
@@ -298,20 +344,11 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
 // not take).
 extern "C" int tb_block_attn(const void* q, const void* k, const void* v, const void* valid, void* out,
                              int BP, int N, int D, int n_head, float scale, void* stream) {
-    if (BP <= 0 || N < 1 || N > MAXN || D < 1 || D > MAXD || n_head < 1 || D % n_head) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const size_t smem = smem_bytes(N, D, n_head);
-    if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch ((N + 3) / 4) {
-        case 1: return launch<4>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        case 2: return launch<8>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        case 3: return launch<12>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        case 4: return launch<16>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        case 5: return launch<20>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        case 6: return launch<24>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        case 7: return launch<28>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-        default: return launch<32>(q, k, v, valid, out, BP, N, D, n_head, scale, smem, st);
-    }
+    return launch_nb<false>(q, k, v, valid, out, BP, N, D, n_head, scale, stream);
+}
+
+// K6's bf16 variant: the same arguments and layouts (see BF above).
+extern "C" int tb_block_attn_bf16(const void* q, const void* k, const void* v, const void* valid, void* out,
+                                  int BP, int N, int D, int n_head, float scale, void* stream) {
+    return launch_nb<true>(q, k, v, valid, out, BP, N, D, n_head, scale, stream);
 }

@@ -56,6 +56,7 @@ struct NodeWeights {
     const float *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo, *w1, *b1, *w2, *b2;
 };
 
+template <bool BF>
 __global__ void __launch_bounds__(NT, 1)
 node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, float* __restrict__ out,
             long long BP, int N, int n_layer, int n_head, NodeWeights w) {
@@ -88,12 +89,12 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
         layer_norm_x0(x_in, blk, t, w.lnt_s + lv, w.lnt_b + lv);
         TB_NODE_MARK(0, 2);
         const float* bk = w.bk + lv;
-        dense<3>(t, w.wk + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        dense<3, BF>(t, w.wk + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bk, c0);
             store4(k + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
         });
         const float* bv = w.bv + lv;
-        dense<3>(t, w.wv + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        dense<3, BF>(t, w.wv + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bv, c0);
             store4(v + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
         });
@@ -102,17 +103,17 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
         layer_norm(x, t, w.ln1_s + lv, w.ln1_b + lv, R);
         TB_NODE_MARK(0, 2);
         const float* bq = w.bq + lv;
-        dense<3>(t, w.wq + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        dense<3, BF>(t, w.wq + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bq, c0);
             store4(q + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
         });
         __syncthreads();
         TB_NODE_MARK(0, 3);
-        attention<false>(q, k, v, q, blk, n_head, none, 0);
+        attention<false, BF>(q, k, v, q, blk, n_head, none, 0);
         __syncthreads();
         TB_NODE_MARK(0, 4);
         const float* bo = w.bo + lv;
-        dense<3>(q, w.wo + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        dense<3, BF>(q, w.wo + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bo, c0);
             float* o = x + r * LDS + c0;
             store4(o, o[0] + (y[0] + b.x), o[1] + (y[1] + b.y), o[2] + (y[2] + b.z), o[3] + (y[3] + b.w));
@@ -122,13 +123,13 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
         layer_norm(x, t, w.ln2_s + lv, w.ln2_b + lv, R);
         TB_NODE_MARK(0, 2);
         const float* b1 = w.b1 + lv;
-        dense<3>(t, w.w1 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        dense<3, BF>(t, w.w1 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(b1, c0);
             store4(q + r * LDS + c0, fmaxf(y[0] + b.x, 0.f), fmaxf(y[1] + b.y, 0.f), fmaxf(y[2] + b.z, 0.f),
                    fmaxf(y[3] + b.w, 0.f));
         });
         const float* b2 = w.b2 + lv;
-        dense<3>(q, w.w2 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        dense<3, BF>(q, w.w2 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(b2, c0);
             float* o = x + r * LDS + c0;
             store4(o, o[0] + (y[0] + b.x), o[1] + (y[1] + b.y), o[2] + (y[2] + b.z), o[3] + (y[3] + b.w));
@@ -151,6 +152,23 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
     TB_NODE_MARK(0, 5);
 }
 
+template <bool BF>
+int launch(const void* x, const void* valid, void* out, int BP, int N, int n_layer, int n_head, const void* const* w,
+           void* stream) {
+    if (N < 1 || N > MAXN || !heads_ok(n_head)) return (int)cudaErrorInvalidValue;
+    const float* const* f = reinterpret_cast<const float* const*>(w);
+    NodeWeights nw{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
+                   f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16], f[17]};
+    cudaError_t err = cudaFuncSetAttribute(node_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int P = ROWS / N;
+    const int grid = (BP + P - 1) / P;
+    node_kernel<BF><<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out), BP, N, n_layer,
+        n_head, nw);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 TB_NODE_PHASES("0 node_kernel (a group of polylines): rows loaded|layer norms|dense products|attention|pool")
@@ -162,16 +180,12 @@ TB_NODE_PHASES("0 node_kernel (a group of polylines): rows loaded|layer norms|de
 // cudaError_t of the launch.
 extern "C" int tb_node_encoder(const void* x, const void* valid, void* out, int BP, int N, int n_layer, int n_head,
                                const void* const* w, void* stream) {
-    if (N < 1 || N > MAXN || !heads_ok(n_head)) return (int)cudaErrorInvalidValue;
-    const float* const* f = reinterpret_cast<const float* const*>(w);
-    NodeWeights nw{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
-                   f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16], f[17]};
-    cudaError_t err = cudaFuncSetAttribute(node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const int P = ROWS / N;
-    const int grid = (BP + P - 1) / P;
-    node_kernel<<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(valid), static_cast<float*>(out), BP, N, n_layer,
-        n_head, nw);
-    return (int)cudaGetLastError();
+    return launch<false>(x, valid, out, BP, N, n_layer, n_head, w, stream);
+}
+
+// K2's bf16 variant (map_encoder.kernel_matmul_bf16): the same arguments;
+// every product on operands rounded to bf16 (BF in node_layer.cuh).
+extern "C" int tb_node_encoder_bf16(const void* x, const void* valid, void* out, int BP, int N, int n_layer,
+                                    int n_head, const void* const* w, void* stream) {
+    return launch<true>(x, valid, out, BP, N, n_layer, n_head, w, stream);
 }

@@ -27,11 +27,20 @@
 // of the weights (DROP; off for K2), the weighted sum written over the
 // thread's own q slice.
 //
+// BF (K2's bf16 variant, map_encoder.kernel_matmul_bf16): the operands of
+// every product, the weights, the rows, q, k, the attention weights and v,
+// are rounded to bf16 as they are loaded into registers, and the existing
+// fp32 products run on them: a product of two bf16 values is exact in fp32,
+// so this is the TPU kernel's bf16 MMA with fp32 accumulation (the order of
+// the sums aside), while LayerNorm, the softmax, the residuals and the pool
+// stay fp32. BF = false compiles to the fp32 code unchanged (K4 uses it).
+//
 // The Hopper primitive (cp.async) sits behind small functions, so that
 // tests/cuda_emu/cuda_runtime.h can give it a plain C++ body.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -131,6 +140,12 @@ __device__ void load_rows(const float* __restrict__ x, const Block& b, float* ds
     }
 }
 
+// x rounded to bf16 (to nearest even) and widened back; four at a time.
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+    return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -198,7 +213,8 @@ __device__ void layer_norm_x0(const float* __restrict__ x, const Block& b, float
 // lane's (a lane's rows past R compute on whatever the buffer holds there,
 // up to row 63, and are not stored). Begins with a barrier, so that the
 // ring is free; the caller synchronises before reading what epi wrote.
-template <int NSTAGE, class Epi>
+// With BF, both operands are rounded to bf16 as they reach registers.
+template <int NSTAGE, bool BF = false, class Epi>
 __device__ void dense(const float* in, const float* __restrict__ W, float* wsm, int R, Epi epi) {
     static_assert(NSTAGE == 2 || NSTAGE == 3, "dense: 2 or 3 tiles in flight");
     constexpr int WTILE = KT * D;
@@ -234,11 +250,15 @@ __device__ void dense(const float* in, const float* __restrict__ W, float* wsm, 
         for (int kk = 0; kk < KT; kk += 4) {
             float4 w[4];
 #pragma unroll
-            for (int u = 0; u < 4; ++u) w[u] = *reinterpret_cast<const float4*>(ws + (kk + u) * D + c0);
+            for (int u = 0; u < 4; ++u) {
+                w[u] = *reinterpret_cast<const float4*>(ws + (kk + u) * D + c0);
+                if (BF) w[u] = round_bf16(w[u]);
+            }
 #pragma unroll
             for (int i = 0; i < MAXRT; ++i) {
                 if (i < nrt) {
-                    const float4 a = *reinterpret_cast<const float4*>(a0 + 16 * i * LDS + kk);
+                    float4 a = *reinterpret_cast<const float4*>(a0 + 16 * i * LDS + kk);
+                    if (BF) a = round_bf16(a);
                     const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
                     for (int u = 0; u < 4; ++u) {
@@ -279,13 +299,16 @@ __device__ __forceinline__ void load_head(const float* src, float (&dst)[32], in
         }
 }
 
-// sum_d a[d] b[d] over d < dh in order (fmaf), b read by float4
+// sum_d a[d] b[d] over d < dh in order (fmaf), b read by float4 (and
+// rounded to bf16 with BF)
+template <bool BF = false>
 __device__ __forceinline__ float dot_head(const float (&a)[32], const float* b, int dh) {
     float t = 0.f;
 #pragma unroll
     for (int d4 = 0; d4 < 8; ++d4)
         if (4 * d4 < dh) {
-            const float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
+            float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
+            if (BF) v = round_bf16(v);
             t = fmaf(a[4 * d4], v.x, t);
             t = fmaf(a[4 * d4 + 1], v.y, t);
             t = fmaf(a[4 * d4 + 2], v.z, t);
@@ -294,12 +317,14 @@ __device__ __forceinline__ float dot_head(const float (&a)[32], const float* b, 
     return t;
 }
 
-// acc[d] += w b[d] for d < dh, b read by float4
+// acc[d] += w b[d] for d < dh, b read by float4 (and rounded to bf16 with BF)
+template <bool BF = false>
 __device__ __forceinline__ void axpy_head(float (&acc)[32], float w, const float* b, int dh) {
 #pragma unroll
     for (int d4 = 0; d4 < 8; ++d4)
         if (4 * d4 < dh) {
-            const float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
+            float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
+            if (BF) v = round_bf16(v);
             acc[4 * d4] = fmaf(w, v.x, acc[4 * d4]);
             acc[4 * d4 + 1] = fmaf(w, v.y, acc[4 * d4 + 1]);
             acc[4 * d4 + 2] = fmaf(w, v.z, acc[4 * d4 + 2]);
@@ -320,8 +345,9 @@ __device__ __forceinline__ void store_head(float* dst, const float (&a)[32], int
 // registers, before writing it). With DROP, the weights' dropout at
 // `site`, row (poly H + h) N + node_r, column node_j; with gsave, a also
 // written to gsave[r] (device memory, row stride D). The sums over d and
-// over j run in order, as the first design's did.
-template <bool DROP>
+// over j run in order, as the first design's did. With BF, q, k, the
+// weights and v are rounded to bf16 before their products.
+template <bool DROP, bool BF = false>
 __device__ void attention(const float* Q, const float* K, const float* V, float* A, const Block& b, int H,
                           const Dropout& drop, int site, float* gsave = nullptr) {
     const int dh = D / H;
@@ -331,12 +357,16 @@ __device__ void attention(const float* Q, const float* K, const float* V, float*
         const int s = b.rseg[r], j0 = b.seg0[s], n = b.seg0[s + 1] - j0;
         float acc[32];
         load_head(Q + r * LDS + h * dh, acc, dh);  // q, then the output
+        if (BF) {
+#pragma unroll
+            for (int d = 0; d < 32; ++d) acc[d] = round_bf16(acc[d]);
+        }
         float sc[MAXN];
         float m = -INFINITY;
 #pragma unroll
         for (int j = 0; j < MAXN; ++j) {
             if (j >= n) break;
-            sc[j] = dot_head(acc, K + (j0 + j) * LDS + h * dh, dh) / sqrt_dh;
+            sc[j] = dot_head<BF>(acc, K + (j0 + j) * LDS + h * dh, dh) / sqrt_dh;
             m = fmaxf(m, sc[j]);
         }
         float sum = 0.f;
@@ -349,7 +379,7 @@ __device__ void attention(const float* Q, const float* K, const float* V, float*
 #pragma unroll
         for (int j = 0; j < MAXN; ++j) {
             if (j >= n) break;
-            sc[j] = sc[j] / sum;
+            sc[j] = BF ? round_bf16(sc[j] / sum) : sc[j] / sum;
         }
         if (DROP && drop.on) {
             const unsigned long long row = ((unsigned long long)b.spoly[s] * H + h) * b.N + b.rnode[r];
@@ -371,7 +401,7 @@ __device__ void attention(const float* Q, const float* K, const float* V, float*
 #pragma unroll
         for (int j = 0; j < MAXN; ++j) {
             if (j >= n) break;
-            axpy_head(acc, sc[j], V + (j0 + j) * LDS + h * dh, dh);
+            axpy_head<BF>(acc, sc[j], V + (j0 + j) * LDS + h * dh, dh);
         }
         store_head(A + r * LDS + h * dh, acc, dh);
         if (gsave != nullptr) store_head(gsave + (long long)r * D + h * dh, acc, dh);

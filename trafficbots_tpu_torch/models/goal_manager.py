@@ -13,7 +13,9 @@ Attention sites: the GoalPredictor's as2pl (S = agents, T = polylines) is a
 kernel site as the rollout's as2pl is (K1 in eval, K3 in training); the
 "transformer" heads' pl2as (queries = polylines, targets = at most 6
 history steps) and the "attn" head (which needs the weights) run the plain
-core, as the JAX package runs XLA there.
+core, as the JAX package runs XLA there. The compute dtype (`dtype`) reaches the
+heads' attention and transformer layers; their GRUs and MLPs stay fp32, as
+in JAX.
 """
 from __future__ import annotations
 
@@ -112,7 +114,8 @@ class DestPredictor(_GruLastValid):
     MLP. Excluded polylines get -inf, rows with none left flat logits."""
 
     def __init__(self, tf_cfg: TransformerConfig, mode: str = "mlp", n_layer_gru: int = 3,
-                 use_layernorm: bool = True, res_add_gru: bool = True, detach_features: bool = True):
+                 use_layernorm: bool = True, res_add_gru: bool = True, detach_features: bool = True,
+                 dtype: torch.dtype = torch.float32):
         if mode not in DEST_MODES:
             raise NotImplementedError(mode)
         hidden = tf_cfg.d_model
@@ -122,9 +125,9 @@ class DestPredictor(_GruLastValid):
         if mode == "mlp":
             self.mlp = MLP(2 * hidden, [hidden, hidden, 1], use_layernorm=use_layernorm, end_layer_activation=False)
         elif mode == "attn":
-            self.attn = Attention(hidden, tf_cfg.n_head, bias=tf_cfg.bias, dropout_p=tf_cfg.dropout_p)
+            self.attn = Attention(hidden, tf_cfg.n_head, bias=tf_cfg.bias, dropout_p=tf_cfg.dropout_p, dtype=dtype)
         else:
-            self.pl2as = TransformerBlock(n_layer=1, **tf_block_kwargs(tf_cfg))
+            self.pl2as = TransformerBlock(n_layer=1, dtype=dtype, **tf_block_kwargs(tf_cfg))
             self.mlp = MLP(hidden, [hidden, 1], use_layernorm=use_layernorm, end_layer_activation=False)
 
     def forward(
@@ -184,12 +187,13 @@ class GoalPredictor(_GruLastValid):
     for agents without history; a learned `log_std` [2] (initialised 2.0)."""
 
     def __init__(self, tf_cfg: TransformerConfig, goal_in_local: bool = True, n_layer_gru: int = 3,
-                 use_layernorm: bool = True, res_add_gru: bool = True, detach_features: bool = True):
+                 use_layernorm: bool = True, res_add_gru: bool = True, detach_features: bool = True,
+                 dtype: torch.dtype = torch.float32):
         hidden = tf_cfg.d_model
         super().__init__(hidden, n_layer_gru, res_add_gru, tf_cfg.dropout_p)
         self.goal_in_local = goal_in_local
         self.detach_features = detach_features
-        self.as2pl = TransformerBlock(n_layer=1, **tf_block_kwargs(tf_cfg))
+        self.as2pl = TransformerBlock(n_layer=1, dtype=dtype, **tf_block_kwargs(tf_cfg))
         self.mlp_mean = MLP(hidden, [hidden, 2], use_layernorm=use_layernorm, end_layer_activation=False)
         self.log_std = nn.Parameter(torch.full((2,), 2.0))
 
@@ -226,12 +230,12 @@ class GoalManager(nn.Module):
     """Holds the goal head under the flax name `predictor` (none in "dummy"
     mode)."""
 
-    def __init__(self, cfg: GoalManagerConfig, tf_cfg: TransformerConfig):
+    def __init__(self, cfg: GoalManagerConfig, tf_cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mode = cfg.goal_attr_mode
         gp = cfg.goal_predictor
         kw = dict(n_layer_gru=gp.n_layer_gru, use_layernorm=gp.use_layernorm, res_add_gru=gp.res_add_gru,
-                  detach_features=gp.detach_features)
+                  detach_features=gp.detach_features, dtype=dtype)
         if self.mode == "dest":
             self.predictor = DestPredictor(tf_cfg, mode=gp.mode, **kw)
         elif self.mode == "goal_xy":

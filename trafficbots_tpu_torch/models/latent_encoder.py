@@ -12,6 +12,8 @@ Temporal downsampling by `temporal_down_sample_rate` keeps 19 of the
 posterior's 91 steps. The distribution heads (`DistEncoder`): "dummy",
 "std_gaus", "diag_gaus" with a constant or a learned (`mlp_log_std`)
 log_std, and "cat" (`mlp_logits`, a softmax over n_class per category).
+The compute dtype (`dtype`) reaches the cross-attention and interaction
+transformers; the GRUs and the distribution heads stay fp32, as in JAX.
 """
 from __future__ import annotations
 
@@ -89,6 +91,7 @@ class LatentEncoder(nn.Module):
         transformer_as2tl: TransformerBlock,
         n_layer_tf_as2pl: int = 3,
         n_layer_tf_as2tl: int = 3,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.cfg = cfg
@@ -99,8 +102,8 @@ class LatentEncoder(nn.Module):
             self._shared = (transformer_as2pl, transformer_as2tl)
         else:
             kw = tf_block_kwargs(tf_cfg)
-            self.as2pl = TransformerBlock(n_layer=n_layer_tf_as2pl, **kw)
-            self.as2tl = TransformerBlock(n_layer=n_layer_tf_as2tl, **kw)
+            self.as2pl = TransformerBlock(n_layer=n_layer_tf_as2pl, dtype=dtype, **kw)
+            self.as2tl = TransformerBlock(n_layer=n_layer_tf_as2tl, dtype=dtype, **kw)
             self._shared = (self.as2pl, self.as2tl)
         hidden = tf_cfg.d_model
         self.prior_dist = DistEncoder(cfg.latent_prior, hidden, cfg.latent_dim)
@@ -120,7 +123,7 @@ class LatentEncoder(nn.Module):
                 return MultiAgentTF(
                     hidden, n_layer=ai.n_layer, mask_self_agent=ai.mask_self_agent,
                     detach_tgt=ai.detach_tgt, attn_to_map_aware_feature=ai.attn_to_map_aware_feature,
-                    tf_kwargs=tf_kwargs,
+                    tf_kwargs=tf_kwargs, dtype=dtype,
                 )
 
             self.temporal_post = temporal()

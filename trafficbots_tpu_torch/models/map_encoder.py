@@ -12,8 +12,12 @@ kernel K4 (`ops.node_encoder_train.node_encoder_train`, the JAX
 package, unless `fused_train_kernel` is off: then the node stack's plain
 version under autograd, as the JAX package then runs its XLA stack; and
 the self-attention core K3 (S = T = n_pl >= 256). Off the card, or inside
-`ops.plain_versions()`, their plain versions. The eval kernels are fp32:
-`kernel_matmul_bf16` raises there rather than being ignored.
+`ops.plain_versions()`, their plain versions. `kernel_matmul_bf16` takes
+K2's or K6's bf16-operand variant (and its plain version) in eval; training
+ignores it, as the JAX package's training kernels do. The compute dtype
+(`dtype`, bf16 under `precision="bf16"`) reaches the input PE encoder and
+the polyline self-attention; the node stack stays fp32, as JAX's
+`FusedNodeEncoder` takes none.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ Tensor = torch.Tensor
 class MapEncoder(nn.Module):
     def __init__(
         self, attr_dim: int, hidden_dim: int, pe_dim: int, cfg: MapEncoderConfig,
-        pe_cfg: InputPeEncoderConfig, tf_cfg: TransformerConfig,
+        pe_cfg: InputPeEncoderConfig, tf_cfg: TransformerConfig, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         default_stack = (
@@ -50,7 +54,7 @@ class MapEncoder(nn.Module):
         self.input_pe = InputPeEncoder(
             attr_dim, hidden_dim, pe_dim, n_layer=pe_cfg.n_layer,
             mlp_use_layernorm=pe_cfg.mlp_use_layernorm, pe_mode=pe_cfg.pe_mode,
-            mlp_dropout_p=pe_cfg.mlp_dropout_p,
+            mlp_dropout_p=pe_cfg.mlp_dropout_p, dtype=dtype,
         )
         if cfg.node_encoder_impl not in ("fused", "hybrid"):
             raise ValueError(f"node_encoder_impl={cfg.node_encoder_impl!r}: 'fused' or 'hybrid'")
@@ -62,7 +66,7 @@ class MapEncoder(nn.Module):
             d_model=hidden_dim, n_head=tf_cfg.n_head, n_layer=cfg.n_layer,
             d_feedforward=tf_cfg.d_feedforward,
         )
-        self.self_attn = TransformerBlock(n_layer=1, **tf_block_kwargs(tf_cfg))
+        self.self_attn = TransformerBlock(n_layer=1, dtype=dtype, **tf_block_kwargs(tf_cfg))
 
     def forward(
         self, map_valid: Tensor, map_attr: Tensor, map_pe: Tensor, rng: Optional[DropoutSeeds] = None,
@@ -73,13 +77,12 @@ class MapEncoder(nn.Module):
         flat = pl_feature.reshape(n_scene * n_pl, n_node, self.hidden_dim).contiguous()
         flat_valid = map_valid.reshape(n_scene * n_pl, n_node).contiguous()
         if rng is None:
-            if self.kernel_matmul_bf16:
-                raise NotImplementedError("kernel_matmul_bf16: the port's eval node-stack kernels (K2, K6) are fp32")
+            bf16 = self.kernel_matmul_bf16
             if self.node_encoder_impl == "hybrid":
-                pooled = self.densetnt.encode_pooled_hybrid(flat, flat_valid, plain=not kernels_enabled())
+                pooled = self.densetnt.encode_pooled_hybrid(flat, flat_valid, plain=not kernels_enabled(), bf16=bf16)
             else:
                 pool = self.densetnt.encode_pooled if kernels_enabled() else self.densetnt.pooled_plain
-                pooled = pool(flat, flat_valid)
+                pooled = pool(flat, flat_valid, bf16=bf16)
         else:
             seed = draw_seed(rng, self.dropout_p)
             p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)

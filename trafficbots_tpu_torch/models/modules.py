@@ -13,6 +13,19 @@ that is training. Each module call draws one seed from it and numbers its
 dropout sites, so every mask comes from the port's Philox (`ops.dropout`),
 at the sites where the JAX modules apply flax `nn.Dropout`. `rng=None` is
 the eval forward pass (deterministic).
+
+Compute dtype (`dtype`, bf16 under `precision="bf16"`): the modules that
+take one in the JAX package (`MLP`, `Attention`, the transformer layers,
+`InputPeEncoder`, `MultiAgentTF`) compute their products as a flax
+`nn.Dense(dtype=bf16)` and a bf16 einsum do there, as XLA runs them on the
+CPU: the operands of every product rounded to bf16, fp32 accumulation, the
+product rounded to bf16 (`lowp_matmul`); the elementwise work around it
+(bias adds, activations, masks, LayerNorm, softmax) in fp32, the values
+carried in fp32 tensors. XLA computes a chain of bf16 elementwise ops in
+fp32 and rounds only where a bf16 value feeds a product or is stored
+(excess precision), so the port rounds exactly there. The parameters stay
+fp32; the rest of the model (`FusedGRUCell`, `StackedGRU`, `AddLatentGoal`,
+`ActionHead`) is fp32 whatever the compute dtype, as in JAX.
 """
 from __future__ import annotations
 
@@ -22,12 +35,88 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import kernels_enabled
+from ..ops import kernels_enabled, round_to
 from ..ops.attention_train import attention_train, attention_train_plain
 from ..ops.dropout import DropoutSeeds, dropout, dropout_add, dropout_plain, relu_dropout
 from ..ops.fused_attention import attention_core_plain, fused_attention_core
 
 Tensor = torch.Tensor
+F32 = torch.float32
+
+
+def lowp_matmul(a: Tensor, b: Tensor, dtype: torch.dtype) -> Tensor:
+    """a @ b as XLA computes a `dtype` (bf16) dot, held in fp32: operands
+    rounded to bf16, fp32 accumulation, the product rounded to bf16. On the
+    card cuBLAS's bf16 GEMM (its reduction kept in fp32 by
+    `orchestration.resolve_device`); on the CPU the fp32 product of the
+    rounded operands, rounded once (torch's CPU bf16 matmul rounds some sums
+    differently from XLA's)."""
+    if a.is_cuda:
+        return (a.to(dtype) @ b.to(dtype)).to(F32)
+    return (round_to(a, dtype) @ round_to(b, dtype)).to(dtype).to(F32)
+
+
+def xla_cpu_sum(x: Tensor, n_lead: int, window: int = 32) -> Tensor:
+    """The sum of x (bf16 values held in fp32) over its `n_lead` leading
+    dims as XLA's CPU backend sums a bf16 tensor: where a reduced dim is
+    longer than `window`, a reduce-window of min(dim, window) a dim first
+    (the padding split low = total // 2, high = the rest), then the
+    windows' results summed the same way; each window's elements summed in
+    row-major order with every partial sum rounded to bf16."""
+    shape, rest = tuple(x.shape[:n_lead]), tuple(x.shape[n_lead:])
+    ws = [min(n, window) for n in shape]
+    outs = [-(-n // w) for n, w in zip(shape, ws)]
+    if all(o == 1 for o in outs):
+        acc = torch.zeros(rest, dtype=x.dtype, device=x.device)
+        for row in x.reshape(-1, *rest):
+            acc = round_to(acc + row, torch.bfloat16)
+        return acc
+    pad = []
+    for n, w, o in reversed(list(zip(shape, ws, outs))):
+        t = o * w - n
+        pad += [t // 2, t - t // 2]
+    x = F.pad(x.reshape(*shape, -1).movedim(-1, 0), pad).movedim(0, -1)  # pads the leading dims
+    x = x.reshape([d for o, w in zip(outs, ws) for d in (o, w)] + [-1])
+    x = x.permute(*[2 * i + 1 for i in range(n_lead)], *[2 * i for i in range(n_lead)], 2 * n_lead)
+    acc = torch.zeros(x.shape[n_lead:], dtype=x.dtype, device=x.device)
+    for blk in x.reshape(-1, *x.shape[n_lead:]):
+        acc = round_to(acc + blk, torch.bfloat16)
+    return xla_cpu_sum(acc.reshape(*outs, *rest), n_lead, window)
+
+
+class _LowpBias(torch.autograd.Function):
+    """y + b for a bf16 Dense's bias b (bf16 values held in fp32). The
+    gradient of b sums the bf16 cotangent over the leading dims: on the CPU
+    as XLA's CPU backend does (`xla_cpu_sum`: the JAX package's tests run
+    there), on the card in one fp32 sum (as XLA on a TPU accumulates bf16
+    reductions), rounded to bf16 either way."""
+
+    @staticmethod
+    def forward(ctx, y: Tensor, b: Tensor) -> Tensor:
+        return y + b
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        g16 = round_to(g, torch.bfloat16)
+        n_lead = g.ndim - 1
+        db = g16.reshape(-1, g.shape[-1]).sum(0) if g.is_cuda else xla_cpu_sum(g16, n_lead)
+        return g, round_to(db, torch.bfloat16)
+
+
+def add_lowp_bias(y: Tensor, b: Tensor, dtype: torch.dtype) -> Tensor:
+    """y + b rounded to `dtype`, the sum kept in fp32 (see `_LowpBias`)."""
+    return _LowpBias.apply(y, round_to(b, dtype))
+
+
+def linear(x: Tensor, lin: nn.Linear, dtype: torch.dtype = F32) -> Tensor:
+    """A flax `nn.Dense(dtype=dtype)` through an `nn.Linear`'s parameters:
+    `lin(x)` in fp32; in bf16 the product on bf16 operands rounded to bf16
+    plus the bias rounded to bf16, the sum kept in fp32 (see the module
+    docstring)."""
+    if dtype == F32:
+        return lin(x)
+    y = lowp_matmul(x, lin.weight.t(), dtype)
+    return y if lin.bias is None else add_lowp_bias(y, lin.bias, dtype)
 
 
 def draw_seed(rng: Optional[DropoutSeeds], p: float) -> Optional[int]:
@@ -41,6 +130,17 @@ def maybe_dropout(x: Tensor, p: float, seed: Optional[int], site: int) -> Tensor
     if seed is None:
         return x
     return (dropout if kernels_enabled() else dropout_plain)(x, p, seed, site)
+
+
+def lowp_dropout(x: Tensor, p: float, seed: Optional[int], site: int, dtype: torch.dtype) -> Tensor:
+    """flax `nn.Dropout` on a bf16-typed input: the same keep mask as
+    `maybe_dropout` at the site, kept elements divided by 1 - p rounded to
+    bf16 (JAX's `inputs / keep_prob` takes the Python float as a bf16
+    scalar), in fp32."""
+    if seed is None or dtype == F32:
+        return maybe_dropout(x, p, seed, site)
+    keep = maybe_dropout(torch.ones_like(x), p, seed, site) != 0
+    return torch.where(keep, x / round_to(torch.tensor(1.0 - p), dtype).item(), torch.zeros_like(x))
 
 
 def add_dropout(res: Tensor, x: Tensor, p: float, seed: Optional[int], site: int) -> Tensor:
@@ -87,7 +187,10 @@ class MLP(nn.Module):
     `x` may be a pair (src, tgt) of broadcast-compatible tensors standing
     for concat([broadcast(src), broadcast(tgt)], -1): the first layer then
     runs factored, src @ W_src + tgt @ W_tgt + b, as the JAX `_PairDense`
-    does, and the concat never materializes."""
+    does, and the concat never materializes.
+
+    In bf16 (`dtype`) each layer is `linear`'s; a dropout site that no
+    LayerNorm precedes sees a bf16-typed value (`lowp_dropout`)."""
 
     def __init__(
         self,
@@ -97,9 +200,11 @@ class MLP(nn.Module):
         act: str = "relu",
         end_layer_activation: bool = True,
         dropout_p: float = 0.0,
+        dtype: torch.dtype = F32,
     ):
         super().__init__()
         self.n = len(fc_dims)
+        self.dtype = dtype
         self.use_layernorm = use_layernorm
         self.act = activation(act)
         self.relu = act == "relu"
@@ -117,18 +222,27 @@ class MLP(nn.Module):
         rng: Optional[DropoutSeeds] = None,
     ) -> Tensor:
         seed = draw_seed(rng, self.dropout_p)
+        dt = self.dtype
         for i in range(self.n):
             fc = getattr(self, f"fc{i}")
             if i == 0 and isinstance(x, tuple):
                 src, tgt = x
                 d_src = src.shape[-1]
-                x = F.linear(src, fc.weight[:, :d_src]) + F.linear(tgt, fc.weight[:, d_src:]) + fc.bias
+                if dt == F32:
+                    x = F.linear(src, fc.weight[:, :d_src]) + F.linear(tgt, fc.weight[:, d_src:]) + fc.bias
+                else:
+                    x = add_lowp_bias(lowp_matmul(src, fc.weight[:, :d_src].t(), dt)
+                                      + lowp_matmul(tgt, fc.weight[:, d_src:].t(), dt), fc.bias, dt)
             else:
-                x = fc(x)
+                x = linear(x, fc, dt)
             is_last = i == self.n - 1
             if self.use_layernorm and (not is_last or self.end_layer_activation):
                 x = getattr(self, f"ln{i}")(x)
-            if not is_last and self.relu:
+            if dt != F32 and not self.use_layernorm and (not is_last or self.end_layer_activation):
+                x = lowp_dropout(x, self.dropout_p, seed, i, dt)
+                if not is_last:
+                    x = self.act(x)
+            elif not is_last and self.relu:
                 x = dropout_relu(x, self.dropout_p, seed, i, relu_first=False)
             elif not is_last:
                 x = self.act(maybe_dropout(x, self.dropout_p, seed, i))
@@ -175,14 +289,24 @@ class Attention(nn.Module):
     averaged over the heads [B, S, T] (after their dropout in training),
     zeroed on rows with no valid target. It takes the plain core, as the
     JAX package leaves its kernels when the weights are asked for.
+
+    In bf16 (`dtype`) the projections are `linear`'s, and the core computes
+    what the JAX package computes at the site, chosen by the shape alone
+    (the kernel and its plain version compute one function): at an eval
+    kernel site K1's bf16 variant on bf16 q/k/v (fp32 logits and softmax,
+    the weights rounded to bf16, a bf16 output: the Pallas `_attn_kernel`);
+    at a training kernel site K3 on q/k/v widened to fp32, as the JAX
+    package widens them; elsewhere its XLA einsums on bf16 operands
+    (`attention_train_plain(lowp=...)`).
     """
 
-    def __init__(self, d_model: int, n_head: int, bias: bool = True, dropout_p: float = 0.0):
+    def __init__(self, d_model: int, n_head: int, bias: bool = True, dropout_p: float = 0.0, dtype: torch.dtype = F32):
         super().__init__()
         assert d_model % n_head == 0
         self.d_model = d_model
         self.n_head = n_head
         self.dropout_p = dropout_p
+        self.dtype = dtype
         self.q_proj = nn.Linear(d_model, d_model, bias=bias)
         self.k_proj = nn.Linear(d_model, d_model, bias=bias)
         self.v_proj = nn.Linear(d_model, d_model, bias=bias)
@@ -200,15 +324,17 @@ class Attention(nn.Module):
         rng: Optional[DropoutSeeds] = None,
         need_weights: bool = False,
     ):
+        dt = self.dtype
+        lowp = None if dt == F32 else dt
         if return_kv:
             kv_in = src if tgt is None else tgt
-            return self.k_proj(kv_in), self.v_proj(kv_in)
-        q = self.q_proj(src)
+            return linear(kv_in, self.k_proj, dt), linear(kv_in, self.v_proj, dt)
+        q = linear(src, self.q_proj, dt)
         if tgt_kv is not None:
             k, v = tgt_kv
         else:
             kv_in = src if tgt is None else tgt
-            k, v = self.k_proj(kv_in), self.v_proj(kv_in)
+            k, v = linear(kv_in, self.k_proj, dt), linear(kv_in, self.v_proj, dt)
         if k.ndim != 3:
             raise NotImplementedError("per-query (KNN) targets are not part of the ported slice")
 
@@ -223,23 +349,32 @@ class Attention(nn.Module):
             p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)
             drop = dropout if kernels_enabled() else dropout_plain
             core, w = attention_train_plain(q, k.to(q.dtype), v.to(q.dtype), invalid, self.n_head, p, seed, 0,
-                                            dropout=drop, need_weights=True)
-            out = self.out_proj(core)
+                                            dropout=drop, need_weights=True, lowp=lowp)
+            out = linear(core, self.out_proj, dt)
             zero = no_valid_tgt[..., None]
             return torch.where(zero, torch.zeros_like(out), out), torch.where(zero, 0.0, w.mean(dim=1))
         if rng is None:
-            use_kernel = allow_fused and S >= 32 and T >= 64 and kernels_enabled()
-            core = fused_attention_core if use_kernel else attention_core_plain
-            out = self.out_proj(core(q, k, v, invalid, self.n_head))
+            kernel_site = allow_fused and S >= 32 and T >= 64
+            if lowp is None or kernel_site:
+                core = fused_attention_core if kernel_site and kernels_enabled() else attention_core_plain
+                if lowp is not None:
+                    q, k, v = q.to(lowp), k.to(lowp), v.to(lowp)
+                core = core(q, k, v, invalid, self.n_head)
+            else:
+                core = attention_train_plain(q, k, v, invalid, self.n_head, 0.0, 0, 0, lowp=lowp)
+            out = linear(core, self.out_proj, dt)
         else:
             seed = draw_seed(rng, self.dropout_p)
             p, seed = (self.dropout_p, seed) if seed is not None else (0.0, 0)
-            if allow_fused and S >= 32 and T >= 256 and kernels_enabled():
+            kernel_site = allow_fused and S >= 32 and T >= 256
+            if kernel_site:  # the JAX package widens bf16 q/k/v for its training kernel
+                q, k, v, lowp = q.to(F32), k.to(F32), v.to(F32), None
+            if kernel_site and kernels_enabled():
                 core = attention_train(q, k, v, invalid, self.n_head, p, seed, 0, saved=rng.saved_cores)
             else:
                 drop = dropout if kernels_enabled() else dropout_plain
-                core = attention_train_plain(q, k, v, invalid, self.n_head, p, seed, 0, dropout=drop)
-            out = self.out_proj(core)
+                core = attention_train_plain(q, k, v, invalid, self.n_head, p, seed, 0, dropout=drop, lowp=lowp)
+            out = linear(core, self.out_proj, dt)
         return torch.where(no_valid_tgt[..., None], torch.zeros_like(out), out)
 
 
@@ -253,13 +388,14 @@ class TransformerCrossAttention(nn.Module):
 
     def __init__(
         self, d_model: int, n_head: int, d_feedforward: int, act: str = "relu", bias: bool = True,
-        dropout_p: float = 0.0,
+        dropout_p: float = 0.0, dtype: torch.dtype = F32,
     ):
         super().__init__()
         self.act = activation(act)
         self.relu = act == "relu"
         self.dropout_p = dropout_p
-        self.attn = Attention(d_model, n_head, bias=bias, dropout_p=dropout_p)
+        self.dtype = dtype
+        self.attn = Attention(d_model, n_head, bias=bias, dropout_p=dropout_p, dtype=dtype)
         self.norm1 = layer_norm(d_model)
         self.norm_tgt = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
@@ -291,14 +427,16 @@ class TransformerCrossAttention(nn.Module):
         )
         if need_weights:
             src2, weights = src2
-        seed, p = draw_seed(rng, self.dropout_p), self.dropout_p
+        seed, p, dt = draw_seed(rng, self.dropout_p), self.dropout_p, self.dtype
         src = add_dropout(src, src2, p, seed, 0)
-        src2 = self.linear1(self.norm2(src))
-        if self.relu:
+        src2 = linear(self.norm2(src), self.linear1, dt)
+        if dt != F32:  # the feed-forward's hidden is bf16-typed
+            src2 = lowp_dropout(self.act(src2), p, seed, 1, dt)
+        elif self.relu:
             src2 = dropout_relu(src2, p, seed, 1, relu_first=True)
         else:
             src2 = maybe_dropout(self.act(src2), p, seed, 1)
-        src = add_dropout(src, self.linear2(src2), p, seed, 2)
+        src = add_dropout(src, linear(src2, self.linear2, dt), p, seed, 2)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], torch.zeros_like(src), src)
         if not need_weights:
@@ -324,6 +462,7 @@ class TransformerBlock(nn.Module):
         bias: bool = True,
         out_layernorm: bool = False,
         dropout_p: float = 0.0,
+        dtype: torch.dtype = F32,
     ):
         super().__init__()
         if not norm_first or d_feedforward <= 0:
@@ -332,7 +471,7 @@ class TransformerBlock(nn.Module):
         for i in range(n_layer):
             self.add_module(
                 f"layer{i}",
-                TransformerCrossAttention(d_model, n_head, d_feedforward, activation, bias, dropout_p),
+                TransformerCrossAttention(d_model, n_head, d_feedforward, activation, bias, dropout_p, dtype),
             )
         self.out_ln = layer_norm(d_model) if out_layernorm else None
 
@@ -383,6 +522,7 @@ class InputPeEncoder(nn.Module):
     def __init__(
         self, attr_dim: int, hidden_dim: int, pe_dim: int, n_layer: int = 2,
         mlp_use_layernorm: bool = False, pe_mode: str = "cat", mlp_dropout_p: float = 0.0,
+        dtype: torch.dtype = F32,
     ):
         super().__init__()
         self.pe_mode = pe_mode
@@ -398,7 +538,7 @@ class InputPeEncoder(nn.Module):
             raise NotImplementedError(pe_mode)
         self.mlp = MLP(
             in_dim, [out_dim] * n_layer, use_layernorm=mlp_use_layernorm, end_layer_activation=False,
-            dropout_p=mlp_dropout_p,
+            dropout_p=mlp_dropout_p, dtype=dtype,
         )
 
     def forward(self, valid: Tensor, attr: Tensor, pe: Tensor, rng: Optional[DropoutSeeds] = None) -> Tensor:
@@ -524,11 +664,12 @@ class MultiAgentTF(nn.Module):
     def __init__(
         self, hidden_dim: int, n_layer: int = 3, mask_self_agent: bool = True,
         detach_tgt: bool = False, attn_to_map_aware_feature: bool = True, tf_kwargs: dict = None,
+        dtype: torch.dtype = F32,
     ):
         super().__init__()
         self.mask_self_agent = mask_self_agent
         self.attn_to_map_aware_feature = attn_to_map_aware_feature
-        self.tf = TransformerBlock(d_model=hidden_dim, n_layer=n_layer, **(tf_kwargs or {}))
+        self.tf = TransformerBlock(d_model=hidden_dim, n_layer=n_layer, dtype=dtype, **(tf_kwargs or {}))
 
     def forward(
         self, feature_map_aware: Tensor, feature: Tensor, valid: Tensor, allow_fused: bool = True,

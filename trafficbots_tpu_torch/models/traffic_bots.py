@@ -6,6 +6,12 @@ explicit data passed in and returned; the module only holds parameters,
 under the same submodule names as the flax tree. Every method takes an
 optional `rng` (`ops.dropout.DropoutSeeds`): given, the pass is a training
 pass with dropout live; None, the eval pass.
+
+`compute_dtype` (bf16 under `precision="bf16"`, `orchestration.make_model`)
+goes where the JAX model's `compute_dtype` goes: the map, agent and tl
+encoders, the as2pl / as2tl blocks, the interaction transformer, the goal
+head's and the latent encoder's attention; the GRUs, the goal and latent
+injections and the action head stay fp32, and so do the physics.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ Tensor = torch.Tensor
 
 
 class TrafficBots(nn.Module):
-    def __init__(self, cfg: ModelConfig, action_head_cfg: ActionHeadConfig, data_cfg: DataConfig):
+    def __init__(self, cfg: ModelConfig, action_head_cfg: ActionHeadConfig, data_cfg: DataConfig,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.n_layer_final_mlp > 0:
             raise NotImplementedError("the final MLP is not part of the ported slice")
@@ -36,19 +43,21 @@ class TrafficBots(nn.Module):
                 "(ROADMAP Queue 2); -1 runs whole-S blocks"
             )
         self.cfg = cfg
+        self.compute_dtype = dt = compute_dtype
         hidden = cfg.hidden_dim
-        kw = tf_block_kwargs(cfg.tf_cfg)
+        kw = dict(tf_block_kwargs(cfg.tf_cfg), dtype=dt)
         ipe = cfg.input_pe_encoder
 
         def input_pe(attr_dim: int, pose_mode: str) -> InputPeEncoder:
             return InputPeEncoder(
                 attr_dim, hidden, pose_pe_out_dim(pose_mode, cfg.pe_dim), n_layer=ipe.n_layer,
                 mlp_use_layernorm=ipe.mlp_use_layernorm, pe_mode=ipe.pe_mode, mlp_dropout_p=ipe.mlp_dropout_p,
+                dtype=dt,
             )
 
         self.map_encoder = MapEncoder(
             data_cfg.map_attr_dim, hidden, pose_pe_out_dim(cfg.pose_pe_map, cfg.pe_dim),
-            cfg.map_encoder, ipe, cfg.tf_cfg,
+            cfg.map_encoder, ipe, cfg.tf_cfg, dtype=dt,
         )
         self.tl_encoder = input_pe(data_cfg.tl_attr_dim, cfg.pose_pe_tl)
         self.agent_encoder = input_pe(data_cfg.agent_attr_dim, cfg.pose_pe_agent)
@@ -58,7 +67,7 @@ class TrafficBots(nn.Module):
             cfg.latent_encoder, cfg.tf_cfg, cfg.agent_temporal, cfg.agent_interaction,
             cfg.temporal_aggregate_mode, cfg.interaction_first,
             self.transformer_as2pl, self.transformer_as2tl,
-            n_layer_tf_as2pl=cfg.n_layer_tf_as2pl, n_layer_tf_as2tl=cfg.n_layer_tf_as2tl,
+            n_layer_tf_as2pl=cfg.n_layer_tf_as2pl, n_layer_tf_as2tl=cfg.n_layer_tf_as2tl, dtype=dt,
         )
         self.agent_temporal = StackedGRU(
             hidden, cfg.agent_temporal.num_layers, kind=cfg.agent_temporal.kind, dropout_p=cfg.agent_temporal.dropout
@@ -71,6 +80,7 @@ class TrafficBots(nn.Module):
                 d_feedforward=cfg.tf_cfg.d_feedforward, n_head=cfg.tf_cfg.n_head, dropout_p=cfg.tf_cfg.dropout_p,
                 activation=cfg.tf_cfg.activation, norm_first=cfg.tf_cfg.norm_first, bias=cfg.tf_cfg.bias,
             ),
+            dtype=dt,
         )
         self.goal_dummy = cfg.goal_manager.goal_attr_mode == "dummy"
 
@@ -94,7 +104,7 @@ class TrafficBots(nn.Module):
         )
         # registered last, so the seeded init of the modules above does not
         # depend on it
-        self.goal_manager = GoalManager(cfg.goal_manager, cfg.tf_cfg)
+        self.goal_manager = GoalManager(cfg.goal_manager, cfg.tf_cfg, dtype=dt)
 
     def encode_input_features(
         self,
@@ -139,9 +149,11 @@ class TrafficBots(nn.Module):
         """Per-layer (k, v) of the step-invariant map tokens for the rollout's
         as2pl, computed once per episode. An eval cache is stored in bf16
         under `map_kv_bf16` (and used in fp32 after the load); a training
-        cache stays fp32, as the JAX rollout keeps it for the gradients."""
+        cache stays fp32, as the JAX rollout keeps it for the gradients.
+        Under a bf16 compute dtype the cache is bf16 in training too: it is
+        the output of the bf16 K/V projections, stored as such in JAX."""
         kv = self.transformer_as2pl(None, tgt=map_feature, return_tgt_kv=True)
-        if self.cfg.map_kv_bf16 and not training:
+        if (self.cfg.map_kv_bf16 and not training) or self.compute_dtype == torch.bfloat16:
             kv = tuple((k.to(torch.bfloat16), v.to(torch.bfloat16)) for k, v in kv)
         return kv
 

@@ -12,7 +12,15 @@ from __future__ import annotations
 
 import contextlib
 
+import torch
+
 _ENABLED = True
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x rounded to `dtype` (to nearest even), held in fp32: a bf16 operand
+    of the plain versions' products."""
+    return x if dtype == torch.float32 else x.to(dtype).to(torch.float32)
 
 
 def kernels_enabled() -> bool:

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from . import cuda_build, fused_attention
+from . import cuda_build, fused_attention, round_to
 from .dropout import SavedCores, dropout_plain, keep_scale, threshold
 
 Tensor = torch.Tensor
@@ -54,26 +54,37 @@ _BWD_ARGS = (ctypes.c_void_p,) * 5 + _FWD_ARGS
 
 
 def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,
-                          p: float, seed: int, site: int, dropout=dropout_plain, need_weights: bool = False):
+                          p: float, seed: int, site: int, dropout=dropout_plain, need_weights: bool = False,
+                          lowp: Optional[torch.dtype] = None):
     """The plain version: q [B,S,D], k/v [B,T,D] fp32, invalid [B,S,T] bool
     -> [B,S,D]; dropout of the weights at (seed, site) when p > 0, by
     `dropout` (the plain mask; the training attention below K3's gate
     passes the K5 entry, which draws the same bits in one launch). With
-    `need_weights` -> (out, the weights [B,H,S,T] after their dropout)."""
+    `need_weights` -> (out, the weights [B,H,S,T] after their dropout).
+
+    `lowp` (bf16) computes the JAX package's XLA attention on bf16
+    operands instead (its sites below the kernels' shapes): both einsums'
+    operands and results rounded to bf16 with fp32 accumulation, the
+    logits widened for the fp32 softmax and dropout; fp32 tensors in and
+    out."""
     B, S, D = q.shape
     T = k.shape[1]
     dh = D // n_head
-    qh = q.reshape(B, S, n_head, dh)
-    kh = k.reshape(B, T, n_head, dh)
-    vh = v.reshape(B, T, n_head, dh)
-    logits = torch.einsum("bshd,bthd->bhst", qh, kh)
+
+    def rnd(x: Tensor) -> Tensor:
+        return x if lowp is None else round_to(x, lowp)
+
+    qh = rnd(q).reshape(B, S, n_head, dh)
+    kh = rnd(k).reshape(B, T, n_head, dh)
+    vh = rnd(v).reshape(B, T, n_head, dh)
+    logits = rnd(torch.einsum("bshd,bthd->bhst", qh, kh))
     no_valid = invalid.all(dim=-1)  # [B, S]
     use_mask = invalid & ~no_valid[..., None]
     logits = logits.masked_fill(use_mask[:, None], float("-inf"))
     attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
     if p > 0:
         attn = dropout(attn, p, seed, site)
-    out = torch.einsum("bhst,bthd->bshd", attn, vh).reshape(B, S, D)
+    out = rnd(torch.einsum("bhst,bthd->bshd", rnd(attn), vh)).reshape(B, S, D)
     out = torch.where(no_valid[..., None], torch.zeros_like(out), out)
     return (out, attn) if need_weights else out
 

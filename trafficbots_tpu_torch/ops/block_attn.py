@@ -17,9 +17,14 @@ lifts the mask over a whole block of 8 polylines instead: those rows are
 discarded either way, so only the rows of polylines with a valid node are
 held against it.
 
+`bf16` (`map_encoder.kernel_matmul_bf16`) is the TPU kernel's `bf16=True`
+function: q kᵀ and the weights times v on operands rounded to bf16, fp32
+accumulation, an fp32 output (K6's bf16 variant, `tb_block_attn_bf16`).
+
 `block_attn_core` sends a CUDA tensor to `csrc/block_attn.cu` and a CPU
 tensor to `block_attn_core_plain`, never one in place of the other.
-`LAUNCHES` counts kernel launches.
+`LAUNCHES` counts the fp32 kernel's launches, `LAUNCHES_BF16` the bf16
+variant's.
 """
 from __future__ import annotations
 
@@ -28,11 +33,12 @@ import math
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, round_to
 
 Tensor = torch.Tensor
 
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 
 NEG = -1e30
 _KERNEL = "block_attn"
@@ -52,16 +58,18 @@ def smem_bytes(n_node: int, d_model: int, n_head: int) -> int:
     return 4 * 2 * 3 * ((n_node + 3) // 4 * 4) * row
 
 
-def block_attn_core_plain(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int) -> Tensor:
+def block_attn_core_plain(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int, bf16: bool = False) -> Tensor:
     """q, k, v [BP, N, D] fp32, valid [BP, N] bool -> [BP, N, D] fp32, in the
-    TPU kernel's order: logits * scale + mask * (-1e30), then the softmax."""
+    TPU kernel's order: logits * scale + mask * (-1e30), then the softmax;
+    with `bf16` both products on operands rounded to bf16."""
     BP, N, D = q.shape
     dh = D // n_head
-    qh, kh, vh = (t.reshape(BP, N, n_head, dh) for t in (q, k, v))
+    rnd = round_to if bf16 else (lambda t: t)
+    qh, kh, vh = (rnd(t).reshape(BP, N, n_head, dh) for t in (q, k, v))
     logits = torch.einsum("bshd,bthd->bhst", qh, kh)
     use_mask = (~valid & valid.any(dim=-1, keepdim=True)).to(q.dtype)  # [BP, N] over targets
     logits = logits * (1.0 / math.sqrt(dh)) + use_mask[:, None, None, :] * NEG
-    attn = torch.softmax(logits, dim=-1)
+    attn = rnd(torch.softmax(logits, dim=-1))
     return torch.einsum("bhst,bthd->bshd", attn, vh).reshape(BP, N, D)
 
 
@@ -85,20 +93,23 @@ def _check_inputs(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int) -
         raise ValueError("q, k, v and valid must be contiguous")
 
 
-def block_attn_core(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int) -> Tensor:
+def block_attn_core(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int, bf16: bool = False) -> Tensor:
     """Kernel on CUDA tensors, plain version on CPU tensors."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     if q.device.type == "cpu":
-        return block_attn_core_plain(q, k, v, valid, n_head)
+        return block_attn_core_plain(q, k, v, valid, n_head, bf16=bf16)
     _check_inputs(q, k, v, valid, n_head)
     BP, N, D = q.shape
     out = torch.empty_like(q)
     if BP == 0:
         return out
-    rc = cuda_build.entry(_KERNEL, "tb_block_attn", _ARGS)(
+    rc = cuda_build.entry(_KERNEL, "tb_block_attn_bf16" if bf16 else "tb_block_attn", _ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, D, n_head,
         1.0 / math.sqrt(D // n_head), cuda_build.stream(q),
     )
     cuda_build.check(rc, "block_attn_core")
-    LAUNCHES += 1
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -8,10 +8,16 @@ Replaces the Pallas kernel `trafficbots_tpu/ops/fused_attention.py`
 with `invalid` [B, S, T] True = disallowed target. Rows whose targets are
 ALL disallowed come out exactly 0, never NaN.
 
-Precision: a bf16 K/V cache (the eval map cache) is stored in bf16 and used
-in fp32 from the load onward, in the kernel and in the plain version alike.
-This is the JAX package's XLA path (the one its CPU tests run), not its TPU
-kernel path, which also rounds q and the attention weights to bf16.
+Precision: with fp32 q, a bf16 K/V cache (the eval map cache) is stored in
+bf16 and used in fp32 from the load onward, in the kernel and in the plain
+version alike. This is the JAX package's XLA path (the one its CPU tests
+run), not its TPU kernel path, which also rounds q and the attention
+weights to bf16. With bf16 q (the model under `precision="bf16"`), q, k
+and v are all bf16 and both compute that TPU kernel's function: the
+logits of the bf16 operands times the fp32 scale 1/sqrt(d_head) and the
+softmax in fp32, the weights rounded to bf16, the weighted sum in fp32,
+the output rounded to bf16 (K1's bf16 variant, `tb_fused_attention_bf16`;
+`LAUNCHES_BF16` counts it).
 
 `fused_attention_core` sends a CUDA tensor to the kernel
 (`csrc/fused_attention.cu`, the forward of `csrc/attn_fwd.cuh` shared with
@@ -26,11 +32,12 @@ import math
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, round_to
 
 Tensor = torch.Tensor
 
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 
 _KERNEL = "fused_attention"
 _HEAD_DIMS = (16, 32, 64)
@@ -38,24 +45,30 @@ ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (
 KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
 _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
+_ARGS_BF16 = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 
 
 def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int) -> Tensor:
     """The plain PyTorch version: q [B,S,D] fp32, k/v [B,T,D] fp32 or bf16,
-    invalid [B,S,T] bool -> [B,S,D] fp32."""
+    invalid [B,S,T] bool -> [B,S,D] fp32; or q, k, v all bf16 -> [B,S,D]
+    bf16, the weights rounded to bf16 before the weighted sum."""
     B, S, D = q.shape
     T = k.shape[1]
     dh = D // n_head
-    qh = q.reshape(B, S, n_head, dh)
-    kh = k.to(q.dtype).reshape(B, T, n_head, dh)
-    vh = v.to(q.dtype).reshape(B, T, n_head, dh)
+    lowp = q.dtype == torch.bfloat16
+    qh = q.float().reshape(B, S, n_head, dh)
+    kh = k.float().reshape(B, T, n_head, dh)
+    vh = v.float().reshape(B, T, n_head, dh)
     logits = torch.einsum("bshd,bthd->bhst", qh, kh)
     no_valid = invalid.all(dim=-1)  # [B, S]
     use_mask = invalid & ~no_valid[..., None]
     logits = logits.masked_fill(use_mask[:, None], float("-inf"))
-    attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
+    if lowp:  # the TPU kernel's order: the logits times the fp32 scale
+        attn = round_to(torch.softmax(logits * (1.0 / math.sqrt(dh)), dim=-1))
+    else:
+        attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
     out = torch.einsum("bhst,bthd->bshd", attn, vh).reshape(B, S, D)
-    return torch.where(no_valid[..., None], torch.zeros_like(out), out)
+    return torch.where(no_valid[..., None], torch.zeros_like(out), out).to(q.dtype)
 
 
 def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
@@ -76,10 +89,12 @@ def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
 def _check_inputs(q, k, v, invalid, n_head):
     if not (q.is_cuda and k.device == q.device and v.device == q.device and invalid.device == q.device):
         raise ValueError("fused_attention_core: q, k, v and invalid must lie on one CUDA device")
-    if q.dtype != torch.float32:
-        raise TypeError(f"q must be float32, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"k/v must both be float32 or bfloat16, got {k.dtype}/{v.dtype}")
+    if q.dtype == torch.bfloat16 and k.dtype != torch.bfloat16:
+        raise TypeError("bfloat16 q takes bfloat16 k/v")
     if invalid.dtype != torch.bool:
         raise TypeError(f"invalid must be bool, got {invalid.dtype}")
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
@@ -102,7 +117,7 @@ def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
     """Kernel on CUDA tensors, plain version on CPU tensors. `invalid` may be
     a stride-0 expand over S (a padding mask): the kernel reads it through
     its strides and never needs it materialized."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     if q.device.type == "cpu":
         return attention_core_plain(q, k, v, invalid, n_head)
     _check_inputs(q, k, v, invalid, n_head)
@@ -110,6 +125,14 @@ def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
     T = k.shape[1]
     out = torch.empty_like(q)
     if B * S == 0:
+        return out
+    if q.dtype == torch.bfloat16:
+        rc = cuda_build.entry(_KERNEL, "tb_fused_attention_bf16", _ARGS_BF16)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(),
+            B, S, T, D, n_head, invalid.stride(0), invalid.stride(1), cuda_build.stream(q),
+        )
+        cuda_build.check(rc, "fused_attention_core (bf16)")
+        LAUNCHES_BF16 += 1
         return out
     rc = cuda_build.entry(_KERNEL, "tb_fused_attention", _ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(),

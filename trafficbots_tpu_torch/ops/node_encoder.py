@@ -12,6 +12,12 @@ Per polyline of N nodes, `n_layer` pre-norm self-attention layers:
 then a masked max over the valid nodes. A polyline without a valid node
 pools to -1e30, which the map encoder zeroes.
 
+`bf16` (`map_encoder.kernel_matmul_bf16`) is the TPU kernel's `bf16=True`
+function: the operands of every product (the q/k/v/out projections, both
+FFN layers, q kᵀ and the weights times v) rounded to bf16, the sums,
+LayerNorms, softmax, residuals and the pool in fp32 (K2's bf16 variant,
+`tb_node_encoder_bf16`; `LAUNCHES_BF16` counts it).
+
 `encode_pooled_hybrid` is the same function in the JAX package's "hybrid"
 layout (`map_encoder.node_encoder_impl="hybrid"`): the LayerNorms, the
 q/k/v/out projections and the FFN as matmuls over all polylines, and only
@@ -34,13 +40,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import cuda_build
+from . import cuda_build, round_to
 from .block_attn import block_attn_core, block_attn_core_plain
 from .dropout import dropout_mask_plain
 
 Tensor = torch.Tensor
 
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 
 NEG = -1e30
 LN_EPS = 1e-5
@@ -90,11 +97,12 @@ class FusedNodeEncoder(nn.Module):
             init = torch.ones if name.endswith("_s") else torch.zeros
             self.register_parameter(name, nn.Parameter(init(shapes[name])))
 
-    def forward(self, x: Tensor, valid: Tensor, p: float = 0.0, seed: int = 0) -> Tensor:
+    def forward(self, x: Tensor, valid: Tensor, p: float = 0.0, seed: int = 0, bf16: bool = False) -> Tensor:
         """Plain path: [BP, N, D], [BP, N] -> per-node features [BP, N, D].
         With p > 0, inverted dropout at the training kernel's four sites a
         layer (ops.dropout masks at (seed, 4 l + k), see
-        ops.node_encoder_train)."""
+        ops.node_encoder_train). `bf16` rounds every product's operands
+        to bf16 (the eval kernel's `bf16` variant)."""
         BP, N, D = x.shape
         H = self.n_head
         dh = D // H
@@ -105,37 +113,44 @@ class FusedNodeEncoder(nn.Module):
         def drop(t: Tensor, site: int) -> Tensor:
             return t * dropout_mask_plain(tuple(t.shape), seed, site, p, device=t.device) if p > 0 else t
 
+        rnd = round_to if bf16 else (lambda t: t)
+
+        def mm(a: Tensor, w: Tensor) -> Tensor:
+            return rnd(a) @ rnd(w)
+
         x0 = x
         for l in range(self.n_layer):
             src2 = _ln(x, self.ln1_s[l], self.ln1_b[l])
             tgtn = _ln(x0, self.lnt_s[l], self.lnt_b[l])
-            q = (src2 @ self.wq[l] + self.bq[l]).reshape(BP, N, H, dh)
-            k = (tgtn @ self.wk[l] + self.bk[l]).reshape(BP, N, H, dh)
-            v = (tgtn @ self.wv[l] + self.bv[l]).reshape(BP, N, H, dh)
-            logits = torch.einsum("bshd,bthd->bhst", q, k)
+            q = (mm(src2, self.wq[l]) + self.bq[l]).reshape(BP, N, H, dh)
+            k = (mm(tgtn, self.wk[l]) + self.bk[l]).reshape(BP, N, H, dh)
+            v = (mm(tgtn, self.wv[l]) + self.bv[l]).reshape(BP, N, H, dh)
+            logits = torch.einsum("bshd,bthd->bhst", rnd(q), rnd(k))
             logits = logits.masked_fill(use_mask[:, None], float("-inf"))
             attn = drop(torch.softmax(logits / math.sqrt(dh), dim=-1), 4 * l)
-            a = torch.einsum("bhst,bthd->bshd", attn, v).reshape(BP, N, D)
-            a = a @ self.wo[l] + self.bo[l]
+            a = torch.einsum("bhst,bthd->bshd", rnd(attn), rnd(v)).reshape(BP, N, D)
+            a = mm(a, self.wo[l]) + self.bo[l]
             a = torch.where(no_valid[:, None, None], torch.zeros_like(a), a)
             x = x + drop(a, 4 * l + 1)
             src2 = _ln(x, self.ln2_s[l], self.ln2_b[l])
-            f = drop(F.relu(src2 @ self.w1[l] + self.b1[l]), 4 * l + 2)
-            x = x + drop(f @ self.w2[l] + self.b2[l], 4 * l + 3)
+            f = drop(F.relu(mm(src2, self.w1[l]) + self.b1[l]), 4 * l + 2)
+            x = x + drop(mm(f, self.w2[l]) + self.b2[l], 4 * l + 3)
             x = torch.where(pad[..., None], torch.zeros_like(x), x)
         return x
 
-    def pooled_plain(self, x: Tensor, valid: Tensor) -> Tensor:
+    def pooled_plain(self, x: Tensor, valid: Tensor, bf16: bool = False) -> Tensor:
         """The plain version of the kernel: `forward` + masked max -> [BP, D]."""
-        nodes = self.forward(x, valid)
+        nodes = self.forward(x, valid, bf16=bf16)
         return torch.where(valid[..., None], nodes, torch.full_like(nodes, NEG)).amax(dim=1)
 
-    def encode_pooled_hybrid(self, x: Tensor, valid: Tensor, plain: bool = False) -> Tensor:
+    def encode_pooled_hybrid(self, x: Tensor, valid: Tensor, plain: bool = False, bf16: bool = False) -> Tensor:
         """[BP, N, D] fp32, [BP, N] bool -> pooled [BP, D] fp32: the layers'
         matmuls over all polylines, the attention core through K6
-        (`block_attn_core`; its plain version with `plain`). Zeroing order as
-        in the JAX package: no-valid polylines after the out-projection,
-        padded nodes after each layer, then the -1e30 pool identity."""
+        (`block_attn_core`; its plain version with `plain`; its bf16
+        variant with `bf16`, the matmuls staying fp32 as in the JAX
+        package). Zeroing order as in the JAX package: no-valid polylines
+        after the out-projection, padded nodes after each layer, then the
+        -1e30 pool identity."""
         core = block_attn_core_plain if plain else block_attn_core
         pad = ~valid
         no_valid = pad.all(dim=-1)  # [BP]
@@ -146,18 +161,18 @@ class FusedNodeEncoder(nn.Module):
             q = src2 @ self.wq[l] + self.bq[l]
             k = tgtn @ self.wk[l] + self.bk[l]
             v = tgtn @ self.wv[l] + self.bv[l]
-            a = core(q, k, v, valid, self.n_head) @ self.wo[l] + self.bo[l]
+            a = core(q, k, v, valid, self.n_head, bf16=bf16) @ self.wo[l] + self.bo[l]
             x = x + torch.where(no_valid[:, None, None], torch.zeros_like(a), a)
             src2 = _ln(x, self.ln2_s[l], self.ln2_b[l])
             x = x + (F.relu(src2 @ self.w1[l] + self.b1[l]) @ self.w2[l] + self.b2[l])
             x = torch.where(pad[..., None], torch.zeros_like(x), x)
         return torch.where(pad[..., None], torch.full_like(x, NEG), x).amax(dim=1)
 
-    def encode_pooled(self, x: Tensor, valid: Tensor) -> Tensor:
+    def encode_pooled(self, x: Tensor, valid: Tensor, bf16: bool = False) -> Tensor:
         """[BP, N, D] fp32, [BP, N] bool -> pooled [BP, D] fp32."""
-        global LAUNCHES
+        global LAUNCHES, LAUNCHES_BF16
         if x.device.type == "cpu":
-            return self.pooled_plain(x, valid)
+            return self.pooled_plain(x, valid, bf16=bf16)
         self._check_inputs(x, valid)
         BP, N, D = x.shape
         out = torch.empty((BP, D), dtype=torch.float32, device=x.device)
@@ -165,12 +180,15 @@ class FusedNodeEncoder(nn.Module):
             return out
         weights = [getattr(self, n) for n in W_NAMES]
         ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-        rc = cuda_build.entry(_KERNEL, "tb_node_encoder", _ARGS)(
+        rc = cuda_build.entry(_KERNEL, "tb_node_encoder_bf16" if bf16 else "tb_node_encoder", _ARGS)(
             x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, self.n_layer, self.n_head,
             ctypes.cast(ptrs, ctypes.c_void_p), cuda_build.stream(x),
         )
         cuda_build.check(rc, "FusedNodeEncoder.encode_pooled")
-        LAUNCHES += 1
+        if bf16:
+            LAUNCHES_BF16 += 1
+        else:
+            LAUNCHES += 1
         return out
 
     def _check_inputs(self, x: Tensor, valid: Tensor) -> None:

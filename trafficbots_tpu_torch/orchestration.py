@@ -18,7 +18,10 @@ K-future rollout (`evaluation_loop`).
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`, as the tests do); without CUDA they raise instead of
-carrying on quietly on the CPU. fp32 matmuls stay IEEE fp32 (TF32 off).
+carrying on quietly on the CPU. fp32 matmuls stay IEEE fp32 (TF32 off), and
+bf16 GEMMs reduce in fp32, as XLA's bf16 dots do. `precision="bf16"` builds
+the model with a bf16 compute dtype (`models.traffic_bots`); the physics,
+rewards, rules and action distributions stay fp32.
 """
 from __future__ import annotations
 
@@ -45,10 +48,11 @@ VIEWS = ("input", "latent_post", "latent_prior")
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on, with fp32 matmuls kept IEEE.
-    Raises when CUDA is asked for and absent."""
+    """The device an entry point runs on, with fp32 matmuls kept IEEE and
+    bf16 GEMMs reduced in fp32. Raises when CUDA is asked for and absent."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
@@ -60,10 +64,9 @@ def make_model(cfg: ExperimentConfig, device="cuda", seed: Optional[int] = None)
     init when `seed` is given (else load them with weights.load_jax_params)."""
     from .weights import init_params
 
-    if cfg.precision != "fp32":
-        raise NotImplementedError("the port runs the model in fp32")
     device = resolve_device(device)
-    model = TrafficBots(cfg.model, cfg.action_head, cfg.data)
+    dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+    model = TrafficBots(cfg.model, cfg.action_head, cfg.data, compute_dtype=dtype)
     if seed is not None:
         init_params(model, seed)
     return model.to(device).eval()
