@@ -46,8 +46,7 @@ its own lines:
      parameters moved; train-step ms, agent-steps/s, peak memory, the busy
      share of one profiled step; then one training step's loss and
      gradients with the kernels against the plain versions (same seeds),
-     held over the first HELD_STEPS steps, the whole horizon as a reading
-     beside a one-ulp map nudge;
+     held over the first HELD_STEPS steps beside a one-ulp map nudge;
   6. the validation main path on the same scenes and config with
      map_encoder.node_encoder_impl = "hybrid" (the node stack's matmuls
      around the attention core K6): `evaluation_loop.Validator`, one
@@ -103,8 +102,28 @@ its own lines:
      the loss and gradient gaps within BF16_TRAIN_NUDGE_FACTOR x a one-ulp
      map nudge's (bf16's rounding puts phase 5's limits below that floor),
      the training kernels' launch counts;
+  6d. the dead-query-row skip (model.attn_row_block >= 0 in eval; every K3
+     site in training): (a) K1-skip at the rollout as2pl (B = 8 and 48) and
+     the latent as2pl, on fp32 q and on bf16 q/k/v, at the main path's fill
+     (agents 40.. dead) and a sparse one (8 live): dead rows exactly 0, live
+     rows bitwise K1's without src_invalid, against the plain version with
+     the same src_invalid (K1's tolerance; bf16 within a one-bf16-ulp
+     nudge's gap), ms and device_ms beside K1's own, SDPA's with the live
+     rows' mask, the bound (4 D operations per allowed pair of a live row);
+     (b) K3-skip at the training sites with their dead rows (the map
+     self-attention's last 256 polylines, the as2pl's and the latent
+     as2pl's agents 40..), dropout live: K3f's live rows and row statistics
+     bitwise the unskipped kernel's, dead rows 0, K3b's dq/dk/dv bitwise
+     the unskipped ones with the cotangent 0 on dead rows, both against the
+     plain version, device ms beside the unskipped kernels'; (c) the eval
+     rollout at attn_row_block 0 and 16 bitwise the rollout at -1 over all
+     90 steps, in fp32 and under precision="bf16", K1-skip counted at every
+     as2pl and latent as2pl launch and never at -1, agent-steps/s beside
+     -1 (readings); (d) one Validator.step at 0 bitwise the step at -1;
+     (e) a 30-step training step, kernels vs plain at phase 5's holds,
+     every K3 launch a K3-skip one (phase 5 counts them beside K3f / K3b);
   7. the CLI runner, `trafficbots_tpu_torch.run.main` in-process at full
-     width (batch 8, synthetic data, 2 steps an epoch, 1 validation batch,
+     width (batch 8, synthetic data, 1 step an epoch, 1 validation batch,
      the default fused node encoder; the default n_video_batch without cv2,
      with it 0 but in run B's first fit, which renders one full-width batch
      at n_video_batch=1 under videos/epoch0, its seconds printed): run A
@@ -124,8 +143,8 @@ its own lines:
      (`config.ablation` on the same config and scenes, each count set to 0
      just before its run and read just after): the goal_xy GoalPredictor
      alone (its as2pl launches K1 once in eval, K3f and K3b once in
-     training); ablation("trafficsim"), one warm-up and one timed
-     make_train_step (K3f/K3b/K4f/K4b/K5 launched, finite, every trained
+     training); ablation("trafficsim"), one timed make_train_step (the
+     first of a fresh model; K3f/K3b/K4f/K4b/K5 launched, finite, every trained
      parameter moved), then its loss and gradients with the kernels
      against the plain versions over HELD_STEPS as phase 5 holds them;
      ablation("latent_cat"), the eval rollout against the plain versions
@@ -136,7 +155,8 @@ its own lines:
      earlier past ROLLOUT_ATOL than a one-ulp nudge's); the DestPredictor
      heads "transformer", "transformer_aggr" and "attn", each one pred_goal
      against its plain run, its probabilities and exclusions, its peak
-     memory and one training step; `orchestration.interactive_replay` run
+     memory and one training step over HELD_STEPS;
+     `orchestration.interactive_replay` run
      to the end against reactive_replay bitwise, a 20-step prefix, two
      agents forced at one step, the host's ms a step; one `ablations` line;
   9. data parallelism (`parallel/mesh.py`) at full width on the same 8
@@ -162,7 +182,9 @@ its own lines:
      `data_parallel` line with the launch counts per rank, the backend,
      each rank's step times and peak memory beside this process's (two
      ranks on one card: readings, not a scaling figure) and the phase's
-     seconds;
+     seconds. The ranks start before phase 7 and run beside phases 7 and 8
+     and this process's references for b and c (the readings of 7, 8 and 9
+     share the host and the card); the holds are joined after phase 8;
  10. the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -204,6 +226,10 @@ or 6b, with its JSON line and no last line.
 
 builds every kernel and runs only phase 6c, with its JSON line and no last
 line.
+
+    python3 chip_smoke.py --row-skip
+
+builds K1-K5 and runs only phase 6d, with its JSON line and no last line.
 """
 from __future__ import annotations
 
@@ -266,7 +292,7 @@ ROLLOUT_ATOL = 1e-3  # metres
 READING_THRESHOLDS = (1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0)  # metres
 N_SCENE = 8  # scenes of the main path's batch
 N_ITER = 3  # timed rollouts
-N_TRAIN_ITER = 3  # timed training steps
+N_TRAIN_ITER = 2  # timed training steps
 KERNEL_SOURCES = ("fused_attention", "node_encoder", "dropout", "attention_train", "node_encoder_train", "block_attn")
 P_DROP = 0.1  # ExperimentConfig's dropout rates, live in every training check
 # training kernels vs plain versions on the same inputs and seeds (K5's
@@ -1018,31 +1044,40 @@ def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True, held_steps: 
 def profile_run(run, wall_s, what):
     """One run() under torch.profiler: the device's busy time (the sum of its
     kernels and copies, one stream), the number of device operations, the
-    host's syncs with the device, and the top kernels by device time."""
+    host's syncs with the device, and the top kernels by device time. The
+    profiler's raw events are read as they are (building its event tree for
+    a training step's ~10^6 host and device events takes minutes); the
+    seconds the profiled run and the reading took are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    ops_ = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.profiler.kineto_results.events()
+    ops_ = [(e.name(), e.duration_ns() / 1e6) for e in events
+            if e.device_type() == DeviceType.CUDA and not getattr(e, "is_hidden_event", lambda: False)()]
+    syncs = sum(1 for e in events if e.name() in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    cost_s = time.perf_counter() - t0
     if not ops_:
         log("profile: the profiler saw no device operations; device busy share not measured")
         return None
-    busy_ms = sum(e.time_range.elapsed_us() for e in ops_) / 1e3
+    busy_ms = sum(t for _, t in ops_)
     by_name = {}
-    for e in ops_:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, t in ops_:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + t, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    # host waits on the device: explicit syncs, and copies that block the host
-    syncs = sum(1 for e in prof.events() if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    # host waits on the device: explicit syncs (copies that block the host
+    # are not counted)
     log(f"profile: {len(ops_)} device operations {what}, device busy {busy_ms} ms of the unprofiled "
-        f"{1e3 * wall_s} ms wall ({busy_ms / (1e3 * wall_s)} busy share), {syncs} host syncs")
+        f"{1e3 * wall_s} ms wall ({busy_ms / (1e3 * wall_s)} busy share), {syncs} host syncs (profiled run and "
+        f"reading {cost_s} s)")
     for name, (t, n) in top:
         log(f"profile:   {t:10.3f} ms  {n:6d}x  {name[:110]}")
     return dict(device_ops=len(ops_), busy_ms=busy_ms, busy_share=busy_ms / (1e3 * wall_s), host_syncs=syncs,
-                top=[dict(name=name[:110], ms=t, count=n) for name, (t, n) in top])
+                top=[dict(name=name[:110], ms=t, count=n) for name, (t, n) in top], profile_s=cost_s)
 
 
 def main_path(cfg, batch, n_iter, dev):
@@ -1135,19 +1170,22 @@ def train_path(cfg, batch, n_iter, dev):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     secs, per_step, losses, norms = [], [], [], []
+    counters = dict(TRAIN_COUNTERS, **K3_SKIP_COUNTERS)  # every K3 site takes its rows' padding mask: K3-skip
     for i in range(n_iter):
-        zero_counts(TRAIN_COUNTERS)
+        zero_counts(counters)
         t0 = time.perf_counter()
         m = step(batch, seed=101 + i)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        per_step.append(read_counts(TRAIN_COUNTERS))
+        per_step.append(read_counts(counters))
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         log(f"train step {i}: {secs[-1]} s, loss {losses[-1]}, grad_norm {norms[-1]}, launches {per_step[-1]}")
         require(math.isfinite(losses[-1]) and math.isfinite(norms[-1]) and norms[-1] > 0, "non-finite loss or grad norm")
         for k, n in per_step[-1].items():
             require(n > 0, f"the training step did not launch {k}")
+        require(per_step[-1]["K3f-skip"] == per_step[-1]["K3f"] and per_step[-1]["K3b-skip"] == per_step[-1]["K3b"],
+                "a training K3 launch did not carry src_invalid")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # every parameter with a gradient moved (the action head's log_std has
     # none: the deterministic action's log-prob is not in the loss)
@@ -1188,8 +1226,8 @@ def grad_gap(got, ref):
 
 def train_vs_plain(cfg, batch, dev):
     """One training step with the kernels against the plain versions, same
-    seeds: held over time_step_end = HELD_STEPS; over the whole horizon a
-    reading beside a one-ulp map nudge of the plain run."""
+    seeds, held over time_step_end = HELD_STEPS, beside a one-ulp map nudge
+    of the plain run."""
     held = dataclasses.replace(cfg, time_step_end=HELD_STEPS)
     lk, gk = loss_and_grads(held, batch, dev, plain=False)
     lp, gp = loss_and_grads(held, batch, dev, plain=True)
@@ -1206,15 +1244,6 @@ def train_vs_plain(cfg, batch, dev):
     require(gap <= TRAIN_GRAD_RTOL, f"training gradient {worst} differs by rel {gap}")
     reading = dict(held_steps=HELD_STEPS, held_loss_rel=loss_gap, held_grad_rel=gap, held_grad_rel_median=median,
                    held_nudge_grad_rel=nudge_gap, held_nudge_grad_rel_median=nudge_median)
-    del gk, gp, gn
-    lk, gk = loss_and_grads(cfg, batch, dev, plain=False)
-    lp, gp = loss_and_grads(cfg, batch, dev, plain=True)
-    ln, gn = loss_and_grads(cfg, nudged(batch), dev, plain=True)
-    reading.update(loss_rel_all=abs(lk - lp) / abs(lp), grad_rel_all=grad_gap(gk, gp)[0],
-                   nudge_loss_rel_all=abs(ln - lp) / abs(lp), nudge_grad_rel_all=grad_gap(gn, gp)[0])
-    log(f"training step over all {cfg.time_step_end} steps (readings): kernels vs plain loss rel {reading['loss_rel_all']}, "
-        f"gradient rel {reading['grad_rel_all']}; a one-ulp map nudge moves the plain run's loss by rel "
-        f"{reading['nudge_loss_rel_all']}, its gradients by rel {reading['nudge_grad_rel_all']}")
     return reading
 
 
@@ -1853,6 +1882,294 @@ def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ the dead-query-row skip (phase 6d)
+
+SKIP_COUNTERS = {"K1": (FA, "LAUNCHES"), "K1-bf16": (FA, "LAUNCHES_BF16"), "K1-skip": (FA, "LAUNCHES_SKIP")}
+K3_SKIP_COUNTERS = {"K3f-skip": (AT, "LAUNCHES_FWD_SKIP"), "K3b-skip": (AT, "LAUNCHES_BWD_SKIP")}
+SKIP_ROW_BLOCKS = (0, 16)  # attn_row_block values held against -1 (every value >= 0 turns the skip on)
+FILL_AGENTS = 40  # the main path's valid agents of 64
+SPARSE_AGENTS = 8  # a sparse scene's
+
+
+def dead_agents(B, S, n_live, dev, n_agent=64):
+    """[B, S] src_invalid of query rows that are agents (step-major: row r is
+    agent r % n_agent) with agents n_live .. dead."""
+    return (torch.arange(S) % n_agent >= n_live)[None].expand(B, S).contiguous().to(dev)
+
+
+def skip_bound(q, k, invalid, src, mask_bytes, bf16):
+    """The bound of a skipping call: its inputs read once (src_invalid one
+    byte a row) and its output written once; 4 D operations for each allowed
+    pair of a live row (fp32 at 67 TFLOP/s, or bf16 products at 989)."""
+    live = FA.row_live(invalid, src)
+    pairs = int((~invalid & live[..., None]).sum().item())
+    n_bytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + mask_bytes + src.numel()
+    return (bound_ms_bf16 if bf16 else bound_ms)(n_bytes, 4 * q.shape[-1] * pairs)
+
+
+def check_k1_skip(dev):
+    """(a) K1's dead-query-row skip at the rollout as2pl (B = 8 and the
+    joint futures' 48, bf16 K/V) and the latent as2pl, on fp32 q and on
+    bf16 q/k/v (K1-bf16), with the main path's fill (agents 40.. dead) and
+    a sparse one (8 live): dead rows exactly 0, live rows bitwise K1's
+    without src_invalid, against the plain version with the same
+    src_invalid (K1_TOL; bf16 within a one-bf16-ulp nudge's gap), two calls
+    bitwise equal; ms and device_ms beside K1's own on the same inputs,
+    SDPA's with the live rows' mask, the bound. The kernels-line entry is
+    the rollout as2pl's at the main fill in fp32."""
+    gen = torch.Generator().manual_seed(13)
+    entry, per_site, max_err = None, [], 0.0
+    for name, B, S in (("rollout as2pl", N_SCENE, 64), (K1_B48, 6 * N_SCENE, 64), ("latent as2pl", N_SCENE, 19 * 64)):
+        (q, k, v, invalid, H), mask_bytes = k1_case(gen, B, S, 1024, S == 64, 0.25, False, dev)
+        for prec in ("fp32", "bf16"):
+            bf16 = prec == "bf16"
+            args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), invalid, H) if bf16 else (q, k, v, invalid, H)
+            base = FA.fused_attention_core(*args)
+            k1_dev = graph_ms(lambda: FA.fused_attention_core(*args))
+            for fill in (FILL_AGENTS, SPARSE_AGENTS):
+                src = dead_agents(B, S, fill, dev)
+                out = FA.fused_attention_core(*args, src_invalid=src)
+                again = FA.fused_attention_core(*args, src_invalid=src)
+                torch.cuda.synchronize()
+                what = f"K1-skip {name} {prec} {fill} live agents"
+                live = FA.row_live(invalid, src)
+                require(torch.equal(out, again), f"{what}: not bitwise reproducible")
+                require(bool((out[~live] == 0).all()), f"{what}: a dead row is not 0")
+                require(torch.equal(out[live], base[live]), f"{what}: live rows differ from K1's without src_invalid")
+                ref = FA.attention_core_plain(*args, src_invalid=src)
+                if bf16:
+                    held = bf16_held(what, out, ref, FA.attention_core_plain(bf16_up(args[0]), *args[1:],
+                                                                              src_invalid=src))
+                    err = held["vs_plain"]["max_abs"]
+                else:
+                    err = max_err_checked(out, ref, K1_TOL, what)
+                max_err = max(max_err, err)
+                ms = time_ms(lambda: FA.fused_attention_core(*args, src_invalid=src))
+                dev_ms = graph_ms(lambda: FA.fused_attention_core(*args, src_invalid=src))
+                plain_ms = time_ms(lambda: FA.attention_core_plain(*args, src_invalid=src), n=5)
+                qh, kh, vh = (t.view(t.shape[0], t.shape[1], H, -1).transpose(1, 2).to(args[0].dtype)
+                              for t in args[:3])
+                allowed = (~invalid & live[..., None])[:, None]
+                lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    qh, kh, vh, attn_mask=allowed)
+                lib_ms, lib_dev = time_ms(lib), graph_ms(lib)
+                b_ms, b_by = skip_bound(args[0], args[1], invalid, src, mask_bytes, bf16)
+                log(f"{what}: B={B} S={S} T=1024 live rows {int(live.sum().item())} of {live.numel()} "
+                    f"max_abs_err={err} ms={ms} device_ms={dev_ms} (K1 without src_invalid: device_ms={k1_dev}) "
+                    f"plain_ms={plain_ms} library_ms={lib_ms} library_device_ms={lib_dev} (SDPA, the live rows' "
+                    f"mask) bound_ms={b_ms} ({b_by}); live rows bitwise K1's, dead rows 0 [{card_line()}]")
+                site = dict(site=name, precision=prec, live_agents=fill, ms=ms, device_ms=dev_ms,
+                            k1_device_ms=k1_dev, plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                per_site.append(site)
+                if entry is None:
+                    entry = dict(ms=ms, device_ms=dev_ms, k1_device_ms=k1_dev, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev,
+                                 shape=f"B={B} S={S} T=1024 D=128 H=4 fp32 q bf16 K/V, {name}, {fill} of 64 agents")
+    entry["max_abs_err"] = max_err
+    entry["sites"] = per_site
+    return entry
+
+
+def check_k3_skip(dev):
+    """(b) K3's skip at the main path's training sites with their dead rows
+    (the map self-attention's last 256 polylines, the as2pl's and the
+    posterior latent as2pl's agents 40..), dropout live: K3f's live rows and
+    row statistics bitwise those without src_invalid, dead rows 0 with max
+    -inf and sum 0; K3b on that forward, the cotangent 0 on dead rows, bitwise
+    the unskipped forward's dq, dk, dv (up to the sign of a zero); both
+    against the plain version through autograd (K3_TOL, K3_GRAD_RTOL); the
+    device ms of both kernels beside the unskipped ones'. Returns the
+    kernels-line entries of K3f-skip and K3b-skip (the map self-attention)."""
+    gen, H = torch.Generator().manual_seed(14), 4
+    per_site, err_f, err_b = [], 0.0, 0.0
+    for name, B, S, T, pad, full in k3_sites(N_SCENE):
+        if full:
+            continue
+        q, k, v, invalid, g, mask_bytes = k3_inputs(gen, B, S, T, pad, full, dev)
+        src = (torch.arange(S) >= 768)[None].expand(B, S).contiguous().to(dev) if S == T else \
+            dead_agents(B, S, FILL_AGENTS, dev)
+        live = FA.row_live(invalid, src)
+        g = g * live[..., None]  # the callers zero dead rows
+        seed, what = 2**41 + S, f"K3-skip {name}"
+        fwd = AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0, src)
+        fwd0 = AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0)
+        (o, rmax, rsum), (o0, rmax0, rsum0) = fwd, fwd0
+        hl = live[:, None, :].expand_as(rmax)
+        require(torch.equal(o[live], o0[live]) and bool((o[~live] == 0).all()),
+                f"{what}: K3f live rows differ from the unskipped ones, or a dead row is not 0")
+        require(torch.equal(rmax[hl], rmax0[hl]) and torch.equal(rsum[hl], rsum0[hl])
+                and bool((rmax[~hl] == float("-inf")).all()) and bool((rsum[~hl] == 0).all()),
+                f"{what}: K3f row statistics")
+        d = AT._launch_bwd(q, k, v, invalid, *fwd, g, H, P_DROP, seed, 0, skip=True)
+        d0 = AT._launch_bwd(q, k, v, invalid, *fwd0, g, H, P_DROP, seed, 0)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a + 0.0, b + 0.0) for a, b in zip(d, d0)),
+                f"{what}: K3b's dq, dk, dv differ from the unskipped forward's")
+
+        def run(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves, invalid, H, P_DROP, seed, 0, src_invalid=src)
+            return out, torch.autograd.grad(out, leaves, g)
+
+        out, grads = run(AT.attention_train)
+        ref, ref_grads = run(AT.attention_train_plain)
+        ef = max_err_checked(out.detach(), ref.detach(), K3_TOL, f"{what} forward")
+        eb = grads_checked(grads, ref_grads, ("dq", "dk", "dv"), K3_GRAD_RTOL, f"{what} backward")
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
+        with torch.no_grad():
+            ms_f = time_ms(lambda: AT.attention_train(q, k, v, invalid, H, P_DROP, seed, 0, src_invalid=src))
+            plain_f = time_ms(lambda: AT.attention_train_plain(q, k, v, invalid, H, P_DROP, seed, 0, src_invalid=src),
+                              n=5)
+        dev_f = graph_ms(lambda: AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0, src))
+        dev_f0 = graph_ms(lambda: AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0))
+        dev_b = graph_ms(lambda: AT._launch_bwd(q, k, v, invalid, *fwd, g, H, P_DROP, seed, 0, skip=True))
+        dev_b0 = graph_ms(lambda: AT._launch_bwd(q, k, v, invalid, *fwd0, g, H, P_DROP, seed, 0))
+        ms_b = time_ms(lambda: run(AT.attention_train))
+        plain_b = time_ms(lambda: run(AT.attention_train_plain), n=5)
+        lib_fwd, lib_leaves = sdpa_train(q, k, v, invalid | ~live[..., None], H)
+        with torch.no_grad():
+            lib_f = time_ms(lib_fwd)
+        lib_out = lib_fwd()
+        gh = g.view(B, S, H, -1).transpose(1, 2)
+        lib_b = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True))
+        pairs = int((~invalid & live[..., None]).sum().item())
+        io = (2 * q.numel() + 2 * k.numel()) * 4 + mask_bytes + src.numel() + 2 * B * H * S * 4
+        bf, bf_by = bound_ms(io, 4 * 128 * pairs)
+        bb, bb_by = bound_ms(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * 128 * pairs)
+        log(f"{what}: B={B} S={S} T={T} live rows {int(live.sum().item())} of {live.numel()}; fwd max_abs_err={ef} "
+            f"ms={ms_f} device_ms={dev_f} (without src_invalid {dev_f0}) plain_ms={plain_f} library_ms={lib_f} "
+            f"bound_ms={bf} ({bf_by}); bwd grad rel err={eb} ms={ms_b} device_ms={dev_b} (after the unskipped "
+            f"forward {dev_b0}) plain_ms={plain_b} library_ms={lib_b} bound_ms={bb} ({bb_by}); live rows and stats "
+            f"bitwise, dead rows 0, dq/dk/dv bitwise the unskipped ones [{card_line()}]")
+        per_site.append(dict(site=name, live_rows=int(live.sum().item()), fwd=dict(
+            ms=ms_f, device_ms=dev_f, unskipped_device_ms=dev_f0, plain_ms=plain_f, library_ms=lib_f, bound_ms=bf,
+            bound_by=bf_by), bwd=dict(ms=ms_b, device_ms=dev_b, unskipped_device_ms=dev_b0, plain_ms=plain_b,
+                                      library_ms=lib_b, bound_ms=bb, bound_by=bb_by)))
+    site = next(x for x in per_site if x["site"] == "map polyline self-attention")
+    shape = "B=8 S=T=1024 D=128 H=4 fp32 p=0.1, map polyline self-attention, polylines 768.. dead"
+    fwd = dict(site["fwd"], max_abs_err=err_f, shape=shape, sites=[dict(site=x["site"], **x["fwd"]) for x in per_site])
+    bwd = dict(site["bwd"], max_abs_err=err_b, shape=shape, sites=[dict(site=x["site"], **x["bwd"]) for x in per_site])
+    return fwd, bwd
+
+
+def skip_config(cfg: ExperimentConfig, row_block: int) -> ExperimentConfig:
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attn_row_block=row_block))
+
+
+def eval_skip(cfg, batch, dev, precision: str) -> dict:
+    """(c) The eval rollout at attn_row_block 0 and 16 against -1 (one set of
+    weights), each with the launch counts set to 0 just before and read
+    just after: preds and valid bitwise equal over every step; K1-skip at
+    every as2pl and latent as2pl launch, none at -1; agent-steps/s of
+    each (readings)."""
+    base = cfg if precision == "fp32" else bf16_config(cfg, False)
+    n_scene, n_steps = batch["map/valid"].shape[0], base.time_step_end - base.time_step_sim_start + 1
+    models = {-1: O.make_model(base, device=dev, seed=0)}
+    for rb in SKIP_ROW_BLOCKS:
+        models[rb] = O.make_model(skip_config(base, rb), device=dev, seed=0)
+        models[rb].load_state_dict(models[-1].state_dict())
+    O.eval_rollout(base, models[-1], batch, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    outs, launches, secs = {}, {}, {rb: [] for rb in models}
+    for rb, model in models.items():
+        zero_counts(SKIP_COUNTERS)
+        t0 = time.perf_counter()
+        outs[rb] = O.eval_rollout(skip_config(base, rb), model, batch, device=dev)
+        torch.cuda.synchronize()
+        secs[rb].append(time.perf_counter() - t0)
+        launches[rb] = read_counts(SKIP_COUNTERS)
+    what = f"{precision} eval rollout with the skip"
+    core = "K1" if precision == "fp32" else "K1-bf16"
+    log(f"{what}: launches by attn_row_block {launches}")
+    require(launches[-1]["K1-skip"] == 0, f"{what}: K1-skip launched at attn_row_block=-1")
+    for rb in SKIP_ROW_BLOCKS:
+        # every K1 launch but the map self-attention's carries src_invalid
+        require(launches[rb]["K1-skip"] == launches[rb][core] - 1 > 0 and launches[rb][core] == launches[-1][core],
+                f"{what}: launches at attn_row_block={rb}: {launches[rb]}")
+        require(torch.equal(outs[rb].preds, outs[-1].preds) and torch.equal(outs[rb].valid, outs[-1].valid),
+                f"{what}: attn_row_block={rb} is not bitwise the rollout at -1")
+    asps = {rb: n_scene * base.data.n_agent * n_steps / statistics.median(t) for rb, t in secs.items()}
+    log(f"{what}: preds and valid bitwise equal to attn_row_block=-1 over all {n_steps} steps at "
+        f"{list(SKIP_ROW_BLOCKS)}; seconds {secs}; agent-steps/s {asps} (readings) [{card_line()}]")
+    return dict(launches=launches, seconds=secs, agent_steps_per_s=asps, bitwise_steps=n_steps)
+
+
+def tensors(x) -> list:
+    """Every tensor of a nested output, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for key in sorted(x) for t in tensors(x[key])]
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in tensors(y)]
+    return []
+
+
+def validation_skip(cfg, batch, dev) -> dict:
+    """(d) One Validator.step at attn_row_block = 0 against -1, the same
+    weights and generator seed: every tensor of its output (the reactive
+    replay, all K joint futures, their scores) bitwise equal."""
+    outs, launches = {}, {}
+    for rb in (-1, 0):
+        model = O.make_model(skip_config(cfg, rb), device=dev, seed=0)
+        zero_counts(SKIP_COUNTERS)
+        outs[rb] = EL.Validator(skip_config(cfg, rb), model, device=dev).step(batch, torch.Generator().manual_seed(302))
+        torch.cuda.synchronize()
+        launches[rb] = read_counts(SKIP_COUNTERS)
+    for key in ("buf_rr_preds", "buf_rr_valid", "buf_jf_preds", "buf_jf_valid"):
+        require(torch.equal(outs[0][key], outs[-1][key]), f"Validator.step at attn_row_block=0: {key} differs")
+    a, b = tensors(outs[0]), tensors(outs[-1])
+    n = len(b)
+    require(n == len(a) and all(torch.equal(x, y) for x, y in zip(a, b)),
+            "Validator.step at attn_row_block=0 is not bitwise the step at -1")
+    require(launches[0]["K1-skip"] > 0 and launches[-1]["K1-skip"] == 0, f"Validator.step launches {launches}")
+    log(f"validation with the skip: Validator.step at attn_row_block=0 bitwise the step at -1 ({n} output "
+        f"tensors: the reactive replay, the {cfg.n_joint_future} joint futures, their scores); launches {launches}")
+    return dict(launches=launches, n_tensors=n)
+
+
+def train_skip(cfg, batch, dev) -> dict:
+    """(e) Phase 5's training step over HELD_STEPS, kernels vs plain versions
+    (both skipping, as every K3 site takes the rows' padding mask) at phase
+    5's holds, with the K3 and K3-skip launch counts."""
+    held = dataclasses.replace(cfg, time_step_end=HELD_STEPS)
+    counters = dict(TRAIN_COUNTERS, **K3_SKIP_COUNTERS)
+    zero_counts(counters)
+    lk, gk = loss_and_grads(held, batch, dev, plain=False)
+    counts = read_counts(counters)
+    lp, gp = loss_and_grads(held, batch, dev, plain=True)
+    loss_gap = abs(lk - lp) / abs(lp)
+    gap, worst, median = grad_gap(gk, gp)
+    log(f"training step with the skip, steps 1..{HELD_STEPS}: launches {counts}; kernels vs plain loss rel {loss_gap} "
+        f"(tolerance {TRAIN_LOSS_RTOL}), largest gradient rel norm error {gap} at {worst}, median {median} "
+        f"(tolerance {TRAIN_GRAD_RTOL})")
+    require(counts["K3f-skip"] == counts["K3f"] > 0 and counts["K3b-skip"] == counts["K3b"] > 0,
+            f"training step: not every K3 launch carried src_invalid: {counts}")
+    require(loss_gap <= TRAIN_LOSS_RTOL and gap <= TRAIN_GRAD_RTOL,
+            f"training step with the skip: loss rel {loss_gap}, gradient {worst} rel {gap}")
+    return dict(launches=counts, loss_rel=loss_gap, grad_rel=gap, grad_rel_median=median, held_steps=HELD_STEPS)
+
+
+def row_skip_path(cfg, batch, dev) -> dict:
+    """Phase 6d: the dead-query-row skip. (a) K1-skip and (b) K3-skip at
+    their main-path sites against their plain versions and the unskipped
+    kernels; (c) the eval rollout at attn_row_block 0 and 16 against -1 in
+    fp32 and under precision="bf16"; (d) one Validator.step at 0 against
+    -1; (e) a training step's K3-skip counts and holds."""
+    t_phase = time.perf_counter()
+    result = dict(K1_skip=check_k1_skip(dev))
+    result["K3f_skip"], result["K3b_skip"] = check_k3_skip(dev)
+    result["eval"] = eval_skip(cfg, batch, dev, "fp32")
+    result["eval_bf16"] = eval_skip(cfg, batch, dev, "bf16")
+    result["validation"] = validation_skip(cfg, batch, dev)
+    result["training"] = train_skip(cfg, batch, dev)
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["card"] = card_line()
+    log(f"row skip: phase in {result['phase_s']} s")
+    return result
+
+
 # ------------------------------------------------------------------ CLI runner
 
 # `python -m trafficbots_tpu_torch.run` in-process at full width
@@ -1864,7 +2181,7 @@ def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
 # media seed is drawn all the same) but run B's first fit, which renders
 # one batch (CLI_FIT_MEDIA_ARGS), and phase 6a's validate renders one
 # scene over 31 steps (CLI_MEDIA_ARGS).
-CLI_ARGS = ["device=cuda", "synthetic=true", "data.batch_size=8", "steps_per_epoch=2", "val_batches=1"] + (
+CLI_ARGS = ["device=cuda", "synthetic=true", "data.batch_size=8", "steps_per_epoch=1", "val_batches=1"] + (
     ["n_video_batch=0"] if VIS._HAS_CV2 else [])
 CLI_FIT_MEDIA_ARGS = ["n_video_batch=1"] if VIS._HAS_CV2 else []
 CLI_MEDIA_ARGS = ["n_video_batch=1", "data.batch_size=1", "data.n_step=31", "time_step_end=30", "time_step_gt=30"]
@@ -1976,7 +2293,7 @@ def cli_path(batch, dev, val_keys):
     RUN.main(["action=fit", f"run_dir={a}", "n_epochs=2"] + CLI_ARGS)
     torch.cuda.synchronize()
     launches = read_counts(CLI_COUNTERS)
-    log(f"cli: launches in run A's fit (2 epochs x 2 steps, 2 validations): {launches}")
+    log(f"cli: launches in run A's fit (2 epochs x 1 step, 2 validations): {launches}")
     for k in CLI_KERNELS:
         require(launches[k] > 0, f"the CLI's fit did not launch {k}")
     RUN.main(["action=fit", f"run_dir={b}", "n_epochs=1"] + CLI_ARGS + CLI_FIT_MEDIA_ARGS)
@@ -1986,11 +2303,11 @@ def cli_path(batch, dev, val_keys):
     RUN.main(["action=fit", f"run_dir={b}", "n_epochs=2", "resume=last"] + CLI_ARGS)
 
     (sa, size), (sb, _) = _state(a), _state(b)
-    require(sa["epoch"] == sb["epoch"] == 2 and sa["global_step"] == sb["global_step"] == 4,
+    require(sa["epoch"] == sb["epoch"] == 2 and sa["global_step"] == sb["global_step"] == 2,
             f"epoch / global_step: A {sa['epoch']} / {sa['global_step']}, B {sb['epoch']} / {sb['global_step']}")
     require(torch.equal(sa["rng"], sb["rng"]), "the generator states of A and B differ")
     steps = {r: [s["step"].item() for s in st["opt_state"]["adam"]["state"].values()] for r, st in (("A", sa), ("B", sb))}
-    require(steps["A"] == steps["B"] and set(steps["A"]) == {4.0}, f"Adam's step counts differ: {steps}")
+    require(steps["A"] == steps["B"] and set(steps["A"]) == {2.0}, f"Adam's step counts differ: {steps}")
     require(sa["opt_state"]["schedule"] == sb["opt_state"]["schedule"], "the LR schedules' states differ")
     adam_a, adam_b = sa["opt_state"]["adam"]["state"], sb["opt_state"]["adam"]["state"]
     moments = [(i, k) for i, st in adam_a.items() for k, v in st.items() if not torch.equal(v, adam_b[i][k])]
@@ -2110,14 +2427,12 @@ def goal_predictor_sites(cfg, batch, dev):
 def trafficsim_training(cfg, batch, dev):
     """ablation("trafficsim") (goal_xy GoalPredictor, a latent resampled
     every step, the unmasked GRU, state-integrator dynamics):
-    make_train_step, one warm-up, one timed step with the counts set to 0
-    just before and read just after; then the loss and gradients with the
-    kernels against the plain versions over HELD_STEPS, beside a one-ulp
-    map nudge of the plain run."""
+    make_train_step, one timed step (the first of a fresh model) with the
+    counts set to 0 just before and read just after; then the loss and
+    gradients with the kernels against the plain versions over HELD_STEPS,
+    beside a one-ulp map nudge of the plain run."""
     model = O.make_model(cfg, device=dev, seed=0)
     step = TT.make_train_step(cfg, model, TT.make_optimizer(cfg, model))
-    step(batch, seed=100)
-    torch.cuda.synchronize()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     zero_counts(ABL_COUNTERS)
@@ -2130,7 +2445,7 @@ def trafficsim_training(cfg, batch, dev):
     loss, norm = m["loss"].item(), m["grad_norm"].item()
     trained = [n for n, p in model.named_parameters() if p.grad is not None and bool(p.grad.ne(0).any())]
     moved = sum(not torch.equal(before[n], dict(model.named_parameters())[n]) for n in trained)
-    log(f"ablations: trafficsim train step {secs} s ({1e3 * secs} ms), loss {loss}, grad_norm {norm}, launches "
+    log(f"ablations: trafficsim train step (the first call) {secs} s ({1e3 * secs} ms), loss {loss}, grad_norm {norm}, launches "
         f"{launches}, peak device memory {peak} GiB, {moved} of {len(trained)} parameters with a gradient moved "
         f"[{card_line()}]")
     require(math.isfinite(loss) and math.isfinite(norm) and norm > 0, "trafficsim: non-finite loss or grad norm")
@@ -2197,7 +2512,7 @@ def dest_head(cfg, batch, dev, mode):
     """One DestPredictor head at full width: pred_goal with the kernels
     against the plain versions on the same features, the probabilities of
     every valid row summing to 1, no mass on excluded polyline types, the
-    head's peak memory; then one training step, finite."""
+    head's peak memory; then one training step over HELD_STEPS, finite."""
     gm = cfg.model.goal_manager
     hcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, goal_manager=dataclasses.replace(
         gm, goal_predictor=dataclasses.replace(gm.goal_predictor, mode=mode))))
@@ -2224,7 +2539,8 @@ def dest_head(cfg, batch, dev, mode):
     sum_err = (probs.sum(-1)[rows] - 1).abs().max().item()
     excluded_mass = probs[rows][excluded[rows]].abs().max().item()
     zero_counts(ABL_COUNTERS)
-    tstep = TT.make_train_step(hcfg, model, TT.make_optimizer(hcfg, model))
+    held = dataclasses.replace(hcfg, time_step_end=HELD_STEPS)
+    tstep = TT.make_train_step(held, model, TT.make_optimizer(held, model))
     torch.cuda.reset_peak_memory_stats()
     m = tstep(batch, seed=102)
     torch.cuda.synchronize()
@@ -2558,21 +2874,47 @@ def dp_validation_reference(dev):
     return out, out_nudged, seen, metrics, secs
 
 
-def dp_path(dev, one_process=None):
-    """Phase 9: a, b, c and d (see dp_rank), each rank held against the
-    others and against this process; `one_process` holds phase 5's and 6's
-    timings of this call for the readings."""
+def dp_start(dev):
+    """Phase 9's start: a in this process, then the ranks (b, c and d) in a
+    thread of this process, which goes on with other work (phases 7 and 8
+    in a full run) until dp_finish joins them."""
     import tempfile
+    import threading
 
     from trafficbots_tpu_torch.parallel.launch import launch
 
-    t_phase = time.perf_counter()
-    result = dict(note="two ranks share one card through gloo: the times are readings, not a scaling figure")
-    result["nccl"] = nccl_world_size_1(dev)
-    tmp = tempfile.TemporaryDirectory(prefix="tb_dp_")
-    t0 = time.perf_counter()
-    outs, ranks = launch("chip_smoke:dp_rank", DP_RANKS, dict(cli_dir=tmp.name), timeout_s=DP_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0
+    run = dict(t_phase=time.perf_counter(), nccl=nccl_world_size_1(dev),
+               tmp=tempfile.TemporaryDirectory(prefix="tb_dp_"))
+
+    def ranks():
+        t0 = time.perf_counter()
+        try:
+            run["outs"], run["ranks"] = launch("chip_smoke:dp_rank", DP_RANKS, dict(cli_dir=run["tmp"].name),
+                                               timeout_s=DP_TIMEOUT_S)
+        except BaseException as e:  # raised again by dp_finish
+            run["error"] = e
+        run["ranks_s"] = time.perf_counter() - t0
+
+    run["thread"] = threading.Thread(target=ranks, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def dp_finish(dev, run, one_process=None, beside=None):
+    """Phase 9's end: this process's references, then the ranks joined and
+    each held against the others and against this process; `one_process`
+    holds phase 5's and 6's timings of this call for the readings, `beside`
+    names the phases this process ran while the ranks did."""
+    emu_state, emu = dp_emulation(dev)  # b's reference
+    ref, ref_nudged, ref_noise, ref_metrics, ref_s = dp_validation_reference(dev)  # c's
+    run["thread"].join()
+    if "error" in run:
+        raise run["error"]
+    outs, ranks, ranks_s, tmp = run["outs"], run["ranks"], run["ranks_s"], run["tmp"]
+    note = "two ranks share one card through gloo: the times are readings, not a scaling figure"
+    if beside:
+        note += f"; the ranks ran beside this process's {beside}, sharing the host and the card with them"
+    result = dict(note=note, nccl=run["nccl"])
     for r, out in enumerate(outs):
         log(f"dp: rank {r}'s output (tail):\n" + "\n".join(out.strip().splitlines()[-8:]))
     for r, res in enumerate(ranks):
@@ -2581,7 +2923,6 @@ def dp_path(dev, one_process=None):
         require("backend gloo" in outs[r], f"rank {r} did not print its backend")
 
     # b: bitwise against each other and against the emulation
-    emu_state, emu = dp_emulation(dev)
     diffs = {}
     for r in range(1, DP_RANKS):
         diffs[f"rank {r} vs rank 0"] = state_diff(ranks[r]["train_state"], ranks[0]["train_state"])
@@ -2598,7 +2939,6 @@ def dp_path(dev, one_process=None):
     log(f"dp: reduced loss {loss}, the emulation's mean of the halves {emu['loss']}")
 
     # c: the sharded Validator against one process's on the 8 scenes
-    ref, ref_nudged, ref_noise, ref_metrics, ref_s = dp_validation_reference(dev)
     per = N_SCENE // DP_RANKS
     for r, res in enumerate(ranks):
         require(res["val_launches"]["K1"] > 0 and res["val_launches"]["K2"] > 0,
@@ -2631,7 +2971,7 @@ def dp_path(dev, one_process=None):
     # d: the CLI on 2 ranks
     a, b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
     (sa, _), (sb, _) = _state(a), _state(b)
-    require(sa["epoch"] == sb["epoch"] == 2 and sa["global_step"] == sb["global_step"] == 4,
+    require(sa["epoch"] == sb["epoch"] == 2 and sa["global_step"] == sb["global_step"] == 2,
             f"dp cli: epoch / global_step: A {sa['epoch']} / {sa['global_step']}, B {sb['epoch']} / {sb['global_step']}")
     require(torch.equal(sa["rng"], sb["rng"]), "dp cli: the generator states of A and B differ")
     require(sa["opt_state"]["schedule"] == sb["opt_state"]["schedule"], "dp cli: the LR schedules' states differ")
@@ -2669,7 +3009,8 @@ def dp_path(dev, one_process=None):
         cli_fit_s=[res["cli_fit_s"] for res in ranks],
         one_process=dict(half_step_s=emu["half_step_s"], val_step_s_8_scenes_first_call=ref_s, **(one_process or {})),
         peak_gib=[dict(train=res["train_peak_gib"], val=res["val_peak_gib"], cli=res["cli_peak_gib"]) for res in ranks],
-        validation_held=held, cli_resume_bitwise=True, phase_s=time.perf_counter() - t_phase, card=card_line(),
+        validation_held=held, cli_resume_bitwise=True, phase_s=time.perf_counter() - run["t_phase"],
+        card=card_line(),
     )
     log(f"dp: phase 9 in {result['phase_s']} s (the ranks {ranks_s} s)")
     return result
@@ -2688,11 +3029,11 @@ def main():
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
              ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS, ("--media",): ("fused_attention", "node_encoder"),
-             ("--augment",): DP_KERNELS, ("--bf16",): KERNEL_SOURCES}
+             ("--augment",): DP_KERNELS, ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
-                 "--dp, --media, --augment or --bf16)")
+                 "--dp, --media, --augment, --bf16 or --row-skip)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -2714,7 +3055,7 @@ def main():
         return
     if mode == ("--dp",):  # data parallelism alone
         phase("data parallelism")
-        log(json.dumps({"data_parallel": dp_path(dev)}))
+        log(json.dumps({"data_parallel": dp_finish(dev, dp_start(dev))}))
         phase("done")
         return
     if mode == ("--media",):  # the validation media's device side alone
@@ -2730,6 +3071,11 @@ def main():
     if mode == ("--bf16",):  # the bf16 configurations alone
         phase("bf16 configurations")
         log(json.dumps({"bf16": bf16_path(cfg, batch, dev)}))
+        phase("done")
+        return
+    if mode == ("--row-skip",):  # the dead-query-row skip alone
+        phase("dead-query-row skip")
+        log(json.dumps({"row_skip": row_skip_path(cfg, batch, dev)}))
         phase("done")
         return
     if mode == ("--ablations",):  # the ablation models and the interactive sim alone
@@ -2778,12 +3124,17 @@ def main():
     augment = augment_path(cfg, batch, dev)
     phase("bf16 configurations")
     bf16 = bf16_path(cfg, batch, dev, {k: path[k] for k in ("seconds", "agent_steps_per_s", "peak_gib")})
+    phase("dead-query-row skip")
+    skip = row_skip_path(cfg, batch, dev)
+    phase("data parallelism: the ranks start, and run beside phases 7 and 8")
+    dp_run = dp_start(dev)
     phase("CLI runner")
     cli = cli_path(batch, dev, val.pop("metric_keys"))
     phase("ablations and interactive")
     abl = ablation_path(cfg, batch, dev)
-    phase("data parallelism")
-    dp = dp_path(dev, dict(train_step_ms_8_scenes=train["train_step_ms"], val_step_s_8_scenes_hybrid=val["step_s"]))
+    phase("data parallelism: references, the ranks joined")
+    dp = dp_finish(dev, dp_run, dict(train_step_ms_8_scenes=train["train_step_ms"], val_step_s_8_scenes_hybrid=val["step_s"]),
+                   beside="phases 7 and 8 and its references for b and c")
     phase("done")
 
     kernels = [
@@ -2825,6 +3176,19 @@ def main():
              route="cuda", source="trafficbots_tpu_torch/csrc/block_attn.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=bf16["validation"]["launches"]["K6-bf16"],
              **bf16["K6_bf16"]),
+        dict(name="K1-skip fused_attention_core with src_invalid (attn_row_block >= 0: dead query rows written 0, "
+                  "an all-dead block or cluster skipped)", route="cuda",
+             source="trafficbots_tpu_torch/csrc/fused_attention.cu",
+             replaces="trafficbots_tpu/ops/fused_attention.py:73", launches=skip["eval"]["launches"][0]["K1-skip"],
+             **skip["K1_skip"]),
+        dict(name="K3f-skip attention_train forward with src_invalid (dead query rows 0, row max -inf)", route="cuda",
+             source="trafficbots_tpu_torch/csrc/attention_train.cu",
+             replaces="trafficbots_tpu/ops/attention_train.py:215", launches=train_launches["K3f-skip"],
+             **skip["K3f_skip"]),
+        dict(name="K3b-skip attention_train backward of a skipping forward (dead rows dropped by their row max)",
+             route="cuda", source="trafficbots_tpu_torch/csrc/attention_train.cu",
+             replaces="trafficbots_tpu/ops/attention_train.py:260", launches=train_launches["K3b-skip"],
+             **skip["K3b_skip"]),
     ]
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
@@ -2835,6 +3199,7 @@ def main():
     log(json.dumps({"media": media}))
     log(json.dumps({"augment": augment}))
     log(json.dumps({"bf16": bf16}))
+    log(json.dumps({"row_skip": skip}))
     log(json.dumps({"cli_path": cli}))
     log(json.dumps({"ablations": abl}))
     log(json.dumps({"data_parallel": dp}))
@@ -2844,4 +3209,11 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except BaseException:
+        import multiprocessing
+
+        for p in multiprocessing.active_children():  # phase 9's ranks, when they still run
+            p.kill()
+        raise

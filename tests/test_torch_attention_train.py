@@ -5,7 +5,9 @@ At p = 0 the JAX kernels run in Pallas interpret mode, as
 tests/test_attention_train.py runs them: the forward, and dq/dk/dv from
 `jax.vjp` of the custom VJP (the backward kernels), on a dense shape and on
 a query-blocked one (where `_pick_block` gives None), with an all-masked row
-and dead query rows (`src_invalid`, whose blocks the TPU kernels skip). With
+and dead query rows (`src_invalid`, whose blocks the TPU kernels skip; the
+port's plain version takes the same `src_invalid` and zeroes every dead
+row, which the JAX kernels do only for whole dead blocks). With
 dropout live (p = 0.1) the TPU's bits cannot be reproduced, so the port's
 masks are fed into a JAX softmax-times-mask expression written here, and the
 forward and gradients compared. Tolerance: atol = rtol = 1e-5 (fp32; the
@@ -37,9 +39,10 @@ def inputs(B, S, T, D, seed):
     return q, k, v, invalid, g
 
 
-def port(q, k, v, invalid, g, n_head, p=0.0, seed=0, site=0):
+def port(q, k, v, invalid, g, n_head, p=0.0, seed=0, site=0, src_invalid=None):
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-    out = tat.attention_train_plain(tq, tk, tv, torch.from_numpy(invalid), n_head, p, seed, site)
+    src = None if src_invalid is None else torch.from_numpy(src_invalid)
+    out = tat.attention_train_plain(tq, tk, tv, torch.from_numpy(invalid), n_head, p, seed, site, src_invalid=src)
     out.backward(torch.from_numpy(g))
     return out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(), tv.grad.numpy()
 
@@ -58,10 +61,10 @@ def test_plain_matches_jax_kernels_at_p0(B, S, T, D, H, qb):
 
     jout, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
     jgrads = vjp(jnp.asarray(g))
-    out, *grads = port(q, k, v, invalid, g, H)
+    out, *grads = port(q, k, v, invalid, g, H, src_invalid=src_invalid)
     live = ~src_invalid
     np.testing.assert_allclose(out[live], np.asarray(jout)[live], **TOL)
-    assert (out[0, 3] == 0).all()
+    assert (out[0, 3] == 0).all() and (out[src_invalid] == 0).all()  # every dead row
     gtol = dict(atol=2e-5, rtol=2e-5) if qb else TOL
     for name, t, j in zip("qkv", grads, jgrads):
         np.testing.assert_allclose(t, np.asarray(j), err_msg=f"d{name}", **gtol)

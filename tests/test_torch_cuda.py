@@ -280,6 +280,42 @@ def test_k5_fused_entries_equal_the_plain_compositions(cuda, shape):
         assert torch.equal(tdo.dropout(x, p, seed, site), tdo.dropout_plain(x, p, seed, site))
 
 
+def dead_agents(B, S, n_live, device, n_agent=64):
+    """src_invalid of agent query rows (row r is agent r % n_agent) with
+    agents n_live.. dead, and scene 0 all dead."""
+    src = (torch.arange(S) % n_agent >= n_live)[None].repeat(B, 1)
+    src[0] = True
+    return src.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,bf16", [(8, 64, False), (48, 64, True), (3, 1216, False), (3, 1216, True), (3, 1024, False)])
+def test_k1_skip_kernel(cuda, B, S, bf16):
+    """K1 with src_invalid (the dead-query-row skip) on both paths, on fp32 q
+    with bf16 K/V and on bf16 q/k/v, with a padding mask: dead rows (and a
+    scene with every row dead) exactly 0, live rows bitwise K1's without
+    src_invalid, within K1's tolerance of the plain version with the same
+    src_invalid (bf16: a relative norm error of 1e-3), LAUNCHES_SKIP counted."""
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, 1024, 128, seed=9))
+    k, v = k.bfloat16(), v.bfloat16()
+    if bf16:
+        q = q.bfloat16()
+    inv = invalid[:, 0][:, None, :].expand(B, S, 1024)
+    src = dead_agents(B, S, 40, cuda)
+    before = tfa.LAUNCHES_SKIP
+    out = tfa.fused_attention_core(q, k, v, inv, 4, src_invalid=src)
+    base = tfa.fused_attention_core(q, k, v, inv, 4)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES_SKIP == before + 1
+    live = tfa.row_live(inv, src)
+    assert (out[~live] == 0).all() and torch.equal(out[live], base[live])
+    ref = tfa.attention_core_plain(q, k, v, inv, 4, src)
+    if bf16:
+        assert rel_norm(out, ref) < 1e-3
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
 def k3_case(cuda, B, S, T, full_mask, seed=11):
     q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, 128, seed=seed))
     if not full_mask:
@@ -322,6 +358,38 @@ def test_k3_kernels_match_plain_with_dropout(cuda, B, S, T, full_mask):
         assert (got[0][0, 2] == 0).all() and (got[0][1] == 0).all() and (got[1][1] == 0).all()
         assert (got[1][0, 2] == 0).all()
         assert (got[2][1] == 0).all() and (got[3][1] == 0).all()  # no row of scene 1 attends: dk, dv 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T", [(8, 64, 1024), (3, 1024, 1024), (3, 1216, 1024)])
+def test_k3_skip_kernels(cuda, B, S, T):
+    """K3 with src_invalid, dropout live, the cotangent 0 on dead rows: the
+    output's live rows bitwise those without it and dead rows 0; dq, dk, dv
+    bitwise those without it (up to the sign of a zero) and within K3's
+    holds of autograd through the plain version; the skip counters."""
+    q, k, v, invalid, g = k3_case(cuda, B, S, T, False)
+    src = (torch.arange(S) >= 3 * S // 4)[None].repeat(B, 1).to(cuda) if S == T else dead_agents(B, S, 40, cuda)
+    live = tfa.row_live(invalid, src)
+    g = g * live[..., None]
+
+    def run(fn, src_invalid):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv, invalid, 4, 0.1, 987654321, 3, src_invalid=src_invalid)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    f0, b0 = tat.LAUNCHES_FWD_SKIP, tat.LAUNCHES_BWD_SKIP
+    got = run(tat.attention_train, src)
+    assert (tat.LAUNCHES_FWD_SKIP, tat.LAUNCHES_BWD_SKIP) == (f0 + 1, b0 + 1)
+    base = run(tat.attention_train, None)
+    assert (got[0][~live] == 0).all() and torch.equal(got[0][live], base[0][live])
+    for a, b in zip(got[1:], base[1:]):
+        assert torch.equal(a + 0.0, b + 0.0)
+    ref = run(tat.attention_train_plain, src)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert rel_err(a, b) < 1e-5, name
 
 
 @pytest.mark.cuda

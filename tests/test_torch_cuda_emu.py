@@ -179,8 +179,8 @@ def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset
         outs = []
         for _ in range(2):
             out = torch.full_like(q, float("nan"))
-            assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), B, S, T, D, H,
-                      int(bf16), invalid.stride(0), invalid.stride(1), None) == 0
+            assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), None, out.data_ptr(), B, S, T, D,
+                      H, int(bf16), invalid.stride(0), invalid.stride(1), None) == 0
             outs.append(out)
         ref = tfa.attention_core_plain(q, k, v, invalid, H)
         torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
@@ -211,8 +211,8 @@ def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H
         outs = []
         for _ in range(2):
             out = torch.full_like(q, float("nan"))
-            assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), B, S, T, D, H,
-                      invalid.stride(0), invalid.stride(1), None) == 0
+            assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), None, out.data_ptr(), B, S, T, D,
+                      H, invalid.stride(0), invalid.stride(1), None) == 0
             outs.append(out)
         ref = tfa.attention_core_plain(q, k, v, invalid, H)
         assert ref.dtype == torch.bfloat16
@@ -221,6 +221,92 @@ def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H
         assert err < K1_BF16_RTOL, err
         assert (outs[0][dead_rows(invalid)] == 0).all()
         assert torch.equal(outs[0], outs[1])
+
+
+def k1_emulated(emulated, q, k, v, invalid, src_invalid, H):
+    """One emulated K1 call (the bf16 variant for bf16 q), its output."""
+    (B, S, D), T = q.shape, k.shape[1]
+    bf16_q = q.dtype == torch.bfloat16
+    fn = emulated["fused_attention"].tb_fused_attention_bf16 if bf16_q else emulated["fused_attention"].tb_fused_attention
+    fn.argtypes, fn.restype = list(tfa._ARGS_BF16 if bf16_q else tfa._ARGS), ctypes.c_int
+    out = torch.full_like(q, float("nan"))
+    kv_flag = () if bf16_q else (int(k.dtype == torch.bfloat16),)
+    src = None if src_invalid is None else src_invalid.data_ptr()
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src, out.data_ptr(), B, S, T, D, H,
+              *kv_flag, invalid.stride(0), invalid.stride(1), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("B,S,T,D,H,bf16,live_rows,path", [
+    # fp32 q, bf16 K/V, padding mask (stride 0): scene 0 partly dead, scene 1's clusters all dead
+    (2, 40, 300, 64, 2, False, (24, 0), "S"),
+    # K1-bf16, full mask: row block 0 live, block 1 partly dead, block 2 all dead
+    (1, 96, 260, 64, 2, True, (40,), "L"),
+])
+def test_k1_skip_emulated(emulated, B, S, T, D, H, bf16, live_rows, path):
+    """K1's dead-query-row skip (`src_invalid`): every dead row exactly 0,
+    every live row bitwise equal to K1 without `src_invalid`, and the
+    output against the plain version with the same `src_invalid` (within
+    1e-5, the bf16 variant within K1_BF16_RTOL of relative norm error)."""
+    assert takes_cluster(B, S, T, H) == (path == "S")
+    q, k, v, full, pad = fwd_inputs(B, S, T, D, 5 * S + T, torch.bfloat16)
+    invalid = full if bf16 else pad
+    if bf16:
+        q = q.to(torch.bfloat16)
+    src_invalid = torch.arange(S)[None, :] >= torch.tensor(live_rows)[:, None]
+    out = k1_emulated(emulated, q, k, v, invalid, src_invalid, H)
+    unskipped = k1_emulated(emulated, q, k, v, invalid, None, H)
+    live = tfa.row_live(invalid, src_invalid)
+    assert (out[~live] == 0).all()
+    assert torch.equal(out[live], unskipped[live])
+    ref = tfa.attention_core_plain(q, k, v, invalid, H, src_invalid)
+    if bf16:
+        assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() < K1_BF16_RTOL
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_k3_skip_emulated_forward_and_backward(emulated):
+    """K3f with `src_invalid` on path L (three row blocks: live, partly dead,
+    all dead), dropout live: live rows' output and row statistics bitwise
+    those of K3f without it, dead rows 0 with max -inf and sum 0; K3b on
+    the skipped forward, with the cotangent zero on dead rows, gives the
+    unskipped forward's dq, dk, dv bit for bit (up to the sign of a zero)
+    and autograd's through the plain version within a relative norm error
+    of 1e-5."""
+    B, S, T, D, H, p = 1, 96, 130, 64, 2, 0.1
+    assert not takes_cluster(B, S, T, H)
+    q, k, v, _, invalid = fwd_inputs(B, S, T, D, 11)
+    src_invalid = torch.arange(S)[None, :] >= 40
+    live = tfa.row_live(invalid, src_invalid)
+    g = torch.from_numpy(np.random.RandomState(12).normal(size=(B, S, D)).astype(np.float32))
+    g[~live] = 0  # the callers zero dead rows
+    seed, site = 2**45 + 9, 1
+    fn = emulated["attention_train"].tb_attention_train_fwd
+    fn.argtypes, fn.restype = list(tat._FWD_ARGS), ctypes.c_int
+
+    def fwd(src):
+        out = torch.full_like(q, float("nan"))
+        rmax, rsum = (torch.full((B, H, S), float("nan")) for _ in range(2))
+        assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src, out.data_ptr(), rmax.data_ptr(),
+                  rsum.data_ptr(), B, S, T, D, H, invalid.stride(0), invalid.stride(1),
+                  *tat._dropout_args(p, seed, site), None) == 0
+        return out, rmax, rsum
+
+    (out, rmax, rsum), (out0, rmax0, rsum0) = fwd(src_invalid.data_ptr()), fwd(None)
+    hl = live[:, None, :].expand(B, H, S)
+    assert torch.equal(out[live], out0[live]) and (out[~live] == 0).all()
+    assert torch.equal(rmax[hl], rmax0[hl]) and torch.equal(rsum[hl], rsum0[hl])
+    assert (rmax[~hl] == float("-inf")).all() and (rsum[~hl] == 0).all()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tat.attention_train_plain(*leaves, invalid, H, p, seed, site, src_invalid=src_invalid)
+    ref.backward(g)
+    torch.testing.assert_close(out, ref.detach(), atol=1e-5, rtol=1e-5)
+    skipped = emulated_backward(emulated, q, k, v, invalid, out, rmax, rsum, g, H, p, seed, site)[:3]
+    unskipped = emulated_backward(emulated, q, k, v, invalid, out0, rmax0, rsum0, g, H, p, seed, site)[:3]
+    for name, a, b, leaf in zip(("dq", "dk", "dv"), skipped, unskipped, leaves):
+        assert torch.equal(a + 0.0, b + 0.0), name  # + 0.0: -0 and +0 alike
+        assert ((a - leaf.grad).norm() / leaf.grad.norm()).item() < 1e-5, name
 
 
 @pytest.mark.parametrize("B,S,T,D,H,full_mask,p,path", [
@@ -244,7 +330,7 @@ def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, p
     rmax, rsum = (torch.full((B, H, S), float("nan")) for _ in range(2))
     fn = emulated["attention_train"].tb_attention_train_fwd
     fn.argtypes, fn.restype = list(tat._FWD_ARGS), ctypes.c_int
-    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), rmax.data_ptr(),
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), None, out.data_ptr(), rmax.data_ptr(),
               rsum.data_ptr(), B, S, T, D, H, invalid.stride(0), invalid.stride(1), *tat._dropout_args(p, seed, site),
               None) == 0
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]

@@ -382,8 +382,9 @@ class ModelConfig:
     # whose live rows repeat with period n_agent, so it honors an explicit
     # value only when it divides step*agent and is <= n_agent (otherwise it
     # coerces to 16 so the dead-row skip can still fire; latent_encoder.py).
-    # (port: K1's dead-row skip is not ported yet, ROADMAP Queue 2; a value
-    # >= 0 raises NotImplementedError in models/traffic_bots.py)
+    # (port: every value >= 0 turns K1's dead-query-row skip on at the rollout
+    # as2pl and the latent as2pl, where every dead row comes out 0; the value
+    # picks no block size on the card, see ops/fused_attention.py)
     attn_row_block: int = -1
     # EVAL episode map encode: process the scene batch in chunks of this many
     # scenes (lax.map), recomputing the map PE per chunk from sc/map_pos so

@@ -8,7 +8,12 @@
 // with M the inverted-dropout mask of the weights (philox.cuh; logical
 // tensor [B, H, S, T], row (b H + h) S + s, col t). A row whose targets are
 // all masked comes out 0 and gets no gradient (the TPU kernel lifts the mask
-// and zeroes the output and the cotangent: the same zeros).
+// and zeroes the output and the cotangent: the same zeros). A query row
+// marked dead in src_invalid (kernel_common.row_live's padding rows, whose
+// blocks the TPU kernels skip forward and backward) comes out 0 with row max
+// -inf, so the backward below drops it as it drops an all-masked row: with
+// the callers' zero cotangent there, dq, dk and dv are those of the
+// unskipped call.
 //
 // Backward, per head (the formulas of attention_train.py:30-36):
 //   dv = (A ⊙ M)ᵀ g;  dP = (g vᵀ) ⊙ M;  dS = A ⊙ (dP - D_s)
@@ -480,17 +485,20 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // q [B,S,D], k/v [B,T,D], out [B,S,D] fp32 contiguous; invalid read as
-// inv[b * inv_sb + s * inv_ss + t] (bool bytes); rmax/rsum [B,H,S] fp32.
+// inv[b * inv_sb + s * inv_ss + t] (bool bytes); src_invalid [B,S]
+// contiguous bool bytes (dead query rows) or null; rmax/rsum [B,H,S] fp32.
 // Dropout: on = (p > 0), keep iff bits >= threshold, kept weights * scale.
 // Returns the cudaError_t of the launch.
-extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* v, const void* invalid, void* out,
-                                      void* rmax, void* rsum, int B, int S, int T, int D, int n_head,
+extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* v, const void* invalid,
+                                      const void* src_invalid, void* out, void* rmax, void* rsum, int B, int S,
+                                      int T, int D, int n_head,
                                       long long inv_sb, long long inv_ss, unsigned long long seed,
                                       unsigned int site, unsigned int threshold, float scale, int on,
                                       void* stream) {
     tb_attn::Args a{static_cast<const float*>(q), k, v, static_cast<const uint8_t*>(invalid), static_cast<float*>(out),
                     static_cast<float*>(rmax), static_cast<float*>(rsum), B, S, T, D, n_head, inv_sb, inv_ss,
-                    Dropout{seed, threshold, scale, on}, site, tb_attn::aligned16(q, k, v)};
+                    Dropout{seed, threshold, scale, on}, site, tb_attn::aligned16(q, k, v),
+                    static_cast<const uint8_t*>(src_invalid)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D / n_head) {
         case 16: return (int)tb_attn::launch<16, float, true, true>(a, st);

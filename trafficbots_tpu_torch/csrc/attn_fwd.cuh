@@ -12,6 +12,21 @@
 // none). A row whose targets are all disallowed comes out exactly 0; K3f
 // writes rmax = -inf and rsum = 0 for it.
 //
+// Dead query rows (the dead-query-row skip; trafficbots_tpu/ops/
+// fused_attention.py `_attn_kernel`'s `_skip` and attention_train.py's,
+// fed by kernel_common.row_live): with src_inv (one byte a query row,
+// [B, S]; null: no row is dead) a row marked there comes out as a row with
+// no allowed key: 0, and for K3f rmax = -inf and rsum = 0, which K3b
+// already reads as a row that takes no part. The TPU kernels zero whole
+// dead blocks of their grid and compute the dead rows of a partly live
+// block (the callers zero those); here every dead row is 0. A block (path
+// L) or a cluster (path S) whose rows are all dead writes its zeros and
+// leaves before it stages anything; a partly live one marks its dead rows
+// at the row max (a stride-0 padding mask keeps one bit row for every
+// query, so a row cannot be cleared through the mask bits) and computes
+// the rest as before: a live row's arithmetic, its path and its dropout
+// counters do not change.
+//
 // The numerical contract (both paths): the logits are fp32 FMA sums over d
 // in order, divided by sqrt(dh); the row max is taken exactly over the whole
 // allowed row before any exp (no running softmax: one drifted 15.4 m over
@@ -155,7 +170,13 @@ struct Args {
     tb_philox::Dropout drop;  // (DROP)
     uint32_t site;
     int aligned;  // q, k, v and every head's row slice 16-byte aligned: cp.async, else plain copies
+    const uint8_t* src_inv;  // [B, S] nonzero: a dead query row; null: none
 };
+
+// Query row s of scene b is dead (src_inv).
+__device__ __forceinline__ bool dead_row(const Args& a, int b, int s) {
+    return a.src_inv != nullptr && a.src_inv[(long long)b * a.S + s] != 0;
+}
 
 // max and sum over the W consecutive lanes that share lane / W
 template <int W>
@@ -481,6 +502,20 @@ __device__ __forceinline__ void weights_rows(float* lg, int ldl, int n, int rows
     }
 }
 
+// Rows s0 .. s1 - 1 of head h of scene b written as dead rows: 0, and
+// under STATS the row max -inf and the sum 0.
+template <int DH, int NT, bool STATS, bool QB>
+__device__ __forceinline__ void store_dead_rows(const Args& a, int b, int h, int s0, int s1) {
+    for (int i = threadIdx.x; i < (s1 - s0) * DH; i += NT)
+        store_out<QB>(a, ((long long)b * a.S + s0 + i / DH) * a.D + h * DH + i % DH, 0.f);
+    if (STATS)
+        for (int s = s0 + (int)threadIdx.x; s < s1; s += NT) {
+            const long long j = ((long long)b * a.H + h) * a.S + s;
+            a.rmax[j] = -INFINITY;
+            a.rsum[j] = 0.f;
+        }
+}
+
 // ---- path L: one block per (ROWS_L query rows, head, scene)
 
 // Shared memory of a path-L block, in floats: the [ROWS_L][ldl] logits,
@@ -517,7 +552,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     float* part = reinterpret_cast<float*>(kv);
     uint32_t* bits = reinterpret_cast<uint32_t*>(qs + ROWS_L * LQ + rows_kv_floats<DH, KV>());  // [ROWS_L][nw]
     float* rm = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NWX][ROWS_L] the warp columns' row maxima
-    float* mrow = rm + NWX * ROWS_L;                         // [ROWS_L] the row max (-inf: no allowed key, past S)
+    float* mrow = rm + NWX * ROWS_L;                         // [ROWS_L] the row max (-inf: no allowed key, dead, past S)
     float* srow = mrow + ROWS_L;                             // [ROWS_L] the row sum
     int* live = reinterpret_cast<int*>(srow + ROWS_L);       // [nt] the live tiles
     int* flag = live + nt;                                   // [nt] a tile has an allowed pair
@@ -530,6 +565,10 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     const KV* V = static_cast<const KV*>(a.v);
     const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
 
+    if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
+        store_dead_rows<DH, NT, STATS, QB>(a, b, h, s0, s0 + rows);  // no live row: no K/V staged
+        return;
+    }
     stage_q<DH, NT, QB>(qs, a, ((long long)b * a.S + s0) * a.D + h * DH, ROWS_L, rows);
     cp_async_commit();
     load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
@@ -589,7 +628,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     if (threadIdx.x < ROWS_L) {
         float m = -INFINITY;
         for (int x = 0; x < NWX; ++x) m = fmaxf(m, rm[x * ROWS_L + threadIdx.x]);
-        mrow[threadIdx.x] = (int)threadIdx.x < rows ? m : -INFINITY;
+        mrow[threadIdx.x] = (int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x) ? m : -INFINITY;
     }
     __syncthreads();
     exp_rows<ROWS_L, NT>(lg, ldl, T, rows, mrow, srow);
@@ -668,7 +707,7 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     float* rm = reinterpret_cast<float*>(vt + TK * LD);  // [NWX][ROWS_S] the warp columns' row maxima
     float* pmax = rm + NWX * ROWS_S;                    // [ROWS_S] the slice's row max
     float* psum = pmax + ROWS_S;                        // [ROWS_S] the slice's sum of exp
-    float* gmax = psum + ROWS_S;                        // [ROWS_S] the row max over T (-inf: no allowed key)
+    float* gmax = psum + ROWS_S;                        // [ROWS_S] the row max over T (-inf: no allowed key, dead)
     float* gsum = gmax + ROWS_S;                        // [ROWS_S] the row sum over T, in rank order
     uint32_t* bits = reinterpret_cast<uint32_t*>(gsum + ROWS_S);  // [ROWS_S][NW]
 
@@ -679,6 +718,14 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     const long long kv_base = (long long)b * T * a.D + h * DH;
     const long long stat0 = ((long long)b * a.H + h) * S;
     const int brs = a.inv_ss == 0 ? 0 : NW;
+    const int rp = (S + CL - 1) / CL, r0 = (int)c * rp, r1 = min(S, r0 + rp);  // rank c writes rows r0 .. r1 - 1
+
+    // every row dead: each rank writes its rows' zeros and leaves before the
+    // first cluster barrier (all ranks read the same rows, so all leave)
+    if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < S && !dead_row(a, b, threadIdx.x))) {
+        store_dead_rows<DH, NT, STATS, QB>(a, b, h, r0, r1);
+        return;
+    }
 
     // q, the K and the V slice at once: V stays in flight through the
     // logits and the softmax
@@ -711,7 +758,7 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     if (threadIdx.x < ROWS_S) {
         float m = -INFINITY;
         for (int x = 0; x < NWX; ++x) m = fmaxf(m, rm[x * ROWS_S + threadIdx.x]);
-        pmax[threadIdx.x] = (int)threadIdx.x < S ? m : -INFINITY;
+        pmax[threadIdx.x] = (int)threadIdx.x < S && !dead_row(a, b, threadIdx.x) ? m : -INFINITY;
     }
     cluster_sync();
     if (threadIdx.x < ROWS_S) {
@@ -759,7 +806,6 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     }
     cluster_sync();
     TB_TRACE(1, 7);  // the groups' partials
-    const int rp = (S + CL - 1) / CL, r0 = (int)c * rp, r1 = min(S, r0 + rp);  // rank c writes rows r0 .. r1 - 1
     for (int i = r0 * DH + threadIdx.x; i < r1 * DH; i += NT) {
         const int r = i / DH, d = i % DH;
         float v[MAX_CLUSTER];

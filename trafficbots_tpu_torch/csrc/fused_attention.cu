@@ -6,7 +6,10 @@
 //   out[b, s, h*dh:(h+1)*dh] = softmax_t(q_h . k_h / sqrt(dh), masked) . v_h
 // with invalid[b, s, t] != 0 = disallowed target. A row whose targets are all
 // disallowed comes out exactly 0 (the reference lifts the mask on such rows
-// and zeroes their output; the result is the same zeros).
+// and zeroes their output; the result is the same zeros). With src_invalid
+// (the dead-query-row skip, fused_attention_core(..., row_block >= 0) with
+// its `_skip`), a query row marked dead there comes out 0 as well; a block
+// or cluster of dead rows only writes its zeros (attn_fwd.cuh).
 //
 // Precision: q, the logits, the softmax and the accumulation are fp32. K/V
 // may be stored in bf16 (the eval map K/V cache): they are widened to fp32
@@ -46,13 +49,15 @@ cudaError_t launch_dh(const tb_attn::Args& a, cudaStream_t st) {
 
 // q [B,S,D] fp32, k/v [B,T,D] fp32 (kv_bf16 = 0) or bf16 (kv_bf16 = 1),
 // invalid addressed as inv[b * inv_sb + s * inv_ss + t] (bool bytes),
+// src_invalid [B,S] contiguous bool bytes (dead query rows) or null,
 // out [B,S,D] fp32. Returns the cudaError_t of the launch.
 extern "C" int tb_fused_attention(const void* q, const void* k, const void* v, const void* invalid,
-                                  void* out, int B, int S, int T, int D, int n_head, int kv_bf16,
-                                  long long inv_sb, long long inv_ss, void* stream) {
+                                  const void* src_invalid, void* out, int B, int S, int T, int D, int n_head,
+                                  int kv_bf16, long long inv_sb, long long inv_ss, void* stream) {
     tb_attn::Args a{static_cast<const float*>(q), k, v, static_cast<const uint8_t*>(invalid),
                     static_cast<float*>(out), nullptr, nullptr, B, S, T, D, n_head, inv_sb, inv_ss,
-                    tb_philox::Dropout{0ull, 0u, 1.f, 0}, 0u, tb_attn::aligned16(q, k, v)};
+                    tb_philox::Dropout{0ull, 0u, 1.f, 0}, 0u, tb_attn::aligned16(q, k, v),
+                    static_cast<const uint8_t*>(src_invalid)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return (int)(kv_bf16 ? launch_dh<__nv_bfloat16>(a, st) : launch_dh<float>(a, st));
 }
@@ -61,12 +66,13 @@ extern "C" int tb_fused_attention(const void* q, const void* k, const void* v, c
 // Pallas _attn_kernel on bf16 operands: fp32 logits and softmax, weights
 // rounded to bf16, fp32 weighted sum, the output rounded once; see QB in
 // attn_fwd.cuh). The other arguments as tb_fused_attention's.
-extern "C" int tb_fused_attention_bf16(const void* q, const void* k, const void* v, const void* invalid, void* out,
-                                       int B, int S, int T, int D, int n_head, long long inv_sb, long long inv_ss,
-                                       void* stream) {
+extern "C" int tb_fused_attention_bf16(const void* q, const void* k, const void* v, const void* invalid,
+                                       const void* src_invalid, void* out, int B, int S, int T, int D, int n_head,
+                                       long long inv_sb, long long inv_ss, void* stream) {
     tb_attn::Args a{static_cast<const float*>(q), k, v, static_cast<const uint8_t*>(invalid),
                     static_cast<float*>(out), nullptr, nullptr, B, S, T, D, n_head, inv_sb, inv_ss,
-                    tb_philox::Dropout{0ull, 0u, 1.f, 0}, 0u, tb_attn::aligned16(q, k, v)};
+                    tb_philox::Dropout{0ull, 0u, 1.f, 0}, 0u, tb_attn::aligned16(q, k, v),
+                    static_cast<const uint8_t*>(src_invalid)};
     return (int)launch_dh<__nv_bfloat16, true>(a, static_cast<cudaStream_t>(stream));
 }
 

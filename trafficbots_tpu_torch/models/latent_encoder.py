@@ -91,10 +91,12 @@ class LatentEncoder(nn.Module):
         transformer_as2tl: TransformerBlock,
         n_layer_tf_as2pl: int = 3,
         n_layer_tf_as2tl: int = 3,
+        attn_row_block: int = -1,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.cfg = cfg
+        self.attn_row_block = attn_row_block
         self.temporal_aggregate_mode = temporal_aggregate_mode
         self.interaction_first = interaction_first
         if cfg.shared_transformer_as:
@@ -161,11 +163,15 @@ class LatentEncoder(nn.Module):
 
         n_scene, n_step, n_agent, d = agent_feature.shape
         as2pl, as2tl = self._shared
-        # cross-attention to the map over the flattened (step, agent) tokens
+        # cross-attention to the map over the flattened (step, agent) tokens.
+        # The JAX package coerces attn_row_block >= 0 into a TPU block size
+        # here (one that tiles the tokens and is no coarser than n_agent, else
+        # 16), always >= 0: every such value turns the dead-row skip on, and
+        # K1's blocks are its own, so the value is passed as it is
         x = as2pl(
             agent_feature.reshape(n_scene, n_step * n_agent, d),
             src_padding_mask=~agent_feature_valid.reshape(n_scene, n_step * n_agent),
-            tgt=map_feature, tgt_padding_mask=~map_feature_valid, rng=rng,
+            tgt=map_feature, tgt_padding_mask=~map_feature_valid, rng=rng, row_block=self.attn_row_block,
         )
         # cross-attention to each step's traffic lights
         x = as2tl(

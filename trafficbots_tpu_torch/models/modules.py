@@ -285,6 +285,16 @@ class Attention(nn.Module):
     agree there. Training attention elsewhere is the plain version, its
     weights' dropout drawn by the K5 entry (`ops.dropout.dropout`).
 
+    `src_padding_mask` [B, S] (True = a padding query row) is the
+    dead-query-row skip's `src_invalid`, as in the JAX package: at a
+    training kernel site it always reaches K3 (or its plain version); at an
+    eval kernel site it reaches K1 (or its plain version) only when
+    `row_block >= 0` (`model.attn_row_block`; at -1, the default, the eval
+    core never sees it). Every value >= 0 turns the skip on: the value
+    picks the TPU's grid, and K1's blocks are its own. The skipped rows come
+    out 0 where the unskipped core would compute them; the callers zero
+    those rows before any consumer, so the layer's output is the same.
+
     `need_weights` returns (out, weights): the attention probabilities
     averaged over the heads [B, S, T] (after their dropout in training),
     zeroed on rows with no valid target. It takes the plain core, as the
@@ -323,6 +333,8 @@ class Attention(nn.Module):
         allow_fused: bool = True,
         rng: Optional[DropoutSeeds] = None,
         need_weights: bool = False,
+        src_padding_mask: Optional[Tensor] = None,  # [B, S] True = a dead query row
+        row_block: int = -1,
     ):
         dt = self.dtype
         lowp = None if dt == F32 else dt
@@ -359,7 +371,8 @@ class Attention(nn.Module):
                 core = fused_attention_core if kernel_site and kernels_enabled() else attention_core_plain
                 if lowp is not None:
                     q, k, v = q.to(lowp), k.to(lowp), v.to(lowp)
-                core = core(q, k, v, invalid, self.n_head)
+                skip = src_padding_mask if kernel_site and row_block >= 0 else None
+                core = core(q, k, v, invalid, self.n_head, src_invalid=skip)
             else:
                 core = attention_train_plain(q, k, v, invalid, self.n_head, 0.0, 0, 0, lowp=lowp)
             out = linear(core, self.out_proj, dt)
@@ -369,11 +382,14 @@ class Attention(nn.Module):
             kernel_site = allow_fused and S >= 32 and T >= 256
             if kernel_site:  # the JAX package widens bf16 q/k/v for its training kernel
                 q, k, v, lowp = q.to(F32), k.to(F32), v.to(F32), None
+            skip = src_padding_mask if kernel_site else None
             if kernel_site and kernels_enabled():
-                core = attention_train(q, k, v, invalid, self.n_head, p, seed, 0, saved=rng.saved_cores)
+                core = attention_train(q, k, v, invalid, self.n_head, p, seed, 0, saved=rng.saved_cores,
+                                       src_invalid=skip)
             else:
                 drop = dropout if kernels_enabled() else dropout_plain
-                core = attention_train_plain(q, k, v, invalid, self.n_head, p, seed, 0, dropout=drop, lowp=lowp)
+                core = attention_train_plain(q, k, v, invalid, self.n_head, p, seed, 0, dropout=drop, lowp=lowp,
+                                             src_invalid=skip)
             out = linear(core, self.out_proj, dt)
         return torch.where(no_valid_tgt[..., None], torch.zeros_like(out), out)
 
@@ -414,6 +430,7 @@ class TransformerCrossAttention(nn.Module):
         allow_fused: bool = True,
         rng: Optional[DropoutSeeds] = None,
         need_weights: bool = False,
+        row_block: int = -1,
     ):
         if return_tgt_kv:
             return self.attn(self.norm_tgt(tgt), return_kv=True)
@@ -424,6 +441,7 @@ class TransformerCrossAttention(nn.Module):
         src2 = self.attn(
             src2, tgt=tgt_n, tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
             tgt_kv=tgt_kv, allow_fused=allow_fused, rng=rng, need_weights=need_weights,
+            src_padding_mask=src_padding_mask, row_block=row_block,
         )
         if need_weights:
             src2, weights = src2
@@ -490,6 +508,7 @@ class TransformerBlock(nn.Module):
         allow_fused: bool = True,
         rng: Optional[DropoutSeeds] = None,
         need_weights: bool = False,
+        row_block: int = -1,
     ):
         if return_tgt_kv:
             return tuple(l(None, tgt=tgt, return_tgt_kv=True) for l in self.layers())
@@ -499,7 +518,7 @@ class TransformerBlock(nn.Module):
                 src, src_padding_mask=src_padding_mask, tgt=tgt,
                 tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
                 tgt_kv=None if tgt_kv is None else tgt_kv[i], allow_fused=allow_fused, rng=rng,
-                need_weights=need_weights,
+                need_weights=need_weights, row_block=row_block,
             )
             if need_weights:
                 src, weights = src

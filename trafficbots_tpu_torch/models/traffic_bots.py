@@ -37,11 +37,6 @@ class TrafficBots(nn.Module):
         super().__init__()
         if cfg.n_layer_final_mlp > 0:
             raise NotImplementedError("the final MLP is not part of the ported slice")
-        if cfg.attn_row_block >= 0:
-            raise NotImplementedError(
-                f"attn_row_block={cfg.attn_row_block}: K1's dead-query-row skip is not ported yet "
-                "(ROADMAP Queue 2); -1 runs whole-S blocks"
-            )
         self.cfg = cfg
         self.compute_dtype = dt = compute_dtype
         hidden = cfg.hidden_dim
@@ -67,7 +62,8 @@ class TrafficBots(nn.Module):
             cfg.latent_encoder, cfg.tf_cfg, cfg.agent_temporal, cfg.agent_interaction,
             cfg.temporal_aggregate_mode, cfg.interaction_first,
             self.transformer_as2pl, self.transformer_as2tl,
-            n_layer_tf_as2pl=cfg.n_layer_tf_as2pl, n_layer_tf_as2tl=cfg.n_layer_tf_as2tl, dtype=dt,
+            n_layer_tf_as2pl=cfg.n_layer_tf_as2pl, n_layer_tf_as2tl=cfg.n_layer_tf_as2tl,
+            attn_row_block=cfg.attn_row_block, dtype=dt,
         )
         self.agent_temporal = StackedGRU(
             hidden, cfg.agent_temporal.num_layers, kind=cfg.agent_temporal.kind, dropout_p=cfg.agent_temporal.dropout
@@ -204,6 +200,7 @@ class TrafficBots(nn.Module):
             agent_feature, src_padding_mask=~agent_valid,
             tgt=None if map_kv is not None else map_feature,
             tgt_padding_mask=~map_valid, tgt_kv=map_kv, rng=rng, need_weights=need_weights,
+            row_block=cfg.attn_row_block,
         ))
         x = weights("attn_tl", self.transformer_as2tl(
             x, src_padding_mask=~agent_valid, tgt=tl_feature, tgt_padding_mask=~tl_valid,

@@ -11,6 +11,16 @@ mask of the weights from the port's Philox (`ops.dropout`; the logical
 tensor [B, H, S, T], row (b H + h) S + s, col t, at (seed, site)). A row whose
 targets are ALL disallowed comes out exactly 0 and gets no gradient.
 
+`src_invalid` [B, S] True marks dead query rows (padding agents or
+polylines; the JAX kernels' dead-block skip, fed by `row_live`, forward
+and backward). Every row that is not `fused_attention.row_live` comes out
+0 and takes no part in the backward, in the kernels and in the plain
+version; a live row's output, its dropout bits and its statistics are
+those without `src_invalid`. The JAX kernels compute the dead rows of a
+partly live block; their callers zero them, so the two agree wherever a
+value is read, and with the callers' zero cotangent on dead rows the
+gradients are the same.
+
 `attention_train_plain` is plain tensor code that autograd differentiates.
 `attention_train` sends a CUDA tensor to `csrc/attention_train.cu` (its
 forward is K1's, `csrc/attn_fwd.cuh`, with the dropout factors and the row
@@ -19,7 +29,9 @@ and dk/dv pair (streamed 64-wide tiles, FlashAttention-2 style; see the
 source), and a CPU tensor to the plain version; it never falls back from
 one to the other.
 `LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward kernel's launches and the
-backward's (one per backward call, which launches its two kernels).
+backward's (one per backward call, which launches its two kernels);
+`LAUNCHES_FWD_SKIP` / `LAUNCHES_BWD_SKIP` count those of them that carry
+`src_invalid` (the backward of a forward that did).
 
 `saved` (ops.dropout.SavedCores) is the rollout's save_attn residual: when it
 holds this call's forward (the recompute of a checkpointed step), the
@@ -40,6 +52,8 @@ Tensor = torch.Tensor
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FWD_SKIP = 0
+LAUNCHES_BWD_SKIP = 0
 
 _KERNEL = "attention_train"
 HEAD_DIMS = (16, 32)  # the head widths the kernels are instantiated for
@@ -48,14 +62,15 @@ BWD_TILE = 64  # BT: keys of a backward tile, query rows of a dk/dv step
 DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks)
 _PAD = 4  # PAD: floats after each transposed tile row
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
-_FWD_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2
-             + (ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-_BWD_ARGS = (ctypes.c_void_p,) * 5 + _FWD_ARGS
+_SHAPE_DROP_ARGS = ((ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2
+                    + (ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_FWD_ARGS = (ctypes.c_void_p,) * 8 + _SHAPE_DROP_ARGS
+_BWD_ARGS = (ctypes.c_void_p,) * 12 + _SHAPE_DROP_ARGS
 
 
 def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,
                           p: float, seed: int, site: int, dropout=dropout_plain, need_weights: bool = False,
-                          lowp: Optional[torch.dtype] = None):
+                          lowp: Optional[torch.dtype] = None, src_invalid: Optional[Tensor] = None):
     """The plain version: q [B,S,D], k/v [B,T,D] fp32, invalid [B,S,T] bool
     -> [B,S,D]; dropout of the weights at (seed, site) when p > 0, by
     `dropout` (the plain mask; the training attention below K3's gate
@@ -66,7 +81,7 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
     operands instead (its sites below the kernels' shapes): both einsums'
     operands and results rounded to bf16 with fp32 accumulation, the
     logits widened for the fp32 softmax and dropout; fp32 tensors in and
-    out."""
+    out. Rows that are not `row_live(invalid, src_invalid)` come out 0."""
     B, S, D = q.shape
     T = k.shape[1]
     dh = D // n_head
@@ -85,7 +100,8 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
     if p > 0:
         attn = dropout(attn, p, seed, site)
     out = rnd(torch.einsum("bhst,bthd->bshd", rnd(attn), vh)).reshape(B, S, D)
-    out = torch.where(no_valid[..., None], torch.zeros_like(out), out)
+    dead = no_valid if src_invalid is None else ~fused_attention.row_live(invalid, src_invalid)
+    out = torch.where(dead[..., None], torch.zeros_like(out), out)
     return (out, attn) if need_weights else out
 
 
@@ -131,25 +147,30 @@ def _dropout_args(p: float, seed: int, site: int):
     return (seed, site, threshold(p), keep_scale(p), 1) if p > 0 else (0, site, 0, 1.0, 0)
 
 
-def _launch_fwd(q, k, v, invalid, n_head, p, seed, site):
-    global LAUNCHES_FWD
+def _launch_fwd(q, k, v, invalid, n_head, p, seed, site, src_invalid=None):
+    global LAUNCHES_FWD, LAUNCHES_FWD_SKIP
     B, S, D = q.shape
     T = k.shape[1]
     out = torch.empty_like(q)
     rmax = torch.empty((B, n_head, S), dtype=torch.float32, device=q.device)
     rsum = torch.empty_like(rmax)
     rc = cuda_build.entry(_KERNEL, "tb_attention_train_fwd", _FWD_ARGS)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(), rmax.data_ptr(),
-        rsum.data_ptr(), B, S, T, D, n_head, invalid.stride(0), invalid.stride(1), *_dropout_args(p, seed, site),
-        cuda_build.stream(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), fused_attention.check_src_invalid(src_invalid, q),
+        out.data_ptr(), rmax.data_ptr(), rsum.data_ptr(), B, S, T, D, n_head, invalid.stride(0), invalid.stride(1),
+        *_dropout_args(p, seed, site), cuda_build.stream(q),
     )
     cuda_build.check(rc, "attention_train forward")
     LAUNCHES_FWD += 1
+    if src_invalid is not None:
+        LAUNCHES_FWD_SKIP += 1
     return out, rmax, rsum
 
 
-def _launch_bwd(q, k, v, invalid, out, rmax, rsum, g, n_head, p, seed, site):
-    global LAUNCHES_BWD
+def _launch_bwd(q, k, v, invalid, out, rmax, rsum, g, n_head, p, seed, site, skip=False):
+    """The backward of a forward's (out, rmax, rsum); `skip`: that forward
+    carried `src_invalid` (its dead rows' rmax is -inf, which drops them
+    here), counted in LAUNCHES_BWD_SKIP."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_SKIP
     B, S, D = q.shape
     T = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -161,36 +182,43 @@ def _launch_bwd(q, k, v, invalid, out, rmax, rsum, g, n_head, p, seed, site):
     )
     cuda_build.check(rc, "attention_train backward")
     LAUNCHES_BWD += 1
+    if skip:
+        LAUNCHES_BWD_SKIP += 1
     return dq, dk, dv
 
 
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, invalid, n_head, p, seed, site, saved):
+    def forward(ctx, q, k, v, invalid, n_head, p, seed, site, saved, src_invalid):
         entry = saved.take() if saved is not None else None
         if entry is None:
-            entry = _launch_fwd(q, k, v, invalid, n_head, p, seed, site)
+            entry = _launch_fwd(q, k, v, invalid, n_head, p, seed, site, src_invalid)
             if saved is not None:
                 saved.put(tuple(t.detach() for t in entry))
         out, rmax, rsum = entry
         ctx.save_for_backward(q, k, v, invalid, out, rmax, rsum)
-        ctx.args = (n_head, p, seed, site)
+        ctx.args = (n_head, p, seed, site, src_invalid is not None)
         return out.clone() if saved is not None else out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, invalid, out, rmax, rsum = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q, k, v, invalid, out, rmax, rsum, g.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def attention_train(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int, p: float,
-                    seed: int, site: int, saved: Optional[SavedCores] = None) -> Tensor:
+                    seed: int, site: int, saved: Optional[SavedCores] = None,
+                    src_invalid: Optional[Tensor] = None) -> Tensor:
     """Kernel on CUDA tensors, plain version on CPU tensors. `invalid` may
-    be a stride-0 expand over S (a padding mask), read through its strides."""
+    be a stride-0 expand over S (a padding mask), read through its strides.
+    `src_invalid` [B, S] (dead query rows) turns the dead-query-row skip on.
+    A `saved` replay holds the forward of this same call, skip included."""
     if q.device.type == "cpu":
-        return attention_train_plain(q, k, v, invalid, n_head, p, seed, site)
+        return attention_train_plain(q, k, v, invalid, n_head, p, seed, site, src_invalid=src_invalid)
     _check_inputs(q, k, v, invalid, n_head)
+    if src_invalid is not None:
+        src_invalid = src_invalid.contiguous()
     if q.shape[0] * q.shape[1] == 0:
         return torch.zeros_like(q)
-    return _AttentionTrain.apply(q, k, v, invalid, n_head, p, seed, site, saved)
+    return _AttentionTrain.apply(q, k, v, invalid, n_head, p, seed, site, saved, src_invalid)

@@ -67,7 +67,7 @@ def main() -> None:
         stream = cuda_build.stream(q)
 
         def call():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), inv.data_ptr(), out.data_ptr(), B, S, T, D, H,
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), inv.data_ptr(), None, out.data_ptr(), B, S, T, D, H,
                     int(bf16), inv.stride(0), inv.stride(1), stream)
             cuda_build.check(rc, "traced K1")
 

@@ -8,6 +8,18 @@ Replaces the Pallas kernel `trafficbots_tpu/ops/fused_attention.py`
 with `invalid` [B, S, T] True = disallowed target. Rows whose targets are
 ALL disallowed come out exactly 0, never NaN.
 
+The dead-query-row skip (the JAX function at `row_block >= 0`, its
+`_skip`): `src_invalid` [B, S] True marks dead query rows (padding agents
+or polylines). A row is live when `row_live` says so: not marked there and
+with an allowed target. Every dead row comes out exactly 0, in the kernel
+and in the plain version; a live row is computed as without `src_invalid`,
+to the bit. The TPU kernel zeroes whole dead blocks of its grid and
+computes the dead rows of a partly live block, which its callers zero
+before any consumer: the two agree wherever a value is read.
+`src_invalid=None` (the JAX default, `row_block = -1`) is today's function
+and launch. `LAUNCHES_SKIP` counts the launches that carry `src_invalid`
+(fp32 or bf16, also counted in `LAUNCHES` / `LAUNCHES_BF16`).
+
 Precision: with fp32 q, a bf16 K/V cache (the eval map cache) is stored in
 bf16 and used in fp32 from the load onward, in the kernel and in the plain
 version alike. This is the JAX package's XLA path (the one its CPU tests
@@ -22,13 +34,16 @@ the output rounded to bf16 (K1's bf16 variant, `tb_fused_attention_bf16`;
 `fused_attention_core` sends a CUDA tensor to the kernel
 (`csrc/fused_attention.cu`, the forward of `csrc/attn_fwd.cuh` shared with
 K3f: a thread-block cluster over T where S <= 64 and the grid is small,
-32-row blocks otherwise) and a CPU tensor to `attention_core_plain`; it
-never falls back from one to the other. `LAUNCHES` counts kernel launches.
+32-row blocks otherwise; a block or cluster whose rows are all dead writes
+its zeros and stages nothing) and a CPU tensor to `attention_core_plain`;
+it never falls back from one to the other. `LAUNCHES` counts kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -38,20 +53,32 @@ Tensor = torch.Tensor
 
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
+LAUNCHES_SKIP = 0
 
 _KERNEL = "fused_attention"
 _HEAD_DIMS = (16, 32, 64)
 ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (path L) block
 KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
-_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
-_ARGS_BF16 = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
+_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
+_ARGS_BF16 = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 
 
-def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int) -> Tensor:
+def row_live(invalid: Tensor, src_invalid: Optional[Tensor]) -> Tensor:
+    """[B, S] True = a live query row: not padding (`src_invalid`) and with
+    at least one allowed target. The port's copy of the JAX package's one
+    definition (`ops/kernel_common.py` `row_live`, without its `TB_PAD_SKIP`
+    switch), which K1's and K3's skips share."""
+    live = ~invalid.all(dim=-1)
+    return live if src_invalid is None else live & ~src_invalid
+
+
+def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,
+                         src_invalid: Optional[Tensor] = None) -> Tensor:
     """The plain PyTorch version: q [B,S,D] fp32, k/v [B,T,D] fp32 or bf16,
     invalid [B,S,T] bool -> [B,S,D] fp32; or q, k, v all bf16 -> [B,S,D]
-    bf16, the weights rounded to bf16 before the weighted sum."""
+    bf16, the weights rounded to bf16 before the weighted sum. Rows that
+    are not `row_live` come out 0."""
     B, S, D = q.shape
     T = k.shape[1]
     dh = D // n_head
@@ -68,7 +95,8 @@ def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
     else:
         attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
     out = torch.einsum("bhst,bthd->bshd", attn, vh).reshape(B, S, D)
-    return torch.where(no_valid[..., None], torch.zeros_like(out), out).to(q.dtype)
+    dead = no_valid if src_invalid is None else ~row_live(invalid, src_invalid)
+    return torch.where(dead[..., None], torch.zeros_like(out), out).to(q.dtype)
 
 
 def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
@@ -84,6 +112,19 @@ def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
             + ROWS_PER_BLOCK * nt * KEY_TILE // 32 + (8 + 2) * ROWS_PER_BLOCK + 2 * nt)
     cluster = 64 * (KEY_TILE + 8) + 64 * (d_head + 4) + tiles + (2 + 4) * 64 + 64 * KEY_TILE // 32
     return 4 * max(rows, cluster)
+
+
+def check_src_invalid(src_invalid: Optional[Tensor], q: Tensor) -> int:
+    """The pointer a kernel takes for `src_invalid` ([B, S] bool on q's
+    device, contiguous), or 0 (NULL) for None."""
+    if src_invalid is None:
+        return 0
+    if src_invalid.device != q.device or src_invalid.dtype != torch.bool:
+        raise TypeError(f"src_invalid must be bool on {q.device}, got {src_invalid.dtype} on {src_invalid.device}")
+    if tuple(src_invalid.shape) != tuple(q.shape[:2]) or not src_invalid.is_contiguous():
+        raise ValueError(f"src_invalid must be a contiguous [B, S] = {tuple(q.shape[:2])}, got "
+                         f"{tuple(src_invalid.shape)}")
+    return src_invalid.data_ptr()
 
 
 def _check_inputs(q, k, v, invalid, n_head):
@@ -113,14 +154,19 @@ def _check_inputs(q, k, v, invalid, n_head):
         raise ValueError(f"T={T} does not fit one block's shared memory")
 
 
-def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int) -> Tensor:
+def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,
+                         src_invalid: Optional[Tensor] = None) -> Tensor:
     """Kernel on CUDA tensors, plain version on CPU tensors. `invalid` may be
     a stride-0 expand over S (a padding mask): the kernel reads it through
-    its strides and never needs it materialized."""
-    global LAUNCHES, LAUNCHES_BF16
+    its strides and never needs it materialized. `src_invalid` [B, S]
+    (dead query rows) turns the dead-query-row skip on."""
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_SKIP
     if q.device.type == "cpu":
-        return attention_core_plain(q, k, v, invalid, n_head)
+        return attention_core_plain(q, k, v, invalid, n_head, src_invalid)
     _check_inputs(q, k, v, invalid, n_head)
+    if src_invalid is not None:
+        src_invalid = src_invalid.contiguous()
+    src_ptr = check_src_invalid(src_invalid, q)
     B, S, D = q.shape
     T = k.shape[1]
     out = torch.empty_like(q)
@@ -128,17 +174,19 @@ def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
         return out
     if q.dtype == torch.bfloat16:
         rc = cuda_build.entry(_KERNEL, "tb_fused_attention_bf16", _ARGS_BF16)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src_ptr, out.data_ptr(),
             B, S, T, D, n_head, invalid.stride(0), invalid.stride(1), cuda_build.stream(q),
         )
         cuda_build.check(rc, "fused_attention_core (bf16)")
         LAUNCHES_BF16 += 1
-        return out
-    rc = cuda_build.entry(_KERNEL, "tb_fused_attention", _ARGS)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), out.data_ptr(),
-        B, S, T, D, n_head, int(k.dtype == torch.bfloat16),
-        invalid.stride(0), invalid.stride(1), cuda_build.stream(q),
-    )
-    cuda_build.check(rc, "fused_attention_core")
-    LAUNCHES += 1
+    else:
+        rc = cuda_build.entry(_KERNEL, "tb_fused_attention", _ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src_ptr, out.data_ptr(),
+            B, S, T, D, n_head, int(k.dtype == torch.bfloat16),
+            invalid.stride(0), invalid.stride(1), cuda_build.stream(q),
+        )
+        cuda_build.check(rc, "fused_attention_core")
+        LAUNCHES += 1
+    if src_invalid is not None:
+        LAUNCHES_SKIP += 1
     return out
