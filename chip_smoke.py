@@ -81,9 +81,12 @@ its own lines:
      (phase 5's holds), K4f and K4b launched 3 times each (the map encoded
      once a view), the step's seconds beside the default step's;
   6c. the bf16 configurations (precision="bf16", map_encoder.
-     kernel_matmul_bf16): (a) K1's bf16 variant at the rollout as2pl, the
-     map self-attention and the latent as2pl, K2's and K6's on phase 3's
-     shapes, each against its plain version (held within the relative norm
+     kernel_matmul_bf16): (a) the SASS of the built K1 and K2 libraries
+     (`cuobjdump -sass`): HMMA instructions in every tensor-core kernel of
+     K1-bf16 and K2-bf16, none in fp32 K1's or K2's, the counts printed;
+     K1's bf16 variant at the rollout as2pl (B = 8 and the joint futures'
+     48), the map self-attention and the latent as2pl, K2's and K6's on
+     phase 3's shapes, each against its plain version (held within the relative norm
      gap a one-bf16-ulp nudge of the input makes in the plain version, in
      this run; the largest gap over the largest magnitude and the count of
      differing elements printed), its ms and device_ms beside its fp32
@@ -243,6 +246,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -1578,17 +1582,52 @@ def bf16_held(name: str, out, ref, ref_nudged) -> dict:
     return dict(vs_plain=gap, nudge=nudge)
 
 
+# the tensor-core kernels and the fp32 ones of the K1 and K2 libraries, by
+# a piece of their mangled names
+SASS_KERNELS = {"K1-bf16": ("12fwd_rows_mma", "15fwd_cluster_mma"), "K2-bf16": ("node_kernelILb1E",),
+                "K1": ("8fwd_rows", "11fwd_cluster"), "K2": ("node_kernelILb0E",)}
+
+
+def sass_hmma_counts() -> dict:
+    """The HMMA (tensor-core MMA) instructions of each kernel in the built
+    K1 and K2 libraries (`cuobjdump -sass`): every kernel of K1-bf16 and
+    K2-bf16 must hold some, fp32 K1's and K2's none."""
+    tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for lib in ("fused_attention", "node_encoder"):
+        sass = subprocess.run([str(tool), "-sass", str(cuda_build._target(lib))], check=True, capture_output=True,
+                              text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+    by_kind = {kind: {fn: n for fn, n in counts.items() if any(m in fn for m in marks)}
+               for kind, marks in SASS_KERNELS.items()}
+    log(f"SASS HMMA instructions by kernel: {by_kind}")
+    for kind, fns in by_kind.items():
+        tensor_cores = kind.endswith("bf16")
+        require(bool(fns) and all((n > 0) == tensor_cores for n in fns.values()),
+                f"{kind}: HMMA counts {fns} (tensor cores expected: {tensor_cores})")
+    return by_kind
+
+
 def check_k1_bf16(dev):
-    """K1's bf16 variant at the main path's three sites under
+    """K1's bf16 variant at the main path's four sites under
     precision="bf16" (bf16 q, k, v), against its plain version, two calls
     bitwise equal; its times beside K1's (fp32 q, bf16 K/V) and SDPA's on
     the bf16 q/k/v with the same mask. The kernels-line entry is the
     rollout as2pl's (270 launches a rollout)."""
     gen = torch.Generator().manual_seed(16)
     entry, per_site = None, []
-    for name, B, S, T in (("rollout as2pl", N_SCENE, 64, 1024), ("map polyline self-attention", N_SCENE, 1024, 1024),
-                          ("latent as2pl", N_SCENE, 19 * 64, 1024)):
-        (q32, k, v, invalid, H), mask_bytes = k1_case(gen, B, S, T, True, 0.25, False, dev)
+    for name, B, S, T in (("rollout as2pl", N_SCENE, 64, 1024), (K1_B48, N_SCENE * 6, 64, 1024),
+                          ("map polyline self-attention", N_SCENE, 1024, 1024), ("latent as2pl", N_SCENE, 19 * 64, 1024)):
+        # the joint futures' site draws from a generator of its own, so that
+        # the other sites' inputs stay what the shared one gave them before
+        site_gen = torch.Generator().manual_seed(1648) if name == K1_B48 else gen
+        (q32, k, v, invalid, H), mask_bytes = k1_case(site_gen, B, S, T, True, 0.25, False, dev)
         args = (q32.bfloat16(), k, v, invalid, H)
         out = FA.fused_attention_core(*args)
         again = FA.fused_attention_core(*args)
@@ -1859,7 +1898,8 @@ def train_bf16(cfg, batch, dev) -> dict:
 
 
 def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
-    """Phase 6c: the bf16 configurations. (a) the three bf16 variants against
+    """Phase 6c: the bf16 configurations. (a) the tensor-core kernels' SASS,
+    the three bf16 variants against
     their plain versions at full width with their readings; (b) the eval
     rollout under precision="bf16" with and without kernel_matmul_bf16,
     beside the fp32 rollout's agent-steps/s and peak memory (phase 4's in
@@ -1867,7 +1907,8 @@ def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
     validation step under "hybrid" and kernel_matmul_bf16; (d) one
     training step."""
     t_phase = time.perf_counter()
-    result = dict(K1_bf16=check_k1_bf16(dev), K2_bf16=check_k2_bf16(dev, batch), K6_bf16=check_k6_bf16(dev, batch))
+    result = dict(sass_hmma=sass_hmma_counts(), K1_bf16=check_k1_bf16(dev), K2_bf16=check_k2_bf16(dev, batch),
+                  K6_bf16=check_k6_bf16(dev, batch))
     result["eval"] = eval_bf16(cfg, batch, dev, True, N_ITER)
     result["eval_without_matmul_bf16"] = eval_bf16(cfg, batch, dev, False, 0)
     result["eval_fp32"] = fp32_eval or fp32_eval_reading(cfg, batch, dev, N_ITER)
@@ -3164,11 +3205,13 @@ def main():
                   "double-buffered cp.async)", route="cuda",
              source="trafficbots_tpu_torch/csrc/block_attn.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=val_launches["K6"], **k6),
-        dict(name="K1-bf16 fused_attention_core on bf16 q/k/v (precision=bf16: weights rounded to bf16, bf16 output)",
+        dict(name="K1-bf16 fused_attention_core on bf16 q/k/v (precision=bf16: bf16 MMAs with fp32 accumulation, "
+                  "logits and weights in registers, weights rounded to bf16, bf16 output)",
              route="cuda", source="trafficbots_tpu_torch/csrc/fused_attention.cu",
              replaces="trafficbots_tpu/ops/fused_attention.py:123", launches=bf16["eval"]["launches"]["K1-bf16"],
              **bf16["K1_bf16"]),
-        dict(name="K2-bf16 FusedNodeEncoder.encode_pooled with bf16 matmul operands (kernel_matmul_bf16)",
+        dict(name="K2-bf16 FusedNodeEncoder.encode_pooled with bf16 matmul operands (kernel_matmul_bf16: the dense "
+                  "products as bf16 MMAs with fp32 accumulation)",
              route="cuda", source="trafficbots_tpu_torch/csrc/node_encoder.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:245", launches=bf16["eval"]["launches"]["K2-bf16"],
              **bf16["K2_bf16"]),

@@ -11,7 +11,9 @@
 // cluster dimension): cluster_sync is a barrier over all of their threads
 // and cluster_map points into another block's shared memory. Warp shuffles
 // (and ballots) exchange through a per-warp slot array between two warp
-// barriers;
+// barriers; a warp's mma.sync (csrc/mma.cuh) exchanges its fragments
+// through per-lane slots (two sets, used in turn) behind one warp barrier,
+// each lane summing its four outputs in fp32 over k in order;
 // shared-memory integer atomics are std::atomic_ref; the cp.async copies
 // are synchronous (their commits and waits do nothing); clock64 is the
 // host's steady clock.
@@ -31,6 +33,8 @@
 #include <stdint.h>
 #include <thread>
 #include <vector>
+
+#include "cuda_bf16.h"
 using std::max;
 using std::min;
 
@@ -51,11 +55,14 @@ struct emu_idx { unsigned x, y, z; };
 inline thread_local emu_idx threadIdx, blockIdx;
 inline thread_local dim3 gridDim, blockDim;
 
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return uint4{a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return uint2{a, b}; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -73,6 +80,12 @@ inline cudaError_t cudaGetLastError() { return 0; }
 
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }  // the card's is within 2 ulp of this
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {  // byte i: byte s[4i..4i+2] of y:x
+    const uint64_t v = (uint64_t)y << 32 | x;
+    unsigned r = 0;
+    for (int i = 0; i < 4; ++i) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7u))) & 0xffu) << (8 * i);
+    return r;
+}
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -86,12 +99,19 @@ constexpr size_t EMU_SMEM = 232448 / 4;  // floats of one block's shared memory
 constexpr int EMU_MAX_CLUSTER = 8;
 constexpr int EMU_MAX_THREADS = 1024;
 
-// One block's state: its barrier, its warps' barriers and shuffle slots,
-// its __syncthreads_or words, its shared memory.
+// One lane's mma.sync fragments (csrc/mma.cuh): A, B and the accumulator.
+struct EmuMmaSlot {
+    uint32_t a[4], b[2];
+    float c[4];
+};
+
+// One block's state: its barrier, its warps' barriers, shuffle and mma
+// slots, its __syncthreads_or words, its shared memory.
 struct EmuBlock {
     std::unique_ptr<std::barrier<>> bar;
     std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
     float shfl[EMU_MAX_THREADS];
+    EmuMmaSlot mma[2][EMU_MAX_THREADS];  // used in turn by a warp's calls
     std::atomic<int> vote[3];
     std::vector<float> smem = std::vector<float>(EMU_SMEM + 4);
     float* base() { return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem.data()) + 15) & ~uintptr_t(15)); }
@@ -99,7 +119,7 @@ struct EmuBlock {
 inline EmuBlock* emu_blocks;              // the cluster's blocks, by rank
 inline std::barrier<>* emu_cluster_bar;   // all threads of the cluster
 inline thread_local EmuBlock* emu_blk;
-inline thread_local unsigned emu_rank, emu_vote_n;
+inline thread_local unsigned emu_rank, emu_vote_n, emu_mma_n;
 inline thread_local float* emu_smem;      // this block's dynamic shared memory
 
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
@@ -137,6 +157,47 @@ inline unsigned __ballot_sync(unsigned, int p) {
     for (unsigned i = 0; i < 32 && w0 + i < blockDim.x; ++i) bits |= (b.shfl[w0 + i] != 0.f ? 1u : 0u) << i;
     b.warp_bar[t / 32]->arrive_and_wait();
     return bits;
+}
+
+// The primitives of csrc/mma.cuh. c += a b for the warp's 16 x 16 A and
+// 16 x 8 B (bf16, two a register, the lower index in the lower half) in
+// the PTX ISA's m16n8k16 fragments: lane (g, t) = (lane / 4, lane % 4)
+// holds A at rows g, g + 8, columns 2t, 2t + 1 (+ 8), B at k rows 2t,
+// 2t + 1 (+ 8) of column g, C at rows g, g + 8, columns 2t, 2t + 1. A
+// warp's lanes make the same calls, so they agree on the slot set of each
+// (its count's parity); a lane writes a set again only after the next
+// call's barrier, which every lane passes once it has read this call's.
+inline float emu_bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+inline float emu_bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+inline void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+    EmuBlock& blk = *emu_blk;
+    const unsigned t = threadIdx.x, w0 = t / 32 * 32, lane = t % 32;
+    EmuMmaSlot* set = blk.mma[emu_mma_n++ & 1];
+    EmuMmaSlot& mine = set[t];
+    std::memcpy(mine.a, a, sizeof(mine.a));
+    std::memcpy(mine.b, b, sizeof(mine.b));
+    std::memcpy(mine.c, c, sizeof(mine.c));
+    blk.warp_bar[t / 32]->arrive_and_wait();
+    auto A = [&](int r, int k) {  // the lane and register that hold A[r][k]
+        const EmuMmaSlot& s = set[w0 + (r % 8) * 4 + (k % 8) / 2];
+        const uint32_t u = s.a[(r >= 8) + 2 * (k >= 8)];
+        return k % 2 ? emu_bf16_hi(u) : emu_bf16_lo(u);
+    };
+    auto B = [&](int k, int n) {
+        const uint32_t u = set[w0 + n * 4 + (k % 8) / 2].b[k >= 8];
+        return k % 2 ? emu_bf16_hi(u) : emu_bf16_lo(u);
+    };
+    float d[4];
+    for (int i = 0; i < 4; ++i) {
+        const int r = (int)lane / 4 + 8 * (i >= 2), n = 2 * ((int)lane % 4) + i % 2;
+        float s = mine.c[i];
+        for (int k = 0; k < 16; ++k) s += A(r, k) * B(k, n);  // each product exact in fp32
+        d[i] = s;
+    }
+    std::memcpy(c, d, sizeof(d));
+}
+inline uint32_t pack_bf16(float lo, float hi) {
+    return (uint32_t)__float2bfloat16_rn(lo).x | (uint32_t)__float2bfloat16_rn(hi).x << 16;
 }
 
 // The phase traces' clock and counters (csrc/node_trace.cuh).
@@ -185,6 +246,7 @@ inline void emu_launch(dim3 grid, int nthr, const std::function<void()>& body, u
                 blockDim = dim3(nthr);
                 gridDim = grid;
                 emu_rank = c;
+                emu_mma_n = 0;
                 emu_blk = &blocks[c];
                 emu_smem = blocks[c].base();
                 emu_vote_n = 0;

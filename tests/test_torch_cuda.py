@@ -26,14 +26,19 @@ of 1e-3: the operands are rounded alike, but an intermediate on a bf16
 rounding boundary (an attention weight after the card's expf, a sum in
 another order) lands one bf16 ulp, 3.9e-3 relative, away (chip_smoke.py
 phase 6c counts them: 1,664 of 15.7M K6 outputs at full width).
-The backward kernels are bitwise the same run to run; K5's fused entries
+The MMA layout check (csrc/mma.cuh through tests/cuda_emu/mma_check.cu)
+within a relative norm error of 1e-6 of torch.matmul: fp32 sums of exact
+products in another order (a wrong fragment layout moves C by O(1)). The
+backward kernels are bitwise the same run to run; K5's fused entries
 (dropout_add, relu_dropout) equal their plain compositions bit for bit. K6 (the hybrid node
 encoder's attention core) within 1e-5 of its plain version on the rows of
 polylines with a valid node, every row finite; the hybrid node encoder
 (K6) against the fused one (K2) within 1e-4, as K2 against its plain
 version.
 """
+import ctypes
 import dataclasses
+import subprocess
 
 import numpy as np
 import pytest
@@ -43,12 +48,15 @@ from trafficbots_tpu_torch import orchestration as TO
 from trafficbots_tpu_torch.config import ExperimentConfig
 from trafficbots_tpu_torch.data.synthetic import synthetic_episode_batch
 from trafficbots_tpu_torch.ops import attention_train as tat
+from trafficbots_tpu_torch.ops import cuda_build
 from trafficbots_tpu_torch.ops import block_attn as tba
 from trafficbots_tpu_torch.ops import dropout as tdo
 from trafficbots_tpu_torch.ops import fused_attention as tfa
 from trafficbots_tpu_torch.ops import node_encoder as tne
 from trafficbots_tpu_torch.ops import node_encoder_train as tnt
 from trafficbots_tpu_torch.weights import init_params
+
+from test_torch_cuda_emu_mma import MMA_RTOL, MMA_SOURCE, mma_operands, pack_inputs, run_mma_check, run_pack_check
 
 
 def attn_inputs(B=3, S=8, T=16, D=16, seed=0):
@@ -77,6 +85,29 @@ def cuda():
         pytest.skip("needs a CUDA device (the kernels have no CPU or interpret mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_mma_layout_on_the_card(cuda, tmp_path):
+    """tests/cuda_emu/mma_check.cu built by nvcc (csrc/mma.cuh's mma.sync
+    and fragment loads, its bf16x2 conversion): the answers the CPU
+    emulator's test holds, here from the hardware, so the emulator's
+    fragment layout is the card's."""
+    lib = tmp_path / "libmma_check.so"
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-I{cuda_build.CSRC}", "-o", str(lib),
+                    str(MMA_SOURCE)], check=True)
+    lib = ctypes.CDLL(str(lib))
+    stream = torch.cuda.current_stream().cuda_stream
+    for M, N, K in ((16, 8, 16), (64, 128, 128)):
+        a, b, bt, ref = mma_operands(M, N, K, seed=M + N + K)
+        outs = run_mma_check(lib, a.to(cuda), b.to(cuda), bt.to(cuda), stream)
+        torch.cuda.synchronize()
+        for c in outs:
+            assert ((c.cpu() - ref).norm() / ref.norm()).item() <= MMA_RTOL
+    x, want = pack_inputs()
+    got = run_pack_check(lib, x.to(cuda), stream)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -128,9 +159,9 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
 @pytest.mark.parametrize("B,S,T,H", [
     (8, 64, 1024, 4),  # the rollout as2pl: path S, eight ranks
     (2, 37, 1000, 8),  # d_head 16, path S
-    (2, 1024, 1024, 4),  # the map self-attention: path L
+    (2, 1024, 1024, 4),  # the map self-attention: path L, blocks walk the row blocks
     (2, 1216, 1024, 4),  # the latent as2pl
-    (2, 70, 1024, 2),  # d_head 64, path L
+    (2, 70, 1024, 2),  # d_head 64, path L: V in K's place
 ])
 def test_k1_bf16_kernel_matches_plain(cuda, B, S, T, H):
     """K1's bf16 variant on both paths with a padding and a full mask: a

@@ -196,7 +196,9 @@ def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset
 ])
 def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H, path):
     """K1's bf16 variant (tb_fused_attention_bf16: bf16 q/k/v, weights
-    rounded to bf16, a bf16 output) on both paths, with a full and a
+    rounded to bf16, a bf16 output) on both paths (`path`: fp32 K1's for
+    the shape; path S gives way to path L where path L's blocks fill the
+    card, on the emulator's two SMs wherever B H > 1), with a full and a
     stride-0 padding mask, against the plain version's bf16 function: the
     output within a relative norm error of K1_BF16_RTOL (the sums run in
     another order, and a weight or an output on a bf16 rounding boundary
@@ -221,6 +223,37 @@ def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H
         assert err < K1_BF16_RTOL, err
         assert (outs[0][dead_rows(invalid)] == 0).all()
         assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,S,T,D,H,dead", [
+    (1, 20, 300, 32, 1, ((12, 20),)),  # one row block: path S (three ranks), the last rows dead
+    (1, 40, 1024, 64, 1, ()),  # d_head 64 at T = 1024: K and V do not both fit, V takes K's place
+    (1, 100, 300, 32, 1, ((0, 32), (90, 100))),  # one head: 2 blocks walk 4 row blocks, the first all dead
+])
+def test_k1_bf16_emulated_layouts(emulated, B, S, T, D, H, dead):
+    """K1-bf16's layouts beyond test_k1_bf16_emulated_matches_plain's:
+    path S (which the emulator's two SMs take only for a single row block),
+    path L with V staged in K's place once the logits are made, and path L
+    with K and V resident in blocks that walk several row blocks of a head,
+    with dead rows (`src_invalid`), on path L a first row block all dead;
+    a full and a stride-0 padding mask: the output within K1_BF16_RTOL of
+    the plain version (with the same `src_invalid`), dead and all-masked
+    rows 0, live rows bitwise the output without `src_invalid`."""
+    row_blocks = -(-S // fwd_constants()["ROWS_L"]) * H * B
+    assert (takes_cluster(B, S, T, H) and row_blocks < 2) == (S <= 32)  # the emulator's card: two SMs
+    q, k, v, full, pad = fwd_inputs(B, S, T, D, 17 + S, torch.bfloat16)
+    q = q.to(torch.bfloat16)
+    src = torch.zeros(B, S, dtype=torch.bool)
+    for r0, r1 in dead:
+        src[:, r0:r1] = True
+    for invalid in (full, pad):
+        out = k1_emulated(emulated, q, k, v, invalid, src if dead else None, H)
+        ref = tfa.attention_core_plain(q, k, v, invalid, H, src if dead else None)
+        assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() < K1_BF16_RTOL
+        live = tfa.row_live(invalid, src)
+        assert (out[~live] == 0).all()
+        if dead:
+            assert torch.equal(out[live], k1_emulated(emulated, q, k, v, invalid, None, H)[live])
 
 
 def k1_emulated(emulated, q, k, v, invalid, src_invalid, H):

@@ -40,7 +40,7 @@ from trafficbots_tpu_torch.ops import node_trace
 from test_torch_cuda_emu import emulated_source
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-HEADERS = ("node_layer.cuh", "node_trace.cuh", "philox.cuh")
+HEADERS = ("node_layer.cuh", "mma.cuh", "node_trace.cuh", "philox.cuh")
 D, H, L, N = 128, 4, 2, 5
 
 

@@ -78,17 +78,25 @@
 // Both paths divide with div_rn (a reciprocal and an FMA correction, the
 // IEEE quotient bit for bit) and skip the division of a zero weight.
 //
-// QB, K1's bf16 variant (the model under precision="bf16"): q, k and v are
-// bf16, and the kernel computes the Pallas `_attn_kernel`'s function on
-// them: q is widened as it is staged (a plain copy, not cp.async), the
-// logits are scaled by multiplying with the fp32 1 / sqrt(dh) as that
-// kernel does, the softmax stays fp32, each weight is rounded to bf16 after
-// its division (the kernel's `attn.astype(v.dtype)`), the weighted sum is
-// fp32 and the output is rounded to bf16 once, as it is written. The
-// products of bf16 values are exact in fp32, so this is the function of a
-// bf16 MMA with fp32 accumulation, on the CUDA cores (the tensor-core form
-// is later work). QB = false compiles to the fp32 kernels unchanged.
-// On an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md section 6): path S
+// K1-bf16, K1's bf16 variant (the model under precision="bf16"): q, k and
+// v are bf16, and fwd_rows_mma / fwd_cluster_mma compute the Pallas
+// `_attn_kernel`'s function on them on the tensor cores (mma.cuh's bf16
+// mma.sync with fp32 accumulation; a product of bf16 values is exact in
+// fp32, so only the order and rounding of the sums differ): q, K and V are
+// staged as bf16 by cp.async, the logits q kᵀ come from MMAs and are
+// scaled by multiplying with the fp32 1 / sqrt(dh) as that kernel does,
+// the exact row max is taken over the whole allowed row before any exp and
+// the softmax stays fp32, each weight is rounded to bf16 after its division
+// (the kernel's `attn.astype(v.dtype)`), the weighted sum P V comes from
+// MMAs with k over the keys, and the output is rounded to bf16 once, as it
+// is written. The logits and weights stay in registers (the section below
+// says how); the paths, the skip of dead rows and clusters, and the
+// rank-ordered sums are the fp32 kernels', except that path S gives way to
+// path L where path L's blocks fill the card (takes_cluster_bf16). T <=
+// 1024 (a key tile a warp). The fp32 kernels (K1, K3f) have no tensor-core
+// code.
+//
+// fp32 K1 on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md section 6): path S
 // 0.0263 ms for K1 at B = 8 (8.8x its bound), 0.111 ms at B = 48; path L
 // 0.227 and 0.283 ms for K1 at the map self-attention and the latent
 // as2pl (4.7x and 5.0x), below SDPA's forward (0.369, 0.392).
@@ -108,6 +116,7 @@
 #include <cooperative_groups.h>
 #endif
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 #ifndef TB_CUDA_EMU
@@ -158,11 +167,11 @@ constexpr int MAX_CLUSTER = 8;        // ranks of a path-S cluster (the portable
 constexpr int LARGE_GRID = 4 * 132;   // path-L blocks (four waves of 132 SMs) from which path S is not taken
 
 struct Args {
-    const float* q;  // bf16 under QB
+    const float* q;  // bf16 in K1-bf16
     const void* k;
     const void* v;
     const uint8_t* inv;
-    float* out;  // bf16 under QB
+    float* out;  // bf16 in K1-bf16
     float* rmax;  // [B, H, S] (STATS)
     float* rsum;
     int B, S, T, D, H;
@@ -237,26 +246,7 @@ __device__ __forceinline__ void stage_rows(KV* tile, const KV* __restrict__ src,
     }
 }
 
-// x rounded to bf16 (to nearest even) and widened back.
-__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-
-// q rows 0 .. n - 1 of one head (base: the first row's head slice) into
-// qs[n][DH + 4], zeros past `rows`: fp32 q by stage_rows (cp.async when
-// aligned), bf16 q (QB) widened by plain loads.
-template <int DH, int NT, bool QB>
-__device__ __forceinline__ void stage_q(float* qs, const Args& a, long long base, int n, int rows) {
-    if (!QB) {
-        stage_rows<DH, float, NT>(qs, a.q, base, 0, n, rows, a.D, a.aligned);
-        return;
-    }
-    const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(a.q);
-    for (int i = threadIdx.x; i < n * DH; i += NT) {
-        const int r = i / DH, c = i % DH;
-        qs[r * (DH + 4) + c] = r < rows ? __bfloat162float(q[base + (long long)r * a.D + c]) : 0.f;
-    }
-}
-
-// out[i] = x: fp32, or rounded to bf16 under QB.
+// out[i] = x: fp32, or rounded to bf16 in K1-bf16 (QB).
 template <bool QB>
 __device__ __forceinline__ void store_out(const Args& a, long long i, float x) {
     if (QB)
@@ -316,10 +306,8 @@ struct Grid {
 // q loads 4 rows (broadcast within each 8 threads). The sum over d runs in
 // order, as the plain version and K3b's rebuild of the logits do. mx
 // keeps the running max of the thread's 4 rows over their allowed keys
-// (store_row_max hands it on once all tiles are done). Under QB the sum is
-// multiplied by the fp32 scale 1 / sqrt(dh) instead, as the TPU kernel
-// scales its logits.
-template <int DH, class KV, int ROWS, int NK, int NT, bool QB = false>
+// (store_row_max hands it on once all tiles are done).
+template <int DH, class KV, int ROWS, int NK, int NT>
 __device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const float* qs, const KV* kt, int tg0,
                                             const uint32_t* bits, int bstride, int bkey0, int T,
                                             float (&mx)[4]) {
@@ -352,7 +340,7 @@ __device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const fl
                 acc[i][j] = s;
             }
     }
-    const float sqrt_dh = sqrtf((float)DH), rs = 1.f / sqrt_dh, scale = (float)(1.0 / sqrt((double)DH));
+    const float sqrt_dh = sqrtf((float)DH), rs = 1.f / sqrt_dh;
     uint32_t kw[MK];  // a padding mask's words of the thread's keys (shared by every row)
 #pragma unroll
     for (int j = 0; j < MK; ++j) {
@@ -368,7 +356,7 @@ __device__ __forceinline__ void tile_logits(float* lg, int ldl, int l0, const fl
             if (t < T) {
                 const int tb = t - bkey0;
                 const uint32_t word = bstride == 0 ? kw[j] : bits[r * bstride + (tb >> 5)];
-                const float y = QB ? acc[i][j] * scale : div_rn(acc[i][j], sqrt_dh, rs);
+                const float y = div_rn(acc[i][j], sqrt_dh, rs);
                 const float z = (word >> (tb & 31)) & 1u ? y : -INFINITY;
                 lg[r * ldl + l0 + tl] = z;
                 mx[i] = fmaxf(mx[i], z);
@@ -447,7 +435,7 @@ __device__ __forceinline__ void store_partials(float* part, const float (&acc)[4
 //     threads' sums by a butterfly;
 //   weights_rows: w = e / sum (div_rn; a zero e gives 0 without it), times the dropout
 //     factor of (row stat0 + r, column col0 + t) when DROP is on, four a
-//     Philox call, skipped for four zero weights; rounded to bf16 under RW.
+//     Philox call, skipped for four zero weights.
 template <int ROWS, int NT>
 __device__ __forceinline__ void exp_rows(float* lg, int ldl, int n, int rows, const float* m, float* sum) {
     constexpr int TPR = NT / ROWS;
@@ -475,7 +463,7 @@ __device__ __forceinline__ void exp_rows(float* lg, int ldl, int n, int rows, co
     if (k == 0) sum[r] = live ? s : 0.f;
 }
 
-template <int ROWS, int NT, bool DROP, bool RW = false>
+template <int ROWS, int NT, bool DROP>
 __device__ __forceinline__ void weights_rows(float* lg, int ldl, int n, int rows, const float* m, const float* sum,
                                              const Args& a, long long stat0, int col0) {
     constexpr int TPR = NT / ROWS;
@@ -488,10 +476,6 @@ __device__ __forceinline__ void weights_rows(float* lg, int ldl, int n, int rows
         float w[4] = {e.x, e.y, e.z, e.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) w[j] = w[j] == 0.f ? 0.f : div_rn(w[j], sr, ir);
-        if (RW) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w[j] = round_bf16(w[j]);
-        }
         if (DROP && a.drop.on && (w[0] != 0.f || w[1] != 0.f || w[2] != 0.f || w[3] != 0.f)) {
             float f[4];
             tb_philox::factors4(a.drop, a.site, (unsigned long long)(stat0 + r), (uint32_t)((col0 + t) >> 2), f);
@@ -538,7 +522,7 @@ size_t rows_smem(int T) {
                             ROWS_L * nt * (TK / 32) + (Grid<ROWS_L, TK, THREADS_L>::NWX + 2) * ROWS_L + 2 * nt);
 }
 
-template <int DH, class KV, bool DROP, bool STATS, bool QB>
+template <int DH, class KV, bool DROP, bool STATS>
 __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX;
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = NT / GT, KG = TK / NG;
@@ -566,10 +550,10 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
 
     if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
-        store_dead_rows<DH, NT, STATS, QB>(a, b, h, s0, s0 + rows);  // no live row: no K/V staged
+        store_dead_rows<DH, NT, STATS, false>(a, b, h, s0, s0 + rows);  // no live row: no K/V staged
         return;
     }
-    stage_q<DH, NT, QB>(qs, a, ((long long)b * a.S + s0) * a.D + h * DH, ROWS_L, rows);
+    stage_rows<DH, float, NT>(qs, a.q, ((long long)b * a.S + s0) * a.D + h * DH, 0, ROWS_L, rows, a.D, a.aligned);
     cp_async_commit();
     load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
     for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
@@ -611,8 +595,8 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         cp_async_commit();  // empty on the last tile: one group a step
         cp_async_wait<1>();
         __syncthreads();
-        tile_logits<DH, KV, ROWS_L, TK, NT, QB>(lg, ldl, live[i] * TK, qs, kv + (i & 1) * TK * LD, live[i] * TK, bits,
-                                                brs, 0, T, mx);
+        tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i & 1) * TK * LD, live[i] * TK, bits, brs,
+                                            0, T, mx);
         __syncthreads();
     }
     store_row_max<ROWS_L, TK, NT>(rm, mx);
@@ -638,7 +622,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         a.rmax[stat0 + threadIdx.x] = mrow[threadIdx.x];
         a.rsum[stat0 + threadIdx.x] = srow[threadIdx.x];
     }
-    weights_rows<ROWS_L, NT, DROP, QB>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
+    weights_rows<ROWS_L, NT, DROP>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
     TB_TRACE(0, 5);  // the weights (this thread's share)
 
     // weighted sum: V tiles double-buffered; group grp takes keys
@@ -666,7 +650,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         const int r = i / DH, c = i % DH;
         float s = part[i];
         for (int g = 1; g < NG; ++g) s += part[g * ROWS_L * DH + i];
-        store_out<QB>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c, mrow[r] == -INFINITY ? 0.f : s);
+        store_out<false>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c, mrow[r] == -INFINITY ? 0.f : s);
     }
     TB_TRACE(0, 7);  // the groups' partials, the output
 }
@@ -691,7 +675,7 @@ __device__ __forceinline__ void gather(float (&v)[MAX_CLUSTER], float* arr, int 
 
 // Three blocks an SM (registers and shared memory allow it), so that a
 // cluster of eight finds room beside the others: at B = 8, 32 clusters.
-template <int DH, class KV, bool DROP, bool STATS, bool QB>
+template <int DH, class KV, bool DROP, bool STATS>
 __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     constexpr int NT = THREADS_S, HK = TK / 2, NWX = Grid<ROWS_S, HK, NT>::NWX;
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), LL = TK + 8, NW = TK / 32;
@@ -723,13 +707,13 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     // every row dead: each rank writes its rows' zeros and leaves before the
     // first cluster barrier (all ranks read the same rows, so all leave)
     if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < S && !dead_row(a, b, threadIdx.x))) {
-        store_dead_rows<DH, NT, STATS, QB>(a, b, h, r0, r1);
+        store_dead_rows<DH, NT, STATS, false>(a, b, h, r0, r1);
         return;
     }
 
     // q, the K and the V slice at once: V stays in flight through the
     // logits and the softmax
-    stage_q<DH, NT, QB>(qs, a, (long long)b * S * a.D + h * DH, ROWS_S, S);
+    stage_rows<DH, float, NT>(qs, a.q, (long long)b * S * a.D + h * DH, 0, ROWS_S, S, a.D, a.aligned);
     stage_rows<DH, KV, NT>(kt, static_cast<const KV*>(a.k), kv_base, t0, TK, T, a.D, a.aligned);
     cp_async_commit();
     stage_rows<DH, KV, NT>(vt, static_cast<const KV*>(a.v), kv_base, t0, TK, T, a.D, a.aligned);
@@ -744,8 +728,8 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
                                        bits[(threadIdx.x / NW) * brs + threadIdx.x % NW] != 0u);
     float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
     if (live) {  // two halves of 64 keys: 4 x 4 micro-tiles, few registers
-        tile_logits<DH, KV, ROWS_S, HK, NT, QB>(lg, LL, 0, qs, kt, t0, bits, brs, t0, T, mx);
-        tile_logits<DH, KV, ROWS_S, HK, NT, QB>(lg, LL, HK, qs, kt + HK * LD, t0 + HK, bits, brs, t0, T, mx);
+        tile_logits<DH, KV, ROWS_S, HK, NT>(lg, LL, 0, qs, kt, t0, bits, brs, t0, T, mx);
+        tile_logits<DH, KV, ROWS_S, HK, NT>(lg, LL, HK, qs, kt + HK * LD, t0 + HK, bits, brs, t0, T, mx);
     } else {  // no pair of the slice is allowed: no product
         for (int j = threadIdx.x; j < ROWS_S * n; j += NT) lg[(j / n) * LL + j % n] = -INFINITY;
     }
@@ -781,7 +765,7 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
         gsum[threadIdx.x] = s;
     }
     __syncthreads();
-    weights_rows<ROWS_S, NT, DROP, QB>(lg, LL, n, S, gmax, gsum, a, stat0, t0);
+    weights_rows<ROWS_S, NT, DROP>(lg, LL, n, S, gmax, gsum, a, stat0, t0);
     TB_TRACE(1, 5);  // the sum, exchanged, and the weights (this thread's share)
 
     // the slice's weighted sum: group grp takes keys grp * KG .., the
@@ -812,11 +796,438 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
         gather(v, part, i, CL);
         float s = v[0];
         for (int k = 1; k < CL; ++k) s += v[k];
-        store_out<QB>(a, ((long long)b * S + r) * a.D + h * DH + d, gmax[r] == -INFINITY ? 0.f : s);
+        store_out<false>(a, ((long long)b * S + r) * a.D + h * DH + d, gmax[r] == -INFINITY ? 0.f : s);
     }
     if (STATS && (int)threadIdx.x >= r0 && (int)threadIdx.x < r1) {  // -inf and 0 for an all-masked row
         a.rmax[stat0 + threadIdx.x] = gmax[threadIdx.x];
         a.rsum[stat0 + threadIdx.x] = gmax[threadIdx.x] == -INFINITY ? 0.f : gsum[threadIdx.x];
+    }
+    cluster_sync();  // no rank leaves while another reads its shared memory
+    TB_TRACE(1, 8);  // the ranks' partials added, the output
+}
+
+// ---- K1-bf16 on the tensor cores: bf16 q, k and v
+//
+// A warp keeps its logits in registers: the C fragments of its 16-row
+// m-tile over NJ MMA n-tiles of 8 keys (lane (g, t) holds rows
+// r0 = 16 mt + g and r0 + 8, keys 2t and 2t + 1 of each n-tile). They are
+// scaled and masked there, the row max is taken over the whole row (the
+// warp's keys, then across warps in shared memory, and on path S across
+// the cluster's ranks) before any exp, exp and the row sums (each lane's in
+// key order, its 4 lanes' by a butterfly, then the warps' and the ranks' in
+// order) are made in place, and each weight is divided and rounded to bf16
+// as the C fragments of two n-tiles are packed into the A fragment of a
+// P V k-step of 16 keys: no logit or weight goes through shared memory.
+
+using bf16 = __nv_bfloat16;
+
+// z[j] = the sums q k of the warp's m-tile mt of the staged q (qs
+// [rows][LD]) over key n-tile j of a staged K tile kt [TK][LD] from key
+// kn0: DH / 16 k-steps of bf16 MMAs.
+template <int DH, int NJ>
+__device__ __forceinline__ void mma_logits(float (&z)[NJ][4], const bf16* qs, int mt, const bf16* kt, int kn0) {
+    constexpr int LD = kv_ld<DH, bf16>();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) z[j][0] = z[j][1] = z[j][2] = z[j][3] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < DH; k0 += 16) {
+        uint32_t fa[4];
+        tb_mma::load_a(fa, qs, LD, 16 * mt, k0);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            uint32_t fb[2];
+            tb_mma::load_b_nk(fb, kt, LD, k0, kn0 + 8 * j);
+            mma_bf16_16816(z[j], fa, fb);
+        }
+    }
+}
+
+// mma_logits' sums times the fp32 scale 1 / sqrt(dh) (the TPU kernel's
+// order), -inf where the pair is not allowed or the key is at or past T,
+// in place (n-tile j's keys from global key tg0 + 8 j; the bits read as
+// tile_logits reads them, word (t - bkey0) / 32 of row r's bstride), and
+// the lane's max of its rows r0 (mx[0]) and r0 + 8 (mx[1]).
+template <int DH, int NJ>
+__device__ __forceinline__ void mask_logits(float (&z)[NJ][4], int r0, int tg0, const uint32_t* bits, int bstride,
+                                            int bkey0, int T, float (&mx)[2]) {
+    const float scale = (float)(1.0 / sqrt((double)DH));
+    const int t2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int r = r0 + 8 * (i >> 1), t = tg0 + 8 * j + t2 + (i & 1), tb = t - bkey0;
+            const uint32_t word = t < T ? bits[r * bstride + (tb >> 5)] : 0u;
+            z[j][i] = (word >> (tb & 31)) & 1u ? z[j][i] * scale : -INFINITY;
+            mx[i >> 1] = fmaxf(mx[i >> 1], z[j][i]);
+        }
+}
+
+// exp(z - m) in place for rows whose max m (rm) is finite (0 elsewhere),
+// and the lane's sums of each row in key order.
+template <int NJ>
+__device__ __forceinline__ void exp_logits(float (&z)[NJ][4], const float (&rm)[2], float (&sm)[2]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float m = rm[i >> 1];
+            z[j][i] = m == -INFINITY ? 0.f : expf(z[j][i] - m);
+            sm[i >> 1] += z[j][i];
+        }
+}
+
+// v of the lane's rows r0, r0 + 8 reduced over the row's 4 lanes (max or
+// sum), written to row[r0] and row[r0 + 8] by the first of them.
+template <bool MAX>
+__device__ __forceinline__ void store_rows(float* row, int r0, const float (&v)[2]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        const float x = MAX ? group_max<4>(v[hf]) : group_sum<4>(v[hf]);
+        if ((threadIdx.x & 3) == 0) row[r0 + 8 * hf] = x;
+    }
+}
+
+// o += P V over the warp's NJ 8 keys: P the weights e / sum (div_rn; 0 for
+// a zero e or a row whose max is -inf) of exp_logits' e, rounded to bf16 as
+// two n-tiles' C fragments are packed into a k-step's A fragment; V a
+// staged tile [..][LD] from row v0.
+template <int DH, int NJ>
+__device__ __forceinline__ void weights_times_v(float (&o)[DH / 8][4], const float (&z)[NJ][4], const float (&rm)[2],
+                                                const float (&sum)[2], const bf16* vt, int v0) {
+    constexpr int LD = kv_ld<DH, bf16>();
+    bool lv[2];
+    float sr[2], ir[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        lv[hf] = rm[hf] != -INFINITY;
+        sr[hf] = lv[hf] ? sum[hf] : 1.f;
+        ir[hf] = 1.f / sr[hf];
+    }
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float e = z[2 * kk + jj][i];
+                const int hf = i >> 1;
+                p[jj][i] = lv[hf] && e != 0.f ? div_rn(e, sr[hf], ir[hf]) : 0.f;
+            }
+        const uint32_t fa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]), pack_bf16(p[1][0], p[1][1]),
+                                pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+        for (int d = 0; d < DH / 8; ++d) {
+            uint32_t fb[2];
+            tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
+            mma_bf16_16816(o[d], fa, fb);
+        }
+    }
+}
+
+// The lane's C fragments o of rows r0, r0 + 8 into a [..][DH] fp32 array.
+template <int DH>
+__device__ __forceinline__ void store_sums(float* dst, int r0, const float (&o)[DH / 8][4]) {
+    const int c = 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+        float* pp = dst + r0 * DH + 8 * d + c;
+        *reinterpret_cast<float2*>(pp) = make_float2(o[d][0], o[d][1]);
+        *reinterpret_cast<float2*>(pp + 8 * DH) = make_float2(o[d][2], o[d][3]);
+    }
+}
+
+// Path L of K1-bf16: blocks per (head, scene) that walk its row blocks of
+// ROWS_L query rows (row block blockIdx.x, + gridDim.x, ...), T at most
+// NKW TK. Warp w takes m-tile w % MT and key tile w / MT ([16, TK] logits
+// in registers). Where K and V both fit beside the tiles' partial sums
+// (rows_mma_both: d_head 16 and 32 at T = 1024), every K and V tile is
+// staged once as the block starts and serves each of its row blocks, and
+// the host gives a head as many blocks as fill the card once (the
+// K/V tiles read from L2 once a block, not once a row block: the reads of
+// the first design bound it). Otherwise a block takes one row block, stages
+// every K tile, and V in K's place once the logits are made (landing
+// during the softmax). The tiles' partial sums [nt][ROWS_L][DH] are added
+// in tile order. Shared memory: q [ROWS_L][LD], the K (and V) tiles
+// [nt TK][LD] in bf16, the partial sums (in K's place without V), the
+// mask bits, the tiles' row maxima and sums, the rows' max and sum, each
+// tile's flag.
+constexpr int NKW = THREADS_L / 32 / (ROWS_L / 16);  // key tiles of a path-L block of K1-bf16: T <= NKW TK
+constexpr int SMEM_OPTIN = 232448;                   // dynamic shared memory a block may opt in to on sm_90
+
+template <int DH>
+__host__ __device__ inline size_t rows_mma_bytes(int nt, bool both) {
+    return 2 * ((size_t)ROWS_L + (both ? 2 : 1) * nt * TK) * kv_ld<DH, bf16>() +
+           sizeof(float) * ((both ? (size_t)nt * ROWS_L * DH : 0) + (size_t)ROWS_L * nt * (TK / 32) +
+                            (2 * NKW + 2) * ROWS_L + nt);
+}
+
+// K and V stay resident beside the partial sums
+template <int DH>
+__host__ __device__ inline bool rows_mma_both(int nt) { return rows_mma_bytes<DH>(nt, true) <= SMEM_OPTIN; }
+
+template <int DH>
+size_t rows_mma_smem(int T) {
+    const int nt = (T + TK - 1) / TK;
+    return rows_mma_bytes<DH>(nt, rows_mma_both<DH>(nt));
+}
+
+// Blocks a head of path L of K1-bf16: with K and V resident, as many as
+// fill the card's n_sm SMs once (one block an SM) when the heads alone do
+// not; otherwise one a row block.
+template <int DH>
+int rows_mma_blocks(const Args& a, int n_sm) {
+    const int n_rb = (a.S + ROWS_L - 1) / ROWS_L;
+    const long long heads = (long long)a.B * a.H;
+    if (!rows_mma_both<DH>((a.T + TK - 1) / TK) || heads >= n_sm) return n_rb;
+    return min(n_rb, max(1, n_sm / (int)heads));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma(const Args a) {
+    constexpr int NT = THREADS_L, MT = ROWS_L / 16, NJ = TK / 8, LD = kv_ld<DH, bf16>();
+    static_assert(NKW == MAX_CLUSTER, "a key tile a warp");
+    extern __shared__ float smem[];
+    const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32);
+    const bool both = rows_mma_both<DH>(nt);
+    bf16* qs = reinterpret_cast<bf16*>(smem);             // [ROWS_L][LD]
+    bf16* kt0 = qs + ROWS_L * LD;                         // [nt TK][LD]: K
+    bf16* vt0 = both ? kt0 + nt * TK * LD : kt0;          // [nt TK][LD]: V, beside K or in its place
+    float* end = reinterpret_cast<float*>(vt0 + nt * TK * LD);
+    float* part = both ? end : reinterpret_cast<float*>(kt0);  // [nt][ROWS_L][DH], in K's place without V
+    uint32_t* bits = reinterpret_cast<uint32_t*>(both ? end + nt * ROWS_L * DH : end);  // [ROWS_L][nw]
+    float* tmax = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NKW][ROWS_L] each tile's row max
+    float* tsum = tmax + NKW * ROWS_L;                    // [NKW][ROWS_L] each tile's row sum of exp
+    float* mrow = tsum + NKW * ROWS_L;                    // [ROWS_L] the row max (-inf: no allowed key, dead, past S)
+    float* srow = mrow + ROWS_L;                          // [ROWS_L] the row sum
+    int* flag = reinterpret_cast<int*>(srow + ROWS_L);    // [nt] a tile has an allowed pair
+
+    const int b = blockIdx.z, h = blockIdx.y, n_rb = (a.S + ROWS_L - 1) / ROWS_L;
+    const long long kv_base = (long long)b * T * a.D + h * DH;
+    const bf16* K = static_cast<const bf16*>(a.k);
+    const bf16* V = static_cast<const bf16*>(a.v);
+    const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
+    const int w = threadIdx.x >> 5, mt = w % MT, kt = w / MT, r0 = 16 * mt + ((threadIdx.x & 31) >> 2);
+
+    if (both) {  // K and V once, for every row block of the block
+        stage_rows<DH, bf16, NT>(kt0, K, kv_base, 0, nt * TK, T, a.D, a.aligned);
+        stage_rows<DH, bf16, NT>(vt0, V, kv_base, 0, nt * TK, T, a.D, a.aligned);
+        cp_async_commit();
+    }
+    bool have_bits = false;  // a padding mask's bits and live tiles serve every row block
+    for (int rb = blockIdx.x; rb < n_rb; rb += gridDim.x) {
+        TB_TRACE_BEGIN(0);
+        const int s0 = rb * ROWS_L, rows = min(ROWS_L, a.S - s0);
+        if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
+            store_dead_rows<DH, NT, false, true>(a, b, h, s0, s0 + rows);  // no live row
+            continue;
+        }
+        stage_rows<DH, bf16, NT>(qs, reinterpret_cast<const bf16*>(a.q), ((long long)b * a.S + s0) * a.D + h * DH, 0,
+                                 ROWS_L, rows, a.D, a.aligned);
+        if (!both) stage_rows<DH, bf16, NT>(kt0, K, kv_base, 0, nt * TK, T, a.D, a.aligned);
+        cp_async_commit();
+        if (!have_bits || brs != 0) {
+            have_bits = true;
+            load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
+            for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
+            __syncthreads();
+            for (int i = threadIdx.x; i < (brs ? ROWS_L : 1) * nw; i += NT)  // live tiles: some pair allowed
+                if (bits[i] != 0u) atomicOr(&flag[(i % nw) / (TK / 32)], 1);
+        }
+        TB_TRACE(0, 1);  // q (K, V) issued, the mask bits and live tiles
+        cp_async_wait<0>();
+        __syncthreads();
+        TB_TRACE(0, 2);  // q and K arrived
+
+        const bool mine = kt < nt && flag[kt];  // the warp's key tile is live
+        float z[NJ][4];
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (mine) {
+            mma_logits<DH, NJ>(z, qs, mt, kt0 + kt * TK * LD, 0);
+            mask_logits<DH, NJ>(z, r0, kt * TK, bits, brs, 0, T, mx);
+        }
+        if (kt < nt) store_rows<true>(tmax + kt * ROWS_L, r0, mx);
+        __syncthreads();  // every K read: V may take its place
+        TB_TRACE(0, 3);  // the logits
+        if (!both) {  // V in K's place, landing during the softmax
+            for (int i = 0; i < nt; ++i)
+                if (flag[i]) stage_rows<DH, bf16, NT>(vt0 + i * TK * LD, V, kv_base, i * TK, TK, T, a.D, a.aligned);
+            cp_async_commit();
+        }
+        if (threadIdx.x < ROWS_L) {  // the exact row max over every tile
+            float m = -INFINITY;
+            for (int x = 0; x < nt; ++x) m = fmaxf(m, tmax[x * ROWS_L + threadIdx.x]);
+            mrow[threadIdx.x] = (int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x) ? m : -INFINITY;
+        }
+        __syncthreads();
+        const float rm[2] = {mrow[r0], mrow[r0 + 8]};
+        float sm[2] = {0.f, 0.f};
+        if (mine) exp_logits<NJ>(z, rm, sm);
+        if (kt < nt) store_rows<false>(tsum + kt * ROWS_L, r0, sm);
+        __syncthreads();
+        if (threadIdx.x < ROWS_L) {  // the tiles' sums in tile order
+            float s = 0.f;
+            for (int x = 0; x < nt; ++x) s += tsum[x * ROWS_L + threadIdx.x];
+            srow[threadIdx.x] = s;
+        }
+        cp_async_wait<0>();
+        __syncthreads();  // the row sums written, V arrived
+        TB_TRACE(0, 4);  // the row max, exp and sum, V
+
+        float o[DH / 8][4];
+#pragma unroll
+        for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        if (mine) {
+            const float sum[2] = {srow[r0], srow[r0 + 8]};
+            weights_times_v<DH, NJ>(o, z, rm, sum, vt0 + kt * TK * LD, 0);
+        }
+        if (!both) __syncthreads();  // every V read: K's place takes the partial sums
+        TB_TRACE(0, 5);  // the weights and the weighted sum
+        if (kt < nt) store_sums<DH>(part + kt * ROWS_L * DH, r0, o);
+        __syncthreads();
+        for (int i = threadIdx.x; i < rows * DH; i += NT) {
+            const int r = i / DH, c = i % DH;
+            float s = part[i];
+            for (int x = 1; x < nt; ++x) s += part[x * ROWS_L * DH + i];
+            store_out<true>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c, mrow[r] == -INFINITY ? 0.f : s);
+        }
+        __syncthreads();  // q, the partials, the row statistics free for the next row block
+        TB_TRACE(0, 6);  // the tiles' partials, the output
+    }
+    cp_async_wait<0>();  // no copy in flight when the block leaves
+}
+
+// Path S of K1-bf16: a cluster of ranks per (head, scene), a TK-key slice
+// of T each, as fwd_cluster. Its 8 warps take 4 m-tiles x 2 key halves of
+// the slice ([16, TK / 2] logits in registers); the halves' row maxima
+// and sums, then the ranks', are exchanged as fwd_cluster exchanges them,
+// and the halves' weighted sums are added in order, then the ranks' in rank
+// order. Four blocks an SM (registers and shared memory allow it: the
+// cluster's exchanges leave a block waiting, and more blocks hide that).
+// Shared memory, in floats: the halves' partial sums [2][ROWS_S][DH]
+// (then the rank's sums), q [ROWS_S][LD] and the K and V slices [TK][LD]
+// in bf16, the halves' row maxima and sums, the rows' slice max, slice
+// sum, max and sum, the mask bits [ROWS_S][TK / 32].
+template <int DH>
+size_t cluster_mma_smem() {
+    return sizeof(float) * ((size_t)2 * ROWS_S * DH + (ROWS_S + 2 * TK) * kv_ld<DH, bf16>() / 2 + 8 * ROWS_S +
+                            ROWS_S * (TK / 32));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS_S, 4) fwd_cluster_mma(const Args a) {
+    constexpr int NT = THREADS_S, MT = ROWS_S / 16, NH = NT / 32 / MT, NJ = TK / NH / 8;
+    constexpr int LD = kv_ld<DH, bf16>(), NW = TK / 32;
+    static_assert(NH == 2 && NJ % 2 == 0, "two key halves");
+    extern __shared__ float smem[];
+    TB_TRACE_BEGIN(1);
+    float* part = smem;                                   // [2][ROWS_S][DH] the halves' sums; [0] then the rank's
+    bf16* qs = reinterpret_cast<bf16*>(part + 2 * ROWS_S * DH);  // [ROWS_S][LD]
+    bf16* kt = qs + ROWS_S * LD;                          // [TK][LD] the slice's keys
+    bf16* vt = kt + TK * LD;                              // [TK][LD] its values
+    float* hmax = reinterpret_cast<float*>(vt + TK * LD);  // [2][ROWS_S] the halves' row maxima
+    float* hsum = hmax + 2 * ROWS_S;                      // [2][ROWS_S] the halves' row sums
+    float* pmax = hsum + 2 * ROWS_S;                      // [ROWS_S] the slice's row max
+    float* psum = pmax + ROWS_S;                          // [ROWS_S] the slice's sum of exp
+    float* gmax = psum + ROWS_S;                          // [ROWS_S] the row max over T (-inf: no allowed key, dead)
+    float* gsum = gmax + ROWS_S;                          // [ROWS_S] the row sum over T, in rank order
+    uint32_t* bits = reinterpret_cast<uint32_t*>(gsum + ROWS_S);  // [ROWS_S][NW]
+
+    const unsigned c = cluster_rank();
+    const int CL = gridDim.x;
+    const int b = blockIdx.z, h = blockIdx.y, S = a.S, T = a.T, t0 = (int)c * TK;
+    const long long kv_base = (long long)b * T * a.D + h * DH;
+    const int brs = a.inv_ss == 0 ? 0 : NW;
+    const int rp = (S + CL - 1) / CL, rb = (int)c * rp, re = min(S, rb + rp);  // rank c writes rows rb .. re - 1
+    const int w = threadIdx.x >> 5, mt = w % MT, half = w / MT, r0 = 16 * mt + ((threadIdx.x & 31) >> 2);
+
+    // every row dead: each rank writes its rows' zeros and leaves before the
+    // first cluster barrier (all ranks read the same rows, so all leave)
+    if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < S && !dead_row(a, b, threadIdx.x))) {
+        store_dead_rows<DH, NT, false, true>(a, b, h, rb, re);
+        return;
+    }
+
+    // q, the K and the V slice at once: V stays in flight through the
+    // logits and the softmax
+    stage_rows<DH, bf16, NT>(qs, reinterpret_cast<const bf16*>(a.q), (long long)b * S * a.D + h * DH, 0, ROWS_S, S, a.D,
+                             a.aligned);
+    stage_rows<DH, bf16, NT>(kt, static_cast<const bf16*>(a.k), kv_base, t0, TK, T, a.D, a.aligned);
+    cp_async_commit();
+    stage_rows<DH, bf16, NT>(vt, static_cast<const bf16*>(a.v), kv_base, t0, TK, T, a.D, a.aligned);
+    cp_async_commit();
+    load_bits<NT>(bits, brs ? ROWS_S : 1, NW, a, b, 0, t0);
+    cp_async_wait<1>();
+    __syncthreads();
+    TB_TRACE(1, 1);  // q and K arrived, the mask bits
+    const bool live = __syncthreads_or(threadIdx.x < (brs ? ROWS_S : 1) * NW &&
+                                       bits[(threadIdx.x / NW) * brs + threadIdx.x % NW] != 0u);
+    float z[NJ][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (live) {  // no pair of the slice allowed: no product, every logit -inf
+        mma_logits<DH, NJ>(z, qs, mt, kt, NJ * 8 * half);
+        mask_logits<DH, NJ>(z, r0, t0 + NJ * 8 * half, bits, brs, t0, T, mx);
+    }
+    store_rows<true>(hmax + half * ROWS_S, r0, mx);
+    __syncthreads();
+    TB_TRACE(1, 2);  // the logits
+    // the exact row max: each rank's over its slice, then the ranks' maxima
+    if (threadIdx.x < ROWS_S) {
+        const float m = fmaxf(hmax[threadIdx.x], hmax[ROWS_S + threadIdx.x]);
+        pmax[threadIdx.x] = (int)threadIdx.x < S && !dead_row(a, b, threadIdx.x) ? m : -INFINITY;
+    }
+    cluster_sync();
+    if (threadIdx.x < ROWS_S) {
+        float v[MAX_CLUSTER];
+        gather(v, pmax, threadIdx.x, CL);
+        float m = v[0];
+        for (int k = 1; k < CL; ++k) m = fmaxf(m, v[k]);
+        gmax[threadIdx.x] = m;
+    }
+    __syncthreads();
+    TB_TRACE(1, 3);  // the slice max, exchanged
+    const float rm[2] = {gmax[r0], gmax[r0 + 8]};
+    float sm[2] = {0.f, 0.f};
+    if (live) exp_logits<NJ>(z, rm, sm);
+    store_rows<false>(hsum + half * ROWS_S, r0, sm);
+    __syncthreads();
+    if (threadIdx.x < ROWS_S) psum[threadIdx.x] = hsum[threadIdx.x] + hsum[ROWS_S + threadIdx.x];
+    cluster_sync();
+    TB_TRACE(1, 4);  // exp and the slice sum
+    if (threadIdx.x < ROWS_S) {  // the slices' sums in rank order: the same float on every rank
+        float v[MAX_CLUSTER];
+        gather(v, psum, threadIdx.x, CL);
+        float s = v[0];
+        for (int k = 1; k < CL; ++k) s += v[k];
+        gsum[threadIdx.x] = s;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the sums written, V arrived
+    TB_TRACE(1, 5);  // the sum, exchanged, V
+
+    // the halves' weighted sums, added in order into the rank's, then the
+    // ranks' in rank order
+    float o[DH / 8][4];
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    if (live) {
+        const float sum[2] = {gsum[r0], gsum[r0 + 8]};
+        weights_times_v<DH, NJ>(o, z, rm, sum, vt, NJ * 8 * half);
+    }
+    store_sums<DH>(part + half * ROWS_S * DH, r0, o);
+    __syncthreads();
+    TB_TRACE(1, 6);  // the weights and the weighted sum
+    for (int i = threadIdx.x; i < ROWS_S * DH; i += NT) part[i] += part[ROWS_S * DH + i];
+    cluster_sync();
+    TB_TRACE(1, 7);  // the halves' sums
+    for (int i = rb * DH + threadIdx.x; i < re * DH; i += NT) {
+        const int r = i / DH, d = i % DH;
+        float v[MAX_CLUSTER];
+        gather(v, part, i, CL);
+        float s = v[0];
+        for (int k = 1; k < CL; ++k) s += v[k];
+        store_out<true>(a, ((long long)b * S + r) * a.D + h * DH + d, gmax[r] == -INFINITY ? 0.f : s);
     }
     cluster_sync();  // no rank leaves while another reads its shared memory
     TB_TRACE(1, 8);  // the ranks' partials added, the output
@@ -833,36 +1244,64 @@ inline bool takes_cluster(const Args& a) {
     return a.S <= ROWS_S && (a.T + TK - 1) / TK <= MAX_CLUSTER && row_blocks < LARGE_GRID;
 }
 
-template <int DH, class KV, bool DROP, bool STATS, bool QB = false>
-cudaError_t launch(const Args& a, cudaStream_t st) {
-    if (takes_cluster(a)) {
-        const size_t smem = cluster_smem<DH, KV>();
-        cudaError_t err = cudaFuncSetAttribute(fwd_cluster<DH, KV, DROP, STATS, QB>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        const int cl = (a.T + TK - 1) / TK;
-        cudaLaunchConfig_t cfg = {};
-        cfg.gridDim = dim3(cl, a.H, a.B);
-        cfg.blockDim = dim3(THREADS_S);
-        cfg.dynamicSmemBytes = smem;
-        cfg.stream = st;
-        cudaLaunchAttribute attr[1];
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = cl;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-        cfg.attrs = attr;
-        cfg.numAttrs = 1;
-        err = cudaLaunchKernelEx(&cfg, fwd_cluster<DH, KV, DROP, STATS, QB>, a);
-        return err != cudaSuccess ? err : cudaGetLastError();
-    }
-    const size_t smem = rows_smem<DH, KV>(a.T);
-    cudaError_t err = cudaFuncSetAttribute(fwd_rows<DH, KV, DROP, STATS, QB>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+using Kernel = void (*)(const Args);
+
+// `kernel` on path S's grid, a cluster of T / TK ranks per (head, scene),
+// with `smem` bytes of dynamic shared memory a block.
+inline cudaError_t launch_cluster(Kernel kernel, size_t smem, const Args& a, cudaStream_t st) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + ROWS_L - 1) / ROWS_L, a.H, a.B);
-    fwd_rows<DH, KV, DROP, STATS, QB><<<grid, THREADS_L, smem, st>>>(a);
+    const int cl = (a.T + TK - 1) / TK;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cl, a.H, a.B);
+    cfg.blockDim = dim3(THREADS_S);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cl;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// `kernel` on path L's grid, blocks_x blocks per (head, scene).
+inline cudaError_t launch_rows(Kernel kernel, size_t smem, int blocks_x, const Args& a, cudaStream_t st) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(blocks_x, a.H, a.B);
+    kernel<<<grid, THREADS_L, smem, st>>>(a);
     return cudaGetLastError();
+}
+
+template <int DH, class KV, bool DROP, bool STATS>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+    if (takes_cluster(a)) return launch_cluster(fwd_cluster<DH, KV, DROP, STATS>, cluster_smem<DH, KV>(), a, st);
+    return launch_rows(fwd_rows<DH, KV, DROP, STATS>, rows_smem<DH, KV>(a.T), (a.S + ROWS_L - 1) / ROWS_L, a, st);
+}
+
+// K1-bf16's path choice: path S as fp32 K1 takes it, but path L where path
+// L's blocks fill the card's n_sm SMs (the joint futures' as2pl at B = 48:
+// 0.0482 against path S's 0.0617 ms on an H100; at B = 8 path S's sums keep
+// the bf16 validation replay within its hold, PERF.md).
+inline bool takes_cluster_bf16(const Args& a, int n_sm) {
+    return takes_cluster(a) && (long long)((a.S + ROWS_L - 1) / ROWS_L) * a.H * a.B < n_sm;
+}
+
+// K1-bf16: bf16 q, k, v and output, the products on the tensor cores; path
+// L takes T <= NKW TK.
+template <int DH>
+cudaError_t launch_bf16(const Args& a, cudaStream_t st) {
+    if ((a.T + TK - 1) / TK > NKW) return cudaErrorInvalidValue;
+    int dev = 0, n_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (takes_cluster_bf16(a, n_sm)) return launch_cluster(fwd_cluster_mma<DH>, cluster_mma_smem<DH>(), a, st);
+    return launch_rows(fwd_rows_mma<DH>, rows_mma_smem<DH>(a.T), rows_mma_blocks<DH>(a, n_sm), a, st);
 }
 
 // q, k and v 16-byte aligned (each head's row slice then is too: D and dh

@@ -16,9 +16,10 @@
 // as they are loaded and used in fp32 from there on. This matches the JAX
 // package's XLA path and the port's plain version (attention_core_plain),
 // not the TPU kernel path, which also rounds q and the weights to bf16.
-// tb_fused_attention_bf16 is that TPU kernel path, for bf16 q, k and v
-// (the model under precision="bf16"): the weights rounded to bf16, the
-// output bf16 (QB in attn_fwd.cuh).
+// tb_fused_attention_bf16 (K1-bf16) is that TPU kernel path, for bf16 q, k
+// and v (the model under precision="bf16"): the weights rounded to bf16,
+// the output bf16, the products on the tensor cores (bf16 mma.sync with
+// fp32 accumulation: fwd_rows_mma / fwd_cluster_mma in attn_fwd.cuh).
 //
 // The kernel is the shared forward of csrc/attn_fwd.cuh without dropout and
 // without row statistics; that header says what bounds it on the card (fp32
@@ -35,12 +36,21 @@
 
 namespace {
 
-template <class KV, bool QB = false>
+template <class KV>
 cudaError_t launch_dh(const tb_attn::Args& a, cudaStream_t st) {
     switch (a.D / a.H) {
-        case 16: return tb_attn::launch<16, KV, false, false, QB>(a, st);
-        case 32: return tb_attn::launch<32, KV, false, false, QB>(a, st);
-        case 64: return tb_attn::launch<64, KV, false, false, QB>(a, st);
+        case 16: return tb_attn::launch<16, KV, false, false>(a, st);
+        case 32: return tb_attn::launch<32, KV, false, false>(a, st);
+        case 64: return tb_attn::launch<64, KV, false, false>(a, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+cudaError_t launch_dh_bf16(const tb_attn::Args& a, cudaStream_t st) {
+    switch (a.D / a.H) {
+        case 16: return tb_attn::launch_bf16<16>(a, st);
+        case 32: return tb_attn::launch_bf16<32>(a, st);
+        case 64: return tb_attn::launch_bf16<64>(a, st);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -64,8 +74,9 @@ extern "C" int tb_fused_attention(const void* q, const void* k, const void* v, c
 
 // K1's bf16 variant: q, k, v [B,S,D] / [B,T,D] bf16, out [B,S,D] bf16 (the
 // Pallas _attn_kernel on bf16 operands: fp32 logits and softmax, weights
-// rounded to bf16, fp32 weighted sum, the output rounded once; see QB in
-// attn_fwd.cuh). The other arguments as tb_fused_attention's.
+// rounded to bf16, fp32 weighted sum, the output rounded once; the products
+// as bf16 MMAs with fp32 accumulation, attn_fwd.cuh). The other arguments as
+// tb_fused_attention's.
 extern "C" int tb_fused_attention_bf16(const void* q, const void* k, const void* v, const void* invalid,
                                        const void* src_invalid, void* out, int B, int S, int T, int D, int n_head,
                                        long long inv_sb, long long inv_ss, void* stream) {
@@ -73,7 +84,7 @@ extern "C" int tb_fused_attention_bf16(const void* q, const void* k, const void*
                     static_cast<float*>(out), nullptr, nullptr, B, S, T, D, n_head, inv_sb, inv_ss,
                     tb_philox::Dropout{0ull, 0u, 1.f, 0}, 0u, tb_attn::aligned16(q, k, v),
                     static_cast<const uint8_t*>(src_invalid)};
-    return (int)launch_dh<__nv_bfloat16, true>(a, static_cast<cudaStream_t>(stream));
+    return (int)launch_dh_bf16(a, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef TB_ATTN_TRACE

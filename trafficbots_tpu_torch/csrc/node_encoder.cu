@@ -35,6 +35,17 @@
 // fp32 products on the CUDA cores, as the closed loop's ulp sensitivity
 // needs. On an H100 at 700 W: 3.21-3.22 ms at the main path's 8 scenes
 // (the first design 8.43-8.44 in the same run), 4.6x its bound (PERF.md).
+//
+// K2-bf16 (tb_node_encoder_bf16, map_encoder.kernel_matmul_bf16): the same
+// blocks and order, with every dense product on the tensor cores
+// (node_layer.cuh dense_mma: the rows rounded once into a bf16 buffer, the
+// weights read once a block from L2 and rounded into a bf16 copy, bf16 MMAs
+// with fp32 accumulation) and the attention's products on bf16 values on
+// the CUDA cores (q, k and v rounded as their projections store them). Its
+// bound is the products at 989 TFLOP/s bf16 (0.0475 ms at the main path's
+// shape); what is left is the LayerNorms, the small attention, the pool and
+// each block's read of the fp32 weights from L2: 1.18 ms on an H100
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,8 +59,24 @@ using namespace tb_node;
 
 constexpr int ROWS = 64;      // rows (valid nodes) a block holds
 constexpr int NBUF = 5;       // x, t, q/a, k, v
-constexpr size_t SMEM = sizeof(float) * ((size_t)NBUF * ROWS * LDS + ring_floats<3>());
-static_assert(ROWS <= RCAP && SMEM + sizeof(Block) <= SMEM_OPTIN, "the buffers must fit one block's shared memory");
+// the row buffers, then the weight ring (K2) or dense_mma's bf16 rows and weight (K2-bf16)
+template <bool BF>
+constexpr size_t smem_bytes() {
+    return sizeof(float) * NBUF * ROWS * LDS + (BF ? MMA_BYTES : sizeof(float) * ring_floats<3>());
+}
+static_assert(ROWS <= RCAP && smem_bytes<false>() + sizeof(Block) <= SMEM_OPTIN &&
+                  smem_bytes<true>() + sizeof(Block) <= SMEM_OPTIN,
+              "the buffers must fit one block's shared memory");
+
+// in @ W through epi: on the tensor cores for K2-bf16 (dense_mma), else
+// the fp32 CUDA-core products with three weight k-tiles in flight
+template <bool BF, class Epi>
+__device__ __forceinline__ void project(const float* in, const float* __restrict__ W, float* wsm, int R, Epi epi) {
+    if constexpr (BF)
+        dense_mma(in, W, wsm, R, epi);
+    else
+        dense<3>(in, W, wsm, R, epi);
+}
 
 struct NodeWeights {
     const float *ln1_s, *ln1_b, *lnt_s, *lnt_b, *ln2_s, *ln2_b;
@@ -84,28 +111,30 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
     TB_NODE_MARK(0, 1);
 
     const Dropout none{0, 0, 1.f, 0};
+    // q, k and v as the attention takes them: rounded to bf16 for K2-bf16
+    auto op = [](float x) { return BF ? round_bf16(x) : x; };
     for (int l = 0; l < n_layer; ++l) {
         const int lv = l * D, lm = l * D * D;
         layer_norm_x0(x_in, blk, t, w.lnt_s + lv, w.lnt_b + lv);
         TB_NODE_MARK(0, 2);
         const float* bk = w.bk + lv;
-        dense<3, BF>(t, w.wk + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        project<BF>(t, w.wk + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bk, c0);
-            store4(k + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            store4(k + r * LDS + c0, op(y[0] + b.x), op(y[1] + b.y), op(y[2] + b.z), op(y[3] + b.w));
         });
         const float* bv = w.bv + lv;
-        dense<3, BF>(t, w.wv + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        project<BF>(t, w.wv + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bv, c0);
-            store4(v + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            store4(v + r * LDS + c0, op(y[0] + b.x), op(y[1] + b.y), op(y[2] + b.z), op(y[3] + b.w));
         });
         __syncthreads();
         TB_NODE_MARK(0, 3);
         layer_norm(x, t, w.ln1_s + lv, w.ln1_b + lv, R);
         TB_NODE_MARK(0, 2);
         const float* bq = w.bq + lv;
-        dense<3, BF>(t, w.wq + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        project<BF>(t, w.wq + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bq, c0);
-            store4(q + r * LDS + c0, y[0] + b.x, y[1] + b.y, y[2] + b.z, y[3] + b.w);
+            store4(q + r * LDS + c0, op(y[0] + b.x), op(y[1] + b.y), op(y[2] + b.z), op(y[3] + b.w));
         });
         __syncthreads();
         TB_NODE_MARK(0, 3);
@@ -113,7 +142,7 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
         __syncthreads();
         TB_NODE_MARK(0, 4);
         const float* bo = w.bo + lv;
-        dense<3, BF>(q, w.wo + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        project<BF>(q, w.wo + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(bo, c0);
             float* o = x + r * LDS + c0;
             store4(o, o[0] + (y[0] + b.x), o[1] + (y[1] + b.y), o[2] + (y[2] + b.z), o[3] + (y[3] + b.w));
@@ -123,13 +152,13 @@ node_kernel(const float* __restrict__ x_in, const uint8_t* __restrict__ valid, f
         layer_norm(x, t, w.ln2_s + lv, w.ln2_b + lv, R);
         TB_NODE_MARK(0, 2);
         const float* b1 = w.b1 + lv;
-        dense<3, BF>(t, w.w1 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        project<BF>(t, w.w1 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(b1, c0);
             store4(q + r * LDS + c0, fmaxf(y[0] + b.x, 0.f), fmaxf(y[1] + b.y, 0.f), fmaxf(y[2] + b.z, 0.f),
                    fmaxf(y[3] + b.w, 0.f));
         });
         const float* b2 = w.b2 + lv;
-        dense<3, BF>(q, w.w2 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
+        project<BF>(q, w.w2 + lm, wsm, R, [&](int r, int c0, const float (&y)[4]) {
             const float4 b = bias4(b2, c0);
             float* o = x + r * LDS + c0;
             store4(o, o[0] + (y[0] + b.x), o[1] + (y[1] + b.y), o[2] + (y[2] + b.z), o[3] + (y[3] + b.w));
@@ -159,6 +188,7 @@ int launch(const void* x, const void* valid, void* out, int BP, int N, int n_lay
     const float* const* f = reinterpret_cast<const float* const*>(w);
     NodeWeights nw{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
                    f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16], f[17]};
+    constexpr size_t SMEM = smem_bytes<BF>();
     cudaError_t err = cudaFuncSetAttribute(node_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return (int)err;
     const int P = ROWS / N;

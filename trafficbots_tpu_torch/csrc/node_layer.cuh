@@ -27,16 +27,20 @@
 // of the weights (DROP; off for K2), the weighted sum written over the
 // thread's own q slice.
 //
-// BF (K2's bf16 variant, map_encoder.kernel_matmul_bf16): the operands of
-// every product, the weights, the rows, q, k, the attention weights and v,
-// are rounded to bf16 as they are loaded into registers, and the existing
-// fp32 products run on them: a product of two bf16 values is exact in fp32,
-// so this is the TPU kernel's bf16 MMA with fp32 accumulation (the order of
-// the sums aside), while LayerNorm, the softmax, the residuals and the pool
-// stay fp32. BF = false compiles to the fp32 code unchanged (K4 uses it).
+// K2's bf16 variant (map_encoder.kernel_matmul_bf16) rounds the operands of
+// every product to bf16, as the TPU kernel's `mm` does: its dense products
+// run on the tensor cores (dense_mma: bf16 mma.sync with fp32
+// accumulation, exact products, the sums in the hardware's order), its
+// q, k and v projections round their outputs to bf16 and its attention
+// rounds the weights, and runs the fp32 CUDA-core products on those bf16
+// values (attention<DROP, BF>: the small per-polyline products stay
+// there, as K2's phase trace decided), while LayerNorm, the softmax,
+// the residuals and the pool stay fp32. dense and attention<DROP, false>
+// are the fp32 code (K2, K4).
 //
-// The Hopper primitive (cp.async) sits behind small functions, so that
-// tests/cuda_emu/cuda_runtime.h can give it a plain C++ body.
+// The Hopper primitives (cp.async; mma.cuh's MMA) sit behind small
+// functions, so that tests/cuda_emu/cuda_runtime.h can give each a plain
+// C++ body.
 
 #pragma once
 
@@ -45,6 +49,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "node_trace.cuh"
 #include "philox.cuh"
 
@@ -140,11 +145,8 @@ __device__ void load_rows(const float* __restrict__ x, const Block& b, float* ds
     }
 }
 
-// x rounded to bf16 (to nearest even) and widened back; four at a time.
+// x rounded to bf16 (to nearest even) and widened back
 __device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-__device__ __forceinline__ float4 round_bf16(float4 v) {
-    return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -213,8 +215,7 @@ __device__ void layer_norm_x0(const float* __restrict__ x, const Block& b, float
 // lane's (a lane's rows past R compute on whatever the buffer holds there,
 // up to row 63, and are not stored). Begins with a barrier, so that the
 // ring is free; the caller synchronises before reading what epi wrote.
-// With BF, both operands are rounded to bf16 as they reach registers.
-template <int NSTAGE, bool BF = false, class Epi>
+template <int NSTAGE, class Epi>
 __device__ void dense(const float* in, const float* __restrict__ W, float* wsm, int R, Epi epi) {
     static_assert(NSTAGE == 2 || NSTAGE == 3, "dense: 2 or 3 tiles in flight");
     constexpr int WTILE = KT * D;
@@ -250,15 +251,11 @@ __device__ void dense(const float* in, const float* __restrict__ W, float* wsm, 
         for (int kk = 0; kk < KT; kk += 4) {
             float4 w[4];
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                w[u] = *reinterpret_cast<const float4*>(ws + (kk + u) * D + c0);
-                if (BF) w[u] = round_bf16(w[u]);
-            }
+            for (int u = 0; u < 4; ++u) w[u] = *reinterpret_cast<const float4*>(ws + (kk + u) * D + c0);
 #pragma unroll
             for (int i = 0; i < MAXRT; ++i) {
                 if (i < nrt) {
-                    float4 a = *reinterpret_cast<const float4*>(a0 + 16 * i * LDS + kk);
-                    if (BF) a = round_bf16(a);
+                    const float4 a = *reinterpret_cast<const float4*>(a0 + 16 * i * LDS + kk);
                     const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
                     for (int u = 0; u < 4; ++u) {
@@ -274,6 +271,74 @@ __device__ void dense(const float* in, const float* __restrict__ W, float* wsm, 
 #pragma unroll
     for (int i = 0; i < MAXRT; ++i)
         if (i < nrt && rg + 16 * i < R) epi(rg + 16 * i, c0, acc[i]);
+}
+
+// bf16 row stride of dense_mma's buffers: 68 words a row, so that a
+// fragment's loads fall in distinct banks
+constexpr int LDA = D + 8;
+// bytes of dense_mma's buffers: the rows [RCAP][LDA] and W [D][LDA] in bf16
+constexpr int MMA_BYTES = 2 * (RCAP + D) * LDA;
+
+// dense's epi(r, c0, acc) on the tensor cores, both operands rounded to
+// bf16 (K2-bf16): each product a bf16 MMA with fp32 accumulation. W is read
+// once a block by 16-byte loads from device memory (L2), all issued before
+// the block's first barrier, and rounded into a bf16 copy [D][LDA] in wsm;
+// the block's R rows of `in` are rounded beside it [16 ceil(R / 16)][LDA]
+// (zero rows past R). Warp w takes columns 16 (w % 8) .. as two 8-column
+// n-tiles, n-tile j's column n being W column 16 (w % 8) + 2 n + j, so that
+// a lane's four outputs of a row are the consecutive columns c0 .. c0 + 3
+// that epi takes (a B fragment register: the halves of two W words, one
+// word holding both n-tiles' columns), and m-tiles w / 8, w / 8 + 2, ...
+// Begins with a barrier, so that wsm is free (MMA_BYTES); the caller
+// synchronises before reading what epi wrote.
+template <class Epi>
+__device__ void dense_mma(const float* in, const float* __restrict__ W, float* wsm, int R, Epi epi) {
+    constexpr int KS = D / 16, NV = D * D / 4 / NT, LW = LDA / 2;  // k-steps, float4s of W a thread, words a row
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane >> 2, t = lane & 3;
+    const int MT = (R + 15) / 16, n0 = 16 * (warp % 8);
+    __nv_bfloat16* a16 = reinterpret_cast<__nv_bfloat16*>(wsm);
+    __nv_bfloat16* w16 = a16 + RCAP * LDA;
+    float4 wv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) wv[i] = __ldg(reinterpret_cast<const float4*>(W) + threadIdx.x + NT * i);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+        const int e = threadIdx.x + NT * i, k = e / (D / 4), c = 4 * (e % (D / 4));
+        *reinterpret_cast<uint2*>(w16 + k * LDA + c) =
+            make_uint2(pack_bf16(wv[i].x, wv[i].y), pack_bf16(wv[i].z, wv[i].w));
+    }
+    for (int e = threadIdx.x; e < MT * 16 * (D / 4); e += NT) {
+        const int r = e / (D / 4), c = 4 * (e % (D / 4));
+        uint2 u = make_uint2(0u, 0u);
+        if (r < R) {
+            const float4 v = *reinterpret_cast<const float4*>(in + r * LDS + c);
+            u = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        }
+        *reinterpret_cast<uint2*>(a16 + r * LDA + c) = u;
+    }
+    __syncthreads();
+    const uint32_t* wcol = reinterpret_cast<const uint32_t*>(w16 + 2 * t * LDA + n0 + 2 * g);
+    for (int mt = warp / 8; mt < MT; mt += NT / 32 / 8) {
+        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+            uint32_t fa[4];
+            tb_mma::load_a(fa, a16, LDA, 16 * mt, 16 * ks);
+            const uint32_t* wk = wcol + 16 * ks * LW;  // W rows 16 ks + 2t, + 1, + 8, + 9 at columns n0 + 2g, + 1
+            const uint32_t w0 = wk[0], w1 = wk[LW], w8 = wk[8 * LW], w9 = wk[9 * LW];
+            const uint32_t b0[2] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w8, w9, 0x5410)};
+            const uint32_t b1[2] = {__byte_perm(w0, w1, 0x7632), __byte_perm(w8, w9, 0x7632)};
+            mma_bf16_16816(acc[0], fa, b0);
+            mma_bf16_16816(acc[1], fa, b1);
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int r = 16 * mt + g + 8 * hf;
+            const float y[4] = {acc[0][2 * hf], acc[1][2 * hf], acc[0][2 * hf + 1], acc[1][2 * hf + 1]};
+            if (r < R) epi(r, n0 + 4 * t, y);
+        }
+    }
 }
 
 __device__ __forceinline__ float4 bias4(const float* __restrict__ b, int c0) {
@@ -299,16 +364,13 @@ __device__ __forceinline__ void load_head(const float* src, float (&dst)[32], in
         }
 }
 
-// sum_d a[d] b[d] over d < dh in order (fmaf), b read by float4 (and
-// rounded to bf16 with BF)
-template <bool BF = false>
+// sum_d a[d] b[d] over d < dh in order (fmaf), b read by float4
 __device__ __forceinline__ float dot_head(const float (&a)[32], const float* b, int dh) {
     float t = 0.f;
 #pragma unroll
     for (int d4 = 0; d4 < 8; ++d4)
         if (4 * d4 < dh) {
-            float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
-            if (BF) v = round_bf16(v);
+            const float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
             t = fmaf(a[4 * d4], v.x, t);
             t = fmaf(a[4 * d4 + 1], v.y, t);
             t = fmaf(a[4 * d4 + 2], v.z, t);
@@ -317,14 +379,12 @@ __device__ __forceinline__ float dot_head(const float (&a)[32], const float* b, 
     return t;
 }
 
-// acc[d] += w b[d] for d < dh, b read by float4 (and rounded to bf16 with BF)
-template <bool BF = false>
+// acc[d] += w b[d] for d < dh, b read by float4
 __device__ __forceinline__ void axpy_head(float (&acc)[32], float w, const float* b, int dh) {
 #pragma unroll
     for (int d4 = 0; d4 < 8; ++d4)
         if (4 * d4 < dh) {
-            float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
-            if (BF) v = round_bf16(v);
+            const float4 v = *reinterpret_cast<const float4*>(b + 4 * d4);
             acc[4 * d4] = fmaf(w, v.x, acc[4 * d4]);
             acc[4 * d4 + 1] = fmaf(w, v.y, acc[4 * d4 + 1]);
             acc[4 * d4 + 2] = fmaf(w, v.z, acc[4 * d4 + 2]);
@@ -345,8 +405,10 @@ __device__ __forceinline__ void store_head(float* dst, const float (&a)[32], int
 // registers, before writing it). With DROP, the weights' dropout at
 // `site`, row (poly H + h) N + node_r, column node_j; with gsave, a also
 // written to gsave[r] (device memory, row stride D). The sums over d and
-// over j run in order, as the first design's did. With BF, q, k, the
-// weights and v are rounded to bf16 before their products.
+// over j run in order, as the first design's did. With BF (K2-bf16) the
+// weights are rounded to bf16 before their product with v; Q, K and V then
+// hold bf16 values (their projections round them), so that every operand
+// of the two products is bf16.
 template <bool DROP, bool BF = false>
 __device__ void attention(const float* Q, const float* K, const float* V, float* A, const Block& b, int H,
                           const Dropout& drop, int site, float* gsave = nullptr) {
@@ -357,16 +419,12 @@ __device__ void attention(const float* Q, const float* K, const float* V, float*
         const int s = b.rseg[r], j0 = b.seg0[s], n = b.seg0[s + 1] - j0;
         float acc[32];
         load_head(Q + r * LDS + h * dh, acc, dh);  // q, then the output
-        if (BF) {
-#pragma unroll
-            for (int d = 0; d < 32; ++d) acc[d] = round_bf16(acc[d]);
-        }
         float sc[MAXN];
         float m = -INFINITY;
 #pragma unroll
         for (int j = 0; j < MAXN; ++j) {
             if (j >= n) break;
-            sc[j] = dot_head<BF>(acc, K + (j0 + j) * LDS + h * dh, dh) / sqrt_dh;
+            sc[j] = dot_head(acc, K + (j0 + j) * LDS + h * dh, dh) / sqrt_dh;
             m = fmaxf(m, sc[j]);
         }
         float sum = 0.f;
@@ -401,7 +459,7 @@ __device__ void attention(const float* Q, const float* K, const float* V, float*
 #pragma unroll
         for (int j = 0; j < MAXN; ++j) {
             if (j >= n) break;
-            axpy_head<BF>(acc, sc[j], V + (j0 + j) * LDS + h * dh, dh);
+            axpy_head(acc, sc[j], V + (j0 + j) * LDS + h * dh, dh);
         }
         store_head(A + r * LDS + h * dh, acc, dh);
         if (gsave != nullptr) store_head(gsave + (long long)r * D + h * dh, acc, dh);

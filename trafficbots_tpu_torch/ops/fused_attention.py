@@ -28,8 +28,9 @@ weights to bf16. With bf16 q (the model under `precision="bf16"`), q, k
 and v are all bf16 and both compute that TPU kernel's function: the
 logits of the bf16 operands times the fp32 scale 1/sqrt(d_head) and the
 softmax in fp32, the weights rounded to bf16, the weighted sum in fp32,
-the output rounded to bf16 (K1's bf16 variant, `tb_fused_attention_bf16`;
-`LAUNCHES_BF16` counts it).
+the output rounded to bf16 (K1's bf16 variant, `tb_fused_attention_bf16`,
+whose products run on the tensor cores as bf16 MMAs with fp32
+accumulation; `LAUNCHES_BF16` counts it).
 
 `fused_attention_core` sends a CUDA tensor to the kernel
 (`csrc/fused_attention.cu`, the forward of `csrc/attn_fwd.cuh` shared with
@@ -60,6 +61,7 @@ _HEAD_DIMS = (16, 32, 64)
 ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (path L) block
 KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
+BF16_MAX_KEYS = 8 * KEY_TILE  # K1-bf16's path L holds a row's logits in registers, a key tile a warp (NKW)
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 _ARGS_BF16 = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 
@@ -105,7 +107,8 @@ def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
     [32, T] logits, q, two K/V tiles (or the groups' partial sums) and the
     mask bits; path S's slice logits (then partial sums), q, K and V slices
     and row statistics; the warp columns' row maxima. Path L's logits bound
-    T."""
+    T. K1-bf16's block (rows_mma_smem) fits at every T it takes
+    (BF16_MAX_KEYS), with V in K's place where both do not fit."""
     nt = -(-T // KEY_TILE)
     tiles = 2 * KEY_TILE * (d_head + 16 // kv_bytes) * kv_bytes // 4
     rows = (ROWS_PER_BLOCK * (nt * KEY_TILE + 8) + ROWS_PER_BLOCK * (d_head + 4) + max(tiles, 512 * 16)
@@ -152,6 +155,8 @@ def _check_inputs(q, k, v, invalid, n_head):
         raise ValueError("invalid must be contiguous along the target axis")
     if smem_bytes(T, D // n_head, k.element_size()) > _SMEM_LIMIT:
         raise ValueError(f"T={T} does not fit one block's shared memory")
+    if q.dtype == torch.bfloat16 and T > BF16_MAX_KEYS:
+        raise ValueError(f"T={T}: K1-bf16 takes at most {BF16_MAX_KEYS} keys (a key tile a warp)")
 
 
 def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,

@@ -16,7 +16,8 @@ pools to -1e30, which the map encoder zeroes.
 function: the operands of every product (the q/k/v/out projections, both
 FFN layers, q kᵀ and the weights times v) rounded to bf16, the sums,
 LayerNorms, softmax, residuals and the pool in fp32 (K2's bf16 variant,
-`tb_node_encoder_bf16`; `LAUNCHES_BF16` counts it).
+`tb_node_encoder_bf16`, whose dense products run on the tensor cores as
+bf16 MMAs with fp32 accumulation; `LAUNCHES_BF16` counts it).
 
 `encode_pooled_hybrid` is the same function in the JAX package's "hybrid"
 layout (`map_encoder.node_encoder_impl="hybrid"`): the LayerNorms, the
@@ -67,7 +68,9 @@ W_NAMES = (
 def smem_bytes() -> int:
     """Dynamic shared memory of one block of the kernel (mirrors
     csrc/node_encoder.cu): five [KERNEL_ROWS, 132] fp32 row buffers and a
-    ring of three 32 x 128 weight k-tiles, whatever the node count."""
+    ring of three 32 x 128 weight k-tiles, whatever the node count (K2-bf16
+    takes its tensor-core products' bf16 rows and weight, 3 KB more, in
+    the ring's place: node_layer.cuh MMA_BYTES)."""
     return 4 * (5 * KERNEL_ROWS * (KERNEL_D + 4) + 3 * 32 * KERNEL_D)
 
 

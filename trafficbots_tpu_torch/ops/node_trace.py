@@ -9,7 +9,8 @@ the kernel's phase marks (`csrc/node_trace.cuh`; each source names its
 phases) to a device counter. Runs K2, K4's forward and K4's backward at the
 main path's shape (8 seed-0 synthetic scenes of 1024 polylines x 20 nodes at
 768/1024 fill, d_model 128, 4 heads, 3 layers, dropout 0.1 for K4) and
-prints, for each, the card's name and power limit, the device time of each
+prints, for each (and for K2-bf16, K2's tensor-core variant, on the same
+inputs), the card's name and power limit, the device time of each
 CUDA kernel the call launches (torch.profiler, the mean over 5 calls) and
 each phase's mean cycles a work item (a block, or one polyline group of a
 block that walks several). Blocks that share the card overlap, so the
@@ -115,6 +116,7 @@ def main() -> None:
     L, H, p, seed = enc.n_layer, enc.n_head, 0.1, 2**50 + 9
     calls = (
         ("K2", "node_encoder", lambda: enc.encode_pooled(x, valid)),
+        ("K2-bf16", "node_encoder", lambda: enc.encode_pooled(x, valid, bf16=True)),
         ("K4f", "node_encoder_train", lambda: NT._launch_fwd(x, valid, p, seed, L, H, weights)),
         ("K4b", "node_encoder_train", lambda: NT._launch_bwd(x, valid, g, p, seed, L, H, weights)),
     )
