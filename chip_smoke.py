@@ -81,9 +81,10 @@ its own lines:
      (phase 5's holds), K4f and K4b launched 3 times each (the map encoded
      once a view), the step's seconds beside the default step's;
   6c. the bf16 configurations (precision="bf16", map_encoder.
-     kernel_matmul_bf16): (a) the SASS of the built K1 and K2 libraries
+     kernel_matmul_bf16): (a) the SASS of the built K1, K2 and K6 libraries
      (`cuobjdump -sass`): HMMA instructions in every tensor-core kernel of
-     K1-bf16 and K2-bf16, none in fp32 K1's or K2's, the counts printed;
+     K1-bf16, K2-bf16 and K6-bf16, none in fp32 K1's, K2's or K6's, the
+     counts printed;
      K1's bf16 variant at the rollout as2pl (B = 8 and the joint futures'
      48), the map self-attention and the latent as2pl, K2's and K6's on
      phase 3's shapes, each against its plain version (held within the relative norm
@@ -1582,19 +1583,20 @@ def bf16_held(name: str, out, ref, ref_nudged) -> dict:
     return dict(vs_plain=gap, nudge=nudge)
 
 
-# the tensor-core kernels and the fp32 ones of the K1 and K2 libraries, by
-# a piece of their mangled names
+# the tensor-core kernels and the fp32 ones of the K1, K2 and K6 libraries,
+# by a piece of their mangled names
 SASS_KERNELS = {"K1-bf16": ("12fwd_rows_mma", "15fwd_cluster_mma"), "K2-bf16": ("node_kernelILb1E",),
-                "K1": ("8fwd_rows", "11fwd_cluster"), "K2": ("node_kernelILb0E",)}
+                "K6-bf16": ("14block_attn_mma",), "K1": ("8fwd_rows", "11fwd_cluster"), "K2": ("node_kernelILb0E",),
+                "K6": ("17block_attn_kernel",)}
 
 
 def sass_hmma_counts() -> dict:
     """The HMMA (tensor-core MMA) instructions of each kernel in the built
-    K1 and K2 libraries (`cuobjdump -sass`): every kernel of K1-bf16 and
-    K2-bf16 must hold some, fp32 K1's and K2's none."""
+    K1, K2 and K6 libraries (`cuobjdump -sass`): every kernel of K1-bf16,
+    K2-bf16 and K6-bf16 must hold some, fp32 K1's, K2's and K6's none."""
     tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
     counts = {}
-    for lib in ("fused_attention", "node_encoder"):
+    for lib in ("fused_attention", "node_encoder", "block_attn"):
         sass = subprocess.run([str(tool), "-sass", str(cuda_build._target(lib))], check=True, capture_output=True,
                               text=True).stdout
         fn = None
@@ -3215,7 +3217,8 @@ def main():
              route="cuda", source="trafficbots_tpu_torch/csrc/node_encoder.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:245", launches=bf16["eval"]["launches"]["K2-bf16"],
              **bf16["K2_bf16"]),
-        dict(name="K6-bf16 block_attn_core with bf16 operands (kernel_matmul_bf16, hybrid node encoder)",
+        dict(name="K6-bf16 block_attn_core with bf16 operands (kernel_matmul_bf16, hybrid node encoder: both "
+                  "products as bf16 MMAs with fp32 accumulation, a warp a polyline's head)",
              route="cuda", source="trafficbots_tpu_torch/csrc/block_attn.cu",
              replaces="trafficbots_tpu/ops/node_encoder.py:163", launches=bf16["validation"]["launches"]["K6-bf16"],
              **bf16["K6_bf16"]),

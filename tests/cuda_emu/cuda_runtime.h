@@ -1,12 +1,15 @@
 // A CPU stand-in for the part of the CUDA runtime that the port's kernels
 // use, so that their sources compile with g++ and run on the host
 // (tests/test_torch_cuda_emu.py, tests/test_torch_cuda_emu_node.py). Every
-// thread of a block is a std::thread, a kernel's static __shared__
+// thread of a block is a fiber (a ucontext with a stack of its own) on the
+// launching thread, run until it waits at a barrier and then switched for
+// the next one in turn, so that a launch takes one core and no system
+// thread is made or woken per CUDA thread; a kernel's static __shared__
 // variables are statics (which the blocks of a launch share one after
-// another; no kernel run in a cluster has any),
-// __syncthreads is a std::barrier, and the dynamic shared memory is filled
-// with NaN before each block, so a read of a word the block did not write
-// shows. The blocks of a launch run one after another, except that the
+// another; no kernel run in a cluster has any), __syncthreads is a barrier
+// over the block's fibers (__syncwarp one over a warp's), and the dynamic
+// shared memory is filled with NaN before each block, so a read of a word
+// the block did not write shows. The blocks of a launch run one after another, except that the
 // blocks of one thread-block cluster run at once (cudaLaunchKernelEx with a
 // cluster dimension): cluster_sync is a barrier over all of their threads
 // and cluster_map points into another block's shared memory. Warp shuffles
@@ -22,7 +25,6 @@
 #pragma once
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstdint>
@@ -31,7 +33,7 @@
 #include <math.h>
 #include <memory>
 #include <stdint.h>
-#include <thread>
+#include <ucontext.h>
 #include <vector>
 
 #include "cuda_bf16.h"
@@ -105,11 +107,30 @@ struct EmuMmaSlot {
     float c[4];
 };
 
+inline void emu_yield();
+
+// A barrier over n fibers: each waits, switching to the others, until the
+// n-th arrives.
+struct EmuBarrier {
+    int n, count = 0;
+    unsigned gen = 0;
+    explicit EmuBarrier(int n_) : n(n_) {}
+    void arrive_and_wait() {
+        const unsigned g = gen;
+        if (++count == n) {
+            count = 0;
+            ++gen;
+            return;
+        }
+        while (gen == g) emu_yield();
+    }
+};
+
 // One block's state: its barrier, its warps' barriers, shuffle and mma
 // slots, its __syncthreads_or words, its shared memory.
 struct EmuBlock {
-    std::unique_ptr<std::barrier<>> bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+    std::unique_ptr<EmuBarrier> bar;
+    std::vector<std::unique_ptr<EmuBarrier>> warp_bar;
     float shfl[EMU_MAX_THREADS];
     EmuMmaSlot mma[2][EMU_MAX_THREADS];  // used in turn by a warp's calls
     std::atomic<int> vote[3];
@@ -117,12 +138,67 @@ struct EmuBlock {
     float* base() { return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem.data()) + 15) & ~uintptr_t(15)); }
 };
 inline EmuBlock* emu_blocks;              // the cluster's blocks, by rank
-inline std::barrier<>* emu_cluster_bar;   // all threads of the cluster
+inline EmuBarrier* emu_cluster_bar;       // all threads of the cluster
+// the running fiber's CUDA thread (saved and restored at each switch)
 inline thread_local EmuBlock* emu_blk;
 inline thread_local unsigned emu_rank, emu_vote_n, emu_mma_n;
 inline thread_local float* emu_smem;      // this block's dynamic shared memory
+struct EmuThreadState {
+    emu_idx tid, bid;
+    dim3 grid, block;
+    EmuBlock* blk;
+    unsigned rank, vote_n, mma_n;
+    float* smem;
+};
+inline EmuThreadState emu_save() {
+    return {threadIdx, blockIdx, gridDim, blockDim, emu_blk, emu_rank, emu_vote_n, emu_mma_n, emu_smem};
+}
+inline void emu_load(const EmuThreadState& s) {
+    threadIdx = s.tid, blockIdx = s.bid, gridDim = s.grid, blockDim = s.block;
+    emu_blk = s.blk, emu_rank = s.rank, emu_vote_n = s.vote_n, emu_mma_n = s.mma_n, emu_smem = s.smem;
+}
+
+// The fibers of a launch, run round robin from the launching thread.
+struct EmuFiber {
+    ucontext_t ctx;
+    EmuThreadState st;
+    bool done = false;
+};
+constexpr size_t EMU_STACK = 256 * 1024;  // bytes of a fiber's stack
+inline thread_local std::vector<EmuFiber>* emu_fibers;
+inline thread_local int emu_cur, emu_live;
+inline thread_local ucontext_t emu_main;
+inline thread_local const std::function<void()>* emu_fiber_body;
+
+// From the running fiber to the next one that is not done (from the last
+// one to finish back to the launch).
+inline void emu_switch(bool finished) {
+    std::vector<EmuFiber>& f = *emu_fibers;
+    const int me = emu_cur;
+    if (finished) {
+        f[me].done = true;
+        if (--emu_live == 0) setcontext(&emu_main);
+    } else {
+        f[me].st = emu_save();
+    }
+    int next = me;
+    do next = (next + 1) % (int)f.size(); while (f[next].done);
+    if (next == me) return;
+    emu_cur = next;
+    emu_load(f[next].st);
+    if (finished)
+        setcontext(&f[next].ctx);
+    else
+        swapcontext(&f[me].ctx, &f[next].ctx);
+}
+inline void emu_yield() { emu_switch(false); }
+inline void emu_fiber_main() {
+    (*emu_fiber_body)();
+    emu_switch(true);
+}
 
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
+inline void __syncwarp() { emu_blk->warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 inline int __syncthreads_or(int p) {
     const unsigned n = emu_vote_n++;
     if (threadIdx.x == 0) emu_blk->vote[(n + 1) % 3].store(0);
@@ -226,41 +302,50 @@ template <class T> T* cluster_map(T* p, unsigned rank) {
 }
 
 // Runs body for every block of grid, `cluster` consecutive blocks along x
-// at once (one std::thread per CUDA thread of each).
+// at once (one fiber per CUDA thread of each).
 inline void emu_launch(dim3 grid, int nthr, const std::function<void()>& body, unsigned cluster = 1) {
     if (cluster < 1 || cluster > EMU_MAX_CLUSTER || grid.x % cluster || nthr > EMU_MAX_THREADS) std::abort();
     std::vector<EmuBlock> blocks(cluster);
     for (auto& b : blocks) {
-        b.bar = std::make_unique<std::barrier<>>(nthr);
-        for (int w = 0; w * 32 < nthr; ++w) b.warp_bar.push_back(std::make_unique<std::barrier<>>(min(32, nthr - 32 * w)));
+        b.bar = std::make_unique<EmuBarrier>(nthr);
+        for (int w = 0; w * 32 < nthr; ++w) b.warp_bar.push_back(std::make_unique<EmuBarrier>(min(32, nthr - 32 * w)));
         for (auto& v : b.vote) v.store(0);
     }
-    std::barrier<> cbar(nthr * (int)cluster);
+    EmuBarrier cbar(nthr * (int)cluster);
     emu_blocks = blocks.data();
     emu_cluster_bar = &cbar;
-    std::vector<std::thread> ts;
-    for (unsigned c = 0; c < cluster; ++c)
-        for (int t = 0; t < nthr; ++t)
-            ts.emplace_back([&, c, t] {
-                threadIdx = {(unsigned)t, 0, 0};
-                blockDim = dim3(nthr);
-                gridDim = grid;
-                emu_rank = c;
-                emu_mma_n = 0;
-                emu_blk = &blocks[c];
-                emu_smem = blocks[c].base();
-                emu_vote_n = 0;
-                for (unsigned z = 0; z < grid.z; ++z)
-                    for (unsigned y = 0; y < grid.y; ++y)
-                        for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
-                            blockIdx = {x0 + c, y, z};
-                            if (t == 0) std::fill(emu_smem, emu_smem + EMU_SMEM, NAN);
-                            cbar.arrive_and_wait();
-                            body();
-                            cbar.arrive_and_wait();
-                        }
-            });
-    for (auto& th : ts) th.join();
+    const std::function<void()> run = [&] {  // one CUDA thread: every block of its rank
+        const unsigned t = threadIdx.x;
+        for (unsigned z = 0; z < grid.z; ++z)
+            for (unsigned y = 0; y < grid.y; ++y)
+                for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
+                    blockIdx = {x0 + emu_rank, y, z};
+                    if (t == 0) std::fill(emu_smem, emu_smem + EMU_SMEM, NAN);
+                    cbar.arrive_and_wait();
+                    body();
+                    cbar.arrive_and_wait();
+                }
+    };
+    const int n = nthr * (int)cluster;
+    static thread_local std::vector<std::unique_ptr<char[]>> stacks;  // reused by later launches
+    while ((int)stacks.size() < n) stacks.emplace_back(new char[EMU_STACK]);
+    std::vector<EmuFiber> fibers(n);
+    for (int i = 0; i < n; ++i) {
+        const unsigned c = i / nthr;
+        fibers[i].st = {{(unsigned)(i % nthr), 0, 0}, {0, 0, 0}, grid, dim3(nthr), &blocks[c], c, 0, 0,
+                        blocks[c].base()};
+        getcontext(&fibers[i].ctx);
+        fibers[i].ctx.uc_stack.ss_sp = stacks[i].get();
+        fibers[i].ctx.uc_stack.ss_size = EMU_STACK;
+        fibers[i].ctx.uc_link = nullptr;
+        makecontext(&fibers[i].ctx, emu_fiber_main, 0);
+    }
+    emu_fibers = &fibers;
+    emu_fiber_body = &run;
+    emu_live = n;
+    emu_cur = 0;
+    emu_load(fibers[0].st);
+    swapcontext(&emu_main, &fibers[0].ctx);  // back when every fiber is done
 }
 
 // cudaLaunchKernelEx with a cluster dimension along x (the only attribute read).

@@ -5,8 +5,8 @@ The card's compiler is not here, so these tests compile
 `trafficbots_tpu_torch/csrc/fused_attention.cu`, `attention_train.cu` and
 `dropout.cu` (with the shared forward `attn_fwd.cuh` inlined) with the
 host's g++ against `tests/cuda_emu/cuda_runtime.h`, an emulator of the part
-of the CUDA runtime they use (a std::thread per CUDA thread, `__syncthreads`
-a barrier, shared memory NaN-filled at each block, warp shuffles through a
+of the CUDA runtime they use (a fiber per CUDA thread on the launching
+thread, `__syncthreads` a barrier over a block's fibers, shared memory NaN-filled at each block, warp shuffles through a
 per-warp slot array, `cp.async` as a synchronous copy, the blocks of a
 thread-block cluster run at once with a cluster barrier and a map into each
 other's shared memory; other blocks one after another). The

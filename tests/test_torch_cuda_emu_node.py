@@ -4,8 +4,8 @@ against their plain versions.
 As tests/test_torch_cuda_emu.py does for the attention kernels: compiles
 `trafficbots_tpu_torch/csrc/node_encoder.cu` and `node_encoder_train.cu`
 (with `node_layer.cuh`, `node_trace.cuh` and `philox.cuh` inlined) with the
-host's g++ against the CUDA emulator in `tests/cuda_emu/` (a std::thread per
-CUDA thread, `__syncthreads` a barrier, shared memory NaN-filled at each
+host's g++ against the CUDA emulator in `tests/cuda_emu/` (a fiber per CUDA
+thread, `__syncthreads` a barrier, shared memory NaN-filled at each
 block, static `__shared__` variables one per block, `cp.async` a plain
 copy), and holds the kernels at a small shape (d_model 128, 4 heads, 2
 layers, polylines of 5 nodes among which an all-padding and a partly valid

@@ -6,7 +6,8 @@ more trees of the port, in turns, on one card.
 Each ROOT is the root of a checkout (this one, or an older commit unpacked
 with `git archive` into a directory that .gitignore lists). For each ROOT in
 the order given, a fresh process imports that tree's trafficbots_tpu_torch,
-builds its K1, K2, K3 and K4 sources (nvcc, sm_90a) and prints one JSON line:
+builds its K1, K2, K3, K4 and K6 sources (nvcc, sm_90a) and prints one JSON
+line:
 
   - `digests`: the SHA-1 of the fp32 kernels' outputs on seeded inputs at
     the main path's shapes: K1 on path S (the rollout's as2pl, B = 8, S = 64,
@@ -15,13 +16,15 @@ builds its K1, K2, K3 and K4 sources (nvcc, sm_90a) and prints one JSON line:
     K3f's output and row statistics and K3b's dq, dk, dv at the as2pl and
     the map self-attention (dropout 0.1); K2's pooled output and K4f's and
     K4b's (dropout 0.1) on `ops.node_trace.inputs` (8 scenes of 1024 x 20
-    polylines at 768/1024 fill, 3 layers). Two trees whose fp32 kernels
-    compute the same bits print the same digests;
+    polylines at 768/1024 fill, 3 layers); K6's output on that validity
+    with seeded q, k, v [8192, 20, 128], 4 heads. Two trees whose fp32
+    kernels compute the same bits print the same digests;
   - `device_ms`: K1-bf16 at its four sites (the rollout as2pl at B = 8 and
     the joint futures' B = 48, the map self-attention, the latent as2pl;
     bf16 q, k, v, a padding mask over the last quarter of the keys) beside
-    SDPA on the same bf16 q/k/v, and K2-bf16 beside fp32 K2: the bare
-    launches captured in a CUDA graph and replayed, timed with CUDA events;
+    SDPA on the same bf16 q/k/v, K2-bf16 beside fp32 K2 and K6-bf16 beside
+    fp32 K6 (on K6's digest inputs): the bare launches captured in a CUDA
+    graph and replayed, timed with CUDA events;
   - `card`: nvidia-smi's name and power limit.
 
 Run parent, this, this, parent in one run to compare two commits on one
@@ -88,6 +91,7 @@ def one_tree(root: str) -> dict:
     import torch
 
     from trafficbots_tpu_torch.ops import attention_train as AT
+    from trafficbots_tpu_torch.ops import block_attn as BA
     from trafficbots_tpu_torch.ops import cuda_build
     from trafficbots_tpu_torch.ops import fused_attention as FA
     from trafficbots_tpu_torch.ops import node_encoder as NE
@@ -97,7 +101,7 @@ def one_tree(root: str) -> dict:
     assert cuda_build.CSRC.resolve().is_relative_to(Path(root).resolve()), cuda_build.CSRC
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cuda_build.build_all(("fused_attention", "attention_train", "node_encoder", "node_encoder_train"))
+    cuda_build.build_all(("fused_attention", "attention_train", "node_encoder", "node_encoder_train", "block_attn"))
     digests, times = {}, {}
 
     # fp32 K1 and K3 on both paths
@@ -125,6 +129,9 @@ def one_tree(root: str) -> dict:
         dx, dw = NT._launch_bwd(x, valid, g, p, seed, L, H, weights)
         digests["K4b"] = digest(torch.cat([dx.flatten(), dw]))
         del dx, dw  # K4b's 3 GB of scratch went with its call
+    gen = torch.Generator().manual_seed(5)
+    q6, k6, v6 = (torch.randn(x.shape, generator=gen).to(dev) for _ in range(3))
+    digests["K6"] = digest(BA.block_attn_core(q6, k6, v6, valid, 4))
 
     # K1-bf16 beside SDPA on the same bf16 q/k/v, K2-bf16 beside K2
     for name, B, S in (("rollout as2pl", 8, 64), ("joint futures rollout as2pl", 48, 64),
@@ -139,6 +146,8 @@ def one_tree(root: str) -> dict:
     with torch.no_grad():
         times["K2-bf16"] = graph_ms(torch, lambda: enc.encode_pooled(x, valid, bf16=True), n=5)
         times["K2"] = graph_ms(torch, lambda: enc.encode_pooled(x, valid), n=5)
+    times["K6-bf16"] = graph_ms(torch, lambda: BA.block_attn_core(q6, k6, v6, valid, 4, bf16=True))
+    times["K6"] = graph_ms(torch, lambda: BA.block_attn_core(q6, k6, v6, valid, 4))
     return dict(root=root, digests=digests, device_ms=times, card=card_line())
 
 

@@ -4,15 +4,16 @@
 
 Builds every listed source of K6 (each a `csrc/block_attn.cu`, e.g. this
 commit's and another's from `git show`), all at once, into `build/ab/`, and
-runs each on the main path's input: the validity of 8 seed-0 synthetic
-scenes of 1024 polylines x 20 nodes at 768/1024 fill, q, k, v [8192, 20,
-128] drawn from a seeded generator, 4 heads. For each it prints ptxas's
-registers and spills of the N = 20 kernel, the largest error against
-`block_attn_core_plain` on the rows of polylines with a valid node, the
-SHA-1 of the whole output (equal digests: equal bits) and its device ms (a
-CUDA graph of 20 launches, replayed; the sources timed in turns, 5 rounds,
-the median), beside the card's name and power limit. Needs an NVIDIA GPU
-with nvcc (sm_90a).
+runs each source's two entries, K6 (`tb_block_attn`) and K6-bf16
+(`tb_block_attn_bf16`), on the main path's input: the validity of 8 seed-0
+synthetic scenes of 1024 polylines x 20 nodes at 768/1024 fill, q, k, v
+[8192, 20, 128] drawn from a seeded generator, 4 heads. For each it prints
+ptxas's registers and spills of the N = 20 kernel, the largest error
+against `block_attn_core_plain` (its bf16 function for K6-bf16) on the rows
+of polylines with a valid node, the SHA-1 of the whole output (equal
+digests: equal bits) and its device ms (a CUDA graph of 20 launches,
+replayed; the sources timed in turns, 5 rounds, the median), beside the
+card's name and power limit. Needs an NVIDIA GPU with nvcc (sm_90a).
 """
 from __future__ import annotations
 
@@ -31,10 +32,16 @@ from . import cuda_build
 
 ROUNDS = 5
 N_GRAPH = 20
+# entry -> (C symbol, a test of ptxas's entry line for its N = 20 kernel)
+ENTRIES = {
+    "K6": ("tb_block_attn", lambda ln: "block_attn_kernelILi20E" in ln and "Lb1E" not in ln),
+    "K6-bf16": ("tb_block_attn_bf16", lambda ln: "block_attn_mmaILi3E" in ln or "block_attn_kernelILi20ELb1E" in ln),
+}
 
 
 def build(srcs) -> list:
-    """Each source's tb_block_attn, and ptxas's lines for its N = 20 kernel."""
+    """Each source's {entry: (C function, ptxas's lines for its N = 20
+    kernel)}."""
     out_dir = cuda_build.BUILD / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -48,11 +55,14 @@ def build(srcs) -> list:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         lines = log.splitlines()
-        at = [j for j, ln in enumerate(lines) if "entry function" in ln and ("ILi20E" in ln or "ILi" not in ln)]
-        info = [ln.split(":")[-1].strip() for ln in lines[at[0] + 2:at[0] + 4]] if at else []
-        fn = ctypes.CDLL(str(lib)).tb_block_attn
-        fn.argtypes, fn.restype = list(BA._ARGS), ctypes.c_int
-        fns.append((fn, info))
+        entries = {}
+        for label, (symbol, is_n20) in ENTRIES.items():
+            at = [j for j, ln in enumerate(lines) if "entry function" in ln and is_n20(ln)]
+            info = [ln.split(":")[-1].strip() for ln in lines[at[0] + 2:at[0] + 4]] if at else []
+            fn = getattr(ctypes.CDLL(str(lib)), symbol)
+            fn.argtypes, fn.restype = list(BA._ARGS), ctypes.c_int
+            entries[label] = (fn, info)
+        fns.append(entries)
     return fns
 
 
@@ -98,26 +108,30 @@ def main() -> None:
     q, k, v = (torch.randn(BP, N, D, generator=gen).cuda() for _ in range(3))
     out = torch.empty_like(q)
     live = valid.any(-1)
-    ref = BA.block_attn_core_plain(q, k, v, valid, H)
+    refs = {"K6": BA.block_attn_core_plain(q, k, v, valid, H),
+            "K6-bf16": BA.block_attn_core_plain(q, k, v, valid, H, bf16=True)}
 
     def call(fn):
         return lambda: cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
                                            BP, N, D, H, 1.0 / math.sqrt(D // H), cuda_build.stream(q)), "K6")
 
-    for src, (fn, info) in zip(srcs, fns):
-        out.fill_(float("nan"))
-        call(fn)()
-        torch.cuda.synchronize()
-        err = (out[live] - ref[live]).abs().max().item()
-        sha = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]
-        print(f"{src}: {info}; max_abs_err {err}, all finite {bool(torch.isfinite(out).all())}, sha1 {sha}",
-              flush=True)
-    times = [[] for _ in srcs]
+    for src, entries in zip(srcs, fns):
+        for label, (fn, info) in entries.items():
+            out.fill_(float("nan"))
+            call(fn)()
+            torch.cuda.synchronize()
+            err = (out[live] - refs[label][live]).abs().max().item()
+            sha = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]
+            print(f"{src} {label}: {info}; max_abs_err {err}, all finite {bool(torch.isfinite(out).all())}, "
+                  f"sha1 {sha}", flush=True)
+    times = [{label: [] for label in ENTRIES} for _ in srcs]
     for _ in range(ROUNDS):
-        for i, (fn, _) in enumerate(fns):
-            times[i].append(graph_ms(call(fn)))
-    for src, t in zip(srcs, times):
-        print(f"{src}: device ms median {statistics.median(t)} of {t} [{card}]", flush=True)
+        for i, entries in enumerate(fns):
+            for label, (fn, _) in entries.items():
+                times[i][label].append(graph_ms(call(fn)))
+    for src, by_label in zip(srcs, times):
+        for label, t in by_label.items():
+            print(f"{src} {label}: device ms median {statistics.median(t)} of {t} [{card}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,21 +1,23 @@
-"""Where the node kernels (K2, K4f, K4b) spend their time, phase by phase.
+"""Where the node kernels (K2, K4f, K4b, K6) spend their time, phase by phase.
 
-    python3 -m trafficbots_tpu_torch.ops.node_trace
+    python3 -m trafficbots_tpu_torch.ops.node_trace [LABEL ...]
 
-Builds `csrc/node_encoder.cu` and `csrc/node_encoder_train.cu` a second time
-with `-DTB_NODE_TRACE`, into `build/trace/`, and has the wrappers launch
-those builds: thread 0 of every block then adds the clock64 cycles between
-the kernel's phase marks (`csrc/node_trace.cuh`; each source names its
-phases) to a device counter. Runs K2, K4's forward and K4's backward at the
-main path's shape (8 seed-0 synthetic scenes of 1024 polylines x 20 nodes at
-768/1024 fill, d_model 128, 4 heads, 3 layers, dropout 0.1 for K4) and
-prints, for each (and for K2-bf16, K2's tensor-core variant, on the same
-inputs), the card's name and power limit, the device time of each
-CUDA kernel the call launches (torch.profiler, the mean over 5 calls) and
-each phase's mean cycles a work item (a block, or one polyline group of a
-block that walks several). Blocks that share the card overlap, so the
-phases add up to more than the call's time over the waves. Needs an NVIDIA
-GPU with nvcc (sm_90a).
+Builds `csrc/node_encoder.cu`, `csrc/node_encoder_train.cu` and
+`csrc/block_attn.cu` a second time with `-DTB_NODE_TRACE`, into
+`build/trace/`, and has the wrappers launch those builds: thread 0 of every
+block then adds the clock64 cycles between the kernel's phase marks
+(`csrc/node_trace.cuh`; each source names its phases) to a device counter.
+Runs K2, K4's forward and K4's backward at the main path's shape (8 seed-0
+synthetic scenes of 1024 polylines x 20 nodes at 768/1024 fill, d_model 128,
+4 heads, 3 layers, dropout 0.1 for K4) and K6 on that validity with seeded
+q, k, v [8192, 20, 128], and prints, for each (and for K2-bf16 and K6-bf16,
+the bf16 variants, on the same inputs), the card's name and power limit, the
+device time of each CUDA kernel the call launches (torch.profiler, the mean
+over 5 calls) and each phase's mean cycles a work item (a block, or one
+polyline or polyline group of a block that walks several). Blocks that
+share the card overlap, so the phases add up to more than the call's time
+over the waves. LABELs (K2, K2-bf16, K4f, K4b, K6, K6-bf16) pick the calls;
+none runs them all. Needs an NVIDIA GPU with nvcc (sm_90a).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import sys
 
 import torch
 
+from . import block_attn as BA
 from . import cuda_build
 from . import node_encoder as NE
 from . import node_encoder_train as NT
@@ -38,7 +41,7 @@ def build() -> dict:
     out_dir = cuda_build.BUILD / "trace"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("node_encoder", "node_encoder_train"):
+    for name in ("node_encoder", "node_encoder_train", "block_attn"):
         lib = out_dir / f"lib{name}_trace.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-DTB_NODE_TRACE", "-o", str(lib),
                str(cuda_build.CSRC / f"{name}.cu")]
@@ -114,15 +117,22 @@ def main() -> None:
     enc, x, valid, g = inputs("cuda")
     weights = [getattr(enc, n) for n in NE.W_NAMES]
     L, H, p, seed = enc.n_layer, enc.n_head, 0.1, 2**50 + 9
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(x.shape, generator=gen).cuda() for _ in range(3))
     calls = (
         ("K2", "node_encoder", lambda: enc.encode_pooled(x, valid)),
         ("K2-bf16", "node_encoder", lambda: enc.encode_pooled(x, valid, bf16=True)),
         ("K4f", "node_encoder_train", lambda: NT._launch_fwd(x, valid, p, seed, L, H, weights)),
         ("K4b", "node_encoder_train", lambda: NT._launch_bwd(x, valid, g, p, seed, L, H, weights)),
+        ("K6", "block_attn", lambda: BA.block_attn_core(q, k, v, valid, H)),
+        ("K6-bf16", "block_attn", lambda: BA.block_attn_core(q, k, v, valid, H, bf16=True)),
     )
+    picked = set(sys.argv[1:]) or {label for label, _, _ in calls}
     counts = (ctypes.c_ulonglong * 64)()
     with torch.no_grad():
         for label, name, call in calls:
+            if label not in picked:
+                continue
             lib = libs[name]
             times = device_ms(call)
             cuda_build.check(lib.tb_node_trace_zero(), "trace counters")
