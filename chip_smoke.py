@@ -126,6 +126,29 @@ its own lines:
      -1 (readings); (d) one Validator.step at 0 bitwise the step at -1;
      (e) a 30-step training step, kernels vs plain at phase 5's holds,
      every K3 launch a K3-skip one (phase 5 counts them beside K3f / K3b);
+  6e. the options the port once refused, at full width over HELD_STEPS
+     steps: (a) other widths: at hidden 256 with 4 heads and at 2 heads
+     of width 128 each kernel site's route printed (the kernel, "raises"
+     with the kernel's shape predicate's reason, or the plain version
+     where the JAX package runs XLA), K2's and K4's wrappers raising
+     their predicates' reasons on the card, an eval rollout with the
+     hybrid node encoder (K1 at d_head 64, K6) and at hidden 256 a
+     training step with the JAX package's XLA node stack
+     (fused_train_kernel off; K3 at d_head 64, K5), each beside its
+     kernels' launches and held against the plain versions: the map
+     features within K2's tolerance and the preds within 1e-3 m over the
+     first 20 steps (WIDTHS_HELD_STEPS; the 30-step gaps beside the
+     nudge's are readings), the training step at phase 5's holds; (b) the structure options: post-norm layers with
+     n_layer_final_mlp=2 under each action-head variant (unbranched,
+     LayerNorm'd branches, a log_std MLP), an eval rollout each against
+     the plain versions with its K1 launches (the post-norm node stack is
+     the generic one: no K2), and one map encode each for VectorNet, the
+     mean pool and the generic node stack (one K1 launch each) against the
+     plain versions; (c) one training step under each remat_policy
+     ("none", "save_attn", "save_core", which runs save_attn's path): the
+     loss and the largest gradient gap against "save_attn" (phase 5's
+     holds), whether they are bitwise equal, the forward's and backward's seconds, the memory the forward
+     leaves for the backward and the peak, the training kernels' launches;
   7. the CLI runner, `trafficbots_tpu_torch.run.main` in-process at full
      width (batch 8, synthetic data, 1 step an epoch, 1 validation batch,
      the default fused node encoder; the default n_video_batch without cv2,
@@ -234,6 +257,11 @@ line.
     python3 chip_smoke.py --row-skip
 
 builds K1-K5 and runs only phase 6d, with its JSON line and no last line.
+
+    python3 chip_smoke.py --options
+
+builds K1-K6 and runs only phase 6e, with its JSON line, the card line and
+the last line.
 """
 from __future__ import annotations
 
@@ -3059,6 +3087,247 @@ def dp_finish(dev, run, one_process=None, beside=None):
     return result
 
 
+# ------------------------------------------------------------------ 6e: the options the port once refused
+
+EVAL_COUNTERS = {"K1": (FA, "LAUNCHES"), "K2": (NE, "LAUNCHES"), "K6": (BA, "LAUNCHES")}
+# a map encode, kernels vs plain versions: one K1 layer (the polyline
+# self-attention) over a node stack (its plain version both times, or K6
+# against it); the layers carry the kernels' few-ulp gaps: K2's tolerance
+MAP_TOL = K2_TOL
+OPTION_HEADS = {"unbranched": dict(branch_type=False), "branch_layernorm": dict(use_layernorm=True),
+                "log_std_mlp": dict(log_std=None)}
+OPTION_MAPS = {"vectornet": (dict(densetnt_vectornet=False), {}), "mean_pool": (dict(pool_mode="mean"), {}),
+               "generic_stack_gelu": ({}, dict(activation="gelu"))}
+REMAT_POLICIES = ("none", "save_attn", "save_core")
+# the other widths' eval rollouts, kernels vs plain: preds held over the
+# first 20 steps (10 warm-up, 10 closed-loop). By step 30 the closed loop
+# carries an ulp past 1e-3 m for some model seeds even at the default
+# widths, through the kernels and a one-ulp map nudge alike; over 20 steps
+# the kernels' gap stayed under 1.4e-4 m in 15 (width, seed) cases on an
+# H100 (tools/rollout_gap_ab.py; PERF.md). The map features are held
+# beside it (MAP_TOL), the 30-step gaps are readings.
+WIDTHS_HELD_STEPS = 20
+
+
+def widths_config(cfg: ExperimentConfig, hidden: int, n_head: int) -> ExperimentConfig:
+    """cfg at other widths, over HELD_STEPS steps, with the node encoder
+    whose kernels take them: the hybrid layout (K6) in eval, and in
+    training the JAX package's XLA node stack (fused_train_kernel off),
+    since K2 and K4 take only d_model 128 at 4 to 32 heads."""
+    tf = dataclasses.replace(cfg.model.tf_cfg, d_model=hidden, n_head=n_head, d_feedforward=hidden)
+    me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl="hybrid", fused_train_kernel=False)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_dim=hidden, tf_cfg=tf, map_encoder=me),
+                               time_step_end=HELD_STEPS)
+
+
+def site_routes(cfg: ExperimentConfig, what: str) -> dict:
+    """Each kernel site's route at cfg's widths, printed and returned: the
+    kernel where the JAX package runs its Pallas kernel and the port's
+    predicate admits the shape, "raises: <reason>" where it refuses it,
+    "plain: ..." where the JAX package runs XLA (a VMEM budget, or the
+    config's node stack)."""
+    d, m = cfg.data, cfg.model
+    D, F, H, N = m.hidden_dim, m.tf_cfg.d_feedforward, m.tf_cfg.n_head, d.n_pl_node
+    me = m.map_encoder
+
+    def attn(kernel, S, T):
+        if kernel == "K1":
+            fits, reason = FA.jax_kernel_fits(S, T, D), FA.kernel_refusal(T, D, H)
+        else:
+            fits, reason = AT.jax_kernel_fits(S, T, D), AT.kernel_refusal(T, D, H)
+        return "plain: the JAX package runs XLA here" if not fits else reason and f"raises: {reason}"
+
+    routes = {f"{k} map self-attention ({d.n_pl}, {d.n_pl}, {D}, {H})": attn(k, d.n_pl, d.n_pl) for k in ("K1", "K3")}
+    routes.update({f"{k} as2pl ({d.n_agent}, {d.n_pl}, {D}, {H})": attn(k, d.n_agent, d.n_pl) for k in ("K1", "K3")})
+    eval_node = ("K6", BA.kernel_refusal(N, D, H)) if me.node_encoder_impl == "hybrid" else (
+        "K2", NE.kernel_refusal(N, D, F, H))
+    routes[f"{eval_node[0]} node stack ({N}, {D}, {F}, {H})"] = eval_node[1] and f"raises: {eval_node[1]}"
+    k4 = NT.kernel_refusal(N, D, F, H)
+    routes[f"K4 node stack ({N}, {D}, {F}, {H})"] = (
+        (k4 and f"raises: {k4}") if me.fused_train_kernel else "plain: fused_train_kernel off (the JAX XLA stack)")
+    out = {site: route or "kernel" for site, route in routes.items()}
+    for site, route in out.items():
+        log(f"{what}: {site} -> {route}")
+    return out
+
+
+def refusals(cfg: ExperimentConfig, dev, what: str) -> dict:
+    """K2 and K4 at cfg's widths on the card: each wrapper raises with its
+    predicate's reason and launches nothing."""
+    D, F, H, N = cfg.model.hidden_dim, cfg.model.tf_cfg.d_feedforward, cfg.model.tf_cfg.n_head, cfg.data.n_pl_node
+    enc = NE.FusedNodeEncoder(D, H, cfg.model.map_encoder.n_layer, F).to(dev)
+    x = torch.zeros(8, N, D, device=dev)
+    valid = torch.ones(8, N, dtype=torch.bool, device=dev)
+    out = {}
+    zero_counts(EVAL_COUNTERS | TRAIN_COUNTERS)
+    for name, call, reason in (("K2", lambda: enc.encode_pooled(x, valid), NE.kernel_refusal(N, D, F, H)),
+                               ("K4", lambda: NT.node_encoder_train(enc, x, valid, 0.1, 5),
+                                NT.kernel_refusal(N, D, F, H))):
+        try:
+            call()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        log(f"{what}: {name} at ({N}, {D}, {F}, {H}) raises {raised!r}")
+        require(reason is not None and raised == reason, f"{what}: {name} should raise {reason!r}, raised {raised!r}")
+        out[name] = raised
+    launches = read_counts(EVAL_COUNTERS | TRAIN_COUNTERS)
+    require(launches["K2"] == launches["K4f"] == 0, f"{what}: refused kernels launched {launches}")
+    return out
+
+
+def options_eval(cfg, batch, dev, what, held_steps: int = HELD_STEPS) -> dict:
+    """An eval rollout over cfg.time_step_end steps with the eval kernels'
+    counts set to 0 just before and read just after, held against the
+    plain versions over `held_steps` beside a one-ulp map nudge; the map
+    encoding, kernels vs plain versions, held within MAP_TOL."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    zero_counts(EVAL_COUNTERS)
+    out = O.eval_rollout(cfg, model, batch, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts(EVAL_COUNTERS)
+    with ops.plain_versions():
+        ref = O.eval_rollout(cfg, model, batch, device=dev)
+        ref_nudged = O.eval_rollout(cfg, model, nudged(batch), device=dev)
+    log(f"{what}: launches {launches}")
+    held = compare_rollouts(out, ref, ref_nudged, f"{what}, kernels vs plain versions", held_steps=held_steps)
+    pb = pre_processing(to_torch(batch, dev), cfg.model, training=False)
+    n_scene = batch["map/valid"].shape[0]
+    with torch.no_grad():
+        feat, _ = O.encode_map_chunked(model, pb, n_scene)
+        with ops.plain_versions():
+            feat_plain, _ = O.encode_map_chunked(model, pb, n_scene)
+    map_err = max_err_checked(feat, feat_plain, MAP_TOL, f"{what}, map features")
+    log(f"{what}: map features, kernels vs plain versions, max abs err {map_err} (tolerance {MAP_TOL})")
+    return dict(launches=launches, vs_plain=held, map_max_abs_err=map_err)
+
+
+def options_train(cfg, batch, dev, what) -> dict:
+    """One training step over cfg.time_step_end steps with the training
+    kernels counted, against the plain versions at phase 5's holds."""
+    zero_counts(TRAIN_COUNTERS)
+    lk, gk = loss_and_grads(cfg, batch, dev, plain=False)
+    launches = read_counts(TRAIN_COUNTERS)
+    lp, gp = loss_and_grads(cfg, batch, dev, plain=True)
+    loss_gap = abs(lk - lp) / abs(lp)
+    gap, worst, median = grad_gap(gk, gp)
+    log(f"{what}: launches {launches}; loss {lk} vs plain {lp} (rel {loss_gap}, tolerance {TRAIN_LOSS_RTOL}), "
+        f"largest gradient rel norm error {gap} at {worst}, median {median} (tolerance {TRAIN_GRAD_RTOL})")
+    require(math.isfinite(lk) and loss_gap <= TRAIN_LOSS_RTOL, f"{what}: loss differs by rel {loss_gap}")
+    require(gap <= TRAIN_GRAD_RTOL, f"{what}: gradient {worst} differs by rel {gap}")
+    return dict(launches=launches, loss_rel=loss_gap, grad_rel=gap)
+
+
+def option_map_encode(cfg, batch, dev, what) -> dict:
+    """One eval map encode of every scene, kernels vs plain versions."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    pb = pre_processing(to_torch(batch, dev), cfg.model, training=False)
+    n_scene = batch["map/valid"].shape[0]
+    zero_counts(EVAL_COUNTERS)
+    with torch.no_grad():
+        feat, valid = O.encode_map_chunked(model, pb, n_scene)
+    torch.cuda.synchronize()
+    launches = read_counts(EVAL_COUNTERS)
+    with torch.no_grad(), ops.plain_versions():
+        ref, ref_valid = O.encode_map_chunked(model, pb, n_scene)
+    require(torch.equal(valid, ref_valid), f"{what}: polyline validity differs")
+    err = max_err_checked(feat, ref, MAP_TOL, what)
+    log(f"{what}: launches {launches}, map feature max abs err {err} (tolerance {MAP_TOL})")
+    require(launches["K1"] == 1 and launches["K2"] == 0, f"{what}: launches {launches}, one K1 and no K2 expected")
+    return dict(launches=launches, max_abs_err=err)
+
+
+def remat_step(cfg, batch, dev) -> dict:
+    """One training step's forward and backward under cfg.remat_policy:
+    seconds of each, the memory the forward leaves for the backward, the
+    peak, the training kernels' counts, the loss and gradients."""
+    model = O.make_model(cfg, device=dev, seed=0)
+    tb = to_torch(batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(TRAIN_COUNTERS)
+    t0 = time.perf_counter()
+    loss, _ = O.training_step(cfg, model, tb, torch.Generator().manual_seed(7))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    residual_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters() if p.grad is not None}
+    return dict(loss=loss.item(), grads=grads, forward_s=t1 - t0, backward_s=t2 - t1, residual_gib=residual_gib,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=read_counts(TRAIN_COUNTERS))
+
+
+def remat_policies(cfg, batch, dev) -> dict:
+    """(c) One full-width training step over HELD_STEPS steps under each
+    remat policy: the loss and the largest gradient gap against
+    "save_attn" (held at phase 5's limits), the peak and residual GiB,
+    forward and backward seconds, K3f's launches (its recompute)."""
+    runs = {p: remat_step(dataclasses.replace(cfg, time_step_end=HELD_STEPS, remat_policy=p), batch, dev)
+            for p in REMAT_POLICIES}
+    ref = runs["save_attn"]
+    out = {}
+    for policy, r in runs.items():
+        loss_gap = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        gap, worst, _ = grad_gap(r["grads"], ref["grads"])
+        bitwise = r["loss"] == ref["loss"] and all(torch.equal(r["grads"][n], g) for n, g in ref["grads"].items())
+        out[policy] = dict(loss=r["loss"], loss_rel=loss_gap, grad_rel=gap, bitwise=bitwise,
+                           forward_s=r["forward_s"], backward_s=r["backward_s"], residual_gib=r["residual_gib"],
+                           peak_gib=r["peak_gib"], launches=r["launches"])
+        log(f"remat_policy={policy!r}, {HELD_STEPS} steps: loss {r['loss']} (rel {loss_gap} from save_attn), "
+            f"largest gradient gap {gap} at {worst}, bitwise save_attn's {bitwise}; forward {r['forward_s']} s, "
+            f"backward {r['backward_s']} s, residual {r['residual_gib']} GiB after the forward, peak "
+            f"{r['peak_gib']} GiB, launches {r['launches']} [{card_line()}]")
+        require(math.isfinite(r["loss"]) and loss_gap <= TRAIN_LOSS_RTOL, f"{policy}: loss differs by rel {loss_gap}")
+        require(gap <= TRAIN_GRAD_RTOL, f"{policy}: gradient {worst} differs by rel {gap}")
+    return out
+
+
+def options_path(cfg, batch, dev) -> dict:
+    """(a) Other widths: at hidden 256 with 4 heads an eval rollout (K1 at
+    d_head 64, K6 at d_model 256) and a training step (K3 at d_head 64, K5;
+    the JAX package's XLA node stack), at 2 heads of width 128 an eval
+    rollout, each site's route printed, each run held against the plain
+    versions (the evals over WIDTHS_HELD_STEPS); K2 and K4 raise at both
+    widths. (b) Structure options:
+    post-norm layers with the final MLP under each action-head variant, an
+    eval rollout each (K1 at its sites, the generic node stack for the
+    post-norm layer, no K2); one map encode each for VectorNet, the mean
+    pool and the generic node stack. (c) The remat policies."""
+    t0 = time.perf_counter()
+    out = dict(widths={}, structure={}, map_encodes={})
+    for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2)):
+        c = widths_config(cfg, hidden, n_head)
+        what = f"hidden {hidden}, {n_head} heads"
+        r = out["widths"][name] = dict(routes=site_routes(c, what), refusals=refusals(c, dev, what))
+        e = r["eval"] = options_eval(c, batch, dev, f"{what}, eval", held_steps=WIDTHS_HELD_STEPS)
+        require(e["launches"]["K1"] > 0 and e["launches"]["K6"] > 0 and e["launches"]["K2"] == 0,
+                f"{what} eval launches {e['launches']}")
+        if name == "hidden256":
+            t = r["train"] = options_train(c, batch, dev, f"{what}, training step")
+            require(t["launches"]["K3f"] > 0 and t["launches"]["K3b"] > 0 and t["launches"]["K5"] > 0
+                    and t["launches"]["K4f"] == 0, f"{what} training launches {t['launches']}")
+    for name, head in OPTION_HEADS.items():
+        m = dataclasses.replace(cfg.model, tf_cfg=dataclasses.replace(cfg.model.tf_cfg, norm_first=False),
+                                n_layer_final_mlp=2)
+        c = dataclasses.replace(cfg, model=m, action_head=dataclasses.replace(cfg.action_head, **head),
+                                time_step_end=HELD_STEPS)
+        r = out["structure"][name] = options_eval(c, batch, dev, f"post-norm, final MLP, {name} action head, eval")
+        require(r["launches"]["K1"] > 0 and r["launches"]["K2"] == 0, f"{name}: launches {r['launches']}")
+    for name, (me, tf) in OPTION_MAPS.items():
+        m = dataclasses.replace(cfg.model, map_encoder=dataclasses.replace(cfg.model.map_encoder, **me),
+                                tf_cfg=dataclasses.replace(cfg.model.tf_cfg, **tf))
+        out["map_encodes"][name] = option_map_encode(dataclasses.replace(cfg, model=m), batch, dev,
+                                                     f"{name} map encode")
+    out["remat"] = remat_policies(cfg, batch, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"options: {out['seconds']} s [{card_line()}]")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs one NVIDIA GPU")
@@ -3072,11 +3341,12 @@ def main():
     modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
              ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS, ("--media",): ("fused_attention", "node_encoder"),
-             ("--augment",): DP_KERNELS, ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS}
+             ("--augment",): DP_KERNELS, ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS,
+             ("--options",): KERNEL_SOURCES}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
-                 "--dp, --media, --augment, --bf16 or --row-skip)")
+                 "--dp, --media, --augment, --bf16, --row-skip or --options)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all(modes[mode])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
@@ -3120,6 +3390,14 @@ def main():
         phase("dead-query-row skip")
         log(json.dumps({"row_skip": row_skip_path(cfg, batch, dev)}))
         phase("done")
+        return
+    if mode == ("--options",):  # the options the port once refused alone, to the contract's last line
+        phase("options: routing by shape, structure options, remat policies")
+        log(json.dumps({"options": options_path(cfg, batch, dev)}))
+        phase("done")
+        log(f"card: {card}")
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
         return
     if mode == ("--ablations",):  # the ablation models and the interactive sim alone
         phase("ablations and interactive")
@@ -3169,6 +3447,8 @@ def main():
     bf16 = bf16_path(cfg, batch, dev, {k: path[k] for k in ("seconds", "agent_steps_per_s", "peak_gib")})
     phase("dead-query-row skip")
     skip = row_skip_path(cfg, batch, dev)
+    phase("options: routing by shape, structure options, remat policies")
+    options = options_path(cfg, batch, dev)
     phase("data parallelism: the ranks start, and run beside phases 7 and 8")
     dp_run = dp_start(dev)
     phase("CLI runner")
@@ -3246,6 +3526,7 @@ def main():
     log(json.dumps({"augment": augment}))
     log(json.dumps({"bf16": bf16}))
     log(json.dumps({"row_skip": skip}))
+    log(json.dumps({"options": options}))
     log(json.dumps({"cli_path": cli}))
     log(json.dumps({"ablations": abl}))
     log(json.dumps({"data_parallel": dp}))

@@ -36,6 +36,7 @@ polylines with a valid node, every row finite; the hybrid node encoder
 (K6) against the fused one (K2) within 1e-4, as K2 against its plain
 version.
 """
+import contextlib
 import ctypes
 import dataclasses
 import subprocess
@@ -44,8 +45,10 @@ import numpy as np
 import pytest
 import torch
 
+from trafficbots_tpu_torch import ops
 from trafficbots_tpu_torch import orchestration as TO
 from trafficbots_tpu_torch.config import ExperimentConfig
+from trafficbots_tpu_torch.data.preprocessing import to_torch
 from trafficbots_tpu_torch.data.synthetic import synthetic_episode_batch
 from trafficbots_tpu_torch.ops import attention_train as tat
 from trafficbots_tpu_torch.ops import cuda_build
@@ -244,6 +247,72 @@ def test_eval_rollout_on_the_card_launches_both_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_hidden_256_on_the_card_launches_or_raises(cuda, record_property):
+    """hidden_dim 256 with 4 heads (d_head 64) on a small config. The
+    hybrid node encoder's eval rollout launches K1 and K6 and agrees with
+    the same rollout through the plain versions on the card within 1e-3 m
+    over the first 30 steps (the 10 warm-up and 20 closed-loop steps),
+    validity equal there: chip_smoke.py's hold. Beside it are recorded the
+    one-ulp map nudge of that reference and the CPU's plain run, readings
+    of how far the closed loop carries an ulp. A training step with
+    fused_train_kernel off (the JAX package's XLA node stack) launches K3
+    and not K4, its loss within 1e-5 and its gradients within a relative
+    norm error of 1e-2 of the plain versions' (chip_smoke.py's training
+    holds). K2 and K4 refuse d_model 256: their wrappers raise with their
+    predicates' reasons and launch nothing."""
+    cfg = ExperimentConfig()
+    data = dataclasses.replace(cfg.data, n_agent=32, n_pl=256, n_tl=16, n_tl_stop=8, n_step=41)
+    tf = dataclasses.replace(cfg.model.tf_cfg, d_model=256, d_feedforward=256)
+    me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl="hybrid", fused_train_kernel=False)
+    cfg = dataclasses.replace(cfg, data=data, time_step_end=40, time_step_gt=40, model=dataclasses.replace(
+        cfg.model, hidden_dim=256, tf_cfg=tf, map_encoder=me))
+    batch = synthetic_episode_batch(data, n_scene=2, seed=1, n_valid_pl=192, n_valid_agent=20)
+    model = TO.make_model(cfg, device=cuda, seed=1)
+    tfa.LAUNCHES = tba.LAUNCHES = tne.LAUNCHES = 0
+    out = TO.eval_rollout(cfg, model, batch, device=cuda)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES > 0 and tba.LAUNCHES > 0 and tne.LAUNCHES == 0
+    with ops.plain_versions():
+        ref = TO.eval_rollout(cfg, model, batch, device=cuda)
+        nudge = TO.eval_rollout(cfg, model, dict(batch, **{
+            "map/pos": np.nextafter(batch["map/pos"], np.float32(np.inf))}), device=cuda)
+    cpu = TO.eval_rollout(cfg, TO.make_model(cfg, device="cpu", seed=1), batch, device="cpu")
+    p, r = out.preds.cpu(), ref.preds.cpu()
+    assert torch.isfinite(p).all()
+    record_property("kernels_vs_plain_30_m", (p - r)[:, :, :30].abs().max().item())
+    record_property("nudge_vs_plain_30_m", (nudge.preds.cpu() - r)[:, :, :30].abs().max().item())
+    record_property("kernels_vs_cpu_30_m", (p - cpu.preds)[:, :, :30].abs().max().item())
+    np.testing.assert_allclose(p[:, :, :30].numpy(), r[:, :, :30].numpy(), atol=1e-3, rtol=0)
+    assert torch.equal(out.valid[:, :, :30], ref.valid[:, :, :30])
+
+    def step(plain):
+        m = TO.make_model(cfg, device=cuda, seed=1)
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            loss, _ = TO.training_step(cfg, m, to_torch(batch, cuda), torch.Generator().manual_seed(3))
+            loss.backward()
+        return loss.item(), {n: q.grad for n, q in m.named_parameters() if q.grad is not None}
+
+    tat.LAUNCHES_FWD = tnt.LAUNCHES_FWD = 0
+    lk, gk = step(plain=False)
+    assert tat.LAUNCHES_FWD > 0 and tnt.LAUNCHES_FWD == 0
+    lp, gp = step(plain=True)
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)
+    scale = max(g.norm().item() for g in gp.values())
+    for n, g in gp.items():
+        assert (gk[n] - g).norm().item() <= 1e-2 * max(g.norm().item(), 1e-3 * scale), n
+    enc = model.map_encoder.densetnt
+    x = torch.zeros(8, 20, 256, device=cuda)
+    valid = torch.ones(8, 20, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError) as e:
+        enc.encode_pooled(x, valid)
+    assert str(e.value) == tne.kernel_refusal(20, 256, 256, 4)
+    with pytest.raises(ValueError) as e:
+        tnt.node_encoder_train(enc, x, valid, 0.1, 5)
+    assert str(e.value) == tnt.kernel_refusal(20, 256, 256, 4)
+    assert tne.LAUNCHES == 0 and tnt.LAUNCHES_FWD == 0
+
+
+@pytest.mark.cuda
 def test_bf16_eval_rollout_on_the_card_launches_the_bf16_variants(cuda):
     """precision="bf16" with kernel_matmul_bf16 at the model's full width:
     the card's run launches K1's and K2's bf16 variants and never the fp32
@@ -392,6 +461,31 @@ def test_k3_kernels_match_plain_with_dropout(cuda, B, S, T, full_mask):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,D,H", [(8, 64, 1024, 256, 4), (2, 1024, 1024, 256, 4), (2, 1216, 1024, 128, 2)])
+def test_k3_kernels_match_plain_at_d_head_64(cuda, B, S, T, D, H):
+    """K3 at d_head 64 (hidden 256 with 4 heads, or 2 heads of width 128),
+    dropout live, at K3's holds."""
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=13))
+    invalid = invalid[:, 0][:, None, :].expand(B, S, T)
+    g = torch.randn(B, S, D, generator=torch.Generator().manual_seed(13)).to(cuda)
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv, invalid, H, 0.1, 987654321, 3)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    f0, b0 = tat.LAUNCHES_FWD, tat.LAUNCHES_BWD
+    got = run(tat.attention_train)
+    assert (tat.LAUNCHES_FWD, tat.LAUNCHES_BWD) == (f0 + 1, b0 + 1)
+    ref = run(tat.attention_train_plain)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert rel_err(a, b) < 1e-5, name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T", [(8, 64, 1024), (3, 1024, 1024), (3, 1216, 1024)])
 def test_k3_skip_kernels(cuda, B, S, T):
     """K3 with src_invalid, dropout live, the cotangent 0 on dead rows: the
@@ -511,6 +605,27 @@ def test_k6_bf16_kernel_matches_plain(cuda, N, H):
     live = valid.any(-1)
     assert torch.isfinite(out).all()
     assert rel_norm(out[live], ref[live]) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,bf16", [(4, False), (2, False), (4, True)])
+def test_k6_kernels_match_plain_at_d_model_256(cuda, H, bf16):
+    """K6 and K6-bf16 at d_model 256, at their D = 128 holds."""
+    _, valid = node_inputs(BP=1024, N=20, D=256, seed=9)
+    rs = np.random.RandomState(14)
+    q, k, v = (torch.from_numpy(rs.normal(size=(1024, 20, 256)).astype(np.float32)).to(cuda) for _ in range(3))
+    valid = torch.from_numpy(valid).to(cuda)
+    before = tba.LAUNCHES_BF16 if bf16 else tba.LAUNCHES
+    out = tba.block_attn_core(q, k, v, valid, H, bf16=bf16)
+    torch.cuda.synchronize()
+    assert (tba.LAUNCHES_BF16 if bf16 else tba.LAUNCHES) == before + 1
+    ref = tba.block_attn_core_plain(q, k, v, valid, H, bf16=bf16)
+    live = valid.any(-1)
+    assert torch.isfinite(out).all()
+    if bf16:
+        assert rel_norm(out[live], ref[live]) < 1e-3
+    else:
+        torch.testing.assert_close(out[live], ref[live], atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

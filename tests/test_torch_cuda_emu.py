@@ -347,6 +347,7 @@ def test_k3_skip_emulated_forward_and_backward(emulated):
     (2, 64, 1000, 64, 4, False, 0.0, "S"),
     (2, 70, 260, 64, 4, False, 0.1, "L"),
     (1, 100, 200, 128, 4, True, 0.0, "L"),
+    (2, 70, 260, 128, 2, True, 0.1, "L"),  # d_head 64
 ])
 def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, path):
     """K3f (csrc/attention_train.cu -> attn_fwd.cuh) with dropout live or
@@ -385,6 +386,7 @@ def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, p
     (2, 70, 200, 64, 4, False, 0.0),  # d_head 16, no dropout
     (8, 256, 130, 128, 4, False, 0.1),  # 128 blocks of 64 rows: the 64-row dq blocks
     (4, 130, 70, 64, 2, True, 0.2),
+    (2, 100, 140, 256, 4, False, 0.1),  # d_head 64
 ])
 def test_k3_backward_emulated_matches_plain(emulated, B, S, T, D, H, full_mask, p):
     rs = np.random.RandomState(S + T)

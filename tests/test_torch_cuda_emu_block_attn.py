@@ -91,11 +91,12 @@ def inputs(N, D, seed=3):
     return q, k, v, torch.from_numpy(valid)
 
 
-@pytest.mark.parametrize("N,D,H", [(5, 128, 4), (20, 128, 4), (20, 128, 1), (7, 20, 4)])
+@pytest.mark.parametrize("N,D,H", [(5, 128, 4), (20, 128, 4), (20, 128, 1), (7, 20, 4), (20, 128, 2), (20, 256, 4), (9, 256, 2)])
 def test_k6_emulated_matches_plain(emulated, N, D, H):
     """D = 128 at 4 heads (float4 copies, N rounded up to 4 rows or not),
-    one head of 128 (four 32-column output passes), and d_head = 5 (the
-    copies one float at a time, a head's columns padded)."""
+    one head of 128 (four 32-column output passes), d_head = 5 (the
+    copies one float at a time, a head's columns padded), 2 heads of 64,
+    and D = 256 at 4 and 2 heads (two rows' copies a pass of the block)."""
     q, k, v, valid = inputs(N, D)
     out = torch.full_like(q, float("nan"))
     rc = emulated(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, D, H,
@@ -129,7 +130,8 @@ def one_ulp_flip(q, k, v, valid, H, p, s, c, gap):
     return bool((near & ((moved - abs(gap)).abs() <= 1e-6)).any())
 
 
-@pytest.mark.parametrize("N,D,H", [(5, 128, 4), (20, 128, 4), (7, 20, 4), (32, 128, 4), (7, 128, 8), (20, 120, 120)])
+@pytest.mark.parametrize("N,D,H", [(5, 128, 4), (20, 128, 4), (7, 20, 4), (32, 128, 4), (7, 128, 8), (20, 120, 120),
+                                   (20, 256, 4), (13, 256, 2)])
 def test_k6_bf16_emulated_matches_plain(emulated_lib, record_property, N, D, H):
     """K6's bf16 variant (tb_block_attn_bf16: q kᵀ and the weights times v
     as bf16 mma.sync fragments, mma.cuh's layout through the emulator's

@@ -503,6 +503,7 @@ extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* 
     switch (D / n_head) {
         case 16: return (int)tb_attn::launch<16, float, true, true>(a, st);
         case 32: return (int)tb_attn::launch<32, float, true, true>(a, st);
+        case 64: return (int)tb_attn::launch<64, float, true, true>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -520,6 +521,7 @@ extern "C" int tb_attention_train_bwd(const void* q, const void* k, const void* 
     switch (D / n_head) {
         case 16: return (int)launch_bwd<16>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         case 32: return (int)launch_bwd<32>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
+        case 64: return (int)launch_bwd<64>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -106,7 +106,7 @@ __device__ __forceinline__ void cp_async_wait() {
 namespace {
 
 constexpr int MAXN = 32;    // KERNEL_MAX_NODES in the wrapper
-constexpr int MAXD = 128;   // KERNEL_MAX_D in the wrapper
+constexpr int MAXD = 256;   // KERNEL_MAX_D in the wrapper
 constexpr int NT = 160;     // threads a block (the fp32 kernel)
 constexpr int NT_MMA = 128;  // threads a block (the bf16 kernel): a warp a head at a time
 constexpr int SMEM_OPTIN = 232448;  // bytes of shared memory a block may opt in to on sm_90
@@ -590,9 +590,11 @@ int launch(Kernel kernel, int nt, const void* q, const void* k, const void* v, c
     return (int)cudaGetLastError();
 }
 
+// a row's copies (D / 4 float4s, or D floats where d_head % 4 != 0) must
+// fit one pass of a block's threads (copy_lane)
 bool takes(int BP, int N, int D, int n_head) {
     return BP > 0 && N >= 1 && N <= MAXN && D >= 1 && D <= MAXD && n_head >= 1 && D % n_head == 0 &&
-           smem_bytes(N, D, n_head) <= (size_t)SMEM_OPTIN;
+           ((D / n_head) % 4 == 0 || D <= NT_MMA) && smem_bytes(N, D, n_head) <= (size_t)SMEM_OPTIN;
 }
 
 }  // namespace

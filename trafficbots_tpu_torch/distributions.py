@@ -3,7 +3,9 @@
 Counterpart of `trafficbots_tpu/distributions.py` for what the eval rollout,
 the training step and validation use: `DiagGaussian` (the latent
 posterior/prior with `diag_gaus`, and the per-step action distribution),
-`kl_diag_gaussian`, `DummyLatent` (SimNet ablations), `MultiCategorical`
+`kl_diag_gaussian`, `Gaussian` (the full-covariance Normal, Cholesky
+parametrized: in the JAX package's inventory, used by no configuration),
+`DummyLatent` (SimNet ablations), `MultiCategorical`
 and `kl_multi_categorical` (the categorical latent, `dist_type="cat"`) and
 `DestCategorical` (the destination head; `repeat` folds the K joint futures
 into the batch).
@@ -123,6 +125,37 @@ class DiagGaussian:
         return DiagGaussian(
             mean=torch.repeat_interleave(self.mean, n, dim=axis),
             log_std=torch.repeat_interleave(log_std, n, dim=axis),
+            valid=None if self.valid is None else torch.repeat_interleave(self.valid, n, dim=axis),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Gaussian:
+    """Full-covariance Normal over the last dim, parametrized by the
+    lower-triangular Cholesky factor `tril` of its covariance."""
+
+    mean: Tensor  # [..., d]
+    tril: Tensor  # [..., d, d]
+    valid: Optional[Tensor] = None
+
+    def sample(self, generator: Optional[torch.Generator] = None, deterministic: DetType = True) -> Tensor:
+        if deterministic is True:
+            return self.mean
+        eps = standard_normal(self.mean.shape, self.mean.dtype, self.mean.device, generator)
+        rnd = self.mean + torch.einsum("...ij,...j->...i", self.tril, eps)
+        return _mix_det(self.mean, rnd, deterministic)
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        d = self.mean.shape[-1]
+        diff = x - self.mean
+        z = torch.linalg.solve_triangular(self.tril, diff[..., None], upper=False)[..., 0]
+        log_det = torch.log(torch.abs(torch.diagonal(self.tril, dim1=-2, dim2=-1))).sum(dim=-1)
+        return -0.5 * torch.sum(z * z, dim=-1) - log_det - 0.5 * d * _LOG_2PI
+
+    def repeat(self, n: int, axis: int = 0) -> "Gaussian":
+        return Gaussian(
+            mean=torch.repeat_interleave(self.mean, n, dim=axis),
+            tril=torch.repeat_interleave(self.tril, n, dim=axis),
             valid=None if self.valid is None else torch.repeat_interleave(self.valid, n, dim=axis),
         )
 

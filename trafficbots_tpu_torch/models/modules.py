@@ -29,12 +29,15 @@ fp32; the rest of the model (`FusedGRUCell`, `StackedGRU`, `AddLatentGoal`,
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import attention_train as k3
+from ..ops import fused_attention as k1
 from ..ops import kernels_enabled, round_to
 from ..ops.attention_train import attention_train, attention_train_plain
 from ..ops.dropout import DropoutSeeds, dropout, dropout_add, dropout_plain, relu_dropout
@@ -280,10 +283,18 @@ class Attention(nn.Module):
     (and not inside `ops.plain_versions()`): in eval (`rng` None) to
     `ops.fused_attention.fused_attention_core` when `allow_fused`, S >= 32
     and T >= 64; in training to `ops.attention_train.attention_train`, with
-    the weights' dropout, when `allow_fused`, S >= 32 and T >= 256. On CPU
-    tensors those wrappers compute their plain versions, so the routes
-    agree there. Training attention elsewhere is the plain version, its
-    weights' dropout drawn by the K5 entry (`ops.dropout.dropout`).
+    the weights' dropout, when `allow_fused`, S >= 32 and T >= 256; each
+    only where the JAX package runs its Pallas kernel there
+    (`jax_kernel_fits`: it falls back to XLA past its kernels' VMEM
+    budgets). On the card a shape the kernel does not take raises (its
+    `kernel_refusal`). On CPU tensors those wrappers compute their plain
+    versions, so the routes agree there. Training attention elsewhere
+    is the plain version, its weights' dropout drawn by the K5 entry
+    (`ops.dropout.dropout`).
+
+    k/v of four dims [B, S, T, D] (a per-query target set, the JAX
+    `_knn_attention`, masks [B, S, T]) take the plain einsums: the JAX
+    package runs no kernel there.
 
     `src_padding_mask` [B, S] (True = a padding query row) is the
     dead-query-row skip's `src_invalid`, as in the JAX package: at a
@@ -347,8 +358,8 @@ class Attention(nn.Module):
         else:
             kv_in = src if tgt is None else tgt
             k, v = linear(kv_in, self.k_proj, dt), linear(kv_in, self.v_proj, dt)
-        if k.ndim != 3:
-            raise NotImplementedError("per-query (KNN) targets are not part of the ported slice")
+        if k.ndim == 4:
+            return self._knn_attention(q, k, v, tgt_padding_mask, attn_mask, rng, need_weights)
 
         B, S = src.shape[:2]
         T = k.shape[1]
@@ -368,9 +379,11 @@ class Attention(nn.Module):
         if rng is None:
             kernel_site = allow_fused and S >= 32 and T >= 64
             if lowp is None or kernel_site:
-                core = fused_attention_core if kernel_site and kernels_enabled() else attention_core_plain
                 if lowp is not None:
                     q, k, v = q.to(lowp), k.to(lowp), v.to(lowp)
+                fused = (kernel_site and kernels_enabled()
+                         and k1.jax_kernel_fits(S, T, self.d_model, k.element_size(), row_block))
+                core = fused_attention_core if fused else attention_core_plain
                 skip = src_padding_mask if kernel_site and row_block >= 0 else None
                 core = core(q, k, v, invalid, self.n_head, src_invalid=skip)
             else:
@@ -383,7 +396,7 @@ class Attention(nn.Module):
             if kernel_site:  # the JAX package widens bf16 q/k/v for its training kernel
                 q, k, v, lowp = q.to(F32), k.to(F32), v.to(F32), None
             skip = src_padding_mask if kernel_site else None
-            if kernel_site and kernels_enabled():
+            if kernel_site and kernels_enabled() and k3.jax_kernel_fits(S, T, self.d_model):
                 core = attention_train(q, k, v, invalid, self.n_head, p, seed, 0, saved=rng.saved_cores,
                                        src_invalid=skip)
             else:
@@ -393,30 +406,73 @@ class Attention(nn.Module):
             out = linear(core, self.out_proj, dt)
         return torch.where(no_valid_tgt[..., None], torch.zeros_like(out), out)
 
+    def _knn_attention(self, q, k, v, tgt_padding_mask, attn_mask, rng, need_weights):
+        """q [B, S, D] against its own targets k/v [B, S, T, D], masks
+        [B, S, T] True = disallowed; the same all-masked-row guard. In bf16
+        the einsums' operands and results rounded to bf16, as XLA's."""
+        B, S, T, D = k.shape
+        H = self.n_head
+        dh = D // H
+        dt = self.dtype
+        rnd = (lambda x: x) if dt == F32 else (lambda x: round_to(x, dt))
+        invalid = tgt_padding_mask
+        if attn_mask is not None:
+            invalid = attn_mask if invalid is None else (invalid | attn_mask)
+        logits = rnd(torch.einsum("bshd,bsthd->bhst", q.reshape(B, S, H, dh), k.reshape(B, S, T, H, dh)))
+        no_valid_tgt = None
+        if invalid is not None:
+            no_valid_tgt = invalid.all(dim=-1)
+            logits = logits.masked_fill((invalid & ~no_valid_tgt[..., None])[:, None], float("-inf"))
+        attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
+        attn = maybe_dropout(attn, self.dropout_p, draw_seed(rng, self.dropout_p), 0)
+        out = rnd(torch.einsum("bhst,bsthd->bshd", rnd(attn), v.reshape(B, S, T, H, dh))).reshape(B, S, D)
+        out = linear(out, self.out_proj, dt)
+        w = attn.mean(dim=1) if need_weights else None
+        if no_valid_tgt is not None:
+            zero = no_valid_tgt[..., None]
+            out = torch.where(zero, torch.zeros_like(out), out)
+            w = None if w is None else torch.where(zero, 0.0, w)
+        return (out, w) if need_weights else out
+
 
 class TransformerCrossAttention(nn.Module):
-    """One pre-norm cross-attention layer with a ReLU feed-forward; dropout
-    on the attention weights (inside `attn`), after the attention block
-    (site 0), after the feed-forward activation (1) and after its output (2).
-    Each site is one K5 launch with its neighbour: the residual add (0, 2),
-    the ReLU (1). `need_weights` returns (src, the attention's head-averaged
-    weights, zeroed on padded source rows)."""
+    """One cross-attention layer: pre-norm (`norm_first`, `norm1` on the
+    source, `norm_tgt` on the target, `norm2` before the feed-forward) or
+    post-norm (`norm1_post` after the attention's residual, `norm2_post`
+    after the feed-forward's), with a feed-forward of `d_feedforward` > 0
+    (`linear1`, `linear2`), or without one, the DenseTNT/VectorNet layer: an
+    activation of the attention output as the residual (`norm1_post` after
+    it under post-norm). Dropout on the attention weights (inside `attn`),
+    on the attention block's output (site 0, the no-feed-forward layer's
+    activation there too), after the feed-forward activation (1) and after
+    its output (2). Each site is one K5 launch with its neighbour: the
+    residual add (0, 2), the ReLU (1). `need_weights` returns (src, the
+    attention's head-averaged weights, zeroed on padded source rows)."""
 
     def __init__(
         self, d_model: int, n_head: int, d_feedforward: int, act: str = "relu", bias: bool = True,
-        dropout_p: float = 0.0, dtype: torch.dtype = F32,
+        dropout_p: float = 0.0, dtype: torch.dtype = F32, norm_first: bool = True,
     ):
         super().__init__()
         self.act = activation(act)
         self.relu = act == "relu"
         self.dropout_p = dropout_p
         self.dtype = dtype
+        self.norm_first = norm_first
+        self.feedforward = d_feedforward > 0
         self.attn = Attention(d_model, n_head, bias=bias, dropout_p=dropout_p, dtype=dtype)
-        self.norm1 = layer_norm(d_model)
-        self.norm_tgt = layer_norm(d_model)
-        self.norm2 = layer_norm(d_model)
-        self.linear1 = nn.Linear(d_model, d_feedforward)
-        self.linear2 = nn.Linear(d_feedforward, d_model)
+        if norm_first:
+            self.norm1 = layer_norm(d_model)
+            self.norm_tgt = layer_norm(d_model)
+            if self.feedforward:
+                self.norm2 = layer_norm(d_model)
+        else:
+            self.norm1_post = layer_norm(d_model)
+            if self.feedforward:
+                self.norm2_post = layer_norm(d_model)
+        if self.feedforward:
+            self.linear1 = nn.Linear(d_model, d_feedforward)
+            self.linear2 = nn.Linear(d_feedforward, d_model)
 
     def forward(
         self,
@@ -433,11 +489,14 @@ class TransformerCrossAttention(nn.Module):
         row_block: int = -1,
     ):
         if return_tgt_kv:
-            return self.attn(self.norm_tgt(tgt), return_kv=True)
+            return self.attn(self.norm_tgt(tgt) if self.norm_first else tgt, return_kv=True)
         if tgt is None and tgt_kv is None:
             tgt_padding_mask = src_padding_mask
-        src2 = self.norm1(src)
-        tgt_n = self.norm_tgt(tgt) if tgt is not None else None
+        if self.norm_first:
+            src2 = self.norm1(src)
+            tgt_n = self.norm_tgt(tgt) if tgt is not None else None
+        else:
+            src2, tgt_n = src, tgt
         src2 = self.attn(
             src2, tgt=tgt_n, tgt_padding_mask=tgt_padding_mask, attn_mask=attn_mask,
             tgt_kv=tgt_kv, allow_fused=allow_fused, rng=rng, need_weights=need_weights,
@@ -446,15 +505,26 @@ class TransformerCrossAttention(nn.Module):
         if need_weights:
             src2, weights = src2
         seed, p, dt = draw_seed(rng, self.dropout_p), self.dropout_p, self.dtype
-        src = add_dropout(src, src2, p, seed, 0)
-        src2 = linear(self.norm2(src), self.linear1, dt)
-        if dt != F32:  # the feed-forward's hidden is bf16-typed
-            src2 = lowp_dropout(self.act(src2), p, seed, 1, dt)
-        elif self.relu:
-            src2 = dropout_relu(src2, p, seed, 1, relu_first=True)
+        if self.feedforward:
+            src = add_dropout(src, src2, p, seed, 0)
+            if self.norm_first:
+                src2 = self.norm2(src)
+            else:
+                src = src2 = self.norm1_post(src)
+            src2 = linear(src2, self.linear1, dt)
+            if dt != F32:  # the feed-forward's hidden is bf16-typed
+                src2 = lowp_dropout(self.act(src2), p, seed, 1, dt)
+            elif self.relu:
+                src2 = dropout_relu(src2, p, seed, 1, relu_first=True)
+            else:
+                src2 = maybe_dropout(self.act(src2), p, seed, 1)
+            src = add_dropout(src, linear(src2, self.linear2, dt), p, seed, 2)
+            if not self.norm_first:
+                src = self.norm2_post(src)
         else:
-            src2 = maybe_dropout(self.act(src2), p, seed, 1)
-        src = add_dropout(src, linear(src2, self.linear2, dt), p, seed, 2)
+            src = add_dropout(src, self.act(src2), p, seed, 0)
+            if not self.norm_first:
+                src = self.norm1_post(src)
         if src_padding_mask is not None:
             src = torch.where(src_padding_mask[..., None], torch.zeros_like(src), src)
         if not need_weights:
@@ -465,9 +535,11 @@ class TransformerCrossAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Stack of `TransformerCrossAttention` layers `layer0..`. Every layer
-    attends to the ORIGINAL `tgt` (k/v are not taken from the evolving src).
-    `need_weights` returns (src, the last layer's attention weights)."""
+    """Stack of `TransformerCrossAttention` layers `layer0..` (pre- or
+    post-norm, with or without a feed-forward), then `out_ln` under
+    `out_layernorm`. Every layer attends to the ORIGINAL `tgt` (k/v are not
+    taken from the evolving src). `need_weights` returns (src, the last
+    layer's attention weights)."""
 
     def __init__(
         self,
@@ -483,13 +555,12 @@ class TransformerBlock(nn.Module):
         dtype: torch.dtype = F32,
     ):
         super().__init__()
-        if not norm_first or d_feedforward <= 0:
-            raise NotImplementedError("only the pre-norm feed-forward layer is part of the ported slice")
         self.n_layer = n_layer
         for i in range(n_layer):
             self.add_module(
                 f"layer{i}",
-                TransformerCrossAttention(d_model, n_head, d_feedforward, activation, bias, dropout_p, dtype),
+                TransformerCrossAttention(d_model, n_head, d_feedforward, activation, bias, dropout_p, dtype,
+                                          norm_first=norm_first),
             )
         self.out_ln = layer_norm(d_model) if out_layernorm else None
 
@@ -778,30 +849,60 @@ class AddLatentGoal(nn.Module):
 
 
 class ActionHead(nn.Module):
-    """DiagGaussian action head: three per-type 2-layer branches stacked on
-    a leading axis of 3 and summed under the agent-type one-hot, with a
-    per-type learned log_std."""
+    """DiagGaussian action head. `branch_type`: three per-type 2-layer
+    MLPs summed under the agent-type one-hot, as three branches stacked on a
+    leading axis of 3 (`mlp_mean_w0` ...), or with `use_layernorm` as three
+    MLPs `mlp_mean0..2` (a LayerNorm between the layers does not stack);
+    without it one 2-layer MLP `mlp_mean` masked by `valid`. The log_std is
+    a learned constant (`log_std`: per type, or one for all, initialized at
+    `log_std_init`), or with `log_std_init=None` a second set of MLPs of
+    the same kind (`mlp_log_std`)."""
 
     def __init__(
         self, hidden_dim: int, action_dim: int = 2, use_layernorm: bool = False,
         log_std_init: Optional[float] = -2.0, branch_type: bool = True,
     ):
         super().__init__()
-        if not branch_type or use_layernorm or log_std_init is None:
-            raise NotImplementedError(
-                "the ported action head is the default stacked-branch head with a fixed-init log_std"
-            )
+        self.branch_type = branch_type
+        self.use_layernorm = use_layernorm
+        self.learned_log_std = log_std_init is None
         D, H = hidden_dim, hidden_dim
-        self.mlp_mean_w0 = nn.Parameter(torch.empty(3, D, H))
-        self.mlp_mean_b0 = nn.Parameter(torch.zeros(3, H))
-        self.mlp_mean_w1 = nn.Parameter(torch.empty(3, H, action_dim))
-        self.mlp_mean_b1 = nn.Parameter(torch.zeros(3, action_dim))
-        self.log_std = nn.Parameter(torch.full((3, action_dim), float(log_std_init)))
+        for name in ("mlp_mean", "mlp_log_std") if self.learned_log_std else ("mlp_mean",):
+            if branch_type and not use_layernorm:
+                self.register_parameter(f"{name}_w0", nn.Parameter(torch.empty(3, D, H)))
+                self.register_parameter(f"{name}_b0", nn.Parameter(torch.zeros(3, H)))
+                self.register_parameter(f"{name}_w1", nn.Parameter(torch.empty(3, H, action_dim)))
+                self.register_parameter(f"{name}_b1", nn.Parameter(torch.zeros(3, action_dim)))
+            elif branch_type:
+                for i in range(3):
+                    self.add_module(f"{name}{i}", MLP(D, [H, action_dim], use_layernorm=True,
+                                                      end_layer_activation=False))
+            else:
+                self.add_module(name, MLP(D, [H, action_dim], use_layernorm=use_layernorm,
+                                          end_layer_activation=False))
+        if not self.learned_log_std:
+            shape = (3, action_dim) if branch_type else (action_dim,)
+            self.log_std = nn.Parameter(torch.full(shape, float(log_std_init)))
+
+    def _branches(self, name: str, x: Tensor, mask_type: Tensor) -> Tensor:
+        """The three per-type MLPs under the type mask [B, A, 3] bool."""
+        if not self.use_layernorm:
+            w0, b0, w1, b1 = (getattr(self, f"{name}_{p}") for p in ("w0", "b0", "w1", "b1"))
+            h = F.relu(torch.einsum("...d,tdh->...th", x, w0) + b0)
+            out = torch.einsum("...th,the->...te", h, w1) + b1
+            return torch.einsum("...te,...t->...e", out, mask_type.to(x.dtype))
+        out = 0.0
+        for i in range(3):
+            out = out + getattr(self, f"{name}{i}")(x, mask_type[..., i])
+        return out
 
     def forward(self, x: Tensor, valid: Tensor, agent_type: Tensor) -> Tuple[Tensor, Tensor]:
-        mask_type = (agent_type & valid[..., None]).to(x.dtype)  # [B, A, 3]
-        h = F.relu(torch.einsum("...d,tdh->...th", x, self.mlp_mean_w0) + self.mlp_mean_b0)
-        out = torch.einsum("...th,the->...te", h, self.mlp_mean_w1) + self.mlp_mean_b1
-        mean = torch.einsum("...te,...t->...e", out, mask_type)
-        log_std = torch.einsum("bat,td->bad", mask_type, self.log_std)
-        return mean, log_std
+        if not self.branch_type:
+            mean = self.mlp_mean(x, valid)
+            log_std = self.mlp_log_std(x, valid) if self.learned_log_std else self.log_std.expand(mean.shape)
+            return mean, log_std
+        mask_type = agent_type & valid[..., None]  # [B, A, 3]
+        mean = self._branches("mlp_mean", x, mask_type)
+        if self.learned_log_std:
+            return mean, self._branches("mlp_log_std", x, mask_type)
+        return mean, torch.einsum("bat,td->bad", mask_type.to(x.dtype), self.log_std)

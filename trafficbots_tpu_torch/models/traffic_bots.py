@@ -26,7 +26,9 @@ from ..ops.dropout import DropoutSeeds
 from .goal_manager import GoalManager, goal_out_dim
 from .latent_encoder import LatentEncoder
 from .map_encoder import MapEncoder
-from .modules import ActionHead, AddLatentGoal, InputPeEncoder, MultiAgentTF, StackedGRU, TransformerBlock, tf_block_kwargs
+from .modules import (
+    MLP, ActionHead, AddLatentGoal, InputPeEncoder, MultiAgentTF, StackedGRU, TransformerBlock, tf_block_kwargs,
+)
 
 Tensor = torch.Tensor
 
@@ -35,8 +37,6 @@ class TrafficBots(nn.Module):
     def __init__(self, cfg: ModelConfig, action_head_cfg: ActionHeadConfig, data_cfg: DataConfig,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.n_layer_final_mlp > 0:
-            raise NotImplementedError("the final MLP is not part of the ported slice")
         self.cfg = cfg
         self.compute_dtype = dt = compute_dtype
         hidden = cfg.hidden_dim
@@ -94,6 +94,10 @@ class TrafficBots(nn.Module):
         self.add_latent = add_latent_goal(
             cfg.add_latent, cfg.latent_encoder.latent_dim, self.latent_encoder.dummy
         )
+        if cfg.n_layer_final_mlp > 0:
+            self.final_mlp = MLP(hidden, [hidden] * cfg.n_layer_final_mlp, dropout_p=0.1)
+        else:
+            self.final_mlp = None
         self.action_head = ActionHead(
             hidden, action_dim=2, use_layernorm=action_head_cfg.use_layernorm,
             log_std_init=action_head_cfg.log_std, branch_type=action_head_cfg.branch_type,
@@ -183,6 +187,8 @@ class TrafficBots(nn.Module):
         need_weights: bool = False,
     ):
         """One step -> (action_mean, action_log_std, new_hidden, policy_feature),
+        the policy feature after `final_mlp` (`n_layer_final_mlp` > 0) where
+        the JAX model applies it, masked by `agent_valid`,
         and with `need_weights` a fifth item, the head-averaged attention
         weights of the last layers {"attn_pl": [B, A, P], "attn_tl": [B, A,
         n_tl], "attn_agent": [B, A, A]}. The weights come from the plain
@@ -226,6 +232,8 @@ class TrafficBots(nn.Module):
             x = interaction(x)
         if not cfg.add_goal_latent_first:
             x = add_goal_latent(x)
+        if self.final_mlp is not None:
+            x = self.final_mlp(x, agent_valid, rng=rng)
         action_mean, action_log_std = self.action_head(x, agent_valid, agent_type)
         if need_weights:
             return action_mean, action_log_std, hidden, x, attn

@@ -21,6 +21,12 @@ partly live block; their callers zero them, so the two agree wherever a
 value is read, and with the callers' zero cotangent on dead rows the
 gradients are the same.
 
+`kernel_refusal` is K3's shape predicate: None where the kernels take a
+shape, else the reason they do not; `_check_inputs` raises with that
+reason, so a CUDA tensor the kernels refuse raises. `jax_kernel_fits` is
+the JAX package's own choice between its Pallas kernel and XLA, which the
+call site (`models.modules.Attention`) follows.
+
 `attention_train_plain` is plain tensor code that autograd differentiates.
 `attention_train` sends a CUDA tensor to `csrc/attention_train.cu` (its
 forward is K1's, `csrc/attn_fwd.cuh`, with the dropout factors and the row
@@ -40,6 +46,7 @@ Function replays it instead of launching the forward kernel again.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -56,7 +63,7 @@ LAUNCHES_FWD_SKIP = 0
 LAUNCHES_BWD_SKIP = 0
 
 _KERNEL = "attention_train"
-HEAD_DIMS = (16, 32)  # the head widths the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64)  # the head widths the kernels are instantiated for
 ROWS_PER_BLOCK = fused_attention.ROWS_PER_BLOCK  # the forward is K1's (csrc/attn_fwd.cuh)
 BWD_TILE = 64  # BT: keys of a backward tile, query rows of a dk/dv step
 DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks)
@@ -119,9 +126,31 @@ def smem_bytes(T: int, d_head: int) -> int:
     return max(fused_attention.smem_bytes(T, d_head, 4), 4 * max(dkdv, *(dq(bq) for bq in DQ_ROWS)))
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_refusal(T: int, d_model: int, n_head: int) -> Optional[str]:
+    """None when K3 takes T keys at d_model / n_head heads, else the
+    reason it does not: the head widths its kernels are instantiated for,
+    every kernel's block in shared memory (`smem_bytes`)."""
+    if n_head < 1 or d_model % n_head or d_model // n_head not in HEAD_DIMS:
+        return f"d_head = {d_model}/{n_head} must be one of {HEAD_DIMS}"
+    if smem_bytes(T, d_model // n_head) > SMEM_LIMIT:
+        return f"T={T} does not fit one block's shared memory"
+    return None
+
+
+def jax_kernel_fits(S: int, T: int, D: int) -> bool:
+    """Whether the JAX package runs its Pallas K3 at this site, its
+    `fused_attention_train_fits`: a group of whole scenes, or a block of
+    query rows of one scene, whose backward working set fits a 24 MB VMEM
+    budget. Elsewhere it differentiates the XLA attention, and the port's
+    call site takes the plain version."""
+    budget = 24 * 2**20
+    if 4 * (4 * T * D + 4 * S * D + 6 * S * T) < budget:  # one scene a grid step
+        return True
+    return any(S % sb == 0 and 4 * (4 * T * D + 3 * sb * D + 6 * sb * T) < budget for sb in (256, 128, 64, 32))
+
+
 def _check_inputs(q, k, v, invalid, n_head):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device and invalid.device == q.device):
-        raise ValueError("attention_train: q, k, v and invalid must lie on one CUDA device")
     if q.dtype != torch.float32 or k.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"q, k and v must be float32, got {q.dtype}/{k.dtype}/{v.dtype}")
     if invalid.dtype != torch.bool:
@@ -132,14 +161,15 @@ def _check_inputs(q, k, v, invalid, n_head):
     T = k.shape[1]
     if k.shape[0] != B or k.shape[2] != D or tuple(invalid.shape) != (B, S, T):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} invalid {tuple(invalid.shape)}")
-    if D % n_head or D // n_head not in HEAD_DIMS:
-        raise ValueError(f"d_head = {D}/{n_head} must be one of {HEAD_DIMS}")
+    reason = kernel_refusal(T, D, n_head)
+    if reason is not None:
+        raise ValueError(reason)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if invalid.stride(2) != 1:
         raise ValueError("invalid must be contiguous along the target axis")
-    if smem_bytes(T, D // n_head) > SMEM_LIMIT:
-        raise ValueError(f"T={T} does not fit one block's shared memory")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device and invalid.device == q.device):
+        raise ValueError("attention_train: q, k, v and invalid must lie on one CUDA device")
 
 
 def _dropout_args(p: float, seed: int, site: int):

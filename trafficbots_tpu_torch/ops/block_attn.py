@@ -21,6 +21,11 @@ held against it.
 function: q kᵀ and the weights times v on operands rounded to bf16, fp32
 accumulation, an fp32 output (K6's bf16 variant, `tb_block_attn_bf16`).
 
+`kernel_refusal` is K6's shape predicate (K6-bf16 takes the same shapes):
+None where the kernel takes a shape, else the reason it does not;
+`_check_inputs` raises with that reason, so a CUDA tensor the kernel
+refuses raises.
+
 `block_attn_core` sends a CUDA tensor to `csrc/block_attn.cu` and a CPU
 tensor to `block_attn_core_plain`, never one in place of the other.
 `LAUNCHES` counts the fp32 kernel's launches, `LAUNCHES_BF16` the bf16
@@ -29,7 +34,9 @@ variant's.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -43,7 +50,8 @@ LAUNCHES_BF16 = 0
 NEG = -1e30
 _KERNEL = "block_attn"
 KERNEL_MAX_NODES = 32  # MAXN in csrc/block_attn.cu
-KERNEL_MAX_D = 128  # MAXD in csrc/block_attn.cu
+KERNEL_MAX_D = 256  # MAXD in csrc/block_attn.cu
+KERNEL_ROW_THREADS = 128  # NT_MMA in csrc/block_attn.cu: a row's copies in one pass of a block
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
 _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_void_p)
 
@@ -73,9 +81,23 @@ def block_attn_core_plain(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head
     return torch.einsum("bhst,bthd->bshd", attn, vh).reshape(BP, N, D)
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_refusal(n_node: int, d_model: int, n_head: int) -> Optional[str]:
+    """None when K6 and K6-bf16 take polylines of n_node nodes at d_model /
+    n_head heads, else the reason they do not: `takes` in
+    csrc/block_attn.cu (MAXN, MAXD, a row's copies in one pass of a
+    block's threads, two stages of q, k, v in one block's shared memory)."""
+    if not 1 <= n_node <= KERNEL_MAX_NODES or not 1 <= d_model <= KERNEL_MAX_D or n_head < 1 or d_model % n_head:
+        return (f"the kernel takes 1..{KERNEL_MAX_NODES} nodes, d_model 1..{KERNEL_MAX_D} "
+                f"and d_model % n_head == 0")
+    if (d_model // n_head) % 4 and d_model > KERNEL_ROW_THREADS:
+        return f"d_model > {KERNEL_ROW_THREADS} takes d_head a multiple of 4 (a row's copies by float4)"
+    if smem_bytes(n_node, d_model, n_head) > SMEM_LIMIT:
+        return f"N={n_node}, d_model={d_model}, {n_head} heads do not fit one block's shared memory"
+    return None
+
+
 def _check_inputs(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device and valid.device == q.device):
-        raise ValueError("block_attn_core: q, k, v and valid must lie on one CUDA device")
     if q.dtype != torch.float32 or k.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"q, k, v must be float32, got {q.dtype}/{k.dtype}/{v.dtype}")
     if valid.dtype != torch.bool:
@@ -83,14 +105,13 @@ def _check_inputs(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int) -
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape or tuple(valid.shape) != tuple(q.shape[:2]):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
                          f"valid {tuple(valid.shape)}")
-    N, D = q.shape[1], q.shape[2]
-    if not 1 <= N <= KERNEL_MAX_NODES or not 1 <= D <= KERNEL_MAX_D or D % n_head:
-        raise ValueError(f"the kernel takes 1..{KERNEL_MAX_NODES} nodes, d_model 1..{KERNEL_MAX_D} "
-                         f"and d_model % n_head == 0")
-    if smem_bytes(N, D, n_head) > SMEM_LIMIT:
-        raise ValueError(f"N={N}, d_model={D}, {n_head} heads do not fit one block's shared memory")
+    reason = kernel_refusal(q.shape[1], q.shape[2], n_head)
+    if reason is not None:
+        raise ValueError(reason)
     if not all(t.is_contiguous() for t in (q, k, v, valid)):
         raise ValueError("q, k, v and valid must be contiguous")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device and valid.device == q.device):
+        raise ValueError("block_attn_core: q, k, v and valid must lie on one CUDA device")
 
 
 def block_attn_core(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, n_head: int, bf16: bool = False) -> Tensor:

@@ -278,9 +278,10 @@ def relu_dropout(x: Tensor, p: float, seed: int, site: int) -> Tensor:
 
 class SavedCores:
     """The training attention cores' outputs of one checkpointed rollout
-    step (remat_policy="save_attn"): the step's first forward appends each
-    core's (out, row max, row sum); the recompute in the backward replays
-    them in the same order instead of launching the forward kernel again."""
+    step (remat_policy "save_attn", and "save_core" with it): the step's
+    first forward appends each core's (out, row max, row sum); the
+    recompute in the backward replays them in the same order instead of
+    launching the forward kernel again."""
 
     def __init__(self):
         self.entries: List[Tuple[Tensor, Tensor, Tensor]] = []

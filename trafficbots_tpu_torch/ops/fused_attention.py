@@ -32,6 +32,13 @@ the output rounded to bf16 (K1's bf16 variant, `tb_fused_attention_bf16`,
 whose products run on the tensor cores as bf16 MMAs with fp32
 accumulation; `LAUNCHES_BF16` counts it).
 
+`kernel_refusal` is K1's shape predicate (K1-bf16's with `bf16`): None
+where the kernel takes a shape, else the reason it does not;
+`_check_inputs` raises with that reason, so a CUDA tensor the kernel
+refuses raises. `jax_kernel_fits` is the JAX package's own choice between
+its Pallas kernel and XLA, which the call site (`models.modules.Attention`)
+follows.
+
 `fused_attention_core` sends a CUDA tensor to the kernel
 (`csrc/fused_attention.cu`, the forward of `csrc/attn_fwd.cuh` shared with
 K3f: a thread-block cluster over T where S <= 64 and the grid is small,
@@ -43,6 +50,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -130,9 +138,40 @@ def check_src_invalid(src_invalid: Optional[Tensor], q: Tensor) -> int:
     return src_invalid.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_refusal(T: int, d_model: int, n_head: int, kv_bytes: int = 4, bf16: bool = False) -> Optional[str]:
+    """None when K1 takes T keys at d_model / n_head heads with K/V of
+    `kv_bytes` bytes (K1-bf16 with `bf16`), else the reason it does not:
+    the head widths its forward is instantiated for, path L's [32, T]
+    logits in one block's shared memory, K1-bf16's key tile a warp."""
+    if n_head < 1 or d_model % n_head or d_model // n_head not in _HEAD_DIMS:
+        return f"d_head = {d_model}/{n_head} must be one of {_HEAD_DIMS}"
+    if smem_bytes(T, d_model // n_head, kv_bytes) > _SMEM_LIMIT:
+        return f"T={T} does not fit one block's shared memory"
+    if bf16 and T > BF16_MAX_KEYS:
+        return f"T={T}: K1-bf16 takes at most {BF16_MAX_KEYS} keys (a key tile a warp)"
+    return None
+
+
+def jax_kernel_fits(S: int, T: int, D: int, kv_bytes: int = 4, row_block: int = -1) -> bool:
+    """Whether the JAX package runs its Pallas K1 at this site, the query
+    block choice of its `_pallas_forward` (a block of SB query rows, k/v and
+    the [SB, T] scores of a scene under a 12 MB VMEM budget a grid step);
+    where no block fits it computes the attention in XLA, and the port's
+    call site takes the plain version."""
+    def fits(sb):
+        return sb * D * 8 + 2 * T * D * kv_bytes + sb * T * 9 < 12 * 2**20
+
+    if row_block > 0 and S % row_block == 0 and fits(row_block):
+        return True
+    if row_block < 0:  # the whole S, else a divisor of S in [32, S / 2], a multiple of 8
+        blocks = [S] + [d for d in range(32, S // 2 + 1) if S % d == 0 and d % 8 == 0]
+    else:  # _pick_row_block: a divisor of S, a multiple of 8, or S itself
+        blocks = [S] if S <= 16 else [d for d in range(8, S + 1) if S % d == 0 and d % 8 == 0] or [S]
+    return fits(min(blocks))
+
+
 def _check_inputs(q, k, v, invalid, n_head):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device and invalid.device == q.device):
-        raise ValueError("fused_attention_core: q, k, v and invalid must lie on one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
@@ -147,16 +186,15 @@ def _check_inputs(q, k, v, invalid, n_head):
     T = k.shape[1]
     if k.shape[0] != B or k.shape[2] != D or tuple(invalid.shape) != (B, S, T):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} invalid {tuple(invalid.shape)}")
-    if D % n_head or D // n_head not in _HEAD_DIMS:
-        raise ValueError(f"d_head = {D}/{n_head} must be one of {_HEAD_DIMS}")
+    reason = kernel_refusal(T, D, n_head, k.element_size(), q.dtype == torch.bfloat16)
+    if reason is not None:
+        raise ValueError(reason)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if invalid.stride(2) != 1:
         raise ValueError("invalid must be contiguous along the target axis")
-    if smem_bytes(T, D // n_head, k.element_size()) > _SMEM_LIMIT:
-        raise ValueError(f"T={T} does not fit one block's shared memory")
-    if q.dtype == torch.bfloat16 and T > BF16_MAX_KEYS:
-        raise ValueError(f"T={T}: K1-bf16 takes at most {BF16_MAX_KEYS} keys (a key tile a warp)")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device and invalid.device == q.device):
+        raise ValueError("fused_attention_core: q, k, v and invalid must lie on one CUDA device")
 
 
 def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_head: int,

@@ -24,6 +24,11 @@ layout (`map_encoder.node_encoder_impl="hybrid"`): the LayerNorms, the
 q/k/v/out projections and the FFN as matmuls over all polylines, and only
 the per-polyline attention core in a kernel (K6, `ops.block_attn`).
 
+`kernel_refusal` is K2's shape predicate (K2-bf16 takes the same shapes):
+None where the kernel takes a shape, else the reason it does not;
+`_check_inputs` raises with that reason, so a CUDA tensor the kernel
+refuses raises.
+
 The module owns the stacked [L, ...] parameters under the JAX names
 (`ln1_s` ... `b2`, matrices in the JAX [in, out] layout, used as x @ w), so
 the flax arrays load as they are. `forward` is the plain per-node path;
@@ -35,7 +40,9 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +79,20 @@ def smem_bytes() -> int:
     takes its tensor-core products' bf16 rows and weight, 3 KB more, in
     the ring's place: node_layer.cuh MMA_BYTES)."""
     return 4 * (5 * KERNEL_ROWS * (KERNEL_D + 4) + 3 * 32 * KERNEL_D)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_refusal(n_node: int, d_model: int, d_feedforward: int, n_head: int) -> Optional[str]:
+    """None when K2 and K2-bf16 take polylines of n_node nodes at these
+    widths, else the reason they do not: csrc/node_layer.cuh's fixed
+    D = 128 (the five [64, 132] row buffers and the weight ring of
+    `smem_bytes`), MAXN and `heads_ok`."""
+    if d_model != KERNEL_D or d_feedforward != KERNEL_D:
+        return f"the kernel takes d_model = d_feedforward = {KERNEL_D}"
+    if not 1 <= n_node <= KERNEL_MAX_NODES or n_head not in KERNEL_HEADS:
+        return (f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (a thread's scores in registers) "
+                f"and n_head in {KERNEL_HEADS}")
+    return None
 
 
 def _ln(x: Tensor, scale: Tensor, bias: Tensor) -> Tensor:
@@ -195,20 +216,17 @@ class FusedNodeEncoder(nn.Module):
         return out
 
     def _check_inputs(self, x: Tensor, valid: Tensor) -> None:
-        if not (x.is_cuda and valid.device == x.device):
-            raise ValueError("encode_pooled: x and valid must lie on one CUDA device")
         if x.dtype != torch.float32 or valid.dtype != torch.bool:
             raise TypeError(f"x must be float32 and valid bool, got {x.dtype}/{valid.dtype}")
-        if x.ndim != 3 or tuple(valid.shape) != tuple(x.shape[:2]):
+        if x.ndim != 3 or tuple(valid.shape) != tuple(x.shape[:2]) or x.shape[2] != self.d_model:
             raise ValueError(f"bad shapes x {tuple(x.shape)} valid {tuple(valid.shape)}")
+        reason = kernel_refusal(x.shape[1], self.d_model, self.d_feedforward, self.n_head)
+        if reason is not None:
+            raise ValueError(reason)
         if not (x.is_contiguous() and valid.is_contiguous()):
             raise ValueError("x and valid must be contiguous")
-        N, D = x.shape[1], x.shape[2]
-        if D != KERNEL_D or self.d_model != KERNEL_D or self.d_feedforward != KERNEL_D:
-            raise ValueError(f"the kernel takes d_model = d_feedforward = {KERNEL_D}")
-        if not 1 <= N <= KERNEL_MAX_NODES or self.n_head not in KERNEL_HEADS:
-            raise ValueError(f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (a thread's scores in registers) "
-                             f"and n_head in {KERNEL_HEADS}")
+        if not (x.is_cuda and valid.device == x.device):
+            raise ValueError("encode_pooled: x and valid must lie on one CUDA device")
         for name in W_NAMES:
             w = getattr(self, name)
             if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():

@@ -15,6 +15,9 @@ does (`torch.amax` and `torch.max(dim)` send it elsewhere). Autograd
 differentiates it. `node_encoder_train` sends a CUDA tensor to
 `csrc/node_encoder_train.cu` through an autograd Function whose backward is
 the hand-derived backward kernels, and a CPU tensor to the plain version.
+`kernel_refusal` is K4's shape predicate: None where the kernels take a
+shape, else the reason they do not; `_check_inputs` raises with that
+reason, so a CUDA tensor the kernels refuse raises.
 `LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward's and the backward's
 launches (one call of each C entry; the backward's entry launches seven
 kernels: the groups' row counts and offsets, the transposed weights, the
@@ -24,7 +27,8 @@ and the fixed-order sums).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -144,20 +148,30 @@ class _NodeEncoderTrain(torch.autograd.Function):
         return (dx, None, None, None, None, None, *grads)
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_refusal(n_node: int, d_model: int, d_feedforward: int, n_head: int) -> Optional[str]:
+    """None when K4 takes polylines of n_node nodes at these widths, else
+    the reason it does not: K2's layer code (csrc/node_layer.cuh, D = 128,
+    MAXN) and K4b's row statistics of at most MAXH = 8 heads."""
+    if d_model != KERNEL_D or d_feedforward != KERNEL_D:
+        return f"the kernel takes d_model = d_feedforward = {KERNEL_D}"
+    if not 1 <= n_node <= KERNEL_MAX_NODES or n_head not in TRAIN_HEADS:
+        return f"the kernels take 1..{KERNEL_MAX_NODES} nodes and n_head in {TRAIN_HEADS}"
+    return None
+
+
 def _check_inputs(enc: FusedNodeEncoder, x: Tensor, valid: Tensor) -> None:
-    if not (x.is_cuda and valid.device == x.device):
-        raise ValueError("node_encoder_train: x and valid must lie on one CUDA device")
     if x.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(f"x must be float32 and valid bool, got {x.dtype}/{valid.dtype}")
-    if x.ndim != 3 or tuple(valid.shape) != tuple(x.shape[:2]):
+    if x.ndim != 3 or tuple(valid.shape) != tuple(x.shape[:2]) or x.shape[2] != enc.d_model:
         raise ValueError(f"bad shapes x {tuple(x.shape)} valid {tuple(valid.shape)}")
+    reason = kernel_refusal(x.shape[1], enc.d_model, enc.d_feedforward, enc.n_head)
+    if reason is not None:
+        raise ValueError(reason)
     if not (x.is_contiguous() and valid.is_contiguous()):
         raise ValueError("x and valid must be contiguous")
-    N, D = x.shape[1], x.shape[2]
-    if D != KERNEL_D or enc.d_model != KERNEL_D or enc.d_feedforward != KERNEL_D:
-        raise ValueError(f"the kernel takes d_model = d_feedforward = {KERNEL_D}")
-    if not 1 <= N <= KERNEL_MAX_NODES or enc.n_head not in TRAIN_HEADS:
-        raise ValueError(f"the kernels take 1..{KERNEL_MAX_NODES} nodes and n_head in {TRAIN_HEADS}")
+    if not (x.is_cuda and valid.device == x.device):
+        raise ValueError("node_encoder_train: x and valid must lie on one CUDA device")
     for name in W_NAMES:
         w = getattr(enc, name)
         if w.device != x.device or w.dtype != torch.float32 or not w.is_contiguous():

@@ -33,6 +33,13 @@ default generators, not a user generator read inside the body). Under
 `remat_policy="save_attn"` each step's training attention cores keep their
 outputs (`ops.dropout.SavedCores`), so the recompute replays them instead of
 launching the forward kernel again; "none" recomputes everything.
+"save_core" runs save_attn's path. The JAX policy also keeps the step's
+featurization, the GRU output and the action head's input ("step_feat",
+"gru_core", "policy_feat"), which its remat then need not recompute;
+torch's checkpoint re-runs the whole body from its inputs in the
+backward, and the modules that make those values must run again all the
+same, since their own backward needs their inner activations. Keeping
+the values would add memory and skip no work.
 """
 from __future__ import annotations
 
@@ -344,8 +351,8 @@ def rollout(
     attention weights into the output's `attn`."""
     if training and collect_attention:
         raise ValueError("collect_attention is for the eval replay; the training rollout never collects")
-    if training and cfg.remat_rollout_step and cfg.remat_policy not in ("none", "save_attn"):
-        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r}: the port has 'none' and 'save_attn'")
+    if training and cfg.remat_rollout_step and cfg.remat_policy not in ("none", "save_attn", "save_core"):
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: 'none', 'save_attn' or 'save_core'")
     carry, body = build_sim(
         cfg, model, dyn_params, rule_consts, features, latent_dist, goal, goal_valid,
         mask_teacher_forcing, generator, deterministic_latent=deterministic_latent,
@@ -363,7 +370,7 @@ def rollout(
         else:
             seed = int(torch.randint(0, 2**SEED_BITS, (1,), generator=generator).item())
             if cfg.remat_rollout_step:
-                saved = SavedCores() if cfg.remat_policy == "save_attn" else None
+                saved = SavedCores() if cfg.remat_policy in ("save_attn", "save_core") else None
                 # the body reads no default generator: nothing to preserve
                 carry, out = checkpoint(checkpointed, carry, step, seed, saved,
                                         use_reentrant=False, preserve_rng_state=False)
