@@ -9,7 +9,8 @@ its own lines:
   1. the card: nvidia-smi's name and power limit, torch and CUDA versions,
      the TF32 flags (both off);
   2. the build: every CUDA kernel from trafficbots_tpu_torch/csrc, one nvcc
-     per source, all started together;
+     per source, all started together, and the node kernels' sources once
+     more for each other width pair that 3b and 6e run (WIDE_BUILDS);
   3. each kernel against its plain PyTorch version at the shapes the main
      path gives it at full width, with its time as a caller sees it (`ms`:
      back-to-back calls, the host's issue rate included), its device time
@@ -27,8 +28,18 @@ its own lines:
      against an fp64 plain run, the max-pool's near-ties counted, and K4f
      at p = 0 bitwise equal to K2; K6 with three polylines past the main
      path's (all padding, partly valid, fully valid) and one with a single
-     valid node; K2's, K4f's and K6's outputs' SHA-1 digests (two commits'
-     runs in one call that print the same digest gave the same bits);
+     valid node; K2's, K4f's and K6's outputs' and K4b's gradients' SHA-1
+     digests (two commits' runs in one call that print the same digest gave
+     the same bits);
+  3b. the node kernels at the other widths they take (NODE_WIDTHS:
+     (d_model, d_ff, n_head) = (256, 128, 4), (256, 256, 4), (128, 128, 2)
+     for K2, K2-bf16 and K4, and (128, 128, 16) for K4) on the main fill's
+     8 x 1024 x 20 polylines, each width its own draw: K2 within K2_TOL,
+     K2-bf16 within its one-ulp nudge's gap, K4f within K4_TOL and K4b's
+     gradients within K4_GRAD_RTOL of the plain version on the cotangent
+     with the max-pool's near-tie columns set to 0 (K4_TOL's comment), the
+     whole cotangent's gaps beside them, each timed beside its plain
+     version and its bound, K4b's peak memory;
   4. the eval main path at full width (ExperimentConfig defaults: 64
      agents, 1024 x 20 polylines, hidden 128, 91 steps) on seed-0 synthetic
      scenes at WOMD-like fill (768 polylines, 40 agents valid), N_SCENE
@@ -127,18 +138,19 @@ its own lines:
      (e) a 30-step training step, kernels vs plain at phase 5's holds,
      every K3 launch a K3-skip one (phase 5 counts them beside K3f / K3b);
   6e. the options the port once refused, at full width over HELD_STEPS
-     steps: (a) other widths: at hidden 256 with 4 heads and at 2 heads
+     steps: (a) other widths, the default fused node stack: at hidden 256
+     (model.hidden_dim=256: d_model 256, d_ff 128, 4 heads) and at 2 heads
      of width 128 each kernel site's route printed (the kernel, "raises"
      with the kernel's shape predicate's reason, or the plain version
-     where the JAX package runs XLA), K2's and K4's wrappers raising
-     their predicates' reasons on the card, an eval rollout with the
-     hybrid node encoder (K1 at d_head 64, K6) and at hidden 256 a
-     training step with the JAX package's XLA node stack
-     (fused_train_kernel off; K3 at d_head 64, K5), each beside its
-     kernels' launches and held against the plain versions: the map
-     features within K2's tolerance and the preds within 1e-3 m over the
-     first 20 steps (WIDTHS_HELD_STEPS; the 30-step gaps beside the
-     nudge's are readings), the training step at phase 5's holds; (b) the structure options: post-norm layers with
+     where the JAX package runs XLA; every K2 and K4 site "kernel"), an
+     eval rollout (K1 at d_head 64, K2 once) and a training step (K3 at
+     d_head 64, K4f and K4b once, K5), each beside its kernels' launches
+     and held against the plain versions: the map features within K2's
+     tolerance and the preds within 1e-3 m over the first 20 steps
+     (WIDTHS_HELD_STEPS; the 30-step gaps beside the nudge's are
+     readings), the training step at phase 5's holds; at hidden 256 one
+     map encode with the hybrid node encoder (K6 at d_model 256, 3
+     launches) against the plain versions; (b) the structure options: post-norm layers with
      n_layer_final_mlp=2 under each action-head variant (unbranched,
      LayerNorm'd branches, a log_std MLP), an eval rollout each against
      the plain versions with its K1 launches (the post-norm node stack is
@@ -212,7 +224,8 @@ its own lines:
      seconds. The ranks start before phase 7 and run beside phases 7 and 8
      and this process's references for b and c (the readings of 7, 8 and 9
      share the host and the card); the holds are joined after phase 8;
- 10. the kernels line, the card line, and as the last line
+ 10. the kernels line (K2's, K2-bf16's, K4f's and K4b's rows carry their
+     3b readings under other_widths), the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero before the last line. Without CUDA the
@@ -221,12 +234,14 @@ script exits non-zero at once. It imports nothing of JAX.
     python3 chip_smoke.py --attention
     python3 chip_smoke.py --node
 
-build K1 and K3 (--attention), or K2, K4 and K6 (--node), alone and run
-only their checks and timings (phase 3's lines for them and one JSON line,
-no last line; --node replays the shared generator's earlier draws on the
-CPU, so K2, K4 and K6 see the inputs a full run gives them): a quick check
-after an edit of their sources, or, copied into an unpacked older commit
-and run there, that commit's numbers beside this one's in the same call.
+build K1 and K3 (--attention), or K2, K4 and K6 (--node, with the other
+widths' builds), alone and run only their checks and timings (phase 3's
+lines for them and one JSON line, no last line; --node replays the shared
+generator's earlier draws on the CPU, so K2, K4 and K6 see the inputs a
+full run gives them, then runs K2-bf16 at phase 6c's shapes and phase 3b):
+a quick check after an edit of their sources, or, copied into an unpacked
+older commit and run there, that commit's numbers beside this one's in the
+same call.
 
     python3 chip_smoke.py --cli
 
@@ -260,8 +275,8 @@ builds K1-K5 and runs only phase 6d, with its JSON line and no last line.
 
     python3 chip_smoke.py --options
 
-builds K1-K6 and runs only phase 6e, with its JSON line, the card line and
-the last line.
+builds K1-K6 (the node kernels also at d_model 256, d_ff 128) and runs
+only phase 6e, with its JSON line, the card line and the last line.
 """
 from __future__ import annotations
 
@@ -327,6 +342,10 @@ N_SCENE = 8  # scenes of the main path's batch
 N_ITER = 3  # timed rollouts
 N_TRAIN_ITER = 2  # timed training steps
 KERNEL_SOURCES = ("fused_attention", "node_encoder", "dropout", "attention_train", "node_encoder_train", "block_attn")
+# the node kernels' builds at the other widths that NODE_WIDTHS and the
+# options phase run (ops.node_encoder.build_defines: a library a width pair)
+WIDE_BUILDS = tuple((name, NE.build_defines(D, Fd)) for D, Fd in ((256, 128), (256, 256))
+                    for name in ("node_encoder", "node_encoder_train"))
 P_DROP = 0.1  # ExperimentConfig's dropout rates, live in every training check
 # training kernels vs plain versions on the same inputs and seeds (K5's
 # masks are bit-equal): forwards as K1/K2; gradients by relative norm error,
@@ -342,6 +361,15 @@ K3_GRAD_RTOL = 1e-5
 # cotangent to another node, and the LayerNorm backward): check_k4 prints
 # the plain version's own fp32-vs-fp64 gap beside the kernel's.
 K4_GRAD_RTOL = 1e-3
+# At the other widths (NODE_WIDTHS) K4's gradients are held on the
+# cotangent with the max-pool's near-tie columns set to 0: the columns
+# whose two largest valid-node values (fp64) lie within K4_TOL of each
+# other, the forward's own tolerance. There the kernel's in-order sums and
+# cuBLAS's blocked ones may pick different nodes, and each pick moves a
+# whole column's cotangent (on the H100 at 256 x 128, 4 heads: the kernel
+# 2.1e-3 from fp64 on the whole cotangent, the plain version 4.4e-4, all
+# of dx's gap in 10 of 6,143 polylines); the gaps on the whole cotangent
+# are printed beside the holds.
 # one training step, kernels vs plain, over time_step_end = HELD_STEPS: the
 # loss to rel 1e-5 and each gradient to a relative norm error of 1e-2. The
 # forward is the eval path's (held to 1e-3 m over these steps) plus dropout
@@ -576,42 +604,60 @@ def check_k1(gen, n_scene, dev):
 # ------------------------------------------------------------------ K2
 
 
+def node_flop(enc, valid) -> float:
+    """The node stack's operations on this data: L x ((8 D^2 + 4 D F) a
+    valid node (the q, k, v and out projections, the two FFN products) +
+    4 D n^2 a polyline of n valid nodes (q k^T and the weighted sum over
+    every head))."""
+    n_valid = valid.sum(dim=1).double()
+    D, Fd = enc.d_model, enc.d_feedforward
+    return enc.n_layer * ((8 * D * D + 4 * D * Fd) * n_valid.sum() + 4 * D * (n_valid * n_valid).sum()).item()
+
+
+def node_widths(enc) -> str:
+    return f"D={enc.d_model} F={enc.d_feedforward} H={enc.n_head} L={enc.n_layer}"
+
+
 def check_k2(gen, n_scene, dev, batch):
     """K2 on [n_scene * 1024, 20, 128] with the batch's node validity (768
     valid polylines a scene of 5-20 nodes, the rest all padding), plus an
     all-invalid and a partly valid polyline among the valid ones."""
-    enc, x, valid = node_encoder_case(gen, dev, batch)
+    return k2_reading(*node_encoder_case(gen, dev, batch), n_scene)
+
+
+def k2_reading(enc, x, valid, n_scene):
+    """K2 held against its plain version at K2_TOL, timed, its bound."""
     with torch.no_grad():
         out = enc.encode_pooled(x, valid)
         torch.cuda.synchronize()
         ref = enc.pooled_plain(x, valid)
-        err = max_err_checked(out, ref, K2_TOL, "K2")
+        err = max_err_checked(out, ref, K2_TOL, f"K2 ({node_widths(enc)})")
         ms = time_ms(lambda: enc.encode_pooled(x, valid), n=10)
         dev_ms = graph_ms(lambda: enc.encode_pooled(x, valid), n=5)
         plain_ms = time_ms(lambda: enc.pooled_plain(x, valid), n=5)
-    n_valid = valid.sum(dim=1).double()
-    L, D = enc.n_layer, enc.d_model
-    n_flop = L * (12 * D * D * n_valid.sum() + 4 * D * (n_valid * n_valid).sum()).item()
+    D = enc.d_model
     n_weight_bytes = sum(getattr(enc, n).numel() * 4 for n in NE.W_NAMES)
     n_bytes = x.numel() * 4 + valid.numel() + n_weight_bytes + x.shape[0] * D * 4
-    b_ms, b_by = bound_ms(n_bytes, n_flop)
-    log(f"K2 node encoder + pool: BP={x.shape[0]} N={x.shape[1]} valid polylines={(n_valid > 0).sum().item()} "
-        f"max_abs_err={err} ms={ms} device_ms={dev_ms} plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by}) "
-        f"out sha1={digest(out)}")
+    b_ms, b_by = bound_ms(n_bytes, node_flop(enc, valid))
+    log(f"K2 node encoder + pool: BP={x.shape[0]} N={x.shape[1]} {node_widths(enc)} valid polylines="
+        f"{int(valid.any(dim=1).sum())} max_abs_err={err} ms={ms} device_ms={dev_ms} plain_ms={plain_ms} "
+        f"library_ms=None bound_ms={b_ms} ({b_by}) out sha1={digest(out)} [{card_line()}]")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=err, out_sha1=digest(out), shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {n_scene} scenes at 768/1024 fill")
+                max_abs_err=err, out_sha1=digest(out),
+                shape=f"BP={x.shape[0]} N={x.shape[1]} {node_widths(enc)}, {n_scene} scenes at 768/1024 fill")
 
 
 # ------------------------------------------------------------------ K6 (hybrid node encoder)
 
 
-def node_encoder_case(gen, dev, batch):
-    """A full-width node encoder with non-trivial LayerNorm scales and
-    biases, and [n_scene * 1024, 20, 128] inputs with the batch's node
-    validity (768 valid polylines a scene of 5-20 nodes, the rest all
-    padding) plus an all-invalid and a partly valid polyline among the
-    valid ones."""
-    enc = NE.FusedNodeEncoder(128, 4, 3, 128)
+def node_encoder_case(gen, dev, batch, widths=(128, 128, 4)):
+    """A full-width node encoder (d_model, d_ff, n_head = widths, 3 layers)
+    with non-trivial LayerNorm scales and biases, and [n_scene * 1024, 20,
+    d_model] inputs with the batch's node validity (768 valid polylines a
+    scene of 5-20 nodes, the rest all padding) plus an all-invalid and a
+    partly valid polyline among the valid ones."""
+    D, Fd, H = widths
+    enc = NE.FusedNodeEncoder(D, H, 3, Fd)
     init_params(enc, 0)
     with torch.no_grad():
         for name in NE.W_NAMES:
@@ -622,7 +668,7 @@ def node_encoder_case(gen, dev, batch):
     valid[3] = False
     valid[4] = False
     valid[4, :2] = True
-    x = torch.randn(*valid.shape, 128, generator=gen) * valid[..., None]
+    x = torch.randn(*valid.shape, D, generator=gen) * valid[..., None]
     return enc.to(dev), x.to(dev), valid.to(dev)
 
 
@@ -927,16 +973,31 @@ def near_ties(nodes, valid, nodes64, ulps=4, rel=1e-5):
                 flips=int((two & (masked.argmax(dim=1) != arg64)).sum().item()), ulps=ulps, rel=rel)
 
 
-def k4_case(gen, dev, batch, draw, hold_vs_plain):
+def tie_columns(nodes64, valid, tol):
+    """[BP, D] True where a polyline's column has its two largest valid-node
+    values (fp64) within tol (atol + rtol |largest|) of each other: the
+    max-pool near-ties, where the forward's gap from the plain version may
+    swap the two and move the column's whole cotangent to another node."""
+    masked = torch.where(valid[..., None], nodes64, torch.full_like(nodes64, -math.inf))
+    top = masked.topk(2, dim=1).values
+    return (valid.sum(dim=1)[:, None] >= 2) & (top[:, 0] - top[:, 1] <= tol["atol"] + tol["rtol"] * top[:, 0].abs())
+
+
+def k4_case(gen, dev, batch, draw, hold_vs_plain, widths=(128, 128, 4), tie_tol=None):
     """K4 forward and backward on one draw of inputs, dropout live: the
     backward twice, bitwise equal; the forward against the plain version;
     the gradients against the plain version's (held to K4_GRAD_RTOL with
     hold_vs_plain, else a reading) and both against an fp64 plain run (the
     kernel held to twice the plain version's gap); the max-pool near-ties of
-    the plain forward's node outputs counted."""
-    enc, x, valid = node_encoder_case(gen, dev, batch)
+    the plain forward's node outputs counted. With tie_tol the holds take
+    the cotangent with its near-tie columns (tie_columns at tie_tol, from
+    the fp64 forward) set to 0, and the gaps on the whole cotangent are
+    readings beside them, with the share of dx's gap in its ten worst
+    polylines."""
+    enc, x, valid = node_encoder_case(gen, dev, batch, widths)
+    D, Fd, H = widths
     pl = valid.any(-1)
-    g = torch.where(pl[:, None], torch.randn(x.shape[0], 128, generator=gen).to(dev), torch.zeros((), device=dev))
+    g = torch.where(pl[:, None], torch.randn(x.shape[0], D, generator=gen).to(dev), torch.zeros((), device=dev))
     seed = 2**50 + 9
     weights = [getattr(enc, n) for n in NE.W_NAMES]
     names = ("dx",) + NE.W_NAMES
@@ -946,42 +1007,68 @@ def k4_case(gen, dev, batch, draw, hold_vs_plain):
         return fn(enc, xx, valid, P_DROP, seed), [xx] + weights
 
     out, leaves = graph(NT.node_encoder_train)
-    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
-    again = torch.autograd.grad(out, leaves, g, retain_graph=True)
-    torch.cuda.synchronize()
-    require(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K4b ({draw}): not bitwise reproducible")
     ref, ref_leaves = graph(NT.node_encoder_train_plain)
-    ref_grads = torch.autograd.grad(ref, ref_leaves, g, retain_graph=True)
     ef = max_err_checked(out.detach()[pl], ref.detach()[pl], K4_TOL, f"K4f ({draw})")
     require(bool((out[~pl] == NE.NEG).all()), "K4f: a polyline without a valid node must pool to -1e30")
-    if hold_vs_plain:
-        eb = grads_checked(grads, ref_grads, names, K4_GRAD_RTOL, f"K4b ({draw})")
-    else:
-        eb = grads_checked(grads, ref_grads, names, math.inf, f"K4b ({draw})")
-    per_leaf = {n: rel_err(a, b) for n, a, b in zip(names, grads, ref_grads)}
     # both sides' rounding: fp32 against fp64 on the same inputs
-    enc64 = NE.FusedNodeEncoder(128, 4, 3, 128).to(dev, torch.float64)
+    enc64 = NE.FusedNodeEncoder(D, H, 3, Fd).to(dev, torch.float64)
     enc64.load_state_dict({k: v.double() for k, v in enc.state_dict().items()})
     with torch.no_grad():
-        ties = near_ties(enc(x, valid, P_DROP, seed), valid, enc64(x.double(), valid, P_DROP, seed))
+        nodes64 = enc64(x.double(), valid, P_DROP, seed)
+        ties = near_ties(enc(x, valid, P_DROP, seed), valid, nodes64)
     x64 = x.double().requires_grad_()
     out64 = NT.node_encoder_train_plain(enc64, x64, valid, P_DROP, seed)
-    g64 = torch.autograd.grad(out64, [x64] + [getattr(enc64, n) for n in NE.W_NAMES], g.double())
-    fp64_gap = grads_checked([r.double() for r in ref_grads], g64, names, 1.0, "K4 plain fp32 vs fp64")
-    kernel_fp64_gap = grads_checked([r.double() for r in grads], g64, names, 1.0, "K4 kernel vs fp64")
-    plain64 = {n: rel_err(r.double(), b) for n, r, b in zip(names, ref_grads, g64)}
-    kernel64 = {n: rel_err(r.double(), b) for n, r, b in zip(names, grads, g64)}
-    del enc64, x64, out64, g64
-    log(f"K4 ({draw}): fwd max_abs_err={ef}; bwd grad rel err vs plain {eb} "
-        f"({'held to ' + str(K4_GRAD_RTOL) if hold_vs_plain else 'a reading'}); against fp64: plain {fp64_gap}, "
-        f"kernel {kernel_fp64_gap} (held to twice the plain's); max-pool near-ties of the plain forward "
-        f"(exact / within {ties['ulps']} ulp / within {ties['rel']} relative): {ties['exact']} / {ties['near']} / "
-        f"{ties['near_rel']}, argmax flips against fp64 {ties['flips']}, of {int(pl.sum()) * 128} columns; "
-        f"per leaf, kernel vs plain {per_leaf}; plain vs fp64 {plain64}; kernel vs fp64 {kernel64}")
+    leaves64 = [x64] + [getattr(enc64, n) for n in NE.W_NAMES]
+
+    def gaps(gc):
+        """The kernel's gradients on cotangent gc (twice, bitwise equal), the
+        plain version's and fp64's, and their gaps."""
+        grads = torch.autograd.grad(out, leaves, gc, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, gc, retain_graph=True)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K4b ({draw}): not bitwise reproducible")
+        ref_grads = torch.autograd.grad(ref, ref_leaves, gc, retain_graph=True)
+        g64 = torch.autograd.grad(out64, leaves64, gc.double(), retain_graph=True)
+        return grads, ref_grads, dict(
+            vs_plain=grads_checked(grads, ref_grads, names, math.inf, f"K4b ({draw})"),
+            plain_vs_fp64=grads_checked([r.double() for r in ref_grads], g64, names, 1.0, "K4 plain fp32 vs fp64"),
+            kernel_vs_fp64=grads_checked([r.double() for r in grads], g64, names, 1.0, "K4 kernel vs fp64"),
+            per_leaf={n: rel_err(a, b) for n, a, b in zip(names, grads, ref_grads)},
+            plain64={n: rel_err(r.double(), b) for n, r, b in zip(names, ref_grads, g64)},
+            kernel64={n: rel_err(r.double(), b) for n, r, b in zip(names, grads, g64)})
+
+    whole = None
+    if tie_tol is not None:
+        tied = tie_columns(nodes64, valid, tie_tol)
+        grads, ref_grads, whole = gaps(g)
+        d2 = (grads[0] - ref_grads[0]).pow(2).sum(dim=(1, 2))
+        whole.update(tied_columns=int(tied.sum()), tie_tol=tie_tol,
+                     dx_gap_share_worst10=(d2.topk(10).values.sum() / d2.sum().clamp(min=1e-30)).item(),
+                     worst10_have_tie=int(tied[d2.topk(10).indices].any(dim=1).sum()))
+        log(f"K4 ({draw}, {node_widths(enc)}), the whole cotangent (a reading): kernel vs plain {whole['vs_plain']}, "
+            f"against fp64: plain {whole['plain_vs_fp64']}, kernel {whole['kernel_vs_fp64']}; dx's gap: "
+            f"{whole['dx_gap_share_worst10']} of its square in 10 polylines, {whole['worst10_have_tie']} of them "
+            f"with a near-tie column; {whole['tied_columns']} near-tie columns (within {tie_tol}, fp64)")
+        g = torch.where(tied, torch.zeros((), device=dev), g)
+    grads, ref_grads, held = gaps(g)
+    eb, fp64_gap, kernel_fp64_gap = held["vs_plain"], held["plain_vs_fp64"], held["kernel_vs_fp64"]
+    del enc64, x64, out64, leaves64, nodes64
+    log(f"K4 ({draw}, {node_widths(enc)}{', near-tie columns 0' if tie_tol else ''}): fwd max_abs_err={ef}; bwd "
+        f"grad rel err vs plain {eb} ({'held to ' + str(K4_GRAD_RTOL) if hold_vs_plain else 'a reading'}); against "
+        f"fp64: plain {fp64_gap}, kernel {kernel_fp64_gap} (held to twice the plain's); max-pool near-ties of the "
+        f"plain forward (exact / within {ties['ulps']} ulp / within {ties['rel']} relative): {ties['exact']} / "
+        f"{ties['near']} / {ties['near_rel']}, argmax flips against fp64 {ties['flips']}, of {int(pl.sum()) * D} "
+        f"columns; per leaf, kernel vs plain {held['per_leaf']}; plain vs fp64 {held['plain64']}; kernel vs fp64 "
+        f"{held['kernel64']}")
     require(kernel_fp64_gap <= 2 * fp64_gap + 1e-6,
             f"K4b ({draw}): further from fp64 ({kernel_fp64_gap}) than twice the plain version ({fp64_gap})")
+    if hold_vs_plain:
+        grads_checked(grads, ref_grads, names, K4_GRAD_RTOL, f"K4b ({draw})")
     reading = dict(draw=draw, fwd_max_abs_err=ef, grad_rel_vs_plain=eb, held_vs_plain=hold_vs_plain,
-                   plain_vs_fp64=fp64_gap, kernel_vs_fp64=kernel_fp64_gap, near_ties=ties)
+                   plain_vs_fp64=fp64_gap, kernel_vs_fp64=kernel_fp64_gap, near_ties=ties,
+                   grads_sha1=digest(torch.cat([t.flatten() for t in grads])))
+    if whole is not None:
+        reading["whole_cotangent"] = {k: v for k, v in whole.items() if k not in ("per_leaf", "plain64", "kernel64")}
     return enc, x, valid, g, seed, (out, leaves, ref, ref_leaves), reading
 
 
@@ -992,8 +1079,17 @@ def check_k4(gen, n_scene, dev, batch):
     one (`gen` as the full run leaves it), held against the plain version
     and fp64 and timed, and the B=48 draw (replayed_generator), held against
     fp64, its kernel-vs-plain gap a reading beside its near-tie count."""
-    enc, x, valid, g, seed, (out, leaves, ref, ref_leaves), usual = k4_case(gen, dev, batch, "usual draw", True)
+    *case, usual = k4_case(gen, dev, batch, "usual draw", True)
     b48 = k4_case(replayed_generator("K4", n_scene, batch, b48=True), dev, batch, "B=48 draw", False)[-1]
+    k4f, k4b = k4_reading(*case, usual, n_scene)
+    k4b["draws"] = [usual, b48]
+    return k4f, k4b
+
+
+def k4_reading(enc, x, valid, g, seed, graphs, usual, n_scene):
+    """K4's times and bounds on k4_case's inputs, K4f at p = 0 against K2
+    to the bit, the peak memory of K4b's call (its scratch)."""
+    out, leaves, ref, ref_leaves = graphs
     pl = valid.any(-1)
     weights = [getattr(enc, n) for n in NE.W_NAMES]
     with torch.no_grad():
@@ -1007,26 +1103,65 @@ def check_k4(gen, n_scene, dev, batch):
     dev_b = graph_ms(lambda: NT._launch_bwd(x, valid, g, P_DROP, seed, L, H, weights), n=3)
     ms_b = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), n=5)
     plain_b = time_ms(lambda: torch.autograd.grad(ref, ref_leaves, g, retain_graph=True), n=3)
-    n_valid = valid.sum(dim=1).double()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    NT._launch_bwd(x, valid, g, P_DROP, seed, L, H, weights)
+    torch.cuda.synchronize()
+    bwd_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     D = enc.d_model
-    fwd_flop = L * (12 * D * D * n_valid.sum() + 4 * D * (n_valid * n_valid).sum()).item()
+    fwd_flop = node_flop(enc, valid)
     w_bytes = sum(w.numel() * 4 for w in weights)
     io = x.numel() * 4 + valid.numel() + w_bytes + x.shape[0] * D * 4
     bf, bf_by = bound_ms(io, fwd_flop)
     # backward: reads x, valid, weights, g; writes dx and the 18 dW; each
     # dense product and attention product of the forward costs two
     bb, bb_by = bound_ms(io + x.numel() * 4 + w_bytes, 2 * fwd_flop)
-    log(f"K4 node encoder train: BP={x.shape[0]} N={x.shape[1]} valid polylines={int(pl.sum())} fwd max_abs_err="
-        f"{usual['fwd_max_abs_err']} ms={ms_f} device_ms={dev_f} plain_ms={plain_f} library_ms=None bound_ms={bf} "
-        f"({bf_by}); bwd grad rel err={usual['grad_rel_vs_plain']} (against fp64: plain {usual['plain_vs_fp64']}, "
-        f"kernel {usual['kernel_vs_fp64']}) ms={ms_b} device_ms={dev_b} plain_ms={plain_b} library_ms=None "
-        f"bound_ms={bb} ({bb_by}); bwd bitwise reproducible; fwd at p = 0 is K2 to the bit; fwd out sha1="
-        f"{digest(out)} [{card_line()}]")
-    shape = f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3 p=0.1, {n_scene} scenes at 768/1024 fill"
+    log(f"K4 node encoder train: BP={x.shape[0]} N={x.shape[1]} {node_widths(enc)} valid polylines={int(pl.sum())} "
+        f"fwd max_abs_err={usual['fwd_max_abs_err']} ms={ms_f} device_ms={dev_f} plain_ms={plain_f} library_ms=None "
+        f"bound_ms={bf} ({bf_by}); bwd grad rel err={usual['grad_rel_vs_plain']} (against fp64: plain "
+        f"{usual['plain_vs_fp64']}, kernel {usual['kernel_vs_fp64']}) ms={ms_b} device_ms={dev_b} plain_ms={plain_b} "
+        f"library_ms=None bound_ms={bb} ({bb_by}) peak {bwd_peak_gib} GiB above its inputs; bwd bitwise "
+        f"reproducible; fwd at p = 0 is K2 to the bit; fwd out sha1={digest(out)} grads sha1={usual['grads_sha1']} "
+        f"[{card_line()}]")
+    shape = f"BP={x.shape[0]} N={x.shape[1]} {node_widths(enc)} p=0.1, {n_scene} scenes at 768/1024 fill"
     return (dict(ms=ms_f, device_ms=dev_f, plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_ms=None,
                  max_abs_err=usual["fwd_max_abs_err"], out_sha1=digest(out), shape=shape),
             dict(ms=ms_b, device_ms=dev_b, plain_ms=plain_b, bound_ms=bb, bound_by=bb_by, library_ms=None,
-                 max_abs_err=usual["grad_rel_vs_plain"], shape=shape, draws=[usual, b48]))
+                 max_abs_err=usual["grad_rel_vs_plain"], grads_sha1=usual["grads_sha1"], peak_gib=bwd_peak_gib,
+                 shape=shape))
+
+
+# (d_model, d_ff, n_head) the node kernels take beside the default 128 x
+# 128 at 4 heads, on the main fill's inputs: K2, K2-bf16 and K4 at the
+# first three (the first is the single override model.hidden_dim=256, the
+# reference's own interpolated width), K4 also at the last (16 heads)
+NODE_WIDTHS = ((256, 128, 4), (256, 256, 4), (128, 128, 2), (128, 128, 16))
+
+
+def check_node_widths(dev, batch) -> dict:
+    """K2, K2-bf16, K4f and K4b at NODE_WIDTHS on [8 x 1024, 20, d_model]
+    inputs with the batch's node validity, each width its own draw: K2
+    against its plain version at K2_TOL, K2-bf16 within its one-ulp nudge's
+    gap, K4 at K4_TOL and K4_GRAD_RTOL (and against fp64, as the default
+    width's usual draw), each timed beside its plain version and its bound,
+    K4b's peak memory printed."""
+    out = {}
+    for i, widths in enumerate(NODE_WIDTHS):
+        name = "x".join(map(str, widths))
+        gen = torch.Generator().manual_seed(300 + i)
+        r = out[name] = {}
+        if widths[2] != 16:
+            case = node_encoder_case(gen, dev, batch, widths)
+            r["K2"] = k2_reading(*case, N_SCENE)
+            r["K2-bf16"] = k2_bf16_reading(*case)
+            del case
+        *case, usual = k4_case(gen, dev, batch, f"widths {name}", True, widths, tie_tol=K4_TOL)
+        r["K4f"], r["K4b"] = k4_reading(*case, usual, N_SCENE)
+        r["K4b"]["draws"] = [usual]
+        del case
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ main path
@@ -1695,30 +1830,36 @@ def check_k2_bf16(dev, batch):
     """K2's bf16 variant on phase 3's K2 shapes (its own draw of inputs):
     against its plain version over the live polylines, its times beside
     K2's on the same inputs."""
-    enc, x, valid = node_encoder_case(torch.Generator().manual_seed(17), dev, batch)
+    return k2_bf16_reading(*node_encoder_case(torch.Generator().manual_seed(17), dev, batch))
+
+
+def k2_bf16_reading(enc, x, valid):
+    """K2-bf16 held within the gap a one-bf16-ulp input nudge makes in its
+    plain version, timed beside fp32 K2, its bound."""
+    what = f"K2-bf16 ({node_widths(enc)})"
     live = valid.any(dim=-1)
     with torch.no_grad():
         out = enc.encode_pooled(x, valid, bf16=True)
         torch.cuda.synchronize()
         ref = enc.pooled_plain(x, valid, bf16=True)
         ref_n = enc.pooled_plain(torch.where(valid[..., None], bf16_up(x), x), valid, bf16=True)
-        held = bf16_held("K2-bf16", out[live], ref[live], ref_n[live])
-        require(bool((out[~live] == NE.NEG).all()), "K2-bf16: a polyline without a valid node must pool to -1e30")
+        held = bf16_held(what, out[live], ref[live], ref_n[live])
+        require(bool((out[~live] == NE.NEG).all()), f"{what}: a polyline without a valid node must pool to -1e30")
         ms = time_ms(lambda: enc.encode_pooled(x, valid, bf16=True), n=10)
         dev_ms = graph_ms(lambda: enc.encode_pooled(x, valid, bf16=True), n=5)
         fp32_ms = time_ms(lambda: enc.encode_pooled(x, valid), n=10)
         fp32_dev = graph_ms(lambda: enc.encode_pooled(x, valid), n=5)
         plain_ms = time_ms(lambda: enc.pooled_plain(x, valid, bf16=True), n=5)
-    n_valid = valid.sum(dim=1).double()
-    L, D = enc.n_layer, enc.d_model
-    n_flop = L * (12 * D * D * n_valid.sum() + 4 * D * (n_valid * n_valid).sum()).item()
+    D = enc.d_model
     n_bytes = x.numel() * 4 + valid.numel() + sum(getattr(enc, n).numel() * 4 for n in NE.W_NAMES) + x.shape[0] * D * 4
-    b_ms, b_by = bound_ms_bf16(n_bytes, n_flop)
-    log(f"K2-bf16 node encoder + pool: BP={x.shape[0]} N={x.shape[1]} ms={ms} device_ms={dev_ms} (fp32 K2: ms={fp32_ms} "
-        f"device_ms={fp32_dev}) plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by}) [{card_line()}]")
+    b_ms, b_by = bound_ms_bf16(n_bytes, node_flop(enc, valid))
+    log(f"{what} node encoder + pool: BP={x.shape[0]} N={x.shape[1]} ms={ms} device_ms={dev_ms} (fp32 K2: ms={fp32_ms} "
+        f"device_ms={fp32_dev}) plain_ms={plain_ms} library_ms=None bound_ms={b_ms} ({b_by}) out sha1={digest(out)} "
+        f"[{card_line()}]")
     return dict(ms=ms, device_ms=dev_ms, fp32_ms=fp32_ms, fp32_device_ms=fp32_dev, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, max_abs_err=held["vs_plain"]["max_abs"], **held,
-                shape=f"BP={x.shape[0]} N={x.shape[1]} D=F=128 H=4 L=3, {N_SCENE} scenes at 768/1024 fill")
+                out_sha1=digest(out),
+                shape=f"BP={x.shape[0]} N={x.shape[1]} {node_widths(enc)}, {N_SCENE} scenes at 768/1024 fill")
 
 
 def check_k6_bf16(dev, batch):
@@ -3109,13 +3250,13 @@ REMAT_POLICIES = ("none", "save_attn", "save_core")
 WIDTHS_HELD_STEPS = 20
 
 
-def widths_config(cfg: ExperimentConfig, hidden: int, n_head: int) -> ExperimentConfig:
-    """cfg at other widths, over HELD_STEPS steps, with the node encoder
-    whose kernels take them: the hybrid layout (K6) in eval, and in
-    training the JAX package's XLA node stack (fused_train_kernel off),
-    since K2 and K4 take only d_model 128 at 4 to 32 heads."""
-    tf = dataclasses.replace(cfg.model.tf_cfg, d_model=hidden, n_head=n_head, d_feedforward=hidden)
-    me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl="hybrid", fused_train_kernel=False)
+def widths_config(cfg: ExperimentConfig, hidden: int, n_head: int, impl: str = "fused") -> ExperimentConfig:
+    """cfg at other widths, over HELD_STEPS steps, with the default fused
+    node stack (K2 in eval, K4 in training; `impl="hybrid"` for K6): as
+    the override `model.hidden_dim=...` does, d_model follows hidden_dim
+    and d_feedforward stays 128 (hidden 256: D = 256, F = 128)."""
+    tf = dataclasses.replace(cfg.model.tf_cfg, d_model=hidden, n_head=n_head)
+    me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl=impl)
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_dim=hidden, tf_cfg=tf, map_encoder=me),
                                time_step_end=HELD_STEPS)
 
@@ -3148,31 +3289,6 @@ def site_routes(cfg: ExperimentConfig, what: str) -> dict:
     out = {site: route or "kernel" for site, route in routes.items()}
     for site, route in out.items():
         log(f"{what}: {site} -> {route}")
-    return out
-
-
-def refusals(cfg: ExperimentConfig, dev, what: str) -> dict:
-    """K2 and K4 at cfg's widths on the card: each wrapper raises with its
-    predicate's reason and launches nothing."""
-    D, F, H, N = cfg.model.hidden_dim, cfg.model.tf_cfg.d_feedforward, cfg.model.tf_cfg.n_head, cfg.data.n_pl_node
-    enc = NE.FusedNodeEncoder(D, H, cfg.model.map_encoder.n_layer, F).to(dev)
-    x = torch.zeros(8, N, D, device=dev)
-    valid = torch.ones(8, N, dtype=torch.bool, device=dev)
-    out = {}
-    zero_counts(EVAL_COUNTERS | TRAIN_COUNTERS)
-    for name, call, reason in (("K2", lambda: enc.encode_pooled(x, valid), NE.kernel_refusal(N, D, F, H)),
-                               ("K4", lambda: NT.node_encoder_train(enc, x, valid, 0.1, 5),
-                                NT.kernel_refusal(N, D, F, H))):
-        try:
-            call()
-            raised = None
-        except ValueError as e:
-            raised = str(e)
-        log(f"{what}: {name} at ({N}, {D}, {F}, {H}) raises {raised!r}")
-        require(reason is not None and raised == reason, f"{what}: {name} should raise {reason!r}, raised {raised!r}")
-        out[name] = raised
-    launches = read_counts(EVAL_COUNTERS | TRAIN_COUNTERS)
-    require(launches["K2"] == launches["K4f"] == 0, f"{what}: refused kernels launched {launches}")
     return out
 
 
@@ -3218,8 +3334,9 @@ def options_train(cfg, batch, dev, what) -> dict:
     return dict(launches=launches, loss_rel=loss_gap, grad_rel=gap)
 
 
-def option_map_encode(cfg, batch, dev, what) -> dict:
-    """One eval map encode of every scene, kernels vs plain versions."""
+def option_map_encode(cfg, batch, dev, what, expect=(("K1", 1), ("K2", 0))) -> dict:
+    """One eval map encode of every scene, kernels vs plain versions, its
+    launch counts as `expect` says."""
     model = O.make_model(cfg, device=dev, seed=0)
     pb = pre_processing(to_torch(batch, dev), cfg.model, training=False)
     n_scene = batch["map/valid"].shape[0]
@@ -3233,7 +3350,7 @@ def option_map_encode(cfg, batch, dev, what) -> dict:
     require(torch.equal(valid, ref_valid), f"{what}: polyline validity differs")
     err = max_err_checked(feat, ref, MAP_TOL, what)
     log(f"{what}: launches {launches}, map feature max abs err {err} (tolerance {MAP_TOL})")
-    require(launches["K1"] == 1 and launches["K2"] == 0, f"{what}: launches {launches}, one K1 and no K2 expected")
+    require(all(launches[k] == n for k, n in expect), f"{what}: launches {launches}, {dict(expect)} expected")
     return dict(launches=launches, max_abs_err=err)
 
 
@@ -3287,12 +3404,13 @@ def remat_policies(cfg, batch, dev) -> dict:
 
 
 def options_path(cfg, batch, dev) -> dict:
-    """(a) Other widths: at hidden 256 with 4 heads an eval rollout (K1 at
-    d_head 64, K6 at d_model 256) and a training step (K3 at d_head 64, K5;
-    the JAX package's XLA node stack), at 2 heads of width 128 an eval
-    rollout, each site's route printed, each run held against the plain
-    versions (the evals over WIDTHS_HELD_STEPS); K2 and K4 raise at both
-    widths. (b) Structure options:
+    """(a) Other widths, the default fused node stack: at hidden 256 (the
+    override `model.hidden_dim=256`: D = 256, F = 128, 4 heads) and at 2
+    heads of width 128, an eval rollout (K1 at d_head 64, K2) and a
+    training step (K3 at d_head 64, K4, K5), each site's route printed
+    (every K2 and K4 site "kernel"), each run held against the plain
+    versions (the evals over WIDTHS_HELD_STEPS); at hidden 256 one hybrid
+    map encode (K6 at d_model 256). (b) Structure options:
     post-norm layers with the final MLP under each action-head variant, an
     eval rollout each (K1 at its sites, the generic node stack for the
     post-norm layer, no K2); one map encode each for VectorNet, the mean
@@ -3302,14 +3420,19 @@ def options_path(cfg, batch, dev) -> dict:
     for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2)):
         c = widths_config(cfg, hidden, n_head)
         what = f"hidden {hidden}, {n_head} heads"
-        r = out["widths"][name] = dict(routes=site_routes(c, what), refusals=refusals(c, dev, what))
+        r = out["widths"][name] = dict(routes=site_routes(c, what))
+        require(all(route == "kernel" for site, route in r["routes"].items() if site.startswith(("K2", "K4"))),
+                f"{what}: a node-stack site does not take its kernel: {r['routes']}")
         e = r["eval"] = options_eval(c, batch, dev, f"{what}, eval", held_steps=WIDTHS_HELD_STEPS)
-        require(e["launches"]["K1"] > 0 and e["launches"]["K6"] > 0 and e["launches"]["K2"] == 0,
+        require(e["launches"]["K1"] > 0 and e["launches"]["K2"] >= 1 and e["launches"]["K6"] == 0,
                 f"{what} eval launches {e['launches']}")
+        t = r["train"] = options_train(c, batch, dev, f"{what}, training step")
+        require(t["launches"]["K3f"] > 0 and t["launches"]["K3b"] > 0 and t["launches"]["K5"] > 0
+                and t["launches"]["K4f"] == t["launches"]["K4b"] == 1, f"{what} training launches {t['launches']}")
         if name == "hidden256":
-            t = r["train"] = options_train(c, batch, dev, f"{what}, training step")
-            require(t["launches"]["K3f"] > 0 and t["launches"]["K3b"] > 0 and t["launches"]["K5"] > 0
-                    and t["launches"]["K4f"] == 0, f"{what} training launches {t['launches']}")
+            r["hybrid_map_encode"] = option_map_encode(
+                widths_config(cfg, hidden, n_head, impl="hybrid"), batch, dev, f"{what}, hybrid map encode",
+                expect=(("K1", 1), ("K2", 0), ("K6", 3)))
     for name, head in OPTION_HEADS.items():
         m = dataclasses.replace(cfg.model, tf_cfg=dataclasses.replace(cfg.model.tf_cfg, norm_first=False),
                                 n_layer_final_mlp=2)
@@ -3338,11 +3461,11 @@ def main():
         f"count {torch.cuda.device_count()} tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    modes = {(): KERNEL_SOURCES, ("--attention",): ("fused_attention", "attention_train"),
-             ("--node",): ("node_encoder", "node_encoder_train", "block_attn"), ("--cli",): KERNEL_SOURCES,
-             ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS, ("--media",): ("fused_attention", "node_encoder"),
-             ("--augment",): DP_KERNELS, ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS,
-             ("--options",): KERNEL_SOURCES}
+    modes = {(): KERNEL_SOURCES + WIDE_BUILDS, ("--attention",): ("fused_attention", "attention_train"),
+             ("--node",): ("node_encoder", "node_encoder_train", "block_attn") + WIDE_BUILDS,
+             ("--cli",): KERNEL_SOURCES, ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS,
+             ("--media",): ("fused_attention", "node_encoder"), ("--augment",): DP_KERNELS,
+             ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS, ("--options",): KERNEL_SOURCES + WIDE_BUILDS[:2]}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
@@ -3404,13 +3527,18 @@ def main():
         log(json.dumps({"ablations": ablation_path(cfg, batch, dev)}))
         phase("done")
         return
-    if mode == ("--node",):  # K2, K4 and K6 on the inputs a full run gives them
+    if mode == ("--node",):  # K2, K4 and K6 on the inputs a full run gives them; K2-bf16; the other widths
         phase("node kernel checks")
         k2 = check_k2(replayed_generator("K2", N_SCENE, batch), N_SCENE, dev, batch)
         k4f, k4b = check_k4(replayed_generator("K4", N_SCENE, batch), N_SCENE, dev, batch)
         k6, hybrid = check_k6(replayed_generator("K6", N_SCENE, batch), N_SCENE, dev, batch)
-        log(json.dumps({"node": {"K2": k2, "K4f": k4f, "K4b": k4b, "K6": k6, "hybrid": hybrid}}))
+        k2_bf16 = check_k2_bf16(dev, batch)
+        phase("node kernels at other widths")
+        widths = check_node_widths(dev, batch)
+        log(json.dumps({"node": {"K2": k2, "K4f": k4f, "K4b": k4b, "K6": k6, "hybrid": hybrid, "K2-bf16": k2_bf16,
+                                 "other_widths": widths}}))
         phase("done")
+        log(f"card: {card}")
         return
     phase("kernel checks")
     k1 = check_k1(gen, N_SCENE, dev)
@@ -3425,6 +3553,8 @@ def main():
     require(torch.equal(gen.get_state(), replayed_generator("K6", N_SCENE, batch).get_state()),
             "replayed_generator does not replay the draws before K6's")
     k6, hybrid = check_k6(gen, N_SCENE, dev, batch)
+    phase("node kernels at other widths")
+    widths = check_node_widths(dev, batch)
 
     phase("eval main path")
     launches, path = main_path(cfg, batch, N_ITER, dev)
@@ -3516,6 +3646,10 @@ def main():
              replaces="trafficbots_tpu/ops/attention_train.py:260", launches=train_launches["K3b-skip"],
              **skip["K3b_skip"]),
     ]
+    for k in kernels:  # the node kernels' readings at the other widths, beside each one's default row
+        key = k["name"].split(" ")[0]
+        if key in ("K2", "K2-bf16", "K4f", "K4b"):
+            k["other_widths"] = {name: r[key] for name, r in widths.items() if key in r}
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
     log(json.dumps({"kernels": kernels}))

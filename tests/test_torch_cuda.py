@@ -215,6 +215,48 @@ def test_k2_kernel_matches_plain(cuda, N):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
+# (d_model, d_ff, n_head) the node kernels take beside the default
+# 128 x 128 at 4 heads: a width of 256 (d_head 64, two threads a (head,
+# row)), the FFN rectangular both ways, 2 heads (d_head 64) and 16 heads
+# (d_head 8) at 128
+OTHER_WIDTHS = [(256, 128, 4), (256, 256, 4), (128, 256, 4), (128, 128, 2), (128, 128, 16)]
+
+
+def wide_encoder(D, Fd, H, seed=1):
+    enc = tne.FusedNodeEncoder(D, H, 3, Fd)
+    init_params(enc, 0)
+    with torch.no_grad():
+        for name in tne.W_NAMES:
+            p = getattr(enc, name)
+            if p.ndim == 2:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(seed)))
+    return enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("widths", OTHER_WIDTHS, ids=lambda w: "x".join(map(str, w)))
+def test_k2_kernels_match_plain_at_other_widths(cuda, widths, bf16):
+    """K2 (atol = rtol = 1e-4) and K2-bf16 (relative norm error 1e-3) at
+    the other widths, each width pair's own build, at their 128 x 128
+    holds."""
+    D, Fd, H = widths
+    x, valid = (torch.from_numpy(a).to(cuda) for a in node_inputs(BP=1024, N=20, D=D, seed=6))
+    enc = wide_encoder(D, Fd, H).to(cuda)
+    before = tne.LAUNCHES_BF16 if bf16 else tne.LAUNCHES
+    with torch.no_grad():
+        out = enc.encode_pooled(x, valid, bf16=bf16)
+        torch.cuda.synchronize()
+        ref = enc.pooled_plain(x, valid, bf16=bf16)
+    assert (tne.LAUNCHES_BF16 if bf16 else tne.LAUNCHES) == before + 1
+    live = valid.any(-1)
+    if bf16:
+        assert rel_norm(out[live], ref[live]) < 1e-3
+    else:
+        torch.testing.assert_close(out[live], ref[live], atol=1e-4, rtol=1e-4)
+    assert (out[~live] == tne.NEG).all()
+
+
 @pytest.mark.cuda
 def test_k2_wrapper_refuses_more_nodes_than_fit(cuda):
     x, valid = (torch.from_numpy(a).to(cuda) for a in node_inputs(BP=32, N=tne.KERNEL_MAX_NODES + 1, D=128))
@@ -258,8 +300,9 @@ def test_hidden_256_on_the_card_launches_or_raises(cuda, record_property):
     fused_train_kernel off (the JAX package's XLA node stack) launches K3
     and not K4, its loss within 1e-5 and its gradients within a relative
     norm error of 1e-2 of the plain versions' (chip_smoke.py's training
-    holds). K2 and K4 refuse d_model 256: their wrappers raise with their
-    predicates' reasons and launch nothing."""
+    holds). K2 and K4 take d_model 256 at 4 heads and launch; at 2 heads
+    (d_head 128) their wrappers raise with their predicates' reasons and
+    launch nothing."""
     cfg = ExperimentConfig()
     data = dataclasses.replace(cfg.data, n_agent=32, n_pl=256, n_tl=16, n_tl_stop=8, n_step=41)
     tf = dataclasses.replace(cfg.model.tf_cfg, d_model=256, d_feedforward=256)
@@ -303,13 +346,20 @@ def test_hidden_256_on_the_card_launches_or_raises(cuda, record_property):
     enc = model.map_encoder.densetnt
     x = torch.zeros(8, 20, 256, device=cuda)
     valid = torch.ones(8, 20, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError) as e:
+    assert tne.kernel_refusal(20, 256, 256, 4) is None and tnt.kernel_refusal(20, 256, 256, 4) is None
+    with torch.no_grad():
         enc.encode_pooled(x, valid)
-    assert str(e.value) == tne.kernel_refusal(20, 256, 256, 4)
+    tnt.node_encoder_train(enc, x, valid, 0.1, 5)
+    torch.cuda.synchronize()
+    assert tne.LAUNCHES == 1 and tnt.LAUNCHES_FWD == 1
+    enc2 = tne.FusedNodeEncoder(256, 2, 3, 256).to(cuda)
     with pytest.raises(ValueError) as e:
-        tnt.node_encoder_train(enc, x, valid, 0.1, 5)
-    assert str(e.value) == tnt.kernel_refusal(20, 256, 256, 4)
-    assert tne.LAUNCHES == 0 and tnt.LAUNCHES_FWD == 0
+        enc2.encode_pooled(x, valid)
+    assert str(e.value) == tne.kernel_refusal(20, 256, 256, 2)
+    with pytest.raises(ValueError) as e:
+        tnt.node_encoder_train(enc2, x, valid, 0.1, 5)
+    assert str(e.value) == tnt.kernel_refusal(20, 256, 256, 2)
+    assert tne.LAUNCHES == 1 and tnt.LAUNCHES_FWD == 1
 
 
 @pytest.mark.cuda
@@ -560,6 +610,47 @@ def test_k4_kernels_match_plain(cuda, p):
     again = run(tnt.node_encoder_train)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", OTHER_WIDTHS, ids=lambda w: "x".join(map(str, w)))
+def test_k4_kernels_match_plain_at_other_widths(cuda, widths):
+    """K4f and K4b at the other widths with dropout live, at the 128 x 128
+    holds: the forward within 1e-4, each gradient within 1e-3 of its norm
+    (or of 1e-3 of the largest), padding nodes' dx 0, a second backward
+    bitwise equal, and K4f at p = 0 K2 to the bit."""
+    D, Fd, H = widths
+    x, valid = (torch.from_numpy(a).to(cuda) for a in node_inputs(BP=1024, N=20, D=D, seed=8))
+    enc = wide_encoder(D, Fd, H).to(cuda)
+    g = torch.randn(1024, D, generator=torch.Generator().manual_seed(2)).to(cuda)
+    pl = valid.any(-1)
+
+    def run(fn):
+        enc.zero_grad()
+        xx = x.clone().requires_grad_()
+        out = fn(enc, xx, valid, 0.1, 2**40 + 5)
+        torch.where(pl[:, None], out, torch.zeros_like(out)).backward(g)
+        torch.cuda.synchronize()
+        return [out.detach(), xx.grad] + [getattr(enc, n).grad.clone() for n in tne.W_NAMES]
+
+    before = (tnt.LAUNCHES_FWD, tnt.LAUNCHES_BWD)
+    got = run(tnt.node_encoder_train)
+    assert (tnt.LAUNCHES_FWD, tnt.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    ref = run(tnt.node_encoder_train_plain)
+    torch.testing.assert_close(got[0][pl], ref[0][pl], atol=1e-4, rtol=1e-4)
+    assert (got[0][~pl] == tne.NEG).all()
+    scale = max(b.norm().item() for b in ref[1:])
+    errs = {name: ((a - b).norm().item(), b.norm().item())
+            for name, a, b in zip(["dx"] + list(tne.W_NAMES), got[1:], ref[1:])}
+    print(f"K4 gradient errors at {widths} (abs, ref norm):", errs)
+    assert all(e <= 1e-3 * max(nb, 1e-3 * scale) for e, nb in errs.values()), errs
+    assert (got[1][~pl] == 0).all()
+    again = run(tnt.node_encoder_train)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    weights = [getattr(enc, n) for n in tne.W_NAMES]
+    with torch.no_grad():
+        assert torch.equal(tnt._launch_fwd(x, valid, 0.0, 5, 3, H, weights), enc.encode_pooled(x, valid))
 
 
 def perturbed_encoder(seed=1):

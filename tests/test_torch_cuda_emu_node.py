@@ -56,18 +56,13 @@ def node_source(name: str) -> str:
     return emulated_source(src)
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """name -> the ctypes library of csrc/<name>.cu built for the emulator
-    ("node_encoder_trace", "node_encoder_train_trace": K2, K4 built with
-    -DTB_NODE_TRACE)."""
+def build_emulated(out_dir: Path, builds: dict) -> dict:
+    """key -> the ctypes library of csrc/<name>.cu built for the emulator
+    with g++ and `flags`, for builds {key: (name, flags)}, all compiled at
+    once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the CPU emulator")
-    out_dir = tmp_path_factory.mktemp("cuda_emu_node")
-    builds = {"node_encoder": ("node_encoder", []), "node_encoder_train": ("node_encoder_train", []),
-              "node_encoder_trace": ("node_encoder", ["-DTB_NODE_TRACE"]),
-              "node_encoder_train_trace": ("node_encoder_train", ["-DTB_NODE_TRACE"])}
     procs = {}
     for key, (name, flags) in builds.items():
         cpp = out_dir / f"{key}.cpp"
@@ -82,23 +77,35 @@ def emulated(tmp_path_factory):
     return libs
 
 
-def encoder(seed=1):
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """name -> the ctypes library of csrc/<name>.cu built for the emulator
+    ("node_encoder_trace", "node_encoder_train_trace": K2, K4 built with
+    -DTB_NODE_TRACE)."""
+    return build_emulated(tmp_path_factory.mktemp("cuda_emu_node"), {
+        "node_encoder": ("node_encoder", []), "node_encoder_train": ("node_encoder_train", []),
+        "node_encoder_trace": ("node_encoder", ["-DTB_NODE_TRACE"]),
+        "node_encoder_train_trace": ("node_encoder_train", ["-DTB_NODE_TRACE"])})
+
+
+def encoder(seed=1, d_model=D, n_head=H, n_layer=L, d_ff=None):
     """A node encoder with non-trivial LayerNorm scales and biases."""
-    enc = tne.FusedNodeEncoder(D, H, L, D)
+    enc = tne.FusedNodeEncoder(d_model, n_head, n_layer, d_ff or d_model)
     rs = np.random.RandomState(seed)
     with torch.no_grad():
         for name in tne.W_NAMES:
             p = getattr(enc, name)
             if p.ndim == 3:
-                p.copy_(torch.from_numpy(rs.normal(scale=D ** -0.5, size=p.shape).astype(np.float32)))
+                p.copy_(torch.from_numpy(rs.normal(scale=p.shape[1] ** -0.5, size=p.shape).astype(np.float32)))
             else:
                 p.add_(torch.from_numpy(0.1 * rs.normal(size=p.shape).astype(np.float32)))
     return enc
 
 
-def inputs(BP, seed=2):
+def inputs(BP, seed=2, d_model=D):
     """x [BP, N, D], valid [BP, N] (about 70% valid; polyline 1 all
     padding, polyline 2 with its first two nodes valid), g [BP, D]."""
+    D = d_model
     rs = np.random.RandomState(seed)
     valid = rs.rand(BP, N) < 0.7
     valid[0, 0] = True
@@ -114,35 +121,40 @@ def weight_ptrs(enc):
     return ctypes.cast(tnt._weight_ptrs([getattr(enc, n) for n in tne.W_NAMES]), ctypes.c_void_p)
 
 
-def k2(lib, enc, x, valid):
-    out = torch.full((x.shape[0], D), float("nan"))
-    fn = lib.tb_node_encoder
+def shape_args(enc, x):
+    """BP, N, L, H, d_model, d_ff of a C entry's call."""
+    return x.shape[0], x.shape[1], enc.n_layer, enc.n_head, enc.d_model, enc.d_feedforward
+
+
+def k2(lib, enc, x, valid, bf16=False):
+    out = torch.full((x.shape[0], enc.d_model), float("nan"))
+    fn = lib.tb_node_encoder_bf16 if bf16 else lib.tb_node_encoder
     fn.argtypes, fn.restype = list(tne._ARGS), ctypes.c_int
-    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), x.shape[0], N, L, H, weight_ptrs(enc), None) == 0
+    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), *shape_args(enc, x), weight_ptrs(enc), None) == 0
     return out
 
 
 def k4_fwd(lib, enc, x, valid, p, seed):
-    out = torch.full((x.shape[0], D), float("nan"))
+    out = torch.full((x.shape[0], enc.d_model), float("nan"))
     fn = lib.tb_node_encoder_train_fwd
     fn.argtypes, fn.restype = list(tnt._FWD_ARGS), ctypes.c_int
-    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), x.shape[0], N, L, H, weight_ptrs(enc),
+    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), *shape_args(enc, x), weight_ptrs(enc),
               *tnt._drop_args(p, seed), None) == 0
     return out
 
 
 def k4_bwd(lib, enc, x, valid, g, p, seed, nblocks):
-    BP = x.shape[0]
+    BP, _, L, H, Dm, Fd = args = shape_args(enc, x)
     n = ctypes.c_longlong()
     fs = lib.tb_node_encoder_train_scratch
-    fs.argtypes, fs.restype = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int
-    assert fs(BP, N, L, nblocks, ctypes.byref(n)) == 0
+    fs.argtypes, fs.restype = list(tnt._SCRATCH_ARGS), ctypes.c_int
+    assert fs(BP, x.shape[1], L, H, Dm, Fd, nblocks, ctypes.byref(n)) == 0
     scratch = torch.full((n.value,), float("nan"))
     dx = torch.full_like(x, float("nan"))
-    dw = torch.full((tnt.n_params(L),), float("nan"))
+    dw = torch.full((tnt.n_params(L, Dm, Fd),), float("nan"))
     fn = lib.tb_node_encoder_train_bwd
     fn.argtypes, fn.restype = list(tnt._BWD_ARGS), ctypes.c_int
-    rc = fn(x.data_ptr(), valid.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), dw.data_ptr(), BP, N, L, H,
+    rc = fn(x.data_ptr(), valid.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), dw.data_ptr(), *args,
             weight_ptrs(enc), *tnt._drop_args(p, seed), nblocks, None)
     assert rc == 0
     grads, off = [], 0
@@ -175,11 +187,7 @@ def test_k2_bf16_emulated_matches_plain(emulated, record_property):
     at -1e30; and K2's fp32 output unchanged beside it."""
     enc = encoder()
     x, valid, _ = inputs(30)
-    lib = emulated["node_encoder"]
-    out = torch.full((x.shape[0], D), float("nan"))
-    fn = lib.tb_node_encoder_bf16
-    fn.argtypes, fn.restype = list(tne._ARGS), ctypes.c_int
-    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), x.shape[0], N, L, H, weight_ptrs(enc), None) == 0
+    out = k2(emulated["node_encoder"], enc, x, valid, bf16=True)
     with torch.no_grad():
         ref = enc.pooled_plain(x, valid, bf16=True)
         ref32 = enc.pooled_plain(x, valid)

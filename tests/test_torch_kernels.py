@@ -99,17 +99,19 @@ def test_k1_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(out, tfa.attention_core_plain(q, k, v, invalid[:, :1].expand_as(invalid), 2))
 
 
-@pytest.mark.parametrize("n_head", [2, 4])
-def test_k2_plain_matches_jax_kernel_interpret(n_head):
-    x, valid = _node_inputs()
+@pytest.mark.parametrize("n_head,d_model,d_ff", [pytest.param(2, 64, 64, id="2"), pytest.param(4, 64, 64, id="4"),
+                                                 pytest.param(2, 32, 64, id="2-d32-f64")])
+def test_k2_plain_matches_jax_kernel_interpret(n_head, d_model, d_ff):
+    """The last case: a rectangular FFN (w1 [32, 64], w2 [64, 32])."""
+    x, valid = _node_inputs(D=d_model)
     D = x.shape[-1]
-    jmod = JNodeEncoder(d_model=D, n_head=n_head, n_layer=3, d_feedforward=D, dropout_p=0.0, pipeline_blocks=2)
+    jmod = JNodeEncoder(d_model=D, n_head=n_head, n_layer=3, d_feedforward=d_ff, dropout_p=0.0, pipeline_blocks=2)
     p = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(valid))["params"]
     # non-trivial LayerNorm and bias parameters (init leaves them 1 and 0)
     rs = np.random.RandomState(4)
     p = {k: (v + 0.1 * rs.normal(size=v.shape).astype(np.float32) if v.ndim == 2 else v) for k, v in p.items()}
     j = jmod.apply({"params": p}, jnp.asarray(x), jnp.asarray(valid), method="encode_pooled")
-    tmod = tne.FusedNodeEncoder(D, n_head, 3, D)
+    tmod = tne.FusedNodeEncoder(D, n_head, 3, d_ff)
     load_jax_params(tmod, jax.tree_util.tree_map(np.asarray, p))
     with torch.no_grad():
         t = tmod.pooled_plain(torch.from_numpy(x), torch.from_numpy(valid))
@@ -148,15 +150,26 @@ def test_k2_bf16_plain_matches_jax_kernel_interpret(record_property):
 def test_k2_node_limit_is_the_shared_memory_edge():
     """The wrapper's limits are the kernel's: MAXN nodes (a thread's
     attention scores in registers, csrc/node_layer.cuh) and ROWS valid nodes
-    a block; the block's row buffers and weight ring fit one sm_90 block's
-    shared memory with room for its row map, and a block twice as tall
-    would not."""
+    a block (rows_fit, mirrored by `kernel_rows`: 64 at d_model = d_ff =
+    128, 32 at a width of 256); at each width the block's row buffers and
+    weight ring fit one sm_90 block's shared memory with room for its row
+    map (`BLOCK_BYTES`, the size of struct Block at RCAP rows), and a block
+    twice as tall would not."""
     csrc = Path(tne.__file__).parent.parent / "csrc"
     layer, k2 = (csrc / "node_layer.cuh").read_text(), (csrc / "node_encoder.cu").read_text()
-    assert int(re.search(r"constexpr int MAXN = (\d+);", layer).group(1)) == tne.KERNEL_MAX_NODES
-    assert int(re.search(r"constexpr int SMEM_OPTIN = (\d+);", layer).group(1)) == tne.SMEM_LIMIT
-    assert int(re.search(r"constexpr int ROWS = (\d+);", k2).group(1)) == tne.KERNEL_ROWS
-    assert tne.smem_bytes() + 4096 <= tne.SMEM_LIMIT < 2 * tne.smem_bytes()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", layer).group(1))
+             for name in ("MAXN", "SMEM_OPTIN", "RCAP", "KT", "CW")}
+    assert const["MAXN"] == tne.KERNEL_MAX_NODES and const["SMEM_OPTIN"] == tne.SMEM_LIMIT
+    assert "constexpr int ROWS = rows_fit(NBUF * LDS, RING_BYTES + sizeof(Block), RCAP);" in k2
+    rcap = const["RCAP"]
+    # struct Block: N, R, np; grow[RCAP] (8-byte aligned); rseg, rnode; seg0[RCAP + 1]; spoly[RCAP]; nrow
+    assert tne.BLOCK_BYTES == 16 + 8 * rcap + 4 * rcap * 2 + (4 * (rcap + 1) + 4) + 8 * rcap + 4 * rcap
+    assert (tne.kernel_rows(128, 128), tne.kernel_rows(256, 128), tne.kernel_rows(128, 256)) == (rcap, 32, 32)
+    for d_model, d_ff in ((128, 128), (256, 128), (128, 256), (256, 256)):
+        smem = tne.smem_bytes(d_model, d_ff)
+        assert tne.kernel_rows(d_model, d_ff) >= tne.KERNEL_MAX_NODES
+        assert smem + tne.BLOCK_BYTES <= tne.SMEM_LIMIT < 2 * smem
+        assert smem == 4 * (5 * tne.kernel_rows(d_model, d_ff) * (max(d_model, d_ff) + 4) + 3 * const["KT"] * const["CW"])
 
 
 def test_k2_wrapper_on_cpu_is_the_plain_version():

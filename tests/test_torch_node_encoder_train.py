@@ -10,7 +10,8 @@ JAX's reduce_max VJP does). With dropout live (p = 0.1), JAX's
 under `jax.grad`, fed the port's per-polyline masks on the block diagonal
 of its [G, L, H, R, R] layout. Tolerance: atol = rtol = 1e-5 on the
 forward; 2e-5 on the gradients (three layers of 16-wide sums over 16
-polylines, in another order).
+polylines, in another order). Both also at a rectangular FFN (d_model 32,
+d_ff 64, 2 heads: w1 [32, 64], w2 [64, 32], the hidden's mask [.., 64]).
 """
 import numpy as np
 import pytest
@@ -27,12 +28,12 @@ from trafficbots_tpu_torch.ops.dropout import dropout_mask_plain  # noqa: E402
 from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
 
 D, H, L, N, BP, BLK = 16, 2, 3, 5, 16, 8
+RECT = (32, 64)  # d_model, d_ff of the rectangular case
 TOL = dict(atol=1e-5, rtol=1e-5)
 GTOL = dict(atol=2e-5, rtol=2e-5)
 
 
-@pytest.fixture(scope="module")
-def case():
+def make_case(D=D, Fd=D):
     rs = np.random.RandomState(0)
     x = rs.normal(size=(BP, N, D)).astype(np.float32)
     valid = rs.rand(BP, N) < 0.8
@@ -40,14 +41,24 @@ def case():
     valid[1] = True
     x[1, 3] = x[1, 2]  # two equal nodes: they tie in every column of the max at p = 0
     x = np.where(valid[..., None], x, 0.0).astype(np.float32)
-    jmod = JNodeEncoder(d_model=D, n_head=H, n_layer=L, d_feedforward=D, dropout_p=0.0)
+    jmod = JNodeEncoder(d_model=D, n_head=H, n_layer=L, d_feedforward=Fd, dropout_p=0.0)
     params = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(valid))["params"]
     params = {k: np.asarray(v) + (0.1 * rs.normal(size=v.shape).astype(np.float32) if v.ndim == 2 else 0)
               for k, v in params.items()}  # non-trivial LayerNorm scales and biases
     g = rs.normal(size=(BP, D)).astype(np.float32)
-    tmod = tne.FusedNodeEncoder(D, H, L, D)
+    tmod = tne.FusedNodeEncoder(D, H, L, Fd)
     load_jax_params(tmod, params)
     return dict(x=x, valid=valid, params=params, g=g, tmod=tmod)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return make_case()
+
+
+@pytest.fixture(scope="module")
+def rect_case():
+    return make_case(*RECT)
 
 
 def port(case, p, seed):
@@ -86,6 +97,14 @@ def check(case, fwd, p, seed):
 
 
 def test_plain_matches_jax_kernels_at_p0(case):
+    check_p0(case)
+
+
+def test_plain_matches_jax_kernels_at_p0_rectangular(rect_case):
+    check_p0(rect_case)
+
+
+def check_p0(case):
     vf = jnp.asarray(case["valid"].astype(np.float32)[..., None])
 
     def fwd(x, weights):
@@ -104,17 +123,27 @@ def test_tied_max_splits_the_cotangent_evenly():
 
 
 def test_plain_with_dropout_matches_jax_on_the_same_masks(case):
+    check_dropout(case)
+
+
+def test_plain_with_dropout_matches_jax_on_the_same_masks_rectangular(rect_case):
+    check_dropout(rect_case)
+
+
+def check_dropout(case):
     p, seed = 0.1, 2**45 + 3
     R, G = BLK * N, BP // BLK
+    D, Fd = case["tmod"].d_model, case["tmod"].d_feedforward
     attn = np.ones((G, L, H, R, R), np.float32)  # off the block diagonal: cross-polyline weights are 0
-    m1, m2, m3 = (np.empty((G, L, R, D), np.float32) for _ in range(3))
+    m1, m3 = (np.empty((G, L, R, D), np.float32) for _ in range(2))
+    m2 = np.empty((G, L, R, Fd), np.float32)  # the FFN hidden's
     for l in range(L):
         a = dropout_mask_plain((BP, H, N, N), seed, 4 * l, p).numpy()
         for gi in range(G):
             for i in range(BLK):
                 attn[gi, l, :, i * N:(i + 1) * N, i * N:(i + 1) * N] = a[gi * BLK + i]
         for k, m in ((1, m1), (2, m2), (3, m3)):
-            m[:, l] = dropout_mask_plain((BP, N, D), seed, 4 * l + k, p).numpy().reshape(G, R, D)
+            m[:, l] = dropout_mask_plain((BP, N, m.shape[-1]), seed, 4 * l + k, p).numpy().reshape(G, R, -1)
     masks = tuple(map(jnp.asarray, (attn, m1, m2, m3)))
     vf = jnp.asarray(case["valid"].astype(np.float32)[..., None])
 

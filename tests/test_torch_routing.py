@@ -19,12 +19,13 @@ wrapper computes its plain version, so the runs finish.
   every kernel site calls its kernel's wrapper, and every predicate admits
   its shape: K1, K2 and K6 in eval, K3 and K4 in training.
 - At hidden 256 with 4 heads (d_head 64) and at 2 heads of width 128
-  (d_head 64) every kernel site still calls its wrapper. K1, K3 and K6
-  take those shapes; K2 and K4 refuse them (d_model 256, or 2 heads), so
-  on the card their sites raise with the predicate's reason.
+  (d_head 64) every kernel site still calls its wrapper, and every
+  predicate (K1, K2, K3, K4, K6) admits its shape.
 - Each predicate refuses exactly the shapes its wrapper's `_check_inputs`
   raises on, with the same reason (meta tensors: every other check passes
-  and the device check, last, raises).
+  and the device check, last, raises); K2's and K4's admit every
+  (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to
+  64 and 1-32 nodes, and nothing else.
 """
 import dataclasses
 
@@ -168,27 +169,22 @@ WIDE = {"hidden256": dict(hidden=256, n_head=4), "heads2": dict(hidden=128, n_he
 @pytest.mark.parametrize("impl", ["fused", "hybrid"])
 @pytest.mark.parametrize("widths", sorted(WIDE))
 def test_wide_eval_sites_launch_or_raise(monkeypatch, widths, impl):
-    """K1 (d_head 64) and K6 (d_model 256, or 2 heads) take the shape; K2
-    refuses it, so on the card the fused node stack raises."""
+    """K1 (d_head 64), K6 (d_model 256, or 2 heads) and K2 (the same) take
+    the shape: every eval site launches its kernel on the card."""
     sites = run_sites(site_config(impl=impl, **WIDE[widths]), monkeypatch, training=False)
     kernels = {kernel: reason for (kernel, _), reason in sites.items()}
     assert set(kernels) == {"K1", "K6" if impl == "hybrid" else "K2"}
-    assert kernels["K1"] is None
-    if impl == "hybrid":
-        assert kernels["K6"] is None
-    else:
-        assert kernels["K2"] is not None and "the kernel takes" in kernels["K2"]
+    assert all(reason is None for reason in kernels.values()), kernels
 
 
 @pytest.mark.parametrize("widths", sorted(WIDE))
 def test_wide_training_sites_launch_or_raise(monkeypatch, widths):
-    """K3 takes d_head 64; K4 refuses d_model 256 and 2 heads, so on the
-    card the training node stack raises unless `fused_train_kernel` is
-    off (the JAX package's XLA stack)."""
+    """K3 takes d_head 64 and K4 takes d_model 256 and 2 heads: every
+    training site launches its kernel on the card."""
     sites = run_sites(site_config(training=True, **WIDE[widths]), monkeypatch, training=True)
     kernels = {kernel: reason for (kernel, _), reason in sites.items()}
     assert set(kernels) == {"K3", "K4"}
-    assert kernels["K3"] is None and kernels["K4"] is not None
+    assert kernels["K3"] is None and kernels["K4"] is None
 
 
 def meta(*shape, dtype=torch.float32):
@@ -237,14 +233,27 @@ def test_k3_predicate_is_its_check():
 
 def test_k2_and_k4_predicates_are_their_checks():
     for N in (1, 20, 32, 33):
-        for D, Fd, H in ((128, 128, 4), (128, 128, 8), (128, 128, 16), (128, 128, 2), (256, 256, 4), (128, 256, 4)):
+        for D, Fd, H in ((128, 128, 4), (128, 128, 8), (128, 128, 16), (128, 128, 2), (256, 256, 4), (128, 256, 4),
+                         (256, 128, 4), (256, 128, 2), (512, 512, 8), (128, 128, 3), (128, 128, 64)):
             enc = K2.FusedNodeEncoder(D, H, 1, Fd).to("meta")
             x, valid = meta(8, N, D), meta(8, N, dtype=torch.bool)
             assert_predicate_matches_check(K2.kernel_refusal(N, D, Fd, H), lambda: enc._check_inputs(x, valid),
                                            "CUDA device")
             assert_predicate_matches_check(K4.kernel_refusal(N, D, Fd, H), lambda: K4._check_inputs(enc, x, valid),
                                            "CUDA device")
-    assert K2.kernel_refusal(20, 128, 128, 16) is None and K4.kernel_refusal(20, 128, 128, 16)
+    # every (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to 64, 1..32 nodes
+    for D in (128, 256):
+        for Fd in (128, 256):
+            for H in range(1, 129):
+                dh_ok = D % H == 0 and (D // H) % 4 == 0 and 4 <= D // H <= 64
+                for N in (1, 20, 32, 33):
+                    want = dh_ok and N <= 32
+                    assert (K2.kernel_refusal(N, D, Fd, H) is None) == want, (N, D, Fd, H)
+                    assert (K4.kernel_refusal(N, D, Fd, H) is None) == want, (N, D, Fd, H)
+    assert K2.kernel_refusal(20, 128, 128, 16) is None and K4.kernel_refusal(20, 128, 128, 16) is None
+    assert K2.kernel_refusal(20, 256, 128, 2) and K4.kernel_refusal(20, 256, 128, 2)  # d_head 128
+    assert K2.kernel_refusal(20, 512, 512, 8) and K4.kernel_refusal(20, 128, 64, 4)  # widths past the builds'
+    assert K4.kernel_refusal(20, 128, 128, 64)  # d_head 2
 
 
 def test_k6_predicate_is_its_check():

@@ -14,17 +14,17 @@ line:
     T = 1024, bf16 K/V, a padding mask) and path L (the map
     self-attention, B = 8, S = T = 1024, and the latent as2pl, S = 1216);
     K3f's output and row statistics and K3b's dq, dk, dv at the as2pl and
-    the map self-attention (dropout 0.1); K2's pooled output and K4f's and
-    K4b's (dropout 0.1) on `ops.node_trace.inputs` (8 scenes of 1024 x 20
-    polylines at 768/1024 fill, 3 layers); K6's output on that validity
+    the map self-attention (dropout 0.1); K2's and K2-bf16's pooled output
+    and K4f's and K4b's (dropout 0.1) on `ops.node_trace.inputs` (8 scenes
+    of 1024 x 20 polylines at 768/1024 fill, 3 layers); K6's output on that validity
     with seeded q, k, v [8192, 20, 128], 4 heads. Two trees whose fp32
     kernels compute the same bits print the same digests;
   - `device_ms`: K1-bf16 at its four sites (the rollout as2pl at B = 8 and
     the joint futures' B = 48, the map self-attention, the latent as2pl;
     bf16 q, k, v, a padding mask over the last quarter of the keys) beside
-    SDPA on the same bf16 q/k/v, K2-bf16 beside fp32 K2 and K6-bf16 beside
-    fp32 K6 (on K6's digest inputs): the bare launches captured in a CUDA
-    graph and replayed, timed with CUDA events;
+    SDPA on the same bf16 q/k/v, K2-bf16 beside fp32 K2, K4f and K4b, and
+    K6-bf16 beside fp32 K6 (on K6's digest inputs): the bare launches
+    captured in a CUDA graph and replayed, timed with CUDA events;
   - `card`: nvidia-smi's name and power limit.
 
 Run parent, this, this, parent in one run to compare two commits on one
@@ -125,6 +125,7 @@ def one_tree(root: str) -> dict:
     L, H, p, seed = enc.n_layer, enc.n_head, 0.1, 2**50 + 9
     with torch.no_grad():
         digests["K2"] = digest(enc.encode_pooled(x, valid))
+        digests["K2-bf16"] = digest(enc.encode_pooled(x, valid, bf16=True))
         digests["K4f"] = digest(NT._launch_fwd(x, valid, p, seed, L, H, weights))
         dx, dw = NT._launch_bwd(x, valid, g, p, seed, L, H, weights)
         digests["K4b"] = digest(torch.cat([dx.flatten(), dw]))
@@ -146,6 +147,8 @@ def one_tree(root: str) -> dict:
     with torch.no_grad():
         times["K2-bf16"] = graph_ms(torch, lambda: enc.encode_pooled(x, valid, bf16=True), n=5)
         times["K2"] = graph_ms(torch, lambda: enc.encode_pooled(x, valid), n=5)
+        times["K4f"] = graph_ms(torch, lambda: NT._launch_fwd(x, valid, p, seed, L, H, weights), n=5)
+        times["K4b"] = graph_ms(torch, lambda: NT._launch_bwd(x, valid, g, p, seed, L, H, weights), n=3)
     times["K6-bf16"] = graph_ms(torch, lambda: BA.block_attn_core(q6, k6, v6, valid, 4, bf16=True))
     times["K6"] = graph_ms(torch, lambda: BA.block_attn_core(q6, k6, v6, valid, 4))
     return dict(root=root, digests=digests, device_ms=times, card=card_line())

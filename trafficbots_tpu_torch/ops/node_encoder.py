@@ -27,7 +27,11 @@ the per-polyline attention core in a kernel (K6, `ops.block_attn`).
 `kernel_refusal` is K2's shape predicate (K2-bf16 takes the same shapes):
 None where the kernel takes a shape, else the reason it does not;
 `_check_inputs` raises with that reason, so a CUDA tensor the kernel
-refuses raises.
+refuses raises. The kernels take d_model and d_feedforward in
+`KERNEL_WIDTHS`, each independently, and any n_head whose d_head =
+d_model / n_head is a multiple of 4 from 4 to 64; the widths are constants
+of a build (`build_defines`), one library a width pair, built at its
+first use.
 
 The module owns the stacked [L, ...] parameters under the JAX names
 (`ln1_s` ... `b2`, matrices in the JAX [in, out] layout, used as x @ w), so
@@ -42,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,38 +64,59 @@ LAUNCHES_BF16 = 0
 NEG = -1e30
 LN_EPS = 1e-5
 _KERNEL = "node_encoder"
-KERNEL_D = 128  # the kernel's d_model == d_feedforward
+KERNEL_D = 128  # the default build's d_model and d_feedforward (TB_NODE_D, TB_NODE_F in csrc/node_layer.cuh)
+KERNEL_WIDTHS = (128, 256)  # the d_model and d_feedforward a build may take, each independently
 KERNEL_MAX_NODES = 32  # MAXN in csrc/node_layer.cuh: a thread's attention scores in registers
-KERNEL_ROWS = 64  # ROWS in csrc/node_encoder.cu: the valid nodes a block holds
-KERNEL_HEADS = (4, 8, 16, 32)  # heads_ok in csrc/node_layer.cuh: d_head <= 32, a multiple of 4
+KERNEL_MAX_D_HEAD = 64  # heads_ok in csrc/node_layer.cuh: d_head a multiple of 4 up to 64
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
-_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p, ctypes.c_void_p)
+BLOCK_BYTES = 2072  # sizeof(Block) in csrc/node_layer.cuh: a block's row map
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (ctypes.c_void_p, ctypes.c_void_p)
 W_NAMES = (
     "ln1_s", "ln1_b", "lnt_s", "lnt_b", "ln2_s", "ln2_b",
     "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "w1", "b1", "w2", "b2",
 )
 
 
-def smem_bytes() -> int:
-    """Dynamic shared memory of one block of the kernel (mirrors
-    csrc/node_encoder.cu): five [KERNEL_ROWS, 132] fp32 row buffers and a
-    ring of three 32 x 128 weight k-tiles, whatever the node count (K2-bf16
-    takes its tensor-core products' bf16 rows and weight, 3 KB more, in
-    the ring's place: node_layer.cuh MMA_BYTES)."""
-    return 4 * (5 * KERNEL_ROWS * (KERNEL_D + 4) + 3 * 32 * KERNEL_D)
+def build_defines(d_model: int, d_ff: int) -> Tuple[str, ...]:
+    """nvcc's -D flags of the build of the node kernels (K2, K4) at these
+    widths: none for the default 128 x 128, else TB_NODE_D and TB_NODE_F
+    (csrc/node_layer.cuh)."""
+    if (d_model, d_ff) == (KERNEL_D, KERNEL_D):
+        return ()
+    return (f"-DTB_NODE_D={d_model}", f"-DTB_NODE_F={d_ff}")
+
+
+def kernel_rows(d_model: int = KERNEL_D, d_ff: int = KERNEL_D) -> int:
+    """ROWS in csrc/node_encoder.cu: the valid nodes a block holds, the
+    most (a multiple of 4, at most 64) whose five [rows, max(D, F) + 4]
+    fp32 buffers fit beside the larger of the weight ring (three 32 x 128
+    k-tiles) and K2-bf16's bf16 rows and weight (node_layer.cuh MMA_BYTES),
+    and the block's row map: 64 at 128 x 128, 32 at a width of 256."""
+    lds = max(d_model, d_ff) + 4
+    fixed = max(4 * 3 * 32 * 128, 2 * (64 + 128) * 136) + BLOCK_BYTES
+    return min(64, (SMEM_LIMIT - fixed) // (4 * 5 * lds) // 4 * 4)
+
+
+def smem_bytes(d_model: int = KERNEL_D, d_ff: int = KERNEL_D) -> int:
+    """Dynamic shared memory of one K2 block (mirrors
+    csrc/node_encoder.cu): five [kernel_rows, max(D, F) + 4] fp32 row
+    buffers and a ring of three 32 x 128 weight k-tiles, whatever the node
+    count (K2-bf16 takes its tensor-core products' bf16 rows and weight,
+    3 KB more, in the ring's place)."""
+    return 4 * (5 * kernel_rows(d_model, d_ff) * (max(d_model, d_ff) + 4) + 3 * 32 * 128)
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_refusal(n_node: int, d_model: int, d_feedforward: int, n_head: int) -> Optional[str]:
     """None when K2 and K2-bf16 take polylines of n_node nodes at these
-    widths, else the reason they do not: csrc/node_layer.cuh's fixed
-    D = 128 (the five [64, 132] row buffers and the weight ring of
-    `smem_bytes`), MAXN and `heads_ok`."""
-    if d_model != KERNEL_D or d_feedforward != KERNEL_D:
-        return f"the kernel takes d_model = d_feedforward = {KERNEL_D}"
-    if not 1 <= n_node <= KERNEL_MAX_NODES or n_head not in KERNEL_HEADS:
-        return (f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (a thread's scores in registers) "
-                f"and n_head in {KERNEL_HEADS}")
+    widths, else the reason they do not: the widths a build takes
+    (csrc/node_layer.cuh, `KERNEL_WIDTHS`), MAXN and `heads_ok`."""
+    if d_model not in KERNEL_WIDTHS or d_feedforward not in KERNEL_WIDTHS:
+        return f"the kernel takes d_model and d_feedforward in {KERNEL_WIDTHS}"
+    if not 1 <= n_node <= KERNEL_MAX_NODES:
+        return f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (a thread's scores in registers)"
+    if n_head < 1 or d_model % n_head or (d_model // n_head) % 4 or d_model // n_head > KERNEL_MAX_D_HEAD:
+        return f"the kernel takes d_head = d_model / n_head a multiple of 4 from 4 to {KERNEL_MAX_D_HEAD}"
     return None
 
 
@@ -204,9 +229,10 @@ class FusedNodeEncoder(nn.Module):
             return out
         weights = [getattr(self, n) for n in W_NAMES]
         ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-        rc = cuda_build.entry(_KERNEL, "tb_node_encoder_bf16" if bf16 else "tb_node_encoder", _ARGS)(
-            x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, self.n_layer, self.n_head,
-            ctypes.cast(ptrs, ctypes.c_void_p), cuda_build.stream(x),
+        rc = cuda_build.entry(_KERNEL, "tb_node_encoder_bf16" if bf16 else "tb_node_encoder", _ARGS,
+                              build_defines(D, self.d_feedforward))(
+            x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, self.n_layer, self.n_head, D,
+            self.d_feedforward, ctypes.cast(ptrs, ctypes.c_void_p), cuda_build.stream(x),
         )
         cuda_build.check(rc, "FusedNodeEncoder.encode_pooled")
         if bf16:

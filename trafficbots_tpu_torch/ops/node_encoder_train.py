@@ -15,9 +15,11 @@ does (`torch.amax` and `torch.max(dim)` send it elsewhere). Autograd
 differentiates it. `node_encoder_train` sends a CUDA tensor to
 `csrc/node_encoder_train.cu` through an autograd Function whose backward is
 the hand-derived backward kernels, and a CPU tensor to the plain version.
-`kernel_refusal` is K4's shape predicate: None where the kernels take a
-shape, else the reason they do not; `_check_inputs` raises with that
-reason, so a CUDA tensor the kernels refuse raises.
+`kernel_refusal` is K4's shape predicate, K2's set (both run
+csrc/node_layer.cuh's layer code): None where the kernels take a shape,
+else the reason they do not; `_check_inputs` raises with that reason, so a
+CUDA tensor the kernels refuse raises. A width pair's kernels are a build
+of their own (`ops.node_encoder.build_defines`).
 `LAUNCHES_FWD` / `LAUNCHES_BWD` count the forward's and the backward's
 launches (one call of each C entry; the backward's entry launches seven
 kernels: the groups' row counts and offsets, the transposed weights, the
@@ -34,7 +36,8 @@ import torch
 
 from . import cuda_build
 from .dropout import keep_scale, threshold
-from .node_encoder import KERNEL_D, NEG, W_NAMES, FusedNodeEncoder
+from .node_encoder import NEG, W_NAMES, FusedNodeEncoder, build_defines
+from .node_encoder import kernel_refusal as _layer_refusal
 
 Tensor = torch.Tensor
 
@@ -43,9 +46,6 @@ LAUNCHES_BWD = 0
 
 _KERNEL = "node_encoder_train"
 KERNEL_MAX_NODES = 32  # MAXN in csrc/node_encoder_train.cu and csrc/node_layer.cuh
-# K2's heads up to MAXH (csrc/node_layer.cuh): the backward keeps 3 row statistics a (head, node)
-TRAIN_HEADS = (4, 8)
-_MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 class _MaxPoolTies(torch.autograd.Function):
@@ -76,9 +76,11 @@ def node_encoder_train_plain(enc: FusedNodeEncoder, x: Tensor, valid: Tensor, p:
     return max_pool_ties(enc(x, valid, p, seed), valid)
 
 
-def n_params(n_layer: int) -> int:
-    """Length of the flat gradient of the 18 stacked arrays."""
-    return n_layer * (len(_MATRICES) * KERNEL_D * KERNEL_D + (len(W_NAMES) - len(_MATRICES)) * KERNEL_D)
+def n_params(n_layer: int, d_model: int, d_ff: int) -> int:
+    """Length of the flat gradient of the 18 stacked arrays: a layer's
+    four [D, D] matrices, w1 [D, F], w2 [F, D], b1 [F] and 11 vectors [D]."""
+    D, Fd = d_model, d_ff
+    return n_layer * (4 * D * D + 2 * D * Fd + Fd + 11 * D)
 
 
 def _weight_ptrs(weights):
@@ -89,19 +91,26 @@ def _drop_args(p: float, seed: int):
     return (seed, threshold(p), keep_scale(p), 1) if p > 0 else (0, 0, 1.0, 0)
 
 
-_FWD_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+_FWD_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6
              + (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _BWD_ARGS = (ctypes.c_void_p,) * 3 + _FWD_ARGS[:-1] + (ctypes.c_int, ctypes.c_void_p)
-_SCRATCH_ARGS = (ctypes.c_int,) * 4 + (ctypes.POINTER(ctypes.c_longlong),)
+_SCRATCH_ARGS = (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_longlong),)
+
+
+def _widths(weights) -> Tuple[int, int]:
+    """d_model and d_ff of the 18 stacked arrays (w1 is [L, D, F])."""
+    w1 = weights[W_NAMES.index("w1")]
+    return w1.shape[1], w1.shape[2]
 
 
 def _launch_fwd(x, valid, p, seed, n_layer, n_head, weights):
     global LAUNCHES_FWD
     BP, N, D = x.shape
+    d_model, d_ff = _widths(weights)
     out = torch.empty((BP, D), dtype=torch.float32, device=x.device)
     ptrs = _weight_ptrs(weights)
-    rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_fwd", _FWD_ARGS)(
-        x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, n_layer, n_head,
+    rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_fwd", _FWD_ARGS, build_defines(d_model, d_ff))(
+        x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, N, n_layer, n_head, d_model, d_ff,
         ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), cuda_build.stream(x))
     cuda_build.check(rc, "node_encoder_train forward")
     LAUNCHES_FWD += 1
@@ -111,20 +120,25 @@ def _launch_fwd(x, valid, p, seed, n_layer, n_head, weights):
 def _launch_bwd(x, valid, g, p, seed, n_layer, n_head, weights):
     """dx and the flat weight gradient [n_params]. The scratch holds the
     saved rows of every node that could be valid (BP N), so its size needs
-    no read of `valid` on the host: 3.0 GB at BP = 8192, N = 20, L = 3."""
+    no read of `valid` on the host: 3.0 GB at BP = 8192, N = 20, L = 3 and
+    d_model = d_ff = 128, (10 D + 2 F) BP N L floats in all."""
     global LAUNCHES_BWD
     BP, N, D = x.shape
-    nblocks = cuda_build.entry(_KERNEL, "tb_node_encoder_train_nblocks", ())()
+    d_model, d_ff = _widths(weights)
+    defines = build_defines(d_model, d_ff)
+    nblocks = cuda_build.entry(_KERNEL, "tb_node_encoder_train_nblocks", (), defines)()
     n_scratch = ctypes.c_longlong()
-    scratch_floats = cuda_build.entry(_KERNEL, "tb_node_encoder_train_scratch", _SCRATCH_ARGS)
-    scratch_floats(BP, N, n_layer, nblocks, ctypes.byref(n_scratch))
+    scratch_floats = cuda_build.entry(_KERNEL, "tb_node_encoder_train_scratch", _SCRATCH_ARGS, defines)
+    cuda_build.check(scratch_floats(BP, N, n_layer, n_head, d_model, d_ff, nblocks, ctypes.byref(n_scratch)),
+                     "node_encoder_train backward's scratch")
     dx = torch.empty_like(x)
     scratch = torch.empty((n_scratch.value,), dtype=torch.float32, device=x.device)
-    dw = torch.empty((n_params(n_layer),), dtype=torch.float32, device=x.device)
+    dw = torch.empty((n_params(n_layer, d_model, d_ff),), dtype=torch.float32, device=x.device)
     ptrs = _weight_ptrs(weights)
-    rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_bwd", _BWD_ARGS)(
+    rc = cuda_build.entry(_KERNEL, "tb_node_encoder_train_bwd", _BWD_ARGS, defines)(
         x.data_ptr(), valid.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), dw.data_ptr(), BP, N,
-        n_layer, n_head, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), nblocks, cuda_build.stream(x))
+        n_layer, n_head, d_model, d_ff, ctypes.cast(ptrs, ctypes.c_void_p), *_drop_args(p, seed), nblocks,
+        cuda_build.stream(x))
     cuda_build.check(rc, "node_encoder_train backward")
     LAUNCHES_BWD += 1
     return dx, dw
@@ -151,13 +165,10 @@ class _NodeEncoderTrain(torch.autograd.Function):
 @functools.lru_cache(maxsize=None)
 def kernel_refusal(n_node: int, d_model: int, d_feedforward: int, n_head: int) -> Optional[str]:
     """None when K4 takes polylines of n_node nodes at these widths, else
-    the reason it does not: K2's layer code (csrc/node_layer.cuh, D = 128,
-    MAXN) and K4b's row statistics of at most MAXH = 8 heads."""
-    if d_model != KERNEL_D or d_feedforward != KERNEL_D:
-        return f"the kernel takes d_model = d_feedforward = {KERNEL_D}"
-    if not 1 <= n_node <= KERNEL_MAX_NODES or n_head not in TRAIN_HEADS:
-        return f"the kernels take 1..{KERNEL_MAX_NODES} nodes and n_head in {TRAIN_HEADS}"
-    return None
+    the reason it does not: K2's set (`ops.node_encoder.kernel_refusal`),
+    since K4f and K4b's save kernel run K2's layer code and K4b's walk
+    sizes its groups to the heads' row statistics."""
+    return _layer_refusal(n_node, d_model, d_feedforward, n_head)
 
 
 def _check_inputs(enc: FusedNodeEncoder, x: Tensor, valid: Tensor) -> None:

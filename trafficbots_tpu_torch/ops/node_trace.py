@@ -50,7 +50,7 @@ def build() -> dict:
     for name, (p, lib) in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"nvcc failed for the traced {name}.cu")
-        libs[name] = cuda_build._LIBS[name] = ctypes.CDLL(str(lib))
+        libs[name] = cuda_build._LIBS[(name, ())] = ctypes.CDLL(str(lib))
         for key in [k for k in cuda_build._ENTRIES if k[0] == name]:
             del cuda_build._ENTRIES[key]
     return libs
