@@ -10,7 +10,9 @@ its own lines:
      the TF32 flags (both off);
   2. the build: every CUDA kernel from trafficbots_tpu_torch/csrc, one nvcc
      per source, all started together, and the node kernels' sources once
-     more for each other width pair that 3b and 6e run (WIDE_BUILDS);
+     more for each other width pair that 3b and 6e run (WIDE_BUILDS); K4's
+     sources, the longest to compile, build on while K1, K2, K5 and K3 are
+     checked (phase 3) and phase 3a runs, and K4's checks wait for them;
   3. each kernel against its plain PyTorch version at the shapes the main
      path gives it at full width, with its time as a caller sees it (`ms`:
      back-to-back calls, the host's issue rate included), its device time
@@ -31,9 +33,16 @@ its own lines:
      valid node; K2's, K4f's and K6's outputs' and K4b's gradients' SHA-1
      digests (two commits' runs in one call that print the same digest gave
      the same bits);
+  3a. K1 and K3 at d_head 128 (d_model 256, 2 heads): K1 at its four
+     main-path sites, K1-bf16, K1-skip and K3f / K3b (dropout live) at the
+     rollout as2pl and the map self-attention, each against its plain
+     version at phase 3's holds, its device time, bound and SDPA's device
+     time beside the same kernel's and SDPA's at 4 heads (d_head 64) on
+     the same inputs;
   3b. the node kernels at the other widths they take (NODE_WIDTHS:
-     (d_model, d_ff, n_head) = (256, 128, 4), (256, 256, 4), (128, 128, 2)
-     for K2, K2-bf16 and K4, and (128, 128, 16) for K4) on the main fill's
+     (d_model, d_ff, n_head) = (256, 128, 4), (256, 256, 4), (128, 128, 2),
+     and at d_head 128 (256, 128, 2) and (128, 128, 1), for K2, K2-bf16
+     and K4, and (128, 128, 16) for K4) on the main fill's
      8 x 1024 x 20 polylines, each width its own draw: K2 within K2_TOL,
      K2-bf16 within its one-ulp nudge's gap, K4f within K4_TOL and K4b's
      gradients within K4_GRAD_RTOL of the plain version on the cotangent
@@ -139,18 +148,20 @@ its own lines:
      every K3 launch a K3-skip one (phase 5 counts them beside K3f / K3b);
   6e. the options the port once refused, at full width over HELD_STEPS
      steps: (a) other widths, the default fused node stack: at hidden 256
-     (model.hidden_dim=256: d_model 256, d_ff 128, 4 heads) and at 2 heads
-     of width 128 each kernel site's route printed (the kernel, "raises"
-     with the kernel's shape predicate's reason, or the plain version
-     where the JAX package runs XLA; every K2 and K4 site "kernel"), an
-     eval rollout (K1 at d_head 64, K2 once) and a training step (K3 at
-     d_head 64, K4f and K4b once, K5), each beside its kernels' launches
+     (model.hidden_dim=256: d_model 256, d_ff 128, 4 heads), at 2 heads
+     of width 128 and at hidden 256 with 2 heads (d_head 128) each kernel
+     site's route printed (the kernel, "raises" with the kernel's shape
+     predicate's reason, or the plain version where the JAX package runs
+     XLA; every K2 and K4 site "kernel", at d_head 128 every K1, K3, K2
+     and K4 site), an eval rollout (K1, K2 once) and a training step (K3,
+     K4f and K4b once, K5), each beside its kernels' launches
      and held against the plain versions: the map features within K2's
-     tolerance and the preds within 1e-3 m over the first 20 steps
-     (WIDTHS_HELD_STEPS; the 30-step gaps beside the nudge's are
-     readings), the training step at phase 5's holds; at hidden 256 one
-     map encode with the hybrid node encoder (K6 at d_model 256, 3
-     launches) against the plain versions; (b) the structure options: post-norm layers with
+     tolerance and the preds within 1e-3 m over the 20 steps each run
+     takes (WIDTHS_HELD_STEPS), the 20-step training step at phase 5's
+     holds; at hidden 256 (4
+     and 2 heads) one map encode with the hybrid node encoder (K6 at
+     d_model 256, 3 launches) against the plain versions, each width's
+     seconds; (b) the structure options: post-norm layers with
      n_layer_final_mlp=2 under each action-head variant (unbranched,
      LayerNorm'd branches, a log_std MLP), an eval rollout each against
      the plain versions with its K1 launches (the post-norm node stack is
@@ -236,7 +247,8 @@ script exits non-zero at once. It imports nothing of JAX.
 
 build K1 and K3 (--attention), or K2, K4 and K6 (--node, with the other
 widths' builds), alone and run only their checks and timings (phase 3's
-lines for them and one JSON line, no last line; --node replays the shared
+lines for them and one JSON line, no last line; --attention then runs
+phase 3a, K1 and K3 at d_head 128; --node replays the shared
 generator's earlier draws on the CPU, so K2, K4 and K6 see the inputs a
 full run gives them, then runs K2-bf16 at phase 6c's shapes and phase 3b):
 a quick check after an edit of their sources, or, copied into an unpacked
@@ -280,6 +292,7 @@ only phase 6e, with its JSON line, the card line and the last line.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -498,11 +511,10 @@ def digest(t: torch.Tensor) -> str:
 # ------------------------------------------------------------------ K1
 
 
-def k1_case(gen, B, S, T, kv_bf16, pad_frac, full_mask, dev):
+def k1_case(gen, B, S, T, kv_bf16, pad_frac, full_mask, dev, D=128, H=4):
     """Inputs at one call site: a [B, T] padding mask read through a
     stride-0 expand (as the model passes it), or a full [B, S, T] mask with
     one all-masked row."""
-    D, H = 128, 4
     q = torch.randn(B, S, D, generator=gen).to(dev)
     k = torch.randn(B, T, D, generator=gen).to(dev)
     v = torch.randn(B, T, D, generator=gen).to(dev)
@@ -599,6 +611,142 @@ def check_k1(gen, n_scene, dev):
     entry["max_abs_err"] = max_err
     entry["sites"] = per_site
     return entry
+
+
+# ------------------------------------------------------------------ K1 and K3 at d_head 128
+
+WIDE_D = 256  # hidden 256 with 2 heads: d_head 128; its d_head-64 row at 4 heads beside it
+
+
+def wide_sites():
+    """K1's main-path sites at d_head 128: (name, B, S, bf16 K/V), T = 1024."""
+    return (("rollout as2pl", N_SCENE, 64, True), (K1_B48, 6 * N_SCENE, 64, True),
+            ("map polyline self-attention", N_SCENE, 1024, False), ("latent as2pl", N_SCENE, 19 * 64, False))
+
+
+def sdpa_device_ms(q, k, v, allowed, H):
+    """SDPA's device ms (a CUDA graph) on q, k, v split into H heads, the
+    mask `allowed` [B, S, T]: the yardstick (a flash kernel exists at
+    d_head 128 for bf16; fp32 takes the efficient or math kernel)."""
+    qh, kh, vh = (t.view(t.shape[0], t.shape[1], H, -1).transpose(1, 2) for t in (q, k, v))
+    return graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed[:, None]))
+
+
+def check_attention_d_head_128(dev) -> dict:
+    """K1 (fp32 q, the site's K/V type) at the four main-path K1 sites,
+    K1-bf16 and K1-skip at the rollout as2pl and the map self-attention,
+    K3f / K3b (dropout live) at the rollout as2pl and the map self-attention,
+    all at D = WIDE_D with 2 heads (d_head 128), each against its plain
+    version at the default width's holds; each row's device ms, bound and
+    SDPA's device ms beside the same kernel's and SDPA's at 4 heads
+    (d_head 64) on the same inputs."""
+    out = {"K1": [], "K1-bf16": [], "K1-skip": [], "K3f": [], "K3b": []}
+    for i, (name, B, S, kv_bf16) in enumerate(wide_sites()):
+        gen = torch.Generator().manual_seed(128 + i)
+        (q, k, v, invalid, _), mask_bytes = k1_case(gen, B, S, 1024, kv_bf16, 0.25, False, dev, D=WIDE_D)
+        allowed = ~invalid
+        by_heads = {}
+        for H in (4, 2):
+            args = (q, k, v, invalid, H)
+            by_heads[H] = dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*args)),
+                          library_device_ms=sdpa_device_ms(q, k.float(), v.float(), allowed, H))
+        args = (q, k, v, invalid, 2)
+        got, again = FA.fused_attention_core(*args), FA.fused_attention_core(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"K1 d_head 128 {name}: not bitwise reproducible")
+        err = max_err_checked(got, FA.attention_core_plain(*args), K1_TOL, f"K1 d_head 128 {name}")
+        b_ms, b_by = k1_bound(args, mask_bytes)
+        row = dict(site=name, max_abs_err=err, ms=time_ms(lambda: FA.fused_attention_core(*args)),
+                   device_ms=by_heads[2]["device_ms"], plain_ms=time_ms(lambda: FA.attention_core_plain(*args), n=5),
+                   library_device_ms=by_heads[2]["library_device_ms"], bound_ms=b_ms, bound_by=b_by,
+                   d_head_64=by_heads[4])
+        out["K1"].append(row)
+        log(f"K1 d_head 128 {name}: B={B} S={S} T=1024 D={WIDE_D} H=2 kv={'bf16' if kv_bf16 else 'fp32'} {row} "
+            f"[{card_line()}]")
+        if name not in ("rollout as2pl", "map polyline self-attention"):
+            continue
+        # K1-bf16 on bf16 q/k/v, within a one-bf16-ulp input nudge's gap
+        b16 = (q.bfloat16(), k.bfloat16(), v.bfloat16(), invalid)
+        by_heads = {H: dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*b16, H)),
+                       library_device_ms=sdpa_device_ms(*b16[:3], allowed, H)) for H in (4, 2)}
+        got, again = FA.fused_attention_core(*b16, 2), FA.fused_attention_core(*b16, 2)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.bfloat16 and torch.equal(got, again), f"K1-bf16 d_head 128 {name}: not reproducible")
+        held = bf16_held(f"K1-bf16 d_head 128 {name}", got, FA.attention_core_plain(*b16, 2),
+                         FA.attention_core_plain(bf16_up(b16[0]), *b16[1:], 2))
+        b_ms, b_by = bound_ms_bf16(2 * q.numel() * 2 + 2 * k.numel() * 2 + mask_bytes,
+                                   4 * WIDE_D * int(allowed.sum().item()))
+        row = dict(site=name, max_abs_err=held["vs_plain"]["max_abs"], **held,
+                   ms=time_ms(lambda: FA.fused_attention_core(*b16, 2)), device_ms=by_heads[2]["device_ms"],
+                   plain_ms=time_ms(lambda: FA.attention_core_plain(*b16, 2), n=5),
+                   library_device_ms=by_heads[2]["library_device_ms"], bound_ms=b_ms, bound_by=b_by, d_head_64=by_heads[4])
+        out["K1-bf16"].append(row)
+        log(f"K1-bf16 d_head 128 {name}: {row} [{card_line()}]")
+        # K1-skip at the main fill: agents (rows) 40.. of each 64 dead
+        src = dead_agents(B, S, FILL_AGENTS, dev)
+        live = FA.row_live(invalid, src)
+        by_heads = {H: graph_ms(lambda: FA.fused_attention_core(*args[:4], H, src_invalid=src)) for H in (4, 2)}
+        got = FA.fused_attention_core(*args, src_invalid=src)
+        base = FA.fused_attention_core(*args)
+        torch.cuda.synchronize()
+        require(bool((got[~live] == 0).all()) and torch.equal(got[live], base[live]),
+                f"K1-skip d_head 128 {name}: dead rows not 0 or live rows not K1's")
+        err = max_err_checked(got, FA.attention_core_plain(*args, src_invalid=src), K1_TOL, f"K1-skip d_head 128 {name}")
+        b_ms, b_by = skip_bound(q, k, invalid, src, mask_bytes, False)
+        row = dict(site=name, max_abs_err=err, ms=time_ms(lambda: FA.fused_attention_core(*args, src_invalid=src)),
+                   device_ms=by_heads[2], plain_ms=time_ms(lambda: FA.attention_core_plain(*args, src_invalid=src), n=5),
+                   library_device_ms=sdpa_device_ms(q, k.float(), v.float(), allowed & live[..., None], 2),
+                   bound_ms=b_ms, bound_by=b_by, d_head_64=dict(device_ms=by_heads[4]))
+        out["K1-skip"].append(row)
+        log(f"K1-skip d_head 128 {name}: {row} [{card_line()}]")
+        # K3f / K3b, fp32 K/V, dropout live
+        q3, k3, v3 = q, k.float(), v.float()
+        g = torch.randn(B, S, WIDE_D, generator=gen).to(dev)
+        seed = 2**41 + S
+        rows = {}
+        for H in (4, 2):
+            o, rmax, rsum = AT._launch_fwd(q3, k3, v3, invalid, H, P_DROP, seed, 0)
+            lib_fwd, lib_leaves = sdpa_train(q3, k3, v3, invalid, H)
+            with torch.no_grad():
+                lib_f = graph_ms(lib_fwd)
+            lib_out = lib_fwd()
+            gh = g.view(B, S, H, -1).transpose(1, 2)
+            rows[H] = dict(fwd_device_ms=graph_ms(lambda: AT._launch_fwd(q3, k3, v3, invalid, H, P_DROP, seed, 0)),
+                           bwd_device_ms=graph_ms(lambda: AT._launch_bwd(q3, k3, v3, invalid, o, rmax, rsum, g, H,
+                                                                         P_DROP, seed, 0)),
+                           library_fwd_device_ms=lib_f,
+                           library_bwd_device_ms=profiled_ms(
+                               lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True)))
+
+        def run(fn):
+            qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q3, k3, v3))
+            o_ = fn(qq, kk, vv, invalid, 2, P_DROP, seed, 0)
+            return o_, torch.autograd.grad(o_, (qq, kk, vv), g)
+
+        got, grads = run(AT.attention_train)
+        _, grads2 = run(AT.attention_train)
+        ref, ref_grads = run(AT.attention_train_plain)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(grads, grads2)), f"K3b d_head 128 {name}: not reproducible")
+        ef = max_err_checked(got.detach(), ref.detach(), K3_TOL, f"K3f d_head 128 {name}")
+        eb = grads_checked(grads, ref_grads, ("dq", "dk", "dv"), K3_GRAD_RTOL, f"K3b d_head 128 {name}")
+        n_pairs = int(allowed.sum().item())
+        io = (2 * q.numel() + 2 * k.numel()) * 4 + mask_bytes + 2 * B * 2 * S * 4
+        bf, bf_by = bound_ms(io, 4 * WIDE_D * n_pairs)
+        bb, bb_by = bound_ms(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * WIDE_D * n_pairs)
+        with torch.no_grad():
+            plain_f = time_ms(lambda: AT.attention_train_plain(q3, k3, v3, invalid, 2, P_DROP, seed, 0), n=5)
+            ms_f = time_ms(lambda: AT.attention_train(q3, k3, v3, invalid, 2, P_DROP, seed, 0))
+        out["K3f"].append(dict(site=name, max_abs_err=ef, ms=ms_f, device_ms=rows[2]["fwd_device_ms"], plain_ms=plain_f,
+                               library_device_ms=rows[2]["library_fwd_device_ms"], bound_ms=bf, bound_by=bf_by,
+                               d_head_64=dict(device_ms=rows[4]["fwd_device_ms"],
+                                              library_device_ms=rows[4]["library_fwd_device_ms"])))
+        out["K3b"].append(dict(site=name, max_abs_err=eb, device_ms=rows[2]["bwd_device_ms"],
+                               library_device_ms=rows[2]["library_bwd_device_ms"], bound_ms=bb, bound_by=bb_by,
+                               d_head_64=dict(device_ms=rows[4]["bwd_device_ms"],
+                                              library_device_ms=rows[4]["library_bwd_device_ms"])))
+        log(f"K3 d_head 128 {name}: fwd {out['K3f'][-1]} bwd {out['K3b'][-1]} [{card_line()}]")
+    return out
 
 
 # ------------------------------------------------------------------ K2
@@ -820,8 +968,7 @@ def check_k5(dev):
     return entry
 
 
-def k3_inputs(gen, B, S, T, pad_frac, full_mask, dev):
-    D = 128
+def k3_inputs(gen, B, S, T, pad_frac, full_mask, dev, D=128):
     q, k, v, g = (torch.randn(*s, generator=gen).to(dev) for s in ((B, S, D), (B, T, D), (B, T, D), (B, S, D)))
     if full_mask:
         invalid = torch.rand(B, S, T, generator=gen) < pad_frac
@@ -1136,7 +1283,7 @@ def k4_reading(enc, x, valid, g, seed, graphs, usual, n_scene):
 # 128 at 4 heads, on the main fill's inputs: K2, K2-bf16 and K4 at the
 # first three (the first is the single override model.hidden_dim=256, the
 # reference's own interpolated width), K4 also at the last (16 heads)
-NODE_WIDTHS = ((256, 128, 4), (256, 256, 4), (128, 128, 2), (128, 128, 16))
+NODE_WIDTHS = ((256, 128, 4), (256, 256, 4), (128, 128, 2), (128, 128, 16), (256, 128, 2), (128, 128, 1))
 
 
 def check_node_widths(dev, batch) -> dict:
@@ -1212,15 +1359,17 @@ def compare_rollouts(out, ref, ref_nudged, what, hold: bool = True, held_steps: 
 def profile_run(run, wall_s, what):
     """One run() under torch.profiler: the device's busy time (the sum of its
     kernels and copies, one stream), the number of device operations, the
-    host's syncs with the device, and the top kernels by device time. The
-    profiler's raw events are read as they are (building its event tree for
-    a training step's ~10^6 host and device events takes minutes); the
-    seconds the profiled run and the reading took are printed."""
+    host's syncs with the device (CUDA runtime calls), and the top kernels
+    by device time. Only the CUDA activity is traced: none of these needs
+    the host's operator events, which made up most of a training step's
+    ~10^6 events and of the profile's cost. The profiler's raw events are
+    read as they are (building its event tree takes minutes); the seconds
+    the profiled run and the reading took are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     events = prof.profiler.kineto_results.events()
@@ -1748,7 +1897,7 @@ def bf16_held(name: str, out, ref, ref_nudged) -> dict:
 
 # the tensor-core kernels and the fp32 ones of the K1, K2 and K6 libraries,
 # by a piece of their mangled names
-SASS_KERNELS = {"K1-bf16": ("12fwd_rows_mma", "15fwd_cluster_mma"), "K2-bf16": ("node_kernelILb1E",),
+SASS_KERNELS = {"K1-bf16": ("12fwd_rows_mma", "17fwd_rows_mma_slab", "15fwd_cluster_mma"), "K2-bf16": ("node_kernelILb1E",),
                 "K6-bf16": ("14block_attn_mma",), "K1": ("8fwd_rows", "11fwd_cluster"), "K2": ("node_kernelILb0E",),
                 "K6": ("17block_attn_kernel",)}
 
@@ -3245,20 +3394,21 @@ REMAT_POLICIES = ("none", "save_attn", "save_core")
 # carries an ulp past 1e-3 m for some model seeds even at the default
 # widths, through the kernels and a one-ulp map nudge alike; over 20 steps
 # the kernels' gap stayed under 1.4e-4 m in 15 (width, seed) cases on an
-# H100 (tools/rollout_gap_ab.py; PERF.md). The map features are held
-# beside it (MAP_TOL), the 30-step gaps are readings.
+# H100 (tools/rollout_gap_ab.py; PERF.md). The widths' runs (the eval
+# rollouts and the training steps) end there; the map features are held
+# beside it (MAP_TOL).
 WIDTHS_HELD_STEPS = 20
 
 
 def widths_config(cfg: ExperimentConfig, hidden: int, n_head: int, impl: str = "fused") -> ExperimentConfig:
-    """cfg at other widths, over HELD_STEPS steps, with the default fused
+    """cfg at other widths, over WIDTHS_HELD_STEPS steps, with the default fused
     node stack (K2 in eval, K4 in training; `impl="hybrid"` for K6): as
     the override `model.hidden_dim=...` does, d_model follows hidden_dim
     and d_feedforward stays 128 (hidden 256: D = 256, F = 128)."""
     tf = dataclasses.replace(cfg.model.tf_cfg, d_model=hidden, n_head=n_head)
     me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl=impl)
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_dim=hidden, tf_cfg=tf, map_encoder=me),
-                               time_step_end=HELD_STEPS)
+                               time_step_end=WIDTHS_HELD_STEPS)
 
 
 def site_routes(cfg: ExperimentConfig, what: str) -> dict:
@@ -3405,34 +3555,40 @@ def remat_policies(cfg, batch, dev) -> dict:
 
 def options_path(cfg, batch, dev) -> dict:
     """(a) Other widths, the default fused node stack: at hidden 256 (the
-    override `model.hidden_dim=256`: D = 256, F = 128, 4 heads) and at 2
-    heads of width 128, an eval rollout (K1 at d_head 64, K2) and a
-    training step (K3 at d_head 64, K4, K5), each site's route printed
-    (every K2 and K4 site "kernel"), each run held against the plain
-    versions (the evals over WIDTHS_HELD_STEPS); at hidden 256 one hybrid
-    map encode (K6 at d_model 256). (b) Structure options:
+    override `model.hidden_dim=256`: D = 256, F = 128, 4 heads), at 2
+    heads of width 128 and at hidden 256 with 2 heads (d_head 128), an
+    eval rollout (K1, K2) and a training step (K3, K4, K5), each site's
+    route printed (every K2 and K4 site "kernel", at d_head 128 every K1,
+    K3, K2 and K4 site), each run held against the plain versions (the
+    evals over WIDTHS_HELD_STEPS); at hidden 256 one hybrid map encode (K6
+    at d_model 256). (b) Structure options:
     post-norm layers with the final MLP under each action-head variant, an
     eval rollout each (K1 at its sites, the generic node stack for the
     post-norm layer, no K2); one map encode each for VectorNet, the mean
     pool and the generic node stack. (c) The remat policies."""
     t0 = time.perf_counter()
     out = dict(widths={}, structure={}, map_encodes={})
-    for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2)):
+    for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2), ("hidden256_heads2", 256, 2)):
+        t0_width = time.perf_counter()
         c = widths_config(cfg, hidden, n_head)
         what = f"hidden {hidden}, {n_head} heads"
         r = out["widths"][name] = dict(routes=site_routes(c, what))
-        require(all(route == "kernel" for site, route in r["routes"].items() if site.startswith(("K2", "K4"))),
-                f"{what}: a node-stack site does not take its kernel: {r['routes']}")
+        # every node-stack site takes its kernel; at d_head 128 every K1, K3, K2 and K4 site
+        kernel_sites = ("K1", "K3", "K2", "K4") if hidden // n_head == 128 else ("K2", "K4")
+        require(all(route == "kernel" for site, route in r["routes"].items() if site.startswith(kernel_sites)),
+                f"{what}: a {kernel_sites} site does not take its kernel: {r['routes']}")
         e = r["eval"] = options_eval(c, batch, dev, f"{what}, eval", held_steps=WIDTHS_HELD_STEPS)
-        require(e["launches"]["K1"] > 0 and e["launches"]["K2"] >= 1 and e["launches"]["K6"] == 0,
+        require(e["launches"]["K1"] > 0 and e["launches"]["K2"] == 1 and e["launches"]["K6"] == 0,
                 f"{what} eval launches {e['launches']}")
         t = r["train"] = options_train(c, batch, dev, f"{what}, training step")
         require(t["launches"]["K3f"] > 0 and t["launches"]["K3b"] > 0 and t["launches"]["K5"] > 0
                 and t["launches"]["K4f"] == t["launches"]["K4b"] == 1, f"{what} training launches {t['launches']}")
-        if name == "hidden256":
+        if hidden == 256:
             r["hybrid_map_encode"] = option_map_encode(
                 widths_config(cfg, hidden, n_head, impl="hybrid"), batch, dev, f"{what}, hybrid map encode",
                 expect=(("K1", 1), ("K2", 0), ("K6", 3)))
+        r["seconds"] = time.perf_counter() - t0_width
+        log(f"{what}: {r['seconds']} s")
     for name, head in OPTION_HEADS.items():
         m = dataclasses.replace(cfg.model, tf_cfg=dataclasses.replace(cfg.model.tf_cfg, norm_first=False),
                                 n_layer_final_mlp=2)
@@ -3471,7 +3627,11 @@ def main():
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
                  "--dp, --media, --augment, --bf16, --row-skip or --options)")
     t0 = time.perf_counter()
-    build_s = cuda_build.build_all(modes[mode])
+    # the full run's K4 sources (the longest nvcc) compile beside the checks
+    # of K1, K2, K5 and K3, which do not need them
+    late = tuple(b for b in modes[mode] if not mode and (b if isinstance(b, str) else b[0]) == "node_encoder_train")
+    late_build = concurrent.futures.ThreadPoolExecutor(1).submit(cuda_build.build_all, late) if late else None
+    build_s = cuda_build.build_all([b for b in modes[mode] if b not in late])
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
 
     gen = torch.Generator().manual_seed(0)
@@ -3479,7 +3639,9 @@ def main():
         phase("attention kernel checks")
         k1 = check_k1(gen, N_SCENE, dev)
         k3f, k3b = check_k3(gen, N_SCENE, dev)
-        log(json.dumps({"attention": {"K1": k1, "K3f": k3f, "K3b": k3b}}))
+        phase("attention kernels at d_head 128")
+        wide = check_attention_d_head_128(dev)
+        log(json.dumps({"attention": {"K1": k1, "K3f": k3f, "K3b": k3b, "d_head_128": wide}}))
         phase("done")
         return
     cfg = ExperimentConfig()
@@ -3547,6 +3709,11 @@ def main():
     k2 = check_k2(gen, N_SCENE, dev, batch)
     k5 = check_k5(dev)
     k3f, k3b = check_k3(gen, N_SCENE, dev)
+    phase("attention kernels at d_head 128")
+    wide_attn = check_attention_d_head_128(dev)
+    late_s = late_build.result()
+    log(f"build, beside the checks above: {late_s} (wall {time.perf_counter() - t0:.1f} s)")
+    phase("kernel checks: K4 and K6")
     require(torch.equal(gen.get_state(), replayed_generator("K4", N_SCENE, batch).get_state()),
             "replayed_generator does not replay the draws before K4's")
     k4f, k4b = check_k4(gen, N_SCENE, dev, batch)
@@ -3646,10 +3813,12 @@ def main():
              replaces="trafficbots_tpu/ops/attention_train.py:260", launches=train_launches["K3b-skip"],
              **skip["K3b_skip"]),
     ]
-    for k in kernels:  # the node kernels' readings at the other widths, beside each one's default row
+    for k in kernels:  # the readings at the other widths, beside each kernel's default row
         key = k["name"].split(" ")[0]
         if key in ("K2", "K2-bf16", "K4f", "K4b"):
             k["other_widths"] = {name: r[key] for name, r in widths.items() if key in r}
+        if key in wide_attn:
+            k["d_head_128"] = wide_attn[key]
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
     log(json.dumps({"kernels": kernels}))

@@ -48,21 +48,12 @@ from test_torch_training import (  # noqa: E402
     GRAD_RTOL, TOL, flat_flax, inject_latent_noise, no_dropout, port_cfg, zero_gradient_leaf,
 )
 from tiny import tiny_batch  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 ABLATIONS = ("traffic_bots", "simnet", "trafficsim", "bc", "bc_simnet", "no_free_nats", "large_kl",
              "action_gradients", "goal_no_navigator", "no_latent", "no_goal", "scene_transformer_pe", "pe_add",
              "pe_xy_dir", "pe_xy_unit_dir", "xy_dir", "mpa_pl", "no_interaction", "goal_xy", "latent_cat",
              "latent_std_gaus")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny widths run fastest on one, and the
-    test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_the_sweep_names_every_ablation():

@@ -49,6 +49,7 @@ from trafficbots_tpu_torch.weights import flax_paths  # noqa: E402
 
 from test_torch_training import flat_flax, inject_latent_noise, no_dropout, port_cfg, port_model  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 OPTIONS = {
     "history_dropout": dict(dropout_p_history=0.2),

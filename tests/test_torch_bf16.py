@@ -52,6 +52,7 @@ from trafficbots_tpu_torch.weights import flax_paths, load_jax_params  # noqa: E
 
 from test_torch_training import flat_flax, inject_latent_noise, no_dropout, zero_gradient_leaf  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 RATIO = 0.1
 

@@ -29,16 +29,9 @@ from trafficbots_tpu_torch.training.checkpoint import STATE_FILE  # noqa: E402
 
 from test_torch_cli import TINY  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 BF16 = ["precision=bf16", "model.map_encoder.kernel_matmul_bf16=true"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def config(precision: str, matmul_bf16: bool, impl: str = "fused"):

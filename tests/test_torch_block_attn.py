@@ -39,6 +39,7 @@ from trafficbots_tpu_torch.ops import node_encoder as tne  # noqa: E402
 from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
 
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 D, H, L, N, BP = 16, 2, 3, 5, 16

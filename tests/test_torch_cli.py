@@ -35,21 +35,12 @@ from trafficbots_tpu_torch.training.checkpoint import STATE_FILE  # noqa: E402
 
 from test_resume import TINY_OVERRIDES as JAX_TINY  # noqa: E402
 from test_submission import decode_fields  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 # tests/test_resume.py's tiny run at batch 2 (no 8-device mesh here) and 1 step an
 # epoch, on the CPU
 TINY = [o for o in JAX_TINY if not o.startswith(("data.batch_size", "steps_per_epoch"))] + [
     "data.batch_size=2", "steps_per_epoch=1", "device=cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny widths run fastest on one (~2x here),
-    and the test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def run(argv):

@@ -218,8 +218,10 @@ def test_k2_kernel_matches_plain(cuda, N):
 # (d_model, d_ff, n_head) the node kernels take beside the default
 # 128 x 128 at 4 heads: a width of 256 (d_head 64, two threads a (head,
 # row)), the FFN rectangular both ways, 2 heads (d_head 64) and 16 heads
-# (d_head 8) at 128
-OTHER_WIDTHS = [(256, 128, 4), (256, 256, 4), (128, 256, 4), (128, 128, 2), (128, 128, 16)]
+# (d_head 8) at 128, and d_head 128 (four threads a (head, row)) at 256 x
+# 128 with 2 heads and at 128 x 128 with 1
+OTHER_WIDTHS = [(256, 128, 4), (256, 256, 4), (128, 256, 4), (128, 128, 2), (128, 128, 16), (256, 128, 2),
+                (128, 128, 1)]
 
 
 def wide_encoder(D, Fd, H, seed=1):
@@ -300,9 +302,9 @@ def test_hidden_256_on_the_card_launches_or_raises(cuda, record_property):
     fused_train_kernel off (the JAX package's XLA node stack) launches K3
     and not K4, its loss within 1e-5 and its gradients within a relative
     norm error of 1e-2 of the plain versions' (chip_smoke.py's training
-    holds). K2 and K4 take d_model 256 at 4 heads and launch; at 2 heads
-    (d_head 128) their wrappers raise with their predicates' reasons and
-    launch nothing."""
+    holds). K2 and K4 take d_model 256 at 4 heads and at 2 heads (d_head
+    128) and launch; at 1 head (d_head 256) their wrappers raise with their
+    predicates' reasons and launch nothing."""
     cfg = ExperimentConfig()
     data = dataclasses.replace(cfg.data, n_agent=32, n_pl=256, n_tl=16, n_tl_stop=8, n_step=41)
     tf = dataclasses.replace(cfg.model.tf_cfg, d_model=256, d_feedforward=256)
@@ -353,13 +355,19 @@ def test_hidden_256_on_the_card_launches_or_raises(cuda, record_property):
     torch.cuda.synchronize()
     assert tne.LAUNCHES == 1 and tnt.LAUNCHES_FWD == 1
     enc2 = tne.FusedNodeEncoder(256, 2, 3, 256).to(cuda)
-    with pytest.raises(ValueError) as e:
+    with torch.no_grad():
         enc2.encode_pooled(x, valid)
-    assert str(e.value) == tne.kernel_refusal(20, 256, 256, 2)
+    tnt.node_encoder_train(enc2, x, valid, 0.1, 5)
+    torch.cuda.synchronize()
+    assert tne.LAUNCHES == 2 and tnt.LAUNCHES_FWD == 2
+    enc1 = tne.FusedNodeEncoder(256, 1, 3, 256).to(cuda)
     with pytest.raises(ValueError) as e:
-        tnt.node_encoder_train(enc2, x, valid, 0.1, 5)
-    assert str(e.value) == tnt.kernel_refusal(20, 256, 256, 2)
-    assert tne.LAUNCHES == 1 and tnt.LAUNCHES_FWD == 1
+        enc1.encode_pooled(x, valid)
+    assert str(e.value) == tne.kernel_refusal(20, 256, 256, 1)
+    with pytest.raises(ValueError) as e:
+        tnt.node_encoder_train(enc1, x, valid, 0.1, 5)
+    assert str(e.value) == tnt.kernel_refusal(20, 256, 256, 1)
+    assert tne.LAUNCHES == 2 and tnt.LAUNCHES_FWD == 2
 
 
 @pytest.mark.cuda
@@ -533,6 +541,75 @@ def test_k3_kernels_match_plain_at_d_head_64(cuda, B, S, T, D, H):
     torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
     for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
         assert rel_err(a, b) < 1e-5, name
+
+
+# d_head 128 (hidden 256 with 2 heads): the rollout as2pl (path S; K1-bf16
+# at B = 48 on path L), the map self-attention and the latent as2pl (path L)
+D_HEAD_128 = [(8, 64, 1024), (48, 64, 1024), (2, 1024, 1024), (2, 1216, 1024), (2, 37, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T", D_HEAD_128)
+def test_k1_kernels_match_plain_at_d_head_128(cuda, B, S, T):
+    """K1 (fp32 and bf16 K/V), K1-bf16 and both skips at d_head 128, with a
+    padding and a full mask: K1 within 1e-5 of the plain version, K1-bf16
+    within a relative norm error of 1e-3, two calls bitwise equal; with
+    src_invalid dead rows 0 and live rows bitwise the unskipped kernel's."""
+    D, H = 256, 2
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=17))
+    src = dead_agents(B, S, 40, cuda)
+    for inv in (invalid[:, 0][:, None, :].expand(B, S, T), invalid):
+        for qq, kv in ((q, torch.float32), (q, torch.bfloat16), (q.bfloat16(), torch.bfloat16)):
+            kk, vv = k.to(kv), v.to(kv)
+            counts = (tfa.LAUNCHES, tfa.LAUNCHES_BF16, tfa.LAUNCHES_SKIP)
+            out = tfa.fused_attention_core(qq, kk, vv, inv, H)
+            again = tfa.fused_attention_core(qq, kk, vv, inv, H)
+            skip = tfa.fused_attention_core(qq, kk, vv, inv, H, src_invalid=src)
+            torch.cuda.synchronize()
+            bf16 = qq.dtype == torch.bfloat16
+            assert (tfa.LAUNCHES, tfa.LAUNCHES_BF16, tfa.LAUNCHES_SKIP) == (
+                counts[0] + 3 * (not bf16), counts[1] + 3 * bf16, counts[2] + 1)
+            assert torch.equal(out, again)
+            ref = tfa.attention_core_plain(qq, kk, vv, inv, H)
+            if bf16:
+                assert rel_norm(out, ref) < 1e-3
+            else:
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+            live = tfa.row_live(inv, src)
+            assert (skip[~live] == 0).all() and torch.equal(skip[live], out[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T", D_HEAD_128)
+def test_k3_kernels_match_plain_at_d_head_128(cuda, B, S, T):
+    """K3f, K3b and K3-skip at d_head 128, dropout live, at K3's holds; the
+    backward bitwise the same on a second call."""
+    D, H = 256, 2
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=19))
+    invalid = invalid[:, 0][:, None, :].expand(B, S, T)
+    src = dead_agents(B, S, 40, cuda)
+    live = tfa.row_live(invalid, src)
+    g = torch.randn(B, S, D, generator=torch.Generator().manual_seed(19)).to(cuda) * live[..., None]
+
+    def run(fn, src_invalid=None):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv, invalid, H, 0.1, 987654321, 3, src_invalid=src_invalid)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    f0, b0 = tat.LAUNCHES_FWD, tat.LAUNCHES_BWD
+    got = run(tat.attention_train)
+    assert (tat.LAUNCHES_FWD, tat.LAUNCHES_BWD) == (f0 + 1, b0 + 1)
+    ref = run(tat.attention_train_plain)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert rel_err(a, b) < 1e-5, name
+    assert all(torch.equal(a, b) for a, b in zip(got, run(tat.attention_train)))
+    skip = run(tat.attention_train, src)
+    assert (skip[0][~live] == 0).all() and torch.equal(skip[0][live], got[0][live])
+    for a, b in zip(skip[1:], got[1:]):
+        assert torch.equal(a + 0.0, b + 0.0)
 
 
 @pytest.mark.cuda

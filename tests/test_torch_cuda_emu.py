@@ -165,6 +165,10 @@ def dead_rows(invalid):
     (1, 70, 260, 128, 4, False, 0, "L"),  # d_head 32: three row blocks, the last of 6 rows
     (2, 100, 130, 64, 4, True, 0, "L"),  # d_head 16
     (1, 80, 300, 128, 2, False, 1, "L"),  # d_head 64, unaligned K/V
+    (2, 37, 300, 256, 2, True, 0, "S"),  # d_head 128: the weighted sum in two column passes
+    (1, 40, 200, 128, 1, False, 1, "S"),  # d_head 128, fp32 K/V, unaligned
+    (1, 70, 260, 128, 1, False, 0, "L"),  # d_head 128, fp32 K/V: one K/V tile buffer
+    (2, 66, 140, 256, 2, True, 0, "L"),  # d_head 128, bf16 K/V: two tile buffers
 ])
 def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset, path):
     """K1 (csrc/fused_attention.cu -> attn_fwd.cuh) on both paths, both K/V
@@ -193,6 +197,7 @@ def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset
     (1, 64, 1000, 64, 4, "S"),  # d_head 16: eight ranks, the last partial; dead ranks
     (1, 70, 260, 128, 4, "L"),  # d_head 32: three row blocks, the last of 6 rows
     (1, 80, 300, 128, 2, "L"),  # d_head 64
+    (1, 70, 260, 128, 1, "L"),  # d_head 128: K and V in slabs of 64 columns
 ])
 def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H, path):
     """K1's bf16 variant (tb_fused_attention_bf16: bf16 q/k/v, weights
@@ -229,6 +234,8 @@ def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H
     (1, 20, 300, 32, 1, ((12, 20),)),  # one row block: path S (three ranks), the last rows dead
     (1, 40, 1024, 64, 1, ()),  # d_head 64 at T = 1024: K and V do not both fit, V takes K's place
     (1, 100, 300, 32, 1, ((0, 32), (90, 100))),  # one head: 2 blocks walk 4 row blocks, the first all dead
+    (1, 24, 300, 128, 1, ((16, 24),)),  # d_head 128 on path S (three ranks), the last rows dead
+    (1, 40, 1024, 128, 1, ((0, 32),)),  # d_head 128 at T = 1024: K and V in slabs, the first row block dead
 ])
 def test_k1_bf16_emulated_layouts(emulated, B, S, T, D, H, dead):
     """K1-bf16's layouts beyond test_k1_bf16_emulated_matches_plain's:
@@ -275,6 +282,9 @@ def k1_emulated(emulated, q, k, v, invalid, src_invalid, H):
     (2, 40, 300, 64, 2, False, (24, 0), "S"),
     # K1-bf16, full mask: row block 0 live, block 1 partly dead, block 2 all dead
     (1, 96, 260, 64, 2, True, (40,), "L"),
+    # d_head 128: fp32 q on path S; K1-bf16 on path L's slabs
+    (2, 40, 300, 256, 2, False, (24, 0), "S"),
+    (1, 96, 260, 128, 1, True, (40,), "L"),
 ])
 def test_k1_skip_emulated(emulated, B, S, T, D, H, bf16, live_rows, path):
     """K1's dead-query-row skip (`src_invalid`): every dead row exactly 0,
@@ -348,6 +358,8 @@ def test_k3_skip_emulated_forward_and_backward(emulated):
     (2, 70, 260, 64, 4, False, 0.1, "L"),
     (1, 100, 200, 128, 4, True, 0.0, "L"),
     (2, 70, 260, 128, 2, True, 0.1, "L"),  # d_head 64
+    (2, 48, 300, 256, 2, True, 0.1, "S"),  # d_head 128
+    (1, 70, 260, 128, 1, False, 0.1, "L"),  # d_head 128: one K/V tile buffer
 ])
 def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, path):
     """K3f (csrc/attention_train.cu -> attn_fwd.cuh) with dropout live or
@@ -387,6 +399,7 @@ def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, p
     (8, 256, 130, 128, 4, False, 0.1),  # 128 blocks of 64 rows: the 64-row dq blocks
     (4, 130, 70, 64, 2, True, 0.2),
     (2, 100, 140, 256, 4, False, 0.1),  # d_head 64
+    (2, 70, 130, 256, 2, True, 0.1),  # d_head 128: 64-row dq blocks below 128 of them
 ])
 def test_k3_backward_emulated_matches_plain(emulated, B, S, T, D, H, full_mask, p):
     rs = np.random.RandomState(S + T)
@@ -502,3 +515,12 @@ def test_k3_wrapper_mirrors_the_kernels_layout():
     assert tat.smem_bytes(1024, 32) == tfa.smem_bytes(1024, 32) == rows_l == 179008 <= tat.SMEM_LIMIT
     assert tfa.smem_bytes(1024, 32, 2) < rows_l  # bf16 K/V tiles take half
     assert tat.smem_bytes(4096, 32) > tat.SMEM_LIMIT
+    # d_head 128: path L's one fp32 K/V tile (two bf16 ones) beside T = 1024 keys' logits; K1-bf16's
+    # slabs; K3b's 64-row dq block (157,440 B) and its dk/dv block (174,848 B) below the forward's
+    assert (fwd["KV_BUF_BYTES"], fwd["CS"]) == (tfa.KV_BUF_BYTES, tfa.SLAB)
+    assert tfa.smem_bytes(1024, 128) == tat.smem_bytes(1024, 128) == 4 * (32 * 1032 + 32 * 132 + 128 * 132 + 32 * 32
+                                                                          + 10 * 32 + 16) == 222016
+    assert tfa.smem_bytes(1024, 128, 2) == 224064 and tfa.smem_bytes_bf16(1024, 128) == 228128
+    assert all(tfa.kernel_refusal(1024, 256, 2, kv, bf16) is None for kv, bf16 in ((4, False), (2, False), (2, True)))
+    assert tat.kernel_refusal(1024, 128, 1) is None and tat.kernel_refusal(1152, 256, 2) is not None
+    assert tfa.kernel_refusal(1152, 256, 2) is not None and tfa.kernel_refusal(1024, 256, 1) is not None

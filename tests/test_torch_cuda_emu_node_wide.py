@@ -7,12 +7,14 @@ with g++ against the CUDA emulator in `tests/cuda_emu/`, once a width pair
 (`-DTB_NODE_D`, `-DTB_NODE_F`: ops.node_encoder.build_defines), and holds
 the kernels at (d_model, d_ff, n_head) = (256, 128, 4) (d_head 64: two
 threads a (head, row), their dot products summed by a lane shuffle),
-(256, 256, 8), (128, 256, 4) (the FFN rectangular both ways) and
-(128, 128, 2) (d_head 64 at the default width) against their plain
-versions: polylines of 5 nodes, among which an all-padding and a partly
-valid one, 2 layers, a few groups of polylines so that a walk block takes
-more than one. A build refuses the widths it was not built for, and d_head
-128.
+(256, 256, 8), (128, 256, 4) (the FFN rectangular both ways),
+(128, 128, 2) (d_head 64 at the default width), and at d_head 128 (four
+threads a (head, row), two levels of shuffles) (256, 128, 2) and
+(128, 128, 1) against their plain versions: polylines of 5 nodes, among
+which an all-padding and a partly valid one, 2 layers, a few groups of
+polylines so that a walk block takes more than one. A build refuses the
+widths it was not built for, and d_head 256 (the refusal test keeps its
+name from when d_head 128 was refused).
 
 Tolerances as in that file: K2 and K4's forward within atol = rtol = 1e-4
 of the plain versions; K2-bf16 within a relative norm error of 1e-3 of its
@@ -33,7 +35,7 @@ from trafficbots_tpu_torch.ops import node_encoder_train as tnt
 
 from test_torch_cuda_emu_node import build_emulated, encoder, inputs, k2, k4_bwd, k4_fwd, weight_ptrs
 
-WIDTHS = [(256, 128, 4), (256, 256, 8), (128, 256, 4), (128, 128, 2)]
+WIDTHS = [(256, 128, 4), (256, 256, 8), (128, 256, 4), (128, 128, 2), (256, 128, 2), (128, 128, 1)]
 NL = 2  # layers
 BP = 14  # polylines: 3 groups of 6 at a width of 256 (32 rows), 2 of 12 at 128 x 128
 
@@ -124,8 +126,10 @@ def test_k4_wide_emulated_matches_plain(emulated, widths, p):
 
 def test_a_build_refuses_other_widths_and_d_head_128(emulated):
     """Each C entry returns cudaErrorInvalidValue (1) for widths its build
-    does not hold, and for d_head 128 (256 wide, 2 heads), as the
-    predicate refuses them; the wrappers never reach a build that would."""
+    does not hold, and for d_head 256 (256 wide, 1 head), as the
+    predicate refuses them; the wrappers never reach a build that would.
+    d_head 128 (256 wide with 2 heads, 128 wide with 1), which the
+    entries once refused here, they now take."""
     enc, x, valid, _ = case((256, 128, 4))
     wrong = emulated[key(256, 256, "node_encoder")]
     fn = wrong.tb_node_encoder
@@ -135,12 +139,14 @@ def test_a_build_refuses_other_widths_and_d_head_128(emulated):
     lib = emulated[key(256, 128, "node_encoder")]
     fn = lib.tb_node_encoder
     fn.argtypes, fn.restype = list(tne._ARGS), ctypes.c_int
-    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, 5, NL, 2, 256, 128, weight_ptrs(enc), None) == 1
-    assert tne.kernel_refusal(5, 256, 128, 2) is not None
+    assert fn(x.data_ptr(), valid.data_ptr(), out.data_ptr(), BP, 5, NL, 1, 256, 128, weight_ptrs(enc), None) == 1
+    assert tne.kernel_refusal(5, 256, 128, 1) is not None
+    assert tne.kernel_refusal(5, 256, 128, 2) is None and tne.kernel_refusal(5, 128, 128, 1) is None
     train = emulated[key(256, 128, "node_encoder_train")]
     fs = train.tb_node_encoder_train_scratch
     fs.argtypes, fs.restype = list(tnt._SCRATCH_ARGS), ctypes.c_int
     n = ctypes.c_longlong()
-    assert fs(BP, 5, NL, 2, 256, 128, 2, ctypes.byref(n)) == 1
+    assert fs(BP, 5, NL, 1, 256, 128, 2, ctypes.byref(n)) == 1
     assert fs(BP, 5, NL, 4, 128, 128, 2, ctypes.byref(n)) == 1
     assert fs(BP, 5, NL, 64, 256, 128, 2, ctypes.byref(n)) == 0
+    assert fs(BP, 5, NL, 2, 256, 128, 2, ctypes.byref(n)) == 0

@@ -25,6 +25,7 @@ from trafficbots_tpu_torch.sim.teacher_forcing import teacher_forcing_mask  # no
 from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
 
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 HELD_STEPS = 50
 ROLLOUT_ATOL = 1e-3  # metres
@@ -56,8 +57,16 @@ def make_sim(setup):
     return TO.interactive_replay(*setup["args"], device="cpu")
 
 
-def test_run_to_end_equals_reactive_replay_bitwise(setup):
-    buf, ref = make_sim(setup).run_to_end().finish(), setup["ref"]
+@pytest.fixture(scope="module")
+def run_to_end(setup):
+    """One interactive sim run to its end, shared: its buffer and its final
+    carried state."""
+    sim = make_sim(setup).run_to_end()
+    return sim.finish(), sim.carry.agent.state.clone()
+
+
+def test_run_to_end_equals_reactive_replay_bitwise(setup, run_to_end):
+    buf, ref = run_to_end[0], setup["ref"]
     for name in FIELDS:
         assert torch.equal(getattr(buf, name), getattr(ref, name)), name
     assert buf.violations.keys() == ref.violations.keys()
@@ -130,14 +139,14 @@ def test_partial_override_keeps_the_gt_channels(setup):
     assert torch.equal(sim.carry.agent.vel[:, 1:3], gt_vel[:, 1:3])
 
 
-def test_mask_override_alone_replaces_the_teacher_forcing(setup):
+def test_mask_override_alone_replaces_the_teacher_forcing(setup, run_to_end):
     """A mask without states forces the masked agents to this step's GT and
     releases the others."""
     sim = make_sim(setup)
     B, A = sim.carry.agent.valid.shape
     out = sim.step(mask_override=torch.zeros((B, A), dtype=torch.bool))
     assert not out.override_mask.any()
-    assert not torch.equal(sim.carry.agent.state, make_sim(setup).run_to_end().carry.agent.state)
+    assert not torch.equal(sim.carry.agent.state, run_to_end[1])
 
 
 def test_interactive_replay_refuses_missing_cuda(setup):
@@ -173,9 +182,9 @@ def jax_interactive(setup):
     return full, np.asarray(forced_sim.carry.agent.state), forced_sim.run_to_end().finish()
 
 
-def test_interactive_matches_jax(setup, jax_interactive, record_property):
+def test_interactive_matches_jax(setup, jax_interactive, run_to_end, record_property):
     jbuf, jstate5, jforced = jax_interactive
-    tbuf = make_sim(setup).run_to_end().finish()
+    tbuf = run_to_end[0]
     for name in ("valid", "override_masks", "diffbar_rewards_valid"):
         np.testing.assert_array_equal(getattr(tbuf, name).numpy(), np.asarray(getattr(jbuf, name)), err_msg=name)
     for k, v in jbuf.violations.items():

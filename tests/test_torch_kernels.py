@@ -32,6 +32,7 @@ from trafficbots_tpu_torch.ops import node_encoder as tne
 from trafficbots_tpu_torch.weights import load_jax_params
 
 from test_torch_cuda import attn_inputs as _attn_inputs, node_inputs as _node_inputs
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -30,6 +30,7 @@ from trafficbots_tpu.models.map_encoder import MapEncoder as JMapEncoder  # noqa
 from trafficbots_tpu_torch import config as TC  # noqa: E402
 from trafficbots_tpu_torch.models.map_encoder import MapEncoder  # noqa: E402
 from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 HIDDEN, PE, ATTR = 64, 32, 7
@@ -46,14 +47,6 @@ PATHS = {
     "generic_out_layernorm": ({}, dict(out_layernorm=True)),
     "generic_post_norm_no_feedforward": ({}, dict(norm_first=False, d_feedforward=0)),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def inputs():

@@ -45,6 +45,7 @@ from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
 
 from test_torch_validation import inject, jax_draws  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ATTN_ATOL = 1e-5

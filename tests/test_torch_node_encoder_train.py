@@ -26,6 +26,7 @@ from trafficbots_tpu_torch.ops import node_encoder as tne  # noqa: E402
 from trafficbots_tpu_torch.ops import node_encoder_train as tnt  # noqa: E402
 from trafficbots_tpu_torch.ops.dropout import dropout_mask_plain  # noqa: E402
 from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 D, H, L, N, BP, BLK = 16, 2, 3, 5, 16, 8
 RECT = (32, 64)  # d_model, d_ff of the rectangular case

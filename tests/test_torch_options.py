@@ -12,11 +12,15 @@ their tilings, on the CPU at the tests/tiny.py widths.
   self-attention; a training step's K3 calls carry it at every site,
   whatever the value, as in the JAX package. 32 agents over 64 polylines
   make the as2pl sites K1 sites; 256 polylines make every training site a
-  K3 site. These run on one torch thread, over a few steps of one scene.
+  K3 site. These run over a few steps of one scene.
 - `fused_block_pl`, `fused_pipeline_blocks`, `fused_skip_invalid_blocks`
   are TPU tilings, bit-identical at any value: an eval rollout and a
   training step's loss and gradients are bitwise the same at non-default
   values.
+
+The file runs on one torch thread. The training steps at the default
+config, with `fused_train_kernel` off and at the non-default tilings are
+computed once and shared (`train_runs`).
 """
 import dataclasses
 
@@ -31,6 +35,7 @@ from trafficbots_tpu_torch.models import map_encoder as TME
 from trafficbots_tpu_torch.models import modules as TM
 
 from tiny import tiny_batch, tiny_config
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 def port_config(**map_encoder):
@@ -46,24 +51,44 @@ def train_loss_and_grads(cfg, batch):
     return loss.item(), {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
 
 
+TRAIN_CONFIGS = {"fused": dict(fused_train_kernel=True), "unfused": dict(fused_train_kernel=False),
+                 "tiled": dict(fused_block_pl=16, fused_pipeline_blocks=1, fused_skip_invalid_blocks=False)}
+
+
+@pytest.fixture(scope="module")
+def train_runs():
+    """One training step at each of TRAIN_CONFIGS (tests/tiny.py widths, the
+    same batch and seeds), shared by the tests below: its loss, gradients
+    and the calls of the training node stack's two routes."""
+    runs = {}
+    for name, fields in TRAIN_CONFIGS.items():
+        calls = {"kernel": 0, "plain": 0}
+
+        def spy(route, fn):
+            def wrapped(*a, **kw):
+                calls[route] += 1
+                return fn(*a, **kw)
+            return wrapped
+
+        mp = pytest.MonkeyPatch()
+        mp.setattr(TME, "node_encoder_train", spy("kernel", TME.node_encoder_train))
+        mp.setattr(TME, "node_encoder_train_plain", spy("plain", TME.node_encoder_train_plain))
+        try:
+            cfg = port_config(**fields)
+            loss, grads = train_loss_and_grads(cfg, tiny_batch(cfg, n_scene=2, seed=0))
+        finally:
+            mp.undo()
+        runs[name] = dict(calls=calls, loss=loss, grads=grads)
+    return runs
+
+
 @pytest.mark.parametrize("fused", [True, False])
-def test_fused_train_kernel_routes_the_training_node_stack(monkeypatch, fused):
-    calls = {"kernel": 0, "plain": 0}
-
-    def spy(name, fn):
-        def wrapped(*a, **kw):
-            calls[name] += 1
-            return fn(*a, **kw)
-        return wrapped
-
-    monkeypatch.setattr(TME, "node_encoder_train", spy("kernel", TME.node_encoder_train))
-    monkeypatch.setattr(TME, "node_encoder_train_plain", spy("plain", TME.node_encoder_train_plain))
-    cfg = port_config(fused_train_kernel=fused)
-    batch = tiny_batch(cfg, n_scene=2, seed=0)
-    loss, _ = train_loss_and_grads(cfg, batch)
-    assert calls == ({"kernel": 1, "plain": 0} if fused else {"kernel": 0, "plain": 1})
+def test_fused_train_kernel_routes_the_training_node_stack(train_runs, fused):
+    run, other = (train_runs["fused"], train_runs["unfused"]) if fused else (train_runs["unfused"],
+                                                                              train_runs["fused"])
+    assert run["calls"] == ({"kernel": 1, "plain": 0} if fused else {"kernel": 0, "plain": 1})
     # on CPU tensors the K4 wrapper is the plain version: the two routes agree
-    assert loss == train_loss_and_grads(port_config(fused_train_kernel=not fused), batch)[0]
+    assert run["loss"] == other["loss"]
 
 
 def kernel_site_config(row_block, n_pl):
@@ -73,14 +98,6 @@ def kernel_site_config(row_block, n_pl):
     cfg = config_from_dict(config_to_dict(tiny_config(n_step=16, time_step_end=15)))
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n_agent=32, n_pl=n_pl),
                                model=dataclasses.replace(cfg.model, attn_row_block=row_block))
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def spy_sites(monkeypatch, name):
@@ -97,7 +114,7 @@ def spy_sites(monkeypatch, name):
 
 
 @pytest.mark.parametrize("row_block", [-1, 0, 16])
-def test_attn_row_block_routes_src_invalid_to_k1(monkeypatch, one_thread, row_block):
+def test_attn_row_block_routes_src_invalid_to_k1(monkeypatch, row_block):
     cfg = kernel_site_config(row_block, n_pl=64)
     calls = spy_sites(monkeypatch, "fused_attention_core")
     TO.eval_rollout(cfg, TO.make_model(cfg, device="cpu", seed=0), tiny_batch(cfg, n_scene=1, seed=0), device="cpu")
@@ -110,7 +127,7 @@ def test_attn_row_block_routes_src_invalid_to_k1(monkeypatch, one_thread, row_bl
     assert all(skip == (row_block >= 0) for _, _, skip in as2pl + latent)
 
 
-def test_training_routes_src_invalid_to_every_k3_site(monkeypatch, one_thread):
+def test_training_routes_src_invalid_to_every_k3_site(monkeypatch):
     cfg = kernel_site_config(-1, n_pl=256)
     calls = spy_sites(monkeypatch, "attention_train")
     model = TO.make_model(cfg, device="cpu", seed=0)
@@ -124,14 +141,14 @@ def test_training_routes_src_invalid_to_every_k3_site(monkeypatch, one_thread):
     assert all(skip for _, _, skip in calls)
 
 
-def test_tpu_tilings_leave_results_unchanged():
+def test_tpu_tilings_leave_results_unchanged(train_runs):
     base = port_config()
-    tiled = port_config(fused_block_pl=16, fused_pipeline_blocks=1, fused_skip_invalid_blocks=False)
+    tiled = port_config(**TRAIN_CONFIGS["tiled"])
+    assert base.model.map_encoder.fused_train_kernel  # the default: train_runs["fused"] is base's step
     batch = tiny_batch(base, n_scene=2, seed=0)
     a = TO.eval_rollout(base, TO.make_model(base, device="cpu", seed=0), batch, device="cpu")
     b = TO.eval_rollout(tiled, TO.make_model(tiled, device="cpu", seed=0), batch, device="cpu")
     assert torch.equal(a.preds, b.preds) and torch.equal(a.valid, b.valid)
-    la, ga = train_loss_and_grads(base, batch)
-    lb, gb = train_loss_and_grads(tiled, batch)
-    assert la == lb and ga.keys() == gb.keys()
-    assert all(torch.equal(ga[n], gb[n]) for n in ga)
+    ra, rb = train_runs["fused"], train_runs["tiled"]
+    assert ra["loss"] == rb["loss"] and ra["grads"].keys() == rb["grads"].keys()
+    assert all(torch.equal(ra["grads"][n], rb["grads"][n]) for n in ra["grads"])

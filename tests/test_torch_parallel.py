@@ -40,6 +40,7 @@ from trafficbots_tpu_torch.weights import flax_paths  # noqa: E402
 
 from test_torch_training import GRAD_RTOL, TOL, UPDATE_RTOL, flat_flax, no_dropout, zero_gradient_leaf  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 N_SCENE, N_STEPS, SEED = 4, 2, 11
 

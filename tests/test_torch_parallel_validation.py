@@ -32,6 +32,7 @@ from trafficbots_tpu_torch.parallel.launch import launch  # noqa: E402
 
 from test_torch_validation import KEY, SUM_RTOL, TOL, hybrid, jax_draws, still_batch, zeroed_action_head  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 N_SCENE = 2
 

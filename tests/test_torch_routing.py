@@ -18,14 +18,17 @@ wrapper computes its plain version, so the runs finish.
   every as2pl and self-attention site is a kernel site), fp32 and bf16,
   every kernel site calls its kernel's wrapper, and every predicate admits
   its shape: K1, K2 and K6 in eval, K3 and K4 in training.
-- At hidden 256 with 4 heads (d_head 64) and at 2 heads of width 128
-  (d_head 64) every kernel site still calls its wrapper, and every
+- At hidden 256 with 4 heads (d_head 64), at 2 heads of width 128
+  (d_head 64), and at d_head 128 (hidden 256 with 2 heads and d_ff 128,
+  the override `model.hidden_dim=256` with `tf_cfg.n_head=2`; hidden 128
+  with 1 head) every kernel site still calls its wrapper, and every
   predicate (K1, K2, K3, K4, K6) admits its shape.
 - Each predicate refuses exactly the shapes its wrapper's `_check_inputs`
   raises on, with the same reason (meta tensors: every other check passes
   and the device check, last, raises); K2's and K4's admit every
   (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to
-  64 and 1-32 nodes, and nothing else.
+  128 and 1-32 nodes, and nothing else; K1's and K3's admit d_head 16,
+  32, 64 and 128 (T <= 1,024 at 128) and refuse d_head 256.
 """
 import dataclasses
 
@@ -43,17 +46,10 @@ from trafficbots_tpu_torch.ops import block_attn as K6
 from trafficbots_tpu_torch.ops import fused_attention as K1
 from trafficbots_tpu_torch.ops import node_encoder as K2
 from trafficbots_tpu_torch.ops import node_encoder_train as K4
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def site_config(hidden=128, n_head=4, precision="fp32", impl="fused", training=False):
+def site_config(hidden=128, n_head=4, precision="fp32", impl="fused", training=False, d_ff=None):
     """ExperimentConfig() with its model widths (hidden / heads as given),
     32 agents over polylines of 20 nodes, 11 steps: 64 polylines in eval,
     where every attention over the map is a K1 site, 256 in training,
@@ -64,7 +60,7 @@ def site_config(hidden=128, n_head=4, precision="fp32", impl="fused", training=F
     data = dataclasses.replace(cfg.data, n_agent=32, n_pl=256 if training else 64, n_step=16)
     m = cfg.model
     me = dataclasses.replace(m.map_encoder, node_encoder_impl=impl, kernel_matmul_bf16=precision == "bf16")
-    tf = dataclasses.replace(m.tf_cfg, d_model=hidden, n_head=n_head, d_feedforward=hidden,
+    tf = dataclasses.replace(m.tf_cfg, d_model=hidden, n_head=n_head, d_feedforward=d_ff or hidden,
                              dropout_p=0.0 if training else m.tf_cfg.dropout_p)
     model = dataclasses.replace(m, hidden_dim=hidden, tf_cfg=tf, map_encoder=me)
     return dataclasses.replace(cfg, data=data, model=model, time_step_end=11, time_step_gt=11, precision=precision)
@@ -163,14 +159,15 @@ def test_every_training_site_takes_its_kernel_at_default_widths(monkeypatch, pre
     assert all(reason is None for reason in sites.values()), sites
 
 
-WIDE = {"hidden256": dict(hidden=256, n_head=4), "heads2": dict(hidden=128, n_head=2)}
+WIDE = {"hidden256": dict(hidden=256, n_head=4), "heads2": dict(hidden=128, n_head=2),
+        "hidden256_heads2": dict(hidden=256, n_head=2, d_ff=128), "heads1": dict(hidden=128, n_head=1)}
 
 
 @pytest.mark.parametrize("impl", ["fused", "hybrid"])
 @pytest.mark.parametrize("widths", sorted(WIDE))
 def test_wide_eval_sites_launch_or_raise(monkeypatch, widths, impl):
-    """K1 (d_head 64), K6 (d_model 256, or 2 heads) and K2 (the same) take
-    the shape: every eval site launches its kernel on the card."""
+    """K1 (d_head 64 or 128), K6 (d_model 256, or 1-2 heads) and K2 (the
+    same) take the shape: every eval site launches its kernel on the card."""
     sites = run_sites(site_config(impl=impl, **WIDE[widths]), monkeypatch, training=False)
     kernels = {kernel: reason for (kernel, _), reason in sites.items()}
     assert set(kernels) == {"K1", "K6" if impl == "hybrid" else "K2"}
@@ -179,8 +176,8 @@ def test_wide_eval_sites_launch_or_raise(monkeypatch, widths, impl):
 
 @pytest.mark.parametrize("widths", sorted(WIDE))
 def test_wide_training_sites_launch_or_raise(monkeypatch, widths):
-    """K3 takes d_head 64 and K4 takes d_model 256 and 2 heads: every
-    training site launches its kernel on the card."""
+    """K3 takes d_head 64 and 128 and K4 takes d_model 256 and 1-2 heads:
+    every training site launches its kernel on the card."""
     sites = run_sites(site_config(training=True, **WIDE[widths]), monkeypatch, training=True)
     kernels = {kernel: reason for (kernel, _), reason in sites.items()}
     assert set(kernels) == {"K3", "K4"}
@@ -211,47 +208,55 @@ def assert_predicate_matches_check(reason, check, device_error):
 def test_k1_predicate_is_its_check(bf16):
     dt = torch.bfloat16 if bf16 else torch.float32
     for T in (64, 1024, 1025, 2048, 4096):
-        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (64, 4), (96, 4), (128, 3)):
+        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (128, 1), (256, 1), (64, 4), (96, 4), (128, 3)):
             for kv in ((torch.bfloat16,) if bf16 else (torch.float32, torch.bfloat16)):
                 q, k = meta(2, 32, D, dtype=dt), meta(2, T, D, dtype=kv)
                 reason = K1.kernel_refusal(T, D, H, k.element_size(), bf16)
                 assert_predicate_matches_check(
                     reason, lambda: K1._check_inputs(q, k, k, meta(2, 32, T, dtype=torch.bool), H), "CUDA device")
     assert K1.kernel_refusal(1024, 128, 4, 2, True) is None and K1.kernel_refusal(1025, 128, 4, 2, True)
+    for kv, bf16 in ((4, False), (2, False), (2, True)):  # d_head 128 up to T = 1024; d_head 256 refused
+        assert K1.kernel_refusal(1024, 256, 2, kv, bf16) is None and K1.kernel_refusal(1024, 128, 1, kv, bf16) is None
+        assert K1.kernel_refusal(1025, 256, 2, kv, bf16) and K1.kernel_refusal(64, 256, 1, kv, bf16)
 
 
 def test_k3_predicate_is_its_check():
     for T in (256, 1024, 1600, 4096):
-        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (64, 4), (128, 8), (128, 3)):
+        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (128, 1), (256, 1), (64, 4), (128, 8), (128, 3)):
             q, k = meta(2, 32, D), meta(2, T, D)
             assert_predicate_matches_check(K3.kernel_refusal(T, D, H),
                                            lambda: K3._check_inputs(q, k, k, meta(2, 32, T, dtype=torch.bool), H),
                                            "CUDA device")
     assert K3.kernel_refusal(1024, 128, 4) is None and K3.kernel_refusal(1024, 256, 4) is None
-    assert K3.kernel_refusal(1024, 128, 2) is None and K3.kernel_refusal(1024, 256, 2)  # d_head 128
+    assert K3.kernel_refusal(1024, 128, 2) is None and K3.kernel_refusal(1024, 256, 2) is None  # d_head 128
+    assert K3.kernel_refusal(1024, 128, 1) is None and K3.kernel_refusal(1025, 256, 2)
+    assert K3.kernel_refusal(256, 256, 1)  # d_head 256
 
 
 def test_k2_and_k4_predicates_are_their_checks():
     for N in (1, 20, 32, 33):
         for D, Fd, H in ((128, 128, 4), (128, 128, 8), (128, 128, 16), (128, 128, 2), (256, 256, 4), (128, 256, 4),
-                         (256, 128, 4), (256, 128, 2), (512, 512, 8), (128, 128, 3), (128, 128, 64)):
+                         (256, 128, 4), (256, 128, 2), (256, 128, 1), (128, 128, 1), (512, 512, 8), (128, 128, 3),
+                         (128, 128, 64)):
             enc = K2.FusedNodeEncoder(D, H, 1, Fd).to("meta")
             x, valid = meta(8, N, D), meta(8, N, dtype=torch.bool)
             assert_predicate_matches_check(K2.kernel_refusal(N, D, Fd, H), lambda: enc._check_inputs(x, valid),
                                            "CUDA device")
             assert_predicate_matches_check(K4.kernel_refusal(N, D, Fd, H), lambda: K4._check_inputs(enc, x, valid),
                                            "CUDA device")
-    # every (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to 64, 1..32 nodes
+    # every (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to 128, 1..32 nodes
     for D in (128, 256):
         for Fd in (128, 256):
             for H in range(1, 129):
-                dh_ok = D % H == 0 and (D // H) % 4 == 0 and 4 <= D // H <= 64
+                dh_ok = D % H == 0 and (D // H) % 4 == 0 and 4 <= D // H <= 128
                 for N in (1, 20, 32, 33):
                     want = dh_ok and N <= 32
                     assert (K2.kernel_refusal(N, D, Fd, H) is None) == want, (N, D, Fd, H)
                     assert (K4.kernel_refusal(N, D, Fd, H) is None) == want, (N, D, Fd, H)
     assert K2.kernel_refusal(20, 128, 128, 16) is None and K4.kernel_refusal(20, 128, 128, 16) is None
-    assert K2.kernel_refusal(20, 256, 128, 2) and K4.kernel_refusal(20, 256, 128, 2)  # d_head 128
+    assert K2.kernel_refusal(20, 256, 128, 2) is None and K4.kernel_refusal(20, 256, 128, 2) is None  # d_head 128
+    assert K2.kernel_refusal(20, 128, 128, 1) is None and K4.kernel_refusal(20, 128, 128, 1) is None
+    assert K2.kernel_refusal(20, 256, 128, 1) and K4.kernel_refusal(20, 256, 256, 1)  # d_head 256
     assert K2.kernel_refusal(20, 512, 512, 8) and K4.kernel_refusal(20, 128, 64, 4)  # widths past the builds'
     assert K4.kernel_refusal(20, 128, 128, 64)  # d_head 2
 

@@ -52,20 +52,11 @@ from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
 from trafficbots_tpu.config import config_to_dict  # noqa: E402
 from test_torch_cli import TINY  # noqa: E402
 from tiny import tiny_batch, tiny_config  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_RTOL = 1e-4
 HELD_STEPS = 20  # preds within 1e-4 m over these, 1e-3 m over the whole 30 (test_torch_slice.py)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the narrow widths run as fast on one, and the
-    test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_row_live_matches_jax():

@@ -22,14 +22,7 @@ from trafficbots_tpu_torch.data.preprocessing import to_torch
 from trafficbots_tpu_torch.ops import dropout as TDO
 
 from tiny import tiny_batch, tiny_config
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 def loss_and_grads(policy, batch):

@@ -26,6 +26,7 @@ from trafficbots_tpu_torch.sim import rules as tru
 from trafficbots_tpu_torch.sim import teacher_forcing as ttf
 
 from tiny import tiny_batch, tiny_config
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, A = 3, 6

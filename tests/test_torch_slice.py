@@ -37,6 +37,7 @@ from trafficbots_tpu_torch.models import goal_manager as TGM
 from trafficbots_tpu_torch.weights import load_jax_params
 
 from tiny import tiny_batch, tiny_config
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 HELD_STEPS = 50  # the closed loop's steps held to ROLLOUT_ATOL; see the module docstring

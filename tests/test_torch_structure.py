@@ -29,17 +29,10 @@ from trafficbots_tpu.models import modules as jm  # noqa: E402
 import trafficbots_tpu_torch.distributions as TD  # noqa: E402
 from trafficbots_tpu_torch.models import modules as tm  # noqa: E402
 from trafficbots_tpu_torch.weights import load_jax_params  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 D = 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

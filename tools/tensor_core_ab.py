@@ -9,17 +9,19 @@ the order given, a fresh process imports that tree's trafficbots_tpu_torch,
 builds its K1, K2, K3, K4 and K6 sources (nvcc, sm_90a) and prints one JSON
 line:
 
-  - `digests`: the SHA-1 of the fp32 kernels' outputs on seeded inputs at
-    the main path's shapes: K1 on path S (the rollout's as2pl, B = 8, S = 64,
-    T = 1024, bf16 K/V, a padding mask) and path L (the map
-    self-attention, B = 8, S = T = 1024, and the latent as2pl, S = 1216);
+  - `digests`: the SHA-1 of the kernels' outputs on seeded inputs at
+    the main path's shapes: K1 and K1-bf16 on path S (the rollout's
+    as2pl, B = 8, S = 64, T = 1024, bf16 K/V, a padding mask) and path L
+    (the map self-attention, B = 8, S = T = 1024, and the latent as2pl,
+    S = 1216);
     K3f's output and row statistics and K3b's dq, dk, dv at the as2pl and
     the map self-attention (dropout 0.1); K2's and K2-bf16's pooled output
     and K4f's and K4b's (dropout 0.1) on `ops.node_trace.inputs` (8 scenes
     of 1024 x 20 polylines at 768/1024 fill, 3 layers); K6's output on that validity
     with seeded q, k, v [8192, 20, 128], 4 heads. Two trees whose fp32
     kernels compute the same bits print the same digests;
-  - `device_ms`: K1-bf16 at its four sites (the rollout as2pl at B = 8 and
+  - `device_ms`: fp32 K1 and K3f / K3b on their digests' inputs; K1-bf16
+    at its four sites (the rollout as2pl at B = 8 and
     the joint futures' B = 48, the map self-attention, the latent as2pl;
     bf16 q, k, v, a padding mask over the last quarter of the keys) beside
     SDPA on the same bf16 q/k/v, K2-bf16 beside fp32 K2, K4f and K4b, and
@@ -109,6 +111,9 @@ def one_tree(root: str) -> dict:
                                       ("latent as2pl", 8, 1216, False, False)):
         q, k, v, invalid = attention_case(torch, 7, B, S, 1024, kv_bf16, full, dev)
         digests[f"K1 {name}"] = digest(FA.fused_attention_core(q, k, v, invalid, 4))
+        times[f"K1 {name}"] = graph_ms(torch, lambda: FA.fused_attention_core(q, k, v, invalid, 4))
+        digests[f"K1-bf16 {name}"] = digest(FA.fused_attention_core(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                                                    invalid, 4).float())  # bf16 -> fp32 is exact
         if name == "latent as2pl":
             continue
         q, k, v = q.float(), k.float(), v.float()
@@ -118,6 +123,9 @@ def one_tree(root: str) -> dict:
         digests[f"K3f {name}"] = digest(torch.cat([out.flatten(), rmax.flatten(), rsum.flatten()]))
         for grad, what in zip(grads, ("dq", "dk", "dv")):
             digests[f"K3b {name} {what}"] = digest(grad)
+        times[f"K3f {name}"] = graph_ms(torch, lambda: AT._launch_fwd(q, k, v, invalid, 4, 0.1, 987654321, 3))
+        times[f"K3b {name}"] = graph_ms(
+            torch, lambda: AT._launch_bwd(q, k, v, invalid, out, rmax, rsum, g, 4, 0.1, 987654321, 3))
 
     # fp32 K2, K4f and K4b
     enc, x, valid, g = node_trace.inputs("cuda")
@@ -167,7 +175,7 @@ def main() -> None:
         print(json.dumps(runs[-1]), flush=True)
     first = runs[0]["digests"]
     same = {key: all(r["digests"].get(key) == first[key] for r in runs) for key in first}
-    print(json.dumps({"fp32 digests equal across every run": same}), flush=True)
+    print(json.dumps({"digests equal across every run": same}), flush=True)
 
 
 if __name__ == "__main__":

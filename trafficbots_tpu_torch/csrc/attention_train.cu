@@ -50,7 +50,8 @@
 //     fp32 scratch) for the second kernel. BQ is 64, or 16 where 64 would
 //     give fewer than MIN_BLOCKS blocks (the rollout's as2pl, S = 64): then
 //     four groups of 64 threads take four key tiles at once and their dq
-//     partials are summed in group order at the end.
+//     partials are summed in group order at the end (at d_head 128 always
+//     64: the four groups' tiles of a 16-row block would take 316 KB).
 //   dk/dv kernel, (64 keys, head, scene) blocks: per 64-row query tile, the
 //     same tiles from the key side, then dv += (P ⊙ M)ᵀ g and dk += dSᵀ q
 //     in registers.
@@ -469,9 +470,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     const uint8_t* iv = static_cast<const uint8_t*>(inv);
     float* df = static_cast<float*>(dsum);
     const long long blocks64 = (long long)((sh.S + BT - 1) / BT) * sh.H * sh.B;
-    cudaError_t err = blocks64 >= MIN_BLOCKS
-        ? launch_dq<DH, 64>(qf, kf, vf, iv, of, mf, lf, gf, static_cast<float*>(dq), df, sh, drop, site, st)
-        : launch_dq<DH, 16>(qf, kf, vf, iv, of, mf, lf, gf, static_cast<float*>(dq), df, sh, drop, site, st);
+    cudaError_t err;
+    if constexpr (DH > 64)  // the 16-row block's four groups' tiles would take 316 KB
+        err = launch_dq<DH, 64>(qf, kf, vf, iv, of, mf, lf, gf, static_cast<float*>(dq), df, sh, drop, site, st);
+    else
+        err = blocks64 >= MIN_BLOCKS
+            ? launch_dq<DH, 64>(qf, kf, vf, iv, of, mf, lf, gf, static_cast<float*>(dq), df, sh, drop, site, st)
+            : launch_dq<DH, 16>(qf, kf, vf, iv, of, mf, lf, gf, static_cast<float*>(dq), df, sh, drop, site, st);
     if (err != cudaSuccess) return err;
     const size_t smem = dkdv_smem(DH);
     err = cudaFuncSetAttribute(bwd_dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -504,6 +509,7 @@ extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* 
         case 16: return (int)tb_attn::launch<16, float, true, true>(a, st);
         case 32: return (int)tb_attn::launch<32, float, true, true>(a, st);
         case 64: return (int)tb_attn::launch<64, float, true, true>(a, st);
+        case 128: return (int)tb_attn::launch<128, float, true, true>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -522,6 +528,7 @@ extern "C" int tb_attention_train_bwd(const void* q, const void* k, const void* 
         case 16: return (int)launch_bwd<16>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         case 32: return (int)launch_bwd<32>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         case 64: return (int)launch_bwd<64>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
+        case 128: return (int)launch_bwd<128>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

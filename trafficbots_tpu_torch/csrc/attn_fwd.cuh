@@ -96,6 +96,14 @@
 // 1024 (a key tile a warp). The fp32 kernels (K1, K3f) have no tensor-core
 // code.
 //
+// d_head 16, 32, 64 and 128 are instantiated. At 128 (hidden 256 with 2
+// heads, hidden 128 with 1) the layouts that fit the smaller widths do not
+// all fit: path S runs its weighted sum in two passes of 64 columns (its
+// grouping would take 512 threads), path L with fp32 K/V stages one K/V
+// tile at a time (two beside T = 1024 keys' logits take 290 KB), and
+// K1-bf16's path L stages K and V in 64-column slabs (fwd_rows_mma_slab:
+// the whole K is 278 KB). Each is new code beside the smaller widths'.
+//
 // fp32 K1 on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md section 6): path S
 // 0.0263 ms for K1 at B = 8 (8.8x its bound), 0.111 ms at B = 48; path L
 // 0.227 and 0.283 ms for K1 at the map self-attention and the latent
@@ -380,27 +388,35 @@ __device__ __forceinline__ void store_row_max(float* rm, const float (&mx)[4]) {
     }
 }
 
-// Threads of one group of the weighted sum: ROWS / 4 row groups x DH / 4
-// column groups; the block's groups take disjoint keys of a tile and their
-// partials are added in group order at the end.
-template <int DH, int ROWS>
-__host__ __device__ constexpr int av_group() { return ROWS / 4 * (DH / 4); }
+// Columns of one pass of the weighted sum: DH, or where ROWS / 4 row groups
+// x DH / 4 column groups would pass the block's NT threads (path S at
+// d_head 128), the most that fit; the passes then run one after another
+// over the same weights, each thread keeping every pass's sums.
+template <int DH, int ROWS, int NT>
+__host__ __device__ constexpr int av_cols() { return ROWS / 4 * (DH / 4) <= NT ? DH : NT / (ROWS / 4) * 4; }
 
-// acc[i][c] += sum over n keys (n % 4 == 0) of w[ry + RY i][l0 + t] v[v0 + t][4 cx + c],
-// t in order: 4 float4 weight loads (rows RY apart, distinct banks through
-// the logits' row stride of 8 mod 32) and 4 of V (one row, 4 consecutive
-// columns a thread) per 64 FMA.
-template <int DH, class KV, int ROWS>
+// Threads of one group of the weighted sum: ROWS / 4 row groups x CW / 4
+// column groups (CW the columns of a pass, av_cols); the block's groups
+// take disjoint keys of a tile and their partials are added in group order
+// at the end.
+template <int CW, int ROWS>
+__host__ __device__ constexpr int av_group() { return ROWS / 4 * (CW / 4); }
+
+// acc[i][c] += sum over n keys (n % 4 == 0) of w[ry + RY i][l0 + t] v[v0 + t][c0 + 4 cx + c]
+// (columns c0 .. c0 + CW - 1 of a pass), t in order: 4 float4 weight loads
+// (rows RY apart, distinct banks through the logits' row stride of 8 mod
+// 32) and 4 of V (one row, 4 consecutive columns a thread) per 64 FMA.
+template <int DH, class KV, int ROWS, int CW = DH>
 __device__ __forceinline__ void tile_av(float (&acc)[4][4], const float* lg, int ldl, int l0, const KV* vt, int v0,
-                                        int n, int lid) {
-    constexpr int RY = ROWS / 4, NCX = DH / 4, LD = kv_ld<DH, KV>();
+                                        int n, int lid, int c0 = 0) {
+    constexpr int RY = ROWS / 4, NCX = CW / 4, LD = kv_ld<DH, KV>();
     const int ry = lid / NCX, cx = lid % NCX;
     for (int t = 0; t < n; t += 4) {
         float4 wv[4], vv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) wv[i] = load4(lg + (ry + RY * i) * ldl + l0 + t);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = load4(vt + (v0 + t + j) * LD + 4 * cx);
+        for (int j = 0; j < 4; ++j) vv[j] = load4(vt + (v0 + t + j) * LD + c0 + 4 * cx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const float wt[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
@@ -415,15 +431,15 @@ __device__ __forceinline__ void tile_av(float (&acc)[4][4], const float* lg, int
     }
 }
 
-// The group partials acc of rows (ry + RY i), columns 4 cx + c into
+// The group partials acc of rows (ry + RY i), columns c0 + 4 cx + c into
 // part[grp][ROWS][DH] (the caller synchronises before and after).
-template <int DH, int ROWS>
-__device__ __forceinline__ void store_partials(float* part, const float (&acc)[4][4], int grp, int lid) {
-    constexpr int RY = ROWS / 4, NCX = DH / 4;
+template <int DH, int ROWS, int CW = DH>
+__device__ __forceinline__ void store_partials(float* part, const float (&acc)[4][4], int grp, int lid, int c0 = 0) {
+    constexpr int RY = ROWS / 4, NCX = CW / 4;
     const int ry = lid / NCX, cx = lid % NCX;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(part + (grp * ROWS + ry + RY * i) * DH + 4 * cx) =
+        *reinterpret_cast<float4*>(part + (grp * ROWS + ry + RY * i) * DH + c0 + 4 * cx) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
@@ -503,15 +519,23 @@ __device__ __forceinline__ void store_dead_rows(const Args& a, int b, int h, int
 // ---- path L: one block per (ROWS_L query rows, head, scene)
 
 // Shared memory of a path-L block, in floats: the [ROWS_L][ldl] logits,
-// q [ROWS_L][DH + 4], two K/V tiles [TK][LD] (then the groups' partial sums),
-// the mask bits [ROWS_L][nt * 4], the warp columns' row maxima, the rows'
-// max and sum, the live tiles and each tile's flag. ops/fused_attention.py
-// mirrors it.
+// q [ROWS_L][DH + 4], the K/V tiles [TK][LD] (then the groups' partial
+// sums), the mask bits [ROWS_L][nt * 4], the warp columns' row maxima, the
+// rows' max and sum, the live tiles and each tile's flag.
+// ops/fused_attention.py mirrors it.
 __host__ __device__ inline int rows_ldl(int T) { return (T + TK - 1) / TK * TK + 8; }
+
+// K/V tiles of a path-L block: two (the next tile loads during this one's
+// products) where they take at most KV_BUF_BYTES, else one (fp32 K/V at
+// d_head 128, whose two tiles would leave no room for T = 1024 keys'
+// logits: each tile then loads after the last one's products).
+constexpr int KV_BUF_BYTES = 2 * 128 * 68 * 4;  // two fp32 tiles of TK keys at d_head 64
+template <int DH, class KV>
+__host__ __device__ constexpr int kv_bufs() { return 2 * TK * kv_ld<DH, KV>() * (int)sizeof(KV) <= KV_BUF_BYTES ? 2 : 1; }
 
 template <int DH, class KV>
 __host__ __device__ inline int rows_kv_floats() {
-    const int tiles = 2 * TK * kv_ld<DH, KV>() * (int)sizeof(KV) / 4;
+    const int tiles = kv_bufs<DH, KV>() * TK * kv_ld<DH, KV>() * (int)sizeof(KV) / 4;
     return tiles > THREADS_L * 16 ? tiles : THREADS_L * 16;
 }
 
@@ -524,15 +548,15 @@ size_t rows_smem(int T) {
 
 template <int DH, class KV, bool DROP, bool STATS>
 __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
-    constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX;
+    constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX, NB = kv_bufs<DH, KV>();
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = NT / GT, KG = TK / NG;
-    static_assert(NG * GT == NT && KG % 4 == 0, "weighted-sum groups");
+    static_assert(av_cols<DH, ROWS_L, NT>() == DH && NG * GT == NT && KG % 4 == 0, "weighted-sum groups");
     extern __shared__ float smem[];
     TB_TRACE_BEGIN(0);
     const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32), ldl = rows_ldl(T);
     float* lg = smem;                                        // [ROWS_L][ldl]: logits, then weights
     float* qs = lg + ROWS_L * ldl;                           // [ROWS_L][LQ]
-    KV* kv = reinterpret_cast<KV*>(qs + ROWS_L * LQ);        // two [TK][LD] tiles; then the partial sums
+    KV* kv = reinterpret_cast<KV*>(qs + ROWS_L * LQ);        // NB [TK][LD] tiles; then the partial sums
     float* part = reinterpret_cast<float*>(kv);
     uint32_t* bits = reinterpret_cast<uint32_t*>(qs + ROWS_L * LQ + rows_kv_floats<DH, KV>());  // [ROWS_L][nw]
     float* rm = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NWX][ROWS_L] the warp columns' row maxima
@@ -583,21 +607,30 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     TB_TRACE(0, 2);  // the live tiles, the fills
 
     // logits and the row maxima: K tiles double-buffered, the next one in
-    // flight during this one's products
+    // flight during this one's products (with one buffer, issued after them)
     if (n_live > 0) {
         stage_rows<DH, KV, NT>(kv, K, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
         cp_async_commit();
     }
     float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
     for (int i = 0; i < n_live; ++i) {
-        if (i + 1 < n_live)
-            stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, K, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
-        cp_async_commit();  // empty on the last tile: one group a step
-        cp_async_wait<1>();
+        if (NB == 2) {
+            if (i + 1 < n_live)
+                stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, K, kv_base, live[i + 1] * TK, TK, T, a.D,
+                                       a.aligned);
+            cp_async_commit();  // empty on the last tile: one group a step
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
         __syncthreads();
-        tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i & 1) * TK * LD, live[i] * TK, bits, brs,
-                                            0, T, mx);
+        tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i % NB) * TK * LD, live[i] * TK, bits,
+                                            brs, 0, T, mx);
         __syncthreads();
+        if (NB == 1 && i + 1 < n_live) {
+            stage_rows<DH, KV, NT>(kv, K, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+            cp_async_commit();
+        }
     }
     store_row_max<ROWS_L, TK, NT>(rm, mx);
     TB_TRACE(0, 3);  // the logits
@@ -634,13 +667,22 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
     for (int i = 0; i < n_live; ++i) {
-        if (i + 1 < n_live)
-            stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, V, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
-        cp_async_commit();
-        cp_async_wait<1>();
+        if (NB == 2) {
+            if (i + 1 < n_live)
+                stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, V, kv_base, live[i + 1] * TK, TK, T, a.D,
+                                       a.aligned);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
         __syncthreads();
-        tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i & 1) * TK * LD, grp * KG, KG, lid);
+        tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i % NB) * TK * LD, grp * KG, KG, lid);
         __syncthreads();
+        if (NB == 1 && i + 1 < n_live) {
+            stage_rows<DH, KV, NT>(kv, V, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+            cp_async_commit();
+        }
     }
     __syncthreads();
     TB_TRACE(0, 6);  // the weighted sum
@@ -675,12 +717,16 @@ __device__ __forceinline__ void gather(float (&v)[MAX_CLUSTER], float* arr, int 
 
 // Three blocks an SM (registers and shared memory allow it), so that a
 // cluster of eight finds room beside the others: at B = 8, 32 clusters.
+// At d_head 128 a block's shared memory leaves room for one an SM, and the
+// weighted sum runs in two passes of 64 columns (av_cols), each thread
+// keeping both passes' sums in registers.
 template <int DH, class KV, bool DROP, bool STATS>
-__global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
+__global__ void __launch_bounds__(THREADS_S, DH > 64 ? 1 : 3) fwd_cluster(const Args a) {
     constexpr int NT = THREADS_S, HK = TK / 2, NWX = Grid<ROWS_S, HK, NT>::NWX;
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), LL = TK + 8, NW = TK / 32;
-    constexpr int GT = av_group<DH, ROWS_S>(), NG = NT / GT, KG = TK / NG;
-    static_assert(NG * GT == NT && KG % 4 == 0 && NT * 16 <= ROWS_S * LL, "weighted-sum groups");
+    constexpr int AC = av_cols<DH, ROWS_S, NT>(), NP = DH / AC;
+    constexpr int GT = av_group<AC, ROWS_S>(), NG = NT / GT, KG = TK / NG;
+    static_assert(NG * GT == NT && KG % 4 == 0 && NG * ROWS_S * DH <= ROWS_S * LL, "weighted-sum groups");
     extern __shared__ float smem[];
     TB_TRACE_BEGIN(1);
     float* lg = smem;                                   // [ROWS_S][LL]: the slice's logits, then weights
@@ -771,17 +817,23 @@ __global__ void __launch_bounds__(THREADS_S, 3) fwd_cluster(const Args a) {
     // the slice's weighted sum: group grp takes keys grp * KG .., the
     // groups' partials added in group order, then the ranks' in rank order
     const int grp = threadIdx.x / GT, lid = threadIdx.x % GT;
-    float acc[4][4];
+    float acc[NP][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.f;
     cp_async_wait<0>();
     __syncthreads();
-    if (live) tile_av<DH, KV, ROWS_S>(acc, lg, LL, grp * KG, vt, grp * KG, KG, lid);
+    if (live)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+            tile_av<DH, KV, ROWS_S, AC>(acc[p], lg, LL, grp * KG, vt, grp * KG, KG, lid, p * AC);
     __syncthreads();  // the weights are read: their buffer takes the partials
     TB_TRACE(1, 6);  // V arrived, the weighted sum
-    store_partials<DH, ROWS_S>(part, acc, grp, lid);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) store_partials<DH, ROWS_S, AC>(part, acc[p], grp, lid, p * AC);
     __syncthreads();
     for (int i = threadIdx.x; i < ROWS_S * DH; i += NT) {
         float s = part[i];
@@ -1098,6 +1150,208 @@ __global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma(const Args a) {
     cp_async_wait<0>();  // no copy in flight when the block leaves
 }
 
+// Path L of K1-bf16 at d_head 128, where the K tiles of T = 1024 keys
+// (278 KB) do not fit a block: fwd_rows_mma's warps and arithmetic (warp w
+// the m-tile w % MT of key tile w / MT, the logits and weights in its
+// registers), one row block a block, with K and V staged in slabs of CS =
+// 64 columns of every key tile, one slab at a time in one buffer. The
+// logits' k-steps run over the slabs in column order into the same C
+// fragments (the sums of a whole-row kernel, in its order); the weighted
+// sum runs a slab of output columns at a time from the weights packed once
+// into A fragments (32 registers where the logits took 64), its tiles'
+// partial sums added in tile order as fwd_rows_mma adds them.
+// Shared memory: q [ROWS_L][LDQ] in bf16, the slab [nt TK][CS + 8] in
+// bf16, the tiles' partial sums of a slab [nt][ROWS_L][CS], the mask bits
+// and the row statistics as fwd_rows_mma's. rows_mma_slab_smem.
+constexpr int CS = 64;  // columns of a K/V slab
+
+template <int DH>
+size_t rows_mma_slab_smem(int T) {
+    const int nt = (T + TK - 1) / TK;
+    return 2 * ((size_t)ROWS_L * kv_ld<DH, bf16>() + (size_t)nt * TK * kv_ld<CS, bf16>()) +
+           sizeof(float) * ((size_t)nt * ROWS_L * CS + (size_t)ROWS_L * nt * (TK / 32) + (2 * NKW + 2) * ROWS_L + nt);
+}
+
+// z[j] += the sums q k over columns c0 .. c0 + CS - 1 of the warp's m-tile
+// mt of q (qs [rows][ldq]) with key n-tile j of a slab kt [..][ldk] of
+// those columns from key kn0: CS / 16 k-steps of bf16 MMAs.
+template <int NJ>
+__device__ __forceinline__ void mma_logits_slab(float (&z)[NJ][4], const bf16* qs, int ldq, int c0, int mt,
+                                                const bf16* kt, int ldk, int kn0) {
+#pragma unroll
+    for (int k0 = 0; k0 < CS; k0 += 16) {
+        uint32_t fa[4];
+        tb_mma::load_a(fa, qs, ldq, 16 * mt, c0 + k0);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            uint32_t fb[2];
+            tb_mma::load_b_nk(fb, kt, ldk, k0, kn0 + 8 * j);
+            mma_bf16_16816(z[j], fa, fb);
+        }
+    }
+}
+
+// The weights of weights_times_v (e / sum, div_rn; 0 for a zero e or a row
+// whose max is -inf), rounded to bf16 and packed into the A fragments of
+// the NJ / 2 k-steps of 16 keys, once for every slab of V.
+template <int NJ>
+__device__ __forceinline__ void pack_weights(uint32_t (&pa)[NJ / 2][4], const float (&z)[NJ][4], const float (&rm)[2],
+                                             const float (&sum)[2]) {
+    bool lv[2];
+    float sr[2], ir[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        lv[hf] = rm[hf] != -INFINITY;
+        sr[hf] = lv[hf] ? sum[hf] : 1.f;
+        ir[hf] = 1.f / sr[hf];
+    }
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float e = z[2 * kk + jj][i];
+                const int hf = i >> 1;
+                p[jj][i] = lv[hf] && e != 0.f ? div_rn(e, sr[hf], ir[hf]) : 0.f;
+            }
+        pa[kk][0] = pack_bf16(p[0][0], p[0][1]);
+        pa[kk][1] = pack_bf16(p[0][2], p[0][3]);
+        pa[kk][2] = pack_bf16(p[1][0], p[1][1]);
+        pa[kk][3] = pack_bf16(p[1][2], p[1][3]);
+    }
+}
+
+// o += P V over the warp's NJ 8 keys for the CS columns of a V slab vt
+// [..][LD] from row v0, P the packed weights of pack_weights.
+template <int NJ>
+__device__ __forceinline__ void packed_times_v(float (&o)[CS / 8][4], const uint32_t (&pa)[NJ / 2][4], const bf16* vt,
+                                               int v0) {
+    constexpr int LD = kv_ld<CS, bf16>();
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk)
+#pragma unroll
+        for (int d = 0; d < CS / 8; ++d) {
+            uint32_t fb[2];
+            tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
+            mma_bf16_16816(o[d], pa[kk], fb);
+        }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma_slab(const Args a) {
+    constexpr int NT = THREADS_L, MT = ROWS_L / 16, NJ = TK / 8, LDQ = kv_ld<DH, bf16>(), LDS = kv_ld<CS, bf16>();
+    static_assert(NKW == MAX_CLUSTER && DH % CS == 0, "a key tile a warp, whole slabs");
+    extern __shared__ float smem[];
+    TB_TRACE_BEGIN(0);
+    const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32);
+    bf16* qs = reinterpret_cast<bf16*>(smem);             // [ROWS_L][LDQ]
+    bf16* sl = qs + ROWS_L * LDQ;                         // [nt TK][LDS]: a slab of K, then of V
+    float* part = reinterpret_cast<float*>(sl + nt * TK * LDS);  // [nt][ROWS_L][CS] a slab's partial sums
+    uint32_t* bits = reinterpret_cast<uint32_t*>(part + nt * ROWS_L * CS);  // [ROWS_L][nw]
+    float* tmax = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NKW][ROWS_L] each tile's row max
+    float* tsum = tmax + NKW * ROWS_L;                    // [NKW][ROWS_L] each tile's row sum of exp
+    float* mrow = tsum + NKW * ROWS_L;                    // [ROWS_L] the row max (-inf: no allowed key, dead, past S)
+    float* srow = mrow + ROWS_L;                          // [ROWS_L] the row sum
+    int* flag = reinterpret_cast<int*>(srow + ROWS_L);    // [nt] a tile has an allowed pair
+
+    const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * ROWS_L, rows = min(ROWS_L, a.S - s0);
+    const long long kv_base = (long long)b * T * a.D + h * DH;
+    const bf16* K = static_cast<const bf16*>(a.k);
+    const bf16* V = static_cast<const bf16*>(a.v);
+    const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
+    const int w = threadIdx.x >> 5, mt = w % MT, kt = w / MT, r0 = 16 * mt + ((threadIdx.x & 31) >> 2);
+
+    if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
+        store_dead_rows<DH, NT, false, true>(a, b, h, s0, s0 + rows);  // no live row
+        return;
+    }
+    stage_rows<DH, bf16, NT>(qs, reinterpret_cast<const bf16*>(a.q), ((long long)b * a.S + s0) * a.D + h * DH, 0,
+                             ROWS_L, rows, a.D, a.aligned);
+    stage_rows<CS, bf16, NT>(sl, K, kv_base, 0, nt * TK, T, a.D, a.aligned);
+    cp_async_commit();
+    load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
+    for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < (brs ? ROWS_L : 1) * nw; i += NT)  // live tiles: some pair allowed
+        if (bits[i] != 0u) atomicOr(&flag[(i % nw) / (TK / 32)], 1);
+    cp_async_wait<0>();
+    __syncthreads();
+    TB_TRACE(0, 1);  // q and K's first slab arrived, the mask bits and live tiles
+
+    const bool mine = kt < nt && flag[kt];  // the warp's key tile is live
+    float z[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) z[j][0] = z[j][1] = z[j][2] = z[j][3] = 0.f;
+    for (int c0 = 0; c0 < DH; c0 += CS) {
+        if (c0 > 0) {  // every warp is done with the last slab: the next one in its place
+            stage_rows<CS, bf16, NT>(sl, K + c0, kv_base, 0, nt * TK, T, a.D, a.aligned);
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+        }
+        if (mine) mma_logits_slab<NJ>(z, qs, LDQ, c0, mt, sl + kt * TK * LDS, LDS, 0);
+        __syncthreads();
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (mine) mask_logits<DH, NJ>(z, r0, kt * TK, bits, brs, 0, T, mx);
+    if (kt < nt) store_rows<true>(tmax + kt * ROWS_L, r0, mx);
+    TB_TRACE(0, 2);  // the logits
+    for (int i = 0; i < nt; ++i)  // V's first slab, landing during the softmax
+        if (flag[i]) stage_rows<CS, bf16, NT>(sl + i * TK * LDS, V, kv_base, i * TK, TK, T, a.D, a.aligned);
+    cp_async_commit();
+    __syncthreads();
+    if (threadIdx.x < ROWS_L) {  // the exact row max over every tile
+        float m = -INFINITY;
+        for (int x = 0; x < nt; ++x) m = fmaxf(m, tmax[x * ROWS_L + threadIdx.x]);
+        mrow[threadIdx.x] = (int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x) ? m : -INFINITY;
+    }
+    __syncthreads();
+    const float rm[2] = {mrow[r0], mrow[r0 + 8]};
+    float sm[2] = {0.f, 0.f};
+    if (mine) exp_logits<NJ>(z, rm, sm);
+    if (kt < nt) store_rows<false>(tsum + kt * ROWS_L, r0, sm);
+    __syncthreads();
+    if (threadIdx.x < ROWS_L) {  // the tiles' sums in tile order
+        float s = 0.f;
+        for (int x = 0; x < nt; ++x) s += tsum[x * ROWS_L + threadIdx.x];
+        srow[threadIdx.x] = s;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the row sums written, V's first slab arrived
+    TB_TRACE(0, 3);  // the row max, exp and sum
+    uint32_t pa[NJ / 2][4];  // the weights, packed once for every slab
+    if (mine) {
+        const float sum[2] = {srow[r0], srow[r0 + 8]};
+        pack_weights<NJ>(pa, z, rm, sum);
+    }
+
+    for (int c0 = 0; c0 < DH; c0 += CS) {
+        if (c0 > 0) {  // every warp is done with the last slab
+            for (int i = 0; i < nt; ++i)
+                if (flag[i]) stage_rows<CS, bf16, NT>(sl + i * TK * LDS, V + c0, kv_base, i * TK, TK, T, a.D, a.aligned);
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+        }
+        float o[CS / 8][4];
+#pragma unroll
+        for (int d = 0; d < CS / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        if (mine) packed_times_v<NJ>(o, pa, sl + kt * TK * LDS, 0);
+        if (kt < nt) store_sums<CS>(part + kt * ROWS_L * CS, r0, o);
+        __syncthreads();  // every partial written, every V read
+        for (int i = threadIdx.x; i < rows * CS; i += NT) {
+            const int r = i / CS, c = i % CS;
+            float s = part[i];
+            for (int x = 1; x < nt; ++x) s += part[x * ROWS_L * CS + i];
+            store_out<true>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c0 + c, mrow[r] == -INFINITY ? 0.f : s);
+        }
+        __syncthreads();  // the partials read
+    }
+    TB_TRACE(0, 4);  // the weights, the weighted sum, the output
+}
+
 // Path S of K1-bf16: a cluster of ranks per (head, scene), a TK-key slice
 // of T each, as fwd_cluster. Its 8 warps take 4 m-tiles x 2 key halves of
 // the slice ([16, TK / 2] logits in registers); the halves' row maxima
@@ -1116,7 +1370,7 @@ size_t cluster_mma_smem() {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS_S, 4) fwd_cluster_mma(const Args a) {
+__global__ void __launch_bounds__(THREADS_S, DH > 64 ? 1 : 4) fwd_cluster_mma(const Args a) {
     constexpr int NT = THREADS_S, MT = ROWS_S / 16, NH = NT / 32 / MT, NJ = TK / NH / 8;
     constexpr int LD = kv_ld<DH, bf16>(), NW = TK / 32;
     static_assert(NH == 2 && NJ % 2 == 0, "two key halves");
@@ -1301,7 +1555,10 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t st) {
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     if (takes_cluster_bf16(a, n_sm)) return launch_cluster(fwd_cluster_mma<DH>, cluster_mma_smem<DH>(), a, st);
-    return launch_rows(fwd_rows_mma<DH>, rows_mma_smem<DH>(a.T), rows_mma_blocks<DH>(a, n_sm), a, st);
+    if constexpr (DH > CS)
+        return launch_rows(fwd_rows_mma_slab<DH>, rows_mma_slab_smem<DH>(a.T), (a.S + ROWS_L - 1) / ROWS_L, a, st);
+    else
+        return launch_rows(fwd_rows_mma<DH>, rows_mma_smem<DH>(a.T), rows_mma_blocks<DH>(a, n_sm), a, st);
 }
 
 // q, k and v 16-byte aligned (each head's row slice then is too: D and dh

@@ -42,6 +42,7 @@ cudaError_t launch_dh(const tb_attn::Args& a, cudaStream_t st) {
         case 16: return tb_attn::launch<16, KV, false, false>(a, st);
         case 32: return tb_attn::launch<32, KV, false, false>(a, st);
         case 64: return tb_attn::launch<64, KV, false, false>(a, st);
+        case 128: return tb_attn::launch<128, KV, false, false>(a, st);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -51,6 +52,7 @@ cudaError_t launch_dh_bf16(const tb_attn::Args& a, cudaStream_t st) {
         case 16: return tb_attn::launch_bf16<16>(a, st);
         case 32: return tb_attn::launch_bf16<32>(a, st);
         case 64: return tb_attn::launch_bf16<64>(a, st);
+        case 128: return tb_attn::launch_bf16<128>(a, st);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -5,7 +5,7 @@
 // FusedNodeEncoder.encode_pooled -> _node_kernel / _node_kernel_body (the
 // Pallas TPU kernel). Same function, per polyline of N <= 32 nodes and
 // n_layer pre-norm layers with d_model D and d_ff F (128 or 256 each, the
-// build's; node_layer.cuh) and d_head = D / H a multiple of 4 from 4 to 64:
+// build's; node_layer.cuh) and d_head = D / H a multiple of 4 from 4 to 128:
 //   q = LN1(x) Wq + bq;  k, v = LN_tgt(x0) Wk|Wv + b   (x0 = layer-0 input)
 //   a = softmax(q_h k_hᵀ / sqrt(dh), padded nodes masked) v_h per head;
 //       a polyline without a valid node runs unmasked and a is zeroed
@@ -213,8 +213,11 @@ int launch(const void* x, const void* valid, void* out, int BP, int N, int n_lay
     const float* const* f = reinterpret_cast<const float* const*>(w);
     NodeWeights nw{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
                    f[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16], f[17]};
-    return head_split(D / n_head) == 2 ? launch_split<BF, 2>(x, valid, out, BP, N, n_layer, n_head, nw, stream)
-                                       : launch_split<BF, 1>(x, valid, out, BP, N, n_layer, n_head, nw, stream);
+    switch (head_split(D / n_head)) {
+        case 4: return launch_split<BF, 4>(x, valid, out, BP, N, n_layer, n_head, nw, stream);
+        case 2: return launch_split<BF, 2>(x, valid, out, BP, N, n_layer, n_head, nw, stream);
+        default: return launch_split<BF, 1>(x, valid, out, BP, N, n_layer, n_head, nw, stream);
+    }
 }
 
 }  // namespace

@@ -27,8 +27,8 @@
 // polyline's pooled row (-1e30 for a polyline without a valid node). The
 // widths are the build's (node_layer.cuh: d_model D and d_ff F, 128 or 256
 // each) and the heads a runtime argument (d_head a multiple of 4 from 4 to
-// 64; two threads a (head, row) in the attention and its backward at
-// d_head 64). With
+// 128; two threads a (head, row) in the attention and its backward past
+// d_head 32, four past 64). With
 // dropout off it is K2 (every factor exactly 1.0): its output is K2's to
 // the bit. The first K4f (one polyline a 256-thread block, every weight
 // read from L2 by __ldg for each of 6 products a layer and each polyline,
@@ -529,7 +529,7 @@ __device__ void ln_partials(const float* dy, XRow x, const float* mu_s, const fl
 // kept (st_*[h R + i]). Pass 2, S threads a (head, key j), k_j and v_j in
 // registers: the column's dS and P M0 from the statistics, dk_j = sum_i
 // dS_ij q_i / sqrt(dh), dv_j = sum_i P_ij M0_ij dcat_i. d_head a multiple
-// of 4 from 4 to 64.
+// of 4 from 4 to 128.
 template <int S>
 __device__ void attention_bwd(const float* Q, float* K, float* V, const float* DC, const Block& b, int H,
                               const Dropout& drop, int site, float* st_m, float* st_l, float* st_r, float* gq,
@@ -1068,8 +1068,11 @@ extern "C" int tb_node_encoder_train_fwd(const void* x, const void* valid, void*
                                          unsigned int threshold, float scale, int on, void* stream) {
     if (!shape_ok(N, L, H, d_model, d_ff)) return (int)cudaErrorInvalidValue;
     const tb_philox::Dropout drop{seed, threshold, scale, on};
-    return tb_node::head_split(tb_node::D / H) == 2 ? launch_fwd<2>(x, valid, out, BP, N, L, H, w, drop, stream)
-                                                    : launch_fwd<1>(x, valid, out, BP, N, L, H, w, drop, stream);
+    switch (tb_node::head_split(tb_node::D / H)) {
+        case 4: return launch_fwd<4>(x, valid, out, BP, N, L, H, w, drop, stream);
+        case 2: return launch_fwd<2>(x, valid, out, BP, N, L, H, w, drop, stream);
+        default: return launch_fwd<1>(x, valid, out, BP, N, L, H, w, drop, stream);
+    }
 }
 
 // The backward: g [BP, D] -> dx [BP, N, D] and dw, the flat gradient of
@@ -1083,7 +1086,9 @@ extern "C" int tb_node_encoder_train_bwd(const void* x, const void* valid, const
                                          float scale, int on, int nblocks, void* stream) {
     if (!shape_ok(N, L, H, d_model, d_ff) || nblocks < 1) return (int)cudaErrorInvalidValue;
     const tb_philox::Dropout drop{seed, threshold, scale, on};
-    return tb_node::head_split(tb_node::D / H) == 2
-               ? launch_bwd<2>(x, valid, g, dx, scratch, dw, BP, N, L, H, w, drop, nblocks, stream)
-               : launch_bwd<1>(x, valid, g, dx, scratch, dw, BP, N, L, H, w, drop, nblocks, stream);
+    switch (tb_node::head_split(tb_node::D / H)) {
+        case 4: return launch_bwd<4>(x, valid, g, dx, scratch, dw, BP, N, L, H, w, drop, nblocks, stream);
+        case 2: return launch_bwd<2>(x, valid, g, dx, scratch, dw, BP, N, L, H, w, drop, nblocks, stream);
+        default: return launch_bwd<1>(x, valid, g, dx, scratch, dw, BP, N, L, H, w, drop, nblocks, stream);
+    }
 }

@@ -5,7 +5,7 @@
 // build, 128 or 256 each (-DTB_NODE_D=..., -DTB_NODE_F=...; 128 when
 // unset): ops/cuda_build.py builds one library a width pair at its first
 // use, so a call compiles only the widths it runs. The heads are a runtime
-// argument, any H with d_head = D / H a multiple of 4 from 4 to 64
+// argument, any H with d_head = D / H a multiple of 4 from 4 to 128
 // (heads_ok). Every row buffer has the stride LDS = max(D, F) + 4.
 //
 // A block holds the valid nodes of a group of P consecutive polylines as
@@ -30,9 +30,10 @@
 // D = F = 128 is the first design's to the bit.
 //
 // The attention of a polyline is S threads per (head, row), S = 1 for
-// d_head <= 32 and 2 for d_head 64 (a thread holds at most 32 of a row's
-// dims in registers; the two halves of a dot product are summed by a lane
-// shuffle, the loops that shuffle run to the warp's longest polyline): the
+// d_head <= 32, 2 up to 64 and 4 up to 128 (a thread holds at most 32 of a
+// row's dims in registers; the parts of a dot product are summed by lane
+// shuffles in a fixed order, the loops that shuffle run to the warp's
+// longest polyline): the
 // thread's q slice and output in registers, the segment's K and V rows
 // read by float4, its scores in registers (at most MAXN), the exact
 // softmax, optional dropout of the weights (DROP; off for K2), the
@@ -112,9 +113,10 @@ __host__ __device__ constexpr int rows_fit(long long per_row, long long fixed, i
 }
 
 // the attention's d_head = D / H: a multiple of 4 (float4 rows) from 4 to
-// 64 (at most 32 dims a thread: two threads a (head, row) past 32)
+// 128 (at most 32 dims a thread: two threads a (head, row) past 32, four
+// past 64)
 __host__ __device__ constexpr bool heads_ok(int H) {
-    return H > 0 && D % H == 0 && D / H <= 64 && (D / H) % 4 == 0;
+    return H > 0 && D % H == 0 && D / H <= 128 && (D / H) % 4 == 0;
 }
 
 using tb_philox::Dropout;
@@ -532,18 +534,21 @@ __device__ __forceinline__ void store_head(float* dst, const float (&a)[32], int
 }
 
 // The threads that take one (head, row) of the attention: S = 1 for
-// d_head <= 32, 2 past it (a thread holds at most 32 dims in registers; a
-// kernel is built for each S and launched for the heads' S).
+// d_head <= 32, 2 up to 64, 4 up to 128 (a thread holds at most 32 dims in
+// registers; a kernel is built for each S and launched for the heads' S).
 // Their work items are walked warp by warp, w = S (h R + r) + part, so
 // that the S lanes of an item sit side by side in one warp; with S > 1 the
 // walk is the same for every lane of a warp (a lane past the last item
 // runs along on row 0 and stores nothing), since its loops shuffle.
-__host__ __device__ constexpr int head_split(int dh) { return dh > 32 ? 2 : 1; }
+__host__ __device__ constexpr int head_split(int dh) { return dh > 64 ? 4 : dh > 32 ? 2 : 1; }
 
-// a dot product's parts summed over the S lanes of a (head, row)
+// a dot product's parts summed over the S lanes of a (head, row): pairs of
+// neighbours, then (at S = 4) the two pairs' sums; every lane of the item
+// gets the same float (the two operands of each addition commute exactly)
 template <int S>
 __device__ __forceinline__ float parts_sum(float t) {
-    if constexpr (S == 2) t += __shfl_xor_sync(0xffffffffu, t, 1);
+    if constexpr (S >= 2) t += __shfl_xor_sync(0xffffffffu, t, 1);
+    if constexpr (S == 4) t += __shfl_xor_sync(0xffffffffu, t, 2);
     return t;
 }
 
@@ -575,12 +580,12 @@ __device__ __forceinline__ int walk_item(int w0) { return S == 1 ? w0 : w0 + (in
 
 // a[r, head h] = (softmax_j(q_h[r] . k_h[j] / sqrt(dh)) [⊙ M0]) v_h over
 // the keys j of r's polyline (d_head = D / H, a multiple of 4 from 4 to
-// 64), written over q (A may be Q: each thread reads its own q slice, into
+// 128), written over q (A may be Q: each thread reads its own q slice, into
 // registers, before writing it). With DROP, the weights' dropout at
 // `site`, row (poly H + h) N + node_r, column node_j; with gsave, a also
 // written to gsave[r] (device memory, row stride D). The sums over d and
-// over j run in order, as the first design's did (at d_head 64 each half
-// in order, then the halves added). With BF (K2-bf16) the weights are
+// over j run in order, as the first design's did (past d_head 32 each
+// lane's part in order, then the parts added by parts_sum). With BF (K2-bf16) the weights are
 // rounded to bf16 before their product with v; Q, K and V then hold bf16
 // values (their projections round them), so that every operand of the two
 // products is bf16. S (head_split(d_head)) is a template parameter of the

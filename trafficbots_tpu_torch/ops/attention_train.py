@@ -63,10 +63,11 @@ LAUNCHES_FWD_SKIP = 0
 LAUNCHES_BWD_SKIP = 0
 
 _KERNEL = "attention_train"
-HEAD_DIMS = (16, 32, 64)  # the head widths the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are instantiated for
 ROWS_PER_BLOCK = fused_attention.ROWS_PER_BLOCK  # the forward is K1's (csrc/attn_fwd.cuh)
 BWD_TILE = 64  # BT: keys of a backward tile, query rows of a dk/dv step
-DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks)
+DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks, up to d_head 64)
+DQ_WIDE = 64  # past this d_head the dq kernel takes 64-row blocks only (the 16-row one's tiles do not fit)
 _PAD = 4  # PAD: floats after each transposed tile row
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
 _SHAPE_DROP_ARGS = ((ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2
@@ -115,15 +116,16 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
 def smem_bytes(T: int, d_head: int) -> int:
     """The largest dynamic shared memory of a block among the kernels
     (mirrors csrc/attn_fwd.cuh and csrc/attention_train.cu): the forward's
-    (K1's blocks at fp32 K/V), the dq kernel's tiles at either query block,
-    the dk/dv kernel's."""
+    (K1's blocks at fp32 K/V), the dq kernel's tiles at each query block
+    it takes at this d_head, the dk/dv kernel's."""
     wide = BWD_TILE + _PAD
 
     def dq(bq):
         return 2 * d_head * (bq + _PAD) + 3 * bq + 256 // (4 * bq) * (2 * d_head + bq) * wide
 
     dkdv = (4 * d_head + 2 * BWD_TILE) * wide + 3 * BWD_TILE
-    return max(fused_attention.smem_bytes(T, d_head, 4), 4 * max(dkdv, *(dq(bq) for bq in DQ_ROWS)))
+    dq_rows = DQ_ROWS if d_head <= DQ_WIDE else (64,)
+    return max(fused_attention.smem_bytes(T, d_head, 4), 4 * max(dkdv, *(dq(bq) for bq in dq_rows)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -65,9 +65,11 @@ LAUNCHES_BF16 = 0
 LAUNCHES_SKIP = 0
 
 _KERNEL = "fused_attention"
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 32, 64, 128)
 ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (path L) block
 KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
+KV_BUF_BYTES = 2 * KEY_TILE * 68 * 4  # KV_BUF_BYTES: path L double-buffers its K/V tiles up to this size
+SLAB = 64  # CS: columns of a K/V slab of K1-bf16's path L past d_head 64
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
 BF16_MAX_KEYS = 8 * KEY_TILE  # K1-bf16's path L holds a row's logits in registers, a key tile a warp (NKW)
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
@@ -112,17 +114,40 @@ def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
 def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
     """Dynamic shared memory of the larger of the kernel's two blocks
     (mirrors rows_smem and cluster_smem in csrc/attn_fwd.cuh): path L's
-    [32, T] logits, q, two K/V tiles (or the groups' partial sums) and the
-    mask bits; path S's slice logits (then partial sums), q, K and V slices
-    and row statistics; the warp columns' row maxima. Path L's logits bound
-    T. K1-bf16's block (rows_mma_smem) fits at every T it takes
-    (BF16_MAX_KEYS), with V in K's place where both do not fit."""
+    [32, T] logits, q, its K/V tiles (two, or one where two would pass
+    KV_BUF_BYTES: fp32 K/V at d_head 128; then the groups' partial sums)
+    and the mask bits; path S's slice logits (then partial sums), q, K and
+    V slices and row statistics; the warp columns' row maxima. Path L's
+    logits bound T."""
     nt = -(-T // KEY_TILE)
-    tiles = 2 * KEY_TILE * (d_head + 16 // kv_bytes) * kv_bytes // 4
-    rows = (ROWS_PER_BLOCK * (nt * KEY_TILE + 8) + ROWS_PER_BLOCK * (d_head + 4) + max(tiles, 512 * 16)
+    tile = KEY_TILE * (d_head + 16 // kv_bytes) * kv_bytes // 4
+    bufs = 2 if 2 * 4 * tile <= KV_BUF_BYTES else 1
+    rows = (ROWS_PER_BLOCK * (nt * KEY_TILE + 8) + ROWS_PER_BLOCK * (d_head + 4) + max(bufs * tile, 512 * 16)
             + ROWS_PER_BLOCK * nt * KEY_TILE // 32 + (8 + 2) * ROWS_PER_BLOCK + 2 * nt)
-    cluster = 64 * (KEY_TILE + 8) + 64 * (d_head + 4) + tiles + (2 + 4) * 64 + 64 * KEY_TILE // 32
+    cluster = 64 * (KEY_TILE + 8) + 64 * (d_head + 4) + 2 * tile + (2 + 4) * 64 + 64 * KEY_TILE // 32
     return 4 * max(rows, cluster)
+
+
+def smem_bytes_bf16(T: int, d_head: int) -> int:
+    """Dynamic shared memory of the larger of K1-bf16's two blocks (mirrors
+    rows_mma_smem, rows_mma_slab_smem and cluster_mma_smem in
+    csrc/attn_fwd.cuh): path L's bf16 q and K tiles (V beside K where both
+    fit with the tiles' partial sums, else in K's place; past d_head 64 one
+    SLAB-column slab of every tile at a time), the partial sums, mask bits
+    and row statistics; path S's partial sums, q, K and V slices."""
+    nt = -(-T // KEY_TILE)
+    stats = ROWS_PER_BLOCK * nt * KEY_TILE // 32 + (2 * 8 + 2) * ROWS_PER_BLOCK + nt
+    if d_head > SLAB:
+        rows = (2 * (ROWS_PER_BLOCK * (d_head + 8) + nt * KEY_TILE * (SLAB + 8))
+                + 4 * (nt * ROWS_PER_BLOCK * SLAB + stats))
+    else:
+        def rows_mma(both):
+            return (2 * (ROWS_PER_BLOCK + (2 if both else 1) * nt * KEY_TILE) * (d_head + 8)
+                    + 4 * ((nt * ROWS_PER_BLOCK * d_head if both else 0) + stats))
+
+        rows = rows_mma(True) if rows_mma(True) <= _SMEM_LIMIT else rows_mma(False)
+    cluster = 4 * (2 * 64 * d_head + (64 + 2 * KEY_TILE) * (d_head + 8) // 2 + 8 * 64 + 64 * KEY_TILE // 32)
+    return max(rows, cluster)
 
 
 def check_src_invalid(src_invalid: Optional[Tensor], q: Tensor) -> int:
@@ -143,13 +168,15 @@ def kernel_refusal(T: int, d_model: int, n_head: int, kv_bytes: int = 4, bf16: b
     """None when K1 takes T keys at d_model / n_head heads with K/V of
     `kv_bytes` bytes (K1-bf16 with `bf16`), else the reason it does not:
     the head widths its forward is instantiated for, path L's [32, T]
-    logits in one block's shared memory, K1-bf16's key tile a warp."""
+    logits (K1-bf16: its K tiles or slabs) in one block's shared memory,
+    K1-bf16's key tile a warp."""
     if n_head < 1 or d_model % n_head or d_model // n_head not in _HEAD_DIMS:
         return f"d_head = {d_model}/{n_head} must be one of {_HEAD_DIMS}"
-    if smem_bytes(T, d_model // n_head, kv_bytes) > _SMEM_LIMIT:
-        return f"T={T} does not fit one block's shared memory"
     if bf16 and T > BF16_MAX_KEYS:
         return f"T={T}: K1-bf16 takes at most {BF16_MAX_KEYS} keys (a key tile a warp)"
+    dh = d_model // n_head
+    if (smem_bytes_bf16(T, dh) if bf16 else smem_bytes(T, dh, kv_bytes)) > _SMEM_LIMIT:
+        return f"T={T} does not fit one block's shared memory"
     return None
 
 

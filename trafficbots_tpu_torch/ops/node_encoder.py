@@ -29,7 +29,7 @@ None where the kernel takes a shape, else the reason it does not;
 `_check_inputs` raises with that reason, so a CUDA tensor the kernel
 refuses raises. The kernels take d_model and d_feedforward in
 `KERNEL_WIDTHS`, each independently, and any n_head whose d_head =
-d_model / n_head is a multiple of 4 from 4 to 64; the widths are constants
+d_model / n_head is a multiple of 4 from 4 to 128; the widths are constants
 of a build (`build_defines`), one library a width pair, built at its
 first use.
 
@@ -67,7 +67,7 @@ _KERNEL = "node_encoder"
 KERNEL_D = 128  # the default build's d_model and d_feedforward (TB_NODE_D, TB_NODE_F in csrc/node_layer.cuh)
 KERNEL_WIDTHS = (128, 256)  # the d_model and d_feedforward a build may take, each independently
 KERNEL_MAX_NODES = 32  # MAXN in csrc/node_layer.cuh: a thread's attention scores in registers
-KERNEL_MAX_D_HEAD = 64  # heads_ok in csrc/node_layer.cuh: d_head a multiple of 4 up to 64
+KERNEL_MAX_D_HEAD = 128  # heads_ok in csrc/node_layer.cuh: d_head a multiple of 4 up to 128
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
 BLOCK_BYTES = 2072  # sizeof(Block) in csrc/node_layer.cuh: a block's row map
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (ctypes.c_void_p, ctypes.c_void_p)
