@@ -12,7 +12,10 @@ its own lines:
      per source, all started together, and the node kernels' sources once
      more for each other width pair that 3b and 6e run (WIDE_BUILDS); K4's
      sources, the longest to compile, build on while K1, K2, K5 and K3 are
-     checked (phase 3) and phase 3a runs, and K4's checks wait for them;
+     checked (phase 3), phase 3a runs, and phase 6f's kernels and eval
+     runs, the main path's small config against the CPU run, phase 6c's
+     kernel checks and validation step and phase 6a run; K4's checks wait
+     for them (K2's other widths start once the first batch is built);
   3. each kernel against its plain PyTorch version at the shapes the main
      path gives it at full width, with its time as a caller sees it (`ms`:
      back-to-back calls, the host's issue rate included), its device time
@@ -172,6 +175,25 @@ its own lines:
      loss and the largest gradient gap against "save_attn" (phase 5's
      holds), whether they are bitwise equal, the forward's and backward's seconds, the memory the forward
      leaves for the backward and the peak, the training kernels' launches;
+  6f. the long map, data.n_pl = 2048 at full width (1,536 of 2,048
+     polylines and 40 of 64 agents valid, seed 0; all but its training
+     step run after phase 3a, beside K4's build): (a) the kernels alone
+     past 1,024 keys, the last quarter of the keys masked: K1 (the site's
+     K/V type: fp32 q with bf16 K/V at the as2pl; path G), K1-bf16
+     (rounds of key tiles), K1-skip (agents 40.. dead), K3f and K3b
+     (dropout live) at T = 2,048 at the rollout as2pl, the map
+     self-attention and the latent as2pl, K1 and K1-bf16 at the joint
+     futures' B = 48, K1 and K3 at the rollout as2pl at T = 4,096: each
+     held against its plain version at phase 3's tolerances (K1-bf16
+     within a one-bf16-ulp nudge's gap, K1-skip's live rows bitwise K1's,
+     K3b twice bitwise), its device ms, bound, plain ms, SDPA's device ms
+     and its own device ms at T = 1,024 on the same site; (b) over
+     HELD_STEPS steps (the depth cut), an eval rollout against the plain
+     versions beside a one-ulp map nudge (the main path's hold), one
+     training step (phase 5's holds) and one bf16 eval (held by its order
+     of passage), each attention site's route printed from spies on the
+     model's attention cores (every site over the map on its kernel, none
+     plain) beside the launch counts;
   7. the CLI runner, `trafficbots_tpu_torch.run.main` in-process at full
      width (batch 8, synthetic data, 1 step an epoch, 1 validation batch,
      the default fused node encoder; the default n_video_batch without cv2,
@@ -289,6 +311,11 @@ builds K1-K5 and runs only phase 6d, with its JSON line and no last line.
 
 builds K1-K6 (the node kernels also at d_model 256, d_ff 128) and runs
 only phase 6e, with its JSON line, the card line and the last line.
+
+    python3 chip_smoke.py --long-map
+
+builds K1-K5 and runs only phase 6f, with its JSON line, the card line
+and the last line.
 """
 from __future__ import annotations
 
@@ -323,6 +350,7 @@ from trafficbots_tpu_torch.ops import fused_attention as FA
 from trafficbots_tpu_torch.ops import node_encoder as NE
 from trafficbots_tpu_torch.ops import node_encoder_train as NT
 from trafficbots_tpu_torch.models import goal_manager as GM
+from trafficbots_tpu_torch.models import modules as MM
 from trafficbots_tpu_torch.ops.dropout import DropoutSeeds
 from trafficbots_tpu_torch.sim.teacher_forcing import teacher_forcing_mask
 from trafficbots_tpu_torch.training import train as TT
@@ -1897,7 +1925,8 @@ def bf16_held(name: str, out, ref, ref_nudged) -> dict:
 
 # the tensor-core kernels and the fp32 ones of the K1, K2 and K6 libraries,
 # by a piece of their mangled names
-SASS_KERNELS = {"K1-bf16": ("12fwd_rows_mma", "17fwd_rows_mma_slab", "15fwd_cluster_mma"), "K2-bf16": ("node_kernelILb1E",),
+SASS_KERNELS = {"K1-bf16": ("12fwd_rows_mma", "17fwd_rows_mma_slab", "17fwd_rows_mma_long", "15fwd_cluster_mma"),
+                "K2-bf16": ("node_kernelILb1E",),
                 "K6-bf16": ("14block_attn_mma",), "K1": ("8fwd_rows", "11fwd_cluster"), "K2": ("node_kernelILb0E",),
                 "K6": ("17block_attn_kernel",)}
 
@@ -2217,7 +2246,17 @@ def train_bf16(cfg, batch, dev) -> dict:
                 held_steps=HELD_STEPS)
 
 
-def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
+def bf16_early(cfg, batch, dev) -> dict:
+    """Phase 6c's parts that need no K4 (the full run runs them while K4's
+    sources compile): (a) and (c) of bf16_path."""
+    t0 = time.perf_counter()
+    out = dict(sass_hmma=sass_hmma_counts(), K1_bf16=check_k1_bf16(dev), K2_bf16=check_k2_bf16(dev, batch),
+               K6_bf16=check_k6_bf16(dev, batch), validation=validation_bf16(cfg, batch, dev))
+    out["early_s"] = time.perf_counter() - t0
+    return out
+
+
+def bf16_path(cfg, batch, dev, fp32_eval=None, early=None) -> dict:
     """Phase 6c: the bf16 configurations. (a) the tensor-core kernels' SASS,
     the three bf16 variants against
     their plain versions at full width with their readings; (b) the eval
@@ -2225,19 +2264,18 @@ def bf16_path(cfg, batch, dev, fp32_eval=None) -> dict:
     beside the fp32 rollout's agent-steps/s and peak memory (phase 4's in
     the full run, `fp32_eval`; measured here in --bf16); (c) one
     validation step under "hybrid" and kernel_matmul_bf16; (d) one
-    training step."""
+    training step. `early`: bf16_early's result, when the run made it
+    already."""
     t_phase = time.perf_counter()
-    result = dict(sass_hmma=sass_hmma_counts(), K1_bf16=check_k1_bf16(dev), K2_bf16=check_k2_bf16(dev, batch),
-                  K6_bf16=check_k6_bf16(dev, batch))
+    result = dict(early or bf16_early(cfg, batch, dev))
     result["eval"] = eval_bf16(cfg, batch, dev, True, N_ITER)
     result["eval_without_matmul_bf16"] = eval_bf16(cfg, batch, dev, False, 0)
     result["eval_fp32"] = fp32_eval or fp32_eval_reading(cfg, batch, dev, N_ITER)
     log(f"bf16 eval rollout: {result['eval']['agent_steps_per_s']} agent-steps/s, peak {result['eval']['peak_gib']} GiB; "
         f"fp32: {result['eval_fp32']['agent_steps_per_s']} agent-steps/s, peak {result['eval_fp32']['peak_gib']} GiB "
         f"(readings) [{card_line()}]")
-    result["validation"] = validation_bf16(cfg, batch, dev)
     result["training"] = train_bf16(cfg, batch, dev)
-    result["phase_s"] = time.perf_counter() - t_phase
+    result["phase_s"] = time.perf_counter() - t_phase + (result["early_s"] if early else 0.0)
     result["card"] = card_line()
     log(f"bf16: phase in {result['phase_s']} s")
     return result
@@ -3607,6 +3645,244 @@ def options_path(cfg, batch, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ long maps (phase 6f)
+
+LONG_PL = 2048  # data.n_pl of phase 6f: every attention over the map has T = 2,048
+LONG_FILL = (1536, FILL_AGENTS)  # valid polylines and agents: bench.py's 3/4 map fill
+# the kernels alone: (name, B, S, T, bf16 K/V at the site, the K1 variants it runs, K3 too)
+LONG_SITES = (("rollout as2pl", N_SCENE, 64, LONG_PL, True, ("K1", "K1-bf16", "K1-skip"), True),
+              (K1_B48, 6 * N_SCENE, 64, LONG_PL, True, ("K1", "K1-bf16"), False),
+              ("map polyline self-attention", N_SCENE, LONG_PL, LONG_PL, False, ("K1", "K1-bf16", "K1-skip"), True),
+              ("latent as2pl", N_SCENE, 19 * 64, LONG_PL, False, ("K1", "K1-bf16", "K1-skip"), True),
+              ("rollout as2pl", N_SCENE, 64, 2 * LONG_PL, True, ("K1",), True))
+LONG_COUNTERS = dict(EVAL_COUNTERS, **BF16_COUNTERS, **TRAIN_COUNTERS)
+ATTENTION_SITES = ("fused_attention_core", "attention_train", "attention_core_plain", "attention_train_plain")
+
+
+@contextlib.contextmanager
+def recorded_attention_sites(sites: set):
+    """Every attention core call of the model (models.modules' K1 and K3
+    wrappers and their plain versions) while the kernels are enabled (not
+    a reference run under ops.plain_versions) recorded into `sites` as
+    (function, S, T, q dtype) while the context is open."""
+    saved = {name: getattr(MM, name) for name in ATTENTION_SITES}
+
+    def spy(name, fn):
+        def call(q, k, *a, **kw):
+            if ops.kernels_enabled():
+                sites.add((name, q.shape[1], k.shape[1], str(q.dtype).replace("torch.", "")))
+            return fn(q, k, *a, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(MM, name, spy(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(MM, name, fn)
+
+
+def long_routes(sites: set, n_pl: int, what: str) -> dict:
+    """Each recorded attention site's route: the kernel its wrapper launched
+    (K1, K1-bf16, K3), or the plain version; every site over the map (T =
+    n_pl) must take its kernel."""
+    names = {"fused_attention_core": "K1", "attention_train": "K3"}
+    routes = {}
+    for name, S, T, dt in sorted(sites):
+        kernel = names.get(name)
+        route = "plain" if kernel is None else kernel + ("-bf16" if kernel == "K1" and dt == "bfloat16" else "")
+        routes[f"S={S} T={T} {dt}"] = route if kernel else f"plain ({name})"
+        require(T != n_pl or kernel is not None, f"{what}: the site S={S} T={T} took the plain version")
+    for site, route in routes.items():
+        log(f"{what}: {site} -> {route}")
+    return routes
+
+
+def k1_long(variant, args, mask_bytes, src):
+    """One K1 variant at a long-map site: its output held against its plain
+    version (K1-bf16 within a one-bf16-ulp input nudge's gap, K1-skip with
+    live rows bitwise K1's), two calls bitwise equal; its device ms, bound,
+    plain ms and SDPA's device ms on the same inputs."""
+    q, k, v, invalid, H = args
+    allowed = ~invalid
+    if variant == "K1-bf16":
+        args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), invalid, H)
+    kw = dict(src_invalid=src) if variant == "K1-skip" else {}
+    got, again = FA.fused_attention_core(*args, **kw), FA.fused_attention_core(*args, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), f"{variant}: not bitwise reproducible")
+    ref = FA.attention_core_plain(*args, **kw)
+    row = {}
+    if variant == "K1-bf16":
+        held = bf16_held(variant, got, ref, FA.attention_core_plain(bf16_up(args[0]), *args[1:]))
+        row.update(max_abs_err=held["vs_plain"]["max_abs"], **held)
+        b_ms, b_by = bound_ms_bf16(2 * q.numel() * 2 + 2 * k.numel() * 2 + mask_bytes,
+                                   4 * q.shape[-1] * int(allowed.sum().item()))
+        lib = sdpa_device_ms(*args[:3], allowed, H)
+    elif variant == "K1-skip":
+        live = FA.row_live(invalid, src)
+        base = FA.fused_attention_core(*args)
+        require(bool((got[~live] == 0).all()) and torch.equal(got[live], base[live]),
+                f"{variant}: dead rows not 0 or live rows not K1's")
+        row["max_abs_err"] = max_err_checked(got, ref, K1_TOL, variant)
+        b_ms, b_by = skip_bound(q, k, invalid, src, mask_bytes, False)
+        lib = sdpa_device_ms(q, k.float(), v.float(), allowed & live[..., None], H)
+    else:
+        row["max_abs_err"] = max_err_checked(got, ref, K1_TOL, variant)
+        b_ms, b_by = k1_bound(args, mask_bytes)
+        lib = sdpa_device_ms(q, k.float(), v.float(), allowed, H)
+    row.update(device_ms=graph_ms(lambda: FA.fused_attention_core(*args, **kw), n=5),
+               plain_ms=time_ms(lambda: FA.attention_core_plain(*args, **kw), n=3, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_device_ms=lib)
+    return row
+
+
+def k3_long(args, mask_bytes, g, seed):
+    """K3f and K3b at a long-map site, dropout live: the forward within
+    K3_TOL and the gradients within K3_GRAD_RTOL of the plain version's,
+    the backward twice bitwise equal; each one's device ms, bound and
+    SDPA's device ms (forward from a graph, backward from the profiler)."""
+    q, k, v, invalid, H = args
+    B, S, D = q.shape
+
+    def run(fn):
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o_ = fn(qq, kk, vv, invalid, H, P_DROP, seed, 0)
+        return o_, torch.autograd.grad(o_, (qq, kk, vv), g)
+
+    got, grads = run(AT.attention_train)
+    _, grads2 = run(AT.attention_train)
+    ref, ref_grads = run(AT.attention_train_plain)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(grads, grads2)), "K3b: not bitwise reproducible")
+    ef = max_err_checked(got.detach(), ref.detach(), K3_TOL, "K3f")
+    eb = grads_checked(grads, ref_grads, ("dq", "dk", "dv"), K3_GRAD_RTOL, "K3b")
+    o, rmax, rsum = AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0)
+    lib_fwd, lib_leaves = sdpa_train(q, k, v, invalid, H)
+    with torch.no_grad():
+        lib_f = graph_ms(lib_fwd, n=5)
+        plain_f = time_ms(lambda: AT.attention_train_plain(q, k, v, invalid, H, P_DROP, seed, 0), n=3, warmup=1)
+    lib_out = lib_fwd()
+    gh = g.view(B, S, H, -1).transpose(1, 2)
+    n_pairs = int((~invalid).sum().item())
+    io = (2 * q.numel() + 2 * k.numel()) * 4 + mask_bytes + 2 * B * H * S * 4
+    bf, bf_by = bound_ms(io, 4 * D * n_pairs)
+    bb, bb_by = bound_ms(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * D * n_pairs)
+    fwd = dict(max_abs_err=ef, device_ms=graph_ms(lambda: AT._launch_fwd(q, k, v, invalid, H, P_DROP, seed, 0), n=5),
+               plain_ms=plain_f, bound_ms=bf, bound_by=bf_by, library_device_ms=lib_f)
+    bwd = dict(max_abs_err=eb, device_ms=graph_ms(lambda: AT._launch_bwd(q, k, v, invalid, o, rmax, rsum, g, H, P_DROP,
+                                                                         seed, 0), n=5),
+               bound_ms=bb, bound_by=bb_by,
+               library_device_ms=profiled_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True),
+                                             n=3))
+    return fwd, bwd
+
+
+def check_long_keys(dev) -> dict:
+    """(a) The kernels alone past 1,024 keys: K1 (the site's K/V type),
+    K1-bf16 and K1-skip (agents 40.. dead), K3f and K3b at the rollout
+    as2pl, the map self-attention and the latent as2pl at T = 2,048, K1 and
+    K1-bf16 at the joint futures' B = 48, K1 and K3 at the rollout as2pl at
+    T = 4,096; the last quarter of the keys masked. Each row: held against
+    its plain version, device ms, bound, plain ms, SDPA's device ms, and
+    the same kernel's device ms at T = 1,024 on the same site."""
+    out = {"K1": [], "K1-bf16": [], "K1-skip": [], "K3f": [], "K3b": []}
+    for i, (name, B, S, T, kv_bf16, variants, k3) in enumerate(LONG_SITES):
+        gen = torch.Generator().manual_seed(2048 + i)
+        args, mask_bytes = k1_case(gen, B, S, T, kv_bf16, 0.25, False, dev)
+        short, _ = k1_case(torch.Generator().manual_seed(1024 + i), B, 1024 if S == T else S, 1024, kv_bf16, 0.25,
+                           False, dev)
+        src = dead_agents(B, S, FILL_AGENTS, dev)
+        for variant in variants:
+            row = dict(site=name, B=B, S=S, T=T, **k1_long(variant, args, mask_bytes, src))
+            sq, sk, sv, sinv, sh = short
+            sa = (sq.bfloat16(), sk.bfloat16(), sv.bfloat16(), sinv, sh) if variant == "K1-bf16" else short
+            skw = dict(src_invalid=dead_agents(B, sq.shape[1], FILL_AGENTS, dev)) if variant == "K1-skip" else {}
+            row["device_ms_at_1024"] = graph_ms(lambda: FA.fused_attention_core(*sa, **skw), n=5)
+            out[variant].append(row)
+            log(f"{variant} long keys, {name}: {row} [{card_line()}]")
+        if not k3:
+            continue
+        g = torch.randn(B, S, 128, generator=gen).to(dev)
+        a32 = (args[0], args[1].float(), args[2].float(), args[3], args[4])
+        fwd, bwd = k3_long(a32, mask_bytes, g, 2**42 + T)
+        s32 = (short[0], short[1].float(), short[2].float(), short[3], short[4])
+        o, rmax, rsum = AT._launch_fwd(*s32, P_DROP, 7, 0)
+        gs = torch.randn(*s32[0].shape, generator=gen).to(dev)
+        fwd["device_ms_at_1024"] = graph_ms(lambda: AT._launch_fwd(*s32, P_DROP, 7, 0), n=5)
+        bwd["device_ms_at_1024"] = graph_ms(lambda: AT._launch_bwd(*s32[:4], o, rmax, rsum, gs, s32[4], P_DROP, 7, 0),
+                                            n=5)
+        out["K3f"].append(dict(site=name, B=B, S=S, T=T, **fwd))
+        out["K3b"].append(dict(site=name, B=B, S=S, T=T, **bwd))
+        log(f"K3 long keys, {name}: fwd {out['K3f'][-1]} bwd {out['K3b'][-1]} [{card_line()}]")
+    return out
+
+
+def long_map_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """cfg with data.n_pl = LONG_PL over HELD_STEPS steps (the depth cut:
+    the runs end where the main paths' holds end)."""
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n_pl=LONG_PL), time_step_end=HELD_STEPS)
+
+
+def long_map_eval(cfg, dev) -> dict:
+    """Phase 6f, `data.n_pl = 2048` at full width (1,536 of 2,048
+    polylines and 40 of 64 agents valid, seed 0), its parts that need no
+    K4 (the full run runs them while K4's sources compile): (a)
+    check_long_keys; (b) an eval rollout against the plain versions beside
+    a one-ulp map nudge (held as the main path over HELD_STEPS) and one
+    bf16 eval (held by its order of passage beside the nudge), each with
+    every attention site's route and its kernels' launch counts, set to 0
+    just before each run and read just after. long_map_train adds the
+    training step."""
+    t0 = time.perf_counter()
+    out = dict(kernels=check_long_keys(dev))
+    c = long_map_config(cfg)
+    batch = long_map_batch(c)
+    sites = set()
+    model = O.make_model(c, device=dev, seed=0)
+    zero_counts(LONG_COUNTERS)
+    with recorded_attention_sites(sites):
+        res = O.eval_rollout(c, model, batch, device=dev)
+        torch.cuda.synchronize()
+    launches = read_counts(LONG_COUNTERS)
+    with ops.plain_versions():
+        ref = O.eval_rollout(c, model, batch, device=dev)
+        ref_nudged = O.eval_rollout(c, model, nudged(batch), device=dev)
+    log(f"long map eval: launches {launches}")
+    require(launches["K1"] > 0 and launches["K2"] == 1 and launches["K1-bf16"] == 0, f"long map eval: {launches}")
+    out["eval"] = dict(routes=long_routes(sites, LONG_PL, "long map eval"), launches=launches,
+                       vs_plain=compare_rollouts(res, ref, ref_nudged, "long map eval, kernels vs plain versions"))
+    sites.clear()
+    with recorded_attention_sites(sites):
+        bf16 = eval_bf16(c, batch, dev, matmul_bf16=False, n_iter=0)
+    out["bf16_eval"] = dict(routes=long_routes(sites, LONG_PL, "long map bf16 eval"), **bf16)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"long map, kernels and eval runs: {out['seconds']} s [{card_line()}]")
+    return out
+
+
+def long_map_batch(c: ExperimentConfig) -> dict:
+    return synthetic_episode_batch(c.data, n_scene=N_SCENE, seed=0, n_valid_pl=LONG_FILL[0], n_valid_agent=LONG_FILL[1])
+
+
+def long_map_train(cfg, dev, out: dict) -> dict:
+    """Phase 6f's training step at `data.n_pl = 2048` (loss and gradients
+    at phase 5's holds), its attention sites' routes and launch counts,
+    into long_map_eval's `out`."""
+    t0 = time.perf_counter()
+    c = long_map_config(cfg)
+    sites = set()
+    with recorded_attention_sites(sites):
+        train = options_train(c, long_map_batch(c), dev, "long map training step")
+    require(train["launches"]["K3f"] > 0 and train["launches"]["K3b"] > 0 and train["launches"]["K4f"] == 1,
+            f"long map training launches {train['launches']}")
+    out["train"] = dict(routes=long_routes(sites, LONG_PL, "long map training step"), **train)
+    out["seconds"] += time.perf_counter() - t0
+    log(f"long map: {out['seconds']} s [{card_line()}]")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this smoke run needs one NVIDIA GPU")
@@ -3621,17 +3897,22 @@ def main():
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn") + WIDE_BUILDS,
              ("--cli",): KERNEL_SOURCES, ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS,
              ("--media",): ("fused_attention", "node_encoder"), ("--augment",): DP_KERNELS,
-             ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS, ("--options",): KERNEL_SOURCES + WIDE_BUILDS[:2]}
+             ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS, ("--options",): KERNEL_SOURCES + WIDE_BUILDS[:2],
+             ("--long-map",): DP_KERNELS}
     mode = tuple(sys.argv[1:])
     if mode not in modes:
         sys.exit(f"chip_smoke.py: unknown arguments {sys.argv[1:]} (none, --attention, --node, --cli, --ablations, "
-                 "--dp, --media, --augment, --bf16, --row-skip or --options)")
+                 "--dp, --media, --augment, --bf16, --row-skip, --options or --long-map)")
     t0 = time.perf_counter()
     # the full run's K4 sources (the longest nvcc) compile beside the checks
     # of K1, K2, K5 and K3, which do not need them
     late = tuple(b for b in modes[mode] if not mode and (b if isinstance(b, str) else b[0]) == "node_encoder_train")
     late_build = concurrent.futures.ThreadPoolExecutor(1).submit(cuda_build.build_all, late) if late else None
-    build_s = cuda_build.build_all([b for b in modes[mode] if b not in late])
+    # K2's other widths (phase 3b and 6e) compile once the first batch is
+    # built: fewer nvcc processes than cores beside K4's
+    wide = tuple(b for b in modes[mode] if not mode and b in WIDE_BUILDS and b not in late)
+    build_s = cuda_build.build_all([b for b in modes[mode] if b not in late and b not in wide])
+    wide_build = concurrent.futures.ThreadPoolExecutor(1).submit(cuda_build.build_all, wide) if wide else None
     log(f"build: {build_s} (wall {time.perf_counter() - t0:.1f} s)")
 
     gen = torch.Generator().manual_seed(0)
@@ -3684,6 +3965,14 @@ def main():
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}))
         return
+    if mode == ("--long-map",):  # data.n_pl = 2048 alone, to the contract's last line
+        phase("long map: data.n_pl = 2048")
+        log(json.dumps({"long_map": long_map_train(cfg, dev, long_map_eval(cfg, dev))}))
+        phase("done")
+        log(f"card: {card}")
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return
     if mode == ("--ablations",):  # the ablation models and the interactive sim alone
         phase("ablations and interactive")
         log(json.dumps({"ablations": ablation_path(cfg, batch, dev)}))
@@ -3711,7 +4000,15 @@ def main():
     k3f, k3b = check_k3(gen, N_SCENE, dev)
     phase("attention kernels at d_head 128")
     wide_attn = check_attention_d_head_128(dev)
-    late_s = late_build.result()
+    phase("long map: data.n_pl = 2048, its kernels and eval runs (beside K4's build)")
+    long_map = long_map_eval(cfg, dev)
+    phase("small config, card vs CPU (beside K4's build)")
+    small = small_reference(cfg, dev)
+    phase("bf16 configurations: the kernels, the validation step (beside K4's build)")
+    bf16_first = bf16_early(cfg, batch, dev)
+    phase("validation media (beside K4's build)")
+    media = media_path(cfg, batch, dev)
+    late_s = dict(late_build.result(), **wide_build.result())
     log(f"build, beside the checks above: {late_s} (wall {time.perf_counter() - t0:.1f} s)")
     phase("kernel checks: K4 and K6")
     require(torch.equal(gen.get_state(), replayed_generator("K4", N_SCENE, batch).get_state()),
@@ -3725,7 +4022,7 @@ def main():
 
     phase("eval main path")
     launches, path = main_path(cfg, batch, N_ITER, dev)
-    path["small_config_vs_cpu"] = small_reference(cfg, dev)
+    path["small_config_vs_cpu"] = small
     phase("training main path")
     train_launches, train = train_path(cfg, batch, N_TRAIN_ITER, dev)
     phase("training kernels vs plain")
@@ -3736,16 +4033,17 @@ def main():
     val["hybrid_node_encoder"] = hybrid
     phase("validation kernels vs plain")
     val["vs_plain"] = validation_vs_plain(val_cfg, batch, dev)
-    phase("validation media")
-    media = media_path(cfg, batch, dev)
     phase("training-input augmentations")
     augment = augment_path(cfg, batch, dev)
     phase("bf16 configurations")
-    bf16 = bf16_path(cfg, batch, dev, {k: path[k] for k in ("seconds", "agent_steps_per_s", "peak_gib")})
+    bf16 = bf16_path(cfg, batch, dev, {k: path[k] for k in ("seconds", "agent_steps_per_s", "peak_gib")},
+                     bf16_first)
     phase("dead-query-row skip")
     skip = row_skip_path(cfg, batch, dev)
     phase("options: routing by shape, structure options, remat policies")
     options = options_path(cfg, batch, dev)
+    phase("long map: data.n_pl = 2048, its training step")
+    long_map_train(cfg, dev, long_map)
     phase("data parallelism: the ranks start, and run beside phases 7 and 8")
     dp_run = dp_start(dev)
     phase("CLI runner")
@@ -3819,6 +4117,9 @@ def main():
             k["other_widths"] = {name: r[key] for name, r in widths.items() if key in r}
         if key in wide_attn:
             k["d_head_128"] = wide_attn[key]
+        long_key = {"K3f-skip": None, "K3b-skip": None}.get(key, key)
+        if long_key in long_map["kernels"]:
+            k["long_keys"] = long_map["kernels"][long_key]
     for k in kernels:
         require(all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")), str(k))
     log(json.dumps({"kernels": kernels}))
@@ -3830,6 +4131,7 @@ def main():
     log(json.dumps({"bf16": bf16}))
     log(json.dumps({"row_skip": skip}))
     log(json.dumps({"options": options}))
+    log(json.dumps({"long_map": {k: v for k, v in long_map.items() if k != "kernels"}}))
     log(json.dumps({"cli_path": cli}))
     log(json.dumps({"ablations": abl}))
     log(json.dumps({"data_parallel": dp}))

@@ -118,6 +118,21 @@ def emulated_backward(emulated, q, k, v, invalid, out, rmax, rsum, g, H, p, seed
     return dq, dk, dv, dsum
 
 
+_WORKSPACES = []  # path G's workspaces, kept alive through their calls
+
+
+def ws_args(q, T, H, kv_bytes):
+    """(pointer, floats) of path G's logits workspace for a forward call
+    on the emulator's card (EMU_SMS SMs in tests/cuda_emu/cuda_runtime.h):
+    (None, 0) where the call takes path L or S."""
+    (B, S, D), sms = q.shape, int(re.search(r"EMU_SMS = (\d+);", (EMU / "cuda_runtime.h").read_text())[1])
+    n = tfa.workspace_floats(B, S, T, D // H, H, kv_bytes, sms)
+    if n == 0:
+        return None, 0
+    _WORKSPACES.append(ws := torch.full((n,), float("nan")))
+    return ws.data_ptr(), n
+
+
 def fwd_constants() -> dict:
     """The integer constants of csrc/attn_fwd.cuh (products evaluated)."""
     src = (cuda_build.CSRC / "attn_fwd.cuh").read_text()
@@ -184,7 +199,8 @@ def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset
         for _ in range(2):
             out = torch.full_like(q, float("nan"))
             assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), None, out.data_ptr(), B, S, T, D,
-                      H, int(bf16), invalid.stride(0), invalid.stride(1), None) == 0
+                      H, int(bf16), invalid.stride(0), invalid.stride(1), *ws_args(q, T, H, 2 if bf16 else 4),
+                      None) == 0
             outs.append(out)
         ref = tfa.attention_core_plain(q, k, v, invalid, H)
         torch.testing.assert_close(outs[0], ref, atol=1e-5, rtol=1e-5)
@@ -271,9 +287,10 @@ def k1_emulated(emulated, q, k, v, invalid, src_invalid, H):
     fn.argtypes, fn.restype = list(tfa._ARGS_BF16 if bf16_q else tfa._ARGS), ctypes.c_int
     out = torch.full_like(q, float("nan"))
     kv_flag = () if bf16_q else (int(k.dtype == torch.bfloat16),)
+    ws = () if bf16_q else ws_args(q, T, H, k.element_size())
     src = None if src_invalid is None else src_invalid.data_ptr()
     assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src, out.data_ptr(), B, S, T, D, H,
-              *kv_flag, invalid.stride(0), invalid.stride(1), None) == 0
+              *kv_flag, invalid.stride(0), invalid.stride(1), *ws, None) == 0
     return out
 
 
@@ -333,7 +350,7 @@ def test_k3_skip_emulated_forward_and_backward(emulated):
         rmax, rsum = (torch.full((B, H, S), float("nan")) for _ in range(2))
         assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src, out.data_ptr(), rmax.data_ptr(),
                   rsum.data_ptr(), B, S, T, D, H, invalid.stride(0), invalid.stride(1),
-                  *tat._dropout_args(p, seed, site), None) == 0
+                  *tat._dropout_args(p, seed, site), *ws_args(q, T, H, 4), None) == 0
         return out, rmax, rsum
 
     (out, rmax, rsum), (out0, rmax0, rsum0) = fwd(src_invalid.data_ptr()), fwd(None)
@@ -378,7 +395,7 @@ def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, p
     fn.argtypes, fn.restype = list(tat._FWD_ARGS), ctypes.c_int
     assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), None, out.data_ptr(), rmax.data_ptr(),
               rsum.data_ptr(), B, S, T, D, H, invalid.stride(0), invalid.stride(1), *tat._dropout_args(p, seed, site),
-              None) == 0
+              *ws_args(q, T, H, 4), None) == 0
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = tat.attention_train_plain(*leaves, invalid, H, p, seed, site)
     ref.backward(g)
@@ -503,8 +520,9 @@ def test_k3_wrapper_mirrors_the_kernels_layout():
     csrc/attention_train.cu: their tile constants, and at T = 1024 the
     largest block is the forward's path-L block (the [32, T] logits, q, two
     128-key K/V tiles, the mask bits, eight warp columns' and the final row
-    max and sum, the live tiles and their flags), within a block's limit; the
-    forward's logits bound T."""
+    max and sum, the live tiles and their flags), within a block's limit;
+    past the T whose logits fit, path G's block (path L's without the
+    logits) takes T."""
     src = (cuda_build.CSRC / "attention_train.cu").read_text()
     const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     fwd = fwd_constants()
@@ -514,7 +532,10 @@ def test_k3_wrapper_mirrors_the_kernels_layout():
     rows_l = 4 * (32 * (1024 + 8) + 32 * (32 + 4) + 2 * 128 * (32 + 4) + 32 * 32 + (8 + 2) * 32 + 2 * 8)
     assert tat.smem_bytes(1024, 32) == tfa.smem_bytes(1024, 32) == rows_l == 179008 <= tat.SMEM_LIMIT
     assert tfa.smem_bytes(1024, 32, 2) < rows_l  # bf16 K/V tiles take half
-    assert tat.smem_bytes(4096, 32) > tat.SMEM_LIMIT
+    assert tfa.smem_bytes(4096, 32) > tat.SMEM_LIMIT and tfa.takes_workspace(4096, 32)
+    assert tfa.ws_smem_bytes(4096, 32) == tfa.smem_bytes(4096, 32) - 4 * 32 * (4096 + 8) == 59392
+    assert tat.smem_bytes(4096, 32) == 92352  # path G's block below K3b's 16-row dq block, which T does not grow
+    assert fwd["WS_BLOCKS_PER_SM"] == tfa.WS_BLOCKS_PER_SM
     # d_head 128: path L's one fp32 K/V tile (two bf16 ones) beside T = 1024 keys' logits; K1-bf16's
     # slabs; K3b's 64-row dq block (157,440 B) and its dk/dv block (174,848 B) below the forward's
     assert (fwd["KV_BUF_BYTES"], fwd["CS"]) == (tfa.KV_BUF_BYTES, tfa.SLAB)
@@ -522,5 +543,5 @@ def test_k3_wrapper_mirrors_the_kernels_layout():
                                                                           + 10 * 32 + 16) == 222016
     assert tfa.smem_bytes(1024, 128, 2) == 224064 and tfa.smem_bytes_bf16(1024, 128) == 228128
     assert all(tfa.kernel_refusal(1024, 256, 2, kv, bf16) is None for kv, bf16 in ((4, False), (2, False), (2, True)))
-    assert tat.kernel_refusal(1024, 128, 1) is None and tat.kernel_refusal(1152, 256, 2) is not None
-    assert tfa.kernel_refusal(1152, 256, 2) is not None and tfa.kernel_refusal(1024, 256, 1) is not None
+    assert tat.kernel_refusal(1024, 128, 1) is None and tat.kernel_refusal(1152, 256, 2) is None  # path G
+    assert tfa.kernel_refusal(1152, 256, 2) is None and tfa.kernel_refusal(1024, 256, 1) is not None

@@ -28,7 +28,12 @@ wrapper computes its plain version, so the runs finish.
   and the device check, last, raises); K2's and K4's admit every
   (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to
   128 and 1-32 nodes, and nothing else; K1's and K3's admit d_head 16,
-  32, 64 and 128 (T <= 1,024 at 128) and refuse d_head 256.
+  32, 64 and 128 and refuse d_head 256.
+- At `data.n_pl` 1,536 and 2,048 every eval, bf16 eval and training site
+  over the map still calls its wrapper, and K1's and K3's predicates
+  admit every T up to 12,288 where `jax_kernel_fits` says the JAX package
+  runs its Pallas kernel (each refuses T only past its mask bits' limit,
+  `LARGEST_T`).
 """
 import dataclasses
 
@@ -214,10 +219,10 @@ def test_k1_predicate_is_its_check(bf16):
                 reason = K1.kernel_refusal(T, D, H, k.element_size(), bf16)
                 assert_predicate_matches_check(
                     reason, lambda: K1._check_inputs(q, k, k, meta(2, 32, T, dtype=torch.bool), H), "CUDA device")
-    assert K1.kernel_refusal(1024, 128, 4, 2, True) is None and K1.kernel_refusal(1025, 128, 4, 2, True)
-    for kv, bf16 in ((4, False), (2, False), (2, True)):  # d_head 128 up to T = 1024; d_head 256 refused
+    assert K1.kernel_refusal(1024, 128, 4, 2, True) is None and K1.kernel_refusal(1025, 128, 4, 2, True) is None
+    for kv, bf16 in ((4, False), (2, False), (2, True)):  # d_head 128 past T = 1024 (path G); d_head 256 refused
         assert K1.kernel_refusal(1024, 256, 2, kv, bf16) is None and K1.kernel_refusal(1024, 128, 1, kv, bf16) is None
-        assert K1.kernel_refusal(1025, 256, 2, kv, bf16) and K1.kernel_refusal(64, 256, 1, kv, bf16)
+        assert K1.kernel_refusal(1025, 256, 2, kv, bf16) is None and K1.kernel_refusal(64, 256, 1, kv, bf16)
 
 
 def test_k3_predicate_is_its_check():
@@ -229,7 +234,7 @@ def test_k3_predicate_is_its_check():
                                            "CUDA device")
     assert K3.kernel_refusal(1024, 128, 4) is None and K3.kernel_refusal(1024, 256, 4) is None
     assert K3.kernel_refusal(1024, 128, 2) is None and K3.kernel_refusal(1024, 256, 2) is None  # d_head 128
-    assert K3.kernel_refusal(1024, 128, 1) is None and K3.kernel_refusal(1025, 256, 2)
+    assert K3.kernel_refusal(1024, 128, 1) is None and K3.kernel_refusal(1025, 256, 2) is None  # path G
     assert K3.kernel_refusal(256, 256, 1)  # d_head 256
 
 
@@ -269,3 +274,63 @@ def test_k6_predicate_is_its_check():
                                            lambda: K6._check_inputs(q, q, q, valid, H), "CUDA device")
     assert K6.kernel_refusal(20, 128, 2) is None and K6.kernel_refusal(20, 256, 4) is None
     assert K6.kernel_refusal(20, 256, 128) and K6.kernel_refusal(20, 512, 4)  # d_head 2 past 128; past MAXD
+
+
+LONG_T_GRID = sorted({*range(128, 12289, 128), 1025, 1100, 1152, 1409, 1537, 2049, 3000})
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_k1_and_k3_take_every_T_jax_runs_its_kernels_at(D):
+    """For d_model 128 and 256, the heads giving each d_head the kernels
+    take, the three large sites' query counts (the rollout as2pl, S = 64;
+    the latent as2pl, S = 1,216; the map self-attention, S = T) and T up to
+    12,288 keys: wherever `jax_kernel_fits` says the JAX package runs its
+    Pallas K1 (fp32 or bf16 K/V, any row block) or K3, `kernel_refusal` is
+    None, for fp32 K/V, bf16 K/V and K1-bf16 alike."""
+    checked = 0
+    for dh in K1._HEAD_DIMS:
+        H = D // dh
+        for T in LONG_T_GRID:
+            for S in (64, 1216, T):
+                for kv in (4, 2):
+                    if any(K1.jax_kernel_fits(S, T, D, kv, rb) for rb in (-1, 0, 16)):
+                        assert K1.kernel_refusal(T, D, H, kv) is None, (S, T, D, H, kv)
+                        if kv == 2:
+                            assert K1.kernel_refusal(T, D, H, kv, True) is None, (S, T, D, H, "bf16")
+                        checked += 1
+                if K3.jax_kernel_fits(S, T, D):
+                    assert K3.kernel_refusal(T, D, H) is None, (S, T, D, H)
+                    checked += 1
+    assert checked > 1000
+
+
+# the largest T (a multiple of 128) each kernel takes at d_model 128, by d_head:
+# path G's mask bits (fp32 forward, K3), K1-bf16's bits and each key tile's row statistics
+LARGEST_T = {16: (48128, 30080), 32: (46592, 24448), 64: (37504, 24064), 128: (36096, 23424)}
+
+
+@pytest.mark.parametrize("dh", sorted(LARGEST_T))
+def test_largest_T_each_kernel_takes(dh):
+    fp32, bf16 = LARGEST_T[dh]
+    H = 128 // dh
+    assert K1.kernel_refusal(fp32, 128, H) is None and K1.kernel_refusal(fp32 + 128, 128, H)
+    assert K3.kernel_refusal(fp32, 128, H) is None and K3.kernel_refusal(fp32 + 128, 128, H)
+    assert K1.kernel_refusal(bf16, 128, H, 2, True) is None and K1.kernel_refusal(bf16 + 128, 128, H, 2, True)
+
+
+@pytest.mark.parametrize("n_pl", [1536, 2048])
+@pytest.mark.parametrize("case", ["eval-fp32", "eval-bf16", "training"])
+def test_long_map_sites_take_their_kernels(monkeypatch, n_pl, case):
+    """At data.n_pl of 1,536 and 2,048 (the default model's widths), every
+    eval site (fp32 and bf16) and every training site calls its kernel's
+    wrapper, and every predicate admits its shape: no K1, K1-bf16 or K3
+    site raises on the card."""
+    training = case == "training"
+    cfg = site_config(precision="bf16" if case == "eval-bf16" else "fp32", training=training)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n_pl=n_pl))
+    sites = run_sites(cfg, monkeypatch, training=training)
+    attn = {key for key in sites if key[0].startswith(("K1", "K3"))}
+    assert {shape[1] for _, shape in attn} == {n_pl}, attn  # every attention over the map has T = n_pl
+    assert {kernel for kernel, _ in sites} == ({"K3", "K4"} if training else
+                                               {"K1-bf16", "K2-bf16"} if case == "eval-bf16" else {"K1", "K2"})
+    assert all(reason is None for reason in sites.values()), sites

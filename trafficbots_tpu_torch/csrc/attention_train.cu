@@ -35,8 +35,11 @@
 // The forward (K3f) is the shared forward of csrc/attn_fwd.cuh with
 // dropout and the row statistics: a thread-block cluster over T at the
 // rollout's as2pl (S = 64), 32-row blocks with register micro-tiles at the
-// map self-attention and the posterior latent as2pl; that header says what
-// bounds it and what each path does about it. On an H100 80GB HBM3 at
+// map self-attention and the posterior latent as2pl, and past the T whose
+// [32, T] logits fit shared memory the same blocks with the logits in a
+// global workspace (path G); that header says what bounds it and what each
+// path does about it. The backward streams key tiles and does not grow
+// with T. On an H100 80GB HBM3 at
 // 700 W (chip_smoke.py, PERF.md section 6), on the device: 0.256 and 0.318
 // ms at the map self-attention and the posterior latent as2pl (the first
 // design 0.509 and 0.597 in the same run, above SDPA's forward's 0.432 and
@@ -493,17 +496,18 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 // inv[b * inv_sb + s * inv_ss + t] (bool bytes); src_invalid [B,S]
 // contiguous bool bytes (dead query rows) or null; rmax/rsum [B,H,S] fp32.
 // Dropout: on = (p > 0), keep iff bits >= threshold, kept weights * scale.
+// ws: ws_floats fp32 of workspace for path G's logits, as tb_fused_attention's.
 // Returns the cudaError_t of the launch.
 extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* v, const void* invalid,
                                       const void* src_invalid, void* out, void* rmax, void* rsum, int B, int S,
                                       int T, int D, int n_head,
                                       long long inv_sb, long long inv_ss, unsigned long long seed,
                                       unsigned int site, unsigned int threshold, float scale, int on,
-                                      void* stream) {
+                                      void* ws, long long ws_floats, void* stream) {
     tb_attn::Args a{static_cast<const float*>(q), k, v, static_cast<const uint8_t*>(invalid), static_cast<float*>(out),
                     static_cast<float*>(rmax), static_cast<float*>(rsum), B, S, T, D, n_head, inv_sb, inv_ss,
                     Dropout{seed, threshold, scale, on}, site, tb_attn::aligned16(q, k, v),
-                    static_cast<const uint8_t*>(src_invalid)};
+                    static_cast<const uint8_t*>(src_invalid), static_cast<float*>(ws), ws_floats};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D / n_head) {
         case 16: return (int)tb_attn::launch<16, float, true, true>(a, st);

@@ -92,9 +92,15 @@
 // is written. The logits and weights stay in registers (the section below
 // says how); the paths, the skip of dead rows and clusters, and the
 // rank-ordered sums are the fp32 kernels', except that path S gives way to
-// path L where path L's blocks fill the card (takes_cluster_bf16). T <=
-// 1024 (a key tile a warp). The fp32 kernels (K1, K3f) have no tensor-core
+// path L where path L's blocks fill the card (takes_cluster_bf16). Path L
+// holds a key tile a warp column, so T <= 1024 there; past it
+// fwd_rows_mma_long walks the key tiles in rounds, recomputing the logits
+// in each of its passes. The fp32 kernels (K1, K3f) have no tensor-core
 // code.
+//
+// Past the T whose [32, T] logits fit a path-L block (1,408 keys at d_head
+// 16 and 32, 1,024-1,280 at 64 and 128), the fp32 forward takes path G:
+// path L's arithmetic with the logits in a global workspace (below).
 //
 // d_head 16, 32, 64 and 128 are instantiated. At 128 (hidden 256 with 2
 // heads, hidden 128 with 1) the layouts that fit the smaller widths do not
@@ -173,6 +179,8 @@ constexpr int ROWS_S = 64;            // query rows of a path-S block: every row
 constexpr int THREADS_S = 256;        // threads of a path-S block
 constexpr int MAX_CLUSTER = 8;        // ranks of a path-S cluster (the portable limit): T <= 1024
 constexpr int LARGE_GRID = 4 * 132;   // path-L blocks (four waves of 132 SMs) from which path S is not taken
+constexpr int SMEM_OPTIN = 232448;    // dynamic shared memory a block may opt in to on sm_90
+constexpr int WS_BLOCKS_PER_SM = 1;   // path-G blocks an SM (104-128 registers a thread), a logits slot each
 
 struct Args {
     const float* q;  // bf16 in K1-bf16
@@ -188,6 +196,8 @@ struct Args {
     uint32_t site;
     int aligned;  // q, k, v and every head's row slice 16-byte aligned: cp.async, else plain copies
     const uint8_t* src_inv;  // [B, S] nonzero: a dead query row; null: none
+    float* ws;               // path G's logits workspace (ws_slots blocks x [ROWS_L][rows_ldl(T)]), or null
+    long long ws_floats;     // its size in floats
 };
 
 // Query row s of scene b is dead (src_inv).
@@ -546,155 +556,186 @@ size_t rows_smem(int T) {
                             ROWS_L * nt * (TK / 32) + (Grid<ROWS_L, TK, THREADS_L>::NWX + 2) * ROWS_L + 2 * nt);
 }
 
-template <int DH, class KV, bool DROP, bool STATS>
+// Path G, the T whose [ROWS_L, T] logits pass a block's shared memory:
+// path L's block and arithmetic to the bit, with the logits (then the
+// weights) in a slot of a global workspace in place of shared memory
+// (ROWS_L rows of rows_ldl(T) floats a slot, 257 KB at T = 2048: 34 MB
+// for the 132 SMs' slots, within the 50 MB L2), and the rest of path L's
+// shared memory as it is. The grid is WS_BLOCKS_PER_SM blocks an SM
+// (ws_slots; the global addressing takes 104-128 registers a thread where
+// path L takes 56-64, so one 512-thread block fills an SM's registers),
+// each with its own slot, walking the (row block, head, scene) work items
+// in the order of path L's grid. The mask bits, the live tiles and the K/V
+// tiles stay in shared memory: the bits bound T (past 35,000 keys).
+inline long long ws_slots(const Args& a, int n_sm) {
+    const long long work = (long long)((a.S + ROWS_L - 1) / ROWS_L) * a.H * a.B;
+    return work < (long long)WS_BLOCKS_PER_SM * n_sm ? work : (long long)WS_BLOCKS_PER_SM * n_sm;
+}
+
+template <int DH, class KV>
+size_t rows_ws_smem(int T) { return rows_smem<DH, KV>(T) - sizeof(float) * ROWS_L * rows_ldl(T); }
+
+// Path L's kernel (WS false: one block a (row block, head, scene), the
+// logits in shared memory) and path G's (WS: a 1-D grid of ws_slots
+// blocks, the logits in the block's slot of the workspace).
+template <int DH, class KV, bool DROP, bool STATS, bool WS>
 __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX, NB = kv_bufs<DH, KV>();
     constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = NT / GT, KG = TK / NG;
     static_assert(av_cols<DH, ROWS_L, NT>() == DH && NG * GT == NT && KG % 4 == 0, "weighted-sum groups");
     extern __shared__ float smem[];
-    TB_TRACE_BEGIN(0);
     const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32), ldl = rows_ldl(T);
-    float* lg = smem;                                        // [ROWS_L][ldl]: logits, then weights
-    float* qs = lg + ROWS_L * ldl;                           // [ROWS_L][LQ]
-    KV* kv = reinterpret_cast<KV*>(qs + ROWS_L * LQ);        // NB [TK][LD] tiles; then the partial sums
-    float* part = reinterpret_cast<float*>(kv);
-    uint32_t* bits = reinterpret_cast<uint32_t*>(qs + ROWS_L * LQ + rows_kv_floats<DH, KV>());  // [ROWS_L][nw]
-    float* rm = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NWX][ROWS_L] the warp columns' row maxima
-    float* mrow = rm + NWX * ROWS_L;                         // [ROWS_L] the row max (-inf: no allowed key, dead, past S)
-    float* srow = mrow + ROWS_L;                             // [ROWS_L] the row sum
-    int* live = reinterpret_cast<int*>(srow + ROWS_L);       // [nt] the live tiles
-    int* flag = live + nt;                                   // [nt] a tile has an allowed pair
+    // path G walks the (row block, head, scene) work items in path L's grid
+    // order on a 1-D grid; path L takes one, its block's
+    const int n_rb = WS ? (a.S + ROWS_L - 1) / ROWS_L : 1;
+    const long long n_work = WS ? (long long)n_rb * a.H * a.B : 1;
+    for (long long wi = WS ? blockIdx.x : 0; wi < n_work; wi += WS ? gridDim.x : 1) {
+        TB_TRACE_BEGIN(0);
+        float* lg = WS ? a.ws + (long long)blockIdx.x * ROWS_L * ldl : smem;  // [ROWS_L][ldl]: logits, then weights
+        float* qs = WS ? smem : lg + ROWS_L * ldl;               // [ROWS_L][LQ]
+        KV* kv = reinterpret_cast<KV*>(qs + ROWS_L * LQ);        // NB [TK][LD] tiles; then the partial sums
+        float* part = reinterpret_cast<float*>(kv);
+        uint32_t* bits = reinterpret_cast<uint32_t*>(qs + ROWS_L * LQ + rows_kv_floats<DH, KV>());  // [ROWS_L][nw]
+        float* rm = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [NWX][ROWS_L] the warp columns' row maxima
+        float* mrow = rm + NWX * ROWS_L;  // [ROWS_L] the row max (-inf: no allowed key, dead, past S)
+        float* srow = mrow + ROWS_L;                             // [ROWS_L] the row sum
+        int* live = reinterpret_cast<int*>(srow + ROWS_L);       // [nt] the live tiles
+        int* flag = live + nt;                                   // [nt] a tile has an allowed pair
 
-    const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * ROWS_L;
-    const int rows = min(ROWS_L, a.S - s0);
-    const long long kv_base = (long long)b * T * a.D + h * DH;
-    const long long stat0 = ((long long)b * a.H + h) * a.S + s0;
-    const KV* K = static_cast<const KV*>(a.k);
-    const KV* V = static_cast<const KV*>(a.v);
-    const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
+        const int b = WS ? (int)(wi / ((long long)n_rb * a.H)) : (int)blockIdx.z;
+        const int h = WS ? (int)(wi / n_rb % a.H) : (int)blockIdx.y;
+        const int s0 = (WS ? (int)(wi % n_rb) : (int)blockIdx.x) * ROWS_L;
+        const int rows = min(ROWS_L, a.S - s0);
+        const long long kv_base = (long long)b * T * a.D + h * DH;
+        const long long stat0 = ((long long)b * a.H + h) * a.S + s0;
+        const KV* K = static_cast<const KV*>(a.k);
+        const KV* V = static_cast<const KV*>(a.v);
+        const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
 
-    if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
-        store_dead_rows<DH, NT, STATS, false>(a, b, h, s0, s0 + rows);  // no live row: no K/V staged
-        return;
-    }
-    stage_rows<DH, float, NT>(qs, a.q, ((long long)b * a.S + s0) * a.D + h * DH, 0, ROWS_L, rows, a.D, a.aligned);
-    cp_async_commit();
-    load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
-    for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
-    __syncthreads();
-    TB_TRACE(0, 1);  // q issued, the mask bits
-
-    // the live tiles: those where some (row, key) pair is allowed; the
-    // logits of the others are -inf and their K/V tiles never load
-    for (int i = threadIdx.x; i < (brs ? ROWS_L : 1) * nw; i += NT)
-        if (bits[i] != 0u) atomicOr(&flag[(i % nw) / (TK / 32)], 1);
-    __syncthreads();
-    int n_live = 0;
-    for (int i = 0; i < nt; ++i) {
-        if (!flag[i]) continue;
-        if (threadIdx.x == 0) live[n_live] = i;
-        ++n_live;
-    }
-    for (int i = 0; i < nt; ++i)  // the dead tiles' logits -inf
-        if (!flag[i])
-            for (int j = threadIdx.x; j < ROWS_L * TK; j += NT)
-                if (i * TK + j % TK < T) lg[(j / TK) * ldl + i * TK + j % TK] = -INFINITY;
-    for (int j = threadIdx.x; j < ROWS_L * (nt * TK - T); j += NT) {  // past T: weight 0 (V rows there are 0)
-        const int nc = nt * TK - T;
-        lg[(j / nc) * ldl + T + j % nc] = 0.f;
-    }
-    __syncthreads();  // live[] and the fills written
-    TB_TRACE(0, 2);  // the live tiles, the fills
-
-    // logits and the row maxima: K tiles double-buffered, the next one in
-    // flight during this one's products (with one buffer, issued after them)
-    if (n_live > 0) {
-        stage_rows<DH, KV, NT>(kv, K, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
+        if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
+            store_dead_rows<DH, NT, STATS, false>(a, b, h, s0, s0 + rows);  // no live row: no K/V staged
+            continue;
+        }
+        stage_rows<DH, float, NT>(qs, a.q, ((long long)b * a.S + s0) * a.D + h * DH, 0, ROWS_L, rows, a.D, a.aligned);
         cp_async_commit();
-    }
-    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-    for (int i = 0; i < n_live; ++i) {
-        if (NB == 2) {
-            if (i + 1 < n_live)
-                stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, K, kv_base, live[i + 1] * TK, TK, T, a.D,
-                                       a.aligned);
-            cp_async_commit();  // empty on the last tile: one group a step
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
+        load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
+        for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
         __syncthreads();
-        tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i % NB) * TK * LD, live[i] * TK, bits,
-                                            brs, 0, T, mx);
-        __syncthreads();
-        if (NB == 1 && i + 1 < n_live) {
-            stage_rows<DH, KV, NT>(kv, K, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
-            cp_async_commit();
-        }
-    }
-    store_row_max<ROWS_L, TK, NT>(rm, mx);
-    TB_TRACE(0, 3);  // the logits
-    if (n_live > 0) {  // V's first tile loads during the softmax
-        stage_rows<DH, KV, NT>(kv, V, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
-        cp_async_commit();
-    }
+        TB_TRACE(0, 1);  // q issued, the mask bits
 
-    // softmax: the exact max over the whole row, then exp and sum, then
-    // the division (and the dropout factors)
-    __syncthreads();
-    if (threadIdx.x < ROWS_L) {
-        float m = -INFINITY;
-        for (int x = 0; x < NWX; ++x) m = fmaxf(m, rm[x * ROWS_L + threadIdx.x]);
-        mrow[threadIdx.x] = (int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x) ? m : -INFINITY;
-    }
-    __syncthreads();
-    exp_rows<ROWS_L, NT>(lg, ldl, T, rows, mrow, srow);
-    __syncthreads();
-    TB_TRACE(0, 4);  // the row max, exp and sum
-    if (STATS && (int)threadIdx.x < rows) {  // a row with every target masked: -inf and 0
-        a.rmax[stat0 + threadIdx.x] = mrow[threadIdx.x];
-        a.rsum[stat0 + threadIdx.x] = srow[threadIdx.x];
-    }
-    weights_rows<ROWS_L, NT, DROP>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
-    TB_TRACE(0, 5);  // the weights (this thread's share)
+        // the live tiles: those where some (row, key) pair is allowed; the
+        // logits of the others are -inf and their K/V tiles never load
+        for (int i = threadIdx.x; i < (brs ? ROWS_L : 1) * nw; i += NT)
+            if (bits[i] != 0u) atomicOr(&flag[(i % nw) / (TK / 32)], 1);
+        __syncthreads();
+        int n_live = 0;
+        for (int i = 0; i < nt; ++i) {
+            if (!flag[i]) continue;
+            if (threadIdx.x == 0) live[n_live] = i;
+            ++n_live;
+        }
+        for (int i = 0; i < nt; ++i)  // the dead tiles' logits -inf
+            if (!flag[i])
+                for (int j = threadIdx.x; j < ROWS_L * TK; j += NT)
+                    if (i * TK + j % TK < T) lg[(j / TK) * ldl + i * TK + j % TK] = -INFINITY;
+        for (int j = threadIdx.x; j < ROWS_L * (nt * TK - T); j += NT) {  // past T: weight 0 (V rows there are 0)
+            const int nc = nt * TK - T;
+            lg[(j / nc) * ldl + T + j % nc] = 0.f;
+        }
+        __syncthreads();  // live[] and the fills written
+        TB_TRACE(0, 2);  // the live tiles, the fills
 
-    // weighted sum: V tiles double-buffered; group grp takes keys
-    // grp * KG .. of each tile, the partials added in group order
-    const int grp = threadIdx.x / GT, lid = threadIdx.x % GT;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int i = 0; i < n_live; ++i) {
-        if (NB == 2) {
-            if (i + 1 < n_live)
-                stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, V, kv_base, live[i + 1] * TK, TK, T, a.D,
-                                       a.aligned);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i % NB) * TK * LD, grp * KG, KG, lid);
-        __syncthreads();
-        if (NB == 1 && i + 1 < n_live) {
-            stage_rows<DH, KV, NT>(kv, V, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+        // logits and the row maxima: K tiles double-buffered, the next one in
+        // flight during this one's products (with one buffer, issued after them)
+        if (n_live > 0) {
+            stage_rows<DH, KV, NT>(kv, K, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
             cp_async_commit();
         }
+        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        for (int i = 0; i < n_live; ++i) {
+            if (NB == 2) {
+                if (i + 1 < n_live)
+                    stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, K, kv_base, live[i + 1] * TK, TK, T, a.D,
+                                           a.aligned);
+                cp_async_commit();  // empty on the last tile: one group a step
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            tile_logits<DH, KV, ROWS_L, TK, NT>(lg, ldl, live[i] * TK, qs, kv + (i % NB) * TK * LD, live[i] * TK, bits,
+                                                brs, 0, T, mx);
+            __syncthreads();
+            if (NB == 1 && i + 1 < n_live) {
+                stage_rows<DH, KV, NT>(kv, K, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+                cp_async_commit();
+            }
+        }
+        store_row_max<ROWS_L, TK, NT>(rm, mx);
+        TB_TRACE(0, 3);  // the logits
+        if (n_live > 0) {  // V's first tile loads during the softmax
+            stage_rows<DH, KV, NT>(kv, V, kv_base, live[0] * TK, TK, T, a.D, a.aligned);
+            cp_async_commit();
+        }
+
+        // softmax: the exact max over the whole row, then exp and sum, then
+        // the division (and the dropout factors)
+        __syncthreads();
+        if (threadIdx.x < ROWS_L) {
+            float m = -INFINITY;
+            for (int x = 0; x < NWX; ++x) m = fmaxf(m, rm[x * ROWS_L + threadIdx.x]);
+            mrow[threadIdx.x] = (int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x) ? m : -INFINITY;
+        }
+        __syncthreads();
+        exp_rows<ROWS_L, NT>(lg, ldl, T, rows, mrow, srow);
+        __syncthreads();
+        TB_TRACE(0, 4);  // the row max, exp and sum
+        if (STATS && (int)threadIdx.x < rows) {  // a row with every target masked: -inf and 0
+            a.rmax[stat0 + threadIdx.x] = mrow[threadIdx.x];
+            a.rsum[stat0 + threadIdx.x] = srow[threadIdx.x];
+        }
+        weights_rows<ROWS_L, NT, DROP>(lg, ldl, T, rows, mrow, srow, a, stat0, 0);
+        TB_TRACE(0, 5);  // the weights (this thread's share)
+
+        // weighted sum: V tiles double-buffered; group grp takes keys
+        // grp * KG .. of each tile, the partials added in group order
+        const int grp = threadIdx.x / GT, lid = threadIdx.x % GT;
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int i = 0; i < n_live; ++i) {
+            if (NB == 2) {
+                if (i + 1 < n_live)
+                    stage_rows<DH, KV, NT>(kv + ((i + 1) & 1) * TK * LD, V, kv_base, live[i + 1] * TK, TK, T, a.D,
+                                           a.aligned);
+                cp_async_commit();
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i % NB) * TK * LD, grp * KG, KG, lid);
+            __syncthreads();
+            if (NB == 1 && i + 1 < n_live) {
+                stage_rows<DH, KV, NT>(kv, V, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
+                cp_async_commit();
+            }
+        }
+        __syncthreads();
+        TB_TRACE(0, 6);  // the weighted sum
+        store_partials<DH, ROWS_L>(part, acc, grp, lid);
+        __syncthreads();
+        for (int i = threadIdx.x; i < rows * DH; i += NT) {
+            const int r = i / DH, c = i % DH;
+            float s = part[i];
+            for (int g = 1; g < NG; ++g) s += part[g * ROWS_L * DH + i];
+            store_out<false>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c, mrow[r] == -INFINITY ? 0.f : s);
+        }
+        TB_TRACE(0, 7);  // the groups' partials, the output
+        if (WS) __syncthreads();  // the item's last reads of shared memory and of the slot are done
     }
-    __syncthreads();
-    TB_TRACE(0, 6);  // the weighted sum
-    store_partials<DH, ROWS_L>(part, acc, grp, lid);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * DH; i += NT) {
-        const int r = i / DH, c = i % DH;
-        float s = part[i];
-        for (int g = 1; g < NG; ++g) s += part[g * ROWS_L * DH + i];
-        store_out<false>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c, mrow[r] == -INFINITY ? 0.f : s);
-    }
-    TB_TRACE(0, 7);  // the groups' partials, the output
 }
 
 // ---- path S: a cluster of ranks per (head, scene), a TK-key slice of T each
@@ -1005,8 +1046,7 @@ __device__ __forceinline__ void store_sums(float* dst, int r0, const float (&o)[
 // [nt TK][LD] in bf16, the partial sums (in K's place without V), the
 // mask bits, the tiles' row maxima and sums, the rows' max and sum, each
 // tile's flag.
-constexpr int NKW = THREADS_L / 32 / (ROWS_L / 16);  // key tiles of a path-L block of K1-bf16: T <= NKW TK
-constexpr int SMEM_OPTIN = 232448;                   // dynamic shared memory a block may opt in to on sm_90
+constexpr int NKW = THREADS_L / 32 / (ROWS_L / 16);  // key tiles of a path-L block of K1-bf16 (a warp's each)
 
 template <int DH>
 __host__ __device__ inline size_t rows_mma_bytes(int nt, bool both) {
@@ -1172,14 +1212,14 @@ size_t rows_mma_slab_smem(int T) {
            sizeof(float) * ((size_t)nt * ROWS_L * CS + (size_t)ROWS_L * nt * (TK / 32) + (2 * NKW + 2) * ROWS_L + nt);
 }
 
-// z[j] += the sums q k over columns c0 .. c0 + CS - 1 of the warp's m-tile
+// z[j] += the sums q k over columns c0 .. c0 + W - 1 of the warp's m-tile
 // mt of q (qs [rows][ldq]) with key n-tile j of a slab kt [..][ldk] of
-// those columns from key kn0: CS / 16 k-steps of bf16 MMAs.
-template <int NJ>
+// those columns from key kn0: W / 16 k-steps of bf16 MMAs.
+template <int NJ, int W = CS>
 __device__ __forceinline__ void mma_logits_slab(float (&z)[NJ][4], const bf16* qs, int ldq, int c0, int mt,
                                                 const bf16* kt, int ldk, int kn0) {
 #pragma unroll
-    for (int k0 = 0; k0 < CS; k0 += 16) {
+    for (int k0 = 0; k0 < W; k0 += 16) {
         uint32_t fa[4];
         tb_mma::load_a(fa, qs, ldq, 16 * mt, c0 + k0);
 #pragma unroll
@@ -1223,16 +1263,16 @@ __device__ __forceinline__ void pack_weights(uint32_t (&pa)[NJ / 2][4], const fl
     }
 }
 
-// o += P V over the warp's NJ 8 keys for the CS columns of a V slab vt
+// o += P V over the warp's NJ 8 keys for the W columns of a V slab vt
 // [..][LD] from row v0, P the packed weights of pack_weights.
-template <int NJ>
-__device__ __forceinline__ void packed_times_v(float (&o)[CS / 8][4], const uint32_t (&pa)[NJ / 2][4], const bf16* vt,
+template <int NJ, int W = CS>
+__device__ __forceinline__ void packed_times_v(float (&o)[W / 8][4], const uint32_t (&pa)[NJ / 2][4], const bf16* vt,
                                                int v0) {
-    constexpr int LD = kv_ld<CS, bf16>();
+    constexpr int LD = kv_ld<W, bf16>();
 #pragma unroll
     for (int kk = 0; kk < NJ / 2; ++kk)
 #pragma unroll
-        for (int d = 0; d < CS / 8; ++d) {
+        for (int d = 0; d < W / 8; ++d) {
             uint32_t fb[2];
             tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
             mma_bf16_16816(o[d], pa[kk], fb);
@@ -1350,6 +1390,164 @@ __global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma_slab(const Args a) 
         __syncthreads();  // the partials read
     }
     TB_TRACE(0, 4);  // the weights, the weighted sum, the output
+}
+
+// Path L of K1-bf16 past NKW key tiles (T > 1024): fwd_rows_mma's warps
+// and arithmetic (warp w the m-tile w % MT; its logits and weights in
+// registers as C fragments), one row block a block, with warp column kt
+// taking key tiles kt, kt + NKW, ... in rounds of NKW tiles. No round's
+// logits outlive it: three passes over the rounds recompute each tile's
+// logits on the tensor cores (the same MMAs in the same order, so the same
+// sums each time), first for each tile's row max, then, after the exact
+// row max over all tiles, for each tile's sum of exp (the row sum adds the
+// tiles' sums in tile order), then for the weights, divided and rounded to
+// bf16 as fwd_rows_mma rounds them, and P V. A round's K, then its V, is
+// staged in slabs of LW = min(DH, 32) columns of its NKW tiles
+// ([NKW TK][LW + 8] bf16, 82 KB), so the block's shared memory grows with T
+// only by the mask bits and each tile's row max and sum; the weighted sum
+// runs a slab of LW output columns at a time (the rounds' logits recomputed
+// for each past d_head 32), each warp column's P V summed over its tiles in
+// the MMAs' accumulators and the warp columns' sums added in order.
+// Shared memory: q [ROWS_L][LDQ] in bf16, the slab (then the warp
+// columns' partial sums [NKW][ROWS_L][LW]), the mask bits, each tile's
+// row max and sum [nt][ROWS_L], the rows' max and sum, each tile's flag.
+template <int DH>
+__host__ __device__ constexpr int long_cols() { return DH < 32 ? DH : 32; }
+
+template <int DH>
+size_t rows_mma_long_smem(int T) {
+    constexpr int LW = long_cols<DH>();
+    const int nt = (T + TK - 1) / TK;
+    return 2 * (size_t)ROWS_L * kv_ld<DH, bf16>() + 2 * (size_t)NKW * TK * kv_ld<LW, bf16>() +
+           sizeof(float) * ((size_t)ROWS_L * nt * (TK / 32) + (size_t)2 * nt * ROWS_L + 2 * ROWS_L + nt);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma_long(const Args a) {
+    constexpr int NT = THREADS_L, MT = ROWS_L / 16, NJ = TK / 8, LW = long_cols<DH>();
+    constexpr int LDQ = kv_ld<DH, bf16>(), LDS = kv_ld<LW, bf16>();
+    static_assert(DH % LW == 0 && NKW * ROWS_L * LW * 4 <= NKW * TK * LDS * 2, "whole slabs; the partials in the slab");
+    extern __shared__ float smem[];
+    TB_TRACE_BEGIN(0);
+    const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32), n_round = (nt + NKW - 1) / NKW;
+    bf16* qs = reinterpret_cast<bf16*>(smem);             // [ROWS_L][LDQ]
+    bf16* sl = qs + ROWS_L * LDQ;                         // [NKW TK][LDS]: a slab of a round's K or V tiles
+    float* part = reinterpret_cast<float*>(sl);           // then [NKW][ROWS_L][LW] the warp columns' sums
+    uint32_t* bits = reinterpret_cast<uint32_t*>(sl + NKW * TK * LDS);  // [ROWS_L][nw]
+    float* tmax = reinterpret_cast<float*>(bits + ROWS_L * nw);  // [nt][ROWS_L] each tile's row max
+    float* tsum = tmax + nt * ROWS_L;                     // [nt][ROWS_L] each tile's row sum of exp
+    float* mrow = tsum + nt * ROWS_L;                     // [ROWS_L] the row max (-inf: no allowed key, dead, past S)
+    float* srow = mrow + ROWS_L;                          // [ROWS_L] the row sum
+    int* flag = reinterpret_cast<int*>(srow + ROWS_L);    // [nt] a tile has an allowed pair
+
+    const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * ROWS_L, rows = min(ROWS_L, a.S - s0);
+    const long long kv_base = (long long)b * T * a.D + h * DH;
+    const bf16* K = static_cast<const bf16*>(a.k);
+    const bf16* V = static_cast<const bf16*>(a.v);
+    const int brs = a.inv_ss == 0 ? 0 : nw;  // row stride of the bits: 0 for a padding mask
+    const int w = threadIdx.x >> 5, mt = w % MT, kt = w / MT, r0 = 16 * mt + ((threadIdx.x & 31) >> 2);
+
+    if (a.src_inv != nullptr && !__syncthreads_or((int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x))) {
+        store_dead_rows<DH, NT, false, true>(a, b, h, s0, s0 + rows);  // no live row
+        return;
+    }
+    stage_rows<DH, bf16, NT>(qs, reinterpret_cast<const bf16*>(a.q), ((long long)b * a.S + s0) * a.D + h * DH, 0,
+                             ROWS_L, rows, a.D, a.aligned);
+    cp_async_commit();
+    load_bits<NT>(bits, brs ? ROWS_L : 1, nw, a, b, s0, 0);
+    for (int i = threadIdx.x; i < nt; i += NT) flag[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < (brs ? ROWS_L : 1) * nw; i += NT)  // live tiles: some pair allowed
+        if (bits[i] != 0u) atomicOr(&flag[(i % nw) / (TK / 32)], 1);
+    cp_async_wait<0>();
+    __syncthreads();
+    TB_TRACE(0, 1);  // q arrived, the mask bits and live tiles
+
+    // columns c0 .. c0 + LW - 1 of src's live tiles of round r into the slab
+    // (the caller's barrier comes first: the slab's last readers are done)
+    auto stage_slab = [&](const bf16* src, int r, int c0) {
+        for (int i = 0; i < NKW; ++i) {
+            const int t = r * NKW + i;
+            if (t < nt && flag[t]) stage_rows<LW, bf16, NT>(sl + i * TK * LDS, src + c0, kv_base, t * TK, TK, T, a.D,
+                                                            a.aligned);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+    };
+    // the masked, scaled logits of the warp's tile of round r (mine: it is
+    // live) and the lane's row maxima over them
+    float z[NJ][4];
+    auto logits = [&](int r, float (&mx)[2]) -> bool {
+        const int tile = r * NKW + kt;
+        const bool mine = tile < nt && flag[tile];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) z[j][0] = z[j][1] = z[j][2] = z[j][3] = 0.f;
+        for (int c0 = 0; c0 < DH; c0 += LW) {
+            __syncthreads();
+            stage_slab(K, r, c0);
+            if (mine) mma_logits_slab<NJ, LW>(z, qs, LDQ, c0, mt, sl + kt * TK * LDS, LDS, 0);
+        }
+        if (mine) mask_logits<DH, NJ>(z, r0, tile * TK, bits, brs, 0, T, mx);
+        return mine;
+    };
+
+    for (int r = 0; r < n_round; ++r) {  // each tile's row max
+        float mx[2] = {-INFINITY, -INFINITY};
+        logits(r, mx);
+        if (r * NKW + kt < nt) store_rows<true>(tmax + (r * NKW + kt) * ROWS_L, r0, mx);
+    }
+    __syncthreads();
+    TB_TRACE(0, 2);  // the logits, each tile's row max
+    if (threadIdx.x < ROWS_L) {  // the exact row max over every tile
+        float m = -INFINITY;
+        for (int x = 0; x < nt; ++x) m = fmaxf(m, tmax[x * ROWS_L + threadIdx.x]);
+        mrow[threadIdx.x] = (int)threadIdx.x < rows && !dead_row(a, b, s0 + threadIdx.x) ? m : -INFINITY;
+    }
+    __syncthreads();
+    const float rm[2] = {mrow[r0], mrow[r0 + 8]};
+    for (int r = 0; r < n_round; ++r) {  // each tile's sum of exp
+        float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+        if (logits(r, mx)) exp_logits<NJ>(z, rm, sm);
+        if (r * NKW + kt < nt) store_rows<false>(tsum + (r * NKW + kt) * ROWS_L, r0, sm);
+    }
+    __syncthreads();
+    if (threadIdx.x < ROWS_L) {  // the tiles' sums in tile order
+        float s = 0.f;
+        for (int x = 0; x < nt; ++x) s += tsum[x * ROWS_L + threadIdx.x];
+        srow[threadIdx.x] = s;
+    }
+    __syncthreads();
+    TB_TRACE(0, 3);  // the logits again, the row max, exp and sum
+    const float sum[2] = {srow[r0], srow[r0 + 8]};
+
+    for (int c0 = 0; c0 < DH; c0 += LW) {  // a slab of output columns
+        float o[LW / 8][4];
+#pragma unroll
+        for (int d = 0; d < LW / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        for (int r = 0; r < n_round; ++r) {
+            float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+            const bool mine = logits(r, mx);
+            uint32_t pa[NJ / 2][4];  // the weights of the warp's tile
+            if (mine) {
+                exp_logits<NJ>(z, rm, sm);
+                pack_weights<NJ>(pa, z, rm, sum);
+            }
+            __syncthreads();
+            stage_slab(V, r, c0);
+            if (mine) packed_times_v<NJ, LW>(o, pa, sl + kt * TK * LDS, 0);
+        }
+        __syncthreads();  // every V read: the slab takes the partial sums
+        store_sums<LW>(part + kt * ROWS_L * LW, r0, o);
+        __syncthreads();
+        for (int i = threadIdx.x; i < rows * LW; i += NT) {
+            const int r = i / LW, c = i % LW;
+            float s = part[i];
+            for (int x = 1; x < NKW; ++x) s += part[x * ROWS_L * LW + i];
+            store_out<true>(a, ((long long)b * a.S + s0 + r) * a.D + h * DH + c0 + c, mrow[r] == -INFINITY ? 0.f : s);
+        }
+    }
+    TB_TRACE(0, 4);  // the logits again, the weights, the weighted sum, the output
 }
 
 // Path S of K1-bf16: a cluster of ranks per (head, scene), a TK-key slice
@@ -1531,10 +1729,33 @@ inline cudaError_t launch_rows(Kernel kernel, size_t smem, int blocks_x, const A
     return cudaGetLastError();
 }
 
+// The card's SM count.
+inline cudaError_t sm_count(int& n_sm) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    return err == cudaSuccess ? cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) : err;
+}
+
+// Path S, else path L where its block's logits fit shared memory, else
+// path G on a 1-D grid of ws_slots blocks (the caller's workspace must hold
+// a slot for each: cudaErrorInvalidValue if it does not).
 template <int DH, class KV, bool DROP, bool STATS>
 cudaError_t launch(const Args& a, cudaStream_t st) {
     if (takes_cluster(a)) return launch_cluster(fwd_cluster<DH, KV, DROP, STATS>, cluster_smem<DH, KV>(), a, st);
-    return launch_rows(fwd_rows<DH, KV, DROP, STATS>, rows_smem<DH, KV>(a.T), (a.S + ROWS_L - 1) / ROWS_L, a, st);
+    if (rows_smem<DH, KV>(a.T) <= (size_t)SMEM_OPTIN)
+        return launch_rows(fwd_rows<DH, KV, DROP, STATS, false>, rows_smem<DH, KV>(a.T), (a.S + ROWS_L - 1) / ROWS_L, a,
+                           st);
+    int n_sm = 0;
+    cudaError_t err = sm_count(n_sm);
+    if (err != cudaSuccess) return err;
+    const long long slots = ws_slots(a, n_sm);
+    if (a.ws == nullptr || a.ws_floats < slots * ROWS_L * rows_ldl(a.T)) return cudaErrorInvalidValue;
+    const size_t smem = rows_ws_smem<DH, KV>(a.T);
+    err = cudaFuncSetAttribute(fwd_rows<DH, KV, DROP, STATS, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    fwd_rows<DH, KV, DROP, STATS, true><<<dim3((unsigned)slots), THREADS_L, smem, st>>>(a);
+    return cudaGetLastError();
 }
 
 // K1-bf16's path choice: path S as fp32 K1 takes it, but path L where path
@@ -1545,14 +1766,14 @@ inline bool takes_cluster_bf16(const Args& a, int n_sm) {
     return takes_cluster(a) && (long long)((a.S + ROWS_L - 1) / ROWS_L) * a.H * a.B < n_sm;
 }
 
-// K1-bf16: bf16 q, k, v and output, the products on the tensor cores; path
-// L takes T <= NKW TK.
+// K1-bf16: bf16 q, k, v and output, the products on the tensor cores; past
+// NKW key tiles, fwd_rows_mma_long.
 template <int DH>
 cudaError_t launch_bf16(const Args& a, cudaStream_t st) {
-    if ((a.T + TK - 1) / TK > NKW) return cudaErrorInvalidValue;
-    int dev = 0, n_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if ((a.T + TK - 1) / TK > NKW)
+        return launch_rows(fwd_rows_mma_long<DH>, rows_mma_long_smem<DH>(a.T), (a.S + ROWS_L - 1) / ROWS_L, a, st);
+    int n_sm = 0;
+    cudaError_t err = sm_count(n_sm);
     if (err != cudaSuccess) return err;
     if (takes_cluster_bf16(a, n_sm)) return launch_cluster(fwd_cluster_mma<DH>, cluster_mma_smem<DH>(), a, st);
     if constexpr (DH > CS)

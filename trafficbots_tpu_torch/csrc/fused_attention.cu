@@ -25,7 +25,9 @@
 // without row statistics; that header says what bounds it on the card (fp32
 // operations) and what its two paths do about it: a thread-block cluster
 // over T at the rollout's as2pl (S = 64, T = 1024, bf16 K/V), 32-row blocks
-// with register micro-tiles at the map self-attention and the latent as2pl.
+// with register micro-tiles at the map self-attention and the latent as2pl,
+// and those blocks with their logits in a global workspace past the T whose
+// logits fit shared memory (path G: data.n_pl = 2048 and beyond).
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md section 6), on
 // the device: 0.0263 ms at the rollout as2pl, B = 8 (the first design
 // 0.0578 in the same run), 0.111 at the joint futures' B = 48 (0.193),
@@ -62,14 +64,17 @@ cudaError_t launch_dh_bf16(const tb_attn::Args& a, cudaStream_t st) {
 // q [B,S,D] fp32, k/v [B,T,D] fp32 (kv_bf16 = 0) or bf16 (kv_bf16 = 1),
 // invalid addressed as inv[b * inv_sb + s * inv_ss + t] (bool bytes),
 // src_invalid [B,S] contiguous bool bytes (dead query rows) or null,
-// out [B,S,D] fp32. Returns the cudaError_t of the launch.
+// out [B,S,D] fp32; ws: ws_floats fp32 of workspace for path G's logits
+// (ops/fused_attention.py workspace_floats; null where no T needs it).
+// Returns the cudaError_t of the launch.
 extern "C" int tb_fused_attention(const void* q, const void* k, const void* v, const void* invalid,
                                   const void* src_invalid, void* out, int B, int S, int T, int D, int n_head,
-                                  int kv_bf16, long long inv_sb, long long inv_ss, void* stream) {
+                                  int kv_bf16, long long inv_sb, long long inv_ss, void* ws, long long ws_floats,
+                                  void* stream) {
     tb_attn::Args a{static_cast<const float*>(q), k, v, static_cast<const uint8_t*>(invalid),
                     static_cast<float*>(out), nullptr, nullptr, B, S, T, D, n_head, inv_sb, inv_ss,
                     tb_philox::Dropout{0ull, 0u, 1.f, 0}, 0u, tb_attn::aligned16(q, k, v),
-                    static_cast<const uint8_t*>(src_invalid)};
+                    static_cast<const uint8_t*>(src_invalid), static_cast<float*>(ws), ws_floats};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return (int)(kv_bf16 ? launch_dh<__nv_bfloat16>(a, st) : launch_dh<float>(a, st));
 }

@@ -72,7 +72,7 @@ _PAD = 4  # PAD: floats after each transposed tile row
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
 _SHAPE_DROP_ARGS = ((ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2
                     + (ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-_FWD_ARGS = (ctypes.c_void_p,) * 8 + _SHAPE_DROP_ARGS
+_FWD_ARGS = (ctypes.c_void_p,) * 8 + _SHAPE_DROP_ARGS[:-1] + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p)
 _BWD_ARGS = (ctypes.c_void_p,) * 12 + _SHAPE_DROP_ARGS
 
 
@@ -116,8 +116,10 @@ def attention_train_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_he
 def smem_bytes(T: int, d_head: int) -> int:
     """The largest dynamic shared memory of a block among the kernels
     (mirrors csrc/attn_fwd.cuh and csrc/attention_train.cu): the forward's
-    (K1's blocks at fp32 K/V), the dq kernel's tiles at each query block
-    it takes at this d_head, the dk/dv kernel's."""
+    (K1's blocks at fp32 K/V: path L's or S's, or path G's where path L's
+    logits do not fit), the dq kernel's tiles at each query block it takes
+    at this d_head, the dk/dv kernel's (the backward's do not grow with
+    T)."""
     wide = BWD_TILE + _PAD
 
     def dq(bq):
@@ -125,18 +127,19 @@ def smem_bytes(T: int, d_head: int) -> int:
 
     dkdv = (4 * d_head + 2 * BWD_TILE) * wide + 3 * BWD_TILE
     dq_rows = DQ_ROWS if d_head <= DQ_WIDE else (64,)
-    return max(fused_attention.smem_bytes(T, d_head, 4), 4 * max(dkdv, *(dq(bq) for bq in dq_rows)))
+    return max(fused_attention.forward_smem_bytes(T, d_head, 4), 4 * max(dkdv, *(dq(bq) for bq in dq_rows)))
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_refusal(T: int, d_model: int, n_head: int) -> Optional[str]:
     """None when K3 takes T keys at d_model / n_head heads, else the
     reason it does not: the head widths its kernels are instantiated for,
-    every kernel's block in shared memory (`smem_bytes`)."""
+    every kernel's block in shared memory (`smem_bytes`: past path L's
+    logits, path G's mask bits bound T)."""
     if n_head < 1 or d_model % n_head or d_model // n_head not in HEAD_DIMS:
         return f"d_head = {d_model}/{n_head} must be one of {HEAD_DIMS}"
     if smem_bytes(T, d_model // n_head) > SMEM_LIMIT:
-        return f"T={T} does not fit one block's shared memory"
+        return f"T={T}: the mask bits of {T} keys do not fit one block's shared memory"
     return None
 
 
@@ -186,10 +189,11 @@ def _launch_fwd(q, k, v, invalid, n_head, p, seed, site, src_invalid=None):
     out = torch.empty_like(q)
     rmax = torch.empty((B, n_head, S), dtype=torch.float32, device=q.device)
     rsum = torch.empty_like(rmax)
+    ws = fused_attention.workspace(q, T, n_head, 4)
     rc = cuda_build.entry(_KERNEL, "tb_attention_train_fwd", _FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), fused_attention.check_src_invalid(src_invalid, q),
         out.data_ptr(), rmax.data_ptr(), rsum.data_ptr(), B, S, T, D, n_head, invalid.stride(0), invalid.stride(1),
-        *_dropout_args(p, seed, site), cuda_build.stream(q),
+        *_dropout_args(p, seed, site), ws.data_ptr() if ws.numel() else None, ws.numel(), cuda_build.stream(q),
     )
     cuda_build.check(rc, "attention_train forward")
     LAUNCHES_FWD += 1

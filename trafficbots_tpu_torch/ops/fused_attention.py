@@ -42,10 +42,12 @@ follows.
 `fused_attention_core` sends a CUDA tensor to the kernel
 (`csrc/fused_attention.cu`, the forward of `csrc/attn_fwd.cuh` shared with
 K3f: a thread-block cluster over T where S <= 64 and the grid is small,
-32-row blocks otherwise; a block or cluster whose rows are all dead writes
-its zeros and stages nothing) and a CPU tensor to `attention_core_plain`;
-it never falls back from one to the other. `LAUNCHES` counts kernel
-launches.
+32-row blocks otherwise, and past the T whose [32, T] logits fit a block's
+shared memory the same blocks with the logits in a global workspace
+(path G, `workspace`); K1-bf16 past 1,024 keys in rounds of key tiles; a
+block or cluster whose rows are all dead writes its zeros and stages
+nothing) and a CPU tensor to `attention_core_plain`; it never falls back
+from one to the other. `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -70,9 +72,12 @@ ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (
 KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
 KV_BUF_BYTES = 2 * KEY_TILE * 68 * 4  # KV_BUF_BYTES: path L double-buffers its K/V tiles up to this size
 SLAB = 64  # CS: columns of a K/V slab of K1-bf16's path L past d_head 64
+LONG_SLAB = 32  # long_cols: columns of a K/V slab of K1-bf16's path L past NKW key tiles (at most)
+BF16_WARP_TILES = 8  # NKW: key tiles of K1-bf16's path L, one a warp column; past them the rounds of tiles
+WS_BLOCKS_PER_SM = 1  # path G's blocks an SM, each with a slot of the logits workspace
 _SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
-BF16_MAX_KEYS = 8 * KEY_TILE  # K1-bf16's path L holds a row's logits in registers, a key tile a warp (NKW)
-_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
+_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 2
+         + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p))
 _ARGS_BF16 = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2 + (ctypes.c_void_p,)
 
 
@@ -111,31 +116,88 @@ def attention_core_plain(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
     return torch.where(dead[..., None], torch.zeros_like(out), out).to(q.dtype)
 
 
+def rows_ldl(T: int) -> int:
+    """Floats of a row of path L's (and G's) logits (rows_ldl in csrc/attn_fwd.cuh)."""
+    return -(-T // KEY_TILE) * KEY_TILE + 8
+
+
 def smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
-    """Dynamic shared memory of the larger of the kernel's two blocks
-    (mirrors rows_smem and cluster_smem in csrc/attn_fwd.cuh): path L's
-    [32, T] logits, q, its K/V tiles (two, or one where two would pass
-    KV_BUF_BYTES: fp32 K/V at d_head 128; then the groups' partial sums)
-    and the mask bits; path S's slice logits (then partial sums), q, K and
-    V slices and row statistics; the warp columns' row maxima. Path L's
-    logits bound T."""
+    """Dynamic shared memory of the larger of the kernel's path-L and
+    path-S blocks (mirrors rows_smem and cluster_smem in
+    csrc/attn_fwd.cuh): path L's [32, T] logits, q, its K/V tiles (two, or
+    one where two would pass KV_BUF_BYTES: fp32 K/V at d_head 128; then the
+    groups' partial sums) and the mask bits; path S's slice logits (then
+    partial sums), q, K and V slices and row statistics; the warp columns'
+    row maxima. Where path L's logits do not fit, path G takes the T
+    (`ws_smem_bytes`)."""
     nt = -(-T // KEY_TILE)
     tile = KEY_TILE * (d_head + 16 // kv_bytes) * kv_bytes // 4
     bufs = 2 if 2 * 4 * tile <= KV_BUF_BYTES else 1
-    rows = (ROWS_PER_BLOCK * (nt * KEY_TILE + 8) + ROWS_PER_BLOCK * (d_head + 4) + max(bufs * tile, 512 * 16)
+    rows = (ROWS_PER_BLOCK * rows_ldl(T) + ROWS_PER_BLOCK * (d_head + 4) + max(bufs * tile, 512 * 16)
             + ROWS_PER_BLOCK * nt * KEY_TILE // 32 + (8 + 2) * ROWS_PER_BLOCK + 2 * nt)
     cluster = 64 * (KEY_TILE + 8) + 64 * (d_head + 4) + 2 * tile + (2 + 4) * 64 + 64 * KEY_TILE // 32
     return 4 * max(rows, cluster)
 
 
+def ws_smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
+    """Dynamic shared memory of a path-G block (rows_ws_smem): path L's
+    block without its logits, which lie in the workspace. Its mask bits
+    bound T."""
+    return smem_bytes(T, d_head, kv_bytes) - 4 * ROWS_PER_BLOCK * rows_ldl(T)
+
+
+def takes_workspace(T: int, d_head: int, kv_bytes: int = 4) -> bool:
+    """Whether the fp32 forward (K1, K3f) runs path G at T keys: path L's
+    logits pass a block's shared memory."""
+    return smem_bytes(T, d_head, kv_bytes) > _SMEM_LIMIT
+
+
+def forward_smem_bytes(T: int, d_head: int, kv_bytes: int = 4) -> int:
+    """Dynamic shared memory of the fp32 forward's block at T keys: path
+    L's or S's (`smem_bytes`), or path G's where path L's logits do not
+    fit (`ws_smem_bytes`)."""
+    return (ws_smem_bytes if takes_workspace(T, d_head, kv_bytes) else smem_bytes)(T, d_head, kv_bytes)
+
+
+def workspace_floats(B: int, S: int, T: int, d_head: int, n_head: int, kv_bytes: int, n_sm: int) -> int:
+    """fp32 elements of path G's logits workspace (ws_slots x [32][rows_ldl(T)]
+    in csrc/attn_fwd.cuh: one slot for each of the grid's blocks,
+    WS_BLOCKS_PER_SM an SM of the card's n_sm, at most one a work item),
+    or 0 where the forward takes path L or S."""
+    if not takes_workspace(T, d_head, kv_bytes):
+        return 0
+    work = -(-S // ROWS_PER_BLOCK) * n_head * B
+    return min(work, WS_BLOCKS_PER_SM * n_sm) * ROWS_PER_BLOCK * rows_ldl(T)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def workspace(q: Tensor, T: int, n_head: int, kv_bytes: int) -> Tensor:
+    """Path G's logits workspace for a forward launch on q's card (empty
+    where it takes path L or S)."""
+    B, S, D = q.shape
+    n = workspace_floats(B, S, T, D // n_head, n_head, kv_bytes, _sm_count(q.device.index or 0))
+    return torch.empty(n, dtype=torch.float32, device=q.device)
+
+
 def smem_bytes_bf16(T: int, d_head: int) -> int:
     """Dynamic shared memory of the larger of K1-bf16's two blocks (mirrors
-    rows_mma_smem, rows_mma_slab_smem and cluster_mma_smem in
-    csrc/attn_fwd.cuh): path L's bf16 q and K tiles (V beside K where both
-    fit with the tiles' partial sums, else in K's place; past d_head 64 one
-    SLAB-column slab of every tile at a time), the partial sums, mask bits
-    and row statistics; path S's partial sums, q, K and V slices."""
+    rows_mma_smem, rows_mma_slab_smem, rows_mma_long_smem and
+    cluster_mma_smem in csrc/attn_fwd.cuh): path L's bf16 q and K tiles (V
+    beside K where both fit with the tiles' partial sums, else in K's
+    place; past d_head 64 one SLAB-column slab of every tile at a time),
+    the partial sums, mask bits and row statistics; past BF16_WARP_TILES
+    key tiles, q, one LONG_SLAB-column slab of a round's tiles (then the
+    warp columns' partial sums), the mask bits and each tile's row max and
+    sum; path S's partial sums, q, K and V slices."""
     nt = -(-T // KEY_TILE)
+    if nt > BF16_WARP_TILES:
+        lw = min(d_head, LONG_SLAB)
+        return (2 * ROWS_PER_BLOCK * (d_head + 8) + 2 * BF16_WARP_TILES * KEY_TILE * (lw + 8)
+                + 4 * (ROWS_PER_BLOCK * nt * KEY_TILE // 32 + 2 * nt * ROWS_PER_BLOCK + 2 * ROWS_PER_BLOCK + nt))
     stats = ROWS_PER_BLOCK * nt * KEY_TILE // 32 + (2 * 8 + 2) * ROWS_PER_BLOCK + nt
     if d_head > SLAB:
         rows = (2 * (ROWS_PER_BLOCK * (d_head + 8) + nt * KEY_TILE * (SLAB + 8))
@@ -167,16 +229,15 @@ def check_src_invalid(src_invalid: Optional[Tensor], q: Tensor) -> int:
 def kernel_refusal(T: int, d_model: int, n_head: int, kv_bytes: int = 4, bf16: bool = False) -> Optional[str]:
     """None when K1 takes T keys at d_model / n_head heads with K/V of
     `kv_bytes` bytes (K1-bf16 with `bf16`), else the reason it does not:
-    the head widths its forward is instantiated for, path L's [32, T]
-    logits (K1-bf16: its K tiles or slabs) in one block's shared memory,
-    K1-bf16's key tile a warp."""
+    the head widths its forward is instantiated for, one block's shared
+    memory: path G's mask bits and K/V tiles (K1-bf16's mask bits and each
+    key tile's row statistics), which bound T only past 23,000 keys, beyond
+    every T at which `jax_kernel_fits`."""
     if n_head < 1 or d_model % n_head or d_model // n_head not in _HEAD_DIMS:
         return f"d_head = {d_model}/{n_head} must be one of {_HEAD_DIMS}"
-    if bf16 and T > BF16_MAX_KEYS:
-        return f"T={T}: K1-bf16 takes at most {BF16_MAX_KEYS} keys (a key tile a warp)"
     dh = d_model // n_head
-    if (smem_bytes_bf16(T, dh) if bf16 else smem_bytes(T, dh, kv_bytes)) > _SMEM_LIMIT:
-        return f"T={T} does not fit one block's shared memory"
+    if (smem_bytes_bf16(T, dh) if bf16 else forward_smem_bytes(T, dh, kv_bytes)) > _SMEM_LIMIT:
+        return f"T={T}: the mask bits of {T} keys do not fit one block's shared memory"
     return None
 
 
@@ -250,10 +311,12 @@ def fused_attention_core(q: Tensor, k: Tensor, v: Tensor, invalid: Tensor, n_hea
         cuda_build.check(rc, "fused_attention_core (bf16)")
         LAUNCHES_BF16 += 1
     else:
+        ws = workspace(q, T, n_head, k.element_size())
         rc = cuda_build.entry(_KERNEL, "tb_fused_attention", _ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), invalid.data_ptr(), src_ptr, out.data_ptr(),
             B, S, T, D, n_head, int(k.dtype == torch.bfloat16),
-            invalid.stride(0), invalid.stride(1), cuda_build.stream(q),
+            invalid.stride(0), invalid.stride(1), ws.data_ptr() if ws.numel() else None, ws.numel(),
+            cuda_build.stream(q),
         )
         cuda_build.check(rc, "fused_attention_core")
         LAUNCHES += 1
