@@ -41,7 +41,9 @@ its own lines:
      rollout as2pl and the map self-attention, each against its plain
      version at phase 3's holds, its device time, bound and SDPA's device
      time beside the same kernel's and SDPA's at 4 heads (d_head 64) on
-     the same inputs;
+     the same inputs; then the same at d_head 8 and 4 (d_model 128, 16 and
+     32 heads), each row beside SDPA's with the same heads, its bound
+     counting the softmax's exps (attn_bound);
   3b. the node kernels at the other widths they take (NODE_WIDTHS:
      (d_model, d_ff, n_head) = (256, 128, 4), (256, 256, 4), (128, 128, 2),
      and at d_head 128 (256, 128, 2) and (128, 128, 1), for K2, K2-bf16
@@ -152,11 +154,11 @@ its own lines:
   6e. the options the port once refused, at full width over HELD_STEPS
      steps: (a) other widths, the default fused node stack: at hidden 256
      (model.hidden_dim=256: d_model 256, d_ff 128, 4 heads), at 2 heads
-     of width 128 and at hidden 256 with 2 heads (d_head 128) each kernel
-     site's route printed (the kernel, "raises" with the kernel's shape
-     predicate's reason, or the plain version where the JAX package runs
-     XLA; every K2 and K4 site "kernel", at d_head 128 every K1, K3, K2
-     and K4 site), an eval rollout (K1, K2 once) and a training step (K3,
+     of width 128, at hidden 256 with 2 heads (d_head 128) and at hidden
+     128 with 16 and 32 heads (d_head 8 and 4) each kernel site's route
+     printed (the kernel, "raises" with the kernel's shape predicate's
+     reason, or the plain version where the JAX package runs XLA; every
+     K1, K3, K2 and K4 site must read "kernel"), an eval rollout (K1, K2 once) and a training step (K3,
      K4f and K4b once, K5), each beside its kernels' launches
      and held against the plain versions: the map features within K2's
      tolerance and the preds within 1e-3 m over the 20 steps each run
@@ -270,7 +272,7 @@ script exits non-zero at once. It imports nothing of JAX.
 build K1 and K3 (--attention), or K2, K4 and K6 (--node, with the other
 widths' builds), alone and run only their checks and timings (phase 3's
 lines for them and one JSON line, no last line; --attention then runs
-phase 3a, K1 and K3 at d_head 128; --node replays the shared
+phase 3a, K1 and K3 at d_head 128, 8 and 4; --node replays the shared
 generator's earlier draws on the CPU, so K2, K4 and K6 see the inputs a
 full run gives them, then runs K2-bf16 at phase 6c's shapes and phase 3b):
 a quick check after an edit of their sources, or, copied into an unpacked
@@ -641,13 +643,27 @@ def check_k1(gen, n_scene, dev):
     return entry
 
 
-# ------------------------------------------------------------------ K1 and K3 at d_head 128
+# ------------------------------------------------------------------ K1 and K3 at other head widths (phase 3a)
 
 WIDE_D = 256  # hidden 256 with 2 heads: d_head 128; its d_head-64 row at 4 heads beside it
+NARROW_HEADS = (16, 32)  # hidden 128 with 16 and 32 heads: d_head 8 and 4
+# the special-function units' exps (16 a clock an SM, where the fp32 pipes
+# make 256 FLOP: the H100 SXM data sheet's 67 TFLOP/s over 16)
+EXP_PER_S = FP32_FLOP_PER_S / 16
 
 
-def wide_sites():
-    """K1's main-path sites at d_head 128: (name, B, S, bf16 K/V), T = 1024."""
+def attn_bound(n_bytes: float, n_flop: float, n_exp: float, bf16: bool = False):
+    """The bound of an attention core: its bytes at 3.35 TB/s, its products
+    (fp32 at 67 TFLOP/s, or bf16 operands at 989) and its softmax's exps
+    (one a head for each allowed pair, at EXP_PER_S), whichever takes
+    longest: at d_head 4 the exps take as long as the products."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n_flop / (BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S), n_exp / EXP_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_sites():
+    """K1's main-path sites: (name, B, S, bf16 K/V), T = 1024."""
     return (("rollout as2pl", N_SCENE, 64, True), (K1_B48, 6 * N_SCENE, 64, True),
             ("map polyline self-attention", N_SCENE, 1024, False), ("latent as2pl", N_SCENE, 19 * 64, False))
 
@@ -660,121 +676,148 @@ def sdpa_device_ms(q, k, v, allowed, H):
     return graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed[:, None]))
 
 
-def check_attention_d_head_128(dev) -> dict:
+def check_attention_heads(dev, D, H, base_H=None, seed=128) -> dict:
     """K1 (fp32 q, the site's K/V type) at the four main-path K1 sites,
     K1-bf16 and K1-skip at the rollout as2pl and the map self-attention,
     K3f / K3b (dropout live) at the rollout as2pl and the map self-attention,
-    all at D = WIDE_D with 2 heads (d_head 128), each against its plain
-    version at the default width's holds; each row's device ms, bound and
-    SDPA's device ms beside the same kernel's and SDPA's at 4 heads
-    (d_head 64) on the same inputs."""
+    all at d_model D with H heads, each against its plain version at the
+    default width's holds (K1-bf16 within a one-bf16-ulp input nudge's
+    gap); each row's device ms, bound (attn_bound) and SDPA's device ms
+    with the same heads, and with base_H the same kernel's and SDPA's at
+    base_H heads on the same inputs beside them (`d_head_<D / base_H>`)."""
     out = {"K1": [], "K1-bf16": [], "K1-skip": [], "K3f": [], "K3b": []}
-    for i, (name, B, S, kv_bf16) in enumerate(wide_sites()):
-        gen = torch.Generator().manual_seed(128 + i)
-        (q, k, v, invalid, _), mask_bytes = k1_case(gen, B, S, 1024, kv_bf16, 0.25, False, dev, D=WIDE_D)
+    dh = D // H
+    heads = (base_H, H) if base_H else (H,)
+    base_key = f"d_head_{D // base_H}" if base_H else None
+    tag = f"d_head {dh}"
+
+    def beside(row, by_heads, **extra):
+        if base_H:
+            row[base_key] = dict(by_heads[base_H], **extra)
+        return row
+
+    for i, (name, B, S, kv_bf16) in enumerate(attention_sites()):
+        gen = torch.Generator().manual_seed(seed + i)
+        (q, k, v, invalid, _), mask_bytes = k1_case(gen, B, S, 1024, kv_bf16, 0.25, False, dev, D=D)
         allowed = ~invalid
+        n_pairs = int(allowed.sum().item())
         by_heads = {}
-        for H in (4, 2):
-            args = (q, k, v, invalid, H)
-            by_heads[H] = dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*args)),
-                          library_device_ms=sdpa_device_ms(q, k.float(), v.float(), allowed, H))
-        args = (q, k, v, invalid, 2)
+        for h in heads:
+            args = (q, k, v, invalid, h)
+            by_heads[h] = dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*args)),
+                               library_device_ms=sdpa_device_ms(q, k.float(), v.float(), allowed, h))
+        args = (q, k, v, invalid, H)
         got, again = FA.fused_attention_core(*args), FA.fused_attention_core(*args)
         torch.cuda.synchronize()
-        require(torch.equal(got, again), f"K1 d_head 128 {name}: not bitwise reproducible")
-        err = max_err_checked(got, FA.attention_core_plain(*args), K1_TOL, f"K1 d_head 128 {name}")
-        b_ms, b_by = k1_bound(args, mask_bytes)
-        row = dict(site=name, max_abs_err=err, ms=time_ms(lambda: FA.fused_attention_core(*args)),
-                   device_ms=by_heads[2]["device_ms"], plain_ms=time_ms(lambda: FA.attention_core_plain(*args), n=5),
-                   library_device_ms=by_heads[2]["library_device_ms"], bound_ms=b_ms, bound_by=b_by,
-                   d_head_64=by_heads[4])
+        require(torch.equal(got, again), f"K1 {tag} {name}: not bitwise reproducible")
+        err = max_err_checked(got, FA.attention_core_plain(*args), K1_TOL, f"K1 {tag} {name}")
+        b_ms, b_by = attn_bound(2 * q.numel() * 4 + 2 * k.numel() * k.element_size() + mask_bytes, 4 * D * n_pairs,
+                                H * n_pairs)
+        row = beside(dict(site=name, max_abs_err=err, ms=time_ms(lambda: FA.fused_attention_core(*args)),
+                          device_ms=by_heads[H]["device_ms"], plain_ms=time_ms(lambda: FA.attention_core_plain(*args), n=5),
+                          library_device_ms=by_heads[H]["library_device_ms"], bound_ms=b_ms, bound_by=b_by), by_heads)
         out["K1"].append(row)
-        log(f"K1 d_head 128 {name}: B={B} S={S} T=1024 D={WIDE_D} H=2 kv={'bf16' if kv_bf16 else 'fp32'} {row} "
+        log(f"K1 {tag} {name}: B={B} S={S} T=1024 D={D} H={H} kv={'bf16' if kv_bf16 else 'fp32'} {row} "
             f"[{card_line()}]")
         if name not in ("rollout as2pl", "map polyline self-attention"):
             continue
         # K1-bf16 on bf16 q/k/v, within a one-bf16-ulp input nudge's gap
         b16 = (q.bfloat16(), k.bfloat16(), v.bfloat16(), invalid)
-        by_heads = {H: dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*b16, H)),
-                       library_device_ms=sdpa_device_ms(*b16[:3], allowed, H)) for H in (4, 2)}
-        got, again = FA.fused_attention_core(*b16, 2), FA.fused_attention_core(*b16, 2)
+        by_heads = {h: dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*b16, h)),
+                            library_device_ms=sdpa_device_ms(*b16[:3], allowed, h)) for h in heads}
+        got, again = FA.fused_attention_core(*b16, H), FA.fused_attention_core(*b16, H)
         torch.cuda.synchronize()
-        require(got.dtype == torch.bfloat16 and torch.equal(got, again), f"K1-bf16 d_head 128 {name}: not reproducible")
-        held = bf16_held(f"K1-bf16 d_head 128 {name}", got, FA.attention_core_plain(*b16, 2),
-                         FA.attention_core_plain(bf16_up(b16[0]), *b16[1:], 2))
-        b_ms, b_by = bound_ms_bf16(2 * q.numel() * 2 + 2 * k.numel() * 2 + mask_bytes,
-                                   4 * WIDE_D * int(allowed.sum().item()))
-        row = dict(site=name, max_abs_err=held["vs_plain"]["max_abs"], **held,
-                   ms=time_ms(lambda: FA.fused_attention_core(*b16, 2)), device_ms=by_heads[2]["device_ms"],
-                   plain_ms=time_ms(lambda: FA.attention_core_plain(*b16, 2), n=5),
-                   library_device_ms=by_heads[2]["library_device_ms"], bound_ms=b_ms, bound_by=b_by, d_head_64=by_heads[4])
+        require(got.dtype == torch.bfloat16 and torch.equal(got, again), f"K1-bf16 {tag} {name}: not reproducible")
+        held = bf16_held(f"K1-bf16 {tag} {name}", got, FA.attention_core_plain(*b16, H),
+                         FA.attention_core_plain(bf16_up(b16[0]), *b16[1:], H))
+        b_ms, b_by = attn_bound(2 * q.numel() * 2 + 2 * k.numel() * 2 + mask_bytes, 4 * D * n_pairs, H * n_pairs,
+                                bf16=True)
+        row = beside(dict(site=name, max_abs_err=held["vs_plain"]["max_abs"], **held,
+                          ms=time_ms(lambda: FA.fused_attention_core(*b16, H)), device_ms=by_heads[H]["device_ms"],
+                          plain_ms=time_ms(lambda: FA.attention_core_plain(*b16, H), n=5),
+                          library_device_ms=by_heads[H]["library_device_ms"], bound_ms=b_ms, bound_by=b_by), by_heads)
         out["K1-bf16"].append(row)
-        log(f"K1-bf16 d_head 128 {name}: {row} [{card_line()}]")
+        log(f"K1-bf16 {tag} {name}: {row} [{card_line()}]")
         # K1-skip at the main fill: agents (rows) 40.. of each 64 dead
         src = dead_agents(B, S, FILL_AGENTS, dev)
         live = FA.row_live(invalid, src)
-        by_heads = {H: graph_ms(lambda: FA.fused_attention_core(*args[:4], H, src_invalid=src)) for H in (4, 2)}
+        by_heads = {h: dict(device_ms=graph_ms(lambda: FA.fused_attention_core(*args[:4], h, src_invalid=src)))
+                    for h in heads}
         got = FA.fused_attention_core(*args, src_invalid=src)
         base = FA.fused_attention_core(*args)
         torch.cuda.synchronize()
         require(bool((got[~live] == 0).all()) and torch.equal(got[live], base[live]),
-                f"K1-skip d_head 128 {name}: dead rows not 0 or live rows not K1's")
-        err = max_err_checked(got, FA.attention_core_plain(*args, src_invalid=src), K1_TOL, f"K1-skip d_head 128 {name}")
-        b_ms, b_by = skip_bound(q, k, invalid, src, mask_bytes, False)
-        row = dict(site=name, max_abs_err=err, ms=time_ms(lambda: FA.fused_attention_core(*args, src_invalid=src)),
-                   device_ms=by_heads[2], plain_ms=time_ms(lambda: FA.attention_core_plain(*args, src_invalid=src), n=5),
-                   library_device_ms=sdpa_device_ms(q, k.float(), v.float(), allowed & live[..., None], 2),
-                   bound_ms=b_ms, bound_by=b_by, d_head_64=dict(device_ms=by_heads[4]))
+                f"K1-skip {tag} {name}: dead rows not 0 or live rows not K1's")
+        err = max_err_checked(got, FA.attention_core_plain(*args, src_invalid=src), K1_TOL, f"K1-skip {tag} {name}")
+        live_pairs = int((allowed & live[..., None]).sum().item())
+        b_ms, b_by = attn_bound(2 * q.numel() * 4 + 2 * k.numel() * k.element_size() + mask_bytes + src.numel(),
+                                4 * D * live_pairs, H * live_pairs)
+        row = beside(dict(site=name, max_abs_err=err, ms=time_ms(lambda: FA.fused_attention_core(*args, src_invalid=src)),
+                          device_ms=by_heads[H]["device_ms"],
+                          plain_ms=time_ms(lambda: FA.attention_core_plain(*args, src_invalid=src), n=5),
+                          library_device_ms=sdpa_device_ms(q, k.float(), v.float(), allowed & live[..., None], H),
+                          bound_ms=b_ms, bound_by=b_by), by_heads)
         out["K1-skip"].append(row)
-        log(f"K1-skip d_head 128 {name}: {row} [{card_line()}]")
+        log(f"K1-skip {tag} {name}: {row} [{card_line()}]")
         # K3f / K3b, fp32 K/V, dropout live
         q3, k3, v3 = q, k.float(), v.float()
-        g = torch.randn(B, S, WIDE_D, generator=gen).to(dev)
-        seed = 2**41 + S
+        g = torch.randn(B, S, D, generator=gen).to(dev)
+        seed_k3 = 2**41 + S
         rows = {}
-        for H in (4, 2):
-            o, rmax, rsum = AT._launch_fwd(q3, k3, v3, invalid, H, P_DROP, seed, 0)
-            lib_fwd, lib_leaves = sdpa_train(q3, k3, v3, invalid, H)
+        for h in heads:
+            o, rmax, rsum = AT._launch_fwd(q3, k3, v3, invalid, h, P_DROP, seed_k3, 0)
+            lib_fwd, lib_leaves = sdpa_train(q3, k3, v3, invalid, h)
             with torch.no_grad():
                 lib_f = graph_ms(lib_fwd)
             lib_out = lib_fwd()
-            gh = g.view(B, S, H, -1).transpose(1, 2)
-            rows[H] = dict(fwd_device_ms=graph_ms(lambda: AT._launch_fwd(q3, k3, v3, invalid, H, P_DROP, seed, 0)),
-                           bwd_device_ms=graph_ms(lambda: AT._launch_bwd(q3, k3, v3, invalid, o, rmax, rsum, g, H,
-                                                                         P_DROP, seed, 0)),
+            gh = g.view(B, S, h, -1).transpose(1, 2)
+            rows[h] = dict(fwd_device_ms=graph_ms(lambda: AT._launch_fwd(q3, k3, v3, invalid, h, P_DROP, seed_k3, 0)),
+                           bwd_device_ms=graph_ms(lambda: AT._launch_bwd(q3, k3, v3, invalid, o, rmax, rsum, g, h,
+                                                                         P_DROP, seed_k3, 0)),
                            library_fwd_device_ms=lib_f,
                            library_bwd_device_ms=profiled_ms(
                                lambda: torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True)))
 
         def run(fn):
             qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q3, k3, v3))
-            o_ = fn(qq, kk, vv, invalid, 2, P_DROP, seed, 0)
+            o_ = fn(qq, kk, vv, invalid, H, P_DROP, seed_k3, 0)
             return o_, torch.autograd.grad(o_, (qq, kk, vv), g)
 
         got, grads = run(AT.attention_train)
         _, grads2 = run(AT.attention_train)
         ref, ref_grads = run(AT.attention_train_plain)
         torch.cuda.synchronize()
-        require(all(torch.equal(a, b) for a, b in zip(grads, grads2)), f"K3b d_head 128 {name}: not reproducible")
-        ef = max_err_checked(got.detach(), ref.detach(), K3_TOL, f"K3f d_head 128 {name}")
-        eb = grads_checked(grads, ref_grads, ("dq", "dk", "dv"), K3_GRAD_RTOL, f"K3b d_head 128 {name}")
-        n_pairs = int(allowed.sum().item())
-        io = (2 * q.numel() + 2 * k.numel()) * 4 + mask_bytes + 2 * B * 2 * S * 4
-        bf, bf_by = bound_ms(io, 4 * WIDE_D * n_pairs)
-        bb, bb_by = bound_ms(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * WIDE_D * n_pairs)
+        require(all(torch.equal(a, b) for a, b in zip(grads, grads2)), f"K3b {tag} {name}: not reproducible")
+        ef = max_err_checked(got.detach(), ref.detach(), K3_TOL, f"K3f {tag} {name}")
+        eb = grads_checked(grads, ref_grads, ("dq", "dk", "dv"), K3_GRAD_RTOL, f"K3b {tag} {name}")
+        io = (2 * q.numel() + 2 * k.numel()) * 4 + mask_bytes + 2 * B * H * S * 4
+        bf, bf_by = attn_bound(io, 4 * D * n_pairs, H * n_pairs)
+        bb, bb_by = attn_bound(io + (2 * q.numel() + 2 * k.numel()) * 4, 8 * D * n_pairs, H * n_pairs)
         with torch.no_grad():
-            plain_f = time_ms(lambda: AT.attention_train_plain(q3, k3, v3, invalid, 2, P_DROP, seed, 0), n=5)
-            ms_f = time_ms(lambda: AT.attention_train(q3, k3, v3, invalid, 2, P_DROP, seed, 0))
-        out["K3f"].append(dict(site=name, max_abs_err=ef, ms=ms_f, device_ms=rows[2]["fwd_device_ms"], plain_ms=plain_f,
-                               library_device_ms=rows[2]["library_fwd_device_ms"], bound_ms=bf, bound_by=bf_by,
-                               d_head_64=dict(device_ms=rows[4]["fwd_device_ms"],
-                                              library_device_ms=rows[4]["library_fwd_device_ms"])))
-        out["K3b"].append(dict(site=name, max_abs_err=eb, device_ms=rows[2]["bwd_device_ms"],
-                               library_device_ms=rows[2]["library_bwd_device_ms"], bound_ms=bb, bound_by=bb_by,
-                               d_head_64=dict(device_ms=rows[4]["bwd_device_ms"],
-                                              library_device_ms=rows[4]["library_bwd_device_ms"])))
-        log(f"K3 d_head 128 {name}: fwd {out['K3f'][-1]} bwd {out['K3b'][-1]} [{card_line()}]")
+            plain_f = time_ms(lambda: AT.attention_train_plain(q3, k3, v3, invalid, H, P_DROP, seed_k3, 0), n=5)
+            ms_f = time_ms(lambda: AT.attention_train(q3, k3, v3, invalid, H, P_DROP, seed_k3, 0))
+        out["K3f"].append(beside(dict(site=name, max_abs_err=ef, ms=ms_f, device_ms=rows[H]["fwd_device_ms"],
+                                      plain_ms=plain_f, library_device_ms=rows[H]["library_fwd_device_ms"],
+                                      bound_ms=bf, bound_by=bf_by),
+                                 {h: dict(device_ms=r["fwd_device_ms"], library_device_ms=r["library_fwd_device_ms"])
+                                  for h, r in rows.items()}))
+        out["K3b"].append(beside(dict(site=name, max_abs_err=eb, device_ms=rows[H]["bwd_device_ms"],
+                                      library_device_ms=rows[H]["library_bwd_device_ms"], bound_ms=bb, bound_by=bb_by),
+                                 {h: dict(device_ms=r["bwd_device_ms"], library_device_ms=r["library_bwd_device_ms"])
+                                  for h, r in rows.items()}))
+        log(f"K3 {tag} {name}: fwd {out['K3f'][-1]} bwd {out['K3b'][-1]} [{card_line()}]")
     return out
+
+
+def check_attention_d_head_128(dev) -> dict:
+    """Phase 3a at d_head 128 (D = WIDE_D with 2 heads), beside d_head 64."""
+    return check_attention_heads(dev, WIDE_D, 2, base_H=4, seed=128)
+
+
+def check_attention_narrow(dev) -> dict:
+    """Phase 3a at d_head 8 and 4 (hidden 128 with NARROW_HEADS heads):
+    {"d_head_8": ..., "d_head_4": ...}, each check_attention_heads'."""
+    return {f"d_head_{128 // H}": check_attention_heads(dev, 128, H, seed=1000 + H) for H in NARROW_HEADS}
 
 
 # ------------------------------------------------------------------ K2
@@ -3594,27 +3637,27 @@ def remat_policies(cfg, batch, dev) -> dict:
 def options_path(cfg, batch, dev) -> dict:
     """(a) Other widths, the default fused node stack: at hidden 256 (the
     override `model.hidden_dim=256`: D = 256, F = 128, 4 heads), at 2
-    heads of width 128 and at hidden 256 with 2 heads (d_head 128), an
-    eval rollout (K1, K2) and a training step (K3, K4, K5), each site's
-    route printed (every K2 and K4 site "kernel", at d_head 128 every K1,
-    K3, K2 and K4 site), each run held against the plain versions (the
-    evals over WIDTHS_HELD_STEPS); at hidden 256 one hybrid map encode (K6
-    at d_model 256). (b) Structure options:
+    heads of width 128, at hidden 256 with 2 heads (d_head 128) and at
+    hidden 128 with 16 and 32 heads (d_head 8 and 4), an eval rollout (K1,
+    K2) and a training step (K3, K4, K5), each site's route printed (every
+    K1, K3, K2 and K4 site "kernel"), each run held against the plain
+    versions (the evals over WIDTHS_HELD_STEPS); at hidden 256 one hybrid
+    map encode (K6 at d_model 256). (b) Structure options:
     post-norm layers with the final MLP under each action-head variant, an
     eval rollout each (K1 at its sites, the generic node stack for the
     post-norm layer, no K2); one map encode each for VectorNet, the mean
     pool and the generic node stack. (c) The remat policies."""
     t0 = time.perf_counter()
     out = dict(widths={}, structure={}, map_encodes={})
-    for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2), ("hidden256_heads2", 256, 2)):
+    for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2), ("hidden256_heads2", 256, 2),
+                                 ("heads16", 128, 16), ("heads32", 128, 32)):
         t0_width = time.perf_counter()
         c = widths_config(cfg, hidden, n_head)
         what = f"hidden {hidden}, {n_head} heads"
         r = out["widths"][name] = dict(routes=site_routes(c, what))
-        # every node-stack site takes its kernel; at d_head 128 every K1, K3, K2 and K4 site
-        kernel_sites = ("K1", "K3", "K2", "K4") if hidden // n_head == 128 else ("K2", "K4")
-        require(all(route == "kernel" for site, route in r["routes"].items() if site.startswith(kernel_sites)),
-                f"{what}: a {kernel_sites} site does not take its kernel: {r['routes']}")
+        # every K1, K3, K2 and K4 site takes its kernel
+        require(all(route == "kernel" for route in r["routes"].values()),
+                f"{what}: a site does not take its kernel: {r['routes']}")
         e = r["eval"] = options_eval(c, batch, dev, f"{what}, eval", held_steps=WIDTHS_HELD_STEPS)
         require(e["launches"]["K1"] > 0 and e["launches"]["K2"] == 1 and e["launches"]["K6"] == 0,
                 f"{what} eval launches {e['launches']}")
@@ -3922,7 +3965,9 @@ def main():
         k3f, k3b = check_k3(gen, N_SCENE, dev)
         phase("attention kernels at d_head 128")
         wide = check_attention_d_head_128(dev)
-        log(json.dumps({"attention": {"K1": k1, "K3f": k3f, "K3b": k3b, "d_head_128": wide}}))
+        phase("attention kernels at d_head 8 and 4")
+        narrow = check_attention_narrow(dev)
+        log(json.dumps({"attention": {"K1": k1, "K3f": k3f, "K3b": k3b, "d_head_128": wide, **narrow}}))
         phase("done")
         return
     cfg = ExperimentConfig()
@@ -3999,7 +4044,9 @@ def main():
     k5 = check_k5(dev)
     k3f, k3b = check_k3(gen, N_SCENE, dev)
     phase("attention kernels at d_head 128")
-    wide_attn = check_attention_d_head_128(dev)
+    wide_attn = {"d_head_128": check_attention_d_head_128(dev)}
+    phase("attention kernels at d_head 8 and 4")
+    wide_attn.update(check_attention_narrow(dev))
     phase("long map: data.n_pl = 2048, its kernels and eval runs (beside K4's build)")
     long_map = long_map_eval(cfg, dev)
     phase("small config, card vs CPU (beside K4's build)")
@@ -4115,8 +4162,9 @@ def main():
         key = k["name"].split(" ")[0]
         if key in ("K2", "K2-bf16", "K4f", "K4b"):
             k["other_widths"] = {name: r[key] for name, r in widths.items() if key in r}
-        if key in wide_attn:
-            k["d_head_128"] = wide_attn[key]
+        for width, rows in wide_attn.items():  # phase 3a: d_head 128, 8 and 4
+            if key in rows:
+                k[width] = rows[key]
         long_key = {"K3f-skip": None, "K3b-skip": None}.get(key, key)
         if long_key in long_map["kernels"]:
             k["long_keys"] = long_map["kernels"][long_key]

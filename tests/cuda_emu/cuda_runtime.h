@@ -272,6 +272,34 @@ inline void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], const uint32_t
     }
     std::memcpy(c, d, sizeof(d));
 }
+// m16n8k8: A 16 x 8 (lane (g, t): a[0] row g, columns 2t, 2t + 1; a[1]
+// row g + 8), B 8 x 8 (b[0] k rows 2t, 2t + 1 of column g), C as above.
+inline void mma_bf16_1688(float (&c)[4], const uint32_t (&a)[2], const uint32_t (&b)[1]) {
+    EmuBlock& blk = *emu_blk;
+    const unsigned t = threadIdx.x, w0 = t / 32 * 32, lane = t % 32;
+    EmuMmaSlot* set = blk.mma[emu_mma_n++ & 1];
+    EmuMmaSlot& mine = set[t];
+    std::memcpy(mine.a, a, sizeof(a));
+    mine.b[0] = b[0];
+    std::memcpy(mine.c, c, sizeof(mine.c));
+    blk.warp_bar[t / 32]->arrive_and_wait();
+    auto A = [&](int r, int k) {
+        const uint32_t u = set[w0 + (r % 8) * 4 + k / 2].a[r >= 8];
+        return k % 2 ? emu_bf16_hi(u) : emu_bf16_lo(u);
+    };
+    auto B = [&](int k, int n) {
+        const uint32_t u = set[w0 + n * 4 + k / 2].b[0];
+        return k % 2 ? emu_bf16_hi(u) : emu_bf16_lo(u);
+    };
+    float d[4];
+    for (int i = 0; i < 4; ++i) {
+        const int r = (int)lane / 4 + 8 * (i >= 2), n = 2 * ((int)lane % 4) + i % 2;
+        float s = mine.c[i];
+        for (int k = 0; k < 8; ++k) s += A(r, k) * B(k, n);
+        d[i] = s;
+    }
+    std::memcpy(c, d, sizeof(d));
+}
 inline uint32_t pack_bf16(float lo, float hi) {
     return (uint32_t)__float2bfloat16_rn(lo).x | (uint32_t)__float2bfloat16_rn(hi).x << 16;
 }
@@ -292,6 +320,7 @@ template <class T> cudaError_t cudaMemcpyFromSymbol(void* dst, const T& sym, siz
 
 // The Hopper primitives of csrc/attn_fwd.cuh.
 inline void cp_async16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void cp_async8(void* dst, const void* src) { std::memcpy(dst, src, 8); }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 inline unsigned cluster_rank() { return emu_rank; }

@@ -59,7 +59,8 @@ from trafficbots_tpu_torch.ops import node_encoder as tne
 from trafficbots_tpu_torch.ops import node_encoder_train as tnt
 from trafficbots_tpu_torch.weights import init_params
 
-from test_torch_cuda_emu_mma import MMA_RTOL, MMA_SOURCE, mma_operands, pack_inputs, run_mma_check, run_pack_check
+from test_torch_cuda_emu_mma import (MMA_RTOL, MMA_SOURCE, mma_operands, pack_inputs, run_mma_check, run_mma_check_k8,
+                                    run_pack_check)
 
 
 def attn_inputs(B=3, S=8, T=16, D=16, seed=0):
@@ -107,6 +108,11 @@ def test_mma_layout_on_the_card(cuda, tmp_path):
         torch.cuda.synchronize()
         for c in outs:
             assert ((c.cpu() - ref).norm() / ref.norm()).item() <= MMA_RTOL
+    for M, N, K in ((16, 8, 8), (32, 128, 8), (64, 24, 40)):  # m16n8k8
+        a, _, bt, ref = mma_operands(M, N, K, seed=M + N + K + 1)
+        c = run_mma_check_k8(lib, a.to(cuda), bt.to(cuda), stream)
+        torch.cuda.synchronize()
+        assert ((c.cpu() - ref).norm() / ref.norm()).item() <= MMA_RTOL
     x, want = pack_inputs()
     got = run_pack_check(lib, x.to(cuda), stream)
     torch.cuda.synchronize()
@@ -543,20 +549,12 @@ def test_k3_kernels_match_plain_at_d_head_64(cuda, B, S, T, D, H):
         assert rel_err(a, b) < 1e-5, name
 
 
-# d_head 128 (hidden 256 with 2 heads): the rollout as2pl (path S; K1-bf16
-# at B = 48 on path L), the map self-attention and the latent as2pl (path L)
-D_HEAD_128 = [(8, 64, 1024), (48, 64, 1024), (2, 1024, 1024), (2, 1216, 1024), (2, 37, 300)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T", D_HEAD_128)
-def test_k1_kernels_match_plain_at_d_head_128(cuda, B, S, T):
-    """K1 (fp32 and bf16 K/V), K1-bf16 and both skips at d_head 128, with a
+def k1_holds(cuda, B, S, T, D, H, seed):
+    """K1 (fp32 and bf16 K/V), K1-bf16 and both skips at one shape, with a
     padding and a full mask: K1 within 1e-5 of the plain version, K1-bf16
     within a relative norm error of 1e-3, two calls bitwise equal; with
     src_invalid dead rows 0 and live rows bitwise the unskipped kernel's."""
-    D, H = 256, 2
-    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=17))
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=seed))
     src = dead_agents(B, S, 40, cuda)
     for inv in (invalid[:, 0][:, None, :].expand(B, S, T), invalid):
         for qq, kv in ((q, torch.float32), (q, torch.bfloat16), (q.bfloat16(), torch.bfloat16)):
@@ -579,17 +577,14 @@ def test_k1_kernels_match_plain_at_d_head_128(cuda, B, S, T):
             assert (skip[~live] == 0).all() and torch.equal(skip[live], out[live])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T", D_HEAD_128)
-def test_k3_kernels_match_plain_at_d_head_128(cuda, B, S, T):
-    """K3f, K3b and K3-skip at d_head 128, dropout live, at K3's holds; the
-    backward bitwise the same on a second call."""
-    D, H = 256, 2
-    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=19))
+def k3_holds(cuda, B, S, T, D, H, seed):
+    """K3f, K3b and K3-skip at one shape, dropout live, at K3's holds; the
+    forward and backward bitwise the same on a second call."""
+    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=seed))
     invalid = invalid[:, 0][:, None, :].expand(B, S, T)
     src = dead_agents(B, S, 40, cuda)
     live = tfa.row_live(invalid, src)
-    g = torch.randn(B, S, D, generator=torch.Generator().manual_seed(19)).to(cuda) * live[..., None]
+    g = torch.randn(B, S, D, generator=torch.Generator().manual_seed(seed)).to(cuda) * live[..., None]
 
     def run(fn, src_invalid=None):
         qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -610,6 +605,47 @@ def test_k3_kernels_match_plain_at_d_head_128(cuda, B, S, T):
     assert (skip[0][~live] == 0).all() and torch.equal(skip[0][live], got[0][live])
     for a, b in zip(skip[1:], got[1:]):
         assert torch.equal(a + 0.0, b + 0.0)
+
+
+# d_head 128 (hidden 256 with 2 heads): the rollout as2pl (path S; K1-bf16
+# at B = 48 on path L), the map self-attention and the latent as2pl (path L)
+D_HEAD_128 = [(8, 64, 1024), (48, 64, 1024), (2, 1024, 1024), (2, 1216, 1024), (2, 37, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T", D_HEAD_128)
+def test_k1_kernels_match_plain_at_d_head_128(cuda, B, S, T):
+    """K1 (fp32 and bf16 K/V), K1-bf16 and both skips at d_head 128 (k1_holds)."""
+    k1_holds(cuda, B, S, T, 256, 2, seed=17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T", D_HEAD_128)
+def test_k3_kernels_match_plain_at_d_head_128(cuda, B, S, T):
+    """K3f, K3b and K3-skip at d_head 128, dropout live (k3_holds)."""
+    k3_holds(cuda, B, S, T, 256, 2, seed=19)
+
+
+# d_head 8 and 4 (hidden 128 with 16 and 32 heads): the rollout as2pl
+# (path S; K1-bf16 at B = 48 on path L), the map self-attention and the
+# latent as2pl (path L), T = 2,048 (path G; K1-bf16's rounds), and a small
+# odd shape
+NARROW_HEADS = [(8, 64, 1024, 128, 16), (48, 64, 1024, 128, 32), (2, 1024, 1024, 128, 32), (2, 1216, 1024, 128, 16),
+                (2, 1216, 2048, 128, 32), (8, 64, 2048, 128, 16), (2, 37, 300, 128, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,D,H", NARROW_HEADS)
+def test_k1_kernels_match_plain_at_narrow_heads(cuda, B, S, T, D, H):
+    """K1 (fp32 and bf16 K/V), K1-bf16 and both skips at d_head 8 and 4 (k1_holds)."""
+    k1_holds(cuda, B, S, T, D, H, seed=31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,D,H", NARROW_HEADS)
+def test_k3_kernels_match_plain_at_narrow_heads(cuda, B, S, T, D, H):
+    """K3f, K3b (its narrow kernels) and K3-skip at d_head 8 and 4, dropout live (k3_holds)."""
+    k3_holds(cuda, B, S, T, D, H, seed=37)
 
 
 # past 1,024 keys (data.n_pl = 2048): the rollout as2pl, the map
@@ -623,63 +659,15 @@ LONG_T = [(8, 64, 2048, 128, 4), (2, 2048, 2048, 128, 4), (2, 1216, 2048, 128, 4
 @pytest.mark.parametrize("B,S,T,D,H", LONG_T)
 def test_k1_kernels_match_plain_at_long_T(cuda, B, S, T, D, H):
     """K1 (fp32 and bf16 K/V, path G), K1-bf16 (its rounds of key tiles)
-    and both skips past 1,024 keys, with a padding and a full mask: K1
-    within 1e-5 of the plain version, K1-bf16 within a relative norm error
-    of 1e-3, two calls bitwise equal; with src_invalid dead rows 0 and live
-    rows bitwise the unskipped kernel's."""
-    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=23))
-    src = dead_agents(B, S, 40, cuda)
-    for inv in (invalid[:, 0][:, None, :].expand(B, S, T), invalid):
-        for qq, kv in ((q, torch.float32), (q, torch.bfloat16), (q.bfloat16(), torch.bfloat16)):
-            kk, vv = k.to(kv), v.to(kv)
-            counts = (tfa.LAUNCHES, tfa.LAUNCHES_BF16, tfa.LAUNCHES_SKIP)
-            out = tfa.fused_attention_core(qq, kk, vv, inv, H)
-            again = tfa.fused_attention_core(qq, kk, vv, inv, H)
-            skip = tfa.fused_attention_core(qq, kk, vv, inv, H, src_invalid=src)
-            torch.cuda.synchronize()
-            bf16 = qq.dtype == torch.bfloat16
-            assert (tfa.LAUNCHES, tfa.LAUNCHES_BF16, tfa.LAUNCHES_SKIP) == (
-                counts[0] + 3 * (not bf16), counts[1] + 3 * bf16, counts[2] + 1)
-            assert torch.equal(out, again)
-            ref = tfa.attention_core_plain(qq, kk, vv, inv, H)
-            if bf16:
-                assert rel_norm(out, ref) < 1e-3
-            else:
-                torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
-            live = tfa.row_live(inv, src)
-            assert (skip[~live] == 0).all() and torch.equal(skip[live], out[live])
+    and both skips past 1,024 keys (k1_holds)."""
+    k1_holds(cuda, B, S, T, D, H, seed=23)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,D,H", LONG_T)
 def test_k3_kernels_match_plain_at_long_T(cuda, B, S, T, D, H):
-    """K3f (path G), K3b and K3-skip past 1,024 keys, dropout live, at K3's
-    holds; the forward and backward bitwise the same on a second call."""
-    q, k, v, invalid = (torch.from_numpy(a).to(cuda) for a in attn_inputs(B, S, T, D, seed=29))
-    invalid = invalid[:, 0][:, None, :].expand(B, S, T)
-    src = dead_agents(B, S, 40, cuda)
-    live = tfa.row_live(invalid, src)
-    g = torch.randn(B, S, D, generator=torch.Generator().manual_seed(29)).to(cuda) * live[..., None]
-
-    def run(fn, src_invalid=None):
-        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-        out = fn(qq, kk, vv, invalid, H, 0.1, 987654321, 3, src_invalid=src_invalid)
-        out.backward(g)
-        torch.cuda.synchronize()
-        return out.detach(), qq.grad, kk.grad, vv.grad
-
-    f0, b0 = tat.LAUNCHES_FWD, tat.LAUNCHES_BWD
-    got = run(tat.attention_train)
-    assert (tat.LAUNCHES_FWD, tat.LAUNCHES_BWD) == (f0 + 1, b0 + 1)
-    ref = run(tat.attention_train_plain)
-    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
-    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
-        assert rel_err(a, b) < 1e-5, name
-    assert all(torch.equal(a, b) for a, b in zip(got, run(tat.attention_train)))
-    skip = run(tat.attention_train, src)
-    assert (skip[0][~live] == 0).all() and torch.equal(skip[0][live], got[0][live])
-    for a, b in zip(skip[1:], got[1:]):
-        assert torch.equal(a + 0.0, b + 0.0)
+    """K3f (path G), K3b and K3-skip past 1,024 keys, dropout live (k3_holds)."""
+    k3_holds(cuda, B, S, T, D, H, seed=29)
 
 
 @pytest.mark.cuda

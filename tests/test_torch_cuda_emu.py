@@ -13,7 +13,8 @@ other's shared memory; other blocks one after another). The
 `kernel<<<grid, threads, smem, stream>>>(args)` launches are rewritten into
 calls of the emulator's launcher. This holds the kernels' indexing, tiling,
 masking, path and block-size choice, synchronisation and arithmetic at
-small shapes; it says nothing of their speed. The card runs the same checks
+small shapes (at every head width the kernels take, d_head 4 to 128); it
+says nothing of their speed. The card runs the same checks
 at full width (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances: the forwards (K1, K3f) within atol = rtol = 1e-5 of the plain
@@ -184,6 +185,12 @@ def dead_rows(invalid):
     (1, 40, 200, 128, 1, False, 1, "S"),  # d_head 128, fp32 K/V, unaligned
     (1, 70, 260, 128, 1, False, 0, "L"),  # d_head 128, fp32 K/V: one K/V tile buffer
     (2, 66, 140, 256, 2, True, 0, "L"),  # d_head 128, bf16 K/V: two tile buffers
+    (2, 37, 300, 16, 4, True, 0, "S"),  # d_head 4, bf16 K/V rows of 8 bytes: three ranks
+    (1, 64, 1000, 32, 4, False, 0, "S"),  # d_head 8: eight ranks, the last partial; dead ranks
+    (2, 20, 200, 16, 2, True, 1, "S"),  # d_head 8, unaligned bf16 K/V
+    (1, 70, 260, 16, 4, False, 0, "L"),  # d_head 4: 32 of the 64 weighted-sum groups
+    (1, 66, 140, 16, 4, True, 1, "L"),  # d_head 4, unaligned bf16 K/V (plain copies)
+    (1, 72, 300, 32, 4, True, 0, "L"),  # d_head 8
 ])
 def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset, path):
     """K1 (csrc/fused_attention.cu -> attn_fwd.cuh) on both paths, both K/V
@@ -214,6 +221,8 @@ def test_k1_forward_emulated_matches_plain(emulated, B, S, T, D, H, bf16, offset
     (1, 70, 260, 128, 4, "L"),  # d_head 32: three row blocks, the last of 6 rows
     (1, 80, 300, 128, 2, "L"),  # d_head 64
     (1, 70, 260, 128, 1, "L"),  # d_head 128: K and V in slabs of 64 columns
+    (2, 70, 260, 16, 4, "L"),  # d_head 4: the logits by m16n8k8 with zero k columns, one P V n-tile
+    (1, 40, 300, 32, 4, "S"),  # d_head 8 (path L on the emulator's two SMs)
 ])
 def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H, path):
     """K1's bf16 variant (tb_fused_attention_bf16: bf16 q/k/v, weights
@@ -252,6 +261,8 @@ def test_k1_bf16_emulated_matches_plain(emulated, record_property, B, S, T, D, H
     (1, 100, 300, 32, 1, ((0, 32), (90, 100))),  # one head: 2 blocks walk 4 row blocks, the first all dead
     (1, 24, 300, 128, 1, ((16, 24),)),  # d_head 128 on path S (three ranks), the last rows dead
     (1, 40, 1024, 128, 1, ((0, 32),)),  # d_head 128 at T = 1024: K and V in slabs, the first row block dead
+    (1, 24, 300, 8, 1, ()),  # d_head 8 on path S
+    (1, 20, 260, 4, 1, ((12, 20),)),  # d_head 4 on path S, the last rows dead
 ])
 def test_k1_bf16_emulated_layouts(emulated, B, S, T, D, H, dead):
     """K1-bf16's layouts beyond test_k1_bf16_emulated_matches_plain's:
@@ -302,6 +313,10 @@ def k1_emulated(emulated, q, k, v, invalid, src_invalid, H):
     # d_head 128: fp32 q on path S; K1-bf16 on path L's slabs
     (2, 40, 300, 256, 2, False, (24, 0), "S"),
     (1, 96, 260, 128, 1, True, (40,), "L"),
+    # d_head 4 and 8: fp32 q with bf16 K/V rows of 8 bytes on path S; path L; K1-bf16 on path L
+    (2, 40, 300, 16, 4, False, (24, 0), "S"),
+    (1, 96, 260, 32, 4, False, (40,), "L"),
+    (1, 96, 260, 16, 4, True, (40,), "L"),
 ])
 def test_k1_skip_emulated(emulated, B, S, T, D, H, bf16, live_rows, path):
     """K1's dead-query-row skip (`src_invalid`): every dead row exactly 0,
@@ -377,6 +392,10 @@ def test_k3_skip_emulated_forward_and_backward(emulated):
     (2, 70, 260, 128, 2, True, 0.1, "L"),  # d_head 64
     (2, 48, 300, 256, 2, True, 0.1, "S"),  # d_head 128
     (1, 70, 260, 128, 1, False, 0.1, "L"),  # d_head 128: one K/V tile buffer
+    (2, 48, 300, 16, 4, True, 0.1, "S"),  # d_head 4: K3b's narrow kernels
+    (2, 64, 1000, 32, 4, False, 0.0, "S"),  # d_head 8
+    (2, 70, 260, 16, 4, False, 0.1, "L"),  # d_head 4
+    (1, 100, 200, 32, 4, True, 0.1, "L"),  # d_head 8
 ])
 def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, path):
     """K3f (csrc/attention_train.cu -> attn_fwd.cuh) with dropout live or
@@ -417,6 +436,9 @@ def test_k3f_forward_emulated_feeds_k3b(emulated, B, S, T, D, H, full_mask, p, p
     (4, 130, 70, 64, 2, True, 0.2),
     (2, 100, 140, 256, 4, False, 0.1),  # d_head 64
     (2, 70, 130, 256, 2, True, 0.1),  # d_head 128: 64-row dq blocks below 128 of them
+    (2, 48, 300, 16, 4, True, 0.1),  # d_head 4: the narrow dq and dk/dv kernels
+    (2, 70, 200, 32, 4, False, 0.0),  # d_head 8, no dropout
+    (2, 130, 70, 16, 2, True, 0.2),  # d_head 8: three dq blocks, the last of 2 rows
 ])
 def test_k3_backward_emulated_matches_plain(emulated, B, S, T, D, H, full_mask, p):
     rs = np.random.RandomState(S + T)
@@ -545,3 +567,10 @@ def test_k3_wrapper_mirrors_the_kernels_layout():
     assert all(tfa.kernel_refusal(1024, 256, 2, kv, bf16) is None for kv, bf16 in ((4, False), (2, False), (2, True)))
     assert tat.kernel_refusal(1024, 128, 1) is None and tat.kernel_refusal(1152, 256, 2) is None  # path G
     assert tfa.kernel_refusal(1152, 256, 2) is None and tfa.kernel_refusal(1024, 256, 1) is not None
+    # d_head 8 and 4: the forward's layout as at the wider heads; K3b's narrow blocks (q, g, K and V tiles
+    # of 64 rows, three row statistics, the warps' partials) under 26 KB, the forward's block the largest
+    for dh in (4, 8):
+        narrow = 4 * (4 * dh * (64 + 4) + 3 * 64 + 8 * 64 * dh)
+        assert narrow <= 26 * 1024 < tfa.smem_bytes(1024, dh) == tat.smem_bytes(1024, dh)
+        assert tfa.smem_bytes(1024, dh) == 4 * (32 * 1032 + 32 * (dh + 4) + 512 * 16 + 32 * 32 + 10 * 32 + 16)
+        assert tfa.takes_workspace(2048, dh) and not tfa.takes_workspace(1024, dh)

@@ -9,9 +9,10 @@ its card has EMU_SMS = 2 SMs) runs `csrc/fused_attention.cu` and
   key tiles (T = 1,100 at d_head 16 and 32, where the [32, T] logits still
   fit shared memory; path S takes at most eight) and on path G, whose
   logits lie in a global workspace (T = 1,536 and 2,048, and d_head 128 at
-  1,152), with its blocks walking more work items than they are;
+  1,152; d_head 4 and 8 at 1,536 to 2,048), with its blocks walking more
+  work items than they are;
 - K1-bf16's path L in rounds of eight key tiles (every T past 1,024),
-  d_head 16 to 128;
+  d_head 4 to 128;
 - the dead-query-row skip on both;
 - K3b fed by K3f's row statistics, and alone at 4,096 keys.
 
@@ -68,6 +69,8 @@ def path_of(B, S, T, D, H, kv_bytes):
     (1, 64, 2048, 32, 2, False, "G"),  # d_head 16
     (2, 32, 2048, 32, 1, True, "G"),  # d_head 32, bf16 K/V, two scenes (scene 1 all masked)
     (1, 40, 1152, 128, 1, False, "G"),  # d_head 128: one fp32 K/V tile buffer
+    (1, 40, 2048, 16, 4, False, "G"),  # d_head 4
+    (1, 34, 1800, 32, 4, True, "G"),  # d_head 8, bf16 K/V
 ])
 def test_k1_long_emulated_matches_plain(emulated, B, S, T, D, H, bf16, path):
     """K1 past 1,024 keys, fp32 or bf16 K/V, a full and a stride-0 padding
@@ -91,6 +94,8 @@ def test_k1_long_emulated_matches_plain(emulated, B, S, T, D, H, bf16, path):
     (1, 64, 1536, 32, 1),  # d_head 32: two row blocks, two rounds of six tiles
     (1, 32, 2048, 64, 2),  # d_head 32: two full rounds
     (2, 24, 1152, 128, 1),  # d_head 128: the logits over four column slabs, four output slabs
+    (1, 40, 1100, 16, 4),  # d_head 4: the whole head a slab, one m16n8k8 k-step
+    (1, 32, 1536, 16, 2),  # d_head 8
 ])
 def test_k1_bf16_long_emulated_matches_plain(emulated, record_property, B, S, T, D, H):
     """K1-bf16 past eight key tiles (its rounds of key tiles, the logits
@@ -113,6 +118,7 @@ def test_k1_bf16_long_emulated_matches_plain(emulated, record_property, B, S, T,
 @pytest.mark.parametrize("B,S,T,D,H,bf16,live_rows", [
     (2, 96, 1536, 64, 2, False, (40, 0)),  # path G: scene 0's third row block dead, scene 1 all dead
     (1, 96, 1100, 32, 1, True, (40,)),  # K1-bf16's rounds: row block 0 live, 1 partly dead, 2 dead
+    (1, 96, 1100, 16, 2, True, (40,)),  # the same at d_head 8
 ])
 def test_k1_skip_long_emulated(emulated, B, S, T, D, H, bf16, live_rows):
     """K1's dead-query-row skip past 1,024 keys: every dead row exactly 0,
@@ -153,6 +159,8 @@ def k3f_emulated(emulated, q, k, v, invalid, H, p, seed, site, src_invalid=None)
     (1, 96, 1536, 64, 2, False, 0.1, False),  # path G, d_head 32: six work items, two blocks
     (1, 64, 2048, 32, 2, True, 0.1, False),  # path G, d_head 16
     (1, 96, 1536, 64, 2, False, 0.1, True),  # path G with the skip: rows 40.. dead
+    (1, 40, 2048, 16, 4, True, 0.1, False),  # path G at d_head 4, K3b's narrow kernels
+    (1, 96, 1536, 16, 2, False, 0.1, True),  # path G at d_head 8 with the skip
 ])
 def test_k3_long_emulated(emulated, B, S, T, D, H, full_mask, p, skip):
     """K3f past 1,024 keys with dropout live or off: the output within 1e-5

@@ -2,10 +2,12 @@
 CPU emulator against torch.matmul.
 
 `tests/cuda_emu/mma_check.cu` (one warp: the 16 x 8 tiles of C in turn, k
-in steps of 16, the A fragment and both B fragment loads of `mma.cuh`, and
-its fp32-pair-to-bf16x2 conversion) is compiled with g++ against
+in steps of 16, the A fragment and both B fragment loads of `mma.cuh`, the
+m16n8k8 product in steps of 8 with its two fragment loads, and its
+fp32-pair-to-bf16x2 conversion) is compiled with g++ against
 `tests/cuda_emu/cuda_runtime.h`, whose `mma_bf16_16816` exchanges the
-warp's fragments through per-lane slots in the PTX ISA's m16n8k16 layout.
+warp's fragments through per-lane slots in the PTX ISA's m16n8k16 layout
+(`mma_bf16_1688` in its m16n8k8 layout).
 `tests/test_torch_cuda.py` runs the same source with nvcc on the card: the
 two agreeing with torch.matmul is what shows that the emulator's layout is
 the hardware's.
@@ -34,6 +36,7 @@ MMA_SOURCE = EMU / "mma_check.cu"
 MMA_RTOL = 1e-6
 MMA_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 PACK_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_void_p)
+MMA_K8_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def mma_operands(M, N, K, seed):
@@ -53,6 +56,16 @@ def run_mma_check(lib, a, b, bt, stream=None):
     fn.argtypes, fn.restype = list(MMA_ARGS), ctypes.c_int
     assert fn(a.data_ptr(), bt.data_ptr(), b.data_ptr(), c_nk.data_ptr(), c_kn.data_ptr(), M, N, K, stream) == 0
     return c_nk, c_kn
+
+
+def run_mma_check_k8(lib, a, bt, stream=None):
+    """c from tb_mma_check_k8 (the m16n8k8 product, a and bt on one device)."""
+    (M, K), N = a.shape, bt.shape[0]
+    c = torch.full((M, N), float("nan"), device=a.device)
+    fn = lib.tb_mma_check_k8
+    fn.argtypes, fn.restype = list(MMA_K8_ARGS), ctypes.c_int
+    assert fn(a.data_ptr(), bt.data_ptr(), c.data_ptr(), M, N, K, stream) == 0
+    return c
 
 
 def run_pack_check(lib, x, stream=None):
@@ -99,6 +112,16 @@ def test_mma_emulated_matches_matmul(mma_lib, M, N, K):
     a, b, bt, ref = mma_operands(M, N, K, seed=M + N + K)
     for c in run_mma_check(mma_lib, a, b, bt):
         assert ((c - ref).norm() / ref.norm()).item() <= MMA_RTOL
+
+
+@pytest.mark.parametrize("M,N,K", [(16, 8, 8), (32, 128, 8), (64, 24, 40)])
+def test_mma_k8_emulated_matches_matmul(mma_lib, M, N, K):
+    """The m16n8k8 MMA (K1-bf16's logits at d_head 8 and 4): one tile, a
+    head's 32 x 128 logits block, several k-steps; within MMA_RTOL of
+    torch.matmul."""
+    a, _, bt, ref = mma_operands(M, N, K, seed=M + N + K + 1)
+    c = run_mma_check_k8(mma_lib, a, bt)
+    assert ((c - ref).norm() / ref.norm()).item() <= MMA_RTOL
 
 
 def test_pack_bf16_emulated_rounds_to_nearest_even(mma_lib):

@@ -19,16 +19,17 @@ wrapper computes its plain version, so the runs finish.
   every kernel site calls its kernel's wrapper, and every predicate admits
   its shape: K1, K2 and K6 in eval, K3 and K4 in training.
 - At hidden 256 with 4 heads (d_head 64), at 2 heads of width 128
-  (d_head 64), and at d_head 128 (hidden 256 with 2 heads and d_ff 128,
+  (d_head 64), at d_head 128 (hidden 256 with 2 heads and d_ff 128,
   the override `model.hidden_dim=256` with `tf_cfg.n_head=2`; hidden 128
-  with 1 head) every kernel site still calls its wrapper, and every
-  predicate (K1, K2, K3, K4, K6) admits its shape.
+  with 1 head) and at d_head 8 and 4 (hidden 128 with 16 and 32 heads)
+  every kernel site still calls its wrapper, and every predicate (K1, K2,
+  K3, K4, K6) admits its shape.
 - Each predicate refuses exactly the shapes its wrapper's `_check_inputs`
   raises on, with the same reason (meta tensors: every other check passes
   and the device check, last, raises); K2's and K4's admit every
   (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to
-  128 and 1-32 nodes, and nothing else; K1's and K3's admit d_head 16,
-  32, 64 and 128 and refuse d_head 256.
+  128 and 1-32 nodes, and nothing else; K1's and K3's admit d_head 4, 8,
+  16, 32, 64 and 128 and refuse d_head 1, 2 and 256.
 - At `data.n_pl` 1,536 and 2,048 every eval, bf16 eval and training site
   over the map still calls its wrapper, and K1's and K3's predicates
   admit every T up to 12,288 where `jax_kernel_fits` says the JAX package
@@ -165,14 +166,16 @@ def test_every_training_site_takes_its_kernel_at_default_widths(monkeypatch, pre
 
 
 WIDE = {"hidden256": dict(hidden=256, n_head=4), "heads2": dict(hidden=128, n_head=2),
-        "hidden256_heads2": dict(hidden=256, n_head=2, d_ff=128), "heads1": dict(hidden=128, n_head=1)}
+        "hidden256_heads2": dict(hidden=256, n_head=2, d_ff=128), "heads1": dict(hidden=128, n_head=1),
+        "heads16": dict(hidden=128, n_head=16), "heads32": dict(hidden=128, n_head=32)}
 
 
 @pytest.mark.parametrize("impl", ["fused", "hybrid"])
 @pytest.mark.parametrize("widths", sorted(WIDE))
 def test_wide_eval_sites_launch_or_raise(monkeypatch, widths, impl):
-    """K1 (d_head 64 or 128), K6 (d_model 256, or 1-2 heads) and K2 (the
-    same) take the shape: every eval site launches its kernel on the card."""
+    """K1 (d_head 4, 8, 64 or 128), K6 (d_model 256, or 1-32 heads) and K2
+    (the same) take the shape: every eval site launches its kernel on the
+    card."""
     sites = run_sites(site_config(impl=impl, **WIDE[widths]), monkeypatch, training=False)
     kernels = {kernel: reason for (kernel, _), reason in sites.items()}
     assert set(kernels) == {"K1", "K6" if impl == "hybrid" else "K2"}
@@ -181,8 +184,8 @@ def test_wide_eval_sites_launch_or_raise(monkeypatch, widths, impl):
 
 @pytest.mark.parametrize("widths", sorted(WIDE))
 def test_wide_training_sites_launch_or_raise(monkeypatch, widths):
-    """K3 takes d_head 64 and 128 and K4 takes d_model 256 and 1-2 heads:
-    every training site launches its kernel on the card."""
+    """K3 takes d_head 4, 8, 64 and 128 and K4 takes d_model 256 and 1-32
+    heads: every training site launches its kernel on the card."""
     sites = run_sites(site_config(training=True, **WIDE[widths]), monkeypatch, training=True)
     kernels = {kernel: reason for (kernel, _), reason in sites.items()}
     assert set(kernels) == {"K3", "K4"}
@@ -213,7 +216,8 @@ def assert_predicate_matches_check(reason, check, device_error):
 def test_k1_predicate_is_its_check(bf16):
     dt = torch.bfloat16 if bf16 else torch.float32
     for T in (64, 1024, 1025, 2048, 4096):
-        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (128, 1), (256, 1), (64, 4), (96, 4), (128, 3)):
+        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (128, 1), (256, 1), (64, 4), (96, 4), (128, 3),
+                     (128, 16), (128, 32), (64, 16), (256, 64), (128, 64), (128, 128), (96, 16)):
             for kv in ((torch.bfloat16,) if bf16 else (torch.float32, torch.bfloat16)):
                 q, k = meta(2, 32, D, dtype=dt), meta(2, T, D, dtype=kv)
                 reason = K1.kernel_refusal(T, D, H, k.element_size(), bf16)
@@ -223,11 +227,16 @@ def test_k1_predicate_is_its_check(bf16):
     for kv, bf16 in ((4, False), (2, False), (2, True)):  # d_head 128 past T = 1024 (path G); d_head 256 refused
         assert K1.kernel_refusal(1024, 256, 2, kv, bf16) is None and K1.kernel_refusal(1024, 128, 1, kv, bf16) is None
         assert K1.kernel_refusal(1025, 256, 2, kv, bf16) is None and K1.kernel_refusal(64, 256, 1, kv, bf16)
+        for T in (64, 1024, 1025, 2048):  # d_head 8 and 4 wherever d_head 16 is taken; 2 and 1 refused
+            if K1.kernel_refusal(T, 128, 8, kv, bf16) is None:
+                assert K1.kernel_refusal(T, 128, 16, kv, bf16) is None and K1.kernel_refusal(T, 128, 32, kv, bf16) is None
+            assert K1.kernel_refusal(T, 128, 64, kv, bf16) and K1.kernel_refusal(T, 128, 128, kv, bf16)
 
 
 def test_k3_predicate_is_its_check():
     for T in (256, 1024, 1600, 4096):
-        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (128, 1), (256, 1), (64, 4), (128, 8), (128, 3)):
+        for D, H in ((128, 4), (256, 4), (128, 2), (256, 2), (128, 1), (256, 1), (64, 4), (128, 8), (128, 3),
+                     (128, 16), (128, 32), (64, 16), (256, 64), (128, 64), (128, 128), (96, 16)):
             q, k = meta(2, 32, D), meta(2, T, D)
             assert_predicate_matches_check(K3.kernel_refusal(T, D, H),
                                            lambda: K3._check_inputs(q, k, k, meta(2, 32, T, dtype=torch.bool), H),
@@ -236,6 +245,10 @@ def test_k3_predicate_is_its_check():
     assert K3.kernel_refusal(1024, 128, 2) is None and K3.kernel_refusal(1024, 256, 2) is None  # d_head 128
     assert K3.kernel_refusal(1024, 128, 1) is None and K3.kernel_refusal(1025, 256, 2) is None  # path G
     assert K3.kernel_refusal(256, 256, 1)  # d_head 256
+    for T in (256, 1024, 1025, 4096):  # d_head 8 and 4 wherever d_head 16 is taken; 2 and 1 refused
+        assert K3.kernel_refusal(T, 128, 16) is None and K3.kernel_refusal(T, 128, 32) is None
+        assert K3.kernel_refusal(T, 256, 32) is None and K3.kernel_refusal(T, 256, 64) is None
+        assert K3.kernel_refusal(T, 128, 64) and K3.kernel_refusal(T, 128, 128)
 
 
 def test_k2_and_k4_predicates_are_their_checks():
@@ -306,7 +319,8 @@ def test_k1_and_k3_take_every_T_jax_runs_its_kernels_at(D):
 
 # the largest T (a multiple of 128) each kernel takes at d_model 128, by d_head:
 # path G's mask bits (fp32 forward, K3), K1-bf16's bits and each key tile's row statistics
-LARGEST_T = {16: (48128, 30080), 32: (46592, 24448), 64: (37504, 24064), 128: (36096, 23424)}
+LARGEST_T = {4: (48512, 34176), 8: (48384, 32768), 16: (48128, 30080), 32: (46592, 24448), 64: (37504, 24064),
+             128: (36096, 23424)}
 
 
 @pytest.mark.parametrize("dh", sorted(LARGEST_T))

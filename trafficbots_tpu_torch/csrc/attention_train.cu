@@ -69,6 +69,14 @@
 // key block that no row attends to. No float atomics: every output element
 // is summed by one thread (or one thread per group, then in group order) in
 // a fixed order, so dq, dk and dv are bitwise the same run to run.
+//
+// Below d_head 16 (hidden 128 with 16 or 32 heads) a thread of that grid
+// would own no output column: bwd_dq_narrow and bwd_dkdv_narrow (below)
+// keep the micro-tile's dS in registers and accumulate whole head rows
+// from it. On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3a, PERF.md
+// section 6), on the device: 1.59 / 2.01 ms at the map self-attention and
+// 0.162 / 0.181 ms at the rollout as2pl at d_head 8 / 4 (SDPA's backward
+// 2.59 / 5.10 and 0.441 / 0.823).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -490,6 +498,293 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ d_head 8 and 4
+//
+// The 16 x 16 grid of micro-tiles above gives a thread DH / 16 output
+// columns of the dq and dk/dv accumulations: none below d_head 16. There a
+// thread keeps its 4 x 4 micro-tile of dS (and of A ⊙ M) in registers and
+// accumulates whole head rows from it: in the dq kernel its 4 query rows x
+// DH columns over its 4 keys of each tile (dS k), in the dk/dv kernel its
+// 4 keys x DH columns over its 4 query rows of each step ((A ⊙ M)ᵀ g,
+// dSᵀ q). No dS or A ⊙ M tile goes through shared memory, and a tile takes
+// one barrier where the kernels above take two. At the end the 16 threads
+// that share rows (dq: the tx of a ty; dk/dv: the ty of a tx) add their
+// partials, within a warp by a butterfly and then across warps in warp
+// order through shared memory. The dq kernel takes 64-row blocks only.
+// Every sum runs in a fixed order: bitwise the same run to run.
+
+constexpr int NARROW = 16;  // head widths below this take the kernels below
+
+// Stage rows row0 .. row0 + R - 1 of one head's DH columns of src (rows of D
+// floats from `base`) transposed into dst[DH][R + PAD], zeros past n_rows.
+template <int DH, int R, int NT>
+__device__ __forceinline__ void stage_t_narrow(float* __restrict__ dst, const float* __restrict__ src, long long base,
+                                               int row0, int n_rows, int D, int tid) {
+    for (int idx = tid; idx < R * DH; idx += NT) {
+        const int r = idx / DH, d = idx % DH, row = row0 + r;
+        dst[d * (R + PAD) + r] = row < n_rows ? src[base + (long long)row * D + d] : 0.f;
+    }
+}
+
+size_t dq_narrow_smem(int dh) { return sizeof(float) * ((size_t)4 * dh * (BT + PAD) + 3 * BT + 2 * BT * dh); }
+
+size_t dkdv_narrow_smem(int dh) { return sizeof(float) * ((size_t)4 * dh * (BT + PAD) + 3 * BT + 8 * BT * dh); }
+
+// dq of BT query rows of one head; D = g . out of those rows into dsum.
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+bwd_dq_narrow(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              const uint8_t* __restrict__ inv, const float* __restrict__ out, const float* __restrict__ rmax,
+              const float* __restrict__ rsum, const float* __restrict__ g, float* __restrict__ dq,
+              float* __restrict__ dsum, Shape sh, Dropout drop, uint32_t site) {
+    constexpr int L = BT + PAD;
+    static_assert(DH < NARROW && DH % 4 == 0, "narrow heads");
+    extern __shared__ float smem[];
+    float* qt = smem;           // [DH][L] the block's q rows, transposed
+    float* gt = qt + DH * L;    // [DH][L] its g rows
+    float* kt = gt + DH * L;    // [DH][L] a tile's keys
+    float* vt = kt + DH * L;    // [DH][L] its values
+    float* m_s = vt + DH * L;   // [BT] row max * log2(e) (-inf: dead or past S)
+    float* l_s = m_s + BT;      // [BT] 1 / row sum
+    float* d_s = l_s + BT;      // [BT] D = g . out
+    float* red = d_s + BT;      // [2][BT][DH] the two warp columns' dq partials
+
+    const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * BT;
+    const long long q_base = (long long)b * sh.S * sh.D + h * DH;
+    const long long kv_base = (long long)b * sh.T * sh.D + h * DH;
+    const long long stat0 = ((long long)b * sh.H + h) * sh.S;
+    const float sqrt_dh = sqrtf((float)DH);
+
+    stage_t_narrow<DH, BT, THREADS>(qt, q, q_base, s0, sh.S, sh.D, threadIdx.x);
+    stage_t_narrow<DH, BT, THREADS>(gt, g, q_base, s0, sh.S, sh.D, threadIdx.x);
+    if (threadIdx.x < BT) {
+        const int r = threadIdx.x, s = s0 + r;
+        const float m = s < sh.S ? rmax[stat0 + s] : -INFINITY;
+        float dot = 0.f;
+        if (m != -INFINITY) {
+            const float* gr = g + q_base + (long long)s * sh.D;
+            const float* orow = out + q_base + (long long)s * sh.D;
+            for (int d = 0; d < DH; ++d) dot = fmaf(gr[d], orow[d], dot);
+        }
+        m_s[r] = m * LOG2E;
+        l_s[r] = s < sh.S ? 1.f / rsum[stat0 + s] : 1.f;
+        d_s[r] = dot;
+        if (s < sh.S) dsum[stat0 + s] = dot;
+    }
+    __syncthreads();
+
+    // micro-tile: rows 4 ty .., keys 4 tx ..; dq partials: the same rows, every column
+    int ty, tx;
+    warp_grid(threadIdx.x, ty, tx);
+    const float c2 = LOG2E / sqrt_dh;
+    uint32_t row_live = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) row_live |= (m_s[4 * ty + i] != -INFINITY ? 1u : 0u) << i;
+    float acc[4][DH];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DH; ++c) acc[i][c] = 0.f;
+
+    for (int t0 = 0; t0 < sh.T; t0 += BT) {
+        const int tk = t0 + 4 * tx;
+        const uint32_t bits = allowed_bits(inv, sh, b, s0 + 4 * ty, tk, row_live);
+        // also the barrier after the previous tile's reads of kt and vt
+        if (!__syncthreads_or(bits)) continue;  // no pair of this tile is allowed
+        stage_t_narrow<DH, BT, THREADS>(kt, k, kv_base, t0, sh.T, sh.D, threadIdx.x);
+        stage_t_narrow<DH, BT, THREADS>(vt, v, kv_base, t0, sh.T, sh.D, threadIdx.x);
+        __syncthreads();
+        float a[4][4], dp[4][4];
+        micro_product<DH>(a, qt + 4 * ty, L, kt + 4 * tx, L);
+        const uint32_t keep = weights(a, bits, m_s, l_s, 4 * ty, c2, drop, site,
+                                      (unsigned long long)(stat0 + s0 + 4 * ty), (uint32_t)(tk >> 2));
+        micro_product<DH>(dp, gt + 4 * ty, L, vt + 4 * tx, L);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float dd = d_s[4 * ty + i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) a[i][j] = a[i][j] * (dp[i][j] * ((keep >> (4 * i + j)) & 1u ? drop.scale : 0.f) - dd);
+        }
+#pragma unroll
+        for (int c = 0; c < DH; ++c) {  // dq += dS k over the thread's 4 keys, in key order
+            const float4 kc = *reinterpret_cast<const float4*>(kt + c * L + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                float x = acc[i][c];
+                x = fmaf(a[i][0], kc.x, x);
+                x = fmaf(a[i][1], kc.y, x);
+                x = fmaf(a[i][2], kc.z, x);
+                x = fmaf(a[i][3], kc.w, x);
+                acc[i][c] = x;
+            }
+        }
+    }
+
+    // the 16 threads of a row group: the 8 of its warp, then the two warps in order
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DH; ++c) {
+            const float x = tb_attn::group_sum<8>(acc[i][c]);
+            if ((lane & 7) == 0) red[((w & 1) * BT + 4 * ty + i) * DH + c] = x;
+        }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < BT * DH; idx += THREADS) {
+        const int s = s0 + idx / DH;
+        if (s < sh.S) dq[q_base + (long long)s * sh.D + idx % DH] = (red[idx] + red[BT * DH + idx]) / sqrt_dh;
+    }
+}
+
+// dk and dv of BT keys of one head, over all query rows in BT-row steps.
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+bwd_dkdv_narrow(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                const uint8_t* __restrict__ inv, const float* __restrict__ rmax, const float* __restrict__ rsum,
+                const float* __restrict__ dsum, const float* __restrict__ g, float* __restrict__ dk,
+                float* __restrict__ dv, Shape sh, Dropout drop, uint32_t site) {
+    constexpr int L = BT + PAD;
+    static_assert(DH < NARROW && DH % 4 == 0, "narrow heads");
+    extern __shared__ float smem[];
+    float* kt = smem;           // [DH][L] the block's keys, transposed
+    float* vt = kt + DH * L;    // [DH][L]
+    float* qt = vt + DH * L;    // [DH][L] a step's query rows, transposed
+    float* gt = qt + DH * L;    // [DH][L]
+    float* m_s = gt + DH * L;   // [BT] the step's row max * log2(e), 1 / row sum and D
+    float* l_s = m_s + BT;
+    float* d_s = l_s + BT;
+    float* red = d_s + BT;      // [4][BT][DH] the four warp rows' dk partials, then [4][BT][DH] dv's
+
+    const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * BT;
+    const long long q_base = (long long)b * sh.S * sh.D + h * DH;
+    const long long kv_base = (long long)b * sh.T * sh.D + h * DH;
+    const long long stat0 = ((long long)b * sh.H + h) * sh.S;
+    const float sqrt_dh = sqrtf((float)DH);
+    // micro-tile: rows 4 ty .., keys 4 tx ..; dk, dv partials: the same keys, every column
+    int ty, tx;
+    warp_grid(threadIdx.x, ty, tx);
+    const int tk = t0 + 4 * tx;
+    const float c2 = LOG2E / sqrt_dh;
+
+    stage_t_narrow<DH, BT, THREADS>(kt, k, kv_base, t0, sh.T, sh.D, threadIdx.x);
+    stage_t_narrow<DH, BT, THREADS>(vt, v, kv_base, t0, sh.T, sh.D, threadIdx.x);
+    float acc_k[4][DH], acc_v[4][DH];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < DH; ++c) acc_k[j][c] = acc_v[j][c] = 0.f;
+
+    for (int s0 = 0; s0 < sh.S; s0 += BT) {
+        const int sr = s0 + 4 * ty;
+        uint32_t row_live = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            if (sr + i < sh.S && rmax[stat0 + sr + i] != -INFINITY) row_live |= 1u << i;
+        const uint32_t bits = allowed_bits(inv, sh, b, sr, tk, row_live);
+        // also the barrier after the previous step's reads of the row tiles
+        if (!__syncthreads_or(bits)) continue;
+        stage_t_narrow<DH, BT, THREADS>(qt, q, q_base, s0, sh.S, sh.D, threadIdx.x);
+        stage_t_narrow<DH, BT, THREADS>(gt, g, q_base, s0, sh.S, sh.D, threadIdx.x);
+        if (threadIdx.x < BT) {
+            const int s = s0 + threadIdx.x;
+            m_s[threadIdx.x] = s < sh.S ? rmax[stat0 + s] * LOG2E : -INFINITY;
+            l_s[threadIdx.x] = s < sh.S ? 1.f / rsum[stat0 + s] : 1.f;
+            d_s[threadIdx.x] = s < sh.S ? dsum[stat0 + s] : 0.f;
+        }
+        __syncthreads();
+        float sc[4][4], dp[4][4];  // the logits and g vᵀ, then in place A ⊙ M and dS
+        micro_product<DH>(sc, qt + 4 * ty, L, kt + 4 * tx, L);
+        const uint32_t keep = weights(sc, bits, m_s, l_s, 4 * ty, c2, drop, site,
+                                      (unsigned long long)(stat0 + s0 + 4 * ty), (uint32_t)(tk >> 2));
+        micro_product<DH>(dp, gt + 4 * ty, L, vt + 4 * tx, L);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float dd = d_s[4 * ty + i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float f = (keep >> (4 * i + j)) & 1u ? drop.scale : 0.f;
+                dp[i][j] = sc[i][j] * (dp[i][j] * f - dd);
+                sc[i][j] *= f;
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < DH; ++c) {  // dv += (A ⊙ M)ᵀ g, dk += dSᵀ q over the thread's 4 rows, in row order
+            const float4 gc = *reinterpret_cast<const float4*>(gt + c * L + 4 * ty);
+            const float4 qc = *reinterpret_cast<const float4*>(qt + c * L + 4 * ty);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                float x = acc_v[j][c], y = acc_k[j][c];
+                x = fmaf(sc[0][j], gc.x, x);
+                x = fmaf(sc[1][j], gc.y, x);
+                x = fmaf(sc[2][j], gc.z, x);
+                x = fmaf(sc[3][j], gc.w, x);
+                y = fmaf(dp[0][j], qc.x, y);
+                y = fmaf(dp[1][j], qc.y, y);
+                y = fmaf(dp[2][j], qc.z, y);
+                y = fmaf(dp[3][j], qc.w, y);
+                acc_v[j][c] = x;
+                acc_k[j][c] = y;
+            }
+        }
+    }
+
+    // the 16 threads of a key group: the 4 of its warp (lanes 8 apart), then the four warp rows in order
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < DH; ++c) {
+            float x = acc_k[j][c], y = acc_v[j][c];
+            x += __shfl_xor_sync(0xffffffffu, x, 8);
+            y += __shfl_xor_sync(0xffffffffu, y, 8);
+            x += __shfl_xor_sync(0xffffffffu, x, 16);
+            y += __shfl_xor_sync(0xffffffffu, y, 16);
+            if ((lane >> 3) == 0) {
+                const int i = ((w >> 1) * BT + 4 * tx + j) * DH + c;
+                red[i] = x;
+                red[4 * BT * DH + i] = y;
+            }
+        }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < BT * DH; idx += THREADS) {
+        const int t = t0 + idx / DH;
+        if (t >= sh.T) continue;
+        float sk = red[idx], sv = red[4 * BT * DH + idx];
+        for (int x = 1; x < 4; ++x) {
+            sk += red[x * BT * DH + idx];
+            sv += red[(4 + x) * BT * DH + idx];
+        }
+        const long long a = kv_base + (long long)t * sh.D + idx % DH;
+        dk[a] = sk / sqrt_dh;
+        dv[a] = sv;
+    }
+}
+
+template <int DH>
+cudaError_t bwd_narrow(const void* q, const void* k, const void* v, const void* inv, const void* out,
+                       const void* rmax, const void* rsum, const void* g, void* dq, void* dk, void* dv, void* dsum,
+                       Shape sh, Dropout drop, uint32_t site, cudaStream_t st) {
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v), *mf = static_cast<const float*>(rmax),
+                *lf = static_cast<const float*>(rsum), *gf = static_cast<const float*>(g);
+    const uint8_t* iv = static_cast<const uint8_t*>(inv);
+    float* df = static_cast<float*>(dsum);
+    size_t smem = dq_narrow_smem(DH);
+    cudaError_t err = cudaFuncSetAttribute(bwd_dq_narrow<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid_q((sh.S + BT - 1) / BT, sh.H, sh.B), grid_k((sh.T + BT - 1) / BT, sh.H, sh.B);
+    bwd_dq_narrow<DH><<<grid_q, THREADS, smem, st>>>(
+        qf, kf, vf, iv, static_cast<const float*>(out), mf, lf, gf, static_cast<float*>(dq), df, sh, drop, site);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = dkdv_narrow_smem(DH);
+    err = cudaFuncSetAttribute(bwd_dkdv_narrow<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    bwd_dkdv_narrow<DH><<<grid_k, THREADS, smem, st>>>(
+        qf, kf, vf, iv, mf, lf, df, gf, static_cast<float*>(dk), static_cast<float*>(dv), sh, drop, site);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [B,S,D], k/v [B,T,D], out [B,S,D] fp32 contiguous; invalid read as
@@ -510,6 +805,8 @@ extern "C" int tb_attention_train_fwd(const void* q, const void* k, const void* 
                     static_cast<const uint8_t*>(src_invalid), static_cast<float*>(ws), ws_floats};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D / n_head) {
+        case 4: return (int)tb_attn::launch<4, float, true, true>(a, st);
+        case 8: return (int)tb_attn::launch<8, float, true, true>(a, st);
         case 16: return (int)tb_attn::launch<16, float, true, true>(a, st);
         case 32: return (int)tb_attn::launch<32, float, true, true>(a, st);
         case 64: return (int)tb_attn::launch<64, float, true, true>(a, st);
@@ -529,6 +826,8 @@ extern "C" int tb_attention_train_bwd(const void* q, const void* k, const void* 
     Dropout drop{seed, threshold, scale, on};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D / n_head) {
+        case 4: return (int)bwd_narrow<4>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
+        case 8: return (int)bwd_narrow<8>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         case 16: return (int)launch_bwd<16>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         case 32: return (int)launch_bwd<32>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);
         case 64: return (int)launch_bwd<64>(q, k, v, invalid, out, rmax, rsum, g, dq, dk, dv, dsum, sh, drop, site, st);

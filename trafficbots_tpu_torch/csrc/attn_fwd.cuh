@@ -110,6 +110,17 @@
 // K1-bf16's path L stages K and V in 64-column slabs (fwd_rows_mma_slab:
 // the whole K is 278 KB). Each is new code beside the smaller widths'.
 //
+// d_head 8 and 4 (hidden 128 with 16 or 32 heads) are instantiated too,
+// each in `if constexpr` branches beside the wider heads' code, which they
+// leave as it was: a bf16 K/V row of 4 is 8 bytes, staged by an 8-byte
+// cp.async (stage_rows); path L's weighted sum at d_head 4 has 64 groups
+// of 8 threads for 128 keys, so only the first 32 take part, 4 keys each
+// (av_groups); K1-bf16's logits take one m16n8k8 k-step (mma.cuh; at
+// d_head 4 the lanes of columns 4-7 give zeros), its P V one n-tile of 8
+// columns whose last 4 (V's columns past d_head 4) are zeros and are not
+// stored, and its rounds past 1,024 keys stage the whole head (long_cols).
+// The scale stays 1 / sqrt(d_head) of the true width.
+//
 // fp32 K1 on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md section 6): path S
 // 0.0263 ms for K1 at B = 8 (8.8x its bound), 0.111 ms at B = 48; path L
 // 0.227 and 0.283 ms for K1 at the map self-attention and the latent
@@ -137,6 +148,10 @@
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
@@ -243,23 +258,42 @@ __device__ __forceinline__ float div_rn(float x, float d, float r) {
 }
 
 // Rows t0 .. t0 + n - 1 of one head's DH columns of src ([B, T, D] from
-// `base`) into tile[n][LD], with cp.async when aligned; zeros past T.
+// `base`) into tile[n][LD], with cp.async when aligned; zeros past T. A
+// row of 8 bytes (bf16 at d_head 4) is one 8-byte copy.
 template <int DH, class KV, int NT>
 __device__ __forceinline__ void stage_rows(KV* tile, const KV* __restrict__ src, long long base, int t0, int n, int T,
                                            int D, int aligned) {
-    constexpr int LD = kv_ld<DH, KV>(), E = 16 / (int)sizeof(KV), CH = DH / E;
-    for (int i = threadIdx.x; i < n * CH; i += NT) {
-        const int r = i / CH, c = i % CH, t = t0 + r;
-        KV* dst = tile + r * LD + c * E;
-        if (t < T) {
-            const KV* s = src + base + (long long)t * D + c * E;
-            if (aligned) {
-                cp_async16(dst, s);
+    if constexpr (DH * (int)sizeof(KV) == 8) {
+        constexpr int LD = kv_ld<DH, KV>();
+        for (int r = threadIdx.x; r < n; r += NT) {
+            const int t = t0 + r;
+            KV* dst = tile + r * LD;
+            if (t < T) {
+                const KV* s = src + base + (long long)t * D;
+                if (aligned) {
+                    cp_async8(dst, s);
+                } else {
+                    for (int e = 0; e < DH; ++e) dst[e] = s[e];
+                }
             } else {
-                for (int e = 0; e < E; ++e) dst[e] = s[e];
+                *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
             }
-        } else {
-            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+    } else {
+        constexpr int LD = kv_ld<DH, KV>(), E = 16 / (int)sizeof(KV), CH = DH / E;
+        for (int i = threadIdx.x; i < n * CH; i += NT) {
+            const int r = i / CH, c = i % CH, t = t0 + r;
+            KV* dst = tile + r * LD + c * E;
+            if (t < T) {
+                const KV* s = src + base + (long long)t * D + c * E;
+                if (aligned) {
+                    cp_async16(dst, s);
+                } else {
+                    for (int e = 0; e < E; ++e) dst[e] = s[e];
+                }
+            } else {
+                *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+            }
         }
     }
 }
@@ -411,6 +445,13 @@ __host__ __device__ constexpr int av_cols() { return ROWS / 4 * (DH / 4) <= NT ?
 // at the end.
 template <int CW, int ROWS>
 __host__ __device__ constexpr int av_group() { return ROWS / 4 * (CW / 4); }
+
+// Groups of NT threads' weighted sum over a tile of TK keys: NT / GT, or
+// where that would leave a group fewer than 4 keys (path L at d_head 4:
+// 64 groups of 8 threads), TK / 4 groups, and the other threads take no
+// part in it.
+template <int NT, int GT>
+__host__ __device__ constexpr int av_groups() { return NT / GT * 4 <= TK ? NT / GT : TK / 4; }
 
 // acc[i][c] += sum over n keys (n % 4 == 0) of w[ry + RY i][l0 + t] v[v0 + t][c0 + 4 cx + c]
 // (columns c0 .. c0 + CW - 1 of a pass), t in order: 4 float4 weight loads
@@ -581,8 +622,9 @@ size_t rows_ws_smem(int T) { return rows_smem<DH, KV>(T) - sizeof(float) * ROWS_
 template <int DH, class KV, bool DROP, bool STATS, bool WS>
 __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
     constexpr int NT = THREADS_L, NWX = Grid<ROWS_L, TK, NT>::NWX, NB = kv_bufs<DH, KV>();
-    constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = NT / GT, KG = TK / NG;
-    static_assert(av_cols<DH, ROWS_L, NT>() == DH && NG * GT == NT && KG % 4 == 0, "weighted-sum groups");
+    constexpr int LQ = DH + 4, LD = kv_ld<DH, KV>(), GT = av_group<DH, ROWS_L>(), NG = av_groups<NT, GT>(),
+                  KG = TK / NG;
+    static_assert(av_cols<DH, ROWS_L, NT>() == DH && NG * GT <= NT && KG % 4 == 0, "weighted-sum groups");
     extern __shared__ float smem[];
     const int T = a.T, nt = (T + TK - 1) / TK, nw = nt * (TK / 32), ldl = rows_ldl(T);
     // path G walks the (row block, head, scene) work items in path L's grid
@@ -700,6 +742,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         // weighted sum: V tiles double-buffered; group grp takes keys
         // grp * KG .. of each tile, the partials added in group order
         const int grp = threadIdx.x / GT, lid = threadIdx.x % GT;
+        const bool in_av = NG * GT == NT || grp < NG;  // d_head 4: the threads past NG groups take no part
         float acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -716,7 +759,9 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
                 cp_async_wait<0>();
             }
             __syncthreads();
-            tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i % NB) * TK * LD, grp * KG, KG, lid);
+            if (in_av)
+                tile_av<DH, KV, ROWS_L>(acc, lg, ldl, live[i] * TK + grp * KG, kv + (i % NB) * TK * LD, grp * KG, KG,
+                                        lid);
             __syncthreads();
             if (NB == 1 && i + 1 < n_live) {
                 stage_rows<DH, KV, NT>(kv, V, kv_base, live[i + 1] * TK, TK, T, a.D, a.aligned);
@@ -725,7 +770,7 @@ __global__ void __launch_bounds__(THREADS_L) fwd_rows(const Args a) {
         }
         __syncthreads();
         TB_TRACE(0, 6);  // the weighted sum
-        store_partials<DH, ROWS_L>(part, acc, grp, lid);
+        if (in_av) store_partials<DH, ROWS_L>(part, acc, grp, lid);
         __syncthreads();
         for (int i = threadIdx.x; i < rows * DH; i += NT) {
             const int r = i / DH, c = i % DH;
@@ -914,23 +959,41 @@ __global__ void __launch_bounds__(THREADS_S, DH > 64 ? 1 : 3) fwd_cluster(const 
 
 using bf16 = __nv_bfloat16;
 
+// C-fragment n-tiles of a DH-column P V: DH / 8, and at d_head 4 one,
+// whose last 4 columns are not stored.
+template <int DH>
+__host__ __device__ constexpr int o_tiles() { return DH < 8 ? 1 : DH / 8; }
+
 // z[j] = the sums q k of the warp's m-tile mt of the staged q (qs
 // [rows][LD]) over key n-tile j of a staged K tile kt [TK][LD] from key
-// kn0: DH / 16 k-steps of bf16 MMAs.
+// kn0: DH / 16 k-steps of bf16 MMAs; below d_head 16 one m16n8k8 k-step,
+// whose columns past DH (d_head 4: the lanes of columns 4-7) are zeros.
 template <int DH, int NJ>
 __device__ __forceinline__ void mma_logits(float (&z)[NJ][4], const bf16* qs, int mt, const bf16* kt, int kn0) {
     constexpr int LD = kv_ld<DH, bf16>();
 #pragma unroll
     for (int j = 0; j < NJ; ++j) z[j][0] = z[j][1] = z[j][2] = z[j][3] = 0.f;
-#pragma unroll
-    for (int k0 = 0; k0 < DH; k0 += 16) {
-        uint32_t fa[4];
-        tb_mma::load_a(fa, qs, LD, 16 * mt, k0);
+    if constexpr (DH < 16) {
+        const bool kin = 2 * (int)(threadIdx.x & 3) < DH;  // the lane's two k columns lie in the head
+        uint32_t fa[2] = {0u, 0u};
+        if (kin) tb_mma::load_a_k8(fa, qs, LD, 16 * mt, 0);
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-            uint32_t fb[2];
-            tb_mma::load_b_nk(fb, kt, LD, k0, kn0 + 8 * j);
-            mma_bf16_16816(z[j], fa, fb);
+            uint32_t fb[1] = {0u};
+            if (kin) tb_mma::load_b_nk_k8(fb, kt, LD, 0, kn0 + 8 * j);
+            mma_bf16_1688(z[j], fa, fb);
+        }
+    } else {
+#pragma unroll
+        for (int k0 = 0; k0 < DH; k0 += 16) {
+            uint32_t fa[4];
+            tb_mma::load_a(fa, qs, LD, 16 * mt, k0);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                uint32_t fb[2];
+                tb_mma::load_b_nk(fb, kt, LD, k0, kn0 + 8 * j);
+                mma_bf16_16816(z[j], fa, fb);
+            }
         }
     }
 }
@@ -984,9 +1047,10 @@ __device__ __forceinline__ void store_rows(float* row, int r0, const float (&v)[
 // o += P V over the warp's NJ 8 keys: P the weights e / sum (div_rn; 0 for
 // a zero e or a row whose max is -inf) of exp_logits' e, rounded to bf16 as
 // two n-tiles' C fragments are packed into a k-step's A fragment; V a
-// staged tile [..][LD] from row v0.
+// staged tile [..][LD] from row v0 (d_head 4: one n-tile, V's columns
+// past the head read as zeros).
 template <int DH, int NJ>
-__device__ __forceinline__ void weights_times_v(float (&o)[DH / 8][4], const float (&z)[NJ][4], const float (&rm)[2],
+__device__ __forceinline__ void weights_times_v(float (&o)[o_tiles<DH>()][4], const float (&z)[NJ][4], const float (&rm)[2],
                                                 const float (&sum)[2], const bf16* vt, int v0) {
     constexpr int LD = kv_ld<DH, bf16>();
     bool lv[2];
@@ -1010,24 +1074,39 @@ __device__ __forceinline__ void weights_times_v(float (&o)[DH / 8][4], const flo
             }
         const uint32_t fa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]), pack_bf16(p[1][0], p[1][1]),
                                 pack_bf16(p[1][2], p[1][3])};
+        if constexpr (DH < 8) {
+            uint32_t fb[2] = {0u, 0u};
+            if ((int)((threadIdx.x & 31) >> 2) < DH) tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 0);
+            mma_bf16_16816(o[0], fa, fb);
+        } else {
 #pragma unroll
-        for (int d = 0; d < DH / 8; ++d) {
-            uint32_t fb[2];
-            tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
-            mma_bf16_16816(o[d], fa, fb);
+            for (int d = 0; d < DH / 8; ++d) {
+                uint32_t fb[2];
+                tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
+                mma_bf16_16816(o[d], fa, fb);
+            }
         }
     }
 }
 
-// The lane's C fragments o of rows r0, r0 + 8 into a [..][DH] fp32 array.
+// The lane's C fragments o of rows r0, r0 + 8 into a [..][DH] fp32 array
+// (d_head 4: the n-tile's first 4 columns).
 template <int DH>
-__device__ __forceinline__ void store_sums(float* dst, int r0, const float (&o)[DH / 8][4]) {
+__device__ __forceinline__ void store_sums(float* dst, int r0, const float (&o)[o_tiles<DH>()][4]) {
     const int c = 2 * (threadIdx.x & 3);
+    if constexpr (DH < 8) {
+        if (c < DH) {
+            float* pp = dst + r0 * DH + c;
+            *reinterpret_cast<float2*>(pp) = make_float2(o[0][0], o[0][1]);
+            *reinterpret_cast<float2*>(pp + 8 * DH) = make_float2(o[0][2], o[0][3]);
+        }
+    } else {
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
-        float* pp = dst + r0 * DH + 8 * d + c;
-        *reinterpret_cast<float2*>(pp) = make_float2(o[d][0], o[d][1]);
-        *reinterpret_cast<float2*>(pp + 8 * DH) = make_float2(o[d][2], o[d][3]);
+        for (int d = 0; d < DH / 8; ++d) {
+            float* pp = dst + r0 * DH + 8 * d + c;
+            *reinterpret_cast<float2*>(pp) = make_float2(o[d][0], o[d][1]);
+            *reinterpret_cast<float2*>(pp + 8 * DH) = make_float2(o[d][2], o[d][3]);
+        }
     }
 }
 
@@ -1167,9 +1246,9 @@ __global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma(const Args a) {
         __syncthreads();  // the row sums written, V arrived
         TB_TRACE(0, 4);  // the row max, exp and sum, V
 
-        float o[DH / 8][4];
+        float o[o_tiles<DH>()][4];
 #pragma unroll
-        for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        for (int d = 0; d < o_tiles<DH>(); ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
         if (mine) {
             const float sum[2] = {srow[r0], srow[r0 + 8]};
             weights_times_v<DH, NJ>(o, z, rm, sum, vt0 + kt * TK * LD, 0);
@@ -1264,19 +1343,30 @@ __device__ __forceinline__ void pack_weights(uint32_t (&pa)[NJ / 2][4], const fl
 }
 
 // o += P V over the warp's NJ 8 keys for the W columns of a V slab vt
-// [..][LD] from row v0, P the packed weights of pack_weights.
+// [..][LD] from row v0, P the packed weights of pack_weights (W = 4: one
+// n-tile, the slab's columns past it read as zeros).
 template <int NJ, int W = CS>
-__device__ __forceinline__ void packed_times_v(float (&o)[W / 8][4], const uint32_t (&pa)[NJ / 2][4], const bf16* vt,
-                                               int v0) {
+__device__ __forceinline__ void packed_times_v(float (&o)[o_tiles<W>()][4], const uint32_t (&pa)[NJ / 2][4],
+                                               const bf16* vt, int v0) {
     constexpr int LD = kv_ld<W, bf16>();
+    if constexpr (W < 8) {
+        const bool nin = (int)((threadIdx.x & 31) >> 2) < W;
 #pragma unroll
-    for (int kk = 0; kk < NJ / 2; ++kk)
-#pragma unroll
-        for (int d = 0; d < W / 8; ++d) {
-            uint32_t fb[2];
-            tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
-            mma_bf16_16816(o[d], pa[kk], fb);
+        for (int kk = 0; kk < NJ / 2; ++kk) {
+            uint32_t fb[2] = {0u, 0u};
+            if (nin) tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 0);
+            mma_bf16_16816(o[0], pa[kk], fb);
         }
+    } else {
+#pragma unroll
+        for (int kk = 0; kk < NJ / 2; ++kk)
+#pragma unroll
+            for (int d = 0; d < W / 8; ++d) {
+                uint32_t fb[2];
+                tb_mma::load_b_kn(fb, vt, LD, v0 + 16 * kk, 8 * d);
+                mma_bf16_16816(o[d], pa[kk], fb);
+            }
+    }
 }
 
 template <int DH>
@@ -1486,7 +1576,11 @@ __global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma_long(const Args a) 
         for (int c0 = 0; c0 < DH; c0 += LW) {
             __syncthreads();
             stage_slab(K, r, c0);
-            if (mine) mma_logits_slab<NJ, LW>(z, qs, LDQ, c0, mt, sl + kt * TK * LDS, LDS, 0);
+            if constexpr (LW < 16) {  // d_head 8 and 4: the whole head in one slab, one m16n8k8 k-step
+                if (mine) mma_logits<DH, NJ>(z, qs, mt, sl + kt * TK * LDS, 0);
+            } else {
+                if (mine) mma_logits_slab<NJ, LW>(z, qs, LDQ, c0, mt, sl + kt * TK * LDS, LDS, 0);
+            }
         }
         if (mine) mask_logits<DH, NJ>(z, r0, tile * TK, bits, brs, 0, T, mx);
         return mine;
@@ -1522,9 +1616,9 @@ __global__ void __launch_bounds__(THREADS_L, 1) fwd_rows_mma_long(const Args a) 
     const float sum[2] = {srow[r0], srow[r0 + 8]};
 
     for (int c0 = 0; c0 < DH; c0 += LW) {  // a slab of output columns
-        float o[LW / 8][4];
+        float o[o_tiles<LW>()][4];
 #pragma unroll
-        for (int d = 0; d < LW / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        for (int d = 0; d < o_tiles<LW>(); ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
         for (int r = 0; r < n_round; ++r) {
             float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
             const bool mine = logits(r, mx);
@@ -1660,9 +1754,9 @@ __global__ void __launch_bounds__(THREADS_S, DH > 64 ? 1 : 4) fwd_cluster_mma(co
 
     // the halves' weighted sums, added in order into the rank's, then the
     // ranks' in rank order
-    float o[DH / 8][4];
+    float o[o_tiles<DH>()][4];
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    for (int d = 0; d < o_tiles<DH>(); ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
     if (live) {
         const float sum[2] = {gsum[r0], gsum[r0 + 8]};
         weights_times_v<DH, NJ>(o, z, rm, sum, vt, NJ * 8 * half);

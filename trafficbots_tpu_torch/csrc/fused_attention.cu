@@ -41,6 +41,8 @@ namespace {
 template <class KV>
 cudaError_t launch_dh(const tb_attn::Args& a, cudaStream_t st) {
     switch (a.D / a.H) {
+        case 4: return tb_attn::launch<4, KV, false, false>(a, st);
+        case 8: return tb_attn::launch<8, KV, false, false>(a, st);
         case 16: return tb_attn::launch<16, KV, false, false>(a, st);
         case 32: return tb_attn::launch<32, KV, false, false>(a, st);
         case 64: return tb_attn::launch<64, KV, false, false>(a, st);
@@ -51,6 +53,8 @@ cudaError_t launch_dh(const tb_attn::Args& a, cudaStream_t st) {
 
 cudaError_t launch_dh_bf16(const tb_attn::Args& a, cudaStream_t st) {
     switch (a.D / a.H) {
+        case 4: return tb_attn::launch_bf16<4>(a, st);
+        case 8: return tb_attn::launch_bf16<8>(a, st);
         case 16: return tb_attn::launch_bf16<16>(a, st);
         case 32: return tb_attn::launch_bf16<32>(a, st);
         case 64: return tb_attn::launch_bf16<64>(a, st);

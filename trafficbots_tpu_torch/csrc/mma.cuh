@@ -1,7 +1,7 @@
 // Hopper's warp-level tensor-core product for the bf16 kernels (K1-bf16 in
 // attn_fwd.cuh, K2-bf16 in node_layer.cuh): mma.sync m16n8k16 on bf16
 // operands with an fp32 accumulator, and the loads of its fragments from
-// shared memory.
+// shared memory; m16n8k8 for K1-bf16's logits at d_head 8 and 4 (below).
 //
 // A product of two bf16 values is exact in fp32, so a bf16 MMA with fp32
 // accumulation computes the Pallas kernels' `jnp.dot(..., preferred_element_
@@ -16,6 +16,9 @@
 //     the same columns; a[2], a[3] as a[0], a[1] at columns + 8;
 //   B (16 x 8, k x n): b[0] k rows 2t, 2t + 1 of column g; b[1] k rows + 8;
 //   C (16 x 8): c[0], c[1] row g, columns 2t, 2t + 1; c[2], c[3] row g + 8.
+// m16n8k8 (a k-step of 8, for heads narrower than 16): A (16 x 8) a[0]
+// row g, columns 2t, 2t + 1; a[1] row g + 8; B (8 x 8) b[0] k rows 2t,
+// 2t + 1 of column g; C as m16n8k16's.
 // The fragments load with plain 32-bit (A, and B stored n-major) or 16-bit
 // (B stored k-major) loads from shared memory: no ldmatrix.
 //
@@ -39,6 +42,14 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
         "{%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b: a 16 x 8 bf16, b 8 x 8 bf16, c 16 x 8 fp32 (m16n8k8 fragments above)
+__device__ __forceinline__ void mma_bf16_1688(float (&c)[4], const uint32_t (&a)[2], const uint32_t (&b)[1]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b[0]));
 }
 
 // lo and hi rounded to bf16 (to nearest even), lo in the lower half
@@ -81,6 +92,21 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[2], const __nv_bfloat16*
     const uint16_t* p = reinterpret_cast<const uint16_t*>(m) + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
     b[0] = (uint32_t)p[0] | (uint32_t)p[ld] << 16;
     b[1] = (uint32_t)p[8 * ld] | (uint32_t)p[9 * ld] << 16;
+}
+
+// The m16n8k8 A fragment of the 16 x 8 tile at (r0, k0) of a row-major
+// bf16 matrix (row stride ld, even), and the B fragment of the 8 x 8 tile
+// at (k0, n0) of B stored n-major (B[k][n] at m[n * ld + k]).
+__device__ __forceinline__ void load_a_k8(uint32_t (&a)[2], const __nv_bfloat16* m, int ld, int r0, int k0) {
+    const int lane = threadIdx.x & 31;
+    const __nv_bfloat16* p = m + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+    a[0] = ld32(p);
+    a[1] = ld32(p + 8 * ld);
+}
+
+__device__ __forceinline__ void load_b_nk_k8(uint32_t (&b)[1], const __nv_bfloat16* m, int ld, int k0, int n0) {
+    const int lane = threadIdx.x & 31;
+    b[0] = ld32(m + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3));
 }
 
 }  // namespace tb_mma

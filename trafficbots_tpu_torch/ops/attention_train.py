@@ -63,11 +63,12 @@ LAUNCHES_FWD_SKIP = 0
 LAUNCHES_BWD_SKIP = 0
 
 _KERNEL = "attention_train"
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are instantiated for
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)  # the head widths the kernels are instantiated for
 ROWS_PER_BLOCK = fused_attention.ROWS_PER_BLOCK  # the forward is K1's (csrc/attn_fwd.cuh)
 BWD_TILE = 64  # BT: keys of a backward tile, query rows of a dk/dv step
-DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks, up to d_head 64)
+DQ_ROWS = (16, 64)  # the dq kernel's query blocks (16 where 64 gives < 128 blocks, d_head 16 to 64)
 DQ_WIDE = 64  # past this d_head the dq kernel takes 64-row blocks only (the 16-row one's tiles do not fit)
+NARROW = 16  # below this d_head the backward takes its narrow kernels (64-row dq blocks, no dS tile)
 _PAD = 4  # PAD: floats after each transposed tile row
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use on sm_90
 _SHAPE_DROP_ARGS = ((ctypes.c_int,) * 5 + (ctypes.c_longlong,) * 2
@@ -119,8 +120,13 @@ def smem_bytes(T: int, d_head: int) -> int:
     (K1's blocks at fp32 K/V: path L's or S's, or path G's where path L's
     logits do not fit), the dq kernel's tiles at each query block it takes
     at this d_head, the dk/dv kernel's (the backward's do not grow with
-    T)."""
+    T); below d_head NARROW the narrow kernels' (their q, g, K and V tiles,
+    row statistics and the partials their warps add)."""
     wide = BWD_TILE + _PAD
+    if d_head < NARROW:
+        tiles = 4 * d_head * wide + 3 * BWD_TILE
+        return max(fused_attention.forward_smem_bytes(T, d_head, 4),
+                   4 * (tiles + 8 * BWD_TILE * d_head), 4 * (tiles + 2 * BWD_TILE * d_head))
 
     def dq(bq):
         return 2 * d_head * (bq + _PAD) + 3 * bq + 256 // (4 * bq) * (2 * d_head + bq) * wide

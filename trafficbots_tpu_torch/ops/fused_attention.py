@@ -67,7 +67,7 @@ LAUNCHES_BF16 = 0
 LAUNCHES_SKIP = 0
 
 _KERNEL = "fused_attention"
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 ROWS_PER_BLOCK = 32  # ROWS_L in csrc/attn_fwd.cuh: query rows of a large-site (path L) block
 KEY_TILE = 128  # TK: keys of a path-L tile and of a path-S cluster rank's slice
 KV_BUF_BYTES = 2 * KEY_TILE * 68 * 4  # KV_BUF_BYTES: path L double-buffers its K/V tiles up to this size
