@@ -46,8 +46,9 @@ its own lines:
      counting the softmax's exps (attn_bound);
   3b. the node kernels at the other widths they take (NODE_WIDTHS:
      (d_model, d_ff, n_head) = (256, 128, 4), (256, 256, 4), (128, 128, 2),
-     and at d_head 128 (256, 128, 2) and (128, 128, 1), for K2, K2-bf16
-     and K4, and (128, 128, 16) for K4) on the main fill's
+     at d_head 128 (256, 128, 2) and (128, 128, 1), and at hidden 64
+     (64, 128, 4) and (64, 64, 2), for K2, K2-bf16 and K4, and
+     (128, 128, 16) for K4) on the main fill's
      8 x 1024 x 20 polylines, each width its own draw: K2 within K2_TOL,
      K2-bf16 within its one-ulp nudge's gap, K4f within K4_TOL and K4b's
      gradients within K4_GRAD_RTOL of the plain version on the cotangent
@@ -154,8 +155,10 @@ its own lines:
   6e. the options the port once refused, at full width over HELD_STEPS
      steps: (a) other widths, the default fused node stack: at hidden 256
      (model.hidden_dim=256: d_model 256, d_ff 128, 4 heads), at 2 heads
-     of width 128, at hidden 256 with 2 heads (d_head 128) and at hidden
-     128 with 16 and 32 heads (d_head 8 and 4) each kernel site's route
+     of width 128, at hidden 256 with 2 heads (d_head 128), at hidden
+     128 with 16 and 32 heads (d_head 8 and 4), at hidden 64
+     (model.hidden_dim=64: d_ff 128, 4 heads) and at the tests/tiny.py
+     widths (d_model = d_ff = 64, 2 heads) each kernel site's route
      printed (the kernel, "raises" with the kernel's shape predicate's
      reason, or the plain version where the JAX package runs XLA; every
      K1, K3, K2 and K4 site must read "kernel"), an eval rollout (K1, K2 once) and a training step (K3,
@@ -311,8 +314,9 @@ builds K1-K5 and runs only phase 6d, with its JSON line and no last line.
 
     python3 chip_smoke.py --options
 
-builds K1-K6 (the node kernels also at d_model 256, d_ff 128) and runs
-only phase 6e, with its JSON line, the card line and the last line.
+builds K1-K6 (the node kernels also at the (d_model, d_ff) pairs (256,
+128), (64, 128) and (64, 64)) and runs only phase 6e, with its JSON line,
+the card line and the last line.
 
     python3 chip_smoke.py --long-map
 
@@ -334,6 +338,7 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -385,9 +390,11 @@ N_SCENE = 8  # scenes of the main path's batch
 N_ITER = 3  # timed rollouts
 N_TRAIN_ITER = 2  # timed training steps
 KERNEL_SOURCES = ("fused_attention", "node_encoder", "dropout", "attention_train", "node_encoder_train", "block_attn")
-# the node kernels' builds at the other widths that NODE_WIDTHS and the
-# options phase run (ops.node_encoder.build_defines: a library a width pair)
-WIDE_BUILDS = tuple((name, NE.build_defines(D, Fd)) for D, Fd in ((256, 128), (256, 256))
+# the node kernels' builds at the other width pairs that NODE_WIDTHS and
+# the options phase run (ops.node_encoder.build_defines: a library a width
+# pair)
+WIDE_PAIRS = ((256, 128), (64, 128), (64, 64), (256, 256))
+WIDE_BUILDS = tuple((name, NE.build_defines(D, Fd)) for D, Fd in WIDE_PAIRS
                     for name in ("node_encoder", "node_encoder_train"))
 P_DROP = 0.1  # ExperimentConfig's dropout rates, live in every training check
 # training kernels vs plain versions on the same inputs and seeds (K5's
@@ -1351,10 +1358,13 @@ def k4_reading(enc, x, valid, g, seed, graphs, usual, n_scene):
 
 
 # (d_model, d_ff, n_head) the node kernels take beside the default 128 x
-# 128 at 4 heads, on the main fill's inputs: K2, K2-bf16 and K4 at the
-# first three (the first is the single override model.hidden_dim=256, the
-# reference's own interpolated width), K4 also at the last (16 heads)
-NODE_WIDTHS = ((256, 128, 4), (256, 256, 4), (128, 128, 2), (128, 128, 16), (256, 128, 2), (128, 128, 1))
+# 128 at 4 heads, on the main fill's inputs: K2, K2-bf16 and K4 at each
+# but (128, 128, 16), which runs K4 alone (the first is the single
+# override model.hidden_dim=256, the reference's own interpolated width;
+# the last two the override model.hidden_dim=64 and the tests/tiny.py
+# widths)
+NODE_WIDTHS = ((256, 128, 4), (256, 256, 4), (128, 128, 2), (128, 128, 16), (256, 128, 2), (128, 128, 1),
+               (64, 128, 4), (64, 64, 2))
 
 
 def check_node_widths(dev, batch) -> dict:
@@ -3481,15 +3491,21 @@ REMAT_POLICIES = ("none", "save_attn", "save_core")
 WIDTHS_HELD_STEPS = 20
 
 
-def widths_config(cfg: ExperimentConfig, hidden: int, n_head: int, impl: str = "fused") -> ExperimentConfig:
+def widths_config(cfg: ExperimentConfig, hidden: int, n_head: int, impl: str = "fused",
+                  d_ff: Optional[int] = None) -> ExperimentConfig:
     """cfg at other widths, over WIDTHS_HELD_STEPS steps, with the default fused
     node stack (K2 in eval, K4 in training; `impl="hybrid"` for K6): as
     the override `model.hidden_dim=...` does, d_model follows hidden_dim
-    and d_feedforward stays 128 (hidden 256: D = 256, F = 128)."""
-    tf = dataclasses.replace(cfg.model.tf_cfg, d_model=hidden, n_head=n_head)
+    and d_feedforward stays 128 (hidden 256: D = 256, F = 128) unless
+    `d_ff` sets it. pe_dim is at most hidden - 32 (the input encoders'
+    attribute MLP is hidden - pe_dim wide, at least 32 in the JAX package
+    too): 32 at hidden 64, as the README's TINY line sets it."""
+    tf = dataclasses.replace(cfg.model.tf_cfg, d_model=hidden, n_head=n_head,
+                             d_feedforward=cfg.model.tf_cfg.d_feedforward if d_ff is None else d_ff)
     me = dataclasses.replace(cfg.model.map_encoder, node_encoder_impl=impl)
-    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_dim=hidden, tf_cfg=tf, map_encoder=me),
-                               time_step_end=WIDTHS_HELD_STEPS)
+    m = dataclasses.replace(cfg.model, hidden_dim=hidden, pe_dim=min(cfg.model.pe_dim, hidden - 32), tf_cfg=tf,
+                            map_encoder=me)
+    return dataclasses.replace(cfg, model=m, time_step_end=WIDTHS_HELD_STEPS)
 
 
 def site_routes(cfg: ExperimentConfig, what: str) -> dict:
@@ -3634,11 +3650,23 @@ def remat_policies(cfg, batch, dev) -> dict:
     return out
 
 
+# the options phase's widths: (name, hidden_dim, n_head, d_feedforward)
+OPTION_WIDTHS = (("hidden256", 256, 4, 128), ("heads2", 128, 2, 128), ("hidden256_heads2", 256, 2, 128),
+                 ("heads16", 128, 16, 128), ("heads32", 128, 32, 128), ("hidden64", 64, 4, 128),
+                 ("tiny_widths", 64, 2, 64))
+# the node kernels' builds the options phase runs beside the default 128 x 128
+OPTION_BUILDS = tuple(dict.fromkeys((name, NE.build_defines(D, Fd)) for _, D, _, Fd in OPTION_WIDTHS
+                                    if (D, Fd) != (NE.KERNEL_D, NE.KERNEL_D)
+                                    for name in ("node_encoder", "node_encoder_train")))
+
+
 def options_path(cfg, batch, dev) -> dict:
-    """(a) Other widths, the default fused node stack: at hidden 256 (the
-    override `model.hidden_dim=256`: D = 256, F = 128, 4 heads), at 2
-    heads of width 128, at hidden 256 with 2 heads (d_head 128) and at
-    hidden 128 with 16 and 32 heads (d_head 8 and 4), an eval rollout (K1,
+    """(a) Other widths (OPTION_WIDTHS), the default fused node stack: at
+    hidden 256 (the override `model.hidden_dim=256`: D = 256, F = 128, 4
+    heads), at 2 heads of width 128, at hidden 256 with 2 heads (d_head
+    128), at hidden 128 with 16 and 32 heads (d_head 8 and 4), at hidden
+    64 (the override `model.hidden_dim=64`: D = 64, F = 128, 4 heads) and
+    at the tests/tiny.py widths (D = F = 64, 2 heads), an eval rollout (K1,
     K2) and a training step (K3, K4, K5), each site's route printed (every
     K1, K3, K2 and K4 site "kernel"), each run held against the plain
     versions (the evals over WIDTHS_HELD_STEPS); at hidden 256 one hybrid
@@ -3649,11 +3677,10 @@ def options_path(cfg, batch, dev) -> dict:
     pool and the generic node stack. (c) The remat policies."""
     t0 = time.perf_counter()
     out = dict(widths={}, structure={}, map_encodes={})
-    for name, hidden, n_head in (("hidden256", 256, 4), ("heads2", 128, 2), ("hidden256_heads2", 256, 2),
-                                 ("heads16", 128, 16), ("heads32", 128, 32)):
+    for name, hidden, n_head, d_ff in OPTION_WIDTHS:
         t0_width = time.perf_counter()
-        c = widths_config(cfg, hidden, n_head)
-        what = f"hidden {hidden}, {n_head} heads"
+        c = widths_config(cfg, hidden, n_head, d_ff=d_ff)
+        what = f"hidden {hidden}, {n_head} heads, d_ff {d_ff}"
         r = out["widths"][name] = dict(routes=site_routes(c, what))
         # every K1, K3, K2 and K4 site takes its kernel
         require(all(route == "kernel" for route in r["routes"].values()),
@@ -3940,7 +3967,7 @@ def main():
              ("--node",): ("node_encoder", "node_encoder_train", "block_attn") + WIDE_BUILDS,
              ("--cli",): KERNEL_SOURCES, ("--ablations",): KERNEL_SOURCES, ("--dp",): DP_KERNELS,
              ("--media",): ("fused_attention", "node_encoder"), ("--augment",): DP_KERNELS,
-             ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS, ("--options",): KERNEL_SOURCES + WIDE_BUILDS[:2],
+             ("--bf16",): KERNEL_SOURCES, ("--row-skip",): DP_KERNELS, ("--options",): KERNEL_SOURCES + OPTION_BUILDS,
              ("--long-map",): DP_KERNELS}
     mode = tuple(sys.argv[1:])
     if mode not in modes:

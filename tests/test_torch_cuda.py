@@ -224,10 +224,13 @@ def test_k2_kernel_matches_plain(cuda, N):
 # (d_model, d_ff, n_head) the node kernels take beside the default
 # 128 x 128 at 4 heads: a width of 256 (d_head 64, two threads a (head,
 # row)), the FFN rectangular both ways, 2 heads (d_head 64) and 16 heads
-# (d_head 8) at 128, and d_head 128 (four threads a (head, row)) at 256 x
-# 128 with 2 heads and at 128 x 128 with 1
+# (d_head 8) at 128, d_head 128 (four threads a (head, row)) at 256 x
+# 128 with 2 heads and at 128 x 128 with 1, and widths that are not
+# multiples of 128: the tests/tiny.py widths (64, 64, 2), (96, 160, 4)
+# (a 64- and a 32-column pass after a whole one, 32 x 32 dW tiles) and
+# (32, 64, 2) (products over one 32-row k-tile of W)
 OTHER_WIDTHS = [(256, 128, 4), (256, 256, 4), (128, 256, 4), (128, 128, 2), (128, 128, 16), (256, 128, 2),
-                (128, 128, 1)]
+                (128, 128, 1), (64, 64, 2), (96, 160, 4), (32, 64, 2)]
 
 
 def wide_encoder(D, Fd, H, seed=1):

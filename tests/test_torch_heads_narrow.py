@@ -17,12 +17,14 @@ plain versions are held against JAX's:
 - an eval rollout (`orchestration.eval_rollout`, the posterior latent, GT
   goals) of the tests/tiny.py model at hidden 64 with 16 heads (d_head 4
   in every attention and in the node stack) against JAX's
-  `reactive_replay` under one jit on the JAX params loaded into the port.
+  `reactive_replay` under one jit on the JAX params loaded into the port,
+  at batch seeds 3 and 5.
 
 Tolerances are tests/test_torch_heads128.py's: the attention cores atol =
 rtol = 1e-5 (fp32, the sums in another order; the bf16 function within a
 relative norm error of 1e-4); the rollout's booleans exactly, its preds
-within 1e-4 m over its 20 steps (10 teacher-forced, 10 closed-loop).
+within 1e-4 m over its 20 steps (10 teacher-forced, 10 closed-loop) at
+seed 3, and at seed 5 within the gap a one-ulp map nudge opens in JAX.
 """
 import dataclasses
 
@@ -104,14 +106,16 @@ def test_k3_plain_matches_jax_kernels_at_narrow_heads(D, H):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=f"d{name}", **TOL)
 
 
-def test_eval_rollout_at_hidden_64_with_16_heads_matches_jax():
-    """The tiny model at hidden 64 with 16 heads (d_head 4 in the
-    attention layers and the node stack), 20 steps."""
+@pytest.fixture(scope="module")
+def hidden_64_16_heads():
+    """The tiny model at hidden 64 with 16 heads (d_head 4 in the attention
+    layers and the node stack), 20 steps: its config, the JAX params
+    loaded into the port's model, and JAX's eval program under one
+    jax.jit, compiled once for every batch seed."""
     cfg = tiny_config(n_step=21, time_step_end=20)
     tf = dataclasses.replace(cfg.model.tf_cfg, d_model=64, n_head=16)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_dim=64, tf_cfg=tf))
-    batch = tiny_batch(cfg, n_scene=2, seed=3)
-    jm, params = JO.init_params(cfg, jax.random.PRNGKey(0), batch)
+    jm, params = JO.init_params(cfg, jax.random.PRNGKey(0), tiny_batch(cfg, n_scene=2, seed=3))
     tmodel = TO.make_model(cfg, device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
     assert tmodel.map_encoder.densetnt.n_head == 16 and tmodel.map_encoder.densetnt.d_model == 64
@@ -125,9 +129,31 @@ def test_eval_rollout_at_hidden_64_with_16_heads_matches_jax():
         return JO.reactive_replay(cfg, jm, params, pb, feats["input"], latent, goal, goal_valid, mask_tf,
                                   jax.random.PRNGKey(1), deterministic_latent=True, deterministic_action=True)
 
-    jbuf = jax.jit(ev)(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    fn = jax.jit(ev)
+    return cfg, tmodel, lambda b: fn(params, {k: jnp.asarray(v) for k, v in b.items()})
+
+
+@pytest.mark.parametrize("seed", [3, 5])
+def test_eval_rollout_at_hidden_64_with_16_heads_matches_jax(hidden_64_16_heads, seed, record_property):
+    """Booleans exactly, at both batch seeds. The preds: at seed 3 within
+    1e-4 m; at seed 5 within the gap that a one-ulp `map/pos` nudge opens
+    in JAX itself (its closed loop drifts past 1e-4 m there: 1.96e-4 m
+    against the nudge's 2.12e-4 m, on the CPU), both recorded beside the
+    hold."""
+    cfg, tmodel, jax_eval = hidden_64_16_heads
+    batch = tiny_batch(cfg, n_scene=2, seed=seed)
+    jbuf = jax_eval(batch)
+    jbuf_nudged = jax_eval(dict(batch, **{"map/pos": np.nextafter(batch["map/pos"], np.float32(np.inf))}))
     tbuf = TO.eval_rollout(cfg, tmodel, batch, device="cpu")
     assert tbuf.preds.shape == (2, 4, 20, 4) and np.isfinite(tbuf.preds.numpy()).all()
     np.testing.assert_array_equal(tbuf.valid.numpy(), np.asarray(jbuf.valid))
     np.testing.assert_array_equal(tbuf.override_masks.numpy(), np.asarray(jbuf.override_masks))
-    np.testing.assert_allclose(tbuf.preds.numpy(), np.asarray(jbuf.preds), atol=1e-4, rtol=0)
+    jp = np.asarray(jbuf.preds)
+    gap = float(np.abs(tbuf.preds.numpy() - jp).max())
+    nudge = float(np.abs(np.asarray(jbuf_nudged.preds) - jp).max())
+    record_property("preds_max_abs_diff_m", gap)
+    record_property("jax_preds_one_ulp_map_nudge_m", nudge)
+    if seed == 3:
+        np.testing.assert_allclose(tbuf.preds.numpy(), jp, atol=1e-4, rtol=0)
+    else:
+        assert gap <= nudge, (gap, nudge)

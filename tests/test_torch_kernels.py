@@ -101,9 +101,11 @@ def test_k1_wrapper_on_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("n_head,d_model,d_ff", [pytest.param(2, 64, 64, id="2"), pytest.param(4, 64, 64, id="4"),
-                                                 pytest.param(2, 32, 64, id="2-d32-f64")])
+                                                 pytest.param(2, 32, 64, id="2-d32-f64"),
+                                                 pytest.param(4, 96, 160, id="4-d96-f160")])
 def test_k2_plain_matches_jax_kernel_interpret(n_head, d_model, d_ff):
-    """The last case: a rectangular FFN (w1 [32, 64], w2 [64, 32])."""
+    """The last two cases: a rectangular FFN (w1 [32, 64], w2 [64, 32]),
+    and widths that are not powers of two (d_model 96, d_ff 160)."""
     x, valid = _node_inputs(D=d_model)
     D = x.shape[-1]
     jmod = JNodeEncoder(d_model=D, n_head=n_head, n_layer=3, d_feedforward=d_ff, dropout_p=0.0, pipeline_blocks=2)

@@ -11,7 +11,9 @@ under `jax.grad`, fed the port's per-polyline masks on the block diagonal
 of its [G, L, H, R, R] layout. Tolerance: atol = rtol = 1e-5 on the
 forward; 2e-5 on the gradients (three layers of 16-wide sums over 16
 polylines, in another order). Both also at a rectangular FFN (d_model 32,
-d_ff 64, 2 heads: w1 [32, 64], w2 [64, 32], the hidden's mask [.., 64]).
+d_ff 64, 2 heads: w1 [32, 64], w2 [64, 32], the hidden's mask [.., 64]),
+and at p = 0 at (d_model, d_ff, n_head) = (96, 160, 4), widths that are
+not powers of two (the kernels' passes of 64 and 32 columns).
 """
 import numpy as np
 import pytest
@@ -30,11 +32,12 @@ from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 D, H, L, N, BP, BLK = 16, 2, 3, 5, 16, 8
 RECT = (32, 64)  # d_model, d_ff of the rectangular case
+ODD = (96, 160, 4)  # d_model, d_ff, n_head of the case at widths that are not powers of two
 TOL = dict(atol=1e-5, rtol=1e-5)
 GTOL = dict(atol=2e-5, rtol=2e-5)
 
 
-def make_case(D=D, Fd=D):
+def make_case(D=D, Fd=D, H=H):
     rs = np.random.RandomState(0)
     x = rs.normal(size=(BP, N, D)).astype(np.float32)
     valid = rs.rand(BP, N) < 0.8
@@ -60,6 +63,11 @@ def case():
 @pytest.fixture(scope="module")
 def rect_case():
     return make_case(*RECT)
+
+
+@pytest.fixture(scope="module")
+def odd_case():
+    return make_case(*ODD)
 
 
 def port(case, p, seed):
@@ -105,11 +113,16 @@ def test_plain_matches_jax_kernels_at_p0_rectangular(rect_case):
     check_p0(rect_case)
 
 
+def test_plain_matches_jax_kernels_at_p0_at_96x160(odd_case):
+    check_p0(odd_case)
+
+
 def check_p0(case):
     vf = jnp.asarray(case["valid"].astype(np.float32)[..., None])
+    heads = case["tmod"].n_head
 
     def fwd(x, weights):
-        return jnt.node_encoder_train_pooled(x, vf, weights, jnp.zeros((), jnp.int32), L, H, BLK, 0.0, True)
+        return jnt.node_encoder_train_pooled(x, vf, weights, jnp.zeros((), jnp.int32), L, heads, BLK, 0.0, True)
 
     _, dx = check(case, fwd, 0.0, 0)
     np.testing.assert_array_equal(dx[1, 2], dx[1, 3])  # the tied nodes share the cotangent

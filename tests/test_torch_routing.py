@@ -255,16 +255,16 @@ def test_k2_and_k4_predicates_are_their_checks():
     for N in (1, 20, 32, 33):
         for D, Fd, H in ((128, 128, 4), (128, 128, 8), (128, 128, 16), (128, 128, 2), (256, 256, 4), (128, 256, 4),
                          (256, 128, 4), (256, 128, 2), (256, 128, 1), (128, 128, 1), (512, 512, 8), (128, 128, 3),
-                         (128, 128, 64)):
+                         (128, 128, 64), (64, 64, 2), (64, 128, 4), (96, 160, 4), (48, 48, 4), (288, 128, 4)):
             enc = K2.FusedNodeEncoder(D, H, 1, Fd).to("meta")
             x, valid = meta(8, N, D), meta(8, N, dtype=torch.bool)
             assert_predicate_matches_check(K2.kernel_refusal(N, D, Fd, H), lambda: enc._check_inputs(x, valid),
                                            "CUDA device")
             assert_predicate_matches_check(K4.kernel_refusal(N, D, Fd, H), lambda: K4._check_inputs(enc, x, valid),
                                            "CUDA device")
-    # every (d_model, d_ff) in {128, 256}^2 with d_head a multiple of 4 from 4 to 128, 1..32 nodes
-    for D in (128, 256):
-        for Fd in (128, 256):
+    # every d_model and d_ff a multiple of 32 from 32 to 256, d_head a multiple of 4 from 4 to 128, 1..32 nodes
+    for D in range(32, 257, 32):
+        for Fd in range(32, 257, 32):
             for H in range(1, 129):
                 dh_ok = D % H == 0 and (D // H) % 4 == 0 and 4 <= D // H <= 128
                 for N in (1, 20, 32, 33):
@@ -275,7 +275,10 @@ def test_k2_and_k4_predicates_are_their_checks():
     assert K2.kernel_refusal(20, 256, 128, 2) is None and K4.kernel_refusal(20, 256, 128, 2) is None  # d_head 128
     assert K2.kernel_refusal(20, 128, 128, 1) is None and K4.kernel_refusal(20, 128, 128, 1) is None
     assert K2.kernel_refusal(20, 256, 128, 1) and K4.kernel_refusal(20, 256, 256, 1)  # d_head 256
-    assert K2.kernel_refusal(20, 512, 512, 8) and K4.kernel_refusal(20, 128, 64, 4)  # widths past the builds'
+    assert K2.kernel_refusal(20, 64, 64, 2) is None and K4.kernel_refusal(20, 64, 128, 4) is None  # hidden 64
+    assert K4.kernel_refusal(20, 128, 64, 4) is None and K2.kernel_refusal(20, 96, 160, 4) is None
+    for D, Fd in ((512, 512), (288, 128), (128, 288), (48, 128), (128, 48)):  # past 256; not a multiple of 32
+        assert K2.kernel_refusal(20, D, Fd, 4) and K4.kernel_refusal(20, D, Fd, 4), (D, Fd)
     assert K4.kernel_refusal(20, 128, 128, 64)  # d_head 2
 
 

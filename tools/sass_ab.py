@@ -6,14 +6,16 @@ code, kernel by kernel.
 Each ROOT is the root of a checkout (this one, or an older commit unpacked
 with `git archive` into a directory that .gitignore lists). For each SOURCE
 (a name under trafficbots_tpu_torch/csrc/, by default fused_attention and
-attention_train), both trees' .cu files are built with the repo's nvcc flags
-(`ops.cuda_build.NVCC_FLAGS`, sm_90a) and disassembled (`cuobjdump -sass`);
-each kernel (function) that both hold is compared instruction for
-instruction (a kernel in an anonymous namespace by its name without the
-namespace's per-file tag). Prints one JSON line a source: the kernels that are the same,
-those that differ, and those that only one tree holds (a new instantiation
-shows there), with the card's name and power limit; exits 1 if a kernel of
-both trees differs. Needs nvcc and cuobjdump (the machine with the card).
+attention_train; `name@DxF` builds a node kernel's source at d_model D and
+d_ff F, `ops.node_encoder.build_defines`), both trees' .cu files are built
+with the repo's nvcc flags (`ops.cuda_build.NVCC_FLAGS`, sm_90a) and
+disassembled (`cuobjdump -sass`); each kernel (function) that both hold
+is compared instruction for instruction (a kernel in an anonymous
+namespace by its name without the namespace's per-file tag). Prints one
+JSON line a source: the kernels that are the same, those that differ
+(each with its first differing instruction), and those that only one tree
+holds (a new instantiation shows there), with the card's name and power
+limit; exits 1 if a kernel of both trees differs. Needs nvcc and cuobjdump (the machine with the card).
 """
 from __future__ import annotations
 
@@ -27,13 +29,17 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from trafficbots_tpu_torch.ops import cuda_build  # noqa: E402
+from trafficbots_tpu_torch.ops.node_encoder import build_defines  # noqa: E402
 
 
-def build(root: Path, name: str, out_dir: Path) -> tuple:
-    """(the library's path, the nvcc process building root's csrc/<name>.cu into it)."""
-    lib = out_dir / f"{abs(hash(str(root)))}-{name}.so"
+def build(root: Path, spec: str, out_dir: Path) -> tuple:
+    """(the library's path, the nvcc process building root's csrc/<name>.cu
+    into it), spec `name` or `name@DxF` (the node kernels' widths)."""
+    name, _, widths = spec.partition("@")
+    defines = build_defines(*map(int, widths.split("x"))) if widths else ()
+    lib = out_dir / f"{abs(hash(str(root)))}-{spec}.so"
     src = root / "trafficbots_tpu_torch" / "csrc" / f"{name}.cu"
-    return lib, subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)])
+    return lib, subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-o", str(lib), str(src)])
 
 
 def kernels(lib: Path) -> dict:
@@ -66,7 +72,9 @@ def main() -> None:
             both = sorted(set(a) & set(b))
             diff = [f for f in both if a[f] != b[f]]
             differ |= bool(diff)
-            print(json.dumps({"source": name, "same": len(both) - len(diff), "differ": diff,
+            first = {f: next([i, x, y] for i, (x, y) in enumerate(zip(a[f] + [""], b[f] + [""])) if x != y)
+                     for f in diff}  # the first instruction that differs, and its index
+            print(json.dumps({"source": name, "same": len(both) - len(diff), "differ": diff, "first_difference": first,
                               "only_old": sorted(set(a) - set(b)), "only_new": sorted(set(b) - set(a)),
                               "card": card}), flush=True)
     sys.exit(1 if differ else 0)

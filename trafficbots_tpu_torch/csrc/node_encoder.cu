@@ -4,8 +4,9 @@
 // Replaces: trafficbots_tpu/ops/node_encoder.py,
 // FusedNodeEncoder.encode_pooled -> _node_kernel / _node_kernel_body (the
 // Pallas TPU kernel). Same function, per polyline of N <= 32 nodes and
-// n_layer pre-norm layers with d_model D and d_ff F (128 or 256 each, the
-// build's; node_layer.cuh) and d_head = D / H a multiple of 4 from 4 to 128:
+// n_layer pre-norm layers with d_model D and d_ff F (each a multiple of 32
+// from 32 to 256, the build's; node_layer.cuh) and d_head = D / H a
+// multiple of 4 from 4 to 128:
 //   q = LN1(x) Wq + bq;  k, v = LN_tgt(x0) Wk|Wv + b   (x0 = layer-0 input)
 //   a = softmax(q_h k_hᵀ / sqrt(dh), padded nodes masked) v_h per head;
 //       a polyline without a valid node runs unmasked and a is zeroed
@@ -65,7 +66,7 @@ using namespace tb_node;
 constexpr int NBUF = 5;  // x, t, q/a/hidden, k, v
 constexpr size_t RING_BYTES = sizeof(float) * ring_floats<3>() > (size_t)MMA_BYTES ? sizeof(float) * ring_floats<3>()
                                                                                     : (size_t)MMA_BYTES;
-// rows (valid nodes) a block holds: 64 at D = F = 128, 32 at a width of
+// rows (valid nodes) a block holds: 64 at a width of 128 or less, 32 at
 // 256 (K2 and K2-bf16 alike)
 constexpr int ROWS = rows_fit(NBUF * LDS, RING_BYTES + sizeof(Block), RCAP);
 // the row buffers, then the weight ring (K2) or dense_mma's bf16 rows and weight (K2-bf16)

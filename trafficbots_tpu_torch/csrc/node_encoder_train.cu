@@ -25,10 +25,10 @@
 // that K4b differentiates is the one K4f ran, to the bit, and the max-pool
 // argmax K4b recomputes is the one K4f chose. K4f writes only each
 // polyline's pooled row (-1e30 for a polyline without a valid node). The
-// widths are the build's (node_layer.cuh: d_model D and d_ff F, 128 or 256
-// each) and the heads a runtime argument (d_head a multiple of 4 from 4 to
-// 128; two threads a (head, row) in the attention and its backward past
-// d_head 32, four past 64). With
+// widths are the build's (node_layer.cuh: d_model D and d_ff F, each a
+// multiple of 32 from 32 to 256) and the heads a runtime argument (d_head
+// a multiple of 4 from 4 to 128; two threads a (head, row) in the
+// attention and its backward past d_head 32, four past 64). With
 // dropout off it is K2 (every factor exactly 1.0): its output is K2's to
 // the bit. The first K4f (one polyline a 256-thread block, every weight
 // read from L2 by __ldg for each of 6 products a layer and each polyline,
@@ -63,8 +63,8 @@
 //      gradients added into the block's own slice in group order; dx;
 //   5. dw: the 18 weight products dW = Aᵀ B (and the bias gradients, the
 //      column sums of B) over all valid rows, as a fixed-order split-K
-//      fp32 product: block (product, split) sums its rows in order into
-//      its own partial;
+//      fp32 product: block (product, tile, split) sums its rows in order
+//      into its own partial;
 //   6. reduce: the partials and the slices summed in a fixed order.
 // No float atomics: dx and every gradient are bitwise the same run to run.
 // All-padding polylines contribute exactly 0 (their pooled cotangent is 0)
@@ -89,7 +89,9 @@
 // At a width of 256 (D or F) the row buffers' stride is 260: a group holds
 // 32 rows (one 20-node polyline), K4f's five buffers and ring take 212 KB,
 // and the walk keeps five buffers in shared memory and dx0 in dx's own
-// rows in device memory (six buffers at 128, dx0 among them).
+// rows in device memory (six buffers at a width of 128 or less, dx0
+// among them). Where D or F is not a multiple of 128, the dW products run
+// in square tiles of 64 or 32 (dw_tile_kernel) instead of 128.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -310,11 +312,15 @@ constexpr int NSPLIT = 14;   // splits of the rows in the dW products: 18 x 14 b
 constexpr int RC = 32;       // rows a stage of the dW products
 constexpr int NKIND = 6;     // weight matrices a layer: q, k, v, o, 1, 2
 // the walk keeps the cotangent dx0 of x0 in shared memory at a width of
-// 128, and in dx's own rows in device memory at 256 (its buffers' rows
-// are twice as long there)
-constexpr bool DX0_SHARED = MW == 128;
+// 128 or less, and in dx's own rows in device memory past 128 (its
+// buffers' rows are up to twice as long there)
+constexpr bool DX0_SHARED = MW <= 128;
 constexpr int NBUF_W = DX0_SHARED ? 6 : 5;  // the walk's row buffers: g, [dx0,] a1 .. a4
-constexpr int TMAX = (MW / CW) * (MW / CW);   // 128 x 128 tiles of a dW product at most
+// the side of a dW product's square tiles: 128 where both widths are
+// multiples of 128 (dw_kernel), else the larger of 64 and 32 that divides
+// both (dw_tile_kernel)
+constexpr int TW = D % CW == 0 && F % CW == 0 ? CW : D % 64 == 0 && F % 64 == 0 ? 64 : 32;
+constexpr int TMAX = (MW / TW) * (MW / TW);  // tiles of a dW product at most
 constexpr size_t DW_SMEM = sizeof(float) * 2 * 2 * RC * CW;  // two stages of A and B rows
 
 // The rows a group holds, whatever the heads: the most that the save
@@ -947,6 +953,72 @@ __global__ void __launch_bounds__(NTS) dw_kernel(Scratch sc, Shape sh) {
     }
 }
 
+// dw_kernel's products and bias sums where the widths are not multiples
+// of 128: one TWT x TWT tile (TWT = 64 or 32) a block, thread (ti, tj)
+// owning rows TR ti .. TR ti + TR - 1 (TR = TWT^2 / 4 / NTS: 4 or 1) x
+// columns 4 tj .. 4 tj + 3 of it; the rows of the split summed in order.
+template <int TWT>
+__global__ void __launch_bounds__(NTS) dw_tile_kernel(Scratch sc, Shape sh) {
+    constexpr int TC = TWT / 4, TR = TWT * TWT / 4 / NTS;  // float4 columns of a tile, rows of a thread
+    extern __shared__ float4 smem4[];
+    float* stg = reinterpret_cast<float*>(smem4);  // [2 stages][A, B][RC][TWT]
+    const int L = sh.L, m = blockIdx.x / TMAX, tile = blockIdx.x % TMAX, split = blockIdx.y;
+    const int l = m / NKIND, kind = m % NKIND, aw = rows_of(kind), bw = cols_of(kind), ntb = bw / TWT;
+    if (tile >= (aw / TWT) * ntb) return;
+    const int ta = tile / ntb, tb = tile % ntb;
+    const long long total = sc.off[sh.G];
+    const long long r0 = total * split / NSPLIT, r1 = total * (split + 1) / NSPLIT;
+    const float* A = sc.t(l, A_OF[kind]) + ta * TWT;
+    const float* B = sc.t(l, B_OF[kind]) + tb * TWT;
+    const int ti = threadIdx.x / TC, tj = threadIdx.x % TC;
+    auto stage = [&](long long c, int st) {
+        const int n = (int)min((long long)RC, r1 - c);
+        float* sa = stg + st * 2 * RC * TWT;
+        float* sb = sa + RC * TWT;
+        for (int e = threadIdx.x; e < n * TC; e += NTS) {
+            const int r = e / TC, cc = 4 * (e % TC);
+            cp_async16(sa + r * TWT + cc, A + (c + r) * aw + cc);
+            cp_async16(sb + r * TWT + cc, B + (c + r) * bw + cc);
+        }
+    };
+    float acc[TR][4], bs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    if (r0 < r1) stage(r0, 0);
+    cp_async_commit();
+    int st = 0;
+    for (long long c = r0; c < r1; c += RC, st ^= 1) {
+        if (c + RC < r1) stage(c + RC, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // this stage landed for every thread
+        const float* sa = stg + st * 2 * RC * TWT;
+        const float* sb = sa + RC * TWT;
+        const int n = (int)min((long long)RC, r1 - c);
+        for (int r = 0; r < n; ++r) {
+            const float4 b = *reinterpret_cast<const float4*>(sb + r * TWT + 4 * tj);
+            const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int i = 0; i < TR; ++i) {
+                const float a = sa[r * TWT + TR * ti + i];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+            }
+            if (ti == 0)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) bs[j] += bv[j];
+        }
+        __syncthreads();  // this stage is free for the load after next
+    }
+    float* out = sc.part + ((long long)split * L + l) * LMS + koff(kind) + (long long)ta * TWT * bw + tb * TWT;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) store4(out + (TR * ti + i) * bw + 4 * tj, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (ti == 0 && ta == 0)
+        store4(sc.bpart + ((long long)split * L + l) * LBS + boff(kind) + tb * TWT + 4 * tj, bs[0], bs[1], bs[2], bs[3]);
+}
+
 // dw (the flat gradient of the 18 arrays, W_NAMES order) = the partials
 // (matrices, biases) and the walk blocks' slices (LayerNorms), each summed
 // in a fixed order
@@ -1036,10 +1108,16 @@ int launch_bwd(const void* x, const void* valid, const void* g, void* dx, void* 
                                                     static_cast<float*>(dx), sh, ws, drop, sc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
-    if (err != cudaSuccess) return (int)err;
     const dim3 grid_dw(NKIND * L * TMAX, NSPLIT);
-    dw_kernel<<<grid_dw, NTS, DW_SMEM, st>>>(sc, sh);
+    if constexpr (TW == CW) {
+        err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        dw_kernel<<<grid_dw, NTS, DW_SMEM, st>>>(sc, sh);
+    } else {
+        err = cudaFuncSetAttribute(dw_tile_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        dw_tile_kernel<TW><<<grid_dw, NTS, DW_SMEM, st>>>(sc, sh);
+    }
     reduce_kernel<<<(int)((n_params(L) + NTS - 1) / NTS), NTS, 0, st>>>(sc, sh, static_cast<float*>(dw));
     return (int)cudaGetLastError();
 }

@@ -2,11 +2,12 @@
 // (node_encoder.cu, eval) and K4b's forward (node_encoder_train.cu).
 //
 // Widths. d_model D and d_feedforward F are compile-time constants of a
-// build, 128 or 256 each (-DTB_NODE_D=..., -DTB_NODE_F=...; 128 when
-// unset): ops/cuda_build.py builds one library a width pair at its first
-// use, so a call compiles only the widths it runs. The heads are a runtime
-// argument, any H with d_head = D / H a multiple of 4 from 4 to 128
-// (heads_ok). Every row buffer has the stride LDS = max(D, F) + 4.
+// build, each a multiple of 32 from 32 to 256 (-DTB_NODE_D=...,
+// -DTB_NODE_F=...; 128 when unset): ops/cuda_build.py builds one library a
+// width pair at its first use, so a call compiles only the widths it runs.
+// The heads are a runtime argument, any H with d_head = D / H a multiple
+// of 4 from 4 to 128 (heads_ok). Every row buffer has the stride
+// LDS = max(D, F) + 4.
 //
 // A block holds the valid nodes of a group of P consecutive polylines as
 // the rows of shared [rows, LDS] fp32 buffers (P N <= rows <= RCAP; each
@@ -15,14 +16,16 @@
 // never moves a valid node: compaction changes no bit of a valid row) and
 // all-padding polylines skipped. The per-node products run as
 //   out = epilogue(in @ W),  W [DIN, DOUT]
-// over the block's R rows, in passes of CW = 128 output columns: a pass
-// streams its [DIN, 128] column block of W through shared memory in
-// k-tiles of 32 rows, two or three in flight by cp.async, and each of a
-// block's 512 threads keeps a register tile of up to 4 rows x 4 columns
-// (warp w owns columns 16 (w % 8) .., lane (rg, cg) rows 8 (w / 8) + rg,
-// + 16, ... and columns 16 (w % 8) + 4 cg ..). A 4-deep k slice costs a
-// thread one float4 of W per k and one float4 of each of its rows, for 16
-// FMAs a row, with no load from L2 on the products' path (the first K2
+// over the block's R rows, in passes of CW = 128 output columns (then one
+// of 64 and one of 32 as the rest of DOUT needs): a pass streams its
+// [DIN, 128] column block of W through shared memory in k-tiles of 32
+// rows, two or three in flight by cp.async, and each of a block's 512
+// threads keeps a register tile of up to 4 rows x 4 columns (warp w owns
+// columns 16 (w % 8) .., lane (rg, cg) rows 8 (w / 8) + rg, + 16, ... and
+// columns 16 (w % 8) + 4 cg ..; a narrower pass gives each 16 columns
+// more warps and each thread fewer rows). A 4-deep k slice costs a thread
+// one float4 of W per k and one float4 of each of its rows, for 16 FMAs a
+// row, with no load from L2 on the products' path (the first K2
 // read every weight from L2 into registers, its phase trace gave the
 // products 71% of its cycles). 16 warps hide the shared-memory latency
 // that 8 left exposed. The sums run over k in order with fmaf, as the
@@ -88,7 +91,8 @@ namespace tb_node {
 
 constexpr int D = TB_NODE_D;  // d_model
 constexpr int F = TB_NODE_F;  // d_feedforward
-static_assert((D == 128 || D == 256) && (F == 128 || F == 256), "d_model and d_feedforward: 128 or 256");
+static_assert(D % 32 == 0 && F % 32 == 0 && D >= 32 && F >= 32 && D <= 256 && F <= 256,
+              "d_model and d_feedforward: multiples of 32 from 32 to 256");
 constexpr int MW = D > F ? D : F;  // the widest row a buffer holds
 constexpr int CW = 128;       // output columns of a product's pass (a weight k-tile's width)
 constexpr int NT = 512;       // threads a block: 16 warps, two for each 16 columns
@@ -252,7 +256,7 @@ __device__ void layer_norm_x0(const float* __restrict__ x, const Block& b, float
 template <int NSTAGE, int DIN, int DOUT, class Epi>
 __device__ void dense_pass(const float* in, const float* __restrict__ W, float* wsm, int R, int col0, Epi epi) {
     static_assert(NSTAGE == 2 || NSTAGE == 3, "dense: 2 or 3 tiles in flight");
-    static_assert(DIN % KT == 0 && DOUT % CW == 0, "dense: whole k-tiles and column passes");
+    static_assert(DIN % KT == 0 && DOUT >= CW, "dense: whole k-tiles and a whole column pass");
     constexpr int WTILE = KT * CW;
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int rg = (warp / 8) * 8 + lane / 4, c0 = (warp % 8) * 16 + (lane % 4) * 4;
@@ -273,7 +277,7 @@ __device__ void dense_pass(const float* in, const float* __restrict__ W, float* 
     __syncthreads();
 #pragma unroll
     for (int t = 0; t < NSTAGE - 1; ++t) {
-        stage(t);
+        if (t < NTILE) stage(t);  // a one-tile product (DIN = 32) stages no tile past W's rows
         cp_async_commit();
     }
     for (int t = 0; t < NTILE; ++t) {
@@ -309,10 +313,87 @@ __device__ void dense_pass(const float* in, const float* __restrict__ W, float* 
         if (i < nrt && rg + 16 * i < R) epi(rg + 16 * i, col0 + c0, acc[i]);
 }
 
-// in @ W through epi, W [DIN, DOUT]: the column passes in order
+// dense_pass for a pass of PW = 64 or 32 columns, the rest of a DOUT that
+// is not a multiple of 128: warp w owns columns col0 + 16 (w % CG) ..
+// (CG = PW / 16 column groups); the RP = 16 / CG warps of a column group
+// take alternate groups of 8 rows, so a thread holds MT = 64 / (8 RP) row
+// tiles (2 at 64, 1 at 32); the k-tiles, the ring and the sums' k order
+// are dense_pass's. A function of its own, so that the builds whose
+// widths are multiples of 128 keep dense_pass's code as it was.
+template <int NSTAGE, int DIN, int DOUT, int PW, class Epi>
+__device__ void dense_narrow(const float* in, const float* __restrict__ W, float* wsm, int R, int col0, Epi epi) {
+    static_assert(NSTAGE == 2 || NSTAGE == 3, "dense: 2 or 3 tiles in flight");
+    static_assert(DIN % KT == 0 && (PW == 64 || PW == 32), "dense: whole k-tiles, passes of 64 or 32");
+    constexpr int WTILE = KT * PW;
+    constexpr int CG = PW / 16, RP = NT / 32 / CG;  // the pass's 16-column groups; warps a group
+    constexpr int MT = RCAP / (8 * RP);             // row tiles of a thread
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int rg = (warp / CG) * 8 + lane / 4, c0 = (warp % CG) * 16 + (lane % 4) * 4;
+    // row tiles: rows rg, rg + 8 RP, ..., the same count for the warp's lanes
+    const int nrt = (R - (warp / CG) * 8 + (8 * RP - 1)) / (8 * RP);
+    constexpr int NTILE = DIN / KT;
+    auto stage = [&](int t) {  // k-tile t of the pass's column block
+        const float* src = W + t * KT * DOUT + col0;
+        float* dst = wsm + (t % NSTAGE) * WTILE;
+        for (int i = threadIdx.x; i < WTILE / 4; i += NT)
+            cp_async16(dst + 4 * i, src + (DOUT == PW ? 4 * i : (4 * i / PW) * DOUT + 4 * i % PW));
+    };
+    float acc[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < NSTAGE - 1; ++t) {
+        if (t < NTILE) stage(t);  // a one-tile product (DIN = 32) stages no tile past W's rows
+        cp_async_commit();
+    }
+    for (int t = 0; t < NTILE; ++t) {
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();  // tile t landed for every thread; tile t - 1's slot is free
+        if (t + NSTAGE - 1 < NTILE) stage(t + NSTAGE - 1);
+        cp_async_commit();
+        const float* ws = wsm + (t % NSTAGE) * WTILE;
+        const float* a0 = in + rg * LDS + t * KT;
+#pragma unroll
+        for (int kk = 0; kk < KT; kk += 4) {
+            float4 w[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) w[u] = *reinterpret_cast<const float4*>(ws + (kk + u) * PW + c0);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                if (i < nrt) {
+                    const float4 a = *reinterpret_cast<const float4*>(a0 + 8 * RP * i * LDS + kk);
+                    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        acc[i][0] = fmaf(av[u], w[u].x, acc[i][0]);
+                        acc[i][1] = fmaf(av[u], w[u].y, acc[i][1]);
+                        acc[i][2] = fmaf(av[u], w[u].z, acc[i][2]);
+                        acc[i][3] = fmaf(av[u], w[u].w, acc[i][3]);
+                    }
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+        if (i < nrt && rg + 8 * RP * i < R) epi(rg + 8 * RP * i, col0 + c0, acc[i]);
+}
+
+// in @ W through epi, W [DIN, DOUT]: the column passes in order, of 128
+// columns, then one of 64 and one of 32 as the rest of DOUT needs
 template <int NSTAGE, int DIN, int DOUT, class Epi>
 __device__ void dense(const float* in, const float* __restrict__ W, float* wsm, int R, Epi epi) {
-    for (int col0 = 0; col0 < DOUT; col0 += CW) dense_pass<NSTAGE, DIN, DOUT>(in, W, wsm, R, col0, epi);
+    if constexpr (DOUT % CW == 0) {
+        for (int col0 = 0; col0 < DOUT; col0 += CW) dense_pass<NSTAGE, DIN, DOUT>(in, W, wsm, R, col0, epi);
+    } else {
+        if constexpr (DOUT > CW)
+            for (int col0 = 0; col0 < DOUT / CW * CW; col0 += CW) dense_pass<NSTAGE, DIN, DOUT>(in, W, wsm, R, col0, epi);
+        if constexpr (DOUT % CW >= 64) dense_narrow<NSTAGE, DIN, DOUT, 64>(in, W, wsm, R, DOUT / CW * CW, epi);
+        if constexpr (DOUT % 64 == 32) dense_narrow<NSTAGE, DIN, DOUT, 32>(in, W, wsm, R, DOUT - 32, epi);
+    }
 }
 
 // bf16 row stride of dense_mma's buffers: 68 words a row, so that a
@@ -467,12 +548,82 @@ __device__ void dense_mma_chunks(const float* in, const float* __restrict__ W, f
     }
 }
 
+// One column block col0 .. col0 + CB - 1 (CB = 128, 64 or 32) of a
+// product whose widths are not whole 128-wide chunks: warp w takes columns
+// 16 (w % CG) .. of the block (CG = CB / 16) and m-tiles w / CG, + MP, ...
+// (MP = 16 / CG), and the k-chunks of up to 128 rows of W (a multiple of
+// 32: 16-wide k-steps) are staged as dense_mma_chunks stages them, the
+// m-tiles' sums carried over the chunks in k order.
+template <int DIN, int DOUT, int CB, class Epi>
+__device__ void dense_mma_cols(const float* in, const float* __restrict__ W, float* wsm, int R, int col0, Epi epi) {
+    constexpr int CG = CB / 16, MP = NT / 32 / CG, MTW = (RCAP / 16 + MP - 1) / MP, LW = LDA / 2;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane >> 2, t = lane & 3;
+    const int MT = (R + 15) / 16, n0 = 16 * (warp % CG);
+    __nv_bfloat16* a16 = reinterpret_cast<__nv_bfloat16*>(wsm);
+    __nv_bfloat16* w16 = a16 + RCAP * LDA;
+    const uint32_t* wcol = reinterpret_cast<const uint32_t*>(w16 + 2 * t * LDA + n0 + 2 * g);
+    float acc[MTW][2][4];
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][0][j] = acc[i][1][j] = 0.f;
+    for (int k0 = 0; k0 < DIN; k0 += CW) {
+        const int kc = min(CW, DIN - k0);  // the chunk's rows of W
+        __syncthreads();                   // wsm is free
+        for (int e = threadIdx.x; e < kc * (CB / 4); e += NT) {
+            const int k = e / (CB / 4), c = 4 * (e % (CB / 4));
+            const float4 v = __ldg(reinterpret_cast<const float4*>(W + (k0 + k) * DOUT + col0 + c));
+            *reinterpret_cast<uint2*>(w16 + k * LDA + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        }
+        for (int e = threadIdx.x; e < MT * 16 * (kc / 4); e += NT) {
+            const int r = e / (kc / 4), c = 4 * (e % (kc / 4));
+            uint2 u = make_uint2(0u, 0u);
+            if (r < R) {
+                const float4 v = *reinterpret_cast<const float4*>(in + r * LDS + k0 + c);
+                u = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+            }
+            *reinterpret_cast<uint2*>(a16 + r * LDA + c) = u;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < MTW; ++i) {
+            const int mt = warp / CG + MP * i;
+            if (mt >= MT) continue;
+            for (int ks = 0; ks < kc / 16; ++ks) {
+                uint32_t fa[4];
+                tb_mma::load_a(fa, a16, LDA, 16 * mt, 16 * ks);
+                const uint32_t* wk = wcol + 16 * ks * LW;  // W rows 16 ks + 2t, + 1, + 8, + 9 at columns n0 + 2g, + 1
+                const uint32_t w0 = wk[0], w1 = wk[LW], w8 = wk[8 * LW], w9 = wk[9 * LW];
+                const uint32_t b0[2] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w8, w9, 0x5410)};
+                const uint32_t b1[2] = {__byte_perm(w0, w1, 0x7632), __byte_perm(w8, w9, 0x7632)};
+                mma_bf16_16816(acc[i][0], fa, b0);
+                mma_bf16_16816(acc[i][1], fa, b1);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+        const int mt = warp / CG + MP * i;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int r = 16 * mt + g + 8 * hf;
+            const float y[4] = {acc[i][0][2 * hf], acc[i][1][2 * hf], acc[i][0][2 * hf + 1], acc[i][1][2 * hf + 1]};
+            if (mt < MT && r < R) epi(r, col0 + n0 + 4 * t, y);
+        }
+    }
+}
+
 template <int DIN, int DOUT, class Epi>
 __device__ void dense_mma(const float* in, const float* __restrict__ W, float* wsm, int R, Epi epi) {
-    if constexpr (DIN == CW && DOUT == CW)
+    if constexpr (DIN == CW && DOUT == CW) {
         dense_mma_block(in, W, wsm, R, epi);
-    else
+    } else if constexpr (DIN % CW == 0 && DOUT % CW == 0) {
         dense_mma_chunks<DIN, DOUT>(in, W, wsm, R, epi);
+    } else {  // column blocks of 128, then 64 and 32 for the rest of DOUT
+        for (int col0 = 0; col0 < DOUT / CW * CW; col0 += CW) dense_mma_cols<DIN, DOUT, CW>(in, W, wsm, R, col0, epi);
+        if constexpr (DOUT % CW >= 64) dense_mma_cols<DIN, DOUT, 64>(in, W, wsm, R, DOUT / CW * CW, epi);
+        if constexpr (DOUT % 64 == 32) dense_mma_cols<DIN, DOUT, 32>(in, W, wsm, R, DOUT - 32, epi);
+    }
 }
 
 __device__ __forceinline__ float4 bias4(const float* __restrict__ b, int c0) {

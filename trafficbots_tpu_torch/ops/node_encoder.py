@@ -28,7 +28,8 @@ the per-polyline attention core in a kernel (K6, `ops.block_attn`).
 None where the kernel takes a shape, else the reason it does not;
 `_check_inputs` raises with that reason, so a CUDA tensor the kernel
 refuses raises. The kernels take d_model and d_feedforward in
-`KERNEL_WIDTHS`, each independently, and any n_head whose d_head =
+`KERNEL_WIDTHS` (each a multiple of 32 from 32 to 256), each
+independently, and any n_head whose d_head =
 d_model / n_head is a multiple of 4 from 4 to 128; the widths are constants
 of a build (`build_defines`), one library a width pair, built at its
 first use.
@@ -65,7 +66,7 @@ NEG = -1e30
 LN_EPS = 1e-5
 _KERNEL = "node_encoder"
 KERNEL_D = 128  # the default build's d_model and d_feedforward (TB_NODE_D, TB_NODE_F in csrc/node_layer.cuh)
-KERNEL_WIDTHS = (128, 256)  # the d_model and d_feedforward a build may take, each independently
+KERNEL_WIDTHS = tuple(range(32, 257, 32))  # the d_model and d_feedforward a build may take, each independently
 KERNEL_MAX_NODES = 32  # MAXN in csrc/node_layer.cuh: a thread's attention scores in registers
 KERNEL_MAX_D_HEAD = 128  # heads_ok in csrc/node_layer.cuh: d_head a multiple of 4 up to 128
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on sm_90
@@ -91,7 +92,7 @@ def kernel_rows(d_model: int = KERNEL_D, d_ff: int = KERNEL_D) -> int:
     most (a multiple of 4, at most 64) whose five [rows, max(D, F) + 4]
     fp32 buffers fit beside the larger of the weight ring (three 32 x 128
     k-tiles) and K2-bf16's bf16 rows and weight (node_layer.cuh MMA_BYTES),
-    and the block's row map: 64 at 128 x 128, 32 at a width of 256."""
+    and the block's row map: 64 at a width of 128 or less, 32 at 256."""
     lds = max(d_model, d_ff) + 4
     fixed = max(4 * 3 * 32 * 128, 2 * (64 + 128) * 136) + BLOCK_BYTES
     return min(64, (SMEM_LIMIT - fixed) // (4 * 5 * lds) // 4 * 4)
@@ -112,7 +113,7 @@ def kernel_refusal(n_node: int, d_model: int, d_feedforward: int, n_head: int) -
     widths, else the reason they do not: the widths a build takes
     (csrc/node_layer.cuh, `KERNEL_WIDTHS`), MAXN and `heads_ok`."""
     if d_model not in KERNEL_WIDTHS or d_feedforward not in KERNEL_WIDTHS:
-        return f"the kernel takes d_model and d_feedforward in {KERNEL_WIDTHS}"
+        return "the kernel takes d_model and d_feedforward each a multiple of 32 from 32 to 256"
     if not 1 <= n_node <= KERNEL_MAX_NODES:
         return f"the kernel takes 1..{KERNEL_MAX_NODES} nodes (a thread's scores in registers)"
     if n_head < 1 or d_model % n_head or (d_model // n_head) % 4 or d_model // n_head > KERNEL_MAX_D_HEAD:

@@ -1,6 +1,6 @@
 """Where the node kernels (K2, K4f, K4b, K6) spend their time, phase by phase.
 
-    python3 -m trafficbots_tpu_torch.ops.node_trace [LABEL ...]
+    python3 -m trafficbots_tpu_torch.ops.node_trace [--widths DxFxH] [LABEL ...]
 
 Builds `csrc/node_encoder.cu`, `csrc/node_encoder_train.cu` and
 `csrc/block_attn.cu` a second time with `-DTB_NODE_TRACE`, into
@@ -17,7 +17,9 @@ over 5 calls) and each phase's mean cycles a work item (a block, or one
 polyline or polyline group of a block that walks several). Blocks that
 share the card overlap, so the phases add up to more than the call's time
 over the waves. LABELs (K2, K2-bf16, K4f, K4b, K6, K6-bf16) pick the calls;
-none runs them all. Needs an NVIDIA GPU with nvcc (sm_90a).
+none runs them all. `--widths 64x64x2` runs K2 and K4 at that d_model,
+d_feedforward and head count instead (their build at those widths,
+`node_encoder.build_defines`). Needs an NVIDIA GPU with nvcc (sm_90a).
 """
 from __future__ import annotations
 
@@ -35,22 +37,24 @@ from . import node_encoder_train as NT
 N_CALL = 5
 
 
-def build() -> dict:
-    """name -> the traced build of csrc/<name>.cu, installed as the library
-    the wrappers launch."""
+def build(widths=(128, 128)) -> dict:
+    """name -> the traced build of csrc/<name>.cu (the node kernels' at
+    widths = (d_model, d_ff)), installed as the library the wrappers
+    launch."""
     out_dir = cuda_build.BUILD / "trace"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ("node_encoder", "node_encoder_train", "block_attn"):
-        lib = out_dir / f"lib{name}_trace.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-DTB_NODE_TRACE", "-o", str(lib),
+        defines = () if name == "block_attn" else NE.build_defines(*widths)
+        lib = out_dir / f"lib{name}_trace{''.join(defines)}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-DTB_NODE_TRACE", "-o", str(lib),
                str(cuda_build.CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd), lib)
+        procs[name] = (subprocess.Popen(cmd), lib, defines)
     libs = {}
-    for name, (p, lib) in procs.items():
+    for name, (p, lib, defines) in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"nvcc failed for the traced {name}.cu")
-        libs[name] = cuda_build._LIBS[(name, ())] = ctypes.CDLL(str(lib))
+        libs[name] = cuda_build._LIBS[(name, defines)] = ctypes.CDLL(str(lib))
         for key in [k for k in cuda_build._ENTRIES if k[0] == name]:
             del cuda_build._ENTRIES[key]
     return libs
@@ -86,8 +90,9 @@ def device_ms(call) -> dict:
     return by_name
 
 
-def inputs(dev):
-    """The main path's node-encoder inputs (see the module docstring)."""
+def inputs(dev, D=128, Fd=128, H=4):
+    """The main path's node-encoder inputs (see the module docstring), at
+    d_model D, d_feedforward Fd and H heads."""
     from ..config import ExperimentConfig
     from ..data.synthetic import synthetic_episode_batch
     from ..weights import init_params
@@ -95,7 +100,7 @@ def inputs(dev):
     cfg = ExperimentConfig()
     batch = synthetic_episode_batch(cfg.data, n_scene=8, seed=0, n_valid_pl=768, n_valid_agent=40)
     gen = torch.Generator().manual_seed(0)
-    enc = NE.FusedNodeEncoder(128, 4, 3, 128)
+    enc = NE.FusedNodeEncoder(D, H, 3, Fd)
     init_params(enc, 0)
     with torch.no_grad():
         for name in NE.W_NAMES:
@@ -103,8 +108,8 @@ def inputs(dev):
             if p.ndim == 2:
                 p.add_(0.1 * torch.randn(p.shape, generator=gen))
     valid = torch.from_numpy(batch["map/valid"]).reshape(-1, batch["map/valid"].shape[-1]).clone()
-    x = torch.randn(*valid.shape, 128, generator=gen) * valid[..., None]
-    g = torch.randn(valid.shape[0], 128, generator=gen) * valid.any(-1)[:, None]
+    x = torch.randn(*valid.shape, D, generator=gen) * valid[..., None]
+    g = torch.randn(valid.shape[0], D, generator=gen) * valid.any(-1)[:, None]
     return enc.to(dev), x.to(dev), valid.to(dev), g.to(dev)
 
 
@@ -113,8 +118,12 @@ def main() -> None:
         sys.exit("node_trace: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    libs = build()
-    enc, x, valid, g = inputs("cuda")
+    args = sys.argv[1:]
+    widths = (128, 128, 4)
+    if args[:1] == ["--widths"]:
+        widths, args = tuple(int(w) for w in args[1].split("x")), args[2:]
+    libs = build(widths[:2])
+    enc, x, valid, g = inputs("cuda", *widths)
     weights = [getattr(enc, n) for n in NE.W_NAMES]
     L, H, p, seed = enc.n_layer, enc.n_head, 0.1, 2**50 + 9
     gen = torch.Generator().manual_seed(5)
@@ -127,7 +136,7 @@ def main() -> None:
         ("K6", "block_attn", lambda: BA.block_attn_core(q, k, v, valid, H)),
         ("K6-bf16", "block_attn", lambda: BA.block_attn_core(q, k, v, valid, H, bf16=True)),
     )
-    picked = set(sys.argv[1:]) or {label for label, _, _ in calls}
+    picked = set(args) or {label for label, _, _ in calls}
     counts = (ctypes.c_ulonglong * 64)()
     with torch.no_grad():
         for label, name, call in calls:
@@ -140,7 +149,8 @@ def main() -> None:
                 call()
             torch.cuda.synchronize()
             cuda_build.check(lib.tb_node_trace_read(counts), "trace counters")
-            print(f"{label}: BP={x.shape[0]} N={x.shape[1]}, device ms a call by kernel {times} [{card}]", flush=True)
+            print(f"{label}: BP={x.shape[0]} N={x.shape[1]} (D, F, H)={widths}, device ms a call by kernel {times} "
+                  f"[{card}]", flush=True)
             for kid, (kname, names) in phases(lib).items():
                 items = counts[16 * kid + 15]
                 if items:
